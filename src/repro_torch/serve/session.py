@@ -1,0 +1,337 @@
+"""Forward-only inference sessions.
+
+``compile_infer(RunConfig(mode="infer"), device=None) ->
+InferenceSession``: validate, resolve the plan and precision, build the
+parameters on the device (seeded from ``config.seed``) and cast the
+fp32 masters to the serving dtype once. The forward is
+``models/cosmoflow.forward`` under ``torch.inference_mode()``, through
+the port's conv3d and bn_act kernels on the card.
+
+``InferenceSession.restore(path)`` serves a checkpoint the reference
+trained: it reads the embedded run config, strips the training-only
+knobs, reads ONLY the ``params`` leaves (the optimizer state on disk is
+never touched) and casts the masters once at load, after which the
+forward's per-use cast is the identity.
+
+``InferenceSession.serve()`` starts a ``ServingHarness``
+(``repro_torch.serve.harness``) whose worker threads feed coalesced
+batches into the session's forward.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import threading
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api import session as session_lib
+from repro_torch.api.config import RunConfig, RunConfigError
+from repro_torch.configs.base import ConvNetConfig
+from repro_torch.core import plan as plan_lib
+from repro_torch.core import precision as precision_lib
+from repro_torch.models import cosmoflow as cosmoflow_lib
+from repro_torch.obs import metrics as metrics_lib
+from repro_torch.obs import trace as trace_lib
+from repro_torch.train import checkpoint
+
+# training-only knobs stripped when an embedded training config is
+# repurposed for serving (validate rejects them under mode="infer")
+_TRAIN_ONLY = dict(mode="infer", guard=None, grad_comm="auto",
+                   pipeline=1, micro_batches=4, pipeline_schedule="1f1b",
+                   save_every=None, keep_last=None, metrics_jsonl=None,
+                   prefetch=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class InferReport:
+    """``InferenceSession.describe()``: the serving plan, device and
+    precision. ``modeled_peak`` (the forward-only memory model) comes
+    with the memory slice and is None until then."""
+
+    plan_name: str
+    mesh_shape: Dict[str, int]
+    precision: str
+    param_count: int
+    modeled_peak: Optional[Any]
+    device: str
+
+    def __str__(self) -> str:
+        return (
+            f"InferenceSession[{self.plan_name}] on {self.device}\n"
+            f"  mesh {self.mesh_shape}  precision={self.precision}\n"
+            f"  params {self.param_count / 1e6:.2f}M  modeled forward "
+            f"peak: not modeled yet")
+
+
+def compile_infer(config: RunConfig, *,
+                  device: session_lib.DeviceLike = None
+                  ) -> "InferenceSession":
+    """Validate ``config`` (``mode`` must be ``"infer"``), resolve
+    plan/precision, and return a live ``InferenceSession`` on ``device``
+    (None: the CUDA device) with freshly initialized params."""
+    sess = _compile_infer(config, device)
+    gen = torch.Generator().manual_seed(config.seed)
+    sess.params = sess._cast_once(
+        cosmoflow_lib.init_params(sess.cfg, gen, sess.device))
+    return sess
+
+
+def _compile_infer(config: RunConfig,
+                   device: session_lib.DeviceLike) -> "InferenceSession":
+    if config.mode != "infer":
+        raise RunConfigError(
+            "mode", f"compile_infer got mode={config.mode!r}",
+            "set RunConfig(mode='infer') (repro_torch.api.compile "
+            "dispatches on it)")
+    config.validate()
+    cfg = config.resolve_model()
+    plan, precision = session_lib._resolve_plan(config, cfg)
+    return InferenceSession(config, cfg, plan, precision,
+                            session_lib.resolve_device(device))
+
+
+class InferenceSession:
+    """A forward-only serving run on one device. Build with
+    ``repro_torch.api.compile(RunConfig(mode="infer"))`` or
+    ``InferenceSession.restore(checkpoint_dir)``, not directly."""
+
+    def __init__(self, config, cfg, plan, precision, device):
+        self.config: RunConfig = config
+        self.cfg: ConvNetConfig = cfg
+        self.plan: plan_lib.ParallelPlan = plan
+        self.precision: str = precision_lib.get(precision).name
+        self.device: torch.device = device
+        self.params: Dict[str, torch.Tensor] = {}
+        self._harnesses: list = []
+        self._close_lock = threading.Lock()
+        self._closed = False
+        self.tracer = trace_lib.Tracer()
+        self._metrics = metrics_lib.MetricsRegistry()
+        self._trace_path = (config.trace if isinstance(config.trace, str)
+                            else None)
+        self._exported_traces: set = set()
+        if config.trace:
+            trace_lib.enable(self.tracer)
+
+    # --------------------------------------------------------- forward ----
+    def _cast_once(self, params):
+        """fp32 masters -> serving dtype, ONCE at load."""
+        return precision_lib.get(self.precision).cast_compute(params)
+
+    def _as_input(self, x) -> torch.Tensor:
+        t = torch.as_tensor(x, device=self.device)
+        # float64 volumes become fp32, as the reference's jnp.asarray
+        # makes them with 64-bit floats off
+        return t.float() if t.dtype == torch.float64 else t
+
+    def _forward_for(self, batch: int) -> Callable:
+        """The forward for a batch of ``batch`` volumes:
+        ``fn(params, x) -> (batch, out_dim)`` predictions on the
+        device."""
+        d = self.plan.data_degree
+        if batch < 1 or batch % d:
+            raise ValueError(
+                f"batch size {batch} does not divide over the plan's "
+                f"data degree {d}; pass a positive multiple of {d}")
+
+        def fn(params, x):
+            with torch.inference_mode():
+                return cosmoflow_lib.forward(
+                    params, self._as_input(x), self.cfg, plan=self.plan,
+                    precision=self.precision)
+        return fn
+
+    def predict(self, x) -> torch.Tensor:
+        """Forward a batch of volumes (N, D, H, W, C), numpy or tensor:
+        returns the (N, out_dim) predictions on the session's device."""
+        if self._closed:
+            raise RuntimeError("InferenceSession is closed")
+        fn = self._forward_for(int(x.shape[0]))
+        with trace_lib.span("serve.forward", batch=int(x.shape[0])):
+            return fn(self.params, x)
+
+    def evaluate(self, x, y):
+        """(loss, predictions) on a labeled batch: the fp32 mean over
+        samples of the per-sample MSE, as the reference's eval step."""
+        if self._closed:
+            raise RuntimeError("InferenceSession is closed")
+        pred = self.predict(x)
+        with torch.inference_mode():
+            loss = cosmoflow_lib.mse(pred, self._as_input(y),
+                                     int(x.shape[0]))
+        return loss, pred
+
+    # --------------------------------------------------------- serving ----
+    def serve(self, *, max_batch: int = 8, max_wait_ms: float = 2.0,
+              max_queue: int = 64, workers: int = 1):
+        """Start a batched serving harness over this session's forward
+        (``repro_torch.serve.harness.ServingHarness``): a bounded request
+        queue, worker threads coalescing up to ``max_batch`` requests
+        (waiting at most ``max_wait_ms`` to fill a batch), per-request
+        futures, backpressure at ``max_queue``. The session closes its
+        harnesses on ``close()``."""
+        from repro_torch.serve.harness import ServingHarness
+
+        h = ServingHarness(self, max_batch=max_batch,
+                           max_wait_ms=max_wait_ms, max_queue=max_queue,
+                           workers=workers)
+        self._harnesses.append(h)
+        return h
+
+    # --------------------------------------------------- introspection ----
+    def telemetry(self) -> Dict[str, float]:
+        """Serving counters, summed over this session's harnesses (live
+        and closed): ``serve.requests`` / ``serve.batches`` completed,
+        ``serve.batch_fill`` (mean real requests per forward),
+        ``serve.queue_depth``, ``serve.worker_failures`` and the latency
+        quantiles ``serve.latency_p50_ms`` / ``p95`` / ``p99``, routed
+        through the session's ``MetricsRegistry``."""
+        out = {"serve.requests": 0.0, "serve.batches": 0.0,
+               "serve.batch_fill": 0.0, "serve.queue_depth": 0.0,
+               "serve.worker_failures": 0.0}
+        lat: list = []
+        fill_sum = 0.0
+        for h in self._harnesses:
+            s = h.stats()
+            out["serve.requests"] += s["requests"]
+            out["serve.batches"] += s["batches"]
+            out["serve.queue_depth"] += s["queue_depth"]
+            out["serve.worker_failures"] += s["worker_failures"]
+            fill_sum += s["mean_fill"] * s["batches"]
+            lat.extend(h.latencies_s())
+        if out["serve.batches"]:
+            out["serve.batch_fill"] = fill_sum / out["serve.batches"]
+        for q, key in ((0.50, "serve.latency_p50_ms"),
+                       (0.95, "serve.latency_p95_ms"),
+                       (0.99, "serve.latency_p99_ms")):
+            out[key] = _quantile_ms(lat, q)
+        return self._metrics.absorb(out)
+
+    def describe(self) -> InferReport:
+        """The serving plan, mesh, precision and parameter count."""
+        return InferReport(
+            plan_name=self.plan.name, mesh_shape=dict(self.plan.mesh_axes),
+            precision=self.precision, param_count=self.cfg.param_count(),
+            modeled_peak=None, device=str(self.device))
+
+    # ------------------------------------------------------ checkpoint ----
+    @classmethod
+    def restore(cls, path: str, *, device: session_lib.DeviceLike = None,
+                data: Optional[int] = None, spatial: Optional[int] = None,
+                global_batch: Optional[int] = None,
+                precision: Optional[str] = None,
+                trace=None) -> "InferenceSession":
+        """Build an ``InferenceSession`` on ``device`` (None: the CUDA
+        device) from a reference TRAINING checkpoint: the embedded run
+        config is stripped of its training-only knobs, ONLY the ``params``
+        leaves are read, and the fp32 masters are cast to the serving
+        dtype once at load. ``data=`` / ``spatial=`` re-degree the run (a
+        checkpoint trained on many devices serves on one with
+        ``data=1, spatial=1``); changed degrees and pipelined training
+        plans re-resolve the plan, unchanged degrees keep the pinned one.
+        ``path`` may be a retention root of ``step_<n>`` checkpoints."""
+        meta_path = os.path.join(path, session_lib._META_FILE)
+        if not os.path.exists(meta_path):
+            found = checkpoint.latest_valid_step(path)
+            if found is not None:
+                return cls.restore(
+                    found[1], device=device, data=data, spatial=spatial,
+                    global_batch=global_batch, precision=precision,
+                    trace=trace)
+            raise FileNotFoundError(
+                f"no checkpoint at {path}: neither "
+                f"{session_lib._META_FILE} nor a valid step_<n> "
+                f"directory")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        config = RunConfig.from_json(meta["run_config"])
+        new_data = config.data if data is None else data
+        new_spatial = config.spatial if spatial is None else spatial
+        pinned_plan = config.plan
+        keep_plan = (isinstance(pinned_plan, plan_lib.ParallelPlan)
+                     and pinned_plan.n_groups == 1
+                     and new_data == config.data
+                     and new_spatial == config.spatial)
+        config = dataclasses.replace(
+            config, **_TRAIN_ONLY,
+            data=new_data, spatial=new_spatial,
+            plan=pinned_plan if keep_plan else "fixed",
+            global_batch=(config.global_batch if global_batch is None
+                          else global_batch),
+            precision=(config.precision if precision is None
+                       else precision),
+            trace=config.trace if trace is None else trace)
+        sess = _compile_infer(config, device)
+        names = cosmoflow_lib.param_shapes(sess.cfg)
+        tree = checkpoint.restore(path, {"params": names})
+        sess.params = sess._cast_once(cosmoflow_lib.params_from_numpy(
+            tree["params"], sess.device, cfg=sess.cfg))
+        return sess
+
+    # ------------------------------------------------------- lifecycle ----
+    def export_trace(self, path: Optional[str] = None) -> str:
+        """Write the session's span log (serve.enqueue/batch/forward/
+        reply) as a Chrome/Perfetto trace. An existing file that this
+        session did not write is not overwritten: ``-1``, ``-2``, ... are
+        appended to the name."""
+        path = path or self._trace_path
+        if path is None:
+            raise ValueError("no path: pass export_trace(path) or set "
+                             "RunConfig(trace='out/trace.json')")
+        if path not in self._exported_traces and os.path.exists(path):
+            base, ext = os.path.splitext(path)
+            i = 1
+            while os.path.exists(f"{base}-{i}{ext}"):
+                i += 1
+            path = f"{base}-{i}{ext}"
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        self.tracer.export_chrome(path)
+        self._exported_traces.add(path)
+        return path
+
+    def close(self) -> None:
+        """Drain and join every serving harness, write the trace file
+        when one was asked for, and deregister the tracer. Idempotent
+        and thread-safe."""
+        with self._close_lock:
+            if self._closed:
+                return
+            self._closed = True
+        for h in self._harnesses:
+            h.close(drain=True)
+        if self._trace_path and len(self.tracer):
+            self.export_trace(self._trace_path)
+        trace_lib.disable(self.tracer)
+
+    def __enter__(self) -> "InferenceSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _quantile_ms(samples_s, q: float) -> float:
+    """Nearest-rank quantile of latency samples, in milliseconds (0.0
+    with no samples)."""
+    if not samples_s:
+        return 0.0
+    v = sorted(samples_s)
+    idx = min(int(q * len(v)), len(v) - 1)
+    return v[idx] * 1e3
+
+
+def to_host(out: torch.Tensor) -> np.ndarray:
+    """A forward's output as a host numpy array, in one transfer (half
+    floats widened to fp32, exactly: numpy has no bfloat16)."""
+    if out.dtype in (torch.bfloat16, torch.float16):
+        out = out.float()
+    return out.cpu().numpy()
+
+
+__all__ = ["InferenceSession", "InferReport", "compile_infer", "to_host"]

@@ -29,3 +29,8 @@ def run_multidevice(script: str, devices: int = 8, timeout: int = 420) -> str:
 @pytest.fixture(scope="session")
 def multidevice():
     return run_multidevice
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
