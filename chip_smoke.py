@@ -11,7 +11,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
 3. kernels  — each kernel against its plain PyTorch version on the card:
               conv3d over the shape grid of ``tests/test_kernels.py`` and
               every conv of cosmoflow-128 at batch 4, bn_act over the same
-              rows x C shapes, fp32 and bf16.
+              rows x C shapes, fp32 and bf16; halo pack and unpack, bit
+              for bit, at every face of the depth-split convs of
+              cosmoflow-128 batch 4 (S = 2, 4, and all 7 blocks split at
+              S = 2) and cosmoflow-512 batch 1 (S = 4), plus k = 5
+              (lo = hi = 2) and a row of 180 bytes, fp32 and bf16.
 4. serve    — ``repro_torch.api.compile(RunConfig(model="cosmoflow-128",
               mode="infer", global_batch=4))`` at fp32 and bf16: predict
               on a seeded batch, held against the same forward through the
@@ -20,13 +24,28 @@ Phases, each printing one line; any failure raises and exits non-zero:
               also held against the plain forward; peak device memory.
 6. harness  — ``serve(max_batch=4, max_wait_ms=50)`` on 16 cosmoflow-128
               requests; every future resolves.
-7. timings  — per kernel at the main path's shapes (CUDA events, median):
+7. spatial  — the same models with depth split over S shards, every
+              shard on this card (``devices=["cuda:0"] * S``, one stream
+              each): cosmoflow-128 batch 4 S=2 fp32 and bf16, S=4 fp32,
+              cosmoflow-512 batch 1 S=4 fp32 (peak memory), and
+              cosmoflow-128 S=2 under a plan that splits all 7 blocks
+              (the path that launches unpack). Each is held against the
+              unsharded forward of phases 4-5 (same seed, same input) and
+              against its own forward through the plain versions, and
+              its launches of conv3d, bn_act, pack and unpack per forward
+              against the counts ``kernel_launches`` derives from its
+              plan.
+8. harness  — ``serve()`` on the cosmoflow-128 S=2 session, 8 requests.
+9. timings  — per kernel at the main paths' shapes (CUDA events, median):
               kernel, bound, plain version and library call; end-to-end
-              predict time per batch; one profiled predict per config
-              (device busy time, idle share, time by kernel name).
+              predict time per batch, unsharded and spatial; the
+              overlapped conv lowering against the blocking one
+              (``overlap_halo=False``) at cosmoflow-128 S=2, S=4 and
+              cosmoflow-512 S=4; one profiled predict per config (device
+              busy time, idle share, time by kernel name).
 
-Phases 4-6 are the main path: the launch counters are zeroed just before
-phase 4 and read just after phase 6. The next-to-last line is the
+Phases 4-6 and 7-8 are the main paths: the launch counters are zeroed
+just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
 it.
@@ -61,6 +80,18 @@ CONV_GRID = [((2, 10, 10, 10, 3), 3, 8, 1), ((1, 9, 9, 9, 4), 3, 16, 2),
              ((1, 7, 7, 7, 16), 3, 32, 1)]
 BN_GRID = [(2, 5, 5, 5, 16), (4, 7, 3, 3, 32), (1, 128, 8)]
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+# (model, batch, spatial degree, precision, plan): "deep" splits depth in
+# every conv block; "fixed" is the legacy plan (gathered where a block's
+# local width would drop below 4)
+SPATIAL = (("cosmoflow-128", 4, 2, "fp32", "fixed"),
+           ("cosmoflow-128", 4, 2, "bf16", "fixed"),
+           ("cosmoflow-128", 4, 4, "fp32", "fixed"),
+           ("cosmoflow-512", 1, 4, "fp32", "fixed"),
+           ("cosmoflow-128", 4, 2, "fp32", "deep"))
+# extra halo cases beyond the main path's: k = 5 (lo = hi = 2), and a
+# depth row of 3*5*3 fp32 = 180 bytes, not a multiple of 16
+HALO_EXTRA = (((2, 8, 16, 16, 8), 2, 2), ((2, 6, 3, 5, 3), 1, 1))
+KERNELS = ("conv3d", "bn_act", "pack", "unpack")
 
 
 def log(phase: str, msg: str) -> None:
@@ -85,6 +116,30 @@ def median_ms(fn, reps: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def queued_ms(fn, n: int = 20) -> float:
+    """Device time per call of ``fn``, for work too short to hide its own
+    launch cost: ``n`` calls enqueued behind a spin kernel
+    (``torch.cuda._sleep``, about 3x the time the host takes to enqueue
+    them), so the card runs them back to back; CUDA events around the
+    ``n`` calls, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(3 * host_s * 2e9) + 100_000)  # cycles at <= 2 GHz
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def host_ms(fn, reps: int) -> float:
@@ -251,39 +306,156 @@ def phase_kernels(conv_ops, conv_ref, bn_ops, bn_ref, conv_shapes) -> dict:
     return {"worst_fp32_main": worst, "cases": rows}
 
 
+def halo_cases(cosmoflow, plan_lib, part, cfgs) -> list:
+    """(shard input shape, lo, hi) of every depth-split conv of the
+    spatial configs, and the extra cases, each once."""
+    cases = set(HALO_EXTRA)
+    for name, batch, S, _, kind in SPATIAL:
+        cfg = cfgs[name]
+        plan = spatial_plan(plan_lib, part, cfg, S, kind)
+        cases |= {(sc.shape, sc.lo, sc.hi)
+                  for sc in cosmoflow.split_convs(cfg, plan, batch)}
+    return sorted(cases)
+
+
+def spatial_plan(plan_lib, part, cfg, S, kind):
+    n = len(cfg.conv_channels)
+    if kind == "fixed":
+        return plan_lib.legacy_convnet_plan(cfg, part, (S, 1, 1))
+    return plan_lib.ParallelPlan(
+        (plan_lib.Stage(0, n, ("model", None, None)),
+         plan_lib.Stage(n, n + 1, (None, None, None))),
+        (("data", 1), ("model", S)), n + 1, name="deep")
+
+
+def phase_halo_kernels(pack_ops, pack_ref, cases) -> dict:
+    """pack and unpack against their plain versions, bit for bit; the
+    largest absolute difference seen is kept for the summary."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n_cmp = 0
+    worst = {"pack": 0.0, "unpack": 0.0}
+    for dt in DTYPES.values():
+        for shape, lo, hi in cases:
+            x = torch.randn(shape, generator=g, device="cuda").to(dt)
+            got = pack_ops.pack(x, lo, hi)
+            n, _, h, w, c = shape
+            bufs = [torch.randn((n, k, h, w, c), generator=g,
+                                device="cuda").to(dt) if k else None
+                    for k in (lo, hi)]
+            out = pack_ops.unpack(x, *bufs)
+            torch.cuda.synchronize()
+            for name, a, b in (("pack", got.buf, pack_ref.pack(x, lo, hi).buf),
+                               ("unpack", out, pack_ref.unpack(x, *bufs))):
+                check(a.shape == b.shape, f"{name} {shape} lo={lo} hi={hi} "
+                      f"{dt}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+                worst[name] = max(worst[name], max_err(a, b))
+                check(torch.equal(a, b),
+                      f"{name} {shape} lo={lo} hi={hi} {dt} differs")
+            n_cmp += 2
+            del x, got, bufs, out
+    log("kernels", f"halo_pack ok: {n_cmp} comparisons over {len(cases)} "
+        f"shapes x {len(DTYPES)} dtypes, all bit-exact; largest abs "
+        f"difference {worst}")
+    return {"comparisons": n_cmp, "max_abs_err": worst,
+            "cases": [list(map(str, c)) for c in cases]}
+
+
 @contextlib.contextmanager
-def plain_versions(conv_ops, conv_ref, bn_ops, bn_ref):
+def plain_versions(k):
     """Route the forward through the plain versions (for comparison)."""
-    with mock.patch.object(conv_ops, "conv3d_valid", conv_ref.conv3d_valid), \
-            mock.patch.object(bn_ops, "bn_leaky_relu", bn_ref.bn_leaky_relu):
+    with mock.patch.object(k.conv_ops, "conv3d_valid",
+                           k.conv_ref.conv3d_valid), \
+            mock.patch.object(k.bn_ops, "bn_leaky_relu",
+                              k.bn_ref.bn_leaky_relu), \
+            mock.patch.object(k.pack_ops, "pack", k.pack_ref.pack), \
+            mock.patch.object(k.pack_ops, "unpack", k.pack_ref.unpack):
         yield
 
 
-def counts(conv_ops, bn_ops):
-    return conv_ops.conv3d_valid.launches, bn_ops.bn_leaky_relu.launches
+def wrappers(k) -> dict:
+    return {"conv3d": k.conv_ops.conv3d_valid,
+            "bn_act": k.bn_ops.bn_leaky_relu,
+            "pack": k.pack_ops.pack, "unpack": k.pack_ops.unpack}
 
 
-def serve_and_compare(sess, x, kmods, rel, tag, n_blocks):
-    conv_ops, conv_ref, bn_ops, bn_ref = kmods
-    c0 = counts(conv_ops, bn_ops)
+def counts(k) -> dict:
+    return {name: fn.launches for name, fn in wrappers(k).items()}
+
+
+def zero_counts(k) -> None:
+    for fn in wrappers(k).values():
+        fn.launches = 0
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {n: after[n] - before[n] for n in KERNELS}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    scale = max(1.0, want.float().abs().max().item())
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def serve_and_compare(sess, x, k, rel, tag, expect):
+    """One predict: its launches equal ``expect``, its output finite and
+    within ``rel`` of the same forward through the plain versions."""
+    c0 = counts(k)
     pred = sess.predict(x)
     torch.cuda.synchronize()
-    c1 = counts(conv_ops, bn_ops)
-    check(c1[0] - c0[0] == n_blocks and c1[1] - c0[1] == n_blocks,
-          f"{tag}: launches per forward {c1[0] - c0[0]} conv3d, "
-          f"{c1[1] - c0[1]} bn_act; expected {n_blocks} each")
+    c1 = counts(k)
+    check(delta(c1, c0) == expect, f"{tag}: launches per forward "
+          f"{delta(c1, c0)}, expected {expect}")
     check(tuple(pred.shape) == (x.shape[0], sess.cfg.out_dim),
           f"{tag}: prediction shape {tuple(pred.shape)}")
     check(bool(torch.isfinite(pred).all()), f"{tag}: non-finite predictions")
-    with plain_versions(*kmods):
+    with plain_versions(k):
         want = sess.predict(x)
     torch.cuda.synchronize()
-    check(counts(conv_ops, bn_ops) == c1, f"{tag}: the plain forward "
-          "launched a kernel")
-    scale = max(1.0, want.float().abs().max().item())
-    err = (pred.float() - want.float()).abs().max().item() / scale
+    check(counts(k) == c1, f"{tag}: the plain forward launched a kernel")
+    err = rel_err(pred, want)
     check(err <= rel, f"{tag}: kernel forward vs plain forward {err} > {rel}")
     return pred, err
+
+
+def halo_rows(k, cases, reps) -> dict:
+    """pack and unpack at each (shape, lo, hi, dtype): kernel, plain
+    version and library call (one ``torch.cat`` of the same views), each
+    timed as device time per call (``queued_ms``: one call alone is
+    shorter than its launch), and the byte bound (each input read once,
+    each output written once)."""
+    gt = torch.Generator(device="cuda").manual_seed(5)
+    rows = {"pack": {}, "unpack": {}}
+    for shape, lo, hi, prec in cases:
+        dt = DTYPES[prec]
+        x = torch.randn(shape, generator=gt, device="cuda").to(dt)
+        n, d, h, w, c = shape
+        face = n * (lo + hi) * h * w * c * x.element_size()
+        nxt, prv = x[:, d - lo:], x[:, :hi]
+        bufs = [torch.randn((n, m, h, w, c), generator=gt,
+                            device="cuda").to(dt) if m else None
+                for m in (lo, hi)]
+        parts = [b for b in (bufs[0], x, bufs[1]) if b is not None]
+        key = (tuple(shape), lo, hi, prec)
+        rows["pack"][key] = {
+            "x": list(shape), "lo": lo, "hi": hi, "dtype": prec,
+            "ms": queued_ms(lambda: k.pack_ops.pack(x, lo, hi), reps),
+            "plain_ms": queued_ms(lambda: k.pack_ref.pack(x, lo, hi),
+                                  reps),
+            "library_ms": queued_ms(lambda: torch.cat((nxt, prv), 1),
+                                    reps),
+            "bound_ms": 2 * face / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        rows["unpack"][key] = {
+            "x": list(shape), "lo": lo, "hi": hi, "dtype": prec,
+            "ms": queued_ms(lambda: k.pack_ops.unpack(x, *bufs), reps),
+            "plain_ms": queued_ms(lambda: k.pack_ref.unpack(x, *bufs),
+                                  reps),
+            "library_ms": queued_ms(lambda: torch.cat(parts, 1), reps),
+            "bound_ms": 2 * (face + x.numel() * x.element_size())
+            / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        for name in ("pack", "unpack"):
+            log("timings", f"{name} " + json.dumps(rows[name][key]))
+        del x, nxt, prv, bufs, parts
+    return rows
 
 
 def main() -> int:
@@ -301,37 +473,48 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.api import RunConfig, compile
     from repro_torch.configs import get_config
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.spatial_conv import SpatialPartitioning
     from repro_torch.kernels import _build
     from repro_torch.kernels.bn_act import ops as bn_ops
     from repro_torch.kernels.bn_act import ref as bn_ref
     from repro_torch.kernels.conv3d import ops as conv_ops
     from repro_torch.kernels.conv3d import ref as conv_ref
+    from repro_torch.kernels.halo_pack import ops as pack_ops
+    from repro_torch.kernels.halo_pack import ref as pack_ref
     from repro_torch.models import cosmoflow
 
     t_start = time.perf_counter()
-    kmods = (conv_ops, conv_ref, bn_ops, bn_ref)
+    k = argparse.Namespace(conv_ops=conv_ops, conv_ref=conv_ref,
+                           bn_ops=bn_ops, bn_ref=bn_ref, pack_ops=pack_ops,
+                           pack_ref=pack_ref)
     report = {"card": phase_card()}
     report["build"] = phase_build(_build)
     cf128, cf512 = get_config("cosmoflow-128"), get_config("cosmoflow-512")
+    cfgs = {"cosmoflow-128": cf128, "cosmoflow-512": cf512}
+    depth = SpatialPartitioning(("model", None, None))
     shapes128 = cosmoflow.conv_shapes(cf128, 4)
     report["kernels"] = phase_kernels(conv_ops, conv_ref, bn_ops, bn_ref,
                                       shapes128)
+    report["halo_kernels"] = phase_halo_kernels(
+        pack_ops, pack_ref, halo_cases(cosmoflow, plan_lib, depth, cfgs))
 
-    # ------------------------------------------------ main path: 4-6 ----
+    # ------------------------------------------- main path 1: 4-6 ----
     n128, n512 = cosmoflow.num_blocks(cf128), cosmoflow.num_blocks(cf512)
     g = torch.Generator(device="cuda").manual_seed(1)
     x128 = torch.randn((4, 128, 128, 128, 4), generator=g, device="cuda")
-    conv_ops.conv3d_valid.launches = 0
-    bn_ops.bn_leaky_relu.launches = 0
+    zero_counts(k)
     forwards = 0
     sessions = {}
+    preds = {}
     serve = {}
     for prec, rel in (("fp32", 1e-4), ("bf16", 5e-2)):
         sess = compile(RunConfig(model="cosmoflow-128", mode="infer",
                                  global_batch=4, precision=prec))
         check(sess.device.type == "cuda", "session not on the card")
-        _, err = serve_and_compare(sess, x128, kmods, rel,
-                                   f"cosmoflow-128 {prec}", n128)
+        expect = dict(conv3d=n128, bn_act=n128, pack=0, unpack=0)
+        preds[("cosmoflow-128", prec)], err = serve_and_compare(
+            sess, x128, k, rel, f"cosmoflow-128 {prec}", expect)
         forwards += 1
         sessions[prec] = sess
         serve[f"cosmoflow-128/{prec}"] = {"rel_err_vs_plain": err,
@@ -343,19 +526,20 @@ def main() -> int:
     sess512 = compile(RunConfig(model="cosmoflow-512", mode="infer",
                                 global_batch=1, precision="fp32"))
     torch.cuda.reset_peak_memory_stats()
-    c0 = counts(conv_ops, bn_ops)
+    c0 = counts(k)
     pred512 = sess512.predict(x512)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    check(counts(conv_ops, bn_ops) == (c0[0] + n512, c0[1] + n512),
+    check(delta(counts(k), c0) == dict(conv3d=n512, bn_act=n512, pack=0,
+                                       unpack=0),
           "cosmoflow-512: launches per forward")
     check(tuple(pred512.shape) == (1, 4)
           and bool(torch.isfinite(pred512).all()), "cosmoflow-512 output")
     forwards += 1
-    with plain_versions(*kmods):
+    preds[("cosmoflow-512", "fp32")] = pred512
+    with plain_versions(k):
         want512 = sess512.predict(x512)
-    scale = max(1.0, want512.float().abs().max().item())
-    err512 = (pred512 - want512).abs().max().item() / scale
+    err512 = rel_err(pred512, want512)
     check(err512 <= 1e-4, f"cosmoflow-512 vs plain forward {err512}")
     del want512
     serve["cosmoflow-512/fp32"] = {"rel_err_vs_plain": err512, "tol": 1e-4,
@@ -378,18 +562,87 @@ def main() -> int:
     forwards += int(tele["serve.batches"])
     log("harness", f"16/16 futures resolved; telemetry {json.dumps(tele)}")
 
-    launches = dict(zip(("conv3d", "bn_act"), counts(conv_ops, bn_ops)))
-    for name, n in launches.items():
-        check(n == 7 * forwards, f"{name}: {n} launches on the main path, "
-              f"expected 7 per forward x {forwards} forwards")
-    log("main path", f"{forwards} forwards; launches {launches}")
+    launches = counts(k)
+    check(launches == dict(conv3d=7 * forwards, bn_act=7 * forwards, pack=0,
+                           unpack=0),
+          f"{launches} launches on the unsharded path, expected 7 conv3d "
+          f"and 7 bn_act per forward x {forwards} forwards")
+    log("main path", f"unsharded: {forwards} forwards; launches {launches}")
+    main_paths = {"unsharded": {"forwards": forwards, "launches": launches}}
+
+    # ------------------------------------------- main path 2: 7-8 ----
+    zero_counts(k)
+    expected = dict.fromkeys(KERNELS, 0)
+    spatial = {}
+    spatial_sessions = {}
+    for name, batch, S, prec, kind in SPATIAL:
+        cfg = cfgs[name]
+        tag = f"{name}/{prec}/S{S}/{kind}"
+        plan = "fixed" if kind == "fixed" else spatial_plan(
+            plan_lib, depth, cfg, S, kind)
+        sess = compile(RunConfig(model=name, mode="infer",
+                                 global_batch=batch, precision=prec,
+                                 spatial=S, plan=plan),
+                       devices=["cuda:0"] * S)
+        check(sess.mesh.shape == {"data": 1, "model": S}
+              and len(set(map(id, (sess.mesh.stream(r)
+                                   for r in range(S))))) == S,
+              f"{tag}: mesh {sess.mesh}")
+        x = x128 if name == "cosmoflow-128" else x512
+        per_fwd = cosmoflow.kernel_launches(cfg, sess.plan)
+        if name == "cosmoflow-512":
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+        rel_plain = 1e-4 if prec == "fp32" else 5e-2
+        pred, err_plain = serve_and_compare(sess, x, k, rel_plain, tag,
+                                            per_fwd)
+        for kname in KERNELS:
+            expected[kname] += per_fwd[kname]
+        row = {"launches_per_forward": per_fwd,
+               "rel_err_vs_plain": err_plain, "tol_vs_plain": rel_plain}
+        if name == "cosmoflow-512":
+            row["peak_bytes"] = torch.cuda.max_memory_allocated()
+            row["resident_bytes_before"] = resident
+        tol = 1e-5 if prec == "fp32" else 5e-2
+        err = rel_err(pred, preds[(name, prec)])
+        check(err <= tol, f"{tag}: vs the unsharded forward {err} > {tol}")
+        row.update(rel_err_vs_unsharded=err, tol_vs_unsharded=tol)
+        spatial[tag] = row
+        spatial_sessions[tag] = (sess, x)
+        log("spatial", f"{tag} batch {batch}: launches {json.dumps(per_fwd)}"
+            f"; vs unsharded {err:.3g} <= {tol}; vs plain {err_plain:.3g}"
+            + (f"; peak {row['peak_bytes'] / 2 ** 30:.2f} GiB "
+               f"({resident / 2 ** 30:.2f} GiB resident before)"
+               if "peak_bytes" in row else ""))
+
+    sess2 = spatial_sessions["cosmoflow-128/fp32/S2/fixed"][0]
+    with sess2.serve(max_batch=4, max_wait_ms=50) as h:
+        rows = [f.result(timeout=300) for f in h.submit_many(list(reqs[:8]))]
+    check(all(r.shape == (4,) and np.all(np.isfinite(r)) for r in rows),
+          "spatial harness replies")
+    tele2 = sess2.telemetry()
+    check(tele2["serve.requests"] == 8 and tele2["serve.worker_failures"] == 0,
+          f"spatial harness telemetry {tele2}")
+    per_fwd = spatial["cosmoflow-128/fp32/S2/fixed"]["launches_per_forward"]
+    for kname in KERNELS:
+        expected[kname] += per_fwd[kname] * int(tele2["serve.batches"])
+    log("harness", f"spatial S=2: 8/8 futures resolved; telemetry "
+        f"{json.dumps(tele2)}")
+    got = counts(k)
+    check(got == expected, f"spatial path launches {got}, derived from the "
+          f"plans {expected}")
+    check(got["pack"] > 0 and got["unpack"] > 0, "pack/unpack never ran")
+    log("main path", f"spatial: launches {got} = derived from the plans")
+    main_paths["spatial"] = {"launches": got, "expected": expected}
+    launches = {n: main_paths["unsharded"]["launches"][n] + got[n]
+                for n in KERNELS}
 
     # ------------------------------------------------------- timings ----
     timing = {"conv3d": [], "bn_act": []}
     log("timings", PEAKS_USED)
     gt = torch.Generator(device="cuda").manual_seed(3)
     for cfg, batch, prec, reps in ((cf128, 4, "fp32", 5),
-                                   (cf128, 4, "bf16", 5),
+                                   (cf128, 4, "bf16", 3),
                                    (cf512, 1, "fp32", 2)):
         dt = DTYPES[prec]
         for i, (xs, ws, s, pads) in enumerate(cosmoflow.conv_shapes(cfg,
@@ -433,6 +686,17 @@ def main() -> int:
             timing["bn_act"].append(row)
             log("timings", "bn_act " + json.dumps(row))
             del yv
+    # pack and unpack at every shape the spatial path gave them
+    halo_keys = set()
+    for name, batch, S, prec, kind in SPATIAL:
+        for sc in cosmoflow.split_convs(
+                cfgs[name], spatial_plan(plan_lib, depth, cfgs[name], S,
+                                         kind), batch):
+            halo_keys.add((sc.shape, sc.lo, sc.hi, prec))
+    halo = halo_rows(k, sorted(halo_keys), 20)
+    timing["pack"] = list(halo["pack"].values())
+    timing["unpack"] = list(halo["unpack"].values())
+
     e2e = {
         "cosmoflow-128/fp32/b4": host_ms(lambda: sessions["fp32"].predict(
             x128), 5),
@@ -440,50 +704,103 @@ def main() -> int:
             x128), 5),
         "cosmoflow-512/fp32/b1": host_ms(lambda: sess512.predict(x512), 2),
     }
+    for tag, (sess, x) in spatial_sessions.items():
+        e2e[tag] = host_ms(lambda: sess.predict(x),
+                           2 if tag.startswith("cosmoflow-512") else 5)
     log("timings", f"end-to-end predict ms per batch {json.dumps(e2e)}")
+    # the two conv lowerings against each other: each legacy fp32 spatial
+    # session (overlapped) and the same config compiled with
+    # overlap_halo=False (blocking), timed overlapped, blocking,
+    # blocking, overlapped, before any profiler has run
+    lowering, blocking = {}, {}
+    for tag in ("cosmoflow-128/fp32/S2/fixed", "cosmoflow-128/fp32/S4/fixed",
+                "cosmoflow-512/fp32/S4/fixed"):
+        sess, x = spatial_sessions[tag]
+        name, S = tag.split("/")[0], int(tag.split("/")[2][1:])
+        blk = compile(RunConfig(model=name, mode="infer",
+                                global_batch=x.shape[0], precision="fp32",
+                                spatial=S, plan="fixed", overlap_halo=False),
+                      devices=["cuda:0"] * S)
+        err = rel_err(blk.predict(x), preds[(name, "fp32")])
+        check(err <= 1e-5, f"{tag} blocking: vs the unsharded forward {err}")
+        reps = 2 if name == "cosmoflow-512" else 5
+        fns = (lambda: sess.predict(x), lambda: blk.predict(x))
+        t = [host_ms(fns[i], reps) for i in (0, 1, 1, 0)]
+        lowering[tag] = {"overlap_ms": [t[0], t[3]],
+                         "blocking_ms": [t[1], t[2]],
+                         "blocking_rel_err_vs_unsharded": err}
+        blocking[tag] = blk
+        log("timings", f"lowering {tag} {json.dumps(lowering[tag])}")
     profiles = {
         "cosmoflow-128/fp32/b4": device_profile(
             lambda: sessions["fp32"].predict(x128)),
         "cosmoflow-512/fp32/b1": device_profile(
             lambda: sess512.predict(x512)),
     }
+    for tag, blk in blocking.items():
+        sess, x = spatial_sessions[tag]
+        profiles[tag] = device_profile(lambda: sess.predict(x))
+        profiles[tag + "/blocking"] = device_profile(lambda: blk.predict(x))
     for key, prof in profiles.items():
         log("profile", f"{key} {json.dumps(prof)}")
-    for s in (*sessions.values(), sess512):
+    for s in (*sessions.values(), sess512, *blocking.values(),
+              *(v[0] for v in spatial_sessions.values())):
         s.close()
 
-    # the summary: one cosmoflow-128 batch-4 fp32 forward's worth of each
-    # kernel (its 7 calls summed), the main path's first config
+    # the summary: one forward's worth of each kernel at its main path's
+    # first config — cosmoflow-128 batch-4 fp32: conv3d and bn_act of the
+    # unsharded forward (7 calls each), pack of the S=2 forward (4 blocks
+    # x 2 shards), unpack of the S=2 forward that splits all 7 blocks
+    # (blocks 4-6 x 2 shards)
     def total(rows, key):
         sel = [r[key] for r in rows if r["config"] == "cosmoflow-128"
                and r["dtype"] == "fp32"]
         return None if any(v is None for v in sel) else sum(sel)
+
+    def halo_total(name, kind, key):
+        plan = spatial_plan(plan_lib, depth, cf128, 2, kind)
+        return sum(2 * halo[name][(sc.shape, sc.lo, sc.hi, "fp32")][key]
+                   for sc in cosmoflow.split_convs(cf128, plan, 4)
+                   if name == "pack" or sc.no_interior)
 
     summary = []
     for name, kname, src, replaces in (
             ("conv3d", "conv3d_valid", "src/repro_torch/csrc/conv3d.cu",
              "src/repro/kernels/conv3d/kernel.py:43"),
             ("bn_act", "bn_leaky_relu", "src/repro_torch/csrc/bn_act.cu",
-             "src/repro/kernels/bn_act/kernel.py:31")):
-        rows = timing[name]
-        by = {r["bound_by"] for r in rows if r["config"] == "cosmoflow-128"
-              and r["dtype"] == "fp32"}
-        summary.append({
-            "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": report["kernels"]["worst_fp32_main"][name],
-            "ms": total(rows, "ms"), "plain_ms": total(rows, "plain_ms"),
-            "bound_ms": total(rows, "bound_ms"),
-            "bound_by": "operations" if "operations" in by else "bytes",
-            "library_ms": total(rows, "library_ms")})
-    report.update(serve=serve, timing=timing, e2e_ms=e2e, profile=profiles,
-                  bounds=PEAKS_USED,
-                  main_path={"forwards": forwards, "launches": launches},
+             "src/repro/kernels/bn_act/kernel.py:31"),
+            ("pack", "pack_depth", "src/repro_torch/csrc/halo_pack.cu",
+             "src/repro/kernels/halo_pack/kernel.py:26"),
+            ("unpack", "unpack_depth", "src/repro_torch/csrc/halo_pack.cu",
+             "src/repro/kernels/halo_pack/kernel.py:69")):
+        entry = {"name": kname, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launches[name]}
+        if name in ("pack", "unpack"):
+            kind = "fixed" if name == "pack" else "deep"
+            entry.update(
+                max_abs_err=report["halo_kernels"]["max_abs_err"][name],
+                **{key: halo_total(name, kind, key) for key in
+                   ("ms", "plain_ms", "bound_ms", "library_ms")},
+                bound_by="bytes")
+        else:
+            rows = timing[name]
+            by = {r["bound_by"] for r in rows
+                  if r["config"] == "cosmoflow-128" and r["dtype"] == "fp32"}
+            entry.update(
+                max_abs_err=report["kernels"]["worst_fp32_main"][name],
+                ms=total(rows, "ms"), plain_ms=total(rows, "plain_ms"),
+                bound_ms=total(rows, "bound_ms"),
+                bound_by="operations" if "operations" in by else "bytes",
+                library_ms=total(rows, "library_ms"))
+        summary.append(entry)
+    report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
+                  lowering=lowering, profile=profiles, bounds=PEAKS_USED,
+                  main_paths=main_paths,
                   seconds=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(report, f, indent=1)
+            json.dump(report, f, indent=1, default=str)
     log("done", f"all phases ok in {report['seconds']:.0f}s")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,13 @@
 same JSON (``to_json``/``from_json``, with an inline ``ConvNetConfig``
 and a pinned ``ParallelPlan``), so the run description a reference
 checkpoint embeds reads back here. The device is not a field: the entry
-points take ``device=`` (``repro_torch.api.compile``).
+points take ``device=`` or ``devices=`` (``repro_torch.api.compile``).
 
 ``validate`` raises ``RunConfigError`` naming the offending field and a
 fix, as the reference does. What the port cannot run yet is rejected
 the same way, naming the slice that brings it: training (``mode``),
-more than one device (``data``, ``spatial``) and the cost-model planner
-(``plan="auto"``, ``memory_budget_gib``).
+batch sharding (``data``) and the cost-model planner (``plan="auto"``,
+``memory_budget_gib``).
 """
 from __future__ import annotations
 
@@ -116,10 +116,10 @@ class RunConfig:
         return cfg
 
     # ------------------------------------------------------ validation ----
-    def validate(self, device_count: int = 1) -> None:
+    def validate(self, device_count: Optional[int] = 1) -> None:
         """Check every field up front; raise ``RunConfigError`` naming
         the field and a fix. ``device_count`` is the number of devices
-        the run may use (the port runs one)."""
+        the run is given (one per shard; None: not checked here)."""
         self.resolve_model()
         if self.mode not in MODES:
             raise RunConfigError("mode", f"unknown mode {self.mode!r}",
@@ -166,17 +166,16 @@ class RunConfig:
                 f"drop {bad}; restore with "
                 "InferenceSession.restore(checkpoint_dir)")
 
-        for field, later in (("data", "data-parallel"),
-                             ("spatial", "spatial")):
+        for field in ("data", "spatial"):
             v = getattr(self, field)
             if not isinstance(v, int) or v < 1:
                 raise RunConfigError(field, f"degree must be an int >= 1, "
                                      f"got {v!r}", "pass a positive degree")
-            if v != 1:
-                raise RunConfigError(
-                    field, f"{field}={v} needs {v} devices, which the "
-                    f"{later} slice of the port brings",
-                    f"set {field}=1 (one device)")
+        if self.data != 1:
+            raise RunConfigError(
+                "data", f"data={self.data} shards the batch, which the "
+                "data-parallel slice of the port brings",
+                "set data=1; use spatial= to shard large volumes")
         if not isinstance(self.global_batch, int) or self.global_batch < 1:
             raise RunConfigError("global_batch",
                                  f"must be an int >= 1, got "
@@ -248,12 +247,15 @@ class RunConfig:
                 f"{self.metrics_jsonl!r}",
                 "pass a filename like 'out/metrics.jsonl'")
 
-        if self.data * self.spatial > device_count:
+        if (device_count is not None
+                and self.data * self.spatial > device_count):
             raise RunConfigError(
-                "data",
+                "spatial",
                 f"data x spatial = {self.data}x{self.spatial} = "
-                f"{self.data * self.spatial} devices, but only "
-                f"{device_count} visible", "reduce the degrees")
+                f"{self.data * self.spatial} shards, but only "
+                f"{device_count} device(s) given",
+                "reduce the degrees, or pass one device per shard "
+                "(devices=['cuda:0'] * n puts them all on one card)")
 
     def _validate_plan_degrees(self, plan: "plan_lib.ParallelPlan") -> None:
         n_groups = plan.n_groups

@@ -1,39 +1,29 @@
-"""``compile(RunConfig, device=None)``: the port's one assembly path.
+"""``compile(RunConfig, device=None, devices=None)``: the port's one
+assembly path.
 
-``mode="infer"`` validates the config, resolves the plan and precision
-and returns a forward-only ``repro_torch.serve.InferenceSession``;
-``mode="train"`` raises ``NotImplementedError`` until the training
-slice. Entry points run on the CUDA device unless the caller passes
-``device="cpu"`` (as the tests do); with no CUDA device and no explicit
-``device`` they raise instead of running on the CPU.
+``mode="infer"`` validates the config, resolves the plan and precision,
+places the plan's mesh on devices and returns a forward-only
+``repro_torch.serve.InferenceSession``; ``mode="train"`` raises
+``NotImplementedError`` until the training slice. Entry points run on
+the card unless the caller says otherwise: ``device="cpu"`` (one shard,
+as the tests run), or ``devices=[...]`` with one device per shard of a
+``spatial > 1`` run — ``["cuda:0"] * 2`` puts both shards on one card,
+``["cpu"] * 2`` on the CPU. With neither, a one-shard run takes the CUDA
+device and an S-shard run ``cuda:0..S-1``; without enough cards they
+raise instead of running elsewhere.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
-
-import torch
+from typing import Optional, Sequence, Tuple
 
 from repro_torch.api.config import RunConfig
 from repro_torch.configs.base import ConvNetConfig
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.spatial_conv import SpatialPartitioning
+from repro_torch.launch.mesh import DeviceLike
 
 # the run description a training checkpoint embeds (reference format)
 _META_FILE = "run_config.json"
-
-DeviceLike = Union[str, torch.device, None]
-
-
-def resolve_device(device: DeviceLike) -> torch.device:
-    """``None`` -> the CUDA device; raises when there is none, naming
-    the ``device`` argument."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available: pass device='cpu' to run "
-                "the port on the CPU (entry points default to the card)")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _resolve_plan(config: RunConfig, cfg: ConvNetConfig
@@ -49,13 +39,15 @@ def _resolve_plan(config: RunConfig, cfg: ConvNetConfig
     return plan, explicit or "fp32"
 
 
-def compile(config: RunConfig, *, device: DeviceLike = None):  # noqa: A001
-    """Validate ``config`` and build its session on ``device`` (None:
-    the CUDA device). ``mode="infer"`` returns an ``InferenceSession``."""
+def compile(config: RunConfig, *, device: DeviceLike = None,  # noqa: A001
+            devices: Optional[Sequence[DeviceLike]] = None):
+    """Validate ``config`` and build its session on ``device`` or on
+    ``devices`` (one per shard; give one of the two, or neither for the
+    card). ``mode="infer"`` returns an ``InferenceSession``."""
     if config.mode == "train":
         raise NotImplementedError(
             "mode='train' comes with the training slice of the port "
             "(backward kernels, optimizer, train step); use mode='infer'")
     from repro_torch.serve.session import compile_infer  # imports us
 
-    return compile_infer(config, device=device)
+    return compile_infer(config, device=device, devices=devices)

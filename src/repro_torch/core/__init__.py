@@ -1,3 +1,4 @@
-"""Core layers of the port: precision policies, distributed batch
-norm, the spatial conv and pooling, halo widths, parallelism plans and
-fault injection. One device: every mesh axis has degree 1."""
+"""Core layers of the port: precision policies, in-process SPMD over a
+mesh (``spmd``), halo exchange, the spatial conv and pooling,
+distributed batch norm, resharding at plan stage boundaries,
+parallelism plans, lowering flags and fault injection."""

@@ -1,0 +1,15 @@
+"""Lowering defaults (the reference's ``core/flags.py``, the part the port
+reads so far).
+
+* ``OVERLAP_HALO``: lower distributed convs through the interior/boundary
+  decomposition with a packed halo exchange (``core/spatial_conv.py``)
+  instead of the blocking exchange-concat-conv. On by default; the
+  blocking path stays as the equivalence oracle. A run chooses with
+  ``RunConfig.overlap_halo`` (None: this default), a call with
+  ``conv3d(..., overlap=)``.
+"""
+from __future__ import annotations
+
+OVERLAP_HALO = True
+
+__all__ = ["OVERLAP_HALO"]

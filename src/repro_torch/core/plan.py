@@ -7,9 +7,10 @@ range of layers (cosmoflow: layers ``0..n_blocks-1`` are the conv
 blocks, layer ``n_blocks`` the FC head). The dataclasses, their names
 and their JSON (``api/config.py``) are the reference's, so a plan pinned
 in a reference checkpoint reads back. ``legacy_convnet_plan`` builds the
-fixed-degree plan ``RunConfig(plan="fixed")`` resolves to; on one device
-every axis has degree 1 and every stage is the same local layout. The
-cost-model planner comes with the plans slice.
+fixed-degree plan ``RunConfig(plan="fixed")`` resolves to: depth
+partitioned over ``spatial`` shards until a block's local width would
+drop below 4, then gathered. The cost-model planner comes with the plans
+slice.
 """
 from __future__ import annotations
 
@@ -120,6 +121,18 @@ class ParallelPlan:
             if a == axis:
                 return n
         raise KeyError(axis)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """Every mesh axis any stage references (batch first, then
+        spatial, first-use order) — the reduction axes of the BN
+        statistics."""
+        out: List[str] = []
+        for st in self.stages:
+            for a in tuple(st.batch_axes) + st.spatial_names:
+                if a not in out:
+                    out.append(a)
+        return tuple(out)
 
     @property
     def spatial_axis_names(self) -> Tuple[str, ...]:

@@ -29,10 +29,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("conv3d", "bn_act")
+SOURCES = ("conv3d", "bn_act", "halo_pack")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -129,5 +130,12 @@ def check(err: int, what: str) -> None:
         raise KernelLaunchError(f"{what}: CUDA error {err}")
 
 
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock: the shards of a
+    spatial run launch from threads of their own."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 __all__ = ["KernelBuildError", "KernelLaunchError", "build_all", "build_log",
-           "check", "library_path", "load", "nvcc_path"]
+           "check", "count_launch", "library_path", "load", "nvcc_path"]

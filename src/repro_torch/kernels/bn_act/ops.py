@@ -68,7 +68,7 @@ def bn_leaky_relu(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
             x.numel() // c, c, float(eps), float(negative_slope),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "bn_act")
-    bn_leaky_relu.launches += 1
+    _build.count_launch(bn_leaky_relu)
     return y
 
 

@@ -86,7 +86,7 @@ def conv3d_valid(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             do, ho, wo, cout, w.shape[0], stride, pads[0][0], pads[1][0],
             pads[2][0], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "conv3d_direct")
-    conv3d_valid.launches += 1
+    _build.count_launch(conv3d_valid)
     return y
 
 

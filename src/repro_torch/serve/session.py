@@ -1,11 +1,15 @@
 """Forward-only inference sessions.
 
-``compile_infer(RunConfig(mode="infer"), device=None) ->
-InferenceSession``: validate, resolve the plan and precision, build the
-parameters on the device (seeded from ``config.seed``) and cast the
-fp32 masters to the serving dtype once. The forward is
-``models/cosmoflow.forward`` under ``torch.inference_mode()``, through
-the port's conv3d and bn_act kernels on the card.
+``compile_infer(RunConfig(mode="infer"), device=None, devices=None) ->
+InferenceSession``: validate, resolve the plan and precision, place the
+plan's mesh on devices (``launch/mesh.py``), build the parameters
+(seeded from ``config.seed``) and cast the fp32 masters to the serving
+dtype once. The forward is the plan-sharded
+``train.train_step.make_convnet_forward_step`` under
+``torch.inference_mode()``: with ``spatial=S`` each batch is split along
+depth into S shards that run ``models/cosmoflow.forward`` together
+(``core/spmd.py``), through the port's conv3d, bn_act and halo
+pack/unpack kernels on the card.
 
 ``InferenceSession.restore(path)`` serves a checkpoint the reference
 trained: it reads the embedded run config, strips the training-only
@@ -23,7 +27,7 @@ import dataclasses
 import json
 import os
 import threading
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,10 +37,13 @@ from repro_torch.api.config import RunConfig, RunConfigError
 from repro_torch.configs.base import ConvNetConfig
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.mesh import DeviceLike
 from repro_torch.models import cosmoflow as cosmoflow_lib
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs import trace as trace_lib
 from repro_torch.train import checkpoint
+from repro_torch.train import train_step as train_step_lib
 
 # training-only knobs stripped when an embedded training config is
 # repurposed for serving (validate rejects them under mode="infer")
@@ -48,8 +55,8 @@ _TRAIN_ONLY = dict(mode="infer", guard=None, grad_comm="auto",
 
 @dataclasses.dataclass(frozen=True)
 class InferReport:
-    """``InferenceSession.describe()``: the serving plan, device and
-    precision. ``modeled_peak`` (the forward-only memory model) comes
+    """``InferenceSession.describe()``: the serving plan, mesh, devices
+    and precision. ``modeled_peak`` (the forward-only memory model) comes
     with the memory slice and is None until then."""
 
     plan_name: str
@@ -58,54 +65,70 @@ class InferReport:
     param_count: int
     modeled_peak: Optional[Any]
     device: str
+    devices: Tuple[str, ...] = ()
 
     def __str__(self) -> str:
         return (
-            f"InferenceSession[{self.plan_name}] on {self.device}\n"
-            f"  mesh {self.mesh_shape}  precision={self.precision}\n"
+            f"InferenceSession[{self.plan_name}] on {', '.join(self.devices)}"
+            f"\n  mesh {self.mesh_shape}  precision={self.precision}\n"
             f"  params {self.param_count / 1e6:.2f}M  modeled forward "
             f"peak: not modeled yet")
 
 
-def compile_infer(config: RunConfig, *,
-                  device: session_lib.DeviceLike = None
+def compile_infer(config: RunConfig, *, device: DeviceLike = None,
+                  devices: Optional[Sequence[DeviceLike]] = None
                   ) -> "InferenceSession":
     """Validate ``config`` (``mode`` must be ``"infer"``), resolve
     plan/precision, and return a live ``InferenceSession`` on ``device``
-    (None: the CUDA device) with freshly initialized params."""
-    sess = _compile_infer(config, device)
+    or ``devices`` (one per shard; neither: the card(s)) with freshly
+    initialized params."""
+    sess = _compile_infer(config, device, devices)
     gen = torch.Generator().manual_seed(config.seed)
     sess.params = sess._cast_once(
         cosmoflow_lib.init_params(sess.cfg, gen, sess.device))
     return sess
 
 
-def _compile_infer(config: RunConfig,
-                   device: session_lib.DeviceLike) -> "InferenceSession":
+def _compile_infer(config: RunConfig, device: DeviceLike,
+                   devices: Optional[Sequence[DeviceLike]]
+                   ) -> "InferenceSession":
     if config.mode != "infer":
         raise RunConfigError(
             "mode", f"compile_infer got mode={config.mode!r}",
             "set RunConfig(mode='infer') (repro_torch.api.compile "
             "dispatches on it)")
-    config.validate()
+    config.validate(device_count=None)
+    shards = config.data * config.spatial
+    devs = mesh_lib.mesh_devices(shards, device=device, devices=devices)
+    config.validate(device_count=len(devs))
+    if len(devs) != shards:
+        raise RunConfigError(
+            "spatial", f"{len(devs)} devices given for data x spatial = "
+            f"{shards} shards", "pass one device per shard")
     cfg = config.resolve_model()
     plan, precision = session_lib._resolve_plan(config, cfg)
-    return InferenceSession(config, cfg, plan, precision,
-                            session_lib.resolve_device(device))
+    return InferenceSession(config, cfg, mesh_lib.make_plan_mesh(plan, devs),
+                            plan, precision)
 
 
 class InferenceSession:
-    """A forward-only serving run on one device. Build with
+    """A forward-only serving run over a mesh of devices. Build with
     ``repro_torch.api.compile(RunConfig(mode="infer"))`` or
     ``InferenceSession.restore(checkpoint_dir)``, not directly."""
 
-    def __init__(self, config, cfg, plan, precision, device):
+    def __init__(self, config, cfg, mesh, plan, precision):
         self.config: RunConfig = config
         self.cfg: ConvNetConfig = cfg
+        self.mesh: mesh_lib.Mesh = mesh
         self.plan: plan_lib.ParallelPlan = plan
         self.precision: str = precision_lib.get(precision).name
-        self.device: torch.device = device
+        # the parameters live here; the predictions come back here
+        self.device: torch.device = mesh.devices[0]
         self.params: Dict[str, torch.Tensor] = {}
+        self._replicas: Optional[tuple] = None  # (params, one per shard)
+        self._step = train_step_lib.make_convnet_forward_step(
+            cfg, mesh, plan=plan, overlap=config.overlap_halo,
+            precision=self.precision)
         self._harnesses: list = []
         self._close_lock = threading.Lock()
         self._closed = False
@@ -128,10 +151,20 @@ class InferenceSession:
         # makes them with 64-bit floats off
         return t.float() if t.dtype == torch.float64 else t
 
+    def _per_shard(self, params) -> list:
+        """One parameter dict per shard, copies made once per device
+        for the session's own parameters."""
+        if params is not self.params:
+            return train_step_lib.replicate(params, self.mesh.devices)
+        if self._replicas is None or self._replicas[0] is not params:
+            self._replicas = (params, train_step_lib.replicate(
+                params, self.mesh.devices))
+        return self._replicas[1]
+
     def _forward_for(self, batch: int) -> Callable:
         """The forward for a batch of ``batch`` volumes:
         ``fn(params, x) -> (batch, out_dim)`` predictions on the
-        device."""
+        session's device."""
         d = self.plan.data_degree
         if batch < 1 or batch % d:
             raise ValueError(
@@ -140,14 +173,13 @@ class InferenceSession:
 
         def fn(params, x):
             with torch.inference_mode():
-                return cosmoflow_lib.forward(
-                    params, self._as_input(x), self.cfg, plan=self.plan,
-                    precision=self.precision)
+                return self._step(self._per_shard(params), self._as_input(x))
         return fn
 
     def predict(self, x) -> torch.Tensor:
         """Forward a batch of volumes (N, D, H, W, C), numpy or tensor:
-        returns the (N, out_dim) predictions on the session's device."""
+        returns the (N, out_dim) predictions on the session's device.
+        A shard that fails makes this raise its error."""
         if self._closed:
             raise RuntimeError("InferenceSession is closed")
         fn = self._forward_for(int(x.shape[0]))
@@ -212,34 +244,39 @@ class InferenceSession:
         return self._metrics.absorb(out)
 
     def describe(self) -> InferReport:
-        """The serving plan, mesh, precision and parameter count."""
+        """The serving plan, mesh, devices, precision and parameter
+        count."""
         return InferReport(
-            plan_name=self.plan.name, mesh_shape=dict(self.plan.mesh_axes),
+            plan_name=self.plan.name, mesh_shape=self.mesh.shape,
             precision=self.precision, param_count=self.cfg.param_count(),
-            modeled_peak=None, device=str(self.device))
+            modeled_peak=None, device=str(self.device),
+            devices=tuple(str(d) for d in self.mesh.devices))
 
     # ------------------------------------------------------ checkpoint ----
     @classmethod
-    def restore(cls, path: str, *, device: session_lib.DeviceLike = None,
+    def restore(cls, path: str, *, device: DeviceLike = None,
+                devices: Optional[Sequence[DeviceLike]] = None,
                 data: Optional[int] = None, spatial: Optional[int] = None,
                 global_batch: Optional[int] = None,
                 precision: Optional[str] = None,
                 trace=None) -> "InferenceSession":
-        """Build an ``InferenceSession`` on ``device`` (None: the CUDA
-        device) from a reference TRAINING checkpoint: the embedded run
-        config is stripped of its training-only knobs, ONLY the ``params``
-        leaves are read, and the fp32 masters are cast to the serving
-        dtype once at load. ``data=`` / ``spatial=`` re-degree the run (a
-        checkpoint trained on many devices serves on one with
-        ``data=1, spatial=1``); changed degrees and pipelined training
-        plans re-resolve the plan, unchanged degrees keep the pinned one.
-        ``path`` may be a retention root of ``step_<n>`` checkpoints."""
+        """Build an ``InferenceSession`` on ``device`` or ``devices``
+        (as ``compile``) from a reference TRAINING checkpoint: the
+        embedded run config is stripped of its training-only knobs, ONLY
+        the ``params`` leaves are read, and the fp32 masters are cast to
+        the serving dtype once at load. ``data=`` / ``spatial=`` re-degree
+        the run (a checkpoint trained on many devices serves on one with
+        ``data=1, spatial=1``, or depth-split over S with ``spatial=S``);
+        changed degrees and pipelined training plans re-resolve the plan,
+        unchanged degrees keep the pinned one. ``path`` may be a
+        retention root of ``step_<n>`` checkpoints."""
         meta_path = os.path.join(path, session_lib._META_FILE)
         if not os.path.exists(meta_path):
             found = checkpoint.latest_valid_step(path)
             if found is not None:
                 return cls.restore(
-                    found[1], device=device, data=data, spatial=spatial,
+                    found[1], device=device, devices=devices, data=data,
+                    spatial=spatial,
                     global_batch=global_batch, precision=precision,
                     trace=trace)
             raise FileNotFoundError(
@@ -265,7 +302,7 @@ class InferenceSession:
             precision=(config.precision if precision is None
                        else precision),
             trace=config.trace if trace is None else trace)
-        sess = _compile_infer(config, device)
+        sess = _compile_infer(config, device, devices)
         names = cosmoflow_lib.param_shapes(sess.cfg)
         tree = checkpoint.restore(path, {"params": names})
         sess.params = sess._cast_once(cosmoflow_lib.params_from_numpy(

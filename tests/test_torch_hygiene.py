@@ -40,7 +40,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
 
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
     code = ("import sys; import repro_torch.api, repro_torch.serve, "
-            "repro_torch.kernels.conv3d.ops, repro_torch.kernels.bn_act.ops; "
+            "repro_torch.kernels.conv3d.ops, repro_torch.kernels.bn_act.ops, "
+            "repro_torch.kernels.halo_pack.ops, repro_torch.core.spmd, "
+            "repro_torch.core.reshard, repro_torch.launch.mesh, "
+            "repro_torch.train.train_step; "
             "from repro_torch.kernels import _build; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "

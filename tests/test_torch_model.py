@@ -185,13 +185,17 @@ def test_batchnorm_statistics_match_reference(slope):
         activation_slope=slope)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
-    with pytest.raises(NotImplementedError):
-        dist_norm.distributed_batchnorm(
-            torch.from_numpy(x), torch.from_numpy(scale),
-            torch.from_numpy(bias), ("model",))
+    # outside a sharded run every mesh axis has one shard: reducing over
+    # it changes nothing
+    over_model = dist_norm.distributed_batchnorm(
+        torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias),
+        ("model",), activation_slope=slope)
+    assert torch.equal(over_model, got)
 
 
-@pytest.mark.parametrize("width,spatial", [(128, 1), (512, 1), (512, 4)])
+@pytest.mark.parametrize("width,spatial", [(128, 1), (512, 1), (512, 4),
+                                           (128, 2), (128, 4), (256, 2),
+                                           (512, 2)])
 def test_legacy_plan_json_matches_reference(width, spatial):
     args = (("model", None, None), (spatial, 1, 1))
     want = jconfig.plan_to_json(jplan.legacy_convnet_plan(
@@ -220,5 +224,7 @@ def test_forward_rejects_what_this_slice_does_not_run():
     two_way = plan.legacy_convnet_plan(
         SMOKE, spatial_conv.SpatialPartitioning(("model", None, None)),
         (2, 1, 1))
-    with pytest.raises(NotImplementedError, match="2 devices"):
+    # a 2-way plan runs inside spmd.run over a 2-shard mesh, never
+    # silently on one device
+    with pytest.raises(ValueError, match="2 devices"):
         cosmoflow.forward(p, x, SMOKE, plan=two_way)
