@@ -43,9 +43,27 @@ Phases, each printing one line; any failure raises and exits non-zero:
               (``overlap_halo=False``) at cosmoflow-128 S=2, S=4 and
               cosmoflow-512 S=4; one profiled predict per config (device
               busy time, idle share, time by kernel name).
+10. ssd     — the SSD scan kernel against its plain (sequential) version
+              at the shapes of ``tests/test_kernels.py``, a ragged L and
+              mamba2-370m's layer shape (B=4, L=4096, H=32, P=64, N=128,
+              chunk 256), fp32 (3e-4 rtol/atol) and bf16 (2e-2 of the
+              output scale).
+11. score   — mamba2-370m at full width (48 layers, seeded random
+              weights): ``ssm_lm.lm_loss`` on 4 x 4096 tokens in fp32 and
+              bf16 and on 1 x 32768 in fp32 — time (median of 3), tokens/s,
+              peak memory, loss, exactly 48 ssd_scan launches per forward;
+              logits held against the same forward through the plain
+              chunked scan (fp32 1e-3, bf16 0.25 of the logits' scale) and
+              against that forward in fp64 (the kernel no more than 2x as
+              far from it as the plain forward: see ``phase_score``).
+12. decode  — ``serve.lm.generate``, greedy, 4 prompts of 64 tokens, 16
+              new tokens, fp32; prefill's last logits held against the
+              kernel forward's last position; decode ms per token.
+13. timings — ssd_scan at the layer shape: kernel, plain version, bound;
+              one profiled mamba2-370m forward.
 
-Phases 4-6 and 7-8 are the main paths: the launch counters are zeroed
-just before each and read just after. The next-to-last line is the
+Phases 4-6, 7-8 and 11-12 are the main paths: the launch counters are
+zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
 it.
@@ -91,7 +109,16 @@ SPATIAL = (("cosmoflow-128", 4, 2, "fp32", "fixed"),
 # extra halo cases beyond the main path's: k = 5 (lo = hi = 2), and a
 # depth row of 3*5*3 fp32 = 180 bytes, not a multiple of 16
 HALO_EXTRA = (((2, 8, 16, 16, 8), 2, 2), ((2, 6, 3, 5, 3), 1, 1))
-KERNELS = ("conv3d", "bn_act", "pack", "unpack")
+KERNELS = ("conv3d", "bn_act", "pack", "unpack", "ssd_scan")
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+# (B, L, H, P, N, chunk): tests/test_kernels.py's four (B=2), L=40 with
+# chunk 16 (lowered to 10), and mamba2-370m's layer at 4 x 4096 tokens
+SSD_SHAPES = ((2, 32, 2, 8, 16, 8), (2, 64, 3, 8, 16, 16),
+              (2, 64, 1, 16, 8, 64), (2, 48, 2, 4, 4, 12),
+              (2, 40, 2, 8, 16, 16), (4, 4096, 32, 64, 128, 256))
+SSD_MAIN = SSD_SHAPES[-1]
+# (batch, tokens, precision) of the scoring runs
+SCORE = ((4, 4096, "fp32"), (4, 4096, "bf16"), (1, 32768, "fp32"))
 
 
 def log(phase: str, msg: str) -> None:
@@ -198,6 +225,24 @@ def conv_work(x_shape, w_shape, out_shape, dtype):
     size = torch.empty((), dtype=dtype).element_size()
     nbytes = size * (math.prod(x_shape) + math.prod(w_shape)
                      + math.prod(out_shape))
+    return flops, nbytes
+
+
+def ssd_work(B, L, H, P, N, Q, dtype):
+    """Operations and bytes one SSD scan needs: C Bᵀ once per chunk
+    (shared by the heads) and the decay-weighted product with x, each
+    on the lower triangle with its diagonal; the inter-chunk term
+    C stateᵀ for every chunk but the first (it enters at zero); each
+    chunk's state, xᵀ (B w); the carry over the chunks. Bytes: x, dt,
+    A, B, C read once, y and the fp32 state written once."""
+    nc = L // Q
+    tri = Q * (Q + 1) / 2
+    flops = 2.0 * (B * nc * tri * N + B * nc * H * tri * P
+                   + B * (nc - 1) * H * Q * N * P + B * nc * H * Q * P * N
+                   + B * (nc - 1) * H * P * N)
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = (size * (2 * B * L * H * P + B * L * H + 2 * B * L * N)
+              + 4 * H + 4 * B * H * P * N)
     return flops, nbytes
 
 
@@ -360,6 +405,257 @@ def phase_halo_kernels(pack_ops, pack_ref, cases) -> dict:
             "cases": [list(map(str, c)) for c in cases]}
 
 
+def ssd_inputs(g, B, L, H, P, N, dt):
+    """The distribution of ``tests/test_kernels.py``'s SSD inputs."""
+    x = torch.randn((B, L, H, P), generator=g, device="cuda").to(dt)
+    d = F.softplus(torch.randn((B, L, H), generator=g, device="cuda")).to(dt)
+    A = -torch.exp(torch.randn((H,), generator=g, device="cuda") * 0.5)
+    Bm = torch.randn((B, L, N), generator=g, device="cuda").to(dt)
+    Cm = torch.randn((B, L, N), generator=g, device="cuda").to(dt)
+    return x, d, A, Bm, Cm
+
+
+def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> bool:
+    """Elementwise |got - want| <= tol + tol * |want| (``assert_allclose``
+    with rtol = atol = tol)."""
+    want = want.float()
+    return bool(((got.float() - want).abs() <= tol + tol * want.abs()).all())
+
+
+def phase_ssd_kernel(ssd_ops, ssd_ref, mamba2) -> dict:
+    """The SSD scan kernel against its plain (sequential) version.
+    fp32 at the test shapes: 3e-4 rtol/atol elementwise, the reference's
+    own kernel contract (``tests/test_kernels.py:84-87``). fp32 at the
+    layer shape: 3e-4 of the output's scale — y there reaches ~400, and
+    an element near zero keeps the fp32 rounding of its ~400-sized terms,
+    which no summation order removes (the plain chunked scan's own error
+    against the sequential version is printed beside it). bf16: y within
+    2e-2 of its scale, the reference's bf16 sweep tolerance (both round
+    the same fp32 sums to bf16 once). The fp32 state follows the fp32
+    rule of its shape."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rows, worst = [], 0.0
+    for prec, dt in DTYPES.items():
+        for B, L, H, P, N, Q in SSD_SHAPES:
+            args = ssd_inputs(g, B, L, H, P, N, dt)
+            y, state = ssd_ops.ssd_scan(*args, chunk=Q)
+            torch.cuda.synchronize()
+            want_y, want_s = ssd_ref.ssd_scan(*args)
+            err_y, err_s = max_err(y, want_y), max_err(state, want_s)
+            tag = f"ssd_scan {(B, L, H, P, N, Q)} {prec}"
+            check(y.dtype == dt and state.dtype == torch.float32,
+                  f"{tag}: dtypes {y.dtype} {state.dtype}")
+            main = (B, L, H, P, N, Q) == SSD_MAIN
+            scale = max(1.0, want_y.float().abs().max().item())
+            s_scale = max(1.0, want_s.abs().max().item())
+            row = {"shape": [B, L, H, P, N, Q], "dtype": prec,
+                   "err_y": err_y, "y_scale": scale, "err_state": err_s,
+                   "state_scale": s_scale}
+            if main:
+                check(err_s <= 3e-4 * s_scale, f"{tag}: state err {err_s}")
+            else:
+                check(within(state, want_s, 3e-4), f"{tag}: state err "
+                      f"{err_s}")
+            if prec == "bf16":
+                check(err_y <= 2e-2 * scale, f"{tag}: y err {err_y}")
+            elif main:
+                check(err_y <= 3e-4 * scale, f"{tag}: y err {err_y}")
+                yc, ex = mamba2.ssd_chunked(*args, chunk=Q)
+                row.update(chunked_err_y=max_err(yc, want_y),
+                           chunked_err_state=max_err(ex.final_state, want_s))
+                worst = max(err_y, err_s)
+                log("ssd", f"{tag}: kernel y err {err_y:.3g} (scale "
+                    f"{scale:.4g}), state err {err_s:.3g} (scale "
+                    f"{s_scale:.4g}); plain chunked scan y err "
+                    f"{row['chunked_err_y']:.3g}, state err "
+                    f"{row['chunked_err_state']:.3g}")
+                del yc, ex
+            else:
+                check(within(y, want_y, 3e-4), f"{tag}: y err {err_y}")
+            rows.append(row)
+            del args, y, state, want_y, want_s
+    log("ssd", f"ok: {len(rows)} comparisons; largest abs difference at "
+        f"the layer shape, fp32: {worst:.3g}")
+    return {"max_abs_err_main_fp32": worst, "cases": rows}
+
+
+@contextlib.contextmanager
+def plain_scan(k):
+    """Route the Mamba2 blocks' scan through the plain chunked scan."""
+    def plain(x, dt, A, Bm, Cm, *, chunk):
+        y, extras = k.mamba2.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+        return y, extras.final_state
+
+    with mock.patch.object(k.ssd_ops, "ssd_scan", plain):
+        yield
+
+
+def lm_batch(cfg, batch: int, seqlen: int, seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.randint(0, cfg.vocab_size, (batch, seqlen + 1), generator=g,
+                      device="cuda")
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def to_dtype(params, dt):
+    return {n: ({m: t.to(dt) for m, t in v.items()} if isinstance(v, dict)
+                else v.to(dt)) for n, v in params.items()}
+
+
+def phase_score(k, cfg, params) -> tuple:
+    """``lm_loss`` at each (batch, tokens, precision) of SCORE: launches
+    per forward, time, tokens/s, peak memory, loss, and the forward's
+    logits against two yardsticks on the same weights and tokens: the
+    forward through the plain chunked scan, and that forward in fp64.
+
+    48 random full-width layers amplify rounding ~30x: the plain fp32
+    forward itself sits 2.4e-4 (4 x 4096) to 3.5e-4 (1 x 32768) of the
+    logits' scale from the fp64 one, the plain bf16 forward 0.42 (H100,
+    700 W; the PR 14 rows of PERF.md). So the kernel forward is held
+    within 1e-3 (fp32) and 0.25 (bf16) of the logits' scale of the
+    plain-scan forward — about twice the measured 3.8e-4 to 4.6e-4 and
+    0.127 — and, the test that separates a fault from rounding, no more
+    than 2x as far from the fp64 forward as the plain forward is (or
+    within 1e-5 of the scale, where both are at fp32's own resolution).
+    Returns (rows, forwards that went through the kernel)."""
+    rows, forwards = {}, 0
+    for batch, seqlen, prec in SCORE:
+        tag = f"{cfg.name}/{prec}/{batch}x{seqlen}"
+        p = params[prec]
+        data = lm_batch(cfg, batch, seqlen, seed=7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        c0 = counts(k)
+        loss = k.ssm_lm.lm_loss(p, data, cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        per_fwd = delta(counts(k), c0)
+        check(per_fwd == dict(NO_LAUNCHES, ssd_scan=cfg.num_layers),
+              f"{tag}: launches per forward {per_fwd}")
+        check(loss.shape == () and bool(torch.isfinite(loss)),
+              f"{tag}: loss {loss}")
+        c1 = counts(k)
+        ms = host_ms(lambda: k.ssm_lm.lm_loss(p, data, cfg), 3)
+        logits = k.ssm_lm.forward(p, data["tokens"], cfg)
+        check(counts(k)["ssd_scan"] - c1["ssd_scan"] == 5 * cfg.num_layers,
+              f"{tag}: 5 more forwards launched "
+              f"{counts(k)['ssd_scan'] - c1['ssd_scan']}")
+        forwards += 6
+        check(tuple(logits.shape) == (batch, seqlen, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), f"{tag}: logits")
+        c2 = counts(k)
+        with plain_scan(k):
+            want = k.ssm_lm.forward(p, data["tokens"], cfg)
+        torch.cuda.synchronize()
+        check(counts(k) == c2, f"{tag}: the plain forward launched a kernel")
+        # the yardstick: the plain-scan forward in fp64 on the same
+        # (fp32 or bf16-rounded) weights
+        with plain_scan(k):
+            exact = k.ssm_lm.forward(to_dtype(p, torch.float64),
+                                     data["tokens"], cfg)
+        check(counts(k) == c2, f"{tag}: a plain forward launched a kernel")
+        scale, s64 = want.float().abs().max().item(), exact.abs().max().item()
+        row = {"rel_err_vs_plain": (logits.float() - want.float()).abs().max()
+               .item() / scale, "logits_scale": scale,
+               "kernel_rel_err_vs_fp64": (logits.double() - exact).abs().max()
+               .item() / s64,
+               "plain_rel_err_vs_fp64": (want.double() - exact).abs().max()
+               .item() / s64}
+        del exact
+        tol = 1e-3 if prec == "fp32" else 0.25
+        log("score", f"{tag}: kernel vs plain-scan forward "
+            f"{row['rel_err_vs_plain']:.3g} <= {tol}; vs the fp64 forward: "
+            f"kernel {row['kernel_rel_err_vs_fp64']:.3g} <= 2 x plain "
+            f"{row['plain_rel_err_vs_fp64']:.3g} (of the logits' scale)")
+        check(row["rel_err_vs_plain"] <= tol, f"{tag}: kernel forward vs "
+              f"plain-scan forward {row['rel_err_vs_plain']:.3g} > {tol}")
+        check(row["kernel_rel_err_vs_fp64"]
+              <= max(2 * row["plain_rel_err_vs_fp64"], 1e-5),
+              f"{tag}: the kernel forward is more than twice as far from "
+              f"the fp64 forward as the plain-scan forward")
+        rows[tag] = {"ms": ms, "tokens_per_s": batch * seqlen / ms * 1e3,
+                     "peak_bytes": peak, "resident_bytes_before": resident,
+                     "loss": loss.item(), "tol_vs_plain": tol,
+                     "ssd_launches_per_forward": per_fwd["ssd_scan"], **row}
+        tps = rows[tag]["tokens_per_s"]
+        log("score", f"{tag}: lm_loss {ms:.2f} ms ({tps:.0f} tokens/s), "
+            f"peak {peak / 2 ** 30:.2f} GiB ({resident / 2 ** 30:.2f} GiB "
+            f"resident before), loss "
+            f"{loss.item():.4f}, {per_fwd['ssd_scan']} ssd_scan launches per "
+            f"forward")
+        del data, loss, logits, want
+    return rows, forwards
+
+
+def phase_decode(k, cfg, p) -> tuple:
+    """Greedy ``generate`` (4 prompts of 64 tokens, 16 new tokens);
+    prefill's last logits against the kernel forward's last position
+    (5e-4 rtol/atol, as ``tests/test_models.py:99-111`` holds the
+    reference), decode time per token. Returns (row, forwards that went
+    through the kernel)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
+                            device="cuda")
+    c0 = counts(k)
+    toks = k.lm.generate(p, prompts, cfg, 16)
+    torch.cuda.synchronize()
+    check(counts(k) == c0, "decoding launched a kernel (it runs no scan)")
+    check(tuple(toks.shape) == (4, 16) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, f"generated {toks.shape}")
+    prefill, decode = k.lm.make_serve_fns(cfg)
+    last, cache = prefill(p, prompts, 80)
+    full = k.ssm_lm.forward(p, prompts, cfg)[:, -1]
+    torch.cuda.synchronize()
+    check(delta(counts(k), c0) == dict(NO_LAUNCHES, ssd_scan=cfg.num_layers),
+          "decode phase: launches")
+    err = (last - full).abs().max().item()
+    check(within(last, full, 5e-4), f"prefill vs forward logits {err:.3g}")
+    check(torch.equal(toks[:, 0], last.argmax(-1)),
+          "generate's first token is not prefill's argmax")
+
+    def run_decode():
+        logits, c = last, cache
+        for _ in range(16):
+            logits, c = decode(p, c, logits.argmax(-1)[:, None])
+        return logits
+
+    row = {"prefill_ms": host_ms(lambda: prefill(p, prompts, 80), 1),
+           "decode_ms_per_token": host_ms(run_decode, 2) / 16,
+           "prefill_vs_forward_max_abs": err,
+           "prefill_logits_scale": full.abs().max().item(),
+           "tokens": toks.tolist()}
+    log("decode", f"{cfg.name} fp32 batch 4: 64-token prompts, 16 greedy "
+        f"tokens; prefill vs forward {err:.3g} (5e-4 rtol/atol); prefill "
+        f"{row['prefill_ms']:.1f} ms, decode {row['decode_ms_per_token']:.2f}"
+        f" ms per token")
+    return row, 1
+
+
+def ssd_rows(k) -> dict:
+    """ssd_scan at the layer shape: the kernel (CUDA events, median of
+    10), the plain sequential version and the plain chunked scan (median
+    of 3), and the bound."""
+    B, L, H, P, N, Q = SSD_MAIN
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows = {}
+    for prec, dt in DTYPES.items():
+        args = ssd_inputs(g, B, L, H, P, N, dt)
+        flops, nbytes = ssd_work(B, L, H, P, N, Q, dt)
+        b_ms, b_by = bound(flops, nbytes, dt)
+        rows[prec] = {
+            "shape": list(SSD_MAIN), "dtype": prec,
+            "ms": median_ms(lambda: k.ssd_ops.ssd_scan(*args, chunk=Q), 10),
+            "plain_ms": median_ms(lambda: k.ssd_ref.ssd_scan(*args), 3),
+            "chunked_plain_ms": median_ms(
+                lambda: k.mamba2.ssd_chunked(*args, chunk=Q), 3),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
+        log("timings", "ssd_scan " + json.dumps(rows[prec]))
+        del args
+    return rows
+
+
 @contextlib.contextmanager
 def plain_versions(k):
     """Route the forward through the plain versions (for comparison)."""
@@ -375,7 +671,8 @@ def plain_versions(k):
 def wrappers(k) -> dict:
     return {"conv3d": k.conv_ops.conv3d_valid,
             "bn_act": k.bn_ops.bn_leaky_relu,
-            "pack": k.pack_ops.pack, "unpack": k.pack_ops.unpack}
+            "pack": k.pack_ops.pack, "unpack": k.pack_ops.unpack,
+            "ssd_scan": k.ssd_ops.ssd_scan}
 
 
 def counts(k) -> dict:
@@ -482,12 +779,17 @@ def main() -> int:
     from repro_torch.kernels.conv3d import ref as conv_ref
     from repro_torch.kernels.halo_pack import ops as pack_ops
     from repro_torch.kernels.halo_pack import ref as pack_ref
-    from repro_torch.models import cosmoflow
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.models import cosmoflow, mamba2, ssm_lm
+    from repro_torch.serve import lm
 
     t_start = time.perf_counter()
     k = argparse.Namespace(conv_ops=conv_ops, conv_ref=conv_ref,
                            bn_ops=bn_ops, bn_ref=bn_ref, pack_ops=pack_ops,
-                           pack_ref=pack_ref)
+                           pack_ref=pack_ref, ssd_ops=ssd_ops,
+                           ssd_ref=ssd_ref, mamba2=mamba2, ssm_lm=ssm_lm,
+                           lm=lm)
     report = {"card": phase_card()}
     report["build"] = phase_build(_build)
     cf128, cf512 = get_config("cosmoflow-128"), get_config("cosmoflow-512")
@@ -512,7 +814,7 @@ def main() -> int:
         sess = compile(RunConfig(model="cosmoflow-128", mode="infer",
                                  global_batch=4, precision=prec))
         check(sess.device.type == "cuda", "session not on the card")
-        expect = dict(conv3d=n128, bn_act=n128, pack=0, unpack=0)
+        expect = dict(NO_LAUNCHES, conv3d=n128, bn_act=n128)
         preds[("cosmoflow-128", prec)], err = serve_and_compare(
             sess, x128, k, rel, f"cosmoflow-128 {prec}", expect)
         forwards += 1
@@ -530,8 +832,8 @@ def main() -> int:
     pred512 = sess512.predict(x512)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    check(delta(counts(k), c0) == dict(conv3d=n512, bn_act=n512, pack=0,
-                                       unpack=0),
+    check(delta(counts(k), c0) == dict(NO_LAUNCHES, conv3d=n512,
+                                       bn_act=n512),
           "cosmoflow-512: launches per forward")
     check(tuple(pred512.shape) == (1, 4)
           and bool(torch.isfinite(pred512).all()), "cosmoflow-512 output")
@@ -563,8 +865,8 @@ def main() -> int:
     log("harness", f"16/16 futures resolved; telemetry {json.dumps(tele)}")
 
     launches = counts(k)
-    check(launches == dict(conv3d=7 * forwards, bn_act=7 * forwards, pack=0,
-                           unpack=0),
+    check(launches == dict(NO_LAUNCHES, conv3d=7 * forwards,
+                           bn_act=7 * forwards),
           f"{launches} launches on the unsharded path, expected 7 conv3d "
           f"and 7 bn_act per forward x {forwards} forwards")
     log("main path", f"unsharded: {forwards} forwards; launches {launches}")
@@ -589,7 +891,8 @@ def main() -> int:
                                    for r in range(S))))) == S,
               f"{tag}: mesh {sess.mesh}")
         x = x128 if name == "cosmoflow-128" else x512
-        per_fwd = cosmoflow.kernel_launches(cfg, sess.plan)
+        per_fwd = dict(NO_LAUNCHES,
+                       **cosmoflow.kernel_launches(cfg, sess.plan))
         if name == "cosmoflow-512":
             torch.cuda.reset_peak_memory_stats()
             resident = torch.cuda.memory_allocated()
@@ -746,6 +1049,36 @@ def main() -> int:
     for s in (*sessions.values(), sess512, *blocking.values(),
               *(v[0] for v in spatial_sessions.values())):
         s.close()
+    del x128, x512, sessions, sess512, blocking, spatial_sessions, preds
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ mamba2-370m: 10-13 ----
+    report["ssd_kernel"] = phase_ssd_kernel(ssd_ops, ssd_ref, mamba2)
+    mcfg = get_config("mamba2-370m")
+    t0 = time.perf_counter()
+    p32 = ssm_lm.init_params(mcfg, torch.Generator().manual_seed(0),
+                             device="cuda")
+    params = {"fp32": p32, "bf16": to_dtype(p32, torch.bfloat16)}
+    log("score", f"{mcfg.name}: {mcfg.param_count() / 1e6:.1f}M parameters "
+        f"on the card in {time.perf_counter() - t0:.1f}s")
+    zero_counts(k)
+    score, fwd_score = phase_score(k, mcfg, params)
+    decode_row, fwd_decode = phase_decode(k, mcfg, p32)
+    got = counts(k)
+    forwards_lm = fwd_score + fwd_decode
+    check(got == dict(NO_LAUNCHES, ssd_scan=mcfg.num_layers * forwards_lm),
+          f"mamba2 path launches {got}, expected {mcfg.num_layers} ssd_scan "
+          f"per forward x {forwards_lm} forwards")
+    log("main path", f"mamba2-370m: {forwards_lm} forwards; launches {got}")
+    main_paths["mamba2"] = {"forwards": forwards_lm, "launches": got}
+    launches = {n: launches[n] + got[n] for n in KERNELS}
+    timing["ssd_scan"] = ssd_rows(k)
+    lm_tokens = lm_batch(mcfg, 4, 4096, seed=7)["tokens"]
+    profiles["mamba2-370m/fp32/4x4096"] = device_profile(
+        lambda: ssm_lm.forward(p32, lm_tokens, mcfg))
+    log("profile", "mamba2-370m/fp32/4x4096 "
+        + json.dumps(profiles["mamba2-370m/fp32/4x4096"]))
+    del params, p32, lm_tokens
 
     # the summary: one forward's worth of each kernel at its main path's
     # first config — cosmoflow-128 batch-4 fp32: conv3d and bn_act of the
@@ -772,10 +1105,18 @@ def main() -> int:
             ("pack", "pack_depth", "src/repro_torch/csrc/halo_pack.cu",
              "src/repro/kernels/halo_pack/kernel.py:26"),
             ("unpack", "unpack_depth", "src/repro_torch/csrc/halo_pack.cu",
-             "src/repro/kernels/halo_pack/kernel.py:69")):
+             "src/repro/kernels/halo_pack/kernel.py:69"),
+            ("ssd_scan", "ssd_scan_chunked", "src/repro_torch/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan/kernel.py:58")):
         entry = {"name": kname, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[name]}
-        if name in ("pack", "unpack"):
+        if name == "ssd_scan":  # one call at mamba2-370m's layer shape
+            row = timing["ssd_scan"]["fp32"]
+            entry.update(
+                max_abs_err=report["ssd_kernel"]["max_abs_err_main_fp32"],
+                **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")})
+        elif name in ("pack", "unpack"):
             kind = "fixed" if name == "pack" else "deep"
             entry.update(
                 max_abs_err=report["halo_kernels"]["max_abs_err"][name],
@@ -793,6 +1134,7 @@ def main() -> int:
                 bound_by="operations" if "operations" in by else "bytes",
                 library_ms=total(rows, "library_ms"))
         summary.append(entry)
+    report.update(score=score, decode=decode_row)
     report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
                   lowering=lowering, profile=profiles, bounds=PEAKS_USED,
                   main_paths=main_paths,

@@ -1,8 +1,9 @@
-"""Config dataclass of the paper's 3-D CNN family (CosmoFlow Table I /
-3D U-Net). Pure data: model code consumes it, ``repro_torch.configs``
-selects it by name. A copy of the reference's ``ConvNetConfig``, field
-for field, so a config read from a reference checkpoint's JSON builds
-the same object."""
+"""Config dataclasses of the port's model families: the paper's 3-D CNN
+(CosmoFlow Table I / 3D U-Net, ``ConvNetConfig``) and the Mamba2 / SSD
+language models (``SSMConfig``). Pure data: model code consumes them,
+``repro_torch.configs`` selects them by name. Copies of the reference's
+classes, field for field, so a config read from a reference
+checkpoint's JSON builds the same object."""
 from __future__ import annotations
 
 import dataclasses
@@ -65,6 +66,49 @@ class ConvNetConfig:
             up_in = skip
         total += up_in * self.out_dim
         return total
+
+    def active_param_count(self) -> int:
+        return self.param_count()
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD (state-space duality) family."""
+
+    name: str
+    family: str  # ssm
+    num_layers: int
+    d_model: int
+    ssm_state: int  # N: state dimension
+    vocab_size: int
+    expand: int = 2  # d_inner = expand * d_model
+    head_dim: int = 64  # SSD head dim P
+    chunk_size: int = 256  # SSD block size
+    conv_width: int = 4  # short causal conv
+    norm: str = "rmsnorm"
+    tie_embeddings: bool = True
+    supports_decode: bool = True
+    subquadratic: bool = True
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def num_ssm_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+    def param_count(self) -> int:
+        d, di = self.d_model, self.d_inner
+        nh, ns = self.num_ssm_heads, self.ssm_state
+        in_proj = d * (2 * di + 2 * ns + nh)  # z, x, B, C, dt
+        conv = self.conv_width * (di + 2 * ns)
+        out_proj = di * d
+        extras = 2 * nh + di  # A_log, D, gated-norm scale
+        block = in_proj + conv + out_proj + extras + d
+        emb = self.vocab_size * d
+        out = 0 if self.tie_embeddings else self.vocab_size * d
+        return self.num_layers * block + emb + out + d
 
     def active_param_count(self) -> int:
         return self.param_count()

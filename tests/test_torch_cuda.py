@@ -10,8 +10,14 @@ fp32, 2e-2 in bf16); the inputs come from numpy with a seed. The halo
 pack and unpack kernels are copies, so they must equal their plain
 versions exactly, at every face of the depth-split layers that
 ``chip_smoke.py`` checks; a 2-way session, one stream per shard on one
-card, must match the unsharded forward.
+card, must match the unsharded forward. The SSD scan kernel is held
+against its plain (sequential) version at ``tests/test_kernels.py``'s
+shapes and two ragged ones, at 3e-4 in fp32 (the reference's kernel
+contract) and 2e-2 of the output scale in bf16; a Mamba2 forward
+through it against the same forward through the plain chunked scan.
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +28,8 @@ from repro_torch.kernels.conv3d import ops as conv_ops
 from repro_torch.kernels.conv3d import ref as conv_ref
 from repro_torch.kernels.halo_pack import ops as pack_ops
 from repro_torch.kernels.halo_pack import ref as pack_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 CONV_GRID = [
     ((2, 10, 10, 10, 3), 3, 8, 1),
@@ -192,3 +200,95 @@ def test_shards_on_separate_cards_match_one_card(cuda):
     assert torch.equal(got, same)
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * max(1.0, want.abs().max().item()), err
+
+
+# (L, H, P, N, chunk): tests/test_kernels.py's four; L = 40 with chunk 16
+# (lowered to 10); and L = 300 with chunk 256 (lowered to 150: three
+# query tiles, the last ragged), 5 heads (a partial group), P = 64,
+# N = 128
+SSD_SHAPES = [(32, 2, 8, 16, 8), (64, 3, 8, 16, 16), (64, 1, 16, 8, 64),
+              (48, 2, 4, 4, 12), (40, 2, 8, 16, 16), (300, 5, 64, 128, 256)]
+
+
+def _ssd_inputs(cuda, L, H, P, N, dtype, B=2, seed=0):
+    r = np.random.RandomState(seed)
+    x = r.randn(B, L, H, P)
+    dt = np.log1p(np.exp(r.randn(B, L, H)))  # softplus
+    A = -np.exp(r.randn(H) * 0.5)
+    Bm, Cm = r.randn(B, L, N), r.randn(B, L, N)
+    dt_ = TORCH_DT[dtype]
+    return (torch.tensor(x, dtype=dt_, device=cuda),
+            torch.tensor(dt, dtype=dt_, device=cuda),
+            torch.tensor(A, dtype=torch.float32, device=cuda),
+            torch.tensor(Bm, dtype=dt_, device=cuda),
+            torch.tensor(Cm, dtype=dt_, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_matches_plain_on_card(cuda, shape, dtype):
+    L, H, P, N, chunk = shape
+    args = _ssd_inputs(cuda, L, H, P, N, dtype)
+    before = ssd_ops.ssd_scan.launches
+    y, state = ssd_ops.ssd_scan(*args, chunk=chunk)
+    assert ssd_ops.ssd_scan.launches == before + 1
+    want_y, want_s = ssd_ref.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == args[0].dtype and state.dtype == torch.float32
+    # the state is fp32 from the same inputs in both: 3e-4
+    _close(state, want_s, 3e-4)
+    if dtype == "float32":
+        _close(y, want_y, 3e-4)
+    else:  # both round the same fp32 sums to bf16 once
+        scale = max(1.0, want_y.float().abs().max().item())
+        assert (y.float() - want_y.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 32, 2, 8, 16, "float32")
+    with pytest.raises(TypeError, match="float16"):
+        ssd_ops.ssd_scan(x.half(), dt.half(), A, Bm.half(), Cm.half())
+    with pytest.raises(TypeError, match="dt in x's dtype"):
+        ssd_ops.ssd_scan(x, dt.bfloat16(), A, Bm, Cm)
+    with pytest.raises(TypeError, match="A in float32"):
+        ssd_ops.ssd_scan(x.bfloat16(), dt.bfloat16(), A.bfloat16(),
+                         Bm.bfloat16(), Cm.bfloat16())
+    xt = x.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous x"):
+        ssd_ops.ssd_scan(xt, dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="contiguous Cm"):
+        ssd_ops.ssd_scan(x, dt, A, Bm, torch.cat([Cm, Cm], -1)[..., ::2])
+    with pytest.raises(ValueError, match="above the kernel"):
+        ssd_ops.ssd_scan(*_ssd_inputs(cuda, 8192, 1, 4, 4, "float32", B=1),
+                         chunk=8192)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_mamba2_forward_through_the_kernel_matches_the_plain_scan(cuda, dtype,
+                                                                  rel):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import mamba2, ssm_lm
+
+    cfg = get_smoke_config("mamba2-370m")
+    params = ssm_lm.init_params(cfg, torch.Generator().manual_seed(0),
+                                device=cuda, dtype=TORCH_DT[dtype])
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 32))).to(cuda)
+    before = ssd_ops.ssd_scan.launches
+    got = ssm_lm.forward(params, toks, cfg)
+    assert ssd_ops.ssd_scan.launches == before + cfg.num_layers
+
+    def plain(x, dt, A, Bm, Cm, *, chunk):
+        y, ex = mamba2.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+        return y, ex.final_state
+
+    with mock.patch.object(ssd_ops, "ssd_scan", plain):
+        want = ssm_lm.forward(params, toks, cfg)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.launches == before + cfg.num_layers
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= rel * scale

@@ -43,7 +43,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.kernels.conv3d.ops, repro_torch.kernels.bn_act.ops, "
             "repro_torch.kernels.halo_pack.ops, repro_torch.core.spmd, "
             "repro_torch.core.reshard, repro_torch.launch.mesh, "
-            "repro_torch.train.train_step; "
+            "repro_torch.train.train_step, "
+            "repro_torch.kernels.ssd_scan.ops, repro_torch.models.ssm_lm, "
+            "repro_torch.serve.lm; "
             "from repro_torch.kernels import _build; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
