@@ -37,7 +37,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
               plan.
 8. harness  — ``serve()`` on the cosmoflow-128 S=2 session, 8 requests.
 9. timings  — per kernel at the main paths' shapes (CUDA events, median):
-              kernel, bound, plain version and library call; end-to-end
+              kernel, bound, plain version and library call (conv3d: its
+              device time per call, calls queued back to back, and the
+              single call's time, for the kernel and for F.conv3d; which
+              of its two kernels and how many K splits; the share of the
+              bound; the per-forward sums against F.conv3d); end-to-end
               predict time per batch, unsharded and spatial; the
               overlapped conv lowering against the blocking one
               (``overlap_halo=False``) at cosmoflow-128 S=2, S=4 and
@@ -86,13 +90,17 @@ import torch
 import torch.nn.functional as F
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# published H100 SXM peaks (dense): fp32 on the CUDA cores, bf16 on the
-# tensor cores, and HBM3
+# published H100 SXM peaks (dense): fp32 on the CUDA cores, bf16 and TF32
+# on the tensor cores, and HBM3
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 PEAKS_USED = ("bound = max(FLOPs / peak, bytes / 3.35 TB/s); peak = "
-              "67 TFLOP/s fp32 (CUDA cores), 989 TFLOP/s bf16 (tensor "
-              "cores); each input read once, each output written once")
+              "67 TFLOP/s fp32 (CUDA cores: bn_act, ssd_scan), 989 TFLOP/s "
+              "bf16 (tensor cores); conv3d fp32 runs as 3xTF32 on the "
+              "tensor cores: 3 x FLOPs / 495 TFLOP/s (its CUDA-core bound, "
+              "FLOPs / 67 TFLOP/s, beside it as bound_cuda_core_ms); each "
+              "input read once, each output written once")
 CONV_GRID = [((2, 10, 10, 10, 3), 3, 8, 1), ((1, 9, 9, 9, 4), 3, 16, 2),
              ((2, 12, 8, 8, 8), 5, 4, 1), ((1, 6, 6, 6, 2), 1, 8, 1),
              ((1, 7, 7, 7, 16), 3, 32, 1)]
@@ -246,10 +254,23 @@ def ssd_work(B, L, H, P, N, Q, dtype):
     return flops, nbytes
 
 
-def bound(flops: float, nbytes: float, dtype) -> tuple:
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+def bound(flops: float, nbytes: float, dtype, tf32x3: bool = False) -> tuple:
+    """The least time for ``flops`` and ``nbytes``; ``tf32x3``: fp32 run as
+    three TF32 products on the tensor cores."""
+    t_ops = (3 * flops / PEAK_TF32 if tf32x3 and dtype == torch.float32
+             else flops / PEAK_FLOPS[dtype]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def device_ms(fn, reps: int) -> tuple:
+    """(device time per call, single-call time). The single call is timed
+    by CUDA events around it (host time included where the card waits
+    for the launch); the device time queues 20 calls back to back behind
+    a spin kernel (``queued_ms``), except for calls of 2 ms and more,
+    whose launches queue behind each other anyway."""
+    call = median_ms(fn, reps)
+    return (call if call >= 2.0 else queued_ms(fn)), call
 
 
 # ------------------------------------------------------------------ phases --
@@ -954,23 +975,34 @@ def main() -> int:
             w = (torch.randn(ws, generator=gt, device="cuda") * 0.05).to(dt)
             y = conv_ops.conv3d_valid(x, w, s, pads)
             flops, nbytes = conv_work(xs, ws, tuple(y.shape), dt)
-            b_ms, b_by = bound(flops, nbytes, dt)
+            b_ms, b_by = bound(flops, nbytes, dt, tf32x3=True)
             xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2)
             (pd, qd), (ph, qh), (pw, qw) = pads
             lib = (lambda: F.conv3d(xc, wc, stride=s, padding=pd)) \
                 if (pd, ph, pw) == (qd, qh, qw) else \
                 (lambda: F.conv3d(F.pad(xc, (pw, qw, ph, qh, pd, qd)), wc,
                                   stride=s))
+            plan = conv_ops.plan(xs, ws, tuple(y.shape), dt,
+                                 conv_ops._sms(0), x.data_ptr(), s)
+            ms, call_ms = device_ms(lambda: conv_ops.conv3d_valid(
+                x, w, s, pads), reps)
+            lib_ms, lib_call_ms = device_ms(lib, reps)
             row = {"config": cfg.name, "batch": batch, "dtype": prec,
                    "layer": i, "x": list(xs), "w": list(ws), "stride": s,
-                   "ms": median_ms(lambda: conv_ops.conv3d_valid(
-                       x, w, s, pads), reps),
+                   "kernel": "patch" if plan.stages else "gather",
+                   "splits": plan.splits, "ms": ms, "call_ms": call_ms,
                    "plain_ms": median_ms(lambda: conv_ref.conv3d_valid(
                        x, w, s, pads), reps),
-                   "library_ms": median_ms(lib, reps),
-                   "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9}
+                   "library_ms": lib_ms, "library_call_ms": lib_call_ms,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "share_of_bound": b_ms / ms, "gflop": flops / 1e9}
+            if dt == torch.float32:
+                row["bound_cuda_core_ms"] = bound(flops, nbytes, dt)[0]
             timing["conv3d"].append(row)
-            log("timings", "conv3d " + json.dumps(row))
+            log("timings", f"conv3d {cfg.name} b{batch} {prec} layer {i}: "
+                f"{row['kernel']} kernel, {plan.splits} K split(s), "
+                f"{ms:.4f} ms ({b_ms / ms:.1%} of its {b_ms:.4f} ms bound) "
+                f"vs F.conv3d {lib_ms:.4f} ms " + json.dumps(row))
             c = ws[4]
             yv = torch.randn(y.shape, generator=gt, device="cuda").to(dt)
             del x, y
@@ -989,6 +1021,25 @@ def main() -> int:
             timing["bn_act"].append(row)
             log("timings", "bn_act " + json.dumps(row))
             del yv
+    # conv3d per forward against F.conv3d, and at each of layers 0-2
+    conv_vs_library = {}
+    for cfg, batch, prec, _ in ((cf128, 4, "fp32", 0), (cf128, 4, "bf16", 0),
+                                (cf512, 1, "fp32", 0)):
+        rows = [r for r in timing["conv3d"]
+                if r["config"] == cfg.name and r["dtype"] == prec]
+        key = f"{cfg.name}/{prec}/b{batch}"
+        conv_vs_library[key] = {
+            "ms": sum(r["ms"] for r in rows),
+            "library_ms": sum(r["library_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "call_ms": sum(r["call_ms"] for r in rows),
+            "library_call_ms": sum(r["library_call_ms"] for r in rows),
+            "no_slower_per_forward": sum(r["ms"] for r in rows)
+            <= sum(r["library_ms"] for r in rows),
+            "no_slower_layers_0_2": [r["ms"] <= r["library_ms"]
+                                     for r in rows[:3]]}
+        log("timings", f"conv3d per forward {key}: "
+            + json.dumps(conv_vs_library[key]))
     # pack and unpack at every shape the spatial path gave them
     halo_keys = set()
     for name, batch, S, prec, kind in SPATIAL:
@@ -1133,9 +1184,18 @@ def main() -> int:
                 bound_ms=total(rows, "bound_ms"),
                 bound_by="operations" if "operations" in by else "bytes",
                 library_ms=total(rows, "library_ms"))
+            if name == "conv3d":  # the CUDA-core bound and bf16 beside
+                entry["bound_cuda_core_ms"] = total(rows,
+                                                    "bound_cuda_core_ms")
+                entry["bf16"] = {
+                    key: sum(r[key] for r in rows
+                             if r["config"] == "cosmoflow-128"
+                             and r["dtype"] == "bf16")
+                    for key in ("ms", "bound_ms", "library_ms")}
         summary.append(entry)
     report.update(score=score, decode=decode_row)
     report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
+                  conv_vs_library=conv_vs_library,
                   lowering=lowering, profile=profiles, bounds=PEAKS_USED,
                   main_paths=main_paths,
                   seconds=time.perf_counter() - t_start)

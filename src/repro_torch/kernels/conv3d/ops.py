@@ -1,15 +1,23 @@
-"""``conv3d_valid``: the direct 3-D convolution kernel's wrapper.
+"""``conv3d_valid``: the implicit-GEMM 3-D convolution kernel's wrapper.
 
-On a CUDA tensor it checks what the kernel takes, allocates the output
-and launches ``csrc/conv3d.cu`` on the current stream, adding one to
-``conv3d_valid.launches``; anything the kernel does not take raises. On
-a CPU tensor it runs the plain version in ``ref.py``. No other path
-exists: there is no fallback to the plain version, to ``F.conv3d`` or
-to cuDNN for a CUDA tensor.
+On a CUDA tensor it checks what the kernel takes, plans the launch
+(``plan``: the N tile, the K split and the gather width), allocates the
+output and the kernel's scratch — the weight transposed to (Cout, K),
+split into TF32 hi and lo parts for fp32, and for a split K one fp32
+partial sum per split — and launches ``csrc/conv3d.cu`` on the current
+stream: the weight pass, the tiles and, for a split K, the sum of the
+splits, counted as one launch in ``conv3d_valid.launches``. Anything the
+kernel does not take raises. On a CPU tensor it runs the plain version
+in ``ref.py``. No other path exists: there is no fallback to the plain
+version, to ``F.conv3d`` or to cuDNN for a CUDA tensor.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -17,18 +25,102 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.conv3d import ref
 from repro_torch.kernels.conv3d.ref import NO_PADS, Pads
 
-_ENTRY = {torch.float32: "conv3d_direct_f32",
-          torch.bfloat16: "conv3d_direct_bf16",
-          torch.float16: "conv3d_direct_f16"}
-_COUT_TILE = 16
-_MAX_SMEM = 48 * 1024
+_ENTRY = {torch.float32: "conv3d_igemm_f32",
+          torch.bfloat16: "conv3d_igemm_bf16",
+          torch.float16: "conv3d_igemm_f16"}
+_SIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 18
+             + [ctypes.c_void_p])
+BM = 128                    # output voxels (GEMM rows) per block
+ROW_BYTES = 128             # bytes of K per tile row and pipeline stage
+N_TILES = (16, 32, 64, 128)  # output channels per block
+MIN_SPLIT_STAGES = 2        # K stages a split takes at least
+BOX_W = 16                  # the patch kernel's output box: 16 wide,
+BOX_H = {4: 8, 2: 16}       # 8 (fp32) or 16 (16-bit types) high
+PATCH_STAGES = (4, 3, 2)    # weight stages it may take, most first
+SMEM_BLOCK = 232448         # shared memory a block may take
+SMEM_SM = 233472            # shared memory of an SM (1 KB of it per block
+                            # is the system's)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call is cut: ``bn`` output channels a block, K in
+    ``k_tiles`` stages of ``ROW_BYTES``, ``tiles_per_split`` of them a
+    block (``splits`` blocks share one output tile), the input gathered
+    ``vec`` bytes a copy."""
+    bn: int
+    k_tiles: int
+    tiles_per_split: int
+    vec: int
+    stages: int = 0         # > 0: the patch kernel, with this weight ring
+
+    @property
+    def splits(self) -> int:
+        return -(-self.k_tiles // self.tiles_per_split)
+
+
+def patch_smem(k: int, cin: int, bn: int, size: int, stages: int) -> int:
+    """Shared memory of one patch-kernel block (``csrc/conv3d.cu``
+    ``patch_layout``): the weight ring, the patch (chunk planes padded to
+    16 bytes past a multiple of 128), 128 zero bytes, the K table and the
+    barriers, from a 1024-byte aligned base."""
+    ph, pw = BOX_H[size] + k - 1, BOX_W + k - 1
+    plane = -(-(k * ph * pw * 16) // 128) * 128 + 16
+    ring = stages * (2 if size == 4 else 1) * bn * ROW_BYTES
+    body = ring + cin * size // 16 * plane
+    k_cols = -(-(k ** 3 * cin) // (ROW_BYTES // size)) * (ROW_BYTES // size)
+    bars = -(-(-(-body // 128) * 128 + 128 + 4 * k_cols) // 8) * 8
+    return 1024 + bars + 8 * stages
+
+
+def plan(x_shape, w_shape, out_shape, dtype: torch.dtype, sms: int,
+         x_ptr: int = 0, stride: int = 1) -> Plan:
+    """The launch for x of ``x_shape`` at address ``x_ptr`` on a card of
+    ``sms`` SMs.
+
+    The patch kernel takes stride 1 and taps of whole 16-byte chunks (a
+    multiple of 16 channels in 16-bit types) where its output boxes fill
+    the card; its weight ring is the deepest that leaves two blocks an SM,
+    else the deepest that fits. Otherwise the gather kernel: K is split
+    when the output tiles alone would leave SMs idle, into about
+    ``sms / tiles`` parts of at least ``MIN_SPLIT_STAGES`` stages, and a
+    gathered piece is the widest of 16, 8, 4, 2 bytes that divides both a
+    tap's channel run (Cin * size) and the address, so it never straddles
+    two taps."""
+    size = _SIZE[dtype]
+    k, cin, cout = w_shape[0], w_shape[3], w_shape[4]
+    k_tiles = -(-(k ** 3 * cin) // (ROW_BYTES // size))
+    bn = next((b for b in N_TILES if b >= cout), N_TILES[-1])
+    vec = next(v for v in (16, 8, 4, 2)
+               if (cin * size) % v == 0 and x_ptr % v == 0)
+    n_tiles = -(-cout // bn)
+    boxes = (out_shape[0] * out_shape[1] * -(-out_shape[2] // BOX_H[size])
+             * -(-out_shape[3] // BOX_W))
+    if (stride == 1 and vec == 16 and (size == 4 or cin % 16 == 0)
+            and boxes * n_tiles >= sms):
+        fits = [s for s in PATCH_STAGES
+                if patch_smem(k, cin, bn, size, s) <= SMEM_BLOCK]
+        two = [s for s in fits
+               if 2 * (patch_smem(k, cin, bn, size, s) + 1024) <= SMEM_SM]
+        if fits:
+            return Plan(bn, k_tiles, k_tiles, vec, (two or fits)[0])
+    tiles = -(-math.prod(out_shape[:4]) // BM) * n_tiles
+    per_split = k_tiles
+    if tiles < sms:
+        per_split = max(MIN_SPLIT_STAGES, -(-k_tiles // -(-sms // tiles)))
+    return Plan(bn, k_tiles, min(per_split, k_tiles), vec)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _entry(dtype: torch.dtype):
     fn = getattr(_build.load("conv3d"), _ENTRY[dtype])
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
-                       + [ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
@@ -40,25 +132,49 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads):
         raise TypeError(f"conv3d_valid takes x and w of one dtype among "
                         f"{sorted(str(d) for d in _ENTRY)}; got {x.dtype} "
                         f"and {w.dtype}")
-    if x.dim() != 5 or w.dim() != 5:
+    return _out_shape(x.shape, w.shape, stride, pads)
+
+
+@functools.lru_cache(maxsize=4096)
+def _out_shape(x_shape, w_shape, stride: int, pads: Pads):
+    """The output shape, or what the kernel does not take (cached per
+    shape: a call's host time counts against the kernel's)."""
+    if len(x_shape) != 5 or len(w_shape) != 5:
         raise ValueError(f"x must be (N, D, H, W, Cin) and w (k, k, k, Cin, "
-                         f"Cout); got {tuple(x.shape)} and {tuple(w.shape)}")
-    k = w.shape[0]
-    if w.shape[1] != k or w.shape[2] != k or w.shape[3] != x.shape[4]:
-        raise ValueError(f"w {tuple(w.shape)} is not (k, k, k, Cin="
-                         f"{x.shape[4]}, Cout)")
-    if k ** 3 * _COUT_TILE * 4 > _MAX_SMEM:
-        raise ValueError(f"kernel size {k} exceeds the kernel's staged "
-                         f"weight tile")
+                         f"Cout); got {tuple(x_shape)} and {tuple(w_shape)}")
+    k = w_shape[0]
+    if w_shape[1] != k or w_shape[2] != k or w_shape[3] != x_shape[4]:
+        raise ValueError(f"w {tuple(w_shape)} is not (k, k, k, Cin="
+                         f"{x_shape[4]}, Cout)")
     if stride < 1 or len(pads) != 3 or any(p < 0 or q < 0 for p, q in pads):
         raise ValueError(f"stride {stride} / pads {pads} invalid")
-    out = ref.output_shape(x.shape, w.shape, stride, pads)
+    out = ref.output_shape(x_shape, w_shape, stride, pads)
     if min(out[1:4]) < 1:
-        raise ValueError(f"input {tuple(x.shape)} with pads {pads} is "
+        raise ValueError(f"input {tuple(x_shape)} with pads {pads} is "
                          f"smaller than the {k}^3 filter")
-    if max(x.shape[1:]) >= 2 ** 31 or max(out) >= 2 ** 31:
+    # the kernel's 32-bit sizes: every dimension, the output voxels (GEMM
+    # rows), K = k^3 * Cin, and the grid's Cout tiles
+    if (max(x_shape[1:]) >= 2 ** 31 or math.prod(out[:4]) > 2 ** 31 - BM
+            or k ** 3 * x_shape[4] >= 2 ** 31
+            or -(-w_shape[4] // N_TILES[-1]) > 65535):
         raise ValueError("a dimension exceeds the kernel's 32-bit sizes")
     return out
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch(x_shape, w_shape, out_shape, dtype, sms, x_align, stride):
+    """The plan and the scratch buffer's layout: w_hi (Cout, Kp) in x's
+    dtype, w_lo (fp32 only) and the splits' partial sums, each 256-byte
+    aligned (offset, or None for a part the call has not)."""
+    p = plan(x_shape, w_shape, out_shape, dtype, sms, x_align, stride)
+    kp = -(-(w_shape[0] ** 3 * w_shape[3]) // 8) * 8
+    cout = w_shape[4]
+    parts = [cout * kp * _SIZE[dtype],
+             cout * kp * 4 if dtype == torch.float32 else 0,
+             p.splits * math.prod(out_shape) * 4 if p.splits > 1 else 0]
+    sizes = [-(-b // 256) * 256 for b in parts]
+    offsets = [sum(sizes[:i]) if parts[i] else None for i in range(3)]
+    return p, sum(sizes), offsets
 
 
 def conv3d_valid(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -67,7 +183,7 @@ def conv3d_valid(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     contiguous; w: (k, k, k, Cin, Cout) contiguous, same dtype; ``pads``
     the (lo, hi) zero padding of D, H, W, applied as bounds checks by the
     kernel. Output (N, Do, Ho, Wo, Cout) in x's dtype, accumulated in
-    fp32."""
+    fp32 (fp32 products as 3xTF32 on the card)."""
     pads = tuple(tuple(int(v) for v in p) for p in pads)
     out_shape = _check(x, w, stride, pads)
     if x.device.type == "cpu":
@@ -77,15 +193,23 @@ def conv3d_valid(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                          f"{x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv3d_valid's kernel takes contiguous x and w")
-    y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    dev = x.device.index
+    p, nbytes, offsets = _launch(x.shape, w.shape, out_shape, x.dtype,
+                                 _sms(dev), x.data_ptr() & 15, stride)
     n, din, hin, win, cin = x.shape
     _, do, ho, wo, cout = out_shape
-    with torch.cuda.device(x.device):
+    y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    base = scratch.data_ptr()
+    ptr = [None if o is None else base + o for o in offsets]
+    with (contextlib.nullcontext() if torch.cuda.current_device() == dev
+          else torch.cuda.device(dev)):
         err = _entry(x.dtype)(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), n, din, hin, win, cin,
-            do, ho, wo, cout, w.shape[0], stride, pads[0][0], pads[1][0],
-            pads[2][0], torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "conv3d_direct")
+            x.data_ptr(), w.data_ptr(), ptr[0], ptr[1], y.data_ptr(), ptr[2],
+            n, din, hin, win, cin, do, ho, wo, cout, w.shape[0], stride,
+            pads[0][0], pads[1][0], pads[2][0], p.bn, p.tiles_per_split,
+            p.vec, p.stages, torch._C._cuda_getCurrentRawStream(dev))
+    _build.check(err, "conv3d_igemm")
     _build.count_launch(conv3d_valid)
     return y
 

@@ -6,7 +6,11 @@ no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes and tolerances are those of ``tests/test_kernels.py`` (2e-5 in
-fp32, 2e-2 in bf16); the inputs come from numpy with a seed. The halo
+fp32, 2e-2 in bf16); the inputs come from numpy with a seed. The conv3d
+kernel is also held at every cosmoflow-128 layer (``chip_smoke.py``'s
+tolerances), at small Cin, k = 1 and 5, stride 2 and the thin boundary
+pieces of the overlapped spatial lowering, through both of its kernels,
+and its split-K sum must give the same bits on every run. The halo
 pack and unpack kernels are copies, so they must equal their plain
 versions exactly, at every face of the depth-split layers that
 ``chip_smoke.py`` checks; a 2-way session, one stream per shard on one
@@ -86,6 +90,137 @@ def test_conv3d_kernel_matches_plain_on_card(cuda, shape, k, cout, stride,
     want = conv_ref.conv3d_valid(xt, wt, stride, ((1, 1),) * 3)
     torch.cuda.synchronize()
     _close(got, want, TOL[dtype])
+
+
+def _cosmoflow_128_convs():
+    from repro_torch.configs import get_config
+    from repro_torch.models import cosmoflow
+
+    return cosmoflow.conv_shapes(get_config("cosmoflow-128"), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", range(7))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv3d_kernel_at_every_cosmoflow_128_layer(cuda, layer, dtype):
+    """The shapes of the main path (batch 4), He-scaled weights, at
+    ``chip_smoke.py``'s tolerances: fp32 (3xTF32) within 1e-6 *
+    sqrt(k^3 Cin) of the output scale, bf16 within one bf16 ulp."""
+    xs, ws, stride, pads = _cosmoflow_128_convs()[layer]
+    g = torch.Generator(device=cuda).manual_seed(layer)
+    kc = ws[0] * ws[1] * ws[2] * ws[3]
+    x = torch.randn(xs, generator=g, device=cuda).to(TORCH_DT[dtype])
+    w = (torch.randn(ws, generator=g, device=cuda)
+         * (2.0 / kc) ** 0.5).to(TORCH_DT[dtype])
+    got = conv_ops.conv3d_valid(x, w, stride, pads)
+    want = conv_ref.conv3d_valid(x, w, stride, pads)
+    torch.cuda.synchronize()
+    rel = 1e-6 * kc ** 0.5 if dtype == "float32" else 2 ** -7
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= rel * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv3d_split_k_gives_the_same_bits_every_run(cuda, dtype):
+    """Layer 5's shape splits K over many blocks; the splits are added in
+    a fixed order, with no float atomics."""
+    xs, ws, stride, pads = _cosmoflow_128_convs()[5]
+    out = conv_ref.output_shape(xs, ws, stride, pads)
+    assert conv_ops.plan(xs, ws, out, TORCH_DT[dtype], conv_ops._sms(0), 0,
+                         stride).splits > 1
+    x, w = _conv_inputs(xs, ws[0], ws[4])
+    xt = torch.from_numpy(x).to(cuda, TORCH_DT[dtype])
+    wt = torch.from_numpy(w).to(cuda, TORCH_DT[dtype])
+    first = conv_ops.conv3d_valid(xt, wt, stride, pads)
+    again = conv_ops.conv3d_valid(xt, wt, stride, pads)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    _close(first, conv_ref.conv3d_valid(xt, wt, stride, pads), TOL[dtype])
+
+
+SAME = ((1, 1),) * 3
+# (x shape, k, Cout, stride, pads): Cin 2, 3 and 4, k = 1 and 5, stride
+# 2, ragged boxes and channels, asymmetric pads
+CONV_EXTRA = [((2, 9, 10, 11, 2), 3, 8, 1, SAME),
+              ((2, 9, 10, 11, 3), 3, 8, 1, SAME),
+              ((1, 12, 12, 12, 4), 3, 16, 2, ((0, 1),) * 3),
+              ((1, 6, 6, 6, 4), 1, 8, 1, ((0, 0),) * 3),
+              ((2, 8, 8, 8, 8), 5, 16, 1, ((2, 2),) * 3),
+              ((1, 5, 20, 33, 16), 3, 20, 1, SAME),
+              ((1, 4, 17, 16, 32), 3, 64, 1, ((1, 1), (0, 2), (2, 0)))]
+
+
+def _boundary_pieces():
+    """The conv pieces of the overlapped depth-split lowering
+    (``core/spatial_conv.py::_conv3d_overlap``) at every halo case: the
+    interior and the thin lo and hi pieces, depth unpadded."""
+    from repro_torch.core.spatial_conv import overlap_split
+
+    pieces = set()
+    for (n, d, h, w, c), lo, hi in _halo_cases():
+        k, s = (2 * lo + 1, 1) if lo == hi else (3, 2)
+        n_out, n_lo, n_hi = overlap_split(d, k, s)
+        depths = {d + lo + hi} if n_lo + n_hi >= n_out else {
+            (n_out - n_hi - 1) * s - n_lo * s + k,
+            (n_lo - 1) * s + k if n_lo else 0,
+            d - (n_out - n_hi) * s + lo + hi if n_hi else 0} - {0}
+        pieces |= {((n, dd, h, w, c), k, s, ((0, 0), (lo, hi), (lo, hi)))
+                   for dd in depths}
+    return sorted(pieces)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["as planned", "patch where it can"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv3d_kernel_at_small_cin_k_stride_and_boundary_pieces(
+        cuda, kernel, dtype):
+    """Both kernels: as planned for the card, and with the patch kernel
+    taken wherever it can run (the plan told the card has one SM, which
+    also leaves K unsplit). ``chip_smoke.py``'s tolerances, of the output
+    scale: the grid's (weights scaled by 0.1) for the small-Cin shapes,
+    the cosmoflow-128 layers' (He-scaled weights) for the boundary pieces,
+    which have those layers' K (up to 6912)."""
+    from unittest import mock
+
+    sms = conv_ops._sms if kernel == "as planned" else (lambda index: 1)
+    cases = ([(xs, k, cout, s, pads, None) for xs, k, cout, s, pads
+              in CONV_EXTRA]
+             + [(xs, k, 16, s, pads, (2.0 / (k ** 3 * xs[-1])) ** 0.5)
+                for xs, k, s, pads in _boundary_pieces()])
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with mock.patch.object(conv_ops, "_sms", sms):
+        for xs, k, cout, stride, pads, he in cases:
+            kc = k ** 3 * xs[-1]
+            x = torch.randn(xs, generator=g, device=cuda).to(TORCH_DT[dtype])
+            w = (torch.randn((k, k, k, xs[-1], cout), generator=g,
+                             device=cuda) * (he or 0.1)).to(TORCH_DT[dtype])
+            got = conv_ops.conv3d_valid(x, w, stride, pads)
+            want = conv_ref.conv3d_valid(x, w, stride, pads)
+            torch.cuda.synchronize()
+            peak = want.float().abs().max().item()
+            if he is None:
+                tol = TOL[dtype] * (1 + peak)
+            else:
+                tol = (1e-6 * kc ** 0.5 if dtype == "float32" else 2 ** -7
+                       ) * max(1.0, peak)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= tol, (xs, k, stride, pads, err, tol)
+
+
+@pytest.mark.cuda
+def test_conv3d_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
+    x = torch.randn(1, 6, 6, 6, 8, device=cuda)
+    w = torch.randn(3, 3, 3, 8, 4, device=cuda)
+    before = conv_ops.conv3d_valid.launches
+    with pytest.raises(TypeError, match="one dtype"):
+        conv_ops.conv3d_valid(x, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_ops.conv3d_valid(x, w.transpose(3, 4).contiguous()
+                              .transpose(3, 4))
+    with pytest.raises(ValueError, match="x on"):
+        conv_ops.conv3d_valid(x, w.cpu())
+    assert conv_ops.conv3d_valid.launches == before
 
 
 @pytest.mark.cuda
