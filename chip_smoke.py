@@ -7,7 +7,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
 
 1. card     — the card's name and power limit (nvidia-smi); TF32 off.
 2. build    — build every kernel from ``src/repro_torch/csrc`` (one nvcc
-              per source, in parallel).
+              per source, in parallel); where the toolkit's ``cuobjdump``
+              is found, every SSD kernel that computes products must hold
+              tensor-core instructions (HMMA or HGMMA) in both dtypes.
 3. kernels  — each kernel against its plain PyTorch version on the card:
               conv3d over the shape grid of ``tests/test_kernels.py`` and
               every conv of cosmoflow-128 at batch 4, bn_act over the same
@@ -51,7 +53,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
               at the shapes of ``tests/test_kernels.py``, a ragged L and
               mamba2-370m's layer shape (B=4, L=4096, H=32, P=64, N=128,
               chunk 256), fp32 (3e-4 rtol/atol) and bf16 (2e-2 of the
-              output scale).
+              output scale); at the layer shape, x, B and C as views of one
+              (B, L, H*P + 2N) buffer (as the Mamba2 block passes them) give
+              the bits contiguous copies give, and a second call the same
+              bits.
 11. score   — mamba2-370m at full width (48 layers, seeded random
               weights): ``ssm_lm.lm_loss`` on 4 x 4096 tokens in fp32 and
               bf16 and on 1 x 32768 in fp32 — time (median of 3), tokens/s,
@@ -63,8 +68,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
 12. decode  — ``serve.lm.generate``, greedy, 4 prompts of 64 tokens, 16
               new tokens, fp32; prefill's last logits held against the
               kernel forward's last position; decode ms per token.
-13. timings — ssd_scan at the layer shape: kernel, plain version, bound;
-              one profiled mamba2-370m forward.
+13. timings — ssd_scan at the layer shape: kernel, plain version, plain
+              chunked scan, bounds (of ``ssd_work`` on the tensor cores, of
+              the arithmetic the kernel executes, on the CUDA cores), each
+              of its CUDA kernels' time (median over 5 profiled calls);
+              one profiled mamba2-370m forward in fp32 and one in bf16.
 
 Phases 4-6, 7-8 and 11-12 are the main paths: the launch counters are
 zeroed just before each and read just after. The next-to-last line is the
@@ -79,6 +87,8 @@ import contextlib
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -96,10 +106,13 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 PEAKS_USED = ("bound = max(FLOPs / peak, bytes / 3.35 TB/s); peak = "
-              "67 TFLOP/s fp32 (CUDA cores: bn_act, ssd_scan), 989 TFLOP/s "
-              "bf16 (tensor cores); conv3d fp32 runs as 3xTF32 on the "
-              "tensor cores: 3 x FLOPs / 495 TFLOP/s (its CUDA-core bound, "
-              "FLOPs / 67 TFLOP/s, beside it as bound_cuda_core_ms); each "
+              "67 TFLOP/s fp32 (CUDA cores: bn_act), 989 TFLOP/s bf16 "
+              "(tensor cores); conv3d and ssd_scan fp32 run as 3xTF32 on the "
+              "tensor cores: 3 x FLOPs / 495 TFLOP/s (the CUDA-core bound, "
+              "FLOPs / 67 TFLOP/s, beside it as bound_cuda_core_ms); "
+              "ssd_scan also beside the bound of the arithmetic it executes "
+              "(bound_executed_ms: its whole tiles, 3 TF32 products in fp32, "
+              "3 bf16 products for each computed operand in bf16); each "
               "input read once, each output written once")
 CONV_GRID = [((2, 10, 10, 10, 3), 3, 8, 1), ((1, 9, 9, 9, 4), 3, 16, 2),
              ((2, 12, 8, 8, 8), 5, 4, 1), ((1, 6, 6, 6, 2), 1, 8, 1),
@@ -254,6 +267,32 @@ def ssd_work(B, L, H, P, N, Q, dtype):
     return flops, nbytes
 
 
+def ssd_executed(B, L, H, P, N, Q, dtype):
+    """The tensor-core operations one call of the kernel executes, by its
+    tiles (``csrc/ssd_scan.cu``): C Bᵀ in whole 64 x 64 tiles on and
+    below the diagonal; the chunk states; C s_inᵀ for every chunk but the
+    first; the intra-chunk product in whole tiles below the diagonal and,
+    on it, the k steps (8 units: 8 keys in TF32, 16 in bf16) at or below
+    each warp's 16 rows. Products: 3 a TF32 product in fp32; in bf16 one
+    for C Bᵀ and three (the bf16 parts of the computed operand) for the
+    rest.
+    Returns (operations, the same count with one product each)."""
+    nc, it = L // Q, -(-Q // 64)
+    pp, qs = 64 * -(-P // 64), 32 * -(-Q // 32)      # whole p tiles, key slabs
+    nk, ns = 32 * -(-N // 32), 128 * -(-N // 128)    # whole n slabs, n tiles
+    keys = 8 if dtype == torch.float32 else 16
+    steps = sum(min(64 // keys, (16 * w + 15) // keys + 1) for w in range(4))
+    cbf = 2.0 * B * nc * it * (it + 1) / 2 * 64 * 64 * nk
+    state = 2.0 * B * nc * H * pp * ns * qs
+    inter = 2.0 * B * (nc - 1) * H * it * 64 * nk * pp
+    intra = 2.0 * B * nc * H * pp * (it * (it - 1) / 2 * 64 * 64
+                                     + it * steps * 16 * keys)
+    once = cbf + state + inter + intra
+    if dtype == torch.float32:
+        return 3 * once, once
+    return cbf + 3 * (state + inter + intra), once
+
+
 def bound(flops: float, nbytes: float, dtype, tf32x3: bool = False) -> tuple:
     """The least time for ``flops`` and ``nbytes``; ``tf32x3``: fp32 run as
     three TF32 products on the tensor cores."""
@@ -288,6 +327,19 @@ def phase_card() -> str:
     return out[0]
 
 
+def tensor_core_instructions(lib: str):
+    """{kernel: HMMA and HGMMA instructions} in a built library, read with
+    the toolkit's ``cuobjdump -sass``; None without a cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {part.split("\n", 1)[0].strip():
+            len(re.findall(r"\bHG?MMA\b", part))
+            for part in sass.split("Function : ")[1:]}
+
+
 def phase_build(build) -> dict:
     t0 = time.perf_counter()
     secs = build.build_all()
@@ -298,7 +350,18 @@ def phase_build(build) -> dict:
                        if "registers" in line})
         log("build", f"{name}: {regs}")
     log("build", f"ok in {total:.1f}s {json.dumps(secs)}")
-    return {"seconds": total, "per_source": secs}
+    tc = tensor_core_instructions(str(build.library_path("ssd_scan")))
+    if tc is None:
+        log("build", "no cuobjdump: the SSD kernels' instructions not read")
+    else:  # chunk_state and chunk_output compute products, in both dtypes
+        products = {n: c for n, c in tc.items()
+                    if "chunk_state" in n or "chunk_output" in n}
+        check(len(products) == 4 and all(products.values()),
+              f"ssd_scan kernels without tensor-core instructions: {tc}")
+        log("build", "ssd_scan tensor-core instructions by kernel: "
+            + json.dumps(tc))
+    return {"seconds": total, "per_source": secs,
+            "ssd_tensor_core_instructions": tc}
 
 
 def phase_kernels(conv_ops, conv_ref, bn_ops, bn_ref, conv_shapes) -> dict:
@@ -495,9 +558,36 @@ def phase_ssd_kernel(ssd_ops, ssd_ref, mamba2) -> dict:
                 check(within(y, want_y, 3e-4), f"{tag}: y err {err_y}")
             rows.append(row)
             del args, y, state, want_y, want_s
+    # at the layer shape: x, B and C as views of one buffer, as the Mamba2
+    # block passes them, give the bits their contiguous copies give, and a
+    # second call gives the same bits
+    B, L, H, P, N, Q = SSD_MAIN
+    in_place = {}
+    for prec, dt in DTYPES.items():
+        x, d, A, Bm, Cm = ssd_inputs(g, B, L, H, P, N, dt)
+        xv, bv, cv = torch.split(torch.cat([x.reshape(B, L, H * P), Bm, Cm],
+                                           dim=-1), [H * P, N, N], dim=-1)
+        xv = xv.reshape(B, L, H, P)
+        check(not (xv.is_contiguous() or bv.is_contiguous()),
+              "the views are contiguous")
+        y1, s1 = ssd_ops.ssd_scan(xv, d, A, bv, cv, chunk=Q)
+        y2, s2 = ssd_ops.ssd_scan(xv, d, A, bv, cv, chunk=Q)
+        y3, s3 = ssd_ops.ssd_scan(x, d, A, Bm, Cm, chunk=Q)
+        torch.cuda.synchronize()
+        in_place[prec] = {
+            "views_give_the_bits_of_copies": torch.equal(y1, y3)
+            and torch.equal(s1, s3),
+            "same_bits_twice": torch.equal(y1, y2) and torch.equal(s1, s2)}
+        log("ssd", f"ssd_scan {SSD_MAIN} {prec}: views of one buffer give "
+            f"the bits of contiguous copies: "
+            f"{in_place[prec]['views_give_the_bits_of_copies']}; the same "
+            f"bits twice: {in_place[prec]['same_bits_twice']}")
+        check(all(in_place[prec].values()), f"ssd_scan {prec}: {in_place}")
+        del x, d, A, Bm, Cm, xv, bv, cv, y1, s1, y2, s2, y3, s3
     log("ssd", f"ok: {len(rows)} comparisons; largest abs difference at "
         f"the layer shape, fp32: {worst:.3g}")
-    return {"max_abs_err_main_fp32": worst, "cases": rows}
+    return {"max_abs_err_main_fp32": worst, "cases": rows,
+            "in_place": in_place}
 
 
 @contextlib.contextmanager
@@ -653,25 +743,60 @@ def phase_decode(k, cfg, p) -> tuple:
     return row, 1
 
 
+def kernel_ms(fn, calls: int = 5) -> dict:
+    """Device time of each CUDA kernel (``*_kernel``) of one call of
+    ``fn``: the median of its instances over ``calls`` calls in one
+    profiled window (after a warm-up). A profiler window may miss the
+    first kernels it should record, so one call alone is not enough."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times: dict = {}
+    for e in prof.events():
+        m = re.search(r"(\w+_kernel)", e.name)
+        if e.device_type.name == "CUDA" and m:
+            times.setdefault(m.group(1), []).append(
+                (e.time_range.end - e.time_range.start) / 1e3)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
 def ssd_rows(k) -> dict:
-    """ssd_scan at the layer shape: the kernel (CUDA events, median of
-    10), the plain sequential version and the plain chunked scan (median
-    of 3), and the bound."""
+    """ssd_scan at the layer shape: the kernel (``device_ms``: device time
+    per call, 20 calls queued, and the single call's time, host included,
+    as ``call_ms``), each of its CUDA kernels (``kernel_ms``), the plain
+    sequential version and the plain chunked scan (median of 3), and the
+    bounds: ``ssd_work`` with fp32 as 3xTF32 on the tensor cores
+    (``bound_ms``), the arithmetic the kernel executes
+    (``bound_executed_ms``, ``ssd_executed``), ``ssd_work`` on the CUDA
+    cores (``bound_cuda_core_ms``)."""
     B, L, H, P, N, Q = SSD_MAIN
     g = torch.Generator(device="cuda").manual_seed(9)
     rows = {}
     for prec, dt in DTYPES.items():
         args = ssd_inputs(g, B, L, H, P, N, dt)
         flops, nbytes = ssd_work(B, L, H, P, N, Q, dt)
-        b_ms, b_by = bound(flops, nbytes, dt)
+        executed, once = ssd_executed(B, L, H, P, N, Q, dt)
+        b_ms, b_by = bound(flops, nbytes, dt, tf32x3=True)
+        peak = PEAK_TF32 if dt == torch.float32 else PEAK_FLOPS[dt]
+        dev, call = device_ms(lambda: k.ssd_ops.ssd_scan(*args, chunk=Q), 10)
         rows[prec] = {
-            "shape": list(SSD_MAIN), "dtype": prec,
-            "ms": median_ms(lambda: k.ssd_ops.ssd_scan(*args, chunk=Q), 10),
+            "shape": list(SSD_MAIN), "dtype": prec, "ms": dev, "call_ms": call,
+            "ms_by_kernel": kernel_ms(
+                lambda: k.ssd_ops.ssd_scan(*args, chunk=Q)),
             "plain_ms": median_ms(lambda: k.ssd_ref.ssd_scan(*args), 3),
             "chunked_plain_ms": median_ms(
                 lambda: k.mamba2.ssd_chunked(*args, chunk=Q), 3),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
+            "bound_executed_ms": max(executed / peak,
+                                     nbytes / PEAK_BYTES) * 1e3,
+            "bound_cuda_core_ms": bound(flops, nbytes, torch.float32)[0],
+            "gflop": flops / 1e9, "executed_gflop": executed / 1e9,
+            "executed_over_work": once / flops, "gbytes": nbytes / 1e9}
         log("timings", "ssd_scan " + json.dumps(rows[prec]))
         del args
     return rows
@@ -1125,10 +1250,11 @@ def main() -> int:
     launches = {n: launches[n] + got[n] for n in KERNELS}
     timing["ssd_scan"] = ssd_rows(k)
     lm_tokens = lm_batch(mcfg, 4, 4096, seed=7)["tokens"]
-    profiles["mamba2-370m/fp32/4x4096"] = device_profile(
-        lambda: ssm_lm.forward(p32, lm_tokens, mcfg))
-    log("profile", "mamba2-370m/fp32/4x4096 "
-        + json.dumps(profiles["mamba2-370m/fp32/4x4096"]))
+    for prec in ("fp32", "bf16"):
+        tag = f"mamba2-370m/{prec}/4x4096"
+        profiles[tag] = device_profile(
+            lambda: ssm_lm.forward(params[prec], lm_tokens, mcfg))
+        log("profile", f"{tag} {json.dumps(profiles[tag])}")
     del params, p32, lm_tokens
 
     # the summary: one forward's worth of each kernel at its main path's
@@ -1165,8 +1291,13 @@ def main() -> int:
             row = timing["ssd_scan"]["fp32"]
             entry.update(
                 max_abs_err=report["ssd_kernel"]["max_abs_err_main_fp32"],
-                **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")})
+                **{key: row[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "call_ms", "bound_executed_ms", "bound_cuda_core_ms",
+                    "chunked_plain_ms")})
+            entry["bf16"] = {key: timing["ssd_scan"]["bf16"][key] for key in (
+                "ms", "call_ms", "bound_ms", "bound_by", "bound_executed_ms",
+                "chunked_plain_ms")}
         elif name in ("pack", "unpack"):
             kind = "fixed" if name == "pack" else "deep"
             entry.update(

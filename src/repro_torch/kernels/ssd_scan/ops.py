@@ -2,10 +2,14 @@
 
 On a CUDA tensor it checks what the kernel takes, allocates ``y``, the
 final state and the kernel's scratch (one fp32 (P, N) state per chunk
-and head, and each chunk's summed decay exponent), and launches
-``csrc/ssd_scan.cu`` on the current stream, adding one to
-``ssd_scan.launches``; anything the kernel does not take raises. On a
-CPU tensor it runs the plain version in ``ref.py``.
+and head, each chunk's summed decay exponent, and each chunk's fp32
+C Bᵀ), and launches ``csrc/ssd_scan.cu`` on the current stream (three
+CUDA launches), adding one to ``ssd_scan.launches``; anything the
+kernel does not take raises. x, Bm and Cm are read in place: views
+whose last dimension is contiguous (and x's heads packed at P), with Bm
+and Cm at one stride, as the Mamba2 block's split of its conv output
+gives them (``kernel_strides``). On a CPU tensor it runs the plain
+version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -18,8 +22,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import ref
 
 _ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
-# the output pass keeps 2 heads' cumulative decays and steps (4 * Q fp32)
-# beside 68 KB of tiles in shared memory: Q <= 4096 fits in 227 KB
+# the chunk-state blocks keep two heads' cumulative decays, steps and
+# weights (6 * Q fp32) beside 72 KB of tiles in shared memory (172 KB at
+# Q = 4096, of 227), and the C Bᵀ scratch is Q * L fp32 a sequence
 MAX_CHUNK = 4096
 
 
@@ -36,8 +41,9 @@ def chunk_len(L: int, chunk: int) -> int:
 def _entry(dtype: torch.dtype):
     fn = getattr(_build.load("ssd_scan"), _ENTRY[dtype])
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 2
+                       + [ctypes.c_int] * 4 + [ctypes.c_int64] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -68,11 +74,46 @@ def _check(x, dt, A, Bm, Cm, chunk) -> None:
         raise ValueError(f"chunk must be >= 1; got {chunk}")
 
 
+def _rows(v: torch.Tensor, name: str) -> Tuple[int, int]:
+    """(batch stride, row stride) of ``v`` (B, L, ...) whose trailing
+    dimensions are packed as in a contiguous tensor; raises otherwise.
+    The kernel only reads these, so any row and batch strides do; a
+    size-1 dimension's stride does not matter."""
+    inner = v.shape[2:]
+    step = 1
+    for size, stride in zip(reversed(inner), reversed(v.stride()[2:])):
+        if size > 1 and stride != step:
+            raise ValueError(f"ssd_scan's kernel takes a contiguous {name}, "
+                             f"or a view of rows of it; got strides "
+                             f"{v.stride()}")
+        step *= size
+    Bb, L = v.shape[:2]
+    row = v.stride(1) if L > 1 else step
+    return (v.stride(0) if Bb > 1 else L * row), row
+
+
+def kernel_strides(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor
+                   ) -> Tuple[int, int, int, int]:
+    """(x's batch and row strides, Bm's and Cm's batch and row strides),
+    in elements, for the kernel: x (B, L, H, P) with (H, P) packed, Bm
+    and Cm (B, L, N) with N contiguous and one stride for both. Raises
+    ``ValueError`` ("... contiguous x" / "... contiguous Cm") on any
+    other layout."""
+    xb, xl = _rows(x, "x")
+    bb, bl = _rows(Bm, "Bm")
+    if _rows(Cm, "Cm") != (bb, bl):
+        raise ValueError(f"ssd_scan's kernel takes a contiguous Cm, or Bm "
+                         f"and Cm at one stride; got {Bm.stride()} and "
+                         f"{Cm.stride()}")
+    return xb, xl, bb, bl
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, L, H, P); dt: (B, L, H) post-softplus; A: (H,) negative;
-    Bm/Cm: (B, L, N), one group shared by every head. Returns y
+    Bm/Cm: (B, L, N), one group shared by every head (for the kernel,
+    views at the layouts ``kernel_strides`` takes). Returns y
     (B, L, H, P) in x's dtype and the final state (B, H, P, N) in fp32.
     The kernel works in chunks of ``chunk_len(L, chunk)`` steps; the
     plain version is sequential."""
@@ -93,9 +134,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if A.dtype != torch.float32:
         raise TypeError(f"ssd_scan's kernel takes A in float32; got "
                         f"{A.dtype}")
-    for name, v in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
+    for name, v in (("dt", dt), ("A", A)):
         if not v.is_contiguous():
             raise ValueError(f"ssd_scan's kernel takes a contiguous {name}")
+    strides = kernel_strides(x, Bm, Cm)
     Bb, L, H, P = x.shape
     N = Bm.shape[-1]
     q = chunk_len(L, chunk)
@@ -103,16 +145,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"chunk {q} above the kernel's {MAX_CHUNK}")
     nc = L // q
     f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty_like(x)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = torch.empty((Bb, H, P, N), **f32)
     chunk_states = torch.empty((Bb, nc, H, P, N), **f32)
     chunk_decay = torch.empty((Bb, nc, H), **f32)
+    cb = torch.empty((Bb, nc, q, q), **f32)
     with torch.cuda.device(x.device):
         err = _entry(x.dtype)(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
-            chunk_states.data_ptr(), chunk_decay.data_ptr(), Bb, L, H, P,
-            N, q, torch.cuda.current_stream(x.device).cuda_stream)
+            chunk_states.data_ptr(), chunk_decay.data_ptr(), cb.data_ptr(),
+            Bb, L, H, P, N, q, *strides,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd_scan")
     _build.count_launch(ssd_scan)
     return y, state

@@ -1,15 +1,26 @@
-"""Plain PyTorch version of the SSD chunked-scan kernel: the sequential
-state-space recurrence of ``repro.kernels.ssd_scan.ref.ssd_scan``
-(exact, one state update per step), in fp32 whatever the inputs'
-dtype.
+"""Plain PyTorch versions of the SSD chunked-scan kernel.
+
+``ssd_scan`` is the sequential state-space recurrence of
+``repro.kernels.ssd_scan.ref.ssd_scan`` (exact, one state update per
+step), in fp32 whatever the inputs' dtype:
 
     h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T,   y_t = h_t C_t
+
+The CPU path of ``ops.ssd_scan`` runs it, and the card's kernel is held
+against it.
+
+``ssd_scan_tc``, for the tests only (nothing on the main path uses it),
+is the kernel's own chunked arithmetic with each tensor-core operand
+rounded as the kernel rounds it: 3xTF32 for fp32 inputs, the computed
+operands split into three bf16 parts for bf16 inputs.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels.conv3d.ref import split_tf32
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -31,3 +42,75 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             * Bf[:, t, None, None, :])
         ys[:, t] = torch.einsum("bhpn,bn->bhp", s, Cf[:, t])
     return ys.to(x.dtype), s
+
+
+def split_bf16(a: torch.Tensor, parts: int = 3) -> torch.Tensor:
+    """a (fp32) as the kernel feeds a computed bf16 operand: ``parts``
+    bf16 values, each the rounding of what the ones before it left (hi,
+    mid, lo); returns their sum (exact in fp32), which multiplies an
+    exact bf16 operand as the products part·b summed do."""
+    rest = a.float()
+    total = torch.zeros_like(rest)
+    for _ in range(parts):
+        part = rest.bfloat16().float()
+        total += part
+        rest = rest - part
+    return total
+
+
+def _product(bf16: bool):
+    """a @ b with the kernel's operand treatment. fp32 inputs: 3xTF32,
+    hi·hi + hi·lo + lo·hi of ``split_tf32``. bf16 inputs: an operand
+    the kernel computed (``computed_a`` / ``computed_b``) in the three
+    parts of ``split_bf16``, an input as it is (exact)."""
+    def mm(a, b, computed_a=False, computed_b=False):
+        if bf16:
+            return ((split_bf16(a) if computed_a else a)
+                    @ (split_bf16(b) if computed_b else b))
+        ah, al = split_tf32(a)
+        bh, bl = split_tf32(b)
+        return al @ bh + ah @ bl + ah @ bh
+    return mm
+
+
+def ssd_scan_tc(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic on fp32 or bf16 inputs, in chunks of
+    ``chunk`` steps (a divisor of L): C Bᵀ once per chunk; each chunk's
+    state (w ⊙ x)ᵀ B with w = exp(sig_Q - sig) dt; the carry over the
+    chunks in fp32; y = exp(sig_q) C s_inᵀ + (C Bᵀ ⊙ exp(sig_q - sig_k)
+    ⊙ dt_k ⊙ [k <= q]) x, each product rounded as the kernel's tensor
+    cores take it (``_product``). Returns y in x's dtype and the fp32
+    final state."""
+    Bb, L, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    if L % Q:
+        raise ValueError(f"chunk {Q} must divide L = {L}")
+    nc = L // Q
+    mm = _product(x.dtype == torch.bfloat16)
+    xc = x.float().reshape(Bb, nc, Q, H, P).permute(0, 1, 3, 2, 4)
+    dtc = dt.float().reshape(Bb, nc, Q, H).permute(0, 1, 3, 2)  # (B, nc, H, Q)
+    Bc = Bm.float().reshape(Bb, nc, 1, Q, N)
+    Cc = Cm.float().reshape(Bb, nc, 1, Q, N)
+    sig = torch.cumsum(dtc * A.float()[:, None], dim=-1)
+    last = sig[..., -1:]
+    cb = mm(Cc, Bc.transpose(-1, -2))  # (B, nc, 1, Q, Q)
+    # mask BEFORE the exponential: sig_q - sig_k > 0 above the diagonal
+    lower = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    decay = torch.where(lower, sig[..., :, None] - sig[..., None, :],
+                        torch.tensor(float("-inf"))).exp()
+    scores = cb * decay * dtc[..., None, :]  # (B, nc, H, Q, Q)
+    y = mm(scores, xc, computed_a=True)
+    w = torch.exp(last - sig) * dtc  # (B, nc, H, Q)
+    states = mm((w[..., None] * xc).transpose(-1, -2), Bc,
+                computed_a=True)  # (B, nc, H, P, N)
+    s = torch.zeros((Bb, H, P, N), dtype=torch.float32)
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = torch.exp(last[:, c, :, :, None]) * s + states[:, c]
+    inter = mm(Cc, torch.stack(s_in, 1).transpose(-1, -2), computed_b=True)
+    y = y + inter * torch.exp(sig)[..., None]
+    return y.permute(0, 1, 3, 2, 4).reshape(Bb, L, H, P).to(x.dtype), s

@@ -135,11 +135,14 @@ def init_block_params(generator: torch.Generator, d_model: int,
 
 def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. x: (B, L, C); w: (K, C)."""
+    """Depthwise causal conv. x: (B, L, C); w: (K, C). The result is
+    (B, L, C) in row-major order: the bias add writes it so (the scan
+    kernel reads its x, B and C columns in place)."""
     K, C = w.shape
     xp = F.pad(x.transpose(1, 2), (K - 1, 0))  # (B, C, K-1+L)
     out = F.conv1d(xp, w.t().unsqueeze(1), groups=C)  # (B, C, L)
-    return out.transpose(1, 2) + b
+    return torch.add(out.transpose(1, 2), b,
+                     out=out.new_empty(out.shape[0], out.shape[2], C))
 
 
 def _split_proj(zxbcdt: torch.Tensor, d_inner: int, N: int):
@@ -172,8 +175,7 @@ def block_forward(
     if L % q:
         raise ValueError(f"seq {L} must divide chunk {q}")
     xh = x.reshape(Bb, L, num_heads, head_dim)
-    y, _ = ssd_ops.ssd_scan(xh.contiguous(), dt.contiguous(), A,
-                            Bm.contiguous(), Cm.contiguous(), chunk=q)
+    y, _ = ssd_ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=q)  # views of xBC
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(Bb, L, d_inner)
     y = rmsnorm(y * F.silu(z), p["norm_scale"])

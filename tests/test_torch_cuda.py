@@ -17,8 +17,11 @@ versions exactly, at every face of the depth-split layers that
 card, must match the unsharded forward. The SSD scan kernel is held
 against its plain (sequential) version at ``tests/test_kernels.py``'s
 shapes and two ragged ones, at 3e-4 in fp32 (the reference's kernel
-contract) and 2e-2 of the output scale in bf16; a Mamba2 forward
-through it against the same forward through the plain chunked scan.
+contract) and 2e-2 of the output scale in bf16; on views of one
+buffer (as the Mamba2 block passes x, B and C) it must give the bits it
+gives on contiguous copies, and the same bits on every call; a Mamba2
+forward through it against the same forward through the plain chunked
+scan.
 """
 from unittest import mock
 
@@ -379,6 +382,39 @@ def test_ssd_scan_kernel_matches_plain_on_card(cuda, shape, dtype):
     else:  # both round the same fp32 sums to bf16 once
         scale = max(1.0, want_y.float().abs().max().item())
         assert (y.float() - want_y.float()).abs().max().item() <= 2e-2 * scale
+
+
+def _xbc_views(cuda, L, H, P, N, dtype, B=2, seed=1):
+    """x, dt, A, Bm, Cm with x, Bm and Cm views of one (B, L, H*P + 2N)
+    buffer, as the Mamba2 block splits its conv output."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, L, H, P, N, dtype, B=B, seed=seed)
+    xbc = torch.cat([x.reshape(B, L, H * P), Bm, Cm], dim=-1)
+    xv, bv, cv = torch.split(xbc, [H * P, N, N], dim=-1)
+    return xv.reshape(B, L, H, P), dt, A, bv, cv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [SSD_SHAPES[1], SSD_SHAPES[-1]],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_reads_views_in_place(cuda, shape, dtype):
+    """On views of one xBC-like buffer the kernel gives the bits it gives
+    on contiguous copies, and the same bits on a second call."""
+    L, H, P, N, chunk = shape
+    x, dt, A, Bm, Cm = _xbc_views(cuda, L, H, P, N, dtype)
+    assert not x.is_contiguous() and not Bm.is_contiguous()
+    y, state = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    y2, state2 = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    yc, statec = ssd_ops.ssd_scan(x.contiguous(), dt, A, Bm.contiguous(),
+                                  Cm.contiguous(), chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(state, state2)
+    assert torch.equal(y, yc) and torch.equal(state, statec)
+    want_y, want_s = ssd_ref.ssd_scan(x, dt, A, Bm, Cm)
+    _close(state, want_s, 3e-4)
+    scale = max(1.0, want_y.float().abs().max().item())
+    tol = 3e-4 if dtype == "float32" else 2e-2
+    assert (y.float() - want_y.float()).abs().max().item() <= tol * scale
 
 
 @pytest.mark.cuda
