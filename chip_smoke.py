@@ -49,7 +49,24 @@ Phases, each printing one line; any failure raises and exits non-zero:
               (``overlap_halo=False``) at cosmoflow-128 S=2, S=4 and
               cosmoflow-512 S=4; one profiled predict per config (device
               busy time, idle share, time by kernel name).
-10. ssd     — the SSD scan kernel against its plain (sequential) version
+10. train   — ``repro_torch.api.compile(RunConfig(model="cosmoflow-128",
+              mode="train", global_batch=4))``: 5 Adam steps in fp32 and 3
+              in bf16 on a seeded batch with seeded dropout masks, then
+              cosmoflow-512 batch 1 fp32, 2 steps, where it fits (else the
+              reckoning of its saved activations is recorded); every loss
+              finite; per step exactly 7 conv3d, 6 conv3d input-gradient
+              (the same kernel) and 7 bn_act launches, no pack/unpack.
+              Step 1's loss and every gradient are held against the same
+              step through the plain versions, autograd through them
+              directly, and against the step in fp64 (bounds: ``STEP1_*``;
+              fp32 within 1e-4 of each leaf's max-abs in blocks 3-6 and
+              the FC head, 5e-2 in blocks 0-2; bf16 no farther from fp64
+              than 1.5x the plain bf16 step). Timed: ms per step (host clock, median of 3), the
+              forward/backward/optimizer split (CUDA events), one profiled
+              step, peak memory, each input gradient beside
+              ``torch.nn.grad.conv3d_input`` and each weight gradient
+              beside ``torch.nn.grad.conv3d_weight``.
+11. ssd     — the SSD scan kernel against its plain (sequential) version
               at the shapes of ``tests/test_kernels.py``, a ragged L and
               mamba2-370m's layer shape (B=4, L=4096, H=32, P=64, N=128,
               chunk 256), fp32 (3e-4 rtol/atol) and bf16 (2e-2 of the
@@ -57,7 +74,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
               (B, L, H*P + 2N) buffer (as the Mamba2 block passes them) give
               the bits contiguous copies give, and a second call the same
               bits.
-11. score   — mamba2-370m at full width (48 layers, seeded random
+12. score   — mamba2-370m at full width (48 layers, seeded random
               weights): ``ssm_lm.lm_loss`` on 4 x 4096 tokens in fp32 and
               bf16 and on 1 x 32768 in fp32 — time (median of 3), tokens/s,
               peak memory, loss, exactly 48 ssd_scan launches per forward;
@@ -65,17 +82,17 @@ Phases, each printing one line; any failure raises and exits non-zero:
               chunked scan (fp32 1e-3, bf16 0.25 of the logits' scale) and
               against that forward in fp64 (the kernel no more than 2x as
               far from it as the plain forward: see ``phase_score``).
-12. decode  — ``serve.lm.generate``, greedy, 4 prompts of 64 tokens, 16
+13. decode  — ``serve.lm.generate``, greedy, 4 prompts of 64 tokens, 16
               new tokens, fp32; prefill's last logits held against the
               kernel forward's last position; decode ms per token.
-13. timings — ssd_scan at the layer shape: kernel, plain version, plain
+14. timings — ssd_scan at the layer shape: kernel, plain version, plain
               chunked scan, bounds (of ``ssd_work`` on the tensor cores, of
               the arithmetic the kernel executes, on the CUDA cores), each
               of its CUDA kernels' time (median over 5 profiled calls);
               one profiled mamba2-370m forward in fp32 and one in bf16.
 
-Phases 4-6, 7-8 and 11-12 are the main paths: the launch counters are
-zeroed just before each and read just after. The next-to-last line is the
+Phases 4-6, 7-8, 10 (the training steps) and 12-13 are the main paths:
+the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
 it.
@@ -130,8 +147,28 @@ SPATIAL = (("cosmoflow-128", 4, 2, "fp32", "fixed"),
 # extra halo cases beyond the main path's: k = 5 (lo = hi = 2), and a
 # depth row of 3*5*3 fp32 = 180 bytes, not a multiple of 16
 HALO_EXTRA = (((2, 8, 16, 16, 8), 2, 2), ((2, 6, 3, 5, 3), 1, 1))
-KERNELS = ("conv3d", "bn_act", "pack", "unpack", "ssd_scan")
+# "conv3d_dgrad": the conv3d kernel launched for a conv's input gradient
+# (counted apart from the forward's launches)
+KERNELS = ("conv3d", "conv3d_dgrad", "bn_act", "pack", "unpack", "ssd_scan")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+# (model, batch, precision, steps, whether step 1 is held against the
+# plain step: not at 512^3, where autograd through the plain conv would
+# save a copy of the input per tap)
+TRAIN = (("cosmoflow-128", 4, "fp32", 5, True),
+         ("cosmoflow-128", 4, "bf16", 3, True),
+         ("cosmoflow-512", 1, "fp32", 2, False))
+# Step 1 against the plain step and the fp64 step (``phase_train``;
+# measured by scripts/train_accuracy.py, PERF.md §6). fp32: each gradient
+# leaf within STEP1_FP32[0] of its max-abs of the plain step in blocks
+# 3-6 and the FC head, STEP1_FP32[1] in blocks 0-2, where the batch
+# norm's backward amplifies the forward conv's 3xTF32 rounding (the
+# plain fp32 step itself lies up to 2.5e-3 of a leaf from fp64 there).
+# bf16: both steps lie 0.03-1.1 of a leaf from fp64, so each leaf of the
+# kernel step must lie no farther from fp64 than STEP1_BF16 x the plain
+# bf16 step does. The loss: STEP1_LOSS relative to the plain step's.
+STEP1_FP32 = (1e-4, 5e-2)
+STEP1_BF16 = 1.5
+STEP1_LOSS = {"fp32": 1e-4, "bf16": 5e-2}
 # (B, L, H, P, N, chunk): tests/test_kernels.py's four (B=2), L=40 with
 # chunk 16 (lowered to 10), and mamba2-370m's layer at 4 x 4096 tokens
 SSD_SHAPES = ((2, 32, 2, 8, 16, 8), (2, 64, 3, 8, 16, 16),
@@ -816,6 +853,7 @@ def plain_versions(k):
 
 def wrappers(k) -> dict:
     return {"conv3d": k.conv_ops.conv3d_valid,
+            "conv3d_dgrad": k.conv_ops.conv3d_input_grad,
             "bn_act": k.bn_ops.bn_leaky_relu,
             "pack": k.pack_ops.pack, "unpack": k.pack_ops.unpack,
             "ssd_scan": k.ssd_ops.ssd_scan}
@@ -858,6 +896,323 @@ def serve_and_compare(sess, x, k, rel, tag, expect):
     err = rel_err(pred, want)
     check(err <= rel, f"{tag}: kernel forward vs plain forward {err} > {rel}")
     return pred, err
+
+
+@contextlib.contextmanager
+def plain_training(k):
+    """Route a training step through the plain versions and around the
+    autograd Functions: autograd then differentiates ``ref.conv3d_valid``
+    and ``ref.bn_leaky_relu`` themselves, so the plain step's input
+    gradient does not take the kernel's flipped-filter route."""
+    with mock.patch.object(k.conv_ops, "conv3d", k.conv_ref.conv3d_valid), \
+            mock.patch.object(k.bn_ops, "bn_act", k.bn_ref.bn_leaky_relu):
+        yield
+
+
+def loss_and_grads(k, sess, x, y, params=None, precision=None) -> tuple:
+    """Step 1 of ``sess`` without the update: its loss (dropout seed 0,
+    the session's masks) and the gradient of every parameter (of
+    ``params``, default the session's, at ``precision``, default the
+    session's)."""
+    p = {n: v.detach().requires_grad_(True)
+         for n, v in (params or sess.params).items()}
+    loss = k.cosmoflow.mse_loss(p, x, y, sess.cfg, plan=sess.plan,
+                                global_batch=x.shape[0], train=True,
+                                dropout_seed=0,
+                                precision=precision or sess.precision)
+    grads = torch.autograd.grad(loss, list(p.values()))
+    return loss.detach(), dict(zip(p, grads))
+
+
+def conv64(x, w, stride=1, pads=((0, 0),) * 3):
+    (pd, qd), (ph, qh), (pw, qw) = pads
+    xc = F.pad(x, (0, 0, pw, qw, ph, qh, pd, qd)).permute(0, 4, 1, 2, 3)
+    return F.conv3d(xc, w.permute(4, 3, 0, 1, 2), stride=stride).permute(
+        0, 2, 3, 4, 1)
+
+
+def bn64(x, scale, bias, reduce_axes=(), eps=1e-5, activation_slope=None):
+    dims = tuple(range(x.dim() - 1))
+    mean = x.mean(dims)
+    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    y = (x - mean) * torch.rsqrt(var + eps) * scale + bias
+    slope = 1.0 if activation_slope is None else activation_slope
+    return y if slope == 1.0 else F.leaky_relu(y, slope)
+
+
+def mse64(pred, y, global_batch):
+    return torch.sum(torch.mean(torch.square(pred - y), dim=-1)) / global_batch
+
+
+def fp64_grads(k, sess, x, y) -> tuple:
+    """Step 1 in fp64, as near the exact gradient as the card computes:
+    the session's fp32 masters widened, the convs by ``F.conv3d`` and the
+    batch norm and the loss in fp64, the same masks."""
+    with mock.patch.object(k.conv_ops, "conv3d", conv64), \
+            mock.patch.object(k.cosmoflow.dist_norm,
+                              "distributed_batchnorm", bn64), \
+            mock.patch.object(k.cosmoflow, "mse", mse64):
+        return loss_and_grads(
+            k, sess, x.double(), y.double(), precision="fp32",
+            params={n: v.double() for n, v in sess.params.items()})
+
+
+def block_of(name: str) -> int:
+    """The conv block a parameter belongs to (the FC head: 99)."""
+    return int(name[4:].split("_")[0]) if name.startswith("conv") else \
+        int(name[2:].split("_")[0]) if name.startswith("bn") else 99
+
+
+def saved_bytes(k, cfg, batch: int) -> float:
+    """Reckoned activations a training step keeps for its backward, fp32:
+    per block the conv's input and output (saved by the conv and the
+    batch norm) and one byte per pooled output (the pool's argmax)."""
+    total = 0.0
+    for xs, ws, s, pads in k.cosmoflow.conv_shapes(cfg, batch):
+        out = k.conv_ref.output_shape(xs, ws, s, pads)
+        total += 4 * (math.prod(xs) + math.prod(out))
+    npool = k.cosmoflow.num_pools(cfg)
+    for i, (xs, ws, s, pads) in enumerate(k.cosmoflow.conv_shapes(cfg,
+                                                                  batch)):
+        if i < npool:
+            total += math.prod(k.conv_ref.output_shape(xs, ws, s, pads)) / 8
+    return total
+
+
+def step_split(k, sess, x, y, reps: int = 3) -> dict:
+    """A step's device time split by CUDA events recorded as the forward,
+    the backward and the update (with the guard) have been enqueued:
+    the median of ``reps`` steps after one warm-up, each step on the
+    session's parameters (the result is dropped); and the peak of
+    allocated memory in each phase (the last step's)."""
+    marks, peaks = {}, {}
+
+    def hook(phase):
+        marks[phase] = torch.cuda.Event(enable_timing=True)
+        marks[phase].record()
+        peaks[phase + "_peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    fn = k.train_step.make_convnet_train_step(
+        sess.cfg, sess.mesh, sess.optimizer, global_batch=x.shape[0],
+        plan=sess.plan, precision=sess.precision, guard=True, on_phase=hook)
+    rows = []
+    for i in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        fn(sess.params, sess.opt_state, x, y, 0)
+        torch.cuda.synchronize()
+        if i:
+            rows.append((start.elapsed_time(marks["fwd"]),
+                         marks["fwd"].elapsed_time(marks["bwd"]),
+                         marks["bwd"].elapsed_time(marks["step"])))
+    out = {name: statistics.median(r[j] for r in rows)
+           for j, name in enumerate(("forward_ms", "backward_ms",
+                                     "optimizer_ms"))}
+    return dict(out, **peaks)
+
+
+def grad_rows(k, cfg, batch: int, prec: str, reps: int) -> dict:
+    """Each conv's input gradient (the conv3d kernel, device time per
+    call queued) beside ``torch.nn.grad.conv3d_input`` (cuDNN), and each
+    weight gradient (one fp32 product a tap) beside
+    ``torch.nn.grad.conv3d_weight``, at the shapes of ``cfg``'s training
+    step. Bounds: the forward's operations on the tensor cores (the
+    input gradient; 3xTF32 for fp32) or the CUDA cores (the fp32 weight
+    products), and each input read once, each output written once."""
+    dt = DTYPES[prec]
+    gt = torch.Generator(device="cuda").manual_seed(9)
+    rows = {"input_grad": [], "weight_grad": []}
+    for i, (xs, ws, s, pads) in enumerate(k.cosmoflow.conv_shapes(cfg,
+                                                                  batch)):
+        ys = k.conv_ref.output_shape(xs, ws, s, pads)
+        x = torch.randn(xs, generator=gt, device="cuda").to(dt)
+        w = (torch.randn(ws, generator=gt, device="cuda") * 0.05).to(dt)
+        dy = torch.randn(ys, generator=gt, device="cuda").to(dt)
+        flops = 2.0 * math.prod(ys[:4]) * math.prod(ws)
+        size = x.element_size()
+        (pd, qd), (ph, qh), (pw, qw) = pads
+        padded = tuple(n + p + q for n, (p, q) in zip(xs[1:4], pads))
+        xc = F.pad(x, (0, 0, pw, qw, ph, qh, pd, qd)).permute(0, 4, 1, 2, 3)
+        dyc, wc = dy.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2)
+        base = {"config": cfg.name, "batch": batch, "dtype": prec,
+                "layer": i, "x": list(xs), "w": list(ws), "stride": s}
+        if i > 0:  # block 0's input needs no gradient
+            ms, call_ms = device_ms(lambda: k.conv_ops.conv3d_input_grad(
+                dy, w, xs, s, pads), reps)
+            lib_ms, _ = device_ms(lambda: torch.nn.grad.conv3d_input(
+                (xs[0], xs[4]) + padded, wc, dyc, stride=s), reps)
+            b_ms, b_by = bound(flops, size * (math.prod(ys) + math.prod(ws)
+                                              + math.prod(xs)), dt,
+                               tf32x3=True)
+            rows["input_grad"].append(dict(
+                base, ms=ms, call_ms=call_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by))
+            log("timings", "conv3d input grad " + json.dumps(
+                rows["input_grad"][-1]))
+        ms, call_ms = device_ms(lambda: k.conv_ops.conv3d_weight_grad(
+            x, dy, ws, s, pads), reps)
+        lib_ms, _ = device_ms(lambda: torch.nn.grad.conv3d_weight(
+            xc, wc.shape, dyc, stride=s), reps)
+        b_ms, b_by = bound(flops, size * (math.prod(xs) + math.prod(ys))
+                           + 4 * math.prod(ws), torch.float32)
+        rows["weight_grad"].append(dict(
+            base, ms=ms, call_ms=call_ms, library_ms=lib_ms, bound_ms=b_ms,
+            bound_by=b_by))
+        log("timings", "conv3d weight grad " + json.dumps(
+            rows["weight_grad"][-1]))
+        del x, w, dy, xc, dyc, wc
+    return rows
+
+
+def phase_train(k, cfgs, RunConfig, compile) -> tuple:
+    """The training main path: for each of ``TRAIN``, a
+    ``compile(RunConfig(mode="train"))`` session on the card takes its
+    steps on a seeded batch (dropout masks from the session's seeded
+    generator), every loss finite, launching per step 7 conv3d, 6 conv3d
+    input-gradient and 7 bn_act kernels. Before that, step 1's loss and
+    every gradient through the kernels are held against the same step
+    through the plain versions (``plain_training``) and in fp64
+    (``fp64_grads``), within ``STEP1_*``, and after it each
+    config is timed: ms per step, the forward/backward/optimizer split,
+    a profiled step, the peak memory, and the gradient kernels beside
+    cuDNN's. Returns (report, launches of the steps)."""
+    out = {"steps": {}, "vs_plain": {}, "timing": {}, "profile": {}}
+    g = torch.Generator(device="cuda").manual_seed(7)
+    data, sessions = {}, {}
+    for name, batch, prec, _, vs_plain in TRAIN:
+        cfg = cfgs[name]
+        w = cfg.input_width
+        data[(name, prec)] = (
+            torch.randn((batch, w, w, w, cfg.in_channels), generator=g,
+                        device="cuda"),
+            torch.randn((batch, cfg.out_dim), generator=g, device="cuda"))
+        if not vs_plain:
+            continue
+        sess = compile(RunConfig(model=name, mode="train",
+                                 global_batch=batch, precision=prec))
+        check(sess.device.type == "cuda", "train session not on the card")
+        x, y = data[(name, prec)]
+        loss, grads = loss_and_grads(k, sess, x, y)
+        c0 = counts(k)
+        with plain_training(k):
+            plain_loss, plain = loss_and_grads(k, sess, x, y)
+        _, exact = fp64_grads(k, sess, x, y)
+        torch.cuda.synchronize()
+        check(counts(k) == c0, f"{name} {prec}: the plain or fp64 step "
+              "launched a kernel")
+
+        def rel(a, b):
+            return ((a.double() - b.double()).abs().max().item()
+                    / max(1e-30, b.double().abs().max().item()))
+
+        row = {n: {"vs_plain": rel(grads[n], plain[n]),
+                   "vs_fp64": rel(grads[n], exact[n]),
+                   "plain_vs_fp64": rel(plain[n], exact[n])} for n in grads}
+        if prec == "fp32":
+            bad = {n: r for n, r in row.items() if r["vs_plain"]
+                   > STEP1_FP32[0 if block_of(n) >= 3 else 1]}
+        else:
+            bad = {n: r for n, r in row.items()
+                   if r["vs_fp64"] > STEP1_BF16 * r["plain_vs_fp64"]}
+        loss_err = abs(loss.item() - plain_loss.item()) / abs(
+            plain_loss.item())
+        check(loss_err <= STEP1_LOSS[prec] and not bad,
+              f"{name} {prec}: step 1 vs the plain step: loss {loss_err}; "
+              f"gradients out of bounds {bad}")
+        worst = max(row, key=lambda n: row[n]["vs_plain"])
+        out["vs_plain"][f"{name}/{prec}"] = {
+            "loss": loss.item(), "plain_loss": plain_loss.item(),
+            "loss_rel_err": loss_err, "grads": row}
+        log("train", f"{name} {prec} b{batch}: step 1 vs the plain step: "
+            f"loss {loss_err:.3g}; worst gradient {worst} "
+            f"{json.dumps(row[worst])} (share of the leaf's max-abs); "
+            f"every leaf within its bound")
+        sessions[(name, prec)] = (sess, loss.item())
+        del grads, plain, exact
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ the main path ----
+    zero_counts(k)
+    per_step = dict(NO_LAUNCHES, conv3d=7, conv3d_dgrad=6, bn_act=7)
+    expected = dict(NO_LAUNCHES)
+    for name, batch, prec, n_steps, _ in TRAIN:
+        cfg = cfgs[name]
+        x, y = data[(name, prec)]
+        tag = f"{name}/{prec}/b{batch}"
+        reckoned = saved_bytes(k, cfg, batch)
+        if (name, prec) not in sessions:
+            sessions[(name, prec)] = (compile(RunConfig(
+                model=name, mode="train", global_batch=batch,
+                precision=prec)), None)
+        sess, first = sessions[(name, prec)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        c0 = counts(k)
+        try:
+            losses = [sess.step(x, y).item() for _ in range(n_steps)]
+        except torch.cuda.OutOfMemoryError as e:
+            # the launches made before the allocation failed stay counted
+            got = delta(counts(k), c0)
+            expected = {n: expected[n] + got[n] for n in KERNELS}
+            out["steps"][tag] = {
+                "fits": False, "error": str(e)[:400], "launches": got,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "reckoned_saved_bytes": reckoned}
+            log("train", f"{tag}: does not fit on the card ({e}); peak "
+                f"{out['steps'][tag]['peak_bytes'] / 2 ** 30:.2f} GiB "
+                f"allocated; reckoned saved activations "
+                f"{reckoned / 2 ** 30:.2f} GiB")
+            del sessions[(name, prec)]
+            torch.cuda.empty_cache()
+            continue
+        torch.cuda.synchronize()
+        got = delta(counts(k), c0)
+        expected = {n: expected[n] + per_step[n] * n_steps for n in KERNELS}
+        check(got == {n: v * n_steps for n, v in per_step.items()},
+              f"{tag}: launches {got} over {n_steps} steps, expected "
+              f"{per_step} per step")
+        check(all(math.isfinite(v) for v in losses),
+              f"{tag}: non-finite losses {losses}")
+        if first is not None:
+            check(abs(losses[0] - first) <= 1e-6 * abs(first),
+                  f"{tag}: step 1's loss {losses[0]} vs {first}")
+        out["steps"][tag] = {
+            "fits": True, "losses": losses, "launches": got,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "resident_bytes_before": resident,
+            "reckoned_saved_bytes": reckoned}
+        log("train", f"{tag}: {n_steps} steps, losses {losses}; launches "
+            f"{json.dumps(got)}; peak {out['steps'][tag]['peak_bytes'] / 2 ** 30:.2f}"
+            f" GiB (max_memory_allocated; reckoned saved activations "
+            f"{reckoned / 2 ** 30:.2f} GiB)")
+    launches = counts(k)
+    check(launches == expected and launches["conv3d_dgrad"] > 0,
+          f"train path launches {launches}, expected {expected}")
+    log("main path", f"train: launches {launches}")
+
+    # ------------------------------------------------------ timings ----
+    for (name, prec), (sess, _) in sessions.items():
+        cfg = cfgs[name]
+        x, y = data[(name, prec)]
+        batch = x.shape[0]
+        tag = f"{name}/{prec}/b{batch}"
+        reps = 3
+        row = {"step_ms": host_ms(lambda: sess.step(x, y), reps),
+               **step_split(k, sess, x, y, reps)}
+        out["timing"][tag] = row
+        out["profile"][tag] = device_profile(lambda: sess.step(x, y))
+        log("timings", f"train {tag}: " + json.dumps(row))
+        log("profile", f"train {tag} " + json.dumps(out["profile"][tag]))
+        out["timing"][tag].update(grad_rows(k, cfg, batch, prec, reps))
+        check(all(math.isfinite(v) for v in
+                  [sess.step(x, y).item()]), f"{tag}: non-finite loss")
+        sess.close()
+    del sessions, data
+    torch.cuda.empty_cache()
+    return out, launches
 
 
 def halo_rows(k, cases, reps) -> dict:
@@ -909,6 +1264,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # growable segments: training's large temporaries of changing sizes
+    # fragment fixed ones (read when the allocator starts, below)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -929,13 +1288,14 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.models import cosmoflow, mamba2, ssm_lm
     from repro_torch.serve import lm
+    from repro_torch.train import train_step
 
     t_start = time.perf_counter()
     k = argparse.Namespace(conv_ops=conv_ops, conv_ref=conv_ref,
                            bn_ops=bn_ops, bn_ref=bn_ref, pack_ops=pack_ops,
                            pack_ref=pack_ref, ssd_ops=ssd_ops,
                            ssd_ref=ssd_ref, mamba2=mamba2, ssm_lm=ssm_lm,
-                           lm=lm)
+                           lm=lm, cosmoflow=cosmoflow, train_step=train_step)
     report = {"card": phase_card()}
     report["build"] = phase_build(_build)
     cf128, cf512 = get_config("cosmoflow-128"), get_config("cosmoflow-512")
@@ -1136,10 +1496,11 @@ def main() -> int:
             vec[1] = F.softplus(vec[1])
             nbytes = 2 * yv.numel() * yv.element_size() + 16 * c
             b_ms, b_by = bound(5.0 * yv.numel(), nbytes, dt)
+            ms, call_ms = device_ms(lambda: bn_ops.bn_leaky_relu(yv, *vec),
+                                    reps)
             row = {"config": cfg.name, "batch": batch, "dtype": prec,
-                   "layer": i, "x": list(yv.shape),
-                   "ms": median_ms(lambda: bn_ops.bn_leaky_relu(yv, *vec),
-                                   reps),
+                   "layer": i, "x": list(yv.shape), "ms": ms,
+                   "call_ms": call_ms,
                    "plain_ms": median_ms(lambda: bn_ref.bn_leaky_relu(
                        yv, *vec), reps),
                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
@@ -1175,6 +1536,11 @@ def main() -> int:
     halo = halo_rows(k, sorted(halo_keys), 20)
     timing["pack"] = list(halo["pack"].values())
     timing["unpack"] = list(halo["unpack"].values())
+    # the launch floor: device time per call of a kernel that does nothing
+    # (a spin of zero cycles), queued as pack and unpack are
+    timing["launch_floor_ms"] = queued_ms(lambda: torch.cuda._sleep(0))
+    log("timings", f"launch floor {timing['launch_floor_ms']:.5f} ms a "
+        "call (queued)")
 
     e2e = {
         "cosmoflow-128/fp32/b4": host_ms(lambda: sessions["fp32"].predict(
@@ -1228,7 +1594,12 @@ def main() -> int:
     del x128, x512, sessions, sess512, blocking, spatial_sessions, preds
     torch.cuda.empty_cache()
 
-    # ------------------------------------------ mamba2-370m: 10-13 ----
+    # ------------------------------------------------ main path 3: 10 ----
+    train, got = phase_train(k, cfgs, RunConfig, compile)
+    main_paths["train"] = {"launches": got}
+    launches = {n: launches[n] + got[n] for n in KERNELS}
+
+    # ------------------------------------------ mamba2-370m: 11-14 ----
     report["ssd_kernel"] = phase_ssd_kernel(ssd_ops, ssd_ref, mamba2)
     mcfg = get_config("mamba2-370m")
     t0 = time.perf_counter()
@@ -1287,6 +1658,12 @@ def main() -> int:
              "src/repro/kernels/ssd_scan/kernel.py:58")):
         entry = {"name": kname, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[name]}
+        if name == "conv3d":  # the kernel also runs each input gradient
+            entry["launches"] += launches["conv3d_dgrad"]
+            entry["input_grad_launches"] = launches["conv3d_dgrad"]
+            rows = train["timing"]["cosmoflow-128/fp32/b4"]["input_grad"]
+            entry["input_grad"] = {key: sum(r[key] for r in rows) for key in
+                                   ("ms", "library_ms", "bound_ms")}
         if name == "ssd_scan":  # one call at mamba2-370m's layer shape
             row = timing["ssd_scan"]["fp32"]
             entry.update(
@@ -1305,6 +1682,11 @@ def main() -> int:
                 **{key: halo_total(name, kind, key) for key in
                    ("ms", "plain_ms", "bound_ms", "library_ms")},
                 bound_by="bytes")
+            # one launch floor per call of that forward
+            entry["launch_floor_ms"] = timing["launch_floor_ms"] * sum(
+                2 for sc in cosmoflow.split_convs(
+                    cf128, spatial_plan(plan_lib, depth, cf128, 2, kind), 4)
+                if name == "pack" or sc.no_interior)
         else:
             rows = timing[name]
             by = {r["bound_by"] for r in rows
@@ -1324,7 +1706,7 @@ def main() -> int:
                              and r["dtype"] == "bf16")
                     for key in ("ms", "bound_ms", "library_ms")}
         summary.append(entry)
-    report.update(score=score, decode=decode_row)
+    report.update(score=score, decode=decode_row, train=train)
     report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
                   conv_vs_library=conv_vs_library,
                   lowering=lowering, profile=profiles, bounds=PEAKS_USED,

@@ -10,9 +10,14 @@ session on the card.
 ``compile`` dispatches on ``RunConfig.mode``: ``"infer"`` returns a
 forward-only ``repro_torch.serve.InferenceSession`` (``predict``,
 ``evaluate``, ``serve``, ``restore`` from a reference training
-checkpoint); ``"train"`` comes with the training slice.
+checkpoint); ``"train"`` returns a training ``Session`` on one device
+(``step``, ``evaluate``, ``save``, ``Session.restore``):
+
+    sess = compile(RunConfig(model="cosmoflow-128", mode="train",
+                             global_batch=4))
+    loss = sess.step(volumes, targets)   # one Adam step
 """
 from repro_torch.api.config import RunConfig, RunConfigError
-from repro_torch.api.session import compile
+from repro_torch.api.session import Session, compile
 
-__all__ = ["RunConfig", "RunConfigError", "compile"]
+__all__ = ["RunConfig", "RunConfigError", "Session", "compile"]

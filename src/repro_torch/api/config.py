@@ -8,9 +8,11 @@ points take ``device=`` or ``devices=`` (``repro_torch.api.compile``).
 
 ``validate`` raises ``RunConfigError`` naming the offending field and a
 fix, as the reference does. What the port cannot run yet is rejected
-the same way, naming the slice that brings it: training (``mode``),
-batch sharding (``data``) and the cost-model planner (``plan="auto"``,
-``memory_budget_gib``).
+the same way, naming the slice that brings it: batch sharding
+(``data``), spatial training (``spatial`` with ``mode="train"``), the
+ZeRO-1 gradient reduction (``grad_comm="reduce_scatter"``), the
+cost-model planner (``plan="auto"``, ``memory_budget_gib``) and the
+pipeline axis (``pipeline``).
 """
 from __future__ import annotations
 
@@ -130,17 +132,49 @@ class RunConfig:
         if self.mode not in MODES:
             raise RunConfigError("mode", f"unknown mode {self.mode!r}",
                                  f"choices: {', '.join(MODES)}")
-        if self.mode == "train":
-            raise RunConfigError(
-                "mode", "training comes with the training slice of the port",
-                "use mode='infer', or train with the reference package "
-                "and serve its checkpoint here")
         if self.guard is not None and not isinstance(self.guard, bool):
             raise RunConfigError(
                 "guard", f"must be True, False or None (auto), got "
                 f"{self.guard!r}", "pass a bool or leave it None")
-        # mode == "infer": reject knobs that configure training machinery
-        # a forward-only program does not have
+        if self.mode == "infer":
+            self._validate_infer()
+        else:
+            self._validate_train()
+        self._validate_common(device_count)
+
+    def _validate_train(self) -> None:
+        """What the training slice runs: one device (data = spatial =
+        pipeline = 1), the fixed plan, a reduction mode among auto,
+        overlap and monolithic (all the identity on one device)."""
+        if not isinstance(self.pipeline, int) or self.pipeline < 1:
+            raise RunConfigError(
+                "pipeline", f"group count must be an int >= 1, got "
+                f"{self.pipeline!r}",
+                "pass 1 (no pipelining) or the number of stage groups")
+        if self.pipeline != 1:
+            raise RunConfigError(
+                "pipeline",
+                f"pipeline={self.pipeline} needs the pipeline axis, which "
+                "the pipeline slice of the port brings",
+                "set pipeline=1")
+        if isinstance(self.spatial, int) and self.spatial > 1:
+            raise RunConfigError(
+                "spatial",
+                f"spatial={self.spatial} trains a depth-split model, which "
+                "needs the spatial backward of the spatial/data-parallel "
+                "training slice of the port",
+                "set spatial=1 to train on one device (serving takes "
+                "spatial > 1 with mode='infer')")
+        if self.grad_comm == "reduce_scatter":
+            raise RunConfigError(
+                "grad_comm",
+                "'reduce_scatter' (ZeRO-1 sharded optimizer state) comes "
+                "with the gradient reduction slice of the port",
+                "use grad_comm='auto', 'overlap' or 'monolithic'")
+
+    def _validate_infer(self) -> None:
+        """Reject knobs that configure training machinery a forward-only
+        program does not have."""
         if self.grad_comm != "auto":
             raise RunConfigError(
                 "grad_comm",
@@ -172,6 +206,7 @@ class RunConfig:
                 f"drop {bad}; restore with "
                 "InferenceSession.restore(checkpoint_dir)")
 
+    def _validate_common(self, device_count: Optional[int]) -> None:
         for field in ("data", "spatial"):
             v = getattr(self, field)
             if not isinstance(v, int) or v < 1:
@@ -180,7 +215,7 @@ class RunConfig:
         if self.data != 1:
             raise RunConfigError(
                 "data", f"data={self.data} shards the batch, which the "
-                "data-parallel slice of the port brings",
+                "spatial/data-parallel slice of the port brings",
                 "set data=1; use spatial= to shard large volumes")
         if not isinstance(self.global_batch, int) or self.global_batch < 1:
             raise RunConfigError("global_batch",

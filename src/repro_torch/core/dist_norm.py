@@ -10,6 +10,11 @@ Reducing over an axis along which the stage is replicated is equally
 right: every replica holds the same statistics. Normalization uses the
 batch's statistics (there are no running stats, also when serving), then
 the fused ``kernels/bn_act`` pass applies scale, bias and the leaky-ReLU.
+
+Gradients flow through the statistics as in the reference: the fp32
+sums, the clamped one-pass variance and the casts back to x's dtype are
+plain autograd operations, and the normalize pass is ``bn_ops.bn_act``,
+whose backward is autograd of the plain formula.
 """
 from __future__ import annotations
 
@@ -46,5 +51,5 @@ def distributed_batchnorm(
     mean = (s / n).to(x.dtype)
     var = torch.clamp(ss / n - torch.square(s / n), min=0.0).to(x.dtype)
     slope = 1.0 if activation_slope is None else activation_slope
-    return bn_ops.bn_leaky_relu(x, mean, var, scale, bias, eps=eps,
-                                negative_slope=slope)
+    return bn_ops.bn_act(x, mean, var, scale, bias, eps=eps,
+                         negative_slope=slope)

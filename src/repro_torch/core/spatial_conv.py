@@ -4,8 +4,12 @@
 Each op sees the local shard of an activation whose D (and optionally H,
 W) dims are partitioned over named mesh axes (``SpatialPartitioning``)
 and runs inside ``core.spmd.run``; an axis of size 1 is no partition, so
-on one device ``conv3d`` is one launch of the direct conv kernel
+on one device ``conv3d`` is one launch of the implicit-GEMM conv kernel
 (``kernels/conv3d``) with the SAME padding applied inside the kernel.
+The blocking lowering's conv goes through ``conv_ops.conv3d``, which
+carries the gradients (its input gradient on the same kernel); the
+overlapped lowering and the halo exchange have no backward yet, so
+spatial training waits for its slice.
 
 ``conv3d`` has two lowerings for a partitioned dim, chosen per call with
 ``overlap=`` (None: ``core/flags.OVERLAP_HALO``):
@@ -87,7 +91,7 @@ def _conv3d_blocking(x, w, part, stride):
     for d, axis in _split_axes(part):
         x = halo_lib.halo_exchange(x, axis, _SPATIAL_DIMS[d], lo, hi)
         pads[d] = (0, 0)
-    return conv_ops.conv3d_valid(x, w, stride, pads)
+    return conv_ops.conv3d(x, w, stride, pads)
 
 
 def _conv3d_overlap(x, w, part, stride):
@@ -150,6 +154,51 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, part: SpatialPartitioning,
     return _conv3d_overlap(x, w, part, stride)
 
 
+def _pool_max(x: torch.Tensor, s: int) -> torch.Tensor:
+    n, d, h, w_, c = x.shape
+    x = x[:, :d // s * s, :h // s * s, :w_ // s * s]
+    return x.reshape(n, d // s, s, h // s, s, w_ // s, s, c).amax(
+        dim=(2, 4, 6))
+
+
+def _window_offsets(s: int):
+    """(offset index, (kd, kh, kw)) over a window in row-major order."""
+    return enumerate((a, b, c) for a in range(s) for b in range(s)
+                     for c in range(s))
+
+
+class _MaxPool(torch.autograd.Function):
+    """Max pooling whose gradient goes, whole, to the FIRST maximum of
+    each window in row-major (d, h, w) order: the rule of XLA's
+    ``reduce_window`` max gradient (``select_and_scatter`` with ``>=``),
+    which the reference trains with. (``amax``'s own gradient splits a
+    tie evenly.) The forward saves each window's winning offset as one
+    byte per output element."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        y = _pool_max(x, s)
+        od, oh, ow = y.shape[1:4]
+        win = torch.full(y.shape, s ** 3, dtype=torch.uint8, device=x.device)
+        for i, (a, b, c) in reversed(list(_window_offsets(s))):
+            view = x[:, a:a + od * s:s, b:b + oh * s:s, c:c + ow * s:s]
+            win.masked_fill_(view == y, i)
+        ctx.save_for_backward(win)
+        ctx.s, ctx.x_shape = s, x.shape
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (win,) = ctx.saved_tensors
+        s = ctx.s
+        od, oh, ow = dy.shape[1:4]
+        dx = dy.new_zeros(ctx.x_shape)
+        for i, (a, b, c) in _window_offsets(s):
+            dx[:, a:a + od * s:s, b:b + oh * s:s, c:c + ow * s:s] = \
+                torch.where(win == i, dy, 0)
+        return dx, None
+
+
 def maxpool3d(x: torch.Tensor, part: SpatialPartitioning, window: int = 2,
               stride: int = 2) -> torch.Tensor:
     """VALID max pooling with window == stride (the paper's pooling), kept
@@ -157,15 +206,14 @@ def maxpool3d(x: torch.Tensor, part: SpatialPartitioning, window: int = 2,
     the window dims, exact in every dtype. With window == stride no window
     crosses a shard whose local widths divide the stride, so partitioned
     dims need no halo. The reference computes it with XLA's
-    ``reduce_window``, not in a Pallas kernel."""
+    ``reduce_window``, not in a Pallas kernel; where autograd records, the
+    gradient follows its rule (``_MaxPool``)."""
     if window != stride:
         raise NotImplementedError(
             f"maxpool3d takes window == stride; got {window}, {stride}")
-    s = stride
-    n, d, h, w_, c = x.shape
-    x = x[:, :d // s * s, :h // s * s, :w_ // s * s]
-    x = x.reshape(n, d // s, s, h // s, s, w_ // s, s, c)
-    return x.amax(dim=(2, 4, 6))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _MaxPool.apply(x, stride)
+    return _pool_max(x, stride)
 
 
 def spatial_allgather(x: torch.Tensor, part: SpatialPartitioning

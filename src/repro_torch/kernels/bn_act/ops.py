@@ -1,10 +1,20 @@
-"""``bn_leaky_relu``: the fused batch-norm + leaky-ReLU kernel's wrapper
-(forward only).
+"""``bn_leaky_relu``: the fused batch-norm + leaky-ReLU kernel's wrapper,
+and ``bn_act``, the same function with its gradients.
 
-On a CUDA tensor it checks what the kernel takes, allocates the output
-and launches ``csrc/bn_act.cu`` on the current stream, adding one to
-``bn_leaky_relu.launches``; anything the kernel does not take raises. On
-a CPU tensor it runs the plain version in ``ref.py``.
+On a CUDA tensor ``bn_leaky_relu`` checks what the kernel takes,
+allocates the output and launches ``csrc/bn_act.cu`` on the current
+stream, adding one to ``bn_leaky_relu.launches``; anything the kernel
+does not take raises. On a CPU tensor it runs the plain version in
+``ref.py``.
+
+``bn_act`` is ``bn_leaky_relu`` as a ``torch.autograd.Function``: the
+forward is the kernel, and the backward is autograd of the plain formula
+(``ref.bn_leaky_relu``) on the saved (x, mean, var, scale, bias), as the
+reference takes the fused kernel's gradient from its jnp formula. Only
+the inputs are saved, not the output. The backward runs over x's rows
+in pieces of at most ``BACKWARD_CHUNK_BYTES``, so that its temporaries
+stay bounded (at 512³ one layer-0 activation is 8.6 GB); the (C,)
+gradients of the pieces are added in row order.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ _ENTRY = {torch.float32: "bn_act_f32",
           torch.bfloat16: "bn_act_bf16",
           torch.float16: "bn_act_f16"}
 _MAX_C = 4096  # three fp32 (C,) vectors in 48 KB of shared memory
+BACKWARD_CHUNK_BYTES = 2 ** 30
 
 
 def _entry(dtype: torch.dtype):
@@ -73,3 +84,52 @@ def bn_leaky_relu(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
 
 
 bn_leaky_relu.launches = 0
+
+
+class _BnAct(torch.autograd.Function):
+    """The kernel forward; the backward is autograd of ``ref``."""
+
+    @staticmethod
+    def forward(ctx, x, mean, var, scale, bias, eps, negative_slope):
+        ctx.save_for_backward(x, mean, var, scale, bias)
+        ctx.eps, ctx.slope = eps, negative_slope
+        return bn_leaky_relu(x, mean, var, scale, bias, eps=eps,
+                             negative_slope=negative_slope)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *vecs = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        c = x.shape[-1]
+        rows = x.reshape(-1, c)
+        dy = dy.reshape(-1, c)
+        vecs = [v.detach().requires_grad_(n) for v, n in zip(vecs, need[1:])]
+        step = max(1, BACKWARD_CHUNK_BYTES // (4 * c))
+        dx = torch.empty_like(rows) if need[0] else None
+        sums = [None] * 4
+        for r0 in range(0, rows.shape[0], step):
+            xs = rows[r0:r0 + step].detach().requires_grad_(need[0])
+            wrt = [t for t, n in zip([xs] + vecs, need) if n]
+            with torch.enable_grad():
+                y = ref.bn_leaky_relu(xs, *vecs, eps=ctx.eps,
+                                      negative_slope=ctx.slope)
+                got = iter(torch.autograd.grad(y, wrt, dy[r0:r0 + step]))
+            if need[0]:
+                dx[r0:r0 + step] = next(got)
+            for i, n in enumerate(need[1:]):
+                if n:
+                    g = next(got)
+                    sums[i] = g if sums[i] is None else sums[i] + g
+        return (None if dx is None else dx.view(x.shape), *sums, None, None)
+
+
+def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+           scale: torch.Tensor, bias: torch.Tensor, *, eps: float = 1e-5,
+           negative_slope: float = 0.01) -> torch.Tensor:
+    """``bn_leaky_relu`` with gradients: through ``_BnAct`` where autograd
+    records and an input needs a gradient, else the forward alone."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, mean, var, scale, bias)):
+        return _BnAct.apply(x, mean, var, scale, bias, eps, negative_slope)
+    return bn_leaky_relu(x, mean, var, scale, bias, eps=eps,
+                         negative_slope=negative_slope)

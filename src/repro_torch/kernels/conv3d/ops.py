@@ -1,15 +1,34 @@
-"""``conv3d_valid``: the implicit-GEMM 3-D convolution kernel's wrapper.
+"""``conv3d_valid``: the implicit-GEMM 3-D convolution kernel's wrapper,
+and ``conv3d``, the convolution with its gradients.
 
-On a CUDA tensor it checks what the kernel takes, plans the launch
-(``plan``: the N tile, the K split and the gather width), allocates the
-output and the kernel's scratch — the weight transposed to (Cout, K),
-split into TF32 hi and lo parts for fp32, and for a split K one fp32
-partial sum per split — and launches ``csrc/conv3d.cu`` on the current
-stream: the weight pass, the tiles and, for a split K, the sum of the
-splits, counted as one launch in ``conv3d_valid.launches``. Anything the
-kernel does not take raises. On a CPU tensor it runs the plain version
-in ``ref.py``. No other path exists: there is no fallback to the plain
-version, to ``F.conv3d`` or to cuDNN for a CUDA tensor.
+On a CUDA tensor ``conv3d_valid`` checks what the kernel takes, plans
+the launch (``plan``: the N tile, the K split and the gather width),
+allocates the output and the kernel's scratch — the weight transposed to
+(Cout, K), split into TF32 hi and lo parts for fp32, and for a split K
+one fp32 partial sum per split — and launches ``csrc/conv3d.cu`` on the
+current stream: the weight pass, the tiles and, for a split K, the sum
+of the splits, counted as one launch in ``conv3d_valid.launches``.
+Anything the kernel does not take raises. On a CPU tensor it runs the
+plain version in ``ref.py``. No other path exists: there is no fallback
+to the plain version, to ``F.conv3d`` or to cuDNN for a CUDA tensor.
+
+``conv3d`` is ``conv3d_valid`` as a ``torch.autograd.Function``:
+
+* the input gradient is itself a convolution, run by the same kernel
+  (``conv3d_input_grad``, counted apart in its own ``launches``): dy,
+  spread with zeros to stride 1 for a strided conv, convolved with the
+  filter flipped in its three taps and transposed to (k, k, k, Cout,
+  Cin), over pads (k-1-p, D+p-Do') that give back the input's shape;
+* the weight gradient (``conv3d_weight_grad``) is im2col(x)ᵀ @ dy in
+  fp32 (TF32 off), the (k³·Cin, Cout) result summed over every output
+  voxel. The im2col is built a chunk at a time — whole samples where
+  they fit, else runs of output depth planes of one sample — into a
+  scratch of at most ``WGRAD_CHUNK_BYTES`` (the whole im2col of a 512³
+  layer-0 input would take 58 GB); within a chunk, one batched
+  product gives the partial sum of each block of ``WGRAD_ROWS`` voxels,
+  and the partial sums are added in block, then chunk, order. (One
+  product per tap instead would leave a (Cin, Cout) output, 4 x 16 at
+  layer 0, too few tiles to fill the card, and read dy k³ times.)
 """
 from __future__ import annotations
 
@@ -20,6 +39,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv3d import ref
@@ -41,6 +61,8 @@ PATCH_STAGES = (4, 3, 2)    # weight stages it may take, most first
 SMEM_BLOCK = 232448         # shared memory a block may take
 SMEM_SM = 233472            # shared memory of an SM (1 KB of it per block
                             # is the system's)
+WGRAD_ROWS = 4096           # voxels a block of the weight gradient sums
+WGRAD_CHUNK_BYTES = 2 ** 30  # the weight gradient's im2col scratch
 
 
 @dataclass(frozen=True)
@@ -188,6 +210,16 @@ def conv3d_valid(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     out_shape = _check(x, w, stride, pads)
     if x.device.type == "cpu":
         return ref.conv3d_valid(x, w, stride, pads)
+    y = _run_kernel(x, w, stride, pads, out_shape)
+    _build.count_launch(conv3d_valid)
+    return y
+
+
+conv3d_valid.launches = 0
+
+
+def _run_kernel(x, w, stride, pads, out_shape) -> torch.Tensor:
+    """Launch ``csrc/conv3d.cu`` for a checked call on the card."""
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_valid runs on CPU or CUDA tensors, not "
                          f"{x.device}")
@@ -210,8 +242,137 @@ def conv3d_valid(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             pads[0][0], pads[1][0], pads[2][0], p.bn, p.tiles_per_split,
             p.vec, p.stages, torch._C._cuda_getCurrentRawStream(dev))
     _build.check(err, "conv3d_igemm")
-    _build.count_launch(conv3d_valid)
     return y
 
 
-conv3d_valid.launches = 0
+def conv3d_input_grad(dy: torch.Tensor, w: torch.Tensor, x_shape,
+                      stride: int = 1, pads: Pads = NO_PADS) -> torch.Tensor:
+    """dL/dx of ``conv3d_valid(x, w, stride, pads)`` for x of ``x_shape``,
+    given dL/dy ``dy``, in dy's dtype: a stride-1 conv of dy (spread with
+    zeros to stride 1 first when ``stride`` > 1) with the flipped,
+    transposed filter, by the kernel on the card (one launch, counted in
+    ``conv3d_input_grad.launches``) and by ``ref.py`` on the CPU."""
+    k, s = w.shape[0], stride
+    if s > 1:
+        n, do, ho, wo, c = dy.shape
+        spread = dy.new_zeros((n, (do - 1) * s + 1, (ho - 1) * s + 1,
+                               (wo - 1) * s + 1, c))
+        spread[:, ::s, ::s, ::s] = dy
+        dy = spread
+    dy = dy.contiguous()
+    pads_t = tuple((k - 1 - int(p), int(x_shape[1 + d]) + int(p)
+                    - dy.shape[1 + d])
+                   for d, (p, _) in enumerate(pads))
+    w_t = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+    out_shape = _check(dy, w_t, 1, pads_t)
+    if tuple(out_shape) != tuple(x_shape):
+        raise ValueError(f"input gradient of shape {out_shape} for an input "
+                         f"of {tuple(x_shape)}")
+    if dy.device.type == "cpu":
+        return ref.conv3d_valid(dy, w_t, 1, pads_t)
+    dx = _run_kernel(dy, w_t, 1, pads_t, out_shape)
+    _build.count_launch(conv3d_input_grad)
+    return dx
+
+
+conv3d_input_grad.launches = 0
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _row_blocks(m: int) -> int:
+    """The number of equal blocks the weight gradient cuts ``m`` voxels
+    into: the largest divisor of m that leaves blocks of at least
+    ``WGRAD_ROWS`` rows (1 for fewer voxels)."""
+    b = max(1, m // WGRAD_ROWS)
+    while m % b:
+        b -= 1
+    return b
+
+
+def conv3d_weight_grad(x: torch.Tensor, dy: torch.Tensor, w_shape,
+                       stride: int = 1, pads: Pads = NO_PADS) -> torch.Tensor:
+    """dL/dw of ``conv3d_valid(x, w, stride, pads)`` given dL/dy ``dy``,
+    in fp32: im2col(x)ᵀ @ dy a chunk at a time (whole samples, or runs of
+    output depth planes of one sample; the chunk's im2col copied to fp32
+    in a scratch of at most ``WGRAD_CHUNK_BYTES``), each chunk by one
+    batched fp32 product over blocks of voxels (TF32 off), the blocks'
+    and chunks' partial sums added in order."""
+    k, s = w_shape[0], stride
+    cin, cout = w_shape[3], w_shape[4]
+    n, do, ho, wo, _ = dy.shape
+    cols = k ** 3 * cin
+    (pd, qd), (ph, qh), (pw, qw) = pads
+    xp = F.pad(x, (0, 0, pw, qw, ph, qh, pd, qd))
+    plane = ho * wo * cols * 4              # scratch bytes a depth plane
+    if do * plane <= WGRAD_CHUNK_BYTES:     # whole samples a chunk
+        group = min(n, WGRAD_CHUNK_BYTES // (do * plane))
+        chunks = [(i, min(n, i + group), 0, do) for i in range(0, n, group)]
+    else:                                   # depth runs of one sample
+        per = max(1, WGRAD_CHUNK_BYTES // plane)
+        chunks = [(i, i + 1, d, min(do, d + per)) for i in range(n)
+                  for d in range(0, do, per)]
+    most = max((i1 - i0) * (d1 - d0) for i0, i1, d0, d1 in chunks)
+    scratch = torch.empty((most * ho * wo, cols), dtype=torch.float32,
+                          device=x.device)
+    dw = torch.zeros((cols, cout), dtype=torch.float32, device=x.device)
+    sn, sd, sh, sw, _ = xp.stride()
+    with _no_tf32():
+        for i0, i1, d0, d1 in chunks:
+            rows = (i1 - i0) * (d1 - d0) * ho * wo
+            a = scratch[:rows]
+            # every tap's window at once: a view of the padded x indexed
+            # (sample, output voxel, kd, kh, kw, channel), copied in one go
+            windows = xp.as_strided(
+                (i1 - i0, d1 - d0, ho, wo, k, k, k, cin),
+                (sn, s * sd, s * sh, s * sw, sd, sh, sw, 1),
+                xp.storage_offset() + i0 * sn + d0 * s * sd)
+            a.view(windows.shape).copy_(windows)
+            blocks = _row_blocks(rows)
+            g = dy[i0:i1, d0:d1].reshape(blocks, rows // blocks, cout).float()
+            part = torch.bmm(a.view(blocks, rows // blocks, cols)
+                             .transpose(1, 2), g)
+            dw += part.sum(dim=0)
+    return dw.view(tuple(w_shape))
+
+
+class _Conv3d(torch.autograd.Function):
+    """``conv3d_valid`` with the input gradient on the conv kernel
+    (``conv3d_input_grad``) and the weight gradient in fp32 products
+    (``conv3d_weight_grad``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, pads):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.pads = stride, pads
+        return conv3d_valid(x, w, stride, pads)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_input_grad(dy, w, tuple(x.shape), ctx.stride,
+                                   ctx.pads)
+        if ctx.needs_input_grad[1]:
+            dw = conv3d_weight_grad(x, dy.contiguous(), tuple(w.shape),
+                                    ctx.stride, ctx.pads).to(w.dtype)
+        return dx, dw, None, None
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+           pads: Pads = NO_PADS) -> torch.Tensor:
+    """``conv3d_valid`` with gradients: through ``_Conv3d`` where autograd
+    records and x or w needs a gradient, else the forward alone."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        pads = tuple(tuple(int(v) for v in p) for p in pads)
+        return _Conv3d.apply(x, w, stride, pads)
+    return conv3d_valid(x, w, stride, pads)

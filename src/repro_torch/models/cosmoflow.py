@@ -1,5 +1,5 @@
-"""CosmoFlow network (paper Table I), inference forward, spatially
-partitioned by a ``ParallelPlan``.
+"""CosmoFlow network (paper Table I), spatially partitioned by a
+``ParallelPlan``.
 
 n = len(conv_channels) conv blocks, 3^3 SAME convs (stride 1 except
 block 4, stride 2), batch-norm fused with leaky-ReLU (slope 0.01),
@@ -12,14 +12,19 @@ matches. Batch-norm uses the batch's statistics, as in the reference.
 ``forward`` is the per-shard body of the plan-sharded forward
 (``core/spmd.py``); on one device it is the whole forward.
 
-Training (dropout, the backward kernels) comes with the training slice;
-``forward(train=True)`` raises until then.
+``forward(train=True)`` applies dropout (keep 0.8) after each hidden FC
+layer with one mask per (step seed, FC layer j, global sample id), so
+that every shard computing a sample draws the same mask. The masks come
+from a mask source (``MaskSource``): by default ``generator_masks``, an
+explicit ``torch.Generator`` on the device seeded from (seed, j, sample
+id). JAX's random bits cannot be reproduced here, so a caller that must
+match the reference passes the reference's masks as the source.
 """
 from __future__ import annotations
 
 import math
-from typing import (Dict, List, Mapping, NamedTuple, Optional, Sequence,
-                    Tuple)
+from typing import (Any, Callable, Dict, List, Mapping, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -36,6 +41,10 @@ from repro_torch.core.spatial_conv import (SpatialPartitioning, conv3d,
                                            maxpool3d, overlap_split)
 
 Params = Dict[str, torch.Tensor]
+# (seed, FC layer j, global sample ids, width, device) -> bool (N, width)
+MaskSource = Callable[[int, int, Sequence[int], int, torch.device],
+                      torch.Tensor]
+KEEP = 0.8  # dropout keep probability (paper §IV)
 
 
 def num_blocks(cfg: ConvNetConfig) -> int:
@@ -121,6 +130,45 @@ def params_from_numpy(tree: Mapping[str, object], device,
     return out
 
 
+def opt_state_from_numpy(state: Any, device, *, cfg: ConvNetConfig):
+    """The reference's optimizer state (its ``AdamState(step, m, v)``, or
+    ``MPState(inner, loss_scale, good_steps)`` under fp16, with numpy or
+    tensor leaves) as the port's: m and v through ``params_from_numpy``
+    in fp32, the counters as int32 and the loss scale as fp32 scalars on
+    ``device``."""
+    from repro_torch.core.precision import MPState
+    from repro_torch.optim.adam import AdamState
+
+    def scalar(v, dtype):
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.array(v))
+        return t.to(device=device, dtype=dtype).reshape(())
+
+    if hasattr(state, "inner"):
+        return MPState(opt_state_from_numpy(state.inner, device, cfg=cfg),
+                       scalar(state.loss_scale, torch.float32),
+                       scalar(state.good_steps, torch.int32))
+    return AdamState(
+        scalar(state.step, torch.int32),
+        params_from_numpy(state.m, device, torch.float32, cfg=cfg),
+        None if state.v is None else params_from_numpy(
+            state.v, device, torch.float32, cfg=cfg))
+
+
+def generator_masks(seed: int, layer: int, sample_ids: Sequence[int],
+                    width: int, device) -> torch.Tensor:
+    """The default mask source: row i keeps each unit with probability
+    ``KEEP``, drawn by a ``torch.Generator`` on ``device`` seeded from
+    (seed, layer, sample_ids[i]) alone."""
+    rows = []
+    for sid in sample_ids:
+        g = torch.Generator(device=device)
+        g.manual_seed(((int(seed) * 1_000_003 + int(layer)) * 1_000_003
+                       + int(sid)) % (2 ** 63))
+        rows.append(torch.rand(width, generator=g, device=device) < KEEP)
+    return torch.stack(rows)
+
+
 def _default_plan(cfg: ConvNetConfig) -> plan_lib.ParallelPlan:
     return plan_lib.legacy_convnet_plan(cfg, SpatialPartitioning())
 
@@ -129,7 +177,10 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
             plan: Optional[plan_lib.ParallelPlan] = None,
             bn_axes: Optional[Sequence[str]] = None,
             overlap: Optional[bool] = None,
-            precision=None, train: bool = False) -> torch.Tensor:
+            precision=None, train: bool = False,
+            dropout_seed: Optional[int] = None,
+            sample_ids: Optional[Sequence[int]] = None,
+            mask_source: Optional[MaskSource] = None) -> torch.Tensor:
     """x: local shard (N, D_loc, H_loc, W_loc, Cin) -> (N, out_dim).
 
     The per-shard body of a plan-sharded forward: run it inside
@@ -142,11 +193,13 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     ``core/flags.OVERLAP_HALO``). ``precision`` (or the plan's recorded policy)
     casts the input and, at each use, the parameters to the policy's
     compute dtype; a tree already cast once at load makes those casts
-    the identity."""
-    if train:
-        raise NotImplementedError(
-            "the training forward (dropout) comes with the training slice "
-            "of the port")
+    the identity.
+
+    ``train=True`` with a ``dropout_seed`` applies dropout after each
+    hidden FC layer: masks from ``mask_source`` (default
+    ``generator_masks``) for the rows' global ``sample_ids`` (default
+    0..N-1), kept units scaled by 1/``KEEP``. Gradients flow where the
+    caller's tensors require them."""
     plan = plan if plan is not None else _default_plan(cfg)
     spmd.check_mesh(plan.mesh_axes,
                     f"plan {plan.name!r} ({plan.device_count} devices)")
@@ -188,6 +241,12 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
         h = torch.matmul(h, cst(params[f"fc{j}_w"])) + cst(params[f"fc{j}_b"])
         if j < n_fc - 1:
             h = F.leaky_relu(h, negative_slope=0.01)
+            if train and dropout_seed is not None:
+                ids = (range(h.shape[0]) if sample_ids is None
+                       else sample_ids)
+                mask = (mask_source or generator_masks)(
+                    dropout_seed, j, ids, h.shape[1], h.device)
+                h = torch.where(mask.to(h.device), h / KEEP, 0.0)
     return h
 
 
@@ -252,11 +311,22 @@ def kernel_launches(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan
 def mse_loss(params: Params, x: torch.Tensor, y: torch.Tensor,
              cfg: ConvNetConfig, *,
              plan: Optional[plan_lib.ParallelPlan] = None,
-             precision=None, global_batch: int = 0) -> torch.Tensor:
-    """Mean over samples of the per-sample mean squared error, in fp32
-    whatever the compute precision (the reference's ``mse_loss`` with
-    one device and no dropout)."""
-    pred = forward(params, x, cfg, plan=plan, precision=precision)
+             bn_axes: Optional[Sequence[str]] = None,
+             precision=None, global_batch: int = 0, train: bool = True,
+             dropout_seed: Optional[int] = None,
+             sample_ids: Optional[Sequence[int]] = None,
+             mask_source: Optional[MaskSource] = None,
+             overlap: Optional[bool] = None) -> torch.Tensor:
+    """The local loss: the per-sample mean squared errors of the local
+    samples summed and divided by ``global_batch`` (default: the local
+    batch), in fp32 whatever the compute precision — the reference's
+    ``mse_loss`` under a plan whose FC head is computed once per sample.
+    ``train``/``dropout_seed``/``sample_ids``/``mask_source`` are
+    ``forward``'s."""
+    pred = forward(params, x, cfg, plan=plan, bn_axes=bn_axes,
+                   overlap=overlap, precision=precision, train=train,
+                   dropout_seed=dropout_seed, sample_ids=sample_ids,
+                   mask_source=mask_source)
     return mse(pred, y, global_batch or x.shape[0])
 
 

@@ -26,7 +26,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import threading
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,7 +39,6 @@ from repro_torch.core import precision as precision_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import DeviceLike
 from repro_torch.models import cosmoflow as cosmoflow_lib
-from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs import trace as trace_lib
 from repro_torch.train import checkpoint
 from repro_torch.train import train_step as train_step_lib
@@ -111,7 +109,7 @@ def _compile_infer(config: RunConfig, device: DeviceLike,
                             plan, precision)
 
 
-class InferenceSession:
+class InferenceSession(session_lib._Traced):
     """A forward-only serving run over a mesh of devices. Build with
     ``repro_torch.api.compile(RunConfig(mode="infer"))`` or
     ``InferenceSession.restore(checkpoint_dir)``, not directly."""
@@ -130,15 +128,7 @@ class InferenceSession:
             cfg, mesh, plan=plan, overlap=config.overlap_halo,
             precision=self.precision)
         self._harnesses: list = []
-        self._close_lock = threading.Lock()
-        self._closed = False
-        self.tracer = trace_lib.Tracer()
-        self._metrics = metrics_lib.MetricsRegistry()
-        self._trace_path = (config.trace if isinstance(config.trace, str)
-                            else None)
-        self._exported_traces: set = set()
-        if config.trace:
-            trace_lib.enable(self.tracer)
+        self._init_trace(config)
 
     # --------------------------------------------------------- forward ----
     def _cast_once(self, params):
@@ -310,47 +300,10 @@ class InferenceSession:
         return sess
 
     # ------------------------------------------------------- lifecycle ----
-    def export_trace(self, path: Optional[str] = None) -> str:
-        """Write the session's span log (serve.enqueue/batch/forward/
-        reply) as a Chrome/Perfetto trace. An existing file that this
-        session did not write is not overwritten: ``-1``, ``-2``, ... are
-        appended to the name."""
-        path = path or self._trace_path
-        if path is None:
-            raise ValueError("no path: pass export_trace(path) or set "
-                             "RunConfig(trace='out/trace.json')")
-        if path not in self._exported_traces and os.path.exists(path):
-            base, ext = os.path.splitext(path)
-            i = 1
-            while os.path.exists(f"{base}-{i}{ext}"):
-                i += 1
-            path = f"{base}-{i}{ext}"
-        d = os.path.dirname(path)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        self.tracer.export_chrome(path)
-        self._exported_traces.add(path)
-        return path
-
-    def close(self) -> None:
-        """Drain and join every serving harness, write the trace file
-        when one was asked for, and deregister the tracer. Idempotent
-        and thread-safe."""
-        with self._close_lock:
-            if self._closed:
-                return
-            self._closed = True
+    def _release(self) -> None:
+        """Drain and join every serving harness."""
         for h in self._harnesses:
             h.close(drain=True)
-        if self._trace_path and len(self.tracer):
-            self.export_trace(self._trace_path)
-        trace_lib.disable(self.tracer)
-
-    def __enter__(self) -> "InferenceSession":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.close()
 
 
 def _quantile_ms(samples_s, q: float) -> float:

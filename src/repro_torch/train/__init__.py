@@ -1,3 +1,3 @@
-"""Training-side modules of the port. So far only the checkpoint reader
-(``checkpoint``), which serving needs; the train step, the optimizer and
-the checkpoint writer come with the training slice."""
+"""Training-side modules of the port: the train, eval and serving steps
+(``train_step``), the non-finite step guard (``guard``) and the
+checkpoint reader and writer (``checkpoint``)."""

@@ -21,7 +21,11 @@ contract) and 2e-2 of the output scale in bf16; on views of one
 buffer (as the Mamba2 block passes x, B and C) it must give the bits it
 gives on contiguous copies, and the same bits on every call; a Mamba2
 forward through it against the same forward through the plain chunked
-scan.
+scan. The conv's input gradient (the same kernel over the flipped,
+transposed filter) is held at every cosmoflow-128 layer that has one
+against autograd through the plain conv, and a training ``Session`` on
+the card launches 7 conv, 6 input-gradient and 7 bn_act kernels a
+step and agrees with the same session on the CPU.
 """
 from unittest import mock
 
@@ -463,3 +467,61 @@ def test_mamba2_forward_through_the_kernel_matches_the_plain_scan(cuda, dtype,
     assert ssd_ops.ssd_scan.launches == before + cfg.num_layers
     scale = max(1.0, want.float().abs().max().item())
     assert (got.float() - want.float()).abs().max().item() <= rel * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", range(1, 7))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv3d_input_grad_at_cosmoflow_128_layers(cuda, layer, dtype):
+    """dL/dx by the kernel (batch 1) against autograd through the plain
+    conv in fp32 on the same values, on the card: fp32 within 1e-6 *
+    sqrt(k^3 Cout) of the scale (the forward's contract at the input
+    gradient's K), bf16 within 2^-7 (one rounding of an fp32 sum; the
+    plain conv's own bf16 backward rounds each tap's part)."""
+    xs, ws, stride, pads = _cosmoflow_128_convs()[layer]
+    xs = (1,) + tuple(xs[1:])
+    g = torch.Generator(device=cuda).manual_seed(layer)
+    kc = ws[0] * ws[1] * ws[2] * ws[4]
+    x = torch.randn(xs, generator=g, device=cuda).to(TORCH_DT[dtype])
+    w = (torch.randn(ws, generator=g, device=cuda)
+         * (2.0 / kc) ** 0.5).to(TORCH_DT[dtype])
+    xr = x.float().requires_grad_(True)
+    y = conv_ref.conv3d_valid(xr, w.float(), stride, pads)
+    dy = torch.randn(y.shape, generator=g, device=cuda).to(x.dtype)
+    y.backward(dy.float())
+    before = conv_ops.conv3d_input_grad.launches
+    got = conv_ops.conv3d_input_grad(dy, w, xs, stride, pads)
+    assert conv_ops.conv3d_input_grad.launches == before + 1
+    torch.cuda.synchronize()
+    rel = 1e-6 * kc ** 0.5 if dtype == "float32" else 2 ** -7
+    want = xr.grad.float()
+    scale = max(1.0, want.abs().max().item())
+    assert (got.float() - want).abs().max().item() <= rel * scale
+
+
+@pytest.mark.cuda
+def test_train_session_on_card_matches_cpu(cuda):
+    from repro_torch.api import RunConfig, compile
+
+    r = np.random.RandomState(0)
+    x = r.randn(2, 32, 32, 32, 2).astype(np.float32)
+    y = r.randn(2, 4).astype(np.float32)
+    from repro_torch.models import cosmoflow
+
+    def masks(seed, layer, ids, width, device):  # the same on both
+        return cosmoflow.generator_masks(seed, layer, ids, width,
+                                         "cpu").to(device)
+
+    cfg = RunConfig(model="cosmoflow-128", smoke=True, global_batch=2)
+    cpu = compile(cfg, device="cpu", mask_source=masks)
+    card = compile(cfg, device=cuda, mask_source=masks)
+    card.params = {k: v.to(cuda) for k, v in cpu.params.items()}
+    counters = (conv_ops.conv3d_valid, conv_ops.conv3d_input_grad,
+                bn_ops.bn_leaky_relu)
+    before = [c.launches for c in counters]
+    for _ in range(2):
+        want = float(cpu.step(x, y))
+        got = float(card.step(x, y))
+        assert abs(got - want) <= 1e-4 * abs(want), (got, want)
+    # 3 conv blocks: the first needs no input gradient
+    assert [c.launches - b for c, b in zip(counters, before)] == [6, 4, 6]

@@ -219,8 +219,13 @@ def test_run_config_json_matches_reference():
 def test_forward_rejects_what_this_slice_does_not_run():
     p = cosmoflow.params_from_numpy(_weights(SMOKE), "cpu", cfg=SMOKE)
     x = torch.from_numpy(_volume(SMOKE, n=1))
-    with pytest.raises(NotImplementedError, match="training"):
-        cosmoflow.forward(p, x, SMOKE, train=True)
+    # the training forward runs: dropout where a seed is given, else the
+    # serving forward
+    assert torch.equal(cosmoflow.forward(p, x, SMOKE, train=True),
+                       cosmoflow.forward(p, x, SMOKE))
+    dropped = cosmoflow.forward(p, x, SMOKE, train=True, dropout_seed=0)
+    assert dropped.shape == (1, SMOKE.out_dim)
+    assert bool(torch.isfinite(dropped).all())
     two_way = plan.legacy_convnet_plan(
         SMOKE, spatial_conv.SpatialPartitioning(("model", None, None)),
         (2, 1, 1))

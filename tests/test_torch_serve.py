@@ -213,8 +213,10 @@ def test_mode_dispatch_and_train_slice():
     sess.close()
     with pytest.raises(RuntimeError, match="closed"):
         sess.predict(_batch(n=1)[0])
-    with pytest.raises(NotImplementedError, match="training slice"):
-        compile(RunConfig(model=TINY), device="cpu")
+    # training runs on one device; spatial training is still to come
+    with pytest.raises(RunConfigError) as e:
+        compile(RunConfig(model=TINY, spatial=2), devices=["cpu"] * 2)
+    assert e.value.field == "spatial"
     with pytest.raises(RunConfigError) as e:
         compile_infer(RunConfig(model=TINY), device="cpu")
     assert e.value.field == "mode"
