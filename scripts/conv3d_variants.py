@@ -2,6 +2,7 @@
 """Time design variants of the implicit-GEMM conv3d kernel on one NVIDIA card.
 
     python3 scripts/conv3d_variants.py [--reps 5] [--config cosmoflow-128]
+        [--only NAME | --beside NAME ...]
 
 Each variant is ``src/repro_torch/csrc/conv3d.cu`` with a tuning constant
 rewritten, or the wrapper's plan with another K split; every one is built
@@ -35,8 +36,11 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # name -> ({text in the source: its replacement}, {plan constant: value})
-IN_FLIGHT = ("    wgmma_wait_one();\n    __syncthreads();  // every warpgroup",
-             "    wgmma_wait_all();\n    __syncthreads();  // every warpgroup")
+IN_FLIGHT = ("      wgmma_wait_one();\n    }\n    __syncthreads();  // every warpgroup",
+             "      wgmma_wait_all();\n    }\n    __syncthreads();  // every warpgroup")
+FOUR_PRODUCTS = ("        mma_tf32_rs<BN>(part, lo[ks], bh);\n      }\n",
+                 "        mma_tf32_rs<BN>(part, lo[ks], bh);\n"
+                 "        mma_tf32_rs<BN>(part, lo[ks], bl);\n      }\n")
 CARVEOUT = ("  return cudaFuncSetAttribute(kernel, "
             "cudaFuncAttributePreferredSharedMemoryCarveout,",
             "  return e;\n  return cudaFuncSetAttribute(kernel, "
@@ -55,6 +59,7 @@ VARIANTS = {
         {"constexpr int kStages = 3;": "constexpr int kStages = 4;"},
         {"PATCH_STAGES": ()}),
     "the default shared-memory carveout": (dict([CARVEOUT]), {}),
+    "fp32 four products": (dict([FOUR_PRODUCTS]), {}),
 }
 
 
@@ -65,9 +70,9 @@ def build(build_lib, out_dir):
     for i, (name, (edits, _)) in enumerate(VARIANTS.items()):
         text = src
         for old, new in edits.items():
-            if text.count(old) != 1:
+            if old not in text:
                 raise SystemExit(f"variant {name!r}: {old!r} is not in the "
-                                 f"source exactly once")
+                                 f"source")
             text = text.replace(old, new)
         cu = os.path.join(out_dir, f"v{i}.cu")
         with open(cu, "w") as f:
@@ -168,6 +173,9 @@ def main() -> int:
     ap.add_argument("--config", default="cosmoflow-128",
                     choices=("cosmoflow-128", "cosmoflow-512"))
     ap.add_argument("--only", help="run this variant alone")
+    ap.add_argument("--beside", action="append", default=[],
+                    help="run this variant beside the one as built (and "
+                    "no other); may repeat")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("conv3d_variants: no CUDA device", file=sys.stderr)
@@ -188,6 +196,10 @@ def main() -> int:
         VARIANTS.update({"as built": VARIANTS[args.only]})
         for name in list(VARIANTS)[1:]:
             del VARIANTS[name]
+    elif args.beside:
+        for name in list(VARIANTS)[1:]:
+            if name not in args.beside:
+                del VARIANTS[name]
     libs = build(_build, os.path.join(ROOT, "build", "conv3d_variants"))
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
 

@@ -295,10 +295,9 @@ class Session(_Traced):
         if (self.config.checkpoint_dir and self.config.save_every
                 and self._t % self.config.save_every == 0):
             if self.config.keep_last is not None:
-                self.save(checkpoint.step_dir(self.config.checkpoint_dir,
-                                              self._t))
-                checkpoint.gc_steps(self.config.checkpoint_dir,
-                                    self.config.keep_last)
+                checkpoint.save_step(self.config.checkpoint_dir,
+                                     keep_last=self.config.keep_last,
+                                     **self._checkpoint())
             else:
                 self.save()
         return loss
@@ -354,11 +353,16 @@ class Session(_Traced):
         if path is None:
             raise ValueError("no path: pass save(path) or set "
                              "RunConfig.checkpoint_dir")
-        meta = {"run_config": self._pinned_config().to_json()}
-        checkpoint.save(path, {"params": self.params, "opt": self.opt_state},
-                        step=self._t, precision=self.precision,
-                        extra_files={_META_FILE: meta})
+        checkpoint.save(path, **self._checkpoint())
         return path
+
+    def _checkpoint(self) -> Dict[str, Any]:
+        """What a checkpoint taken now holds, as ``checkpoint.save``'s
+        keywords."""
+        meta = {"run_config": self._pinned_config().to_json()}
+        return {"tree": {"params": self.params, "opt": self.opt_state},
+                "step": self._t, "precision": self.precision,
+                "extra_files": {_META_FILE: meta}}
 
     def _pinned_config(self) -> RunConfig:
         """The config with every ``"auto"`` resolved: the concrete model,

@@ -47,12 +47,6 @@ class PrecisionPolicy:
         return self.dynamic_scale or self.loss_scale != 1.0
 
     @property
-    def needs_wrapper(self) -> bool:
-        """Whether the optimizer must carry scale/skip state (fp32 and
-        bf16 run the unwrapped optimizer)."""
-        return self.uses_scaling
-
-    @property
     def casts_params(self) -> bool:
         return self.compute_dtype != self.master_dtype
 
@@ -177,7 +171,7 @@ def wrap_optimizer(optimizer: Any,
     """Wrap for policies that need the scale/skip machine (fp16); the
     identity for fp32/bf16 and for an optimizer already wrapped."""
     policy = get(policy)
-    if not policy.needs_wrapper or isinstance(optimizer, MixedPrecision):
+    if not policy.uses_scaling or isinstance(optimizer, MixedPrecision):
         return optimizer
     return MixedPrecision(optimizer, policy)
 

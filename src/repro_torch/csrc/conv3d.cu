@@ -28,9 +28,15 @@
 //   truncated to TF32; the A fragment is split in registers and the
 //   register-A form of wgmma ...tf32 runs three times per K step, hi*B_hi
 //   + hi*B_lo + lo*B_hi. 1xTF32 keeps ~1e-3 of the output scale, 3xTF32
-//   the accuracy of an fp32 sum. TF32 wants B K-major, so a first launch
-//   writes the weight transposed to (Cout, K), split into B_hi and B_lo
-//   (one copy for 16-bit types).
+//   the accuracy of an fp32 sum, if the tensor cores' chopped adds are
+//   kept small. They add a product group to the accumulator with its low
+//   bits chopped, an error of the accumulator's size each time that leans
+//   one way (in place, ~7e-6 of the scale at K = 864). So each stage's 12
+//   wgmma sum onto a zeroed tile of their own, the small products
+//   (hi*B_lo, lo*B_hi) first, then hi*B_hi, and the tile is added to the
+//   accumulators by an fp32 add, which rounds to nearest. TF32 wants B
+//   K-major, so a first launch writes the weight transposed to (Cout, K),
+//   split into B_hi and B_lo (one copy for 16-bit types).
 // - The weight streams by TMA from a 2-D tensor map with the 128-byte
 //   swizzle, 128 bytes of K a stage (32 fp32 or 64 bf16 values), through a
 //   ring of stages completing on mbarriers.
@@ -680,7 +686,7 @@ conv3d_igemm(const __grid_constant__ CUtensorMap w_hi,
     }
   };
 
-  float acc[BN / 2];
+  float acc[BN / 2], part[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
@@ -720,23 +726,29 @@ conv3d_igemm(const __grid_constant__ CUtensorMap w_hi,
           lo[ks][v] = __float_as_uint(a - __uint_as_float(hi[ks][v])) & 0xFFFFE000u;
         }
       }
-      fence_regs<BN / 2>(acc);
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) part[j] = 0.f;
+      fence_regs<BN / 2>(part);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
         const uint64_t bh = sw128_desc(b_addr + 32 * ks);
         const uint64_t bl = sw128_desc(b_addr + C::kBBytes + 32 * ks);
-        mma_tf32_rs<BN>(acc, hi[ks], bh);
-        mma_tf32_rs<BN>(acc, hi[ks], bl);
-        mma_tf32_rs<BN>(acc, lo[ks], bh);
+        mma_tf32_rs<BN>(part, hi[ks], bl);
+        mma_tf32_rs<BN>(part, lo[ks], bh);
       }
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        mma_tf32_rs<BN>(part, hi[ks], sw128_desc(b_addr + 32 * ks));
       wgmma_commit();
       if (i + kStages - 1 < nk) load(i + kStages - 1);
       cp_async_commit();
       wgmma_wait_all();
-      fence_regs<BN / 2>(acc);
+      fence_regs<BN / 2>(part);
       fence_regs<16>(&hi[0][0]);
       fence_regs<16>(&lo[0][0]);
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[j] += part[j];
     } else {
       fence_regs<BN / 2>(acc);
       wgmma_fence();
@@ -925,7 +937,7 @@ conv3d_patch(const __grid_constant__ CUtensorMap w_hi,
   const int wg = tid / 128;
   const int warp = (tid / 32) % 4;
   const int lane = tid % 32;
-  float acc[kMT][BN / 2];
+  float acc[kMT][BN / 2], part[BN / 2];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
@@ -935,10 +947,11 @@ conv3d_patch(const __grid_constant__ CUtensorMap w_hi,
 
   // stage i: its wgmma group is issued and left in flight; the group of
   // stage i - 1 is waited for, and its weight slot refilled. Nothing but
-  // wgmma touches the accumulators until the last wait, and the TF32 A
-  // fragments alternate between two register sets, so the group in
-  // flight never has its registers redefined under it.
-  auto stage = [&](int i, uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+  // wgmma touches the accumulators until the last wait. A TF32 group is
+  // waited for at once instead, and its stage's tile added to the
+  // accumulators.
+  uint32_t hi[4][4], lo[4][4];  // a TF32 stage's A fragments
+  auto stage = [&](int i) {
     const int slot = i % s.stages;
     mbar_wait(smem_u32(&bars[slot]), (i / s.stages) & 1);
     const uint32_t b_addr = smem_u32(smem + slot * kStageBytes);
@@ -965,15 +978,20 @@ conv3d_patch(const __grid_constant__ CUtensorMap w_hi,
               __float_as_uint(a1 - __uint_as_float(hi[ks][2 * half + 1])) & 0xFFFFE000u;
         }
       }
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) part[j] = 0.f;
+      fence_regs<BN / 2>(part);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
         const uint64_t bh = sw128_desc(b_addr + 32 * ks);
         const uint64_t bl = sw128_desc(b_addr + kBBytes + 32 * ks);
-        mma_tf32_rs<BN>(acc[0], hi[ks], bh);
-        mma_tf32_rs<BN>(acc[0], hi[ks], bl);
-        mma_tf32_rs<BN>(acc[0], lo[ks], bh);
+        mma_tf32_rs<BN>(part, hi[ks], bl);
+        mma_tf32_rs<BN>(part, lo[ks], bh);
       }
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        mma_tf32_rs<BN>(part, hi[ks], sw128_desc(b_addr + 32 * ks));
     } else {
       // k16 steps; K is a multiple of 16 here, so a step is two chunks of
       // one tap, one chunk plane apart. A step past K reads the zero bytes
@@ -994,22 +1012,21 @@ conv3d_patch(const __grid_constant__ CUtensorMap w_hi,
       }
     }
     wgmma_commit();
-    wgmma_wait_one();
+    if constexpr (kTf32) {
+      wgmma_wait_all();
+      fence_regs<BN / 2>(part);
+      fence_regs<16>(&hi[0][0]);
+      fence_regs<16>(&lo[0][0]);
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[0][j] += part[j];
+    } else {
+      wgmma_wait_one();
+    }
     __syncthreads();  // every warpgroup is done with stage i - 1
     if (tid == 0 && i >= 1 && i - 1 + s.stages < nk) load_b(i - 1 + s.stages);
   };
-  uint32_t hi0[4][4], lo0[4][4], hi1[4][4], lo1[4][4];
-  if constexpr (kTf32) {
 #pragma unroll 1
-    for (int i = 0; i + 1 < nk; i += 2) {
-      stage(i, hi0, lo0);
-      stage(i + 1, hi1, lo1);
-    }
-    if (nk % 2) stage(nk - 1, hi0, lo0);
-  } else {
-#pragma unroll 1
-    for (int i = 0; i < nk; ++i) stage(i, hi0, lo0);
-  }
+  for (int i = 0; i < nk; ++i) stage(i);
   wgmma_wait_all();
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) fence_regs<BN / 2>(acc[mt]);

@@ -148,8 +148,7 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
                         plan: plan_lib.ParallelPlan, precision=None,
                         guard: bool = False,
                         mask_source: Optional[
-                            cosmoflow_lib.MaskSource] = None,
-                        on_phase: Optional[Callable[[str], None]] = None):
+                            cosmoflow_lib.MaskSource] = None):
     """The train step and its phase probes. ``stage``: ``fwd`` (the
     loss), ``bwd`` (loss, and the sum of every gradient: the backward
     without the update) or ``step`` (the update).
@@ -159,16 +158,13 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
     backward and hands the scale to the optimizer, which unscales before
     clipping and skips non-finite steps. ``guard`` adds the non-finite
     step guard for every precision and a fourth output, 1.0 if the
-    update applied and 0.0 if not. ``on_phase`` (optional) is called with
-    ``"fwd"``, ``"bwd"`` and ``"step"`` as each phase has been enqueued
-    (a caller may record a CUDA event there)."""
+    update applied and 0.0 if not."""
     _resolve_grad_comm(grad_comm)
     _check_one_device(cfg, mesh, plan)
     policy = precision_lib.get(
         precision if precision is not None else plan.precision)
     optimizer = precision_lib.wrap_optimizer(optimizer, policy)
     axes = plan.axis_names
-    mark = on_phase or (lambda phase: None)
 
     def local_step(params, opt_state, x, y, seed):
         sample_ids = range(x.shape[0])  # one device: the global ids
@@ -183,7 +179,6 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
         if stage == "fwd":
             with torch.no_grad():
                 loss = loss_fn(params)
-            mark("fwd")
             return loss
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
@@ -195,13 +190,11 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
                 scale = precision_lib.current_scale(opt_state, policy).to(
                     loss.device)
                 loss = loss * scale
-            mark("fwd")
             grads = dict(zip(leaves, torch.autograd.grad(
                 loss, list(leaves.values()))))
         loss = loss.detach()
         if policy.uses_scaling:
             loss = loss / scale
-        mark("bwd")
         if stage == "bwd":
             return loss, sum(g.sum() for g in grads.values())
         applied = None
@@ -213,7 +206,6 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
         if guard and not policy.uses_scaling:
             new_params = guard_lib.tree_select(applied, new_params, params)
             new_opt = guard_lib.tree_select(applied, new_opt, opt_state)
-        mark("step")
         if guard:
             return new_params, new_opt, loss, applied.float()
         return new_params, new_opt, loss
@@ -232,8 +224,7 @@ def make_convnet_train_step(cfg: ConvNetConfig, mesh, optimizer, *,
                             grad_comm: Optional[str] = None,
                             precision=None, guard: bool = False,
                             mask_source: Optional[
-                                cosmoflow_lib.MaskSource] = None,
-                            on_phase: Optional[Callable[[str], None]] = None):
+                                cosmoflow_lib.MaskSource] = None):
     """Returns ``step(params, opt_state, x, y, seed) -> (params, opt,
     loss)`` (``guard=True``: ``(params, opt, loss, applied)``). ``params``
     are the fp32 masters and ``opt_state`` comes from
@@ -243,7 +234,7 @@ def make_convnet_train_step(cfg: ConvNetConfig, mesh, optimizer, *,
     return _build_convnet_step(
         cfg, mesh, optimizer, global_batch=global_batch, overlap=overlap,
         grad_comm=grad_comm, stage="step", plan=plan, precision=precision,
-        guard=guard, mask_source=mask_source, on_phase=on_phase)
+        guard=guard, mask_source=mask_source)
 
 
 def make_convnet_phase_probes(cfg: ConvNetConfig, mesh, optimizer, *,
