@@ -16,8 +16,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
               rows x C shapes, fp32 and bf16; halo pack and unpack, bit
               for bit, at every face of the depth-split convs of
               cosmoflow-128 batch 4 (S = 2, 4, and all 7 blocks split at
-              S = 2) and cosmoflow-512 batch 1 (S = 4), plus k = 5
-              (lo = hi = 2) and a row of 180 bytes, fp32 and bf16.
+              S = 2) and cosmoflow-512 batch 1 (S = 4), the sharded
+              training steps' faces (batch 2 at 2 x 2) and those of
+              unpack's adjoint, plus k = 5 (lo = hi = 2) and a row of 180
+              bytes, fp32 and bf16.
 4. serve    — ``repro_torch.api.compile(RunConfig(model="cosmoflow-128",
               mode="infer", global_batch=4))`` at fp32 and bf16: predict
               on a seeded batch, held against the same forward through the
@@ -71,6 +73,27 @@ Phases, each printing one line; any failure raises and exits non-zero:
               (fp32 1e-6 sqrt(k^3 Cout) of the scale, bf16 2^-7), beside
               ``torch.nn.grad.conv3d_input``, and each weight gradient
               beside ``torch.nn.grad.conv3d_weight``.
+10b. train_spatial — hybrid data x spatial training of cosmoflow-128 b4,
+              every shard on this card (``devices=["cuda:0"] * n``), 3
+              steps in each of ``TRAIN_SPATIAL``: (a) fp32 1 x 2, (b) fp32
+              1 x 4, (c) fp32 2 x 2 with ``overlap`` and with
+              ``monolithic``, (d) bf16 1 x 2, (e) fp32 1 x 2 under the plan
+              that splits all 7 blocks (unpack and its adjoint). Step 1's
+              loss and reduced gradients (the ``grad_comm`` probe) held
+              against the unsharded step: fp32 against the fp64 step that
+              takes the sharded step's leaky-ReLU signs and pool winners
+              (gathered from the shards), within max(1e-4, the plain fp32
+              step's own distance from fp64) of each leaf's max-abs; bf16
+              no farther from fp64 than 1.5x the plain bf16 step; losses
+              1e-4 and 5e-2. Launches per step of conv3d, its input
+              gradient, bn_act, pack and unpack equal to
+              ``kernel_launches(train=True)``; 2 x 2 overlap against
+              monolithic after 2 steps (atol 1e-5, rtol 1e-4). Timed: ms
+              per step (host clock, median of 3), the probes' fwd / bwd /
+              grad_comm / step split, peak memory. Each part runs under a
+              wall-clock limit, so a deadlocked backward fails the run.
+              With every shard on one card the times are the sharded
+              step's overhead, not scaling.
 11. ssd     — the SSD scan kernel against its plain (sequential) version
               at the shapes of ``tests/test_kernels.py``, a ragged L and
               mamba2-370m's layer shape (B=4, L=4096, H=32, P=64, N=128,
@@ -96,7 +119,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
               of its CUDA kernels' time (median over 5 profiled calls);
               one profiled mamba2-370m forward in fp32 and one in bf16.
 
-Phases 4-6, 7-8, 10 (the training steps) and 12-13 are the main paths:
+Phases 4-6, 7-8, 10 (the training steps), 10b (the sharded training
+steps) and 12-13 are the main paths:
 the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
@@ -114,6 +138,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -179,6 +204,20 @@ TRAIN = (("cosmoflow-128", 4, "fp32", 5, True),
 STEP1_FP32 = 1e-4
 STEP1_BF16 = 1.5
 STEP1_LOSS = {"fp32": 1e-4, "bf16": 5e-2}
+# hybrid training of cosmoflow-128 b4, every shard on this card:
+# (configuration, data, spatial, precision, grad_comm, plan)
+TRAIN_SPATIAL = (("a", 1, 2, "fp32", "overlap", "fixed"),
+                 ("b", 1, 4, "fp32", "overlap", "fixed"),
+                 ("c", 2, 2, "fp32", "overlap", "fixed"),
+                 ("c", 2, 2, "fp32", "monolithic", "fixed"),
+                 ("d", 1, 2, "bf16", "overlap", "fixed"),
+                 ("e", 1, 2, "fp32", "overlap", "deep"))
+SPATIAL_STEPS = 3
+# wall clock a configuration's step-1 check, its steps or its timings
+# may take: a backward that deadlocks fails the run instead of hanging it
+SPATIAL_LIMIT_S = 240
+# overlap against monolithic after 2 steps (tests/test_grad_comm.py)
+MODES_ATOL, MODES_RTOL = 1e-5, 1e-4
 # (B, L, H, P, N, chunk): tests/test_kernels.py's four (B=2), L=40 with
 # chunk 16 (lowered to 10), and mamba2-370m's layer at 4 x 4096 tokens
 SSD_SHAPES = ((2, 32, 2, 8, 16, 8), (2, 64, 3, 8, 16, 16),
@@ -486,11 +525,17 @@ def halo_cases(cosmoflow, plan_lib, part, cfgs) -> list:
     """(shard input shape, lo, hi) of every depth-split conv of the
     spatial configs, and the extra cases, each once."""
     cases = set(HALO_EXTRA)
-    for name, batch, S, _, kind in SPATIAL:
-        cfg = cfgs[name]
+    runs = [(cfgs[name], batch, S, kind) for name, batch, S, _, kind
+            in SPATIAL]
+    runs += [(cfgs["cosmoflow-128"], 4 // D, S, kind)
+             for _, D, S, _, _, kind in TRAIN_SPATIAL]
+    for cfg, batch, S, kind in runs:
         plan = spatial_plan(plan_lib, part, cfg, S, kind)
-        cases |= {(sc.shape, sc.lo, sc.hi)
-                  for sc in cosmoflow.split_convs(cfg, plan, batch)}
+        for sc in cosmoflow.split_convs(cfg, plan, batch):
+            cases.add((sc.shape, sc.lo, sc.hi))
+            if sc.no_interior:  # the unpack's adjoint: a pack of dout
+                n, d, h, w, c = sc.shape
+                cases.add(((n, sc.lo + d + sc.hi, h, w, c), sc.hi, sc.lo))
     return sorted(cases)
 
 
@@ -1043,14 +1088,15 @@ def saved_bytes(k, cfg, batch: int) -> float:
 def step_split(k, sess, x, y, reps: int = 3) -> dict:
     """A step's device time split by the train step's phase probes
     (``make_convnet_phase_probes``: the forward alone, the forward and
-    the backward, the whole step without the guard), each timed by CUDA
-    events around it, the median of ``reps`` after one warm-up, on the
-    session's parameters (the results are dropped): forward = fwd,
-    backward = bwd - fwd, optimizer = step - bwd; and the peak of
+    the backward, then the gradient reduction, the whole step without
+    the guard), each timed by CUDA events around it, the median of
+    ``reps`` after one warm-up, on the session's parameters (the results
+    are dropped): forward = fwd, backward = bwd - fwd, reduction =
+    grad_comm - bwd, optimizer = step - grad_comm; and the peak of
     allocated memory in each probe."""
     probes = k.train_step.make_convnet_phase_probes(
         sess.cfg, sess.mesh, sess.optimizer, global_batch=x.shape[0],
-        plan=sess.plan, precision=sess.precision)
+        plan=sess.plan, grad_comm=sess.grad_comm, precision=sess.precision)
     ms, out = {}, {}
     for stage, fn in probes.items():
         fn(sess.params, sess.opt_state, x, y, 0)
@@ -1068,7 +1114,8 @@ def step_split(k, sess, x, y, reps: int = 3) -> dict:
         ms[stage] = statistics.median(times)
         out[stage + "_peak_bytes"] = torch.cuda.max_memory_allocated()
     return dict(out, forward_ms=ms["fwd"], backward_ms=ms["bwd"] - ms["fwd"],
-                optimizer_ms=ms["step"] - ms["bwd"], probe_ms=ms)
+                grad_comm_ms=ms["grad_comm"] - ms["bwd"],
+                optimizer_ms=ms["step"] - ms["grad_comm"], probe_ms=ms)
 
 
 def grad_rows(k, cfg, batch: int, prec: str, reps: int) -> dict:
@@ -1297,6 +1344,258 @@ def phase_train(k, cfgs, RunConfig, compile) -> tuple:
     return out, launches
 
 
+def within_limit(fn, seconds: float, what: str):
+    """``fn()`` in a thread of its own, which must end within
+    ``seconds``: a step whose backward deadlocks fails the run instead
+    of hanging it. Re-raises what ``fn`` raised."""
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+
+    t = threading.Thread(target=run, name=f"limit-{what}", daemon=True)
+    t.start()
+    t.join(seconds)
+    check(not t.is_alive(), f"{what}: did not finish within {seconds} s")
+    if "error" in box:
+        raise box["error"]
+    return box.get("value")
+
+
+@contextlib.contextmanager
+def shard_decisions(k, taken: dict):
+    """``decisions``' record mode in a sharded step: each shard's
+    leaky-ReLU signs and pool winners, in its call order, in
+    ``taken[rank]``."""
+    bn_fn = k.cosmoflow.dist_norm.distributed_batchnorm
+    pool_fn = k.cosmoflow.maxpool3d
+
+    def mine() -> list:
+        return taken.setdefault(k.spmd.axis(("data", "model")).index, [])
+
+    def bn(x, scale, bias, reduce_axes=(), eps=1e-5, activation_slope=None):
+        y = bn_fn(x, scale, bias, reduce_axes, eps, activation_slope)
+        mine().append(y.detach() > 0)
+        return y
+
+    def pool(x, part, window=2, stride=2):
+        mine().append(_windows(x.detach(), stride).argmax(-1))
+        return pool_fn(x, part, window, stride)
+
+    with mock.patch.object(k.cosmoflow.dist_norm, "distributed_batchnorm",
+                           bn), \
+            mock.patch.object(k.cosmoflow, "maxpool3d", pool):
+        yield
+
+
+def global_decisions(k, taken: dict, cfg, plan, mesh) -> list:
+    """The sharded step's decisions as the unsharded step's: depth slabs
+    concatenated along depth, batch slices along the batch, and a block
+    the plan gathers (replicated over the spatial group) from the
+    group's first shard."""
+    n_data, n_model = mesh.degree("data"), mesh.degree("model")
+    npool = k.cosmoflow.num_pools(cfg)
+    blocks = [i for i in range(k.cosmoflow.num_blocks(cfg))
+              for _ in range(2 if i < npool else 1)]
+    out = []
+    for j, i in enumerate(blocks):
+        split = bool(plan.stage_for(i).part.active)
+        out.append(torch.cat([
+            torch.cat([taken[d * n_model + m][j]
+                       for m in (range(n_model) if split else (0,))], 1)
+            for d in range(n_data)], 0))
+    return out
+
+
+def phase_train_spatial(k, cfg, RunConfig, compile, plan_lib, depth,
+                        card: str) -> tuple:
+    """Hybrid data x spatial training of ``cfg`` (cosmoflow-128) batch 4,
+    every shard on this card, in each of ``TRAIN_SPATIAL``:
+
+    1. step 1's loss and reduced gradients (the ``grad_comm`` probe)
+       held against the unsharded step: fp32 against the fp64 unsharded
+       step that takes the sharded step's leaky-ReLU signs and pool
+       winners (``shard_decisions``, ``global_decisions``), every leaf
+       within max(``STEP1_FP32``, the plain fp32 unsharded step's own
+       distance from fp64) of its max-abs; bf16 no farther from fp64
+       than ``STEP1_BF16`` x the plain bf16 step; the loss within
+       ``STEP1_LOSS`` of the plain unsharded step's;
+    2. the main path: ``SPATIAL_STEPS`` steps each, every loss finite,
+       the launches per step of each kernel equal to
+       ``kernel_launches(train=True)``; the 2 x 2 ``overlap`` and
+       ``monolithic`` runs' parameters after 2 steps within
+       ``MODES_ATOL``/``MODES_RTOL``;
+    3. timings: ms per step (host clock, median of 3 after a warm-up),
+       the probes' split, peak memory.
+
+    Each part of each configuration runs under ``within_limit``.
+    Returns (report, launches of the main path)."""
+    out = {"vs_unsharded": {}, "steps": {}, "timing": {}, "card": card,
+           "note": "every shard on one card: these times measure the "
+                   "sharded step's overhead, not scaling"}
+    g = torch.Generator(device="cuda").manual_seed(11)
+    w = cfg.input_width
+    x = torch.randn((4, w, w, w, cfg.in_channels), generator=g,
+                    device="cuda")
+    y = torch.randn((4, cfg.out_dim), generator=g, device="cuda")
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max().item()
+                / max(1e-30, b.double().abs().max().item()))
+
+    # the unsharded steps the checks are held to, per precision
+    base = {}
+    for prec in ("fp32", "bf16"):
+        one = compile(RunConfig(model=cfg, mode="train", global_batch=4,
+                                precision=prec))
+        with plain_training(k):
+            plain_loss, plain = loss_and_grads(k, one, x, y)
+        _, exact = fp64_grads(k, one, x, y)
+        base[prec] = (one, plain_loss.item(), plain, exact)
+    torch.cuda.synchronize()
+
+    sessions = {}
+    for tag, D, S, prec, mode, kind in TRAIN_SPATIAL:
+        key = f"{tag}/{D}x{S}/{prec}/{mode}/{kind}"
+        plan = "fixed" if kind == "fixed" else spatial_plan(
+            plan_lib, depth, cfg, S, kind)
+        one, plain_loss, plain, exact = base[prec]
+
+        def check_step1():
+            sess = compile(RunConfig(model=cfg, mode="train",
+                                     global_batch=4, precision=prec, data=D,
+                                     spatial=S, grad_comm=mode, plan=plan),
+                           devices=["cuda:0"] * (D * S))
+            check(sess.mesh.shape == {"data": D, "model": S}
+                  and all(torch.equal(sess.params[n], one.params[n])
+                          for n in one.params), f"{key}: mesh or params")
+            probe = k.train_step.make_convnet_phase_probes(
+                sess.cfg, sess.mesh, sess.optimizer, global_batch=4,
+                plan=sess.plan, grad_comm=mode,
+                precision=prec)["grad_comm"]
+            taken = {}
+            with shard_decisions(k, taken):
+                loss, grads = probe(sess.params, sess.opt_state, x, y, 0)
+            row = {n: {"plain_vs_fp64": rel(plain[n], exact[n]),
+                       "vs_fp64": rel(grads[n], exact[n])} for n in grads}
+            if prec == "fp32":
+                replay = global_decisions(k, taken, cfg, sess.plan,
+                                          sess.mesh)
+                _, same = fp64_grads(k, one, x, y, lambda: decisions(
+                    k, replay, replay=True))
+                for n in grads:
+                    row[n]["vs_fp64_same_decisions"] = rel(grads[n], same[n])
+                bad = {n: r for n, r in row.items()
+                       if r["vs_fp64_same_decisions"]
+                       > max(STEP1_FP32, r["plain_vs_fp64"])}
+                worst_key = "vs_fp64_same_decisions"
+            else:
+                bad = {n: r for n, r in row.items()
+                       if r["vs_fp64"] > STEP1_BF16 * r["plain_vs_fp64"]}
+                worst_key = "vs_fp64"
+            loss_err = abs(loss.item() - plain_loss) / abs(plain_loss)
+            check(loss_err <= STEP1_LOSS[prec] and not bad,
+                  f"{key}: step 1 vs the unsharded step: loss {loss_err}; "
+                  f"gradients out of bounds {bad}")
+            worst = max(row, key=lambda n: row[n][worst_key])
+            out["vs_unsharded"][key] = {"loss": loss.item(),
+                                        "plain_loss": plain_loss,
+                                        "loss_rel_err": loss_err,
+                                        "grads": row}
+            log("train_spatial", f"{key}: step 1 vs the unsharded step: "
+                f"loss {loss_err:.3g}; worst gradient by {worst_key}: "
+                f"{worst} {json.dumps(row[worst])} (share of the leaf's "
+                "max-abs); every leaf within its bound")
+            return sess
+
+        sessions[key] = within_limit(check_step1, SPATIAL_LIMIT_S,
+                                     f"{key} step 1")
+        torch.cuda.synchronize()
+    for one, *_ in base.values():
+        one.close()
+    del base
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ the main path ----
+    zero_counts(k)
+    expected = dict(NO_LAUNCHES)
+    after_two = {}
+    for (tag, D, S, prec, mode, kind), (key, sess) in zip(
+            TRAIN_SPATIAL, sessions.items()):
+        per_step = dict(NO_LAUNCHES, **k.cosmoflow.kernel_launches(
+            cfg, sess.plan, train=True))
+
+        def steps():
+            torch.cuda.synchronize()
+            # the other configurations' streams keep blocks cached: free
+            # them, so that reserved memory is this configuration's
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            c0 = counts(k)
+            losses = []
+            for i in range(SPATIAL_STEPS):
+                losses.append(sess.step(x, y).item())
+                if i == 1:
+                    after_two[key] = {n: v.clone()
+                                      for n, v in sess.params.items()}
+            torch.cuda.synchronize()
+            return losses, delta(counts(k), c0)
+
+        losses, got = within_limit(steps, SPATIAL_LIMIT_S, f"{key} steps")
+        want = {n: v * SPATIAL_STEPS for n, v in per_step.items()}
+        check(got == want, f"{key}: launches {got} over {SPATIAL_STEPS} "
+              f"steps, expected {per_step} per step (kernel_launches)")
+        check(got["pack"] > 0 and (got["unpack"] > 0) == (kind == "deep"),
+              f"{key}: pack/unpack launches {got}")
+        check(all(math.isfinite(v) for v in losses),
+              f"{key}: non-finite losses {losses}")
+        expected = {n: expected[n] + want[n] for n in KERNELS}
+        row = out["steps"][key] = {
+            "losses": losses, "launches_per_step": per_step,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+        log("train_spatial", f"{key}: {SPATIAL_STEPS} steps, losses "
+            f"{losses}; launches per step {json.dumps(per_step)} = "
+            f"kernel_launches; peak {row['peak_bytes'] / 2 ** 30:.2f} GiB "
+            f"allocated, {row['peak_reserved_bytes'] / 2 ** 30:.2f} GiB "
+            f"reserved ({card})")
+    launches = counts(k)
+    check(launches == expected, f"train_spatial path launches {launches}, "
+          f"expected {expected}")
+    log("main path", f"train_spatial: launches {launches}")
+    ov, mono = (after_two[key] for key in sessions
+                if key.startswith("c/"))
+    modes = {n: (ov[n] - mono[n]).abs().max().item() for n in ov}
+    bad = {n for n in ov if not torch.allclose(
+        ov[n], mono[n], atol=MODES_ATOL, rtol=MODES_RTOL)}
+    check(not bad, f"2x2 overlap vs monolithic after 2 steps: {bad}")
+    out["overlap_vs_monolithic_max_abs"] = max(modes.values())
+    log("train_spatial", f"2x2 overlap vs monolithic after 2 steps: max "
+        f"abs difference {max(modes.values()):.3g} (atol {MODES_ATOL}, "
+        f"rtol {MODES_RTOL})")
+
+    # ------------------------------------------------------ timings ----
+    for key, sess in sessions.items():
+        def timed():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            return {"step_ms": host_ms(lambda: sess.step(x, y), 3),
+                    **step_split(k, sess, x, y, 3)}
+
+        row = out["timing"][key] = within_limit(timed, SPATIAL_LIMIT_S,
+                                                f"{key} timings")
+        log("timings", f"train_spatial {key} ({card}; every shard on one "
+            "card: the sharded step's overhead, not scaling): "
+            + json.dumps(row))
+        sess.close()
+    del sessions, after_two, x, y
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def halo_rows(k, cases, reps) -> dict:
     """pack and unpack at each (shape, lo, hi, dtype): kernel, plain
     version and library call (one ``torch.cat`` of the same views), each
@@ -1332,9 +1631,19 @@ def halo_rows(k, cases, reps) -> dict:
             "library_ms": queued_ms(lambda: torch.cat(parts, 1), reps),
             "bound_ms": 2 * (face + x.numel() * x.element_size())
             / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        # unpack's adjoint: d_lo and d_hi out of the padded gradient, by
+        # one pack launch (as the port does) or two narrow copies
+        dout = torch.randn((n, lo + d + hi, h, w, c), generator=gt,
+                           device="cuda").to(dt)
+        rows["unpack"][key].update(
+            adjoint_pack_ms=queued_ms(lambda: k.pack_ops.pack(dout, hi, lo),
+                                      reps),
+            adjoint_narrow_ms=queued_ms(lambda: (
+                dout.narrow(1, 0, lo).contiguous(),
+                dout.narrow(1, lo + d, hi).contiguous()), reps))
         for name in ("pack", "unpack"):
             log("timings", f"{name} " + json.dumps(rows[name][key]))
-        del x, nxt, prv, bufs, parts
+        del x, nxt, prv, bufs, parts, dout
     return rows
 
 
@@ -1354,6 +1663,7 @@ def main() -> int:
     from repro_torch.api import RunConfig, compile
     from repro_torch.configs import get_config
     from repro_torch.core import plan as plan_lib
+    from repro_torch.core import spmd
     from repro_torch.core.spatial_conv import SpatialPartitioning
     from repro_torch.kernels import _build
     from repro_torch.kernels.bn_act import ops as bn_ops
@@ -1373,7 +1683,8 @@ def main() -> int:
                            bn_ops=bn_ops, bn_ref=bn_ref, pack_ops=pack_ops,
                            pack_ref=pack_ref, ssd_ops=ssd_ops,
                            ssd_ref=ssd_ref, mamba2=mamba2, ssm_lm=ssm_lm,
-                           lm=lm, cosmoflow=cosmoflow, train_step=train_step)
+                           lm=lm, cosmoflow=cosmoflow, train_step=train_step,
+                           spmd=spmd)
     report = {"card": phase_card()}
     report["build"] = phase_build(_build)
     cf128, cf512 = get_config("cosmoflow-128"), get_config("cosmoflow-512")
@@ -1677,6 +1988,12 @@ def main() -> int:
     main_paths["train"] = {"launches": got}
     launches = {n: launches[n] + got[n] for n in KERNELS}
 
+    # ------------------------------------------ main path 4: 10b ----
+    train_spatial, got = phase_train_spatial(k, cf128, RunConfig, compile,
+                                             plan_lib, depth, report["card"])
+    main_paths["train_spatial"] = {"launches": got}
+    launches = {n: launches[n] + got[n] for n in KERNELS}
+
     # ------------------------------------------ mamba2-370m: 11-14 ----
     report["ssd_kernel"] = phase_ssd_kernel(ssd_ops, ssd_ref, mamba2)
     mcfg = get_config("mamba2-370m")
@@ -1764,6 +2081,10 @@ def main() -> int:
                 **{key: halo_total(name, kind, key) for key in
                    ("ms", "plain_ms", "bound_ms", "library_ms")},
                 bound_by="bytes")
+            if name == "unpack":  # its adjoint, per all-blocks S=2 step
+                entry["adjoint"] = {
+                    key: halo_total(name, kind, key)
+                    for key in ("adjoint_pack_ms", "adjoint_narrow_ms")}
             # one launch floor per call of that forward
             entry["launch_floor_ms"] = timing["launch_floor_ms"] * sum(
                 2 for sc in cosmoflow.split_convs(
@@ -1788,7 +2109,8 @@ def main() -> int:
                              and r["dtype"] == "bf16")
                     for key in ("ms", "bound_ms", "library_ms")}
         summary.append(entry)
-    report.update(score=score, decode=decode_row, train=train)
+    report.update(score=score, decode=decode_row, train=train,
+                  train_spatial=train_spatial)
     report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
                   conv_vs_library=conv_vs_library,
                   lowering=lowering, profile=profiles, bounds=PEAKS_USED,

@@ -8,11 +8,11 @@ points take ``device=`` or ``devices=`` (``repro_torch.api.compile``).
 
 ``validate`` raises ``RunConfigError`` naming the offending field and a
 fix, as the reference does. What the port cannot run yet is rejected
-the same way, naming the slice that brings it: batch sharding
-(``data``), spatial training (``spatial`` with ``mode="train"``), the
-ZeRO-1 gradient reduction (``grad_comm="reduce_scatter"``), the
-cost-model planner (``plan="auto"``, ``memory_budget_gib``) and the
-pipeline axis (``pipeline``).
+the same way, naming the slice that brings it: batch-sharded serving
+(``data`` with ``mode="infer"``), the ZeRO-1 gradient reduction
+(``grad_comm="reduce_scatter"``), the cost-model planner
+(``plan="auto"``, ``memory_budget_gib``) and the pipeline axis
+(``pipeline``).
 """
 from __future__ import annotations
 
@@ -143,9 +143,9 @@ class RunConfig:
         self._validate_common(device_count)
 
     def _validate_train(self) -> None:
-        """What the training slice runs: one device (data = spatial =
-        pipeline = 1), the fixed plan, a reduction mode among auto,
-        overlap and monolithic (all the identity on one device)."""
+        """What the training slice runs: data x spatial shards (no
+        pipeline axis), the fixed or a pinned plan, a reduction mode
+        among auto, overlap and monolithic."""
         if not isinstance(self.pipeline, int) or self.pipeline < 1:
             raise RunConfigError(
                 "pipeline", f"group count must be an int >= 1, got "
@@ -157,14 +157,6 @@ class RunConfig:
                 f"pipeline={self.pipeline} needs the pipeline axis, which "
                 "the pipeline slice of the port brings",
                 "set pipeline=1")
-        if isinstance(self.spatial, int) and self.spatial > 1:
-            raise RunConfigError(
-                "spatial",
-                f"spatial={self.spatial} trains a depth-split model, which "
-                "needs the spatial backward of the spatial/data-parallel "
-                "training slice of the port",
-                "set spatial=1 to train on one device (serving takes "
-                "spatial > 1 with mode='infer')")
         if self.grad_comm == "reduce_scatter":
             raise RunConfigError(
                 "grad_comm",
@@ -174,7 +166,14 @@ class RunConfig:
 
     def _validate_infer(self) -> None:
         """Reject knobs that configure training machinery a forward-only
-        program does not have."""
+        program does not have, and batch sharding, which serving does
+        not run yet."""
+        if isinstance(self.data, int) and self.data > 1:
+            raise RunConfigError(
+                "data", f"data={self.data} shards a serving batch, which "
+                "the plans slice of the port brings (training takes "
+                "data > 1)",
+                "set data=1; use spatial= to shard large volumes")
         if self.grad_comm != "auto":
             raise RunConfigError(
                 "grad_comm",
@@ -212,16 +211,17 @@ class RunConfig:
             if not isinstance(v, int) or v < 1:
                 raise RunConfigError(field, f"degree must be an int >= 1, "
                                      f"got {v!r}", "pass a positive degree")
-        if self.data != 1:
-            raise RunConfigError(
-                "data", f"data={self.data} shards the batch, which the "
-                "spatial/data-parallel slice of the port brings",
-                "set data=1; use spatial= to shard large volumes")
         if not isinstance(self.global_batch, int) or self.global_batch < 1:
             raise RunConfigError("global_batch",
                                  f"must be an int >= 1, got "
                                  f"{self.global_batch!r}",
                                  "pass a positive batch size")
+        if self.global_batch % self.data:
+            up = ((self.global_batch // self.data) + 1) * self.data
+            raise RunConfigError(
+                "global_batch",
+                f"{self.global_batch} does not divide over data={self.data}",
+                f"use a multiple of {self.data} (e.g. {up}), or lower data")
         if self.precision not in PRECISIONS:
             raise RunConfigError("precision",
                                  f"unknown policy {self.precision!r}",

@@ -4,19 +4,21 @@ assembly path.
 ``mode="infer"`` validates the config, resolves the plan and precision,
 places the plan's mesh on devices and returns a forward-only
 ``repro_torch.serve.InferenceSession``. ``mode="train"`` returns a
-training ``Session`` on one device (data, spatial and pipeline degrees
-1 so far): ``step`` runs the train step of ``train/train_step.py``
-(forward through the conv3d and bn_act kernels, backward, Adam update)
-with the parameters, optimizer state and dropout seed threaded inside;
-``save``/``Session.restore`` write and read the reference's checkpoint
-format, so each package resumes the other's runs.
+training ``Session`` over a data x spatial mesh whose shards all lie on
+one device: ``step`` runs the hybrid train step of
+``train/train_step.py`` (each shard's forward through the conv3d,
+bn_act and halo kernels, one backward, the gradient reduction, the Adam
+update) with the parameters, optimizer state and dropout seed threaded
+inside; ``save``/``Session.restore`` write and read the reference's
+checkpoint format, so each package resumes the other's runs, on any
+mesh shape.
 
 Entry points run on the card unless the caller says otherwise:
 ``device="cpu"`` (one shard, as the tests run), or ``devices=[...]`` with
-one device per shard of a ``spatial > 1`` serving run — ``["cuda:0"] *
-2`` puts both shards on one card, ``["cpu"] * 2`` on the CPU. With
-neither, a one-shard run takes the CUDA device and an S-shard run
-``cuda:0..S-1``; without enough cards they raise instead of running
+one device per shard of a run over data x spatial > 1 shards —
+``["cuda:0"] * 2`` puts both shards on one card, ``["cpu"] * 2`` on the
+CPU. With neither, a one-shard run takes the CUDA device and an n-shard
+run ``cuda:0..n-1``; without enough cards they raise instead of running
 elsewhere.
 """
 from __future__ import annotations
@@ -93,12 +95,13 @@ def _compile_train(config: RunConfig, device: DeviceLike,
                    devices: Optional[Sequence[DeviceLike]],
                    mask_source) -> "Session":
     config.validate(device_count=None)
-    devs = mesh_lib.mesh_devices(1, device=device, devices=devices)
+    shards = config.data * config.spatial
+    devs = mesh_lib.mesh_devices(shards, device=device, devices=devices)
     config.validate(device_count=len(devs))
-    if len(devs) != 1:
+    if len(devs) != shards:
         raise RunConfigError(
-            "spatial", f"{len(devs)} devices given for a one-device "
-            "training run", "pass one device")
+            "spatial", f"{len(devs)} devices given for data x spatial = "
+            f"{shards} shards", "pass one device per shard")
     cfg = config.resolve_model()
     plan, precision = _resolve_plan(config, cfg)
     grad_comm = "overlap" if config.grad_comm == "auto" else config.grad_comm
@@ -212,7 +215,9 @@ class Report:
 
 
 class Session(_Traced):
-    """A training run on one device. Build with
+    """A training run over a data x spatial mesh on one device. The
+    session holds one copy of the fp32 masters and the optimizer state
+    (every shard's update is the same). Build with
     ``repro_torch.api.compile(RunConfig(mode="train"))`` or
     ``Session.restore(checkpoint_dir)``, not directly."""
 
@@ -346,9 +351,10 @@ class Session(_Traced):
 
     # ------------------------------------------------------ checkpoint ----
     def save(self, path: Optional[str] = None) -> str:
-        """Checkpoint the fp32 masters, the optimizer state and the
-        resolved run description (``run_config.json``), published by one
-        atomic rename, in the reference's format."""
+        """Checkpoint the fp32 masters (once: shard 0's, which every
+        shard shares), the optimizer state and the resolved run
+        description (``run_config.json``), published by one atomic
+        rename, in the reference's format."""
         path = path or self.config.checkpoint_dir
         if path is None:
             raise ValueError("no path: pass save(path) or set "
@@ -376,23 +382,34 @@ class Session(_Traced):
     @classmethod
     def restore(cls, path: str, *, device: DeviceLike = None,
                 devices: Optional[Sequence[DeviceLike]] = None,
+                data: Optional[int] = None, spatial: Optional[int] = None,
                 mask_source: Optional[cosmoflow_lib.MaskSource] = None
                 ) -> "Session":
-        """Rebuild a training session on ``device`` from a checkpoint
-        directory alone (the port's or the reference's): the embedded
-        config, then the parameters, the optimizer state and the step
-        count. ``path`` may be a retention root of ``step_<n>``
-        checkpoints: the newest that validates is restored."""
+        """Rebuild a training session on ``device`` or ``devices`` from a
+        checkpoint directory alone (the port's or the reference's): the
+        embedded config, then the parameters, the optimizer state and the
+        step count. ``data=`` / ``spatial=`` re-degree the run, so that a
+        checkpoint of any mesh shape resumes on any other (a 2 x 2 run on
+        one device with ``data=1, spatial=1``); changed degrees re-resolve
+        the fixed plan, unchanged ones keep the pinned plan. ``path`` may
+        be a retention root of ``step_<n>`` checkpoints: the newest that
+        validates is restored."""
         if not os.path.exists(os.path.join(path, _META_FILE)):
             for _, p in reversed(checkpoint.list_steps(path)):
                 if checkpoint.validate(p):
                     return cls.restore(p, device=device, devices=devices,
+                                       data=data, spatial=spatial,
                                        mask_source=mask_source)
             raise FileNotFoundError(
                 f"no checkpoint at {path}: neither {_META_FILE} nor a "
                 f"valid step_<n> directory")
         with open(os.path.join(path, _META_FILE)) as f:
             config = RunConfig.from_json(json.load(f)["run_config"])
+        new_data = config.data if data is None else data
+        new_spatial = config.spatial if spatial is None else spatial
+        if (new_data, new_spatial) != (config.data, config.spatial):
+            config = dataclasses.replace(config, data=new_data,
+                                         spatial=new_spatial, plan="fixed")
         sess = _compile_train(config, device, devices, mask_source)
         tree = checkpoint.restore(path, {
             "params": cosmoflow_lib.param_shapes(sess.cfg),

@@ -13,8 +13,10 @@ the fused ``kernels/bn_act`` pass applies scale, bias and the leaky-ReLU.
 
 Gradients flow through the statistics as in the reference: the fp32
 sums, the clamped one-pass variance and the casts back to x's dtype are
-plain autograd operations, and the normalize pass is ``bn_ops.bn_act``,
-whose backward is autograd of the plain formula.
+plain autograd operations, the statistics' ``psum`` carries the
+gradients of ``s`` and ``ss`` (its adjoint sums the shards' cotangents,
+``core/spmd.py``) with the count a constant, and the normalize pass is
+``bn_ops.bn_act``, whose backward is autograd of the plain formula.
 """
 from __future__ import annotations
 

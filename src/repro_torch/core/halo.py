@@ -21,6 +21,12 @@ its neighbours through the axis group's ``ppermute``.
 A shard at the global boundary receives zeros (SAME-conv padding), as
 ``ppermute``'s unpaired destinations give them in the reference (whose
 ``wrap`` option, unused by any model, is not ported).
+Every path carries gradients where autograd records: ``ppermute``'s
+adjoint sends each slab's cotangent back to its sender
+(``core/spmd.py``), the pack and unpack kernels' wrappers have theirs
+(``kernels/halo_pack/ops.py``), and the 2-way swap's slabs are views of
+the one received buffer, so their cotangents meet in the sender's pack
+buffer. The zeros a boundary shard receives take no gradient.
 ``halo.exchanges`` and ``halo.ppermutes`` are counted on the active
 tracer (``obs/trace``) once per shard and call.
 """

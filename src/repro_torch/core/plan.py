@@ -160,6 +160,26 @@ class ParallelPlan:
         return d
 
     @property
+    def final_stage(self) -> Stage:
+        return self.stages[-1]
+
+    @property
+    def loss_redundancy(self) -> int:
+        """How many shards compute each sample's loss at the final stage:
+        the product of the degrees of the spatial axes that are neither
+        spatial nor batch axes there (the legacy plan's gathered FC head
+        runs on every shard of the spatial group). A shard's loss is
+        divided by it, so that the sum over every shard is the global
+        loss and its gradients are right."""
+        final = self.final_stage
+        live = set(final.batch_axes) | set(final.spatial_names)
+        r = 1
+        for a in self.spatial_axis_names:
+            if a not in live:
+                r *= self.degree(a)
+        return r
+
+    @property
     def n_groups(self) -> int:
         return self.pipeline.n_groups if self.pipeline is not None else 1
 

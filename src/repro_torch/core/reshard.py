@@ -10,7 +10,13 @@ moves from one partitioning to the other inside ``core.spmd.run``:
   blocks and the FC head.
 * **replicated -> spatial** (``replicated_to_spatial``): a local slice.
 * **spatial <-> batch** (the ``all_to_all`` repartitions of the planned
-  layouts) raise: they come with the data-parallel slice of the port.
+  layouts) raise: they come with the plans slice of the port. The fixed
+  legacy plan never reaches them, whatever its data degree: every stage
+  carries the data axes as batch axes.
+
+Both transitions carry gradients: the gather's adjoint is a
+reduce-scatter (``core/spmd.py``), and the slice's gradient is zero
+outside the slab (autograd of ``narrow``).
 
 ``apply`` lowers the delta between two ``Stage``s to one transition per
 spatial dim, in D/H/W order, and counts ``reshard.transitions`` on the
@@ -46,14 +52,14 @@ def replicated_to_spatial(x: torch.Tensor, axis_name: str, dim: int
 
 def spatial_to_batch(x: torch.Tensor, axis_name: str, dim: int):
     raise NotImplementedError(
-        "spatial -> batch resharding (an all_to_all) comes with the "
-        "data-parallel slice of the port")
+        "spatial -> batch resharding (an all_to_all, reached only by "
+        "planned layouts) comes with the plans slice of the port")
 
 
 def batch_to_spatial(x: torch.Tensor, axis_name: str, dim: int):
     raise NotImplementedError(
-        "batch -> spatial resharding (an all_to_all) comes with the "
-        "data-parallel slice of the port")
+        "batch -> spatial resharding (an all_to_all, reached only by "
+        "planned layouts) comes with the plans slice of the port")
 
 
 def apply(h: torch.Tensor, src, dst) -> torch.Tensor:

@@ -6,10 +6,10 @@ W) dims are partitioned over named mesh axes (``SpatialPartitioning``)
 and runs inside ``core.spmd.run``; an axis of size 1 is no partition, so
 on one device ``conv3d`` is one launch of the implicit-GEMM conv kernel
 (``kernels/conv3d``) with the SAME padding applied inside the kernel.
-The blocking lowering's conv goes through ``conv_ops.conv3d``, which
-carries the gradients (its input gradient on the same kernel); the
-overlapped lowering and the halo exchange have no backward yet, so
-spatial training waits for its slice.
+Every conv of both lowerings goes through ``conv_ops.conv3d``, which
+carries the gradients where autograd records (the input gradient on the
+same kernel); the halo exchange, the slicing and the stitches
+differentiate through ``core/halo.py`` and autograd.
 
 ``conv3d`` has two lowerings for a partitioned dim, chosen per call with
 ``overlap=`` (None: ``core/flags.OVERLAP_HALO``):
@@ -119,7 +119,7 @@ def _conv3d_overlap(x, w, part, stride):
     n_out, n_lo, n_hi = overlap_split(size, k, s)
     if n_lo + n_hi >= n_out:
         # no interior: one conv over the stitched block
-        return conv_ops.conv3d_valid(halo_lib.unpack_halo(x, slabs, dim), w,
+        return conv_ops.conv3d(halo_lib.unpack_halo(x, slabs, dim), w,
                                      s, pads)
 
     # interior: windows [o*s - lo, o*s - lo + k) for o in
@@ -128,15 +128,15 @@ def _conv3d_overlap(x, w, part, stride):
     int_hi = (n_out - n_hi - 1) * s - lo + k
     x_int = x if int_lo == 0 else x.narrow(dim, int_lo,
                                            int_hi - int_lo).contiguous()
-    outs = [conv_ops.conv3d_valid(x_int, w, s, pads)]
+    outs = [conv_ops.conv3d(x_int, w, s, pads)]
     if n_lo > 0:
         x_lo = torch.cat([slabs.lo, x.narrow(dim, 0, (n_lo - 1) * s - lo + k)],
                          dim)
-        outs.insert(0, conv_ops.conv3d_valid(x_lo, w, s, pads))
+        outs.insert(0, conv_ops.conv3d(x_lo, w, s, pads))
     if n_hi > 0:
         start = (n_out - n_hi) * s - lo
         x_hi = torch.cat([x.narrow(dim, start, size - start), slabs.hi], dim)
-        outs.append(conv_ops.conv3d_valid(x_hi, w, s, pads))
+        outs.append(conv_ops.conv3d(x_hi, w, s, pads))
     return torch.cat(outs, dim) if len(outs) > 1 else outs[0]
 
 

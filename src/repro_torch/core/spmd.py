@@ -1,14 +1,16 @@
 """In-process SPMD over a ``launch.mesh.Mesh``: the port's counterpart of
 ``shard_map`` and of the ``lax`` collectives the reference reaches
-through ``core/compat.py``.
+through ``core/compat.py``, with their gradients.
 
 ``run(mesh, fn, *per_shard_args)`` calls ``fn`` once per shard, each in
 a worker thread of its own, with the shard's device current and, on a
 CUDA device, the shard's own stream current. Inside ``fn``,
-``axis(name)`` is the shard's group along one mesh axis: ``index``,
-``size``, ``ppermute``, ``psum`` and ``all_gather``, with the semantics
-of ``lax.axis_index`` / ``lax.axis_size`` / ``lax.ppermute`` /
-``lax.psum`` / ``lax.all_gather(tiled=True)``:
+``axis(names)`` is the shard's group along one mesh axis or several
+(the ranks that share every other coordinate, in rank order):
+``index``, ``size``, ``ppermute``, ``psum``, ``all_gather`` and
+``psum_grad``, with the semantics of ``lax.axis_index`` /
+``lax.axis_size`` / ``lax.ppermute`` / ``lax.psum`` /
+``lax.all_gather(tiled=True)``:
 
 * ``ppermute`` gives each destination its source's tensor: the tensor
   itself where both lie on one device (a collective's inputs are
@@ -19,18 +21,38 @@ of ``lax.axis_index`` / ``lax.axis_size`` / ``lax.ppermute`` /
 * ``psum`` adds the group's tensors in rank order (0 + 1 + ...), on
   every shard alike, so a result does not vary from run to run. A tuple
   is summed element by element, each on its own, in one exchange.
+* ``psum_grad`` hands its tensors back unchanged; in the backward their
+  cotangents, concatenated flat, are summed over the group once, in
+  rank order (the reference's gradient-reduction hooks,
+  ``core/grad_comm.py``).
 
 The shards take turns on the host, in rank order: a shard runs until
-its next collective, deposits its tensor and hands the turn on; when its
-turn comes back every shard has deposited, and it reads its peers'.
-Only one worker thread runs Python at a time, so the shards never
-contend for the interpreter lock, and the order of every host-side
-operation is the same on every run; the device work of the shards still
-overlaps, each on its own stream. A peer's tensor is read on the
-reader's stream after an event recorded on the writer's stream, and
-``record_stream`` tells the caching allocator about that use. A shard
-that raises ends the run: the others stop at their next turn and ``run``
-raises its error.
+its next collective, deposits its tensor and hands the turn on. The
+last to deposit (the highest rank) applies the collective once for the
+whole mesh, computing each shard's result on that shard's stream, and
+when a shard's turn comes back it takes its result. Only one worker
+thread runs Python at a time, so the shards never contend for the
+interpreter lock, and the order of every host-side operation is the
+same on every run; the device work of the shards still overlaps, each
+on its own stream. A peer's tensor is read on the reader's stream after
+an event recorded on the writer's stream, and ``record_stream`` tells
+the caching allocator about that use. A shard that raises ends the run:
+the others stop at their next turn and ``run`` raises its error.
+
+Gradients. Where autograd records, each collective is ONE autograd node
+over the tensors of every shard of its group, so a backward over the
+shards' losses run from one thread (``torch.autograd.grad(losses,
+...)``, ``train/train_step.py``) meets each collective's adjoint as a
+data dependency, with no rendezvous: ``ppermute``'s is the inverse
+permutation, ``psum``'s the ``psum`` of the cotangents, ``all_gather``'s
+the group's cotangents summed and sliced to each shard (a
+reduce-scatter) — the transposes of the reference's ``shard_map``. (A
+backward per shard thread, meeting its peers inside a collective's
+backward, would hang on a card: PyTorch's autograd engine runs every
+CUDA node of every caller on one worker thread per device, and a
+blocked node starves the peers it waits for.) Autograd replays each
+node on the stream its forward ran on and orders the streams by events.
+Gradients through collectives are defined for groups on one device.
 
 Outside ``run`` every axis has size 1 (the one-device mesh). The
 interface is kept narrow so that a ``torch.distributed`` group can stand
@@ -40,7 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -53,9 +75,9 @@ class ShardAborted(RuntimeError):
 
 class _Run:
     """What the shards of one ``run`` share: whose turn it is, and two
-    sets of deposit slots used alternately by successive collectives (a
-    shard reads collective k's set in its next turn, before any shard
-    can deposit collective k + 2 into it)."""
+    sets of deposit and result slots used alternately by successive
+    collectives (a shard takes collective k's result in its next turn,
+    before any shard can deposit collective k + 2)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -63,6 +85,7 @@ class _Run:
         self.done = [False] * mesh.size
         self.failed = False
         self.slots = ([None] * mesh.size, [None] * mesh.size)
+        self.results: List[Optional[List[Any]]] = [None, None]
 
     def wait_turn(self, rank: int) -> None:
         self.turn[rank].wait()
@@ -77,6 +100,20 @@ class _Run:
         self.failed = True
         for ev in self.turn:
             ev.set()
+
+    def apply(self, slots: Sequence[Any], fn: Callable) -> List[Any]:
+        """One result per rank: ``fn(ranks, deposits)`` for each group of
+        the collective's axes, every deposit ``(kind, axes, value)``."""
+        tags = {s[:2] for s in slots}
+        if len(tags) != 1:
+            raise RuntimeError(f"the shards of a run reached different "
+                               f"collectives: {sorted(tags)}")
+        axes = slots[0][1]
+        out: List[Any] = [None] * self.mesh.size
+        for ranks in sorted(set(self.mesh.groups(axes))):
+            for r, v in zip(ranks, fn(ranks, [slots[r][2] for r in ranks])):
+                out[r] = v
+        return out
 
 
 def _mark(t):
@@ -109,6 +146,141 @@ def _read(entry, device: torch.device):
     return out
 
 
+@contextlib.contextmanager
+def _on(mesh, rank: int):
+    """Shard ``rank``'s device and stream made current, so that work the
+    applying shard enqueues for ``rank`` runs where ``rank``'s own
+    would."""
+    device = mesh.devices[rank]
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device), torch.cuda.stream(mesh.stream(rank)):
+        yield
+
+
+def _records(ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
+class _Route(torch.autograd.Function):
+    """``ppermute``'s node: the i-th output is the i-th pair's source
+    tensor, handed to its destination (a view: no copy on one device);
+    the i-th cotangent goes back to the i-th source, the inverse
+    permutation."""
+
+    @staticmethod
+    def forward(ctx, *srcs):
+        return tuple(t.view_as(t) for t in srcs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return grads
+
+
+class _Sum(torch.autograd.Function):
+    """``psum``'s node over one group: ``xs`` member-major (member 0's
+    ``n`` tensors, then member 1's, ...). Each member's sums are computed
+    on its own stream, the members added in rank order; the cotangents
+    of each element are summed over the members in rank order and handed
+    to every member."""
+
+    @staticmethod
+    def forward(ctx, plan, *xs):
+        ctx.n = plan[3]
+        return _Sum.sums(plan, xs)
+
+    @staticmethod
+    def sums(plan, xs):
+        mesh, ranks, events, n = plan
+        outs = []
+        for r in ranks:
+            device = mesh.devices[r]
+            with _on(mesh, r):
+                for i in range(n):
+                    acc = _read((xs[i], events[i]), device)
+                    for m in range(1, len(ranks)):
+                        j = m * n + i
+                        acc = acc + _read((xs[j], events[j]), device)
+                    outs.append(acc)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.n
+        totals = []
+        for i in range(n):
+            acc = grads[i]
+            for j in range(i + n, len(grads), n):
+                acc = acc + grads[j]
+            totals.append(acc)
+        return (None,) + tuple(totals[j % n] for j in range(len(grads)))
+
+
+class _Gather(torch.autograd.Function):
+    """``all_gather``'s node over one group: each member's output, the
+    members' tensors concatenated along ``dim`` in rank order, written
+    on its own stream. The adjoint sums the members' cotangents in rank
+    order and hands each member its slice (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, plan, *xs):
+        ctx.dim, ctx.w = plan[3], xs[0].shape[plan[3]]
+        return _Gather.gathers(plan, xs)
+
+    @staticmethod
+    def gathers(plan, xs):
+        mesh, ranks, events, dim = plan
+        w = xs[0].shape[dim]
+        shape = list(xs[0].shape)
+        shape[dim] = w * len(xs)
+        outs = []
+        for r in ranks:
+            device = mesh.devices[r]
+            with _on(mesh, r):
+                out = torch.empty(shape, dtype=xs[0].dtype, device=device)
+                for i, (x, ev) in enumerate(zip(xs, events)):
+                    out.narrow(dim, i * w, w).copy_(_read((x, ev), device))
+            outs.append(out)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = grads[0]
+        for g in grads[1:]:
+            total = total + g
+        return (None,) + tuple(total.narrow(ctx.dim, i * ctx.w, ctx.w)
+                               for i in range(len(grads)))
+
+
+class _PsumGrad(torch.autograd.Function):
+    """``psum_grad``'s node over one group: the identity on every
+    member's ``n`` tensors (member-major); the adjoint concatenates each
+    member's cotangents flat, sums the members' in rank order, once, and
+    hands every member the pieces."""
+
+    @staticmethod
+    def forward(ctx, n, *xs):
+        ctx.n = n
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.n
+        members = [grads[i:i + n] for i in range(0, len(grads), n)]
+        flats = [torch.cat([g.reshape(-1) for g in gs]) if n > 1
+                 else gs[0].reshape(-1) for gs in members]
+        total = flats[0]
+        for f in flats[1:]:
+            total = total + f
+        parts, off = [], 0
+        for g in members[0]:
+            parts.append(total[off:off + g.numel()].view(g.shape))
+            off += g.numel()
+        return (None,) + tuple(parts) * len(members)
+
+
 class Received:
     """A tensor a collective delivers, made ready on the reader's
     current stream by the first ``wait()`` (later calls return it
@@ -125,17 +297,18 @@ class Received:
 
 
 class Group:
-    """One shard's view of its group along one mesh axis."""
+    """One shard's view of its group along one or more mesh axes."""
 
-    def __init__(self, axis: str, run: Optional[_Run], rank: int):
-        self.axis = axis
+    def __init__(self, axes: Tuple[str, ...], run: Optional[_Run],
+                 rank: int):
+        self.axes = axes
         self._run = run
         self._rank = rank
         if run is None:
             self.ranks: Tuple[int, ...] = (0,)
             self.device: Optional[torch.device] = None
         else:
-            self.ranks = run.mesh.group(rank, axis)
+            self.ranks = run.mesh.group(rank, axes)
             self.device = run.mesh.devices[rank]
 
     @property
@@ -146,19 +319,23 @@ class Group:
     def size(self) -> int:
         return len(self.ranks)
 
-    def _exchange(self, value) -> List[Any]:
-        """Deposit ``value``, let every other shard reach this collective,
-        and return the group's deposits in axis order."""
+    def _collective(self, kind: str, value, fn: Callable):
+        """Deposit ``value``, let every other shard reach this
+        collective, and return this shard's result. The last shard to
+        deposit computes every shard's: ``fn(ranks, deposits)`` per
+        group, one result per member."""
         run, shard = self._run, _LOCAL.shard
-        slots = run.slots[shard.collectives % 2]
+        k = shard.collectives % 2
         shard.collectives += 1
-        slots[self._rank] = value
+        run.slots[k][self._rank] = (kind, self.axes, value)
         if any(run.done):
             raise RuntimeError("the shards of a run reached different "
                                "collectives")
+        if self._rank == run.mesh.size - 1:
+            run.results[k] = run.apply(run.slots[k], fn)
         run.pass_turn(self._rank)
         run.wait_turn(self._rank)
-        return [slots[r] for r in self.ranks]
+        return run.results[k][self._rank]
 
     def ppermute(self, t: torch.Tensor,
                  perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
@@ -173,10 +350,27 @@ class Group:
         src = {d: s for s, d in perm}.get(self.index)
         if self.size == 1:
             return Received(lambda: t if src == 0 else torch.zeros_like(t))
-        peers = self._exchange(_mark(t))
-        if src is None:
+        devices = self._run.mesh.devices
+        pairs = list(perm)
+
+        def route(ranks, entries):
+            srcs = [entries[s][0] for s, _ in pairs]
+            if _records(srcs):
+                if any(devices[ranks[s]] != devices[ranks[d]]
+                       for s, d in pairs):
+                    raise NotImplementedError(
+                        "gradients of a ppermute between devices come with "
+                        "the cross-process shard group")
+                srcs = _Route.apply(*srcs)
+            out: List[Any] = [None] * len(ranks)
+            for (s, d), moved in zip(pairs, srcs):
+                out[d] = (moved, entries[s][1])
+            return out
+
+        entry = self._collective("ppermute", _mark(t), route)
+        if entry is None:
             return Received(lambda: torch.zeros_like(t))
-        entry, device = peers[src], self.device
+        device = self.device
         return Received(lambda: _read(entry, device))
 
     def psum(self, t):
@@ -184,28 +378,64 @@ class Group:
         Python number, or a tuple of them summed element by element."""
         if self.size == 1:
             return t
-        parts = tuple(t) if isinstance(t, tuple) else (t,)
-        peers = self._exchange(tuple(_mark(p) for p in parts))
-        out = []
-        for i in range(len(parts)):
-            acc = _read(peers[0][i], self.device)
-            for p in peers[1:]:
-                acc = acc + _read(p[i], self.device)
-            out.append(acc)
-        return tuple(out) if isinstance(t, tuple) else out[0]
+        is_tuple = isinstance(t, tuple)
+        parts = tuple(t) if is_tuple else (t,)
+        mesh = self._run.mesh
+
+        def add(ranks, entries):
+            rows = [[None] * len(parts) for _ in ranks]
+            tensors = [i for i, (v, _) in enumerate(entries[0])
+                       if isinstance(v, torch.Tensor)]
+            for i in range(len(parts)):
+                if i not in tensors:
+                    total = entries[0][i][0]
+                    for e in entries[1:]:
+                        total = total + e[i][0]
+                    for row in rows:
+                        row[i] = total
+            if tensors:
+                flat = [e[i] for e in entries for i in tensors]
+                plan = (mesh, ranks, [ev for _, ev in flat], len(tensors))
+                xs = [v for v, _ in flat]
+                sums = (_Sum.apply(plan, *xs) if _records(xs)
+                        else _Sum.sums(plan, xs))
+                for m, row in enumerate(rows):
+                    for j, i in enumerate(tensors):
+                        row[i] = sums[m * len(tensors) + j]
+            return [tuple(row) if is_tuple else row[0] for row in rows]
+
+        return self._collective("psum", tuple(_mark(p) for p in parts), add)
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The group's ``t`` concatenated along ``dim`` in axis order."""
         if self.size == 1:
             return t
-        peers = self._exchange(_mark(t))
-        shape = list(t.shape)
-        w = shape[dim]
-        shape[dim] = w * self.size
-        out = torch.empty(shape, dtype=t.dtype, device=self.device)
-        for i, p in enumerate(peers):
-            out.narrow(dim, i * w, w).copy_(_read(p, self.device))
-        return out
+        mesh = self._run.mesh
+
+        def gather(ranks, entries):
+            plan = (mesh, ranks, [ev for _, ev in entries], dim)
+            xs = [v for v, _ in entries]
+            return (_Gather.apply(plan, *xs) if _records(xs)
+                    else _Gather.gathers(plan, xs))
+
+        return self._collective("all_gather", _mark(t), gather)
+
+    def psum_grad(self, ts: Sequence[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, ...]:
+        """``ts`` unchanged (views); in the backward their cotangents,
+        concatenated flat, are summed over the group once, in rank order,
+        and every shard receives the sum. The identity where autograd
+        does not record."""
+        ts = tuple(ts)
+        if self.size == 1 or not _records(ts):
+            return ts
+        n = len(ts)
+
+        def mark(ranks, entries):
+            outs = _PsumGrad.apply(n, *(x for e in entries for x in e))
+            return [outs[m * n:(m + 1) * n] for m in range(len(ranks))]
+
+        return self._collective("psum_grad", ts, mark)
 
 
 class _Shard:
@@ -222,15 +452,18 @@ def current_mesh():
     return None if shard is None else shard.run.mesh
 
 
-def axis(name: str) -> Group:
-    """This shard's group along mesh axis ``name`` (size 1 outside a
-    ``run``)."""
+def axis(names: Union[str, Sequence[str]]) -> Group:
+    """This shard's group along mesh axis ``names`` (a name, or a tuple
+    of names: their product); size 1 outside a ``run``."""
+    axes = (names,) if isinstance(names, str) else tuple(names)
     shard = getattr(_LOCAL, "shard", None)
     if shard is None:
-        return Group(name, None, 0)
-    if name not in shard.run.mesh.axis_names:
-        raise KeyError(f"mesh {shard.run.mesh.shape} has no axis {name!r}")
-    return Group(name, shard.run, shard.rank)
+        return Group(axes, None, 0)
+    for name in axes:
+        if name not in shard.run.mesh.axis_names:
+            raise KeyError(f"mesh {shard.run.mesh.shape} has no axis "
+                           f"{name!r}")
+    return Group(axes, shard.run, shard.rank)
 
 
 def check_mesh(axes: Sequence[Tuple[str, int]], what: str) -> None:

@@ -76,6 +76,7 @@ class Mesh:
             raise ValueError(f"mesh {self.shape} has {self.size} shards but "
                              f"{len(self.devices)} devices were given")
         self._streams: Optional[Tuple] = None
+        self._groups: Dict[Tuple[str, ...], Tuple[Tuple[int, ...], ...]] = {}
         # one run at a time: the shards' streams and the collective
         # slots belong to the run in flight
         self.lock = threading.Lock()
@@ -102,13 +103,28 @@ class Mesh:
             rank, out[a] = divmod(rank, n)
         return out
 
-    def group(self, rank: int, axis: str) -> Tuple[int, ...]:
-        """The ranks that share every coordinate of ``rank`` but
-        ``axis``'s, in ``axis`` order."""
-        stride = math.prod(n for a, n in self.axes[
-            self.axis_names.index(axis) + 1:])
-        base = rank - self.coords(rank)[axis] * stride
-        return tuple(base + i * stride for i in range(self.degree(axis)))
+    def groups(self, axes: Union[str, Sequence[str]]
+               ) -> Tuple[Tuple[int, ...], ...]:
+        """Every rank's group over ``axes`` (one axis name or several),
+        indexed by rank: the ranks that share every coordinate outside
+        ``axes``, in rank order (row-major over ``axes``; for one axis,
+        its order). Computed once per ``axes``."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        table = self._groups.get(axes)
+        if table is None:
+            at = [self.coords(r) for r in range(self.size)]
+            fixed = [a for a in self.axis_names if a not in axes]
+            table = tuple(
+                tuple(q for q in range(self.size)
+                      if all(at[q][a] == at[r][a] for a in fixed))
+                for r in range(self.size))
+            self._groups[axes] = table
+        return table
+
+    def group(self, rank: int, axes: Union[str, Sequence[str]]
+              ) -> Tuple[int, ...]:
+        """``rank``'s group over ``axes`` (``groups``)."""
+        return self.groups(axes)[rank]
 
     def stream(self, rank: int):
         """Shard ``rank``'s stream (None on a CPU device)."""

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ConvNetConfig
 from repro_torch.core import dist_norm
+from repro_torch.core import grad_comm
 from repro_torch.core import halo as halo_lib
 from repro_torch.core import perf_model
 from repro_torch.core import plan as plan_lib
@@ -180,7 +181,8 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
             precision=None, train: bool = False,
             dropout_seed: Optional[int] = None,
             sample_ids: Optional[Sequence[int]] = None,
-            mask_source: Optional[MaskSource] = None) -> torch.Tensor:
+            mask_source: Optional[MaskSource] = None,
+            grad_axes: Sequence[str] = ()) -> torch.Tensor:
     """x: local shard (N, D_loc, H_loc, W_loc, Cin) -> (N, out_dim).
 
     The per-shard body of a plan-sharded forward: run it inside
@@ -199,7 +201,10 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     hidden FC layer: masks from ``mask_source`` (default
     ``generator_masks``) for the rows' global ``sample_ids`` (default
     0..N-1), kept units scaled by 1/``KEEP``. Gradients flow where the
-    caller's tensors require them."""
+    caller's tensors require them; ``grad_axes`` hooks the parameters'
+    gradient reduction over those mesh axes into the backward
+    (``core/grad_comm.GradMarker``: each master marked at its use, ahead
+    of the compute-dtype cast, so that the sums run in fp32)."""
     plan = plan if plan is not None else _default_plan(cfg)
     spmd.check_mesh(plan.mesh_axes,
                     f"plan {plan.name!r} ({plan.device_count} devices)")
@@ -207,7 +212,13 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     policy = precision_lib.get(
         precision if precision is not None else plan.precision)
     cdt = policy.compute_dtype
-    cst = (lambda t: t.to(cdt)) if policy.casts_params else (lambda t: t)
+    marker = grad_comm.GradMarker(grad_axes)
+    params = marker.begin(params)
+    cast = (lambda t: t.to(cdt)) if policy.casts_params else (lambda t: t)
+
+    def cst(t):
+        return cast(marker.mark(t))
+
     h = x
     if policy.casts_params and h.is_floating_point():
         h = h.to(cdt)
@@ -247,6 +258,7 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
                 mask = (mask_source or generator_masks)(
                     dropout_seed, j, ids, h.shape[1], h.device)
                 h = torch.where(mask.to(h.device), h / KEEP, 0.0)
+    marker.assert_all_marked()
     return h
 
 
@@ -285,26 +297,35 @@ def split_convs(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan,
     return out
 
 
-def kernel_launches(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan
-                    ) -> Dict[str, int]:
-    """Launches of each kernel in one forward over every shard of
-    ``plan``'s mesh, with the overlapped conv (the default lowering),
-    derived from the plan's stages and the blocks' widths: per shard and
-    block one bn_act and one conv, except that the overlapped conv of a
-    depth-split block launches one pack and
+def kernel_launches(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan,
+                    train: bool = False) -> Dict[str, int]:
+    """Launches of each kernel over every shard of ``plan``'s mesh in one
+    forward (``train=True``: one training step), with the overlapped
+    conv (the default lowering), derived from the plan's stages and the
+    blocks' widths. Per shard and block one bn_act and one conv, except
+    that the overlapped conv of a depth-split block launches one pack and
     then either the interior conv plus one conv per boundary piece, or
     (no interior) one unpack and one conv. Every shard runs every block
-    (a gathered stage runs replicated)."""
+    (a gathered stage runs replicated). A training step adds the
+    backward's: the input gradient of each conv launch of every block
+    but the first (whose input needs none) on the conv kernel
+    (``conv3d_dgrad``), and one pack for the adjoint of each such
+    block's unpack."""
     shards = plan.device_count
     n = num_blocks(cfg)
-    out = {"conv3d": shards * n, "bn_act": shards * n if cfg.batchnorm
-           else 0, "pack": 0, "unpack": 0}
+    convs, packs, unpacks = [1] * n, [0] * n, [0] * n
     for sc in split_convs(cfg, plan, 1):
-        out["pack"] += shards
+        packs[sc.block] = 1
         if sc.no_interior:
-            out["unpack"] += shards
+            unpacks[sc.block] = 1
         else:
-            out["conv3d"] += shards * ((sc.n_lo > 0) + (sc.n_hi > 0))
+            convs[sc.block] += (sc.n_lo > 0) + (sc.n_hi > 0)
+    out = {"conv3d": shards * sum(convs),
+           "bn_act": shards * n if cfg.batchnorm else 0,
+           "pack": shards * sum(packs), "unpack": shards * sum(unpacks)}
+    if train:
+        out["conv3d_dgrad"] = shards * sum(convs[1:])
+        out["pack"] += shards * sum(unpacks[1:])
     return out
 
 
@@ -316,18 +337,22 @@ def mse_loss(params: Params, x: torch.Tensor, y: torch.Tensor,
              dropout_seed: Optional[int] = None,
              sample_ids: Optional[Sequence[int]] = None,
              mask_source: Optional[MaskSource] = None,
-             overlap: Optional[bool] = None) -> torch.Tensor:
+             overlap: Optional[bool] = None,
+             grad_axes: Sequence[str] = ()) -> torch.Tensor:
     """The local loss: the per-sample mean squared errors of the local
     samples summed and divided by ``global_batch`` (default: the local
-    batch), in fp32 whatever the compute precision — the reference's
-    ``mse_loss`` under a plan whose FC head is computed once per sample.
-    ``train``/``dropout_seed``/``sample_ids``/``mask_source`` are
-    ``forward``'s."""
+    batch) times the plan's ``loss_redundancy``, in fp32 whatever the
+    compute precision — the reference's ``mse_loss``: summed over every
+    shard of the mesh it is the global loss, also where a gathered FC
+    head computes each sample on every shard of the spatial group.
+    ``train``/``dropout_seed``/``sample_ids``/``mask_source``/
+    ``grad_axes`` are ``forward``'s."""
+    plan = plan if plan is not None else _default_plan(cfg)
     pred = forward(params, x, cfg, plan=plan, bn_axes=bn_axes,
                    overlap=overlap, precision=precision, train=train,
                    dropout_seed=dropout_seed, sample_ids=sample_ids,
-                   mask_source=mask_source)
-    return mse(pred, y, global_batch or x.shape[0])
+                   mask_source=mask_source, grad_axes=grad_axes)
+    return mse(pred, y, (global_batch or x.shape[0]) * plan.loss_redundancy)
 
 
 def mse(pred: torch.Tensor, y: torch.Tensor,

@@ -9,8 +9,9 @@ verdict is routed through the skip machine by poisoning the gradients,
 so that the loss scale still backs off. With finite values the guard
 changes nothing: ``where(True, new, old)`` is ``new``.
 
-The verdict is summed over the mesh axes given (``core/spmd.py``); on
-one device they are empty, and it is the local verdict.
+The verdict is summed over the mesh axes given (``core/spmd.py``): the
+train step passes every axis of its mesh, so that every shard takes the
+same decision.
 """
 from __future__ import annotations
 

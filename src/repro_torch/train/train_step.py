@@ -8,14 +8,35 @@ shard's device, runs ``models/cosmoflow.forward`` once per shard through
 ``core.spmd.run``, and returns shard 0's predictions: the FC stage of a
 plan with data degree 1 is replicated, so every shard holds them.
 
-The train step (``make_convnet_train_step``) runs on a one-device mesh
-so far (data, spatial and pipeline degrees 1; more comes with the
-spatial/data-parallel slice): the loss through ``mse_loss`` with
-dropout, ``torch.autograd.grad`` of it (fp16: of the loss times the
-running loss scale) with respect to the fp32 masters, then the
-optimizer's update. With one device every gradient reduction mode is the
-identity. Stages nest as the reference's probes do: ``fwd`` returns the
-loss, ``bwd`` adds the backward, ``step`` the update.
+The train step (``make_convnet_train_step``) runs the reference's
+hybrid step over a data x spatial mesh whose shards all lie on one
+device (``["cuda:0"] * n`` on a card, ``["cpu"] * n`` in the tests):
+
+1. each shard, in its thread, takes its batch slice (the entry stage's
+   batch axes) and depth slab of x and its batch slice of y, and
+   computes ``mse_loss`` with dropout masks drawn for the GLOBAL sample
+   ids (so they do not depend on the mesh), batch-norm statistics summed
+   over every mesh axis and the loss divided by the plan's
+   ``loss_redundancy``; under ``overlap`` the parameters' reduction
+   hooks go into its graph (``core/grad_comm.py``). Each shard has
+   parameter leaves of its own (views of the same masters), so that its
+   gradient is its own partial sum;
+2. ONE backward over the shards' losses (fp16: each times the running
+   loss scale), from the calling thread: each collective is one autograd
+   node over every shard (``core/spmd.py``), so its adjoint is a data
+   dependency of this backward and no backward node waits for a peer;
+3. each shard, in its thread again: the global loss (a ``psum``), the
+   ``monolithic`` reduction of every gradient (``overlap`` has reduced
+   them inside the backward), the guard's verdict agreed over every
+   shard, and the optimizer's update — the same on every shard, as
+   every input to it is. Shard 0's results are returned.
+
+With the reduced gradients the same on every shard, the fp16 skip
+machine of ``MixedPrecision`` decides alike everywhere, and the one loss
+scale is the optimizer state's. Stages nest as the reference's probes
+do: ``fwd`` returns the loss, ``bwd`` adds the backward (no reduction:
+the loss and the sum of every shard's gradients), ``grad_comm`` the
+reduction (the loss and the reduced gradients), ``step`` the update.
 """
 from __future__ import annotations
 
@@ -25,13 +46,14 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import torch
 
 from repro_torch.configs.base import ConvNetConfig
+from repro_torch.core import grad_comm as grad_comm_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
 from repro_torch.core import spmd
 from repro_torch.models import cosmoflow as cosmoflow_lib
 from repro_torch.train import guard as guard_lib
 
-GRAD_COMM_MODES = ("monolithic", "overlap", "reduce_scatter")
+STAGES = ("fwd", "bwd", "grad_comm", "step")
 
 Params = Dict[str, torch.Tensor]
 
@@ -48,14 +70,34 @@ def replicate(params: Mapping[str, torch.Tensor],
     return [copies[d] for d in devices]
 
 
+def batch_slice(mesh, rank: int, stage: plan_lib.Stage) -> Tuple[int, int]:
+    """(index, count) of shard ``rank``'s slice of the batch: ``stage``'s
+    batch axes, major first."""
+    at, index, count = mesh.coords(rank), 0, 1
+    for a in stage.batch_axes:
+        if a in mesh.shape:
+            index = index * mesh.degree(a) + at[a]
+            count *= mesh.degree(a)
+    return index, count
+
+
+def _rows(t: torch.Tensor, index: int, count: int) -> torch.Tensor:
+    if t.shape[0] % count:
+        raise ValueError(f"a batch of {t.shape[0]} does not divide over "
+                         f"{count} data shards")
+    n = t.shape[0] // count
+    return t.narrow(0, index * n, n)
+
+
 def split_input(x: torch.Tensor, mesh, stage: plan_lib.Stage
                 ) -> List[torch.Tensor]:
-    """Shard r's block of ``x`` (N, D, H, W, C): each dim ``stage``
-    partitions cut into the mesh degree of its axis and the piece at r's
-    coordinate, contiguous on r's device."""
+    """Shard r's block of ``x`` (N, D, H, W, C): its slice of the batch
+    (``batch_slice``), each dim ``stage`` partitions cut into the mesh
+    degree of its axis and the piece at r's coordinate, contiguous on
+    r's device."""
     out = []
     for r, device in enumerate(mesh.devices):
-        t, at = x, mesh.coords(r)
+        t, at = _rows(x, *batch_slice(mesh, r, stage)), mesh.coords(r)
         for d, a in stage.part.active:
             k = mesh.degree(a)
             if t.shape[d + 1] % k:
@@ -65,6 +107,24 @@ def split_input(x: torch.Tensor, mesh, stage: plan_lib.Stage
             w = t.shape[d + 1] // k
             t = t.narrow(d + 1, at[a] * w, w)
         out.append(t.to(device).contiguous())
+    return out
+
+
+def split_batch(y: torch.Tensor, mesh, stage: plan_lib.Stage
+                ) -> List[torch.Tensor]:
+    """Shard r's slice of ``y`` along the batch, on r's device."""
+    return [_rows(y, *batch_slice(mesh, r, stage)).to(d).contiguous()
+            for r, d in enumerate(mesh.devices)]
+
+
+def sample_ids(batch: int, mesh, stage: plan_lib.Stage) -> List[range]:
+    """Shard r's global sample ids: ``index * n_loc + arange(n_loc)``,
+    the reference's, so that dropout masks do not depend on the mesh."""
+    out = []
+    for r in range(mesh.size):
+        index, count = batch_slice(mesh, r, stage)
+        n = batch // count
+        out.append(range(index * n, (index + 1) * n))
     return out
 
 
@@ -85,7 +145,7 @@ def make_convnet_forward_step(
     if plan.data_degree != 1:
         raise NotImplementedError(
             f"plan {plan.name!r} has data degree {plan.data_degree}; "
-            "batch sharding comes with the data-parallel slice of the port")
+            "batch-sharded serving comes with the plans slice of the port")
     head = plan.stage_for(cosmoflow_lib.num_blocks(cfg))
     if head.part.active:
         raise NotImplementedError(
@@ -105,27 +165,22 @@ def make_convnet_forward_step(
     return fwd
 
 
-def _resolve_grad_comm(grad_comm: Optional[str]) -> str:
-    mode = "overlap" if grad_comm in (None, "auto") else grad_comm
-    if mode not in GRAD_COMM_MODES:
-        raise ValueError(f"grad_comm={mode!r}; expected one of "
-                         f"{GRAD_COMM_MODES}")
-    if mode == "reduce_scatter":
-        raise NotImplementedError(
-            "grad_comm='reduce_scatter' (ZeRO-1) comes with the gradient "
-            "reduction slice of the port")
-    return mode
-
-
-def _check_one_device(cfg: ConvNetConfig, mesh, plan) -> None:
+def _check_mesh(cfg: ConvNetConfig, mesh, plan) -> None:
     if cfg.arch != "cosmoflow":
         raise NotImplementedError(
             f"{cfg.arch} comes with the U-Net slice of the port")
-    if plan.device_count != 1 or mesh.size != 1:
+    if plan.n_groups != 1:
         raise NotImplementedError(
-            f"plan {plan.name!r} spans {plan.device_count} devices; "
-            "training over several comes with the spatial/data-parallel "
-            "slice of the port")
+            f"plan {plan.name!r} is pipelined; the pipeline axis comes "
+            "with its slice of the port")
+    if mesh.shape != dict(plan.mesh_axes):
+        raise ValueError(f"plan {plan.name!r} has mesh {dict(plan.mesh_axes)}"
+                         f", but the step runs on {mesh.shape}")
+    if len(set(mesh.devices)) != 1:
+        raise NotImplementedError(
+            f"training puts every shard on one device; {mesh} spans "
+            f"several: shards on several cards come with the cross-process "
+            f"shard group")
 
 
 def make_convnet_opt_state(cfg: ConvNetConfig, optimizer, params, *,
@@ -135,8 +190,9 @@ def make_convnet_opt_state(cfg: ConvNetConfig, optimizer, params, *,
     """Optimizer state matching ``make_convnet_train_step``: the
     optimizer wrapped for the policy (fp16 carries the loss-scale
     machine; fp32/bf16 are unwrapped), initialized on ``params``'
-    device. ``precision`` defaults to the plan's."""
-    _resolve_grad_comm(grad_comm)
+    device, the same for every shard. ``precision`` defaults to the
+    plan's."""
+    grad_comm_lib.resolve(grad_comm)
     if precision is None and plan is not None:
         precision = plan.precision
     return precision_lib.wrap_optimizer(optimizer, precision).init(params)
@@ -149,57 +205,51 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
                         guard: bool = False,
                         mask_source: Optional[
                             cosmoflow_lib.MaskSource] = None):
-    """The train step and its phase probes. ``stage``: ``fwd`` (the
-    loss), ``bwd`` (loss, and the sum of every gradient: the backward
-    without the update) or ``step`` (the update).
+    """The train step and its phase probes (``stage``, one of
+    ``STAGES``; the module docstring has the phases).
 
     ``precision`` (default: the plan's) casts the masters at each use in
-    the model; fp16 scales the loss by the running scale before the
-    backward and hands the scale to the optimizer, which unscales before
-    clipping and skips non-finite steps. ``guard`` adds the non-finite
-    step guard for every precision and a fourth output, 1.0 if the
-    update applied and 0.0 if not."""
-    _resolve_grad_comm(grad_comm)
-    _check_one_device(cfg, mesh, plan)
+    the model; fp16 scales each shard's loss by the running scale before
+    the backward and hands the scale to the optimizer, which unscales
+    before clipping and skips non-finite steps. ``guard`` adds the
+    non-finite step guard for every precision, its verdict agreed over
+    every shard, and a fourth output, 1.0 if the update applied and 0.0
+    if not."""
+    if stage not in STAGES:
+        raise ValueError(f"stage={stage!r}; expected one of {STAGES}")
+    mode = grad_comm_lib.resolve(grad_comm)
+    _check_mesh(cfg, mesh, plan)
     policy = precision_lib.get(
         precision if precision is not None else plan.precision)
     optimizer = precision_lib.wrap_optimizer(optimizer, policy)
+    entry = plan.stages[0]
     axes = plan.axis_names
+    hook_axes = axes if mode == "overlap" and stage in ("grad_comm",
+                                                        "step") else ()
+    n = mesh.size
 
-    def local_step(params, opt_state, x, y, seed):
-        sample_ids = range(x.shape[0])  # one device: the global ids
+    def shard_loss(params, x, y, ids, seed, scale):
+        loss = cosmoflow_lib.mse_loss(
+            params, x, y, cfg, plan=plan, bn_axes=axes,
+            global_batch=global_batch, train=True, dropout_seed=seed,
+            sample_ids=ids, mask_source=mask_source, overlap=overlap,
+            precision=policy, grad_axes=hook_axes)
+        # fp16: the loss times the running scale, so that small
+        # cotangents survive; the unscaled loss is reported
+        return loss, (loss if scale is None else loss * scale)
 
-        def loss_fn(p):
-            return cosmoflow_lib.mse_loss(
-                p, x, y, cfg, plan=plan, bn_axes=axes,
-                global_batch=global_batch, train=True, dropout_seed=seed,
-                sample_ids=sample_ids, mask_source=mask_source,
-                overlap=overlap, precision=policy)
-
-        if stage == "fwd":
-            with torch.no_grad():
-                loss = loss_fn(params)
-            return loss
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
-        with torch.enable_grad():
-            loss = loss_fn(leaves)
-            if policy.uses_scaling:
-                # fp16: the loss times the running scale, so that small
-                # cotangents survive; unscaled again for reporting
-                scale = precision_lib.current_scale(opt_state, policy).to(
-                    loss.device)
-                loss = loss * scale
-            grads = dict(zip(leaves, torch.autograd.grad(
-                loss, list(leaves.values()))))
-        loss = loss.detach()
-        if policy.uses_scaling:
-            loss = loss / scale
+    def finish(grads, opt_state, params, loss):
+        loss = spmd.axis(axes).psum(loss)
         if stage == "bwd":
-            return loss, sum(g.sum() for g in grads.values())
+            gsum = sum(g.sum() for g in grads.values())
+            return loss, spmd.axis(axes).psum(gsum)
+        if mode == "monolithic":
+            grads = grad_comm_lib.reduce_grads(grads, axes)
+        if stage == "grad_comm":
+            return loss, grads
         applied = None
         if guard:
-            applied = guard_lib.agreed_finite(loss, grads)
+            applied = guard_lib.agreed_finite(loss, grads, axes)
             if policy.uses_scaling:
                 grads = guard_lib.poison_unless(applied, grads)
         new_params, new_opt = optimizer.update(grads, opt_state, params)
@@ -211,8 +261,31 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
         return new_params, new_opt, loss
 
     def step(params, opt_state, x, y, seed):
-        return spmd.run(mesh, local_step, [params], [opt_state], [x], [y],
-                        [int(seed)])[0]
+        xs = split_input(x, mesh, entry)
+        ys = split_batch(y, mesh, entry)
+        ids = sample_ids(x.shape[0], mesh, entry)
+        seeds = [int(seed)] * n
+        if stage == "fwd":
+            def fwd(*args):
+                return spmd.axis(axes).psum(shard_loss(*args)[0])
+
+            with torch.no_grad():
+                return spmd.run(mesh, fwd, [params] * n, xs, ys, ids, seeds,
+                                [None] * n)[0]
+        scale = (precision_lib.current_scale(opt_state, policy).to(
+            mesh.devices[0]) if policy.uses_scaling else None)
+        leaves = [{k: v.detach().requires_grad_(True)
+                   for k, v in params.items()} for _ in range(n)]
+        with torch.enable_grad():
+            out = spmd.run(mesh, shard_loss, leaves, xs, ys, ids, seeds,
+                           [scale] * n)
+            flat = [leaf for shard in leaves for leaf in shard.values()]
+            found = torch.autograd.grad([s for _, s in out], flat)
+        names = list(params)
+        grads = [dict(zip(names, found[r * len(names):(r + 1) * len(names)]))
+                 for r in range(n)]
+        return spmd.run(mesh, finish, grads, [opt_state] * n, [params] * n,
+                        [v.detach() for v, _ in out])[0]
 
     return step
 
@@ -244,13 +317,14 @@ def make_convnet_phase_probes(cfg: ConvNetConfig, mesh, optimizer, *,
                               grad_comm: Optional[str] = None,
                               precision=None,
                               mask_source=None) -> Dict[str, Callable]:
-    """The ``fwd``, ``bwd`` and ``step`` probes, each with the step's
-    signature; successive differences of their times attribute a step
-    to forward, backward and optimizer."""
+    """The ``fwd``, ``bwd``, ``grad_comm`` and ``step`` probes, each with
+    the step's signature; successive differences of their times
+    attribute a step to forward, backward, gradient reduction and
+    optimizer. ``grad_comm`` returns ``(loss, reduced gradients)``."""
     return {stage: _build_convnet_step(
         cfg, mesh, optimizer, global_batch=global_batch, overlap=overlap,
         grad_comm=grad_comm, stage=stage, plan=plan, precision=precision,
-        mask_source=mask_source) for stage in ("fwd", "bwd", "step")}
+        mask_source=mask_source) for stage in STAGES}
 
 
 def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
@@ -258,24 +332,36 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
                            overlap: Optional[bool] = None, precision=None
                            ) -> Callable[[Params, torch.Tensor,
                                           torch.Tensor], Tuple[Any, Any]]:
-    """Returns ``eval(params, x, y) -> (loss, preds)``: the forward
-    without dropout and the fp32 MSE over ``global_batch`` samples, with
-    no gradients recorded."""
-    _check_one_device(cfg, mesh, plan)
+    """Returns ``eval(params, x, y) -> (loss, preds)`` over the step's
+    mesh: the forward without dropout, no gradients recorded; the fp32
+    MSE over ``global_batch`` samples summed over every shard, and the
+    predictions of every batch slice in order (from the first shard of
+    each), on shard 0's device."""
+    _check_mesh(cfg, mesh, plan)
+    entry = plan.stages[0]
+    axes = plan.axis_names
+    n = mesh.size
+    firsts = sorted({batch_slice(mesh, r, entry)[0]: r
+                     for r in reversed(range(n))}.items())
 
     def local_eval(params, x, y):
-        with torch.no_grad():
-            pred = cosmoflow_lib.forward(params, x, cfg, plan=plan,
-                                         overlap=overlap,
-                                         precision=precision)
-            return cosmoflow_lib.mse(pred, y, global_batch), pred
+        pred = cosmoflow_lib.forward(params, x, cfg, plan=plan,
+                                     overlap=overlap, precision=precision)
+        loss = cosmoflow_lib.mse(pred, y, global_batch * plan.loss_redundancy)
+        return spmd.axis(axes).psum(loss), pred
 
     def fn(params, x, y):
-        return spmd.run(mesh, local_eval, [params], [x], [y])[0]
+        with torch.no_grad():
+            out = spmd.run(mesh, local_eval, [params] * n,
+                           split_input(x, mesh, entry),
+                           split_batch(y, mesh, entry))
+        preds = [out[r][1] for _, r in firsts]
+        return out[0][0], preds[0] if len(preds) == 1 else torch.cat(preds)
 
     return fn
 
 
-__all__ = ["make_convnet_forward_step", "make_convnet_opt_state",
-           "make_convnet_train_step", "make_convnet_phase_probes",
-           "make_convnet_eval_step", "replicate", "split_input"]
+__all__ = ["STAGES", "batch_slice", "make_convnet_forward_step",
+           "make_convnet_opt_state", "make_convnet_train_step",
+           "make_convnet_phase_probes", "make_convnet_eval_step",
+           "replicate", "sample_ids", "split_batch", "split_input"]

@@ -213,9 +213,12 @@ def test_mode_dispatch_and_train_slice():
     sess.close()
     with pytest.raises(RuntimeError, match="closed"):
         sess.predict(_batch(n=1)[0])
-    # training runs on one device; spatial training is still to come
+    # training splits depth too, one device per shard
+    with compile(RunConfig(model=TINY, spatial=2, global_batch=2),
+                 devices=["cpu"] * 2) as train:
+        assert train.mesh.shape == {"data": 1, "model": 2}
     with pytest.raises(RunConfigError) as e:
-        compile(RunConfig(model=TINY, spatial=2), devices=["cpu"] * 2)
+        compile(RunConfig(model=TINY, spatial=2), devices=["cpu"] * 3)
     assert e.value.field == "spatial"
     with pytest.raises(RunConfigError) as e:
         compile_infer(RunConfig(model=TINY), device="cpu")

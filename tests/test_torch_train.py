@@ -315,7 +315,8 @@ def test_nonfinite_fault_skips_the_step_bitwise(tmp_path):
 
 def test_phase_probes_nest_as_the_step():
     """The ``fwd`` probe's loss is the step's; ``bwd`` adds the sum of
-    every gradient; ``step`` is the train step."""
+    every gradient; ``grad_comm`` the reduced gradients (on one device,
+    the gradients); ``step`` is the train step."""
     from repro_torch.train import train_step
 
     sess = compile(RunConfig(model="cosmoflow-128", smoke=True,
@@ -324,11 +325,14 @@ def test_phase_probes_nest_as_the_step():
     probes = train_step.make_convnet_phase_probes(
         sess.cfg, sess.mesh, sess.optimizer, global_batch=2,
         plan=sess.plan)
-    assert set(probes) == {"fwd", "bwd", "step"}
+    assert set(probes) == {"fwd", "bwd", "grad_comm", "step"}
     fwd = probes["fwd"](sess.params, sess.opt_state, x, y, 0)
     loss, gsum = probes["bwd"](sess.params, sess.opt_state, x, y, 0)
+    comm_loss, reduced = probes["grad_comm"](sess.params, sess.opt_state,
+                                             x, y, 0)
     _, _, step_loss = probes["step"](sess.params, sess.opt_state, x, y, 0)
     assert torch.equal(fwd, loss) and torch.equal(loss, step_loss)
+    assert torch.equal(comm_loss, loss) and set(reduced) == set(sess.params)
     p = {k: v.detach().requires_grad_(True) for k, v in sess.params.items()}
     grads = torch.autograd.grad(cosmoflow.mse_loss(
         p, x, y, sess.cfg, plan=sess.plan, global_batch=2,
@@ -355,14 +359,27 @@ def test_mixed_precision_sessions_train(precision):
 
 
 def test_train_config_rejects_what_this_slice_does_not_run():
-    for kw, field in ((dict(spatial=2), "spatial"), (dict(data=2), "data"),
-                      (dict(pipeline=2), "pipeline"),
+    # data and spatial degrees train: one shard per device given
+    for kw in (dict(spatial=2), dict(data=2)):
+        with compile(RunConfig(model="cosmoflow-128", smoke=True, **kw),
+                     devices=["cpu"] * 2) as sess:
+            assert sess.mesh.shape == {"data": kw.get("data", 1),
+                                       "model": kw.get("spatial", 1)}
+    for kw, field in ((dict(pipeline=2), "pipeline"),
                       (dict(grad_comm="reduce_scatter"), "grad_comm"),
                       (dict(plan="auto"), "plan"),
                       (dict(memory_budget_gib=4.0), "memory_budget_gib")):
         with pytest.raises(RunConfigError) as e:
             compile(RunConfig(model="cosmoflow-128", smoke=True, **kw),
                     device="cpu")
+        assert e.value.field == field, kw
+    for kw, field in ((dict(data=2, mode="infer"), "data"),
+                      (dict(data=2, spatial=2, grad_comm="reduce_scatter"),
+                       "grad_comm")):
+        with pytest.raises(RunConfigError) as e:
+            compile(RunConfig(model="cosmoflow-128", smoke=True, **kw),
+                    devices=["cpu"] * 4 if kw.get("spatial") else
+                    ["cpu"] * 2)
         assert e.value.field == field, kw
     for mode in ("monolithic", "overlap"):
         RunConfig(model="cosmoflow-128", grad_comm=mode).validate()
