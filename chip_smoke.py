@@ -12,14 +12,16 @@ Phases, each printing one line; any failure raises and exits non-zero:
               tensor-core instructions (HMMA or HGMMA) in both dtypes.
 3. kernels  — each kernel against its plain PyTorch version on the card:
               conv3d over the shape grid of ``tests/test_kernels.py`` and
-              every conv of cosmoflow-128 at batch 4, bn_act over the same
+              every conv of cosmoflow-128 at batch 4 and the U-Net's Cin =
+              1 and Cin = 512 at a small depth, bn_act over the same
               rows x C shapes, fp32 and bf16; halo pack and unpack, bit
               for bit, at every face of the depth-split convs of
               cosmoflow-128 batch 4 (S = 2, 4, and all 7 blocks split at
               S = 2) and cosmoflow-512 batch 1 (S = 4), the sharded
               training steps' faces (batch 2 at 2 x 2) and those of
-              unpack's adjoint, plus k = 5 (lo = hi = 2) and a row of 180
-              bytes, fp32 and bf16.
+              unpack's adjoint, the U-Net's (unet3d-256 b1 at S = 2, 4,
+              its training steps at 64^3), plus k = 5 (lo = hi = 2) and
+              a row of 180 bytes, fp32 and bf16.
 4. serve    — ``repro_torch.api.compile(RunConfig(model="cosmoflow-128",
               mode="infer", global_batch=4))`` at fp32 and bf16: predict
               on a seeded batch, held against the same forward through the
@@ -94,6 +96,33 @@ Phases, each printing one line; any failure raises and exits non-zero:
               wall-clock limit, so a deadlocked backward fails the run.
               With every shard on one card the times are the sharded
               step's overhead, not scaling.
+10c. unet_serve — ``compile(RunConfig(model="unet3d-256", mode="infer",
+              global_batch=1))``, fp32 and bf16 unsharded, fp32 at S = 2
+              and S = 4 (every shard on this card): per-voxel logits (1,
+              256, 256, 256, 3) against the same forward through the
+              plain versions (fp32 1e-4, bf16 5e-2 of the logits' scale),
+              S > 1 against unsharded (fp32 1e-5), launches per forward
+              against ``unet3d.kernel_launches``; the harness serves 4
+              volumes (one a batch) with none failed. Timed: predict
+              (median of 3), its peak memory, one profiled predict.
+10d. unet_long_k — the fp32 error against fp64 of dec2_w0's forward
+              and mid_w1's input gradient (K = 13,824) at their 256^3
+              shapes, within 1e-6 sqrt(K), with the K split ``ops.plan``
+              chose; then conv3d and bn_act at each conv of a 256^3 b1
+              forward (fp32, bf16) against F.conv3d and the bound.
+10e. unet_train (run right after phase 3, while the allocator holds
+              nothing) — step 1 at unet3d-256's widths and depth on a 64^3
+              input, batch 2, against the plain and fp64 steps
+              (``step1_vs_plain``); then unet3d-256 b1 at 256^3, fp32 and
+              bf16, a warm-up and 3 steps each: ms per step, peak memory
+              allocated and reserved (it must fit the card with the
+              default allocator settings), launches per step against
+              ``kernel_launches(train=True)``; the probes' split and one
+              profiled step.
+10f. train_spatial_unet — phase 10b's checks on the U-Net at 64^3 b2:
+              (u-a) fp32 1 x 2, (u-b) fp32 1 x 4 (its bottleneck has no
+              interior: unpack and its adjoint), (u-c) fp32 2 x 2 overlap
+              and monolithic, (u-d) bf16 1 x 2.
 11. ssd     — the SSD scan kernel against its plain (sequential) version
               at the shapes of ``tests/test_kernels.py``, a ragged L and
               mamba2-370m's layer shape (B=4, L=4096, H=32, P=64, N=128,
@@ -120,7 +149,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
               one profiled mamba2-370m forward in fp32 and one in bf16.
 
 Phases 4-6, 7-8, 10 (the training steps), 10b (the sharded training
-steps) and 12-13 are the main paths:
+steps), 10c, 10e and 10f (the U-Net's) and 12-13 are the main paths:
 the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
@@ -130,6 +159,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -199,8 +229,8 @@ TRAIN = (("cosmoflow-128", 4, "fp32", 5, True),
 # fp32 step's own distance from fp64 (its decisions its own), whichever
 # is larger. bf16: both steps lie 0.03-1.1 of a leaf from fp64, so each
 # leaf of the kernel step must lie no farther from fp64 than STEP1_BF16 x
-# the plain bf16 step does. The loss: STEP1_LOSS relative to the plain
-# step's.
+# the plain bf16 step does (the U-Net's bf16 gate: ``step1_vs_plain``).
+# The loss: STEP1_LOSS relative to the plain step's.
 STEP1_FP32 = 1e-4
 STEP1_BF16 = 1.5
 STEP1_LOSS = {"fp32": 1e-4, "bf16": 5e-2}
@@ -218,6 +248,23 @@ SPATIAL_STEPS = 3
 SPATIAL_LIMIT_S = 240
 # overlap against monolithic after 2 steps (tests/test_grad_comm.py)
 MODES_ATOL, MODES_RTOL = 1e-5, 1e-4
+# the 3D U-Net (unet3d-256, 256^3 x 1 input, base 32, depth 3): serving
+# at batch 1, (spatial degree, precision), every shard on this card
+UNET_SERVE = ((1, "fp32"), (1, "bf16"), (2, "fp32"), (4, "fp32"))
+# training at batch 1: a warm-up, then this many timed steps
+UNET_STEPS = 3
+# step 1's accuracy and the sharded steps: unet3d-256's widths and depth
+# on a 64^3 input at batch 2 (an fp64 step at 256^3 would take ~90 GB)
+UNET_CHECK_WIDTH, UNET_CHECK_BATCH = 64, 2
+UNET_SPATIAL = (("u-a", 1, 2, "fp32", "overlap", "fixed"),
+                ("u-b", 1, 4, "fp32", "overlap", "fixed"),
+                ("u-c", 2, 2, "fp32", "overlap", "fixed"),
+                ("u-c", 2, 2, "fp32", "monolithic", "fixed"),
+                ("u-d", 1, 2, "bf16", "overlap", "fixed"))
+# the U-Net's extreme input widths at a small depth (phase 3): enc0_w0's
+# Cin = 1 (4-byte gather pieces in fp32, 2-byte in bf16) and dec2_w0's
+# Cin = 512 (K = 13,824): (input shape, Cout)
+UNET_GRID = (((1, 8, 16, 16, 1), 32), ((1, 4, 8, 8, 512), 256))
 # (B, L, H, P, N, chunk): tests/test_kernels.py's four (B=2), L=40 with
 # chunk 16 (lowered to 10), and mamba2-370m's layer at 4 x 4096 tokens
 SSD_SHAPES = ((2, 32, 2, 8, 16, 8), (2, 64, 3, 8, 16, 16),
@@ -489,6 +536,14 @@ def phase_kernels(conv_ops, conv_ref, bn_ops, bn_ref, conv_shapes) -> dict:
                     1.0, want.float().abs().max().item()), "cosmoflow-128")
             if dt == torch.float32:
                 worst["conv3d"] = max(worst["conv3d"], err)
+        for xs, cout in UNET_GRID:
+            kc = 27 * xs[-1]
+            rel = 1e-6 * math.sqrt(kc) if dt == torch.float32 else 2 ** -7
+            conv_case(xs, (3, 3, 3, xs[-1], cout), 1, ((1, 1),) * 3, dt,
+                      math.sqrt(2.0 / kc),
+                      lambda want, rel=rel: rel * max(
+                          1.0, want.float().abs().max().item()),
+                      "unet3d Cin")
     bn_shapes = BN_GRID + [conv_ref.output_shape(xs, ws, s, pads)
                            for xs, ws, s, pads in conv_shapes]
     for name, dt in DTYPES.items():
@@ -537,6 +592,25 @@ def halo_cases(cosmoflow, plan_lib, part, cfgs) -> list:
                 n, d, h, w, c = sc.shape
                 cases.add(((n, sc.lo + d + sc.hi, h, w, c), sc.hi, sc.lo))
     return sorted(cases)
+
+
+def unet_halo_cases(unet3d, plan_lib, part, cfg, cfg64) -> set:
+    """(shard input shape, lo, hi) of every depth-split conv of the U-Net
+    paths: unet3d-256 b1 served at S = 2 and 4, and the sharded training
+    steps at 64^3 (batch 2 over D data shards), with the faces of the
+    unpack's adjoint where a shard has no interior."""
+    cases = set()
+    runs = [(cfg, 1, S) for S, _ in UNET_SERVE if S > 1]
+    runs += [(cfg64, UNET_CHECK_BATCH // D, S)
+             for _, D, S, *_ in UNET_SPATIAL]
+    for c, batch, S in runs:
+        plan = plan_lib.legacy_convnet_plan(c, part, (S, 1, 1))
+        for sc in unet3d.split_convs(c, plan, batch):
+            cases.add((sc.shape, sc.lo, sc.hi))
+            if sc.no_interior:  # the unpack's adjoint: a pack of dout
+                n, d, h, w, ch = sc.shape
+                cases.add(((n, sc.lo + d + sc.hi, h, w, ch), sc.hi, sc.lo))
+    return cases
 
 
 def spatial_plan(plan_lib, part, cfg, S, kind):
@@ -927,21 +1001,43 @@ def delta(after: dict, before: dict) -> dict:
     return {n: after[n] - before[n] for n in KERNELS}
 
 
+def release_cached(what: str) -> None:
+    """Hand the cached device memory back before a phase that needs most
+    of the card: cuBLAS keeps a workspace for every (handle, stream) a
+    product ran on — the shard threads and the meshes' streams add up to
+    ~3 GiB of them — and each pins the cached segment it sits in (~23 GiB
+    stayed reserved with ~3 GiB allocated after the sharded phases), so
+    they are dropped (cuBLAS makes them anew at its next product) before
+    the cache is emptied."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    log("memory", f"before {what}: {before[0] / 2 ** 30:.2f} GiB "
+        f"allocated, {before[1] / 2 ** 30:.2f} reserved; after dropping "
+        f"cuBLAS's workspaces and the cache "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} and "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     scale = max(1.0, want.float().abs().max().item())
     return (got.float() - want.float()).abs().max().item() / scale
 
 
-def serve_and_compare(sess, x, k, rel, tag, expect):
-    """One predict: its launches equal ``expect``, its output finite and
-    within ``rel`` of the same forward through the plain versions."""
+def serve_and_compare(sess, x, k, rel, tag, expect, shape=None):
+    """One predict: its launches equal ``expect``, its output finite, of
+    ``shape`` (default (N, out_dim)) and within ``rel`` of the same
+    forward through the plain versions."""
     c0 = counts(k)
     pred = sess.predict(x)
     torch.cuda.synchronize()
     c1 = counts(k)
     check(delta(c1, c0) == expect, f"{tag}: launches per forward "
           f"{delta(c1, c0)}, expected {expect}")
-    check(tuple(pred.shape) == (x.shape[0], sess.cfg.out_dim),
+    check(tuple(pred.shape) == (shape or (x.shape[0], sess.cfg.out_dim)),
           f"{tag}: prediction shape {tuple(pred.shape)}")
     check(bool(torch.isfinite(pred).all()), f"{tag}: non-finite predictions")
     with plain_versions(k):
@@ -965,16 +1061,21 @@ def plain_training(k):
 
 
 def loss_and_grads(k, sess, x, y, params=None, precision=None) -> tuple:
-    """Step 1 of ``sess`` without the update: its loss (dropout seed 0,
-    the session's masks) and the gradient of every parameter (of
-    ``params``, default the session's, at ``precision``, default the
-    session's)."""
+    """Step 1 of ``sess`` without the update: its loss (CosmoFlow:
+    dropout seed 0, the session's masks; the U-Net: the voxel
+    cross-entropy) and the gradient of every parameter (of ``params``,
+    default the session's, at ``precision``, default the session's)."""
     p = {n: v.detach().requires_grad_(True)
          for n, v in (params or sess.params).items()}
-    loss = k.cosmoflow.mse_loss(p, x, y, sess.cfg, plan=sess.plan,
-                                global_batch=x.shape[0], train=True,
-                                dropout_seed=0,
-                                precision=precision or sess.precision)
+    if sess.cfg.arch == "unet3d":
+        loss = k.unet3d.segmentation_loss(
+            p, x, y, sess.cfg, plan=sess.plan,
+            precision=precision or sess.precision)
+    else:
+        loss = k.cosmoflow.mse_loss(p, x, y, sess.cfg, plan=sess.plan,
+                                    global_batch=x.shape[0], train=True,
+                                    dropout_seed=0,
+                                    precision=precision or sess.precision)
     grads = torch.autograd.grad(loss, list(p.values()))
     return loss.detach(), dict(zip(p, grads))
 
@@ -989,15 +1090,24 @@ def _windows(x: torch.Tensor, s: int) -> torch.Tensor:
 
 
 @contextlib.contextmanager
+def pools(k, pool):
+    """Both models' max pooling replaced by ``pool``."""
+    with mock.patch.object(k.cosmoflow, "maxpool3d", pool), \
+            mock.patch.object(k.unet3d, "maxpool3d", pool):
+        yield
+
+
+@contextlib.contextmanager
 def decisions(k, taken: list, replay: bool = False):
     """A training step's discrete choices, in call order: the sign of each
-    batch norm + leaky-ReLU output and the winner (the first maximum, the
-    rule ``_MaxPool`` and XLA follow) of each max pool window. ``replay``
-    False appends the step's own to ``taken``; True makes the step take
-    those of ``taken`` instead: its batch norm's output before the
-    activation then the recorded slope, its pool's recorded winner, with
-    autograd through both. Wraps whatever batch norm and pool are in place
-    (the kernels, the plain versions or fp64)."""
+    batch norm + leaky-ReLU (or ReLU) output and the winner (the first
+    maximum, the rule ``_MaxPool`` and XLA follow) of each max pool
+    window. ``replay`` False appends the step's own to ``taken``; True
+    makes the step take those of ``taken`` instead: its batch norm's
+    output before the activation then the recorded slope, its pool's
+    recorded winner, with autograd through both. Wraps whatever batch
+    norm and pool are in place (the kernels, the plain versions or
+    fp64)."""
     bn_fn = k.cosmoflow.dist_norm.distributed_batchnorm
     pool_fn = k.cosmoflow.maxpool3d
     it = iter(taken)
@@ -1018,8 +1128,7 @@ def decisions(k, taken: list, replay: bool = False):
             -1, next(it).unsqueeze(-1)).squeeze(-1)
 
     with mock.patch.object(k.cosmoflow.dist_norm, "distributed_batchnorm",
-                           bn), \
-            mock.patch.object(k.cosmoflow, "maxpool3d", pool):
+                           bn), pools(k, pool):
         yield
 
 
@@ -1049,17 +1158,25 @@ def mse64(pred, y, global_batch):
     return torch.sum(torch.mean(torch.square(pred - y), dim=-1)) / global_batch
 
 
+def nll64(logits, labels, denominator):
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels.long().unsqueeze(-1)).sum() / denominator
+
+
 def fp64_grads(k, sess, x, y, within=contextlib.nullcontext) -> tuple:
     """Step 1 in fp64, as near the exact gradient as the card computes:
     the session's fp32 masters widened, the convs by ``F.conv3d`` and the
-    batch norm and the loss in fp64, the same masks; inside the context
-    ``within()`` (entered after those patches)."""
+    batch norm and the loss in fp64 (the U-Net's up-convolutions and head
+    are products, in fp64 on fp64 inputs), the same masks; inside the
+    context ``within()`` (entered after those patches)."""
     with mock.patch.object(k.conv_ops, "conv3d", conv64), \
             mock.patch.object(k.cosmoflow.dist_norm,
                               "distributed_batchnorm", bn64), \
-            mock.patch.object(k.cosmoflow, "mse", mse64), within():
+            mock.patch.object(k.cosmoflow, "mse", mse64), \
+            mock.patch.object(k.unet3d, "voxel_nll", nll64), within():
         return loss_and_grads(
-            k, sess, x.double(), y.double(), precision="fp32",
+            k, sess, x.double(), y if sess.cfg.arch == "unet3d"
+            else y.double(), precision="fp32",
             params={n: v.double() for n, v in sess.params.items()})
 
 
@@ -1189,6 +1306,92 @@ def grad_rows(k, cfg, batch: int, prec: str, reps: int) -> dict:
     return rows
 
 
+def step1_vs_plain(k, sess, x, y, tag: str, prec: str) -> tuple:
+    """Step 1's loss and every gradient through the kernels, held against
+    the same step through the plain versions (``plain_training``) and in
+    fp64 (``fp64_grads``), within ``STEP1_*``: fp32 from the fp64 step
+    that takes the kernel step's decisions (``decisions``), within
+    ``STEP1_FP32`` of each leaf's max-abs or the plain fp32 step's own
+    distance from fp64, whichever is larger; the loss within
+    ``STEP1_LOSS`` of the plain step's. bf16, CosmoFlow: no farther from
+    fp64 than ``STEP1_BF16`` x the plain bf16 step. bf16, the U-Net
+    (``bf16_given_decisions``): with every decision the kernel step's, no
+    farther from fp64 than ``STEP1_BF16`` x the plain step, and no more
+    decisions taken otherwise than fp64 than ``STEP1_BF16`` x the plain
+    step's — in bf16 both steps flip ~690,000 of its ReLU signs and pool
+    winners at 64^3 b2, and a leaf fed by the last level's ReLUs lies
+    from fp64 where the flips put it (PERF.md §6). Returns
+    (report, loss)."""
+    taken, plain_taken, exact_taken = [], [], []
+    with decisions(k, taken):
+        loss, grads = loss_and_grads(k, sess, x, y)
+    c0 = counts(k)
+    with plain_training(k), decisions(k, plain_taken):
+        plain_loss, plain = loss_and_grads(k, sess, x, y)
+    with plain_training(k), decisions(k, taken, replay=True):
+        _, pinned = loss_and_grads(k, sess, x, y)
+    _, exact = fp64_grads(k, sess, x, y, lambda: decisions(k, exact_taken))
+    _, exact_same = fp64_grads(k, sess, x, y, lambda: decisions(
+        k, taken, replay=True))
+    torch.cuda.synchronize()
+    check(counts(k) == c0, f"{tag}: the plain or fp64 step launched a "
+          "kernel")
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max().item()
+                / max(1e-30, b.double().abs().max().item()))
+
+    row = {n: {"vs_fp64_same_decisions": rel(grads[n], exact_same[n]),
+               "vs_plain_same_decisions": rel(grads[n], pinned[n]),
+               "plain_same_decisions_vs_fp64_same_decisions": rel(
+                   pinned[n], exact_same[n]),
+               "vs_plain": rel(grads[n], plain[n]),
+               "vs_fp64": rel(grads[n], exact[n]),
+               "plain_vs_fp64": rel(plain[n], exact[n])} for n in grads}
+    # decisions (activation signs and pool winners, in call order) that
+    # the kernel step and the plain step each take otherwise than fp64
+    flipped = {"kernel_vs_fp64": flips(taken, exact_taken),
+               "plain_vs_fp64": flips(plain_taken, exact_taken),
+               "decisions": [int(t.numel()) for t in taken]}
+    if prec == "fp32":
+        key = "vs_fp64_same_decisions"
+        bad = {n: r for n, r in row.items()
+               if r[key] > max(STEP1_FP32, r["plain_vs_fp64"])}
+    elif sess.cfg.arch == "unet3d":
+        key = "vs_fp64_same_decisions"
+        bad = {n: r for n, r in row.items() if r[key] > STEP1_BF16 * r[
+            "plain_same_decisions_vs_fp64_same_decisions"]}
+        if (sum(flipped["kernel_vs_fp64"])
+                > STEP1_BF16 * sum(flipped["plain_vs_fp64"])):
+            bad["decisions flipped"] = flipped
+    else:
+        key = "vs_fp64"
+        bad = {n: r for n, r in row.items()
+               if r["vs_fp64"] > STEP1_BF16 * r["plain_vs_fp64"]}
+    loss_err = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
+    if bad:
+        log("train", f"{tag}: every leaf {json.dumps(row)}; decisions "
+            f"flipped from fp64 {json.dumps(flipped)}")
+    check(loss_err <= STEP1_LOSS[prec] and not bad,
+          f"{tag}: step 1 vs the plain step: loss {loss_err}; gradients "
+          f"out of bounds {bad}")
+    worst = max(row, key=lambda n: row[n][key])
+    # each step with its own decisions: the kernel step's distance from
+    # fp64 over the plain step's (CosmoFlow's bf16 comparison)
+    own = {n: r["vs_fp64"] / max(1e-30, r["plain_vs_fp64"])
+           for n, r in row.items()}
+    most = max(own, key=own.get)
+    log("train", f"{tag}: step 1 vs the plain step: loss {loss_err:.3g}; "
+        f"worst gradient by {key}: {worst} {json.dumps(row[worst])} (share "
+        f"of the leaf's max-abs); every leaf within its bound; each step "
+        f"with its own decisions, kernel over plain distance from fp64 at "
+        f"most {own[most]:.3g} ({most}); decisions flipped from fp64 "
+        f"{json.dumps(flipped)}")
+    return {"loss": loss.item(), "plain_loss": plain_loss.item(),
+            "loss_rel_err": loss_err, "grads": row, "flipped": flipped,
+            "own_decisions_ratio_max": [most, own[most]]}, loss.item()
+
+
 def phase_train(k, cfgs, RunConfig, compile) -> tuple:
     """The training main path: for each of ``TRAIN``, a
     ``compile(RunConfig(mode="train"))`` session on the card takes its
@@ -1217,61 +1420,9 @@ def phase_train(k, cfgs, RunConfig, compile) -> tuple:
                                  global_batch=batch, precision=prec))
         check(sess.device.type == "cuda", "train session not on the card")
         x, y = data[(name, prec)]
-        taken, plain_taken, exact_taken = [], [], []
-        with decisions(k, taken):
-            loss, grads = loss_and_grads(k, sess, x, y)
-        c0 = counts(k)
-        with plain_training(k), decisions(k, plain_taken):
-            plain_loss, plain = loss_and_grads(k, sess, x, y)
-        with plain_training(k), decisions(k, taken, replay=True):
-            _, pinned = loss_and_grads(k, sess, x, y)
-        _, exact = fp64_grads(k, sess, x, y, lambda: decisions(
-            k, exact_taken))
-        _, exact_same = fp64_grads(k, sess, x, y, lambda: decisions(
-            k, taken, replay=True))
-        torch.cuda.synchronize()
-        check(counts(k) == c0, f"{name} {prec}: the plain or fp64 step "
-              "launched a kernel")
-
-        def rel(a, b):
-            return ((a.double() - b.double()).abs().max().item()
-                    / max(1e-30, b.double().abs().max().item()))
-
-        row = {n: {"vs_fp64_same_decisions": rel(grads[n], exact_same[n]),
-                   "vs_plain_same_decisions": rel(grads[n], pinned[n]),
-                   "vs_plain": rel(grads[n], plain[n]),
-                   "vs_fp64": rel(grads[n], exact[n]),
-                   "plain_vs_fp64": rel(plain[n], exact[n])} for n in grads}
-        if prec == "fp32":
-            key = "vs_fp64_same_decisions"
-            bad = {n: r for n, r in row.items()
-                   if r[key] > max(STEP1_FP32, r["plain_vs_fp64"])}
-        else:
-            key = "vs_fp64"
-            bad = {n: r for n, r in row.items()
-                   if r["vs_fp64"] > STEP1_BF16 * r["plain_vs_fp64"]}
-        loss_err = abs(loss.item() - plain_loss.item()) / abs(
-            plain_loss.item())
-        check(loss_err <= STEP1_LOSS[prec] and not bad,
-              f"{name} {prec}: step 1 vs the plain step: loss {loss_err}; "
-              f"gradients out of bounds {bad}")
-        # decisions (BN signs and pool winners, block by block) that the
-        # kernel step and the plain step each take otherwise than fp64
-        flipped = {"kernel_vs_fp64": flips(taken, exact_taken),
-                   "plain_vs_fp64": flips(plain_taken, exact_taken),
-                   "decisions": [int(t.numel()) for t in taken]}
-        worst = max(row, key=lambda n: row[n][key])
-        out["vs_plain"][f"{name}/{prec}"] = {
-            "loss": loss.item(), "plain_loss": plain_loss.item(),
-            "loss_rel_err": loss_err, "grads": row, "flipped": flipped}
-        log("train", f"{name} {prec} b{batch}: step 1 vs the plain step: "
-            f"loss {loss_err:.3g}; worst gradient by {key}: {worst} "
-            f"{json.dumps(row[worst])} (share of the leaf's max-abs); "
-            f"every leaf within its bound; decisions flipped from fp64 "
-            f"{json.dumps(flipped)}")
-        sessions[(name, prec)] = (sess, loss.item())
-        del grads, plain, pinned, exact, exact_same, taken, plain_taken
-        del exact_taken
+        out["vs_plain"][f"{name}/{prec}"], loss = step1_vs_plain(
+            k, sess, x, y, f"{name} {prec} b{batch}", prec)
+        sessions[(name, prec)] = (sess, loss)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ the main path ----
@@ -1386,8 +1537,7 @@ def shard_decisions(k, taken: dict):
         return pool_fn(x, part, window, stride)
 
     with mock.patch.object(k.cosmoflow.dist_norm, "distributed_batchnorm",
-                           bn), \
-            mock.patch.object(k.cosmoflow, "maxpool3d", pool):
+                           bn), pools(k, pool):
         yield
 
 
@@ -1395,14 +1545,18 @@ def global_decisions(k, taken: dict, cfg, plan, mesh) -> list:
     """The sharded step's decisions as the unsharded step's: depth slabs
     concatenated along depth, batch slices along the batch, and a block
     the plan gathers (replicated over the spatial group) from the
-    group's first shard."""
+    group's first shard. (The U-Net's legacy plan is one stage: every
+    decision is split alike.)"""
     n_data, n_model = mesh.degree("data"), mesh.degree("model")
-    npool = k.cosmoflow.num_pools(cfg)
-    blocks = [i for i in range(k.cosmoflow.num_blocks(cfg))
-              for _ in range(2 if i < npool else 1)]
+    if cfg.arch == "unet3d":
+        splits = [bool(plan.stages[0].part.active)] * len(taken[0])
+    else:
+        npool = k.cosmoflow.num_pools(cfg)
+        splits = [bool(plan.stage_for(i).part.active)
+                  for i in range(k.cosmoflow.num_blocks(cfg))
+                  for _ in range(2 if i < npool else 1)]
     out = []
-    for j, i in enumerate(blocks):
-        split = bool(plan.stage_for(i).part.active)
+    for j, split in enumerate(splits):
         out.append(torch.cat([
             torch.cat([taken[d * n_model + m][j]
                        for m in (range(n_model) if split else (0,))], 1)
@@ -1410,10 +1564,24 @@ def global_decisions(k, taken: dict, cfg, plan, mesh) -> list:
     return out
 
 
-def phase_train_spatial(k, cfg, RunConfig, compile, plan_lib, depth,
-                        card: str) -> tuple:
-    """Hybrid data x spatial training of ``cfg`` (cosmoflow-128) batch 4,
-    every shard on this card, in each of ``TRAIN_SPATIAL``:
+def train_batch(cfg, batch: int, g) -> tuple:
+    """A seeded batch on the card: volumes, and CosmoFlow's targets or
+    the U-Net's voxel labels (classes uniform over ``out_dim``)."""
+    w = cfg.input_width
+    x = torch.randn((batch, w, w, w, cfg.in_channels), generator=g,
+                    device="cuda")
+    if cfg.arch == "unet3d":
+        return x, torch.randint(0, cfg.out_dim, (batch, w, w, w),
+                                generator=g, device="cuda")
+    return x, torch.randn((batch, cfg.out_dim), generator=g, device="cuda")
+
+
+def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
+                        compile, plan_lib, depth, card: str) -> tuple:
+    """Hybrid data x spatial training of ``cfg`` at ``batch``, every shard
+    on this card, in each of ``runs`` (``TRAIN_SPATIAL`` for
+    cosmoflow-128 b4, ``UNET_SPATIAL`` for the U-Net at 64^3 b2; the runs
+    tagged ``unpack_tags`` must launch the unpack kernel):
 
     1. step 1's loss and reduced gradients (the ``grad_comm`` probe)
        held against the unsharded step: fp32 against the fp64 unsharded
@@ -1437,10 +1605,9 @@ def phase_train_spatial(k, cfg, RunConfig, compile, plan_lib, depth,
            "note": "every shard on one card: these times measure the "
                    "sharded step's overhead, not scaling"}
     g = torch.Generator(device="cuda").manual_seed(11)
-    w = cfg.input_width
-    x = torch.randn((4, w, w, w, cfg.in_channels), generator=g,
-                    device="cuda")
-    y = torch.randn((4, cfg.out_dim), generator=g, device="cuda")
+    x, y = train_batch(cfg, batch, g)
+    model = k.unet3d if cfg.arch == "unet3d" else k.cosmoflow
+    phase = "train_spatial" + ("_unet" if cfg.arch == "unet3d" else "")
 
     def rel(a, b):
         return ((a.double() - b.double()).abs().max().item()
@@ -1448,8 +1615,8 @@ def phase_train_spatial(k, cfg, RunConfig, compile, plan_lib, depth,
 
     # the unsharded steps the checks are held to, per precision
     base = {}
-    for prec in ("fp32", "bf16"):
-        one = compile(RunConfig(model=cfg, mode="train", global_batch=4,
+    for prec in sorted({r[3] for r in runs}):
+        one = compile(RunConfig(model=cfg, mode="train", global_batch=batch,
                                 precision=prec))
         with plain_training(k):
             plain_loss, plain = loss_and_grads(k, one, x, y)
@@ -1458,7 +1625,7 @@ def phase_train_spatial(k, cfg, RunConfig, compile, plan_lib, depth,
     torch.cuda.synchronize()
 
     sessions = {}
-    for tag, D, S, prec, mode, kind in TRAIN_SPATIAL:
+    for tag, D, S, prec, mode, kind in runs:
         key = f"{tag}/{D}x{S}/{prec}/{mode}/{kind}"
         plan = "fixed" if kind == "fixed" else spatial_plan(
             plan_lib, depth, cfg, S, kind)
@@ -1466,14 +1633,15 @@ def phase_train_spatial(k, cfg, RunConfig, compile, plan_lib, depth,
 
         def check_step1():
             sess = compile(RunConfig(model=cfg, mode="train",
-                                     global_batch=4, precision=prec, data=D,
-                                     spatial=S, grad_comm=mode, plan=plan),
+                                     global_batch=batch, precision=prec,
+                                     data=D, spatial=S, grad_comm=mode,
+                                     plan=plan),
                            devices=["cuda:0"] * (D * S))
             check(sess.mesh.shape == {"data": D, "model": S}
                   and all(torch.equal(sess.params[n], one.params[n])
                           for n in one.params), f"{key}: mesh or params")
             probe = k.train_step.make_convnet_phase_probes(
-                sess.cfg, sess.mesh, sess.optimizer, global_batch=4,
+                sess.cfg, sess.mesh, sess.optimizer, global_batch=batch,
                 plan=sess.plan, grad_comm=mode,
                 precision=prec)["grad_comm"]
             taken = {}
@@ -1505,7 +1673,7 @@ def phase_train_spatial(k, cfg, RunConfig, compile, plan_lib, depth,
                                         "plain_loss": plain_loss,
                                         "loss_rel_err": loss_err,
                                         "grads": row}
-            log("train_spatial", f"{key}: step 1 vs the unsharded step: "
+            log(phase, f"{key}: step 1 vs the unsharded step: "
                 f"loss {loss_err:.3g}; worst gradient by {worst_key}: "
                 f"{worst} {json.dumps(row[worst])} (share of the leaf's "
                 "max-abs); every leaf within its bound")
@@ -1524,8 +1692,8 @@ def phase_train_spatial(k, cfg, RunConfig, compile, plan_lib, depth,
     expected = dict(NO_LAUNCHES)
     after_two = {}
     for (tag, D, S, prec, mode, kind), (key, sess) in zip(
-            TRAIN_SPATIAL, sessions.items()):
-        per_step = dict(NO_LAUNCHES, **k.cosmoflow.kernel_launches(
+            runs, sessions.items()):
+        per_step = dict(NO_LAUNCHES, **model.kernel_launches(
             cfg, sess.plan, train=True))
 
         def steps():
@@ -1548,7 +1716,7 @@ def phase_train_spatial(k, cfg, RunConfig, compile, plan_lib, depth,
         want = {n: v * SPATIAL_STEPS for n, v in per_step.items()}
         check(got == want, f"{key}: launches {got} over {SPATIAL_STEPS} "
               f"steps, expected {per_step} per step (kernel_launches)")
-        check(got["pack"] > 0 and (got["unpack"] > 0) == (kind == "deep"),
+        check(got["pack"] > 0 and (got["unpack"] > 0) == (tag in unpack_tags),
               f"{key}: pack/unpack launches {got}")
         check(all(math.isfinite(v) for v in losses),
               f"{key}: non-finite losses {losses}")
@@ -1557,23 +1725,24 @@ def phase_train_spatial(k, cfg, RunConfig, compile, plan_lib, depth,
             "losses": losses, "launches_per_step": per_step,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
-        log("train_spatial", f"{key}: {SPATIAL_STEPS} steps, losses "
+        log(phase, f"{key}: {SPATIAL_STEPS} steps, losses "
             f"{losses}; launches per step {json.dumps(per_step)} = "
             f"kernel_launches; peak {row['peak_bytes'] / 2 ** 30:.2f} GiB "
             f"allocated, {row['peak_reserved_bytes'] / 2 ** 30:.2f} GiB "
             f"reserved ({card})")
     launches = counts(k)
-    check(launches == expected, f"train_spatial path launches {launches}, "
+    check(launches == expected, f"{phase} path launches {launches}, "
           f"expected {expected}")
-    log("main path", f"train_spatial: launches {launches}")
+    log("main path", f"{phase}: launches {launches}")
+    both = next(r[0] for r in runs if r[4] == "monolithic")
     ov, mono = (after_two[key] for key in sessions
-                if key.startswith("c/"))
+                if key.startswith(both + "/"))
     modes = {n: (ov[n] - mono[n]).abs().max().item() for n in ov}
     bad = {n for n in ov if not torch.allclose(
         ov[n], mono[n], atol=MODES_ATOL, rtol=MODES_RTOL)}
     check(not bad, f"2x2 overlap vs monolithic after 2 steps: {bad}")
     out["overlap_vs_monolithic_max_abs"] = max(modes.values())
-    log("train_spatial", f"2x2 overlap vs monolithic after 2 steps: max "
+    log(phase, f"2x2 overlap vs monolithic after 2 steps: max "
         f"abs difference {max(modes.values()):.3g} (atol {MODES_ATOL}, "
         f"rtol {MODES_RTOL})")
 
@@ -1594,6 +1763,376 @@ def phase_train_spatial(k, cfg, RunConfig, compile, plan_lib, depth,
     del sessions, after_two, x, y
     torch.cuda.empty_cache()
     return out, launches
+
+
+def phase_unet_serve(k, cfg, RunConfig, compile) -> tuple:
+    """The U-Net's serving main path: ``compile(RunConfig(model=
+    "unet3d-256", mode="infer"))`` at batch 1 in each of ``UNET_SERVE``,
+    every shard on this card. Each predict: per-voxel logits (1, 256,
+    256, 256, 3), finite, launches per forward equal to
+    ``unet3d.kernel_launches``, within 1e-4 (fp32) or 5e-2 (bf16) of the
+    logits' scale of the same forward through the plain versions, and at
+    S > 1 within 1e-5 of the unsharded fp32 forward (the reference's
+    contract); then ``serve(max_batch=1)`` answers 4 requests with none
+    failed (a 256^3 volume is a batch: two would double the forward's
+    ~29 GB). The launch counters are zeroed before and read after. Timed
+    after: predict (host clock, median of 3) and its peak memory per
+    configuration, one profiled unsharded fp32 predict. Returns (report,
+    launches)."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    w = cfg.input_width
+    x = torch.randn((1, w, w, w, cfg.in_channels), generator=g,
+                    device="cuda")
+    shape = (1, w, w, w, cfg.out_dim)
+    out = {"serve": {}, "predict": {}}
+    zero_counts(k)
+    expected = dict(NO_LAUNCHES)
+    unsharded, sessions = {}, {}
+    for S, prec in UNET_SERVE:
+        tag = f"{cfg.name}/{prec}/S{S}"
+        t0 = time.perf_counter()
+        sess = compile(RunConfig(model=cfg.name, mode="infer",
+                                 global_batch=1, precision=prec, spatial=S),
+                       devices=["cuda:0"] * S)
+        check(sess.device.type == "cuda" and sess.mesh.shape == {
+            "data": 1, "model": S}, f"{tag}: mesh {sess.mesh}")
+        per_fwd = dict(NO_LAUNCHES, **k.unet3d.kernel_launches(cfg,
+                                                                sess.plan))
+        rel = 1e-4 if prec == "fp32" else 5e-2
+        pred, err = serve_and_compare(sess, x, k, rel, tag, per_fwd, shape)
+        expected = {n: expected[n] + per_fwd[n] for n in KERNELS}
+        row = {"launches_per_forward": per_fwd, "rel_err_vs_plain": err,
+               "tol_vs_plain": rel}
+        if S == 1:
+            unsharded[prec] = pred
+        else:
+            err_u = rel_err(pred, unsharded[prec])
+            tol = 1e-5 if prec == "fp32" else 5e-2
+            check(err_u <= tol, f"{tag}: vs the unsharded forward {err_u} "
+                  f"> {tol}")
+            row.update(rel_err_vs_unsharded=err_u, tol_vs_unsharded=tol)
+        del pred
+        row["seconds"] = time.perf_counter() - t0
+        out["serve"][tag] = row
+        sessions[tag] = sess
+        log("unet_serve", f"{tag} batch 1: logits {shape}; launches "
+            f"{json.dumps(per_fwd)} = kernel_launches; vs plain "
+            f"{err:.3g} <= {rel}" + (
+                f"; vs unsharded {row['rel_err_vs_unsharded']:.3g}"
+                if S > 1 else "") + f"; {row['seconds']:.1f}s wall")
+    sess = sessions[f"{cfg.name}/fp32/S1"]
+    reqs = np.random.default_rng(3).standard_normal(
+        (4, w, w, w, cfg.in_channels), dtype=np.float32)
+    with sess.serve(max_batch=1, max_wait_ms=1) as h:
+        rows = [f.result(timeout=300) for f in h.submit_many(list(reqs))]
+    check(all(r.shape == shape[1:] and np.all(np.isfinite(r))
+              for r in rows), "unet harness replies")
+    tele = sess.telemetry()
+    check(tele["serve.requests"] == 4 and tele["serve.worker_failures"] == 0,
+          f"unet harness telemetry {tele}")
+    per_fwd = out["serve"][f"{cfg.name}/fp32/S1"]["launches_per_forward"]
+    expected = {n: expected[n] + per_fwd[n] * int(tele["serve.batches"])
+                for n in KERNELS}
+    out["harness"] = tele
+    log("unet_serve", f"harness: 4/4 futures resolved, 0 failed; "
+        f"telemetry {json.dumps(tele)}")
+    del rows, reqs, unsharded
+    launches = counts(k)
+    check(launches == expected, f"unet serving launches {launches}, "
+          f"derived from the plans {expected}")
+    log("main path", f"unet_serve: launches {launches} = derived from the "
+        "plans")
+    for tag, sess in sessions.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ms = host_ms(lambda: sess.predict(x), 3)
+        out["predict"][tag] = {
+            "ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "resident_bytes_before": resident}
+        log("timings", f"unet predict {tag}: " + json.dumps(
+            out["predict"][tag]))
+    out["profile"] = device_profile(
+        lambda: sessions[f"{cfg.name}/fp32/S1"].predict(x))
+    log("profile", f"unet predict {cfg.name}/fp32/S1 "
+        + json.dumps(out["profile"]))
+    for sess in sessions.values():
+        sess.close()
+    del sessions, x
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_unet_long_k(k, cfg) -> dict:
+    """The longest K of the U-Net, in fp32 against fp64 at its unet3d-256
+    b1 shapes: ``dec2_w0``'s forward (K = 27 x 512) and ``mid_w1``'s input
+    gradient (K = 27 x 512), each by the conv kernel with the K split
+    ``ops.plan`` chose, held within 1e-6 sqrt(K) of the output's scale
+    (ROADMAP §3's conv3d contract), beside the plain fp32 conv's own
+    distance from fp64. He-scaled weights, unit normal inputs."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    shapes = k.unet3d.conv_shapes(cfg, 1)
+    names = [f"{p}_w{i}" for p in [f"enc{l}" for l in range(cfg.depth)]
+             + ["mid"] + [f"dec{l}" for l in reversed(range(cfg.depth))]
+             for i in (0, 1)]
+    by_name = dict(zip(names, shapes))
+    rows = {}
+    sms = k.conv_ops._sms(0)
+    for name, grad in (("dec2_w0", False), ("mid_w1", True)):
+        xs, ws, _, pads = by_name[name]
+        ys = xs[:4] + (ws[4],)
+        w = torch.randn(ws, generator=g, device="cuda") * math.sqrt(
+            2.0 / math.prod(ws[:4]))
+        if grad:  # dL/dx from dy, the flipped and transposed filter's K
+            dy = torch.randn(ys, generator=g, device="cuda")
+            w_t = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+            got = k.conv_ops.conv3d_input_grad(dy, w, xs, 1, pads)
+            plain = k.conv_ref.conv3d_valid(dy, w_t, 1, pads)
+            want = torch.nn.grad.conv3d_input(
+                (xs[0], xs[4]) + xs[1:4], w.double().permute(4, 3, 0, 1, 2),
+                dy.double().permute(0, 4, 1, 2, 3), padding=1).permute(
+                    0, 2, 3, 4, 1)
+            plan = k.conv_ops.plan(ys, w_t.shape, xs, torch.float32, sms,
+                                   dy.data_ptr(), 1)
+            kk = math.prod(w_t.shape[:4])
+        else:
+            x = torch.randn(xs, generator=g, device="cuda")
+            got = k.conv_ops.conv3d_valid(x, w, 1, pads)
+            plain = k.conv_ref.conv3d_valid(x, w, 1, pads)
+            want = conv64(x.double(), w.double(), 1, pads)
+            plan = k.conv_ops.plan(xs, ws, ys, torch.float32, sms,
+                                   x.data_ptr(), 1)
+            kk = math.prod(ws[:4])
+        torch.cuda.synchronize()
+        scale = max(1.0, want.abs().max().item())
+        err = (got.double() - want).abs().max().item() / scale
+        plain_err = (plain.double() - want).abs().max().item() / scale
+        bound_ = 1e-6 * math.sqrt(kk)
+        rows[name] = {"what": "input gradient" if grad else "forward",
+                      "K": kk, "splits": plan.splits,
+                      "kernel": "patch" if plan.stages else "gather",
+                      "rel_err_vs_fp64": err, "plain_rel_err_vs_fp64":
+                      plain_err, "contract": bound_,
+                      "share_of_contract": err / bound_}
+        check(err <= bound_, f"long K {name}: {err} > {bound_}")
+        log("unet_long_k", f"{name} {rows[name]['what']} at {list(xs)}, K "
+            f"{kk}: {plan.splits} K split(s), {rows[name]['kernel']} "
+            f"kernel; vs fp64 {err:.3g} of the scale ({err / bound_:.1%} of "
+            f"1e-6 sqrt(K) = {bound_:.3g}); the plain fp32 conv "
+            f"{plain_err:.3g}")
+        del got, plain, want, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_unet_train(k, cfg, RunConfig, compile) -> tuple:
+    """The U-Net's training main path. First step 1's accuracy at
+    unet3d-256's widths and depth on a 64^3 input, batch 2, fp32 and bf16
+    (``step1_vs_plain``: the gates of phase 10). Then the main path:
+    ``compile(RunConfig(model="unet3d-256", mode="train",
+    global_batch=1))`` at 256^3 in fp32 and bf16, a warm-up then
+    ``UNET_STEPS`` steps each (host clock each), every loss finite,
+    launches per step equal to ``kernel_launches(train=True)``, peak
+    memory allocated and reserved (default allocator settings: it must
+    fit the card). Timed after: the probes' fwd / bwd / grad_comm / step
+    split (one run each after a warm-up) and one profiled step. Returns
+    (report, launches of the main path)."""
+    out = {"vs_plain": {}, "steps": {}, "timing": {}, "profile": {}}
+    g = torch.Generator(device="cuda").manual_seed(14)
+    small = dataclasses.replace(cfg, name=f"{cfg.name}@{UNET_CHECK_WIDTH}",
+                                input_width=UNET_CHECK_WIDTH)
+    for prec in ("fp32", "bf16"):
+        sess = compile(RunConfig(model=small, mode="train",
+                                 global_batch=UNET_CHECK_BATCH,
+                                 precision=prec))
+        x, y = train_batch(small, UNET_CHECK_BATCH, g)
+        out["vs_plain"][f"{small.name}/{prec}"], _ = step1_vs_plain(
+            k, sess, x, y, f"{small.name} {prec} b{UNET_CHECK_BATCH}", prec)
+        sess.close()
+        del x, y
+        torch.cuda.empty_cache()
+
+    zero_counts(k)
+    expected = dict(NO_LAUNCHES)
+    sessions = {}
+    x, y = train_batch(cfg, 1, g)
+    for prec in ("fp32", "bf16"):
+        tag = f"{cfg.name}/{prec}/b1"
+        sess = compile(RunConfig(model=cfg.name, mode="train",
+                                 global_batch=1, precision=prec))
+        per_step = dict(NO_LAUNCHES, **k.unet3d.kernel_launches(
+            cfg, sess.plan, train=True))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        log("memory", f"{tag}: {resident / 2 ** 30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved "
+            "before the steps")
+        c0 = counts(k)
+        losses, ms = [], []
+        for _ in range(1 + UNET_STEPS):
+            t0 = time.perf_counter()
+            losses.append(sess.step(x, y).item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = delta(counts(k), c0)
+        n = 1 + UNET_STEPS
+        check(got == {m: v * n for m, v in per_step.items()},
+              f"{tag}: launches {got} over {n} steps, expected {per_step} "
+              "per step (kernel_launches)")
+        check(all(math.isfinite(v) for v in losses),
+              f"{tag}: non-finite losses {losses}")
+        expected = {m: expected[m] + got[m] for m in KERNELS}
+        row = out["steps"][tag] = {
+            "losses": losses, "step_ms": ms[1:],
+            "ms_per_step": statistics.median(ms[1:]),
+            "warm_up_ms": ms[0], "launches_per_step": per_step,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "resident_bytes_before": resident,
+            "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
+        log("unet_train", f"{tag}: warm-up + {UNET_STEPS} steps, losses "
+            f"{losses}; {row['ms_per_step']:.1f} ms a step (median of "
+            f"{UNET_STEPS}); launches per step {json.dumps(per_step)} = "
+            f"kernel_launches; peak {row['peak_bytes'] / 2 ** 30:.2f} GiB "
+            f"allocated, {row['peak_reserved_bytes'] / 2 ** 30:.2f} GiB "
+            f"reserved (PYTORCH_CUDA_ALLOC_CONF {row['alloc_conf']})")
+        sessions[tag] = sess
+    launches = counts(k)
+    check(launches == expected, f"unet train launches {launches}, "
+          f"expected {expected}")
+    log("main path", f"unet_train: launches {launches}")
+    for tag, sess in sessions.items():
+        torch.cuda.empty_cache()
+        out["timing"][tag] = step_split(k, sess, x, y, 1)
+        log("timings", f"unet train {tag}: " + json.dumps(out["timing"][tag]))
+        out["profile"][tag] = device_profile(lambda: sess.step(x, y))
+        log("profile", f"unet train {tag} " + json.dumps(out["profile"][tag]))
+        sess.close()
+    del sessions, x, y
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def layer_rows(k, cfg, batch: int, prec: str, reps: int, gt, timing):
+    """conv3d and bn_act at every conv of ``cfg``'s forward at ``batch``
+    (``conv_shapes``), appended to ``timing``: the kernel (device time per
+    call and the single call's), its plan, the plain version, the library
+    call (``F.conv3d``, cuDNN, TF32 off; none for bn_act) and the
+    bound."""
+    conv_ops, conv_ref = k.conv_ops, k.conv_ref
+    bn_ops, bn_ref = k.bn_ops, k.bn_ref
+    dt = DTYPES[prec]
+    shapes = k.for_config(cfg).conv_shapes(cfg, batch)
+    for i, (xs, ws, s, pads) in enumerate(shapes):
+        x = torch.randn(xs, generator=gt, device="cuda").to(dt)
+        w = (torch.randn(ws, generator=gt, device="cuda") * 0.05).to(dt)
+        y = conv_ops.conv3d_valid(x, w, s, pads)
+        flops, nbytes = conv_work(xs, ws, tuple(y.shape), dt)
+        b_ms, b_by = bound(flops, nbytes, dt, tf32x3=True)
+        xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2)
+        (pd, qd), (ph, qh), (pw, qw) = pads
+        lib = (lambda: F.conv3d(xc, wc, stride=s, padding=pd)) \
+            if (pd, ph, pw) == (qd, qh, qw) else \
+            (lambda: F.conv3d(F.pad(xc, (pw, qw, ph, qh, pd, qd)), wc,
+                              stride=s))
+        plan = conv_ops.plan(xs, ws, tuple(y.shape), dt,
+                             conv_ops._sms(0), x.data_ptr(), s)
+        ms, call_ms = device_ms(lambda: conv_ops.conv3d_valid(
+            x, w, s, pads), reps)
+        lib_ms, lib_call_ms = device_ms(lib, reps)
+        row = {"config": cfg.name, "batch": batch, "dtype": prec,
+               "layer": i, "x": list(xs), "w": list(ws), "stride": s,
+               "kernel": "patch" if plan.stages else "gather",
+               "splits": plan.splits, "ms": ms, "call_ms": call_ms,
+               "plain_ms": median_ms(lambda: conv_ref.conv3d_valid(
+                   x, w, s, pads), reps),
+               "library_ms": lib_ms, "library_call_ms": lib_call_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "share_of_bound": b_ms / ms, "gflop": flops / 1e9}
+        if dt == torch.float32:
+            row["bound_cuda_core_ms"] = bound(flops, nbytes, dt)[0]
+        timing["conv3d"].append(row)
+        log("timings", f"conv3d {cfg.name} b{batch} {prec} layer {i}: "
+            f"{row['kernel']} kernel, {plan.splits} K split(s), "
+            f"{ms:.4f} ms ({b_ms / ms:.1%} of its {b_ms:.4f} ms bound) "
+            f"vs F.conv3d {lib_ms:.4f} ms " + json.dumps(row))
+        c = ws[4]
+        yv = torch.randn(y.shape, generator=gt, device="cuda").to(dt)
+        del x, y
+        vec = [torch.randn(c, generator=gt, device="cuda")
+               for _ in range(4)]
+        vec[1] = F.softplus(vec[1])
+        nbytes = 2 * yv.numel() * yv.element_size() + 16 * c
+        b_ms, b_by = bound(5.0 * yv.numel(), nbytes, dt)
+        ms, call_ms = device_ms(lambda: bn_ops.bn_leaky_relu(yv, *vec),
+                                reps)
+        row = {"config": cfg.name, "batch": batch, "dtype": prec,
+               "layer": i, "x": list(yv.shape), "ms": ms,
+               "call_ms": call_ms,
+               "plain_ms": median_ms(lambda: bn_ref.bn_leaky_relu(
+                   yv, *vec), reps),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        timing["bn_act"].append(row)
+        log("timings", "bn_act " + json.dumps(row))
+        del yv
+
+
+def per_forward(timing, cfg, batch: int, prec: str) -> dict:
+    """conv3d's rows of one forward summed: kernel, library, bound; and
+    whether the kernel is no slower per forward and at layers 0-2."""
+    rows = [r for r in timing["conv3d"]
+            if r["config"] == cfg.name and r["dtype"] == prec
+            and r["batch"] == batch]
+    return {"ms": sum(r["ms"] for r in rows),
+            "library_ms": sum(r["library_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "call_ms": sum(r["call_ms"] for r in rows),
+            "library_call_ms": sum(r["library_call_ms"] for r in rows),
+            "no_slower_per_forward": sum(r["ms"] for r in rows)
+            <= sum(r["library_ms"] for r in rows),
+            "no_slower_layers_0_2": [r["ms"] <= r["library_ms"]
+                                     for r in rows[:3]]}
+
+
+def phase_unet(k, cfg, cfg64, RunConfig, compile, plan_lib, depth,
+               card: str, train: tuple) -> tuple:
+    """Phases 10c-10f, the 3D U-Net (unet3d-256): serving (main path),
+    the long-K check, each conv and bn_act of a 256^3 b1 forward timed
+    against the library and the bound, and the sharded training steps
+    at 64^3 (main path), beside ``train``, phase 10e's (report, launches)
+    (run first: ``main``). Returns (report, launches of its main paths,
+    each path's launches)."""
+    t0 = time.perf_counter()
+    release_cached("the U-Net phases")
+    out, paths = {}, {}
+    out["serve"], paths["unet_serve"] = phase_unet_serve(k, cfg, RunConfig,
+                                                         compile)
+    out["long_k"] = phase_unet_long_k(k, cfg)
+    timing = {"conv3d": [], "bn_act": []}
+    gt = torch.Generator(device="cuda").manual_seed(15)
+    for prec in ("fp32", "bf16"):  # calls of 1-150 ms (cuDNN's to 16 s)
+        layer_rows(k, cfg, 1, prec, 1, gt, timing)
+    out["timing"] = timing
+    out["conv_per_forward"] = {}
+    for prec in ("fp32", "bf16"):
+        key = f"{cfg.name}/{prec}/b1"
+        out["conv_per_forward"][key] = per_forward(timing, cfg, 1, prec)
+        log("timings", f"conv3d per forward {key}: "
+            + json.dumps(out["conv_per_forward"][key]))
+    torch.cuda.empty_cache()
+    out["train"], paths["unet_train"] = train
+    out["train_spatial"], paths["unet_train_spatial"] = phase_train_spatial(
+        k, cfg64, UNET_SPATIAL, UNET_CHECK_BATCH, {"u-b"}, RunConfig,
+        compile, plan_lib, depth, card)
+    launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
+    out["seconds"] = time.perf_counter() - t0
+    log("unet", f"all U-Net phases ok in {out['seconds']:.0f}s; launches "
+        f"{json.dumps(launches)}")
+    return out, launches, paths
 
 
 def halo_rows(k, cases, reps) -> dict:
@@ -1674,7 +2213,8 @@ def main() -> int:
     from repro_torch.kernels.halo_pack import ref as pack_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
-    from repro_torch.models import cosmoflow, mamba2, ssm_lm
+    from repro_torch.models import cosmoflow, for_config, mamba2, ssm_lm
+    from repro_torch.models import unet3d
     from repro_torch.serve import lm
     from repro_torch.train import train_step
 
@@ -1683,7 +2223,8 @@ def main() -> int:
                            bn_ops=bn_ops, bn_ref=bn_ref, pack_ops=pack_ops,
                            pack_ref=pack_ref, ssd_ops=ssd_ops,
                            ssd_ref=ssd_ref, mamba2=mamba2, ssm_lm=ssm_lm,
-                           lm=lm, cosmoflow=cosmoflow, train_step=train_step,
+                           lm=lm, cosmoflow=cosmoflow, unet3d=unet3d,
+                           for_config=for_config, train_step=train_step,
                            spmd=spmd)
     report = {"card": phase_card()}
     report["build"] = phase_build(_build)
@@ -1693,8 +2234,17 @@ def main() -> int:
     shapes128 = cosmoflow.conv_shapes(cf128, 4)
     report["kernels"] = phase_kernels(conv_ops, conv_ref, bn_ops, bn_ref,
                                       shapes128)
+    ucfg = get_config("unet3d-256")
+    ucfg64 = dataclasses.replace(ucfg, name=f"{ucfg.name}@{UNET_CHECK_WIDTH}",
+                                 input_width=UNET_CHECK_WIDTH)
     report["halo_kernels"] = phase_halo_kernels(
-        pack_ops, pack_ref, halo_cases(cosmoflow, plan_lib, depth, cfgs))
+        pack_ops, pack_ref,
+        sorted(set(halo_cases(cosmoflow, plan_lib, depth, cfgs))
+               | unet_halo_cases(unet3d, plan_lib, depth, ucfg, ucfg64)))
+    # phase 10e first, while the allocator holds nothing: a 256^3 step
+    # reserves ~73 GB, and the later phases leave cached segments pinned
+    # by small live blocks (~23 GB reserved with 3 GB allocated)
+    unet_train = phase_unet_train(k, ucfg, RunConfig, compile)
 
     # ------------------------------------------- main path 1: 4-6 ----
     n128, n512 = cosmoflow.num_blocks(cf128), cosmoflow.num_blocks(cf512)
@@ -1842,77 +2392,13 @@ def main() -> int:
     for cfg, batch, prec, reps in ((cf128, 4, "fp32", 5),
                                    (cf128, 4, "bf16", 3),
                                    (cf512, 1, "fp32", 2)):
-        dt = DTYPES[prec]
-        for i, (xs, ws, s, pads) in enumerate(cosmoflow.conv_shapes(cfg,
-                                                                    batch)):
-            x = torch.randn(xs, generator=gt, device="cuda").to(dt)
-            w = (torch.randn(ws, generator=gt, device="cuda") * 0.05).to(dt)
-            y = conv_ops.conv3d_valid(x, w, s, pads)
-            flops, nbytes = conv_work(xs, ws, tuple(y.shape), dt)
-            b_ms, b_by = bound(flops, nbytes, dt, tf32x3=True)
-            xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2)
-            (pd, qd), (ph, qh), (pw, qw) = pads
-            lib = (lambda: F.conv3d(xc, wc, stride=s, padding=pd)) \
-                if (pd, ph, pw) == (qd, qh, qw) else \
-                (lambda: F.conv3d(F.pad(xc, (pw, qw, ph, qh, pd, qd)), wc,
-                                  stride=s))
-            plan = conv_ops.plan(xs, ws, tuple(y.shape), dt,
-                                 conv_ops._sms(0), x.data_ptr(), s)
-            ms, call_ms = device_ms(lambda: conv_ops.conv3d_valid(
-                x, w, s, pads), reps)
-            lib_ms, lib_call_ms = device_ms(lib, reps)
-            row = {"config": cfg.name, "batch": batch, "dtype": prec,
-                   "layer": i, "x": list(xs), "w": list(ws), "stride": s,
-                   "kernel": "patch" if plan.stages else "gather",
-                   "splits": plan.splits, "ms": ms, "call_ms": call_ms,
-                   "plain_ms": median_ms(lambda: conv_ref.conv3d_valid(
-                       x, w, s, pads), reps),
-                   "library_ms": lib_ms, "library_call_ms": lib_call_ms,
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "share_of_bound": b_ms / ms, "gflop": flops / 1e9}
-            if dt == torch.float32:
-                row["bound_cuda_core_ms"] = bound(flops, nbytes, dt)[0]
-            timing["conv3d"].append(row)
-            log("timings", f"conv3d {cfg.name} b{batch} {prec} layer {i}: "
-                f"{row['kernel']} kernel, {plan.splits} K split(s), "
-                f"{ms:.4f} ms ({b_ms / ms:.1%} of its {b_ms:.4f} ms bound) "
-                f"vs F.conv3d {lib_ms:.4f} ms " + json.dumps(row))
-            c = ws[4]
-            yv = torch.randn(y.shape, generator=gt, device="cuda").to(dt)
-            del x, y
-            vec = [torch.randn(c, generator=gt, device="cuda")
-                   for _ in range(4)]
-            vec[1] = F.softplus(vec[1])
-            nbytes = 2 * yv.numel() * yv.element_size() + 16 * c
-            b_ms, b_by = bound(5.0 * yv.numel(), nbytes, dt)
-            ms, call_ms = device_ms(lambda: bn_ops.bn_leaky_relu(yv, *vec),
-                                    reps)
-            row = {"config": cfg.name, "batch": batch, "dtype": prec,
-                   "layer": i, "x": list(yv.shape), "ms": ms,
-                   "call_ms": call_ms,
-                   "plain_ms": median_ms(lambda: bn_ref.bn_leaky_relu(
-                       yv, *vec), reps),
-                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-            timing["bn_act"].append(row)
-            log("timings", "bn_act " + json.dumps(row))
-            del yv
+        layer_rows(k, cfg, batch, prec, reps, gt, timing)
     # conv3d per forward against F.conv3d, and at each of layers 0-2
     conv_vs_library = {}
-    for cfg, batch, prec, _ in ((cf128, 4, "fp32", 0), (cf128, 4, "bf16", 0),
-                                (cf512, 1, "fp32", 0)):
-        rows = [r for r in timing["conv3d"]
-                if r["config"] == cfg.name and r["dtype"] == prec]
+    for cfg, batch, prec in ((cf128, 4, "fp32"), (cf128, 4, "bf16"),
+                             (cf512, 1, "fp32")):
         key = f"{cfg.name}/{prec}/b{batch}"
-        conv_vs_library[key] = {
-            "ms": sum(r["ms"] for r in rows),
-            "library_ms": sum(r["library_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
-            "call_ms": sum(r["call_ms"] for r in rows),
-            "library_call_ms": sum(r["library_call_ms"] for r in rows),
-            "no_slower_per_forward": sum(r["ms"] for r in rows)
-            <= sum(r["library_ms"] for r in rows),
-            "no_slower_layers_0_2": [r["ms"] <= r["library_ms"]
-                                     for r in rows[:3]]}
+        conv_vs_library[key] = per_forward(timing, cfg, batch, prec)
         log("timings", f"conv3d per forward {key}: "
             + json.dumps(conv_vs_library[key]))
     # pack and unpack at every shape the spatial path gave them
@@ -1980,8 +2466,11 @@ def main() -> int:
     for s in (*sessions.values(), sess512, *blocking.values(),
               *(v[0] for v in spatial_sessions.values())):
         s.close()
+    # the loops' last volume (x512, 2.1 GB) and sessions too: what stays
+    # allocated pins its cached segment for the later phases
     del x128, x512, sessions, sess512, blocking, spatial_sessions, preds
-    torch.cuda.empty_cache()
+    del x, sess, blk, pred, pred512
+    release_cached("the training phases")
 
     # ------------------------------------------------ main path 3: 10 ----
     train, got = phase_train(k, cfgs, RunConfig, compile)
@@ -1989,12 +2478,21 @@ def main() -> int:
     launches = {n: launches[n] + got[n] for n in KERNELS}
 
     # ------------------------------------------ main path 4: 10b ----
-    train_spatial, got = phase_train_spatial(k, cf128, RunConfig, compile,
-                                             plan_lib, depth, report["card"])
+    train_spatial, got = phase_train_spatial(
+        k, cf128, TRAIN_SPATIAL, 4, {"e"}, RunConfig, compile, plan_lib,
+        depth, report["card"])
     main_paths["train_spatial"] = {"launches": got}
     launches = {n: launches[n] + got[n] for n in KERNELS}
 
+    # ------------------------------ the 3D U-Net: main paths 10c-10f ----
+    unet, got, paths = phase_unet(k, ucfg, ucfg64, RunConfig, compile,
+                                  plan_lib, depth, report["card"],
+                                  unet_train)
+    main_paths.update({name: {"launches": v} for name, v in paths.items()})
+    launches = {n: launches[n] + got[n] for n in KERNELS}
+
     # ------------------------------------------ mamba2-370m: 11-14 ----
+    release_cached("the Mamba2 phases")
     report["ssd_kernel"] = phase_ssd_kernel(ssd_ops, ssd_ref, mamba2)
     mcfg = get_config("mamba2-370m")
     t0 = time.perf_counter()
@@ -2108,9 +2606,21 @@ def main() -> int:
                              if r["config"] == "cosmoflow-128"
                              and r["dtype"] == "bf16")
                     for key in ("ms", "bound_ms", "library_ms")}
+                # one unet3d-256 b1 forward's 14 convs, and step 1's long K
+                entry["unet3d-256"] = {
+                    prec: {key: unet["conv_per_forward"][
+                        f"unet3d-256/{prec}/b1"][key] for key in (
+                            "ms", "plain_ms", "bound_ms", "library_ms")}
+                    for prec in DTYPES}
+                entry["unet3d-256"]["long_k"] = unet["long_k"]
+            if name == "bn_act":  # its 14 calls in a unet3d-256 b1 forward
+                entry["unet3d-256"] = {
+                    key: sum(r[key] for r in unet["timing"]["bn_act"]
+                             if r["dtype"] == "fp32")
+                    for key in ("ms", "plain_ms", "bound_ms")}
         summary.append(entry)
     report.update(score=score, decode=decode_row, train=train,
-                  train_spatial=train_spatial)
+                  train_spatial=train_spatial, unet=unet)
     report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
                   conv_vs_library=conv_vs_library,
                   lowering=lowering, profile=profiles, bounds=PEAKS_USED,

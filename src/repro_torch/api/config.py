@@ -28,6 +28,7 @@ GRAD_COMMS = ("auto", "monolithic", "overlap", "reduce_scatter")
 PLAN_POLICIES = ("fixed", "auto")
 LR_SCHEDULES = ("constant", "linear_decay", "warmup_cosine")
 MODES = ("train", "infer")
+_MIN_LOCAL_WIDTH = 4  # the over-decomposition rule (DESIGN.md §5)
 
 
 class RunConfigError(ValueError):
@@ -105,8 +106,7 @@ class RunConfig:
                                                   configs.ALL_ARCHS, n=3)
                 hint = (f"did you mean {', '.join(close)}?" if close
                         else f"the port serves {', '.join(configs.ALL_ARCHS)}"
-                        "; the U-Net and the other LMs come with their "
-                        "slices")
+                        "; the other LMs come with their slices")
                 raise RunConfigError("model", f"unknown model {self.model!r}",
                                      hint)
             if self.model in configs.LM_ARCHS:
@@ -116,11 +116,10 @@ class RunConfig:
                     "lm_loss and decode with repro_torch.serve.lm.generate")
             cfg = (configs.get_smoke_config(self.model) if self.smoke
                    else configs.get_config(self.model))
-        if cfg.arch != "cosmoflow":
+        if cfg.arch not in ("cosmoflow", "unet3d"):
             raise RunConfigError(
                 "model", f"{cfg.name!r} is a {cfg.arch} model",
-                "the port runs CosmoFlow so far; the U-Net comes with its "
-                "slice")
+                "pass a CosmoFlow or U-Net config")
         return cfg
 
     # ------------------------------------------------------ validation ----
@@ -128,7 +127,7 @@ class RunConfig:
         """Check every field up front; raise ``RunConfigError`` naming
         the field and a fix. ``device_count`` is the number of devices
         the run is given (one per shard; None: not checked here)."""
-        self.resolve_model()
+        cfg = self.resolve_model()
         if self.mode not in MODES:
             raise RunConfigError("mode", f"unknown mode {self.mode!r}",
                                  f"choices: {', '.join(MODES)}")
@@ -141,6 +140,7 @@ class RunConfig:
         else:
             self._validate_train()
         self._validate_common(device_count)
+        self._validate_spatial(cfg)
 
     def _validate_train(self) -> None:
         """What the training slice runs: data x spatial shards (no
@@ -297,6 +297,22 @@ class RunConfig:
                 f"{device_count} device(s) given",
                 "reduce the degrees, or pass one device per shard "
                 "(devices=['cuda:0'] * n puts them all on one card)")
+
+    def _validate_spatial(self, cfg: ConvNetConfig) -> None:
+        """The reference's rule: the spatial degree divides the input
+        width and leaves a local width of at least ``_MIN_LOCAL_WIDTH``."""
+        w = cfg.input_width
+        if self.spatial > 1 and w % self.spatial:
+            raise RunConfigError(
+                "spatial",
+                f"{self.spatial} does not divide {cfg.name}'s input width "
+                f"{w}", f"use a power-of-two divisor of {w}")
+        if self.spatial > 1 and w // self.spatial < _MIN_LOCAL_WIDTH:
+            raise RunConfigError(
+                "spatial",
+                f"{self.spatial}-way decomposition of width {w} gives local "
+                f"width {w // self.spatial} < {_MIN_LOCAL_WIDTH}",
+                f"reduce spatial to <= {w // _MIN_LOCAL_WIDTH}")
 
     def _validate_plan_degrees(self, plan: "plan_lib.ParallelPlan") -> None:
         n_groups = plan.n_groups

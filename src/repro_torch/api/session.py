@@ -11,7 +11,9 @@ bn_act and halo kernels, one backward, the gradient reduction, the Adam
 update) with the parameters, optimizer state and dropout seed threaded
 inside; ``save``/``Session.restore`` write and read the reference's
 checkpoint format, so each package resumes the other's runs, on any
-mesh shape.
+mesh shape. Both run CosmoFlow (``y``: (N, out_dim) targets) and the 3D
+U-Net (``y``: (N, D, H, W) voxel labels; ``evaluate`` returns per-voxel
+logits).
 
 Entry points run on the card unless the caller says otherwise:
 ``device="cpu"`` (one shard, as the tests run), or ``devices=[...]`` with
@@ -41,6 +43,7 @@ from repro_torch.core.spatial_conv import SpatialPartitioning
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import DeviceLike
 from repro_torch.models import cosmoflow as cosmoflow_lib
+from repro_torch.models import for_config
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs import trace as trace_lib
 from repro_torch.optim.adam import Adam, constant, linear_decay, warmup_cosine
@@ -107,7 +110,7 @@ def _compile_train(config: RunConfig, device: DeviceLike,
     grad_comm = "overlap" if config.grad_comm == "auto" else config.grad_comm
     mesh = mesh_lib.make_plan_mesh(plan, devs)
     optimizer = _build_optimizer(config)
-    params = cosmoflow_lib.init_params(
+    params = for_config(cfg).init_params(
         cfg, torch.Generator().manual_seed(config.seed), mesh.devices[0])
     opt_state = train_step_lib.make_convnet_opt_state(
         cfg, optimizer, params, grad_comm=grad_comm, plan=plan,
@@ -259,6 +262,13 @@ class Session(_Traced):
         t = torch.as_tensor(x, device=self.device)
         return t.float() if t.dtype == torch.float64 else t
 
+    def _as_target(self, y) -> torch.Tensor:
+        """CosmoFlow's targets as ``_as_input``; the U-Net's voxel labels
+        as they come (integer classes)."""
+        if self.cfg.arch == "unet3d":
+            return torch.as_tensor(y, device=self.device)
+        return self._as_input(y)
+
     # ----------------------------------------------------------- train ----
     @property
     def step_count(self) -> int:
@@ -275,7 +285,7 @@ class Session(_Traced):
         if self._closed:
             raise RuntimeError("Session is closed")
         x, y = batch if y is None else (batch, y)
-        x, y = self._as_input(x), self._as_input(y)
+        x, y = self._as_input(x), self._as_target(y)
         sink = self._metrics_sink
         t0 = time.perf_counter() if sink is not None else 0.0
         with trace_lib.span("train.step", step=self._t):
@@ -309,7 +319,8 @@ class Session(_Traced):
 
     def evaluate(self, x, y):
         """(loss, predictions) on an eval batch: the forward without
-        dropout and the fp32 MSE over its samples."""
+        dropout and the fp32 MSE over its samples (the U-Net: the voxel
+        cross-entropy and the per-voxel logits)."""
         if self._closed:
             raise RuntimeError("Session is closed")
         gb = int(x.shape[0])
@@ -318,7 +329,7 @@ class Session(_Traced):
             fn = self._eval_fns[gb] = train_step_lib.make_convnet_eval_step(
                 self.cfg, self.mesh, global_batch=gb, plan=self.plan,
                 overlap=self.config.overlap_halo, precision=self.precision)
-        return fn(self.params, self._as_input(x), self._as_input(y))
+        return fn(self.params, self._as_input(x), self._as_target(y))
 
     # --------------------------------------------------- introspection ----
     def telemetry(self) -> Dict[str, float]:
@@ -411,12 +422,12 @@ class Session(_Traced):
             config = dataclasses.replace(config, data=new_data,
                                          spatial=new_spatial, plan="fixed")
         sess = _compile_train(config, device, devices, mask_source)
+        model = for_config(sess.cfg)
         tree = checkpoint.restore(path, {
-            "params": cosmoflow_lib.param_shapes(sess.cfg),
-            "opt": sess.opt_state})
-        sess.params = cosmoflow_lib.params_from_numpy(
+            "params": model.param_shapes(sess.cfg), "opt": sess.opt_state})
+        sess.params = model.params_from_numpy(
             tree["params"], sess.device, torch.float32, cfg=sess.cfg)
-        sess.opt_state = cosmoflow_lib.opt_state_from_numpy(
+        sess.opt_state = model.opt_state_from_numpy(
             tree["opt"], sess.device, cfg=sess.cfg)
         sess._t = checkpoint.latest_step(path)
         return sess

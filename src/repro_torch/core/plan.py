@@ -4,13 +4,16 @@ part).
 A ``ParallelPlan`` is an ordered list of ``Stage``s, each naming the
 mesh axes that shard the batch and the D/H/W dims for a contiguous
 range of layers (cosmoflow: layers ``0..n_blocks-1`` are the conv
-blocks, layer ``n_blocks`` the FC head). The dataclasses, their names
-and their JSON (``api/config.py``) are the reference's, so a plan pinned
-in a reference checkpoint reads back. ``legacy_convnet_plan`` builds the
-fixed-degree plan ``RunConfig(plan="fixed")`` resolves to: depth
-partitioned over ``spatial`` shards until a block's local width would
-drop below 4, then gathered. The cost-model planner comes with the plans
-slice.
+blocks, layer ``n_blocks`` the FC head; the U-Net: layers
+``0..depth-1`` are the resolution levels, layer ``depth`` the
+bottleneck). The dataclasses, their names and their JSON
+(``api/config.py``) are the reference's, so a plan pinned in a
+reference checkpoint reads back. ``legacy_convnet_plan`` builds the
+fixed-degree plan ``RunConfig(plan="fixed")`` resolves to: for
+CosmoFlow, depth partitioned over ``spatial`` shards until a block's
+local width would drop below 4, then gathered; for the U-Net, one
+spatial stage over every level. The cost-model planner comes with the
+plans slice.
 """
 from __future__ import annotations
 
@@ -196,6 +199,10 @@ def cosmoflow_n_layers(cfg: ConvNetConfig) -> int:
     return len(cfg.conv_channels) + 1  # conv blocks + the FC head
 
 
+def unet_n_layers(cfg: ConvNetConfig) -> int:
+    return cfg.depth + 1  # resolution levels + the bottleneck
+
+
 def legacy_convnet_plan(
     cfg: ConvNetConfig,
     part: SpatialPartitioning,
@@ -209,15 +216,17 @@ def legacy_convnet_plan(
     gather for any dim whose static local width drops below
     ``min_local_width``, and the replicated FC head — stage for stage the
     reference's, so the plan (and its name, ``cosmoflow.legacy``)
-    serializes identically."""
-    if cfg.arch != "cosmoflow":
-        raise NotImplementedError(
-            f"{cfg.arch} plans come with the U-Net slice of the port")
+    serializes identically. The U-Net's is one stage over every level
+    and the bottleneck, never gathered (``unet3d.legacy``)."""
     axes = list(part.axes)
     shards = tuple(int(s) for s in spatial_shards)
     mesh_axes = tuple(zip(tuple(data_axes), tuple(int(d) for d in
                                                   data_degrees))) + tuple(
         (a, s) for a, s in zip(axes, shards) if a)
+    if cfg.arch != "cosmoflow":
+        n = unet_n_layers(cfg)
+        return ParallelPlan((Stage(0, n, tuple(axes), tuple(data_axes)),),
+                            mesh_axes, n, name="unet3d.legacy")
     layers = perf_model.cosmoflow_layers(cfg)
     n_blocks = len(layers)
     stages: List[Stage] = []

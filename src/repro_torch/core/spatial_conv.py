@@ -32,6 +32,11 @@ differentiate through ``core/halo.py`` and autograd.
 Both compute each output from the identical input window, so they agree
 to float summation order. The stitch is a ``torch.cat``, one extra copy
 of each partitioned block's output.
+
+``deconv3d`` is the U-Net's up-convolution (kernel = stride), which
+needs no halo under any partitioning. The reference computes it with
+XLA's ``conv_transpose``, not in a Pallas kernel; here it is one
+``torch.matmul`` and one permuting copy, its gradient autograd's.
 """
 from __future__ import annotations
 
@@ -152,6 +157,31 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, part: SpatialPartitioning,
     if not overlap or not _split_axes(part) or (lo == 0 and hi == 0):
         return _conv3d_blocking(x, w, part, stride)
     return _conv3d_overlap(x, w, part, stride)
+
+
+def deconv3d(x: torch.Tensor, w: torch.Tensor, part: SpatialPartitioning,
+             stride: int = 2) -> torch.Tensor:
+    """Transposed conv with kernel == stride (the U-Net's up-convolution):
+    x (N, D, H, W, Cin), w (k, k, k, Cin, Cout) -> (N, kD, kH, kW, Cout).
+    No two inputs write one output, so it is purely local under spatial
+    partitioning (``part`` needs no halo). The taps are reversed, as in
+    ``lax.conv_transpose`` with DHWIO weights and
+    ``transpose_kernel=False``: ``out[k*i + a] = x[i] @ w[k-1-a]`` in each
+    of the three dims (``conv_transpose3d``'s convention is ``w[a]``).
+    One (N·D·H·W, Cin) @ (Cin, k³·Cout) product (fp32 with TF32 off),
+    then one copy that puts each tap's block in place."""
+    k = w.shape[0]
+    if k != stride or tuple(w.shape[:3]) != (k, k, k):
+        raise NotImplementedError(
+            f"deconv3d takes a cubic kernel equal to its stride; got "
+            f"{tuple(w.shape[:3])} and stride {stride}")
+    n, d, h, wd, cin = x.shape
+    cout = w.shape[4]
+    wt = w.flip((0, 1, 2)).permute(3, 0, 1, 2, 4).reshape(cin, -1)
+    with conv_ops.no_tf32():
+        y = torch.matmul(x.reshape(-1, cin), wt)
+    y = y.view(n, d, h, wd, k, k, k, cout).permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return y.reshape(n, d * k, h * k, wd * k, cout)
 
 
 def _pool_max(x: torch.Tensor, s: int) -> torch.Tensor:

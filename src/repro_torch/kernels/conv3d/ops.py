@@ -279,7 +279,9 @@ conv3d_input_grad.launches = 0
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
+    """fp32 matrix products in fp32 (TF32 off) inside the block; the
+    weight gradient, the U-Net's up-convolution and head use it."""
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -325,7 +327,7 @@ def conv3d_weight_grad(x: torch.Tensor, dy: torch.Tensor, w_shape,
                           device=x.device)
     dw = torch.zeros((cols, cout), dtype=torch.float32, device=x.device)
     sn, sd, sh, sw, _ = xp.stride()
-    with _no_tf32():
+    with no_tf32():
         for i0, i1, d0, d1 in chunks:
             rows = (i1 - i0) * (d1 - d0) * ho * wo
             a = scratch[:rows]
@@ -347,7 +349,10 @@ def conv3d_weight_grad(x: torch.Tensor, dy: torch.Tensor, w_shape,
 class _Conv3d(torch.autograd.Function):
     """``conv3d_valid`` with the input gradient on the conv kernel
     (``conv3d_input_grad``) and the weight gradient in fp32 products
-    (``conv3d_weight_grad``)."""
+    (``conv3d_weight_grad``). The weight gradient comes first: its
+    padded copy of x is freed before the input gradient's output is
+    allocated, so the two are never held at once (at unet3d-256's
+    ``dec0_w0`` each is 8.6 GB)."""
 
     @staticmethod
     def forward(ctx, x, w, stride, pads):
@@ -359,12 +364,12 @@ class _Conv3d(torch.autograd.Function):
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = conv3d_input_grad(dy, w, tuple(x.shape), ctx.stride,
-                                   ctx.pads)
         if ctx.needs_input_grad[1]:
             dw = conv3d_weight_grad(x, dy.contiguous(), tuple(w.shape),
                                     ctx.stride, ctx.pads).to(w.dtype)
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_input_grad(dy, w, tuple(x.shape), ctx.stride,
+                                   ctx.pads)
         return dx, dw, None, None
 
 

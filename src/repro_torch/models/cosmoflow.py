@@ -113,10 +113,18 @@ def params_from_numpy(tree: Mapping[str, object], device,
     checkpoints) as the port's: the layouts are identical, so this is a
     device and dtype move with name and shape checks against ``cfg``.
     ``dtype=None`` keeps each array's dtype."""
-    want = param_shapes(cfg)
+    return checked_tree(tree, param_shapes(cfg), device, dtype, cfg.name)
+
+
+def checked_tree(tree: Mapping[str, object],
+                 want: Mapping[str, Tuple[int, ...]], device,
+                 dtype: Optional[torch.dtype], model: str) -> Params:
+    """``tree``'s arrays or tensors as tensors on ``device`` (in ``dtype``,
+    None: each its own), after checking that its names and shapes are
+    ``want``'s, those of ``model``."""
     if set(tree) != set(want):
         raise ValueError(
-            f"parameter names differ from {cfg.name}'s: missing "
+            f"parameter names differ from {model}'s: missing "
             f"{sorted(set(want) - set(tree))}, unexpected "
             f"{sorted(set(tree) - set(want))}")
     out: Params = {}
@@ -124,21 +132,25 @@ def params_from_numpy(tree: Mapping[str, object], device,
         v = tree[name]
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
             np.array(v))  # a copy: reference arrays are read-only
-        if tuple(t.shape) != shape:
+        if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"{shape} for {cfg.name}")
+                             f"{tuple(shape)} for {model}")
         out[name] = t.to(device=device, dtype=dtype or t.dtype).contiguous()
     return out
 
 
-def opt_state_from_numpy(state: Any, device, *, cfg: ConvNetConfig):
+def opt_state_from_numpy(state: Any, device, *, cfg: ConvNetConfig,
+                         convert=None):
     """The reference's optimizer state (its ``AdamState(step, m, v)``, or
     ``MPState(inner, loss_scale, good_steps)`` under fp16, with numpy or
-    tensor leaves) as the port's: m and v through ``params_from_numpy``
-    in fp32, the counters as int32 and the loss scale as fp32 scalars on
+    tensor leaves) as the port's: m and v through ``convert`` (default
+    ``params_from_numpy``; the U-Net passes its own) in fp32, the
+    counters as int32 and the loss scale as fp32 scalars on
     ``device``."""
     from repro_torch.core.precision import MPState
     from repro_torch.optim.adam import AdamState
+
+    convert = convert or params_from_numpy
 
     def scalar(v, dtype):
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
@@ -146,13 +158,14 @@ def opt_state_from_numpy(state: Any, device, *, cfg: ConvNetConfig):
         return t.to(device=device, dtype=dtype).reshape(())
 
     if hasattr(state, "inner"):
-        return MPState(opt_state_from_numpy(state.inner, device, cfg=cfg),
+        return MPState(opt_state_from_numpy(state.inner, device, cfg=cfg,
+                                            convert=convert),
                        scalar(state.loss_scale, torch.float32),
                        scalar(state.good_steps, torch.int32))
     return AdamState(
         scalar(state.step, torch.int32),
-        params_from_numpy(state.m, device, torch.float32, cfg=cfg),
-        None if state.v is None else params_from_numpy(
+        convert(state.m, device, torch.float32, cfg=cfg),
+        None if state.v is None else convert(
             state.v, device, torch.float32, cfg=cfg))
 
 
@@ -311,17 +324,23 @@ def kernel_launches(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan,
     but the first (whose input needs none) on the conv kernel
     (``conv3d_dgrad``), and one pack for the adjoint of each such
     block's unpack."""
-    shards = plan.device_count
-    n = num_blocks(cfg)
+    return count_launches(num_blocks(cfg), split_convs(cfg, plan, 1),
+                          plan.device_count, cfg.batchnorm, train)
+
+
+def count_launches(n: int, splits: Sequence[SplitConv], shards: int,
+                   batchnorm: bool, train: bool) -> Dict[str, int]:
+    """``kernel_launches`` of a model with ``n`` convs in forward order,
+    of which ``splits`` are depth-split, over ``shards`` shards."""
     convs, packs, unpacks = [1] * n, [0] * n, [0] * n
-    for sc in split_convs(cfg, plan, 1):
+    for sc in splits:
         packs[sc.block] = 1
         if sc.no_interior:
             unpacks[sc.block] = 1
         else:
             convs[sc.block] += (sc.n_lo > 0) + (sc.n_hi > 0)
     out = {"conv3d": shards * sum(convs),
-           "bn_act": shards * n if cfg.batchnorm else 0,
+           "bn_act": shards * n if batchnorm else 0,
            "pack": shards * sum(packs), "unpack": shards * sum(unpacks)}
     if train:
         out["conv3d_dgrad"] = shards * sum(convs[1:])

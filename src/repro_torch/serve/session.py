@@ -7,9 +7,10 @@ plan's mesh on devices (``launch/mesh.py``), build the parameters
 dtype once. The forward is the plan-sharded
 ``train.train_step.make_convnet_forward_step`` under
 ``torch.inference_mode()``: with ``spatial=S`` each batch is split along
-depth into S shards that run ``models/cosmoflow.forward`` together
+depth into S shards that run the model's forward together
 (``core/spmd.py``), through the port's conv3d, bn_act and halo
-pack/unpack kernels on the card.
+pack/unpack kernels on the card. CosmoFlow returns (N, out_dim)
+predictions, the 3D U-Net (N, D, H, W, out_dim) per-voxel logits.
 
 ``InferenceSession.restore(path)`` serves a checkpoint the reference
 trained: it reads the embedded run config, strips the training-only
@@ -39,6 +40,8 @@ from repro_torch.core import precision as precision_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import DeviceLike
 from repro_torch.models import cosmoflow as cosmoflow_lib
+from repro_torch.models import for_config
+from repro_torch.models import unet3d as unet_lib
 from repro_torch.obs import trace as trace_lib
 from repro_torch.train import checkpoint
 from repro_torch.train import train_step as train_step_lib
@@ -83,7 +86,7 @@ def compile_infer(config: RunConfig, *, device: DeviceLike = None,
     sess = _compile_infer(config, device, devices)
     gen = torch.Generator().manual_seed(config.seed)
     sess.params = sess._cast_once(
-        cosmoflow_lib.init_params(sess.cfg, gen, sess.device))
+        for_config(sess.cfg).init_params(sess.cfg, gen, sess.device))
     return sess
 
 
@@ -168,8 +171,9 @@ class InferenceSession(session_lib._Traced):
 
     def predict(self, x) -> torch.Tensor:
         """Forward a batch of volumes (N, D, H, W, C), numpy or tensor:
-        returns the (N, out_dim) predictions on the session's device.
-        A shard that fails makes this raise its error."""
+        returns CosmoFlow's (N, out_dim) predictions or the U-Net's
+        (N, D, H, W, out_dim) logits, on the session's device. A shard
+        that fails makes this raise its error."""
         if self._closed:
             raise RuntimeError("InferenceSession is closed")
         fn = self._forward_for(int(x.shape[0]))
@@ -177,14 +181,20 @@ class InferenceSession(session_lib._Traced):
             return fn(self.params, x)
 
     def evaluate(self, x, y):
-        """(loss, predictions) on a labeled batch: the fp32 mean over
-        samples of the per-sample MSE, as the reference's eval step."""
+        """(loss, predictions) on a labeled batch, as the reference's eval
+        step: CosmoFlow's fp32 mean over samples of the per-sample MSE;
+        the U-Net's voxel cross-entropy (the mean over every voxel of
+        ``y``'s (N, D, H, W) labels) and its logits."""
         if self._closed:
             raise RuntimeError("InferenceSession is closed")
         pred = self.predict(x)
         with torch.inference_mode():
-            loss = cosmoflow_lib.mse(pred, self._as_input(y),
-                                     int(x.shape[0]))
+            if self.cfg.arch == "unet3d":
+                labels = torch.as_tensor(y, device=self.device)
+                loss = unet_lib.voxel_nll(pred, labels, labels.numel())
+            else:
+                loss = cosmoflow_lib.mse(pred, self._as_input(y),
+                                         int(x.shape[0]))
         return loss, pred
 
     # --------------------------------------------------------- serving ----
@@ -293,9 +303,10 @@ class InferenceSession(session_lib._Traced):
                        else precision),
             trace=config.trace if trace is None else trace)
         sess = _compile_infer(config, device, devices)
-        names = cosmoflow_lib.param_shapes(sess.cfg)
-        tree = checkpoint.restore(path, {"params": names})
-        sess.params = sess._cast_once(cosmoflow_lib.params_from_numpy(
+        model = for_config(sess.cfg)
+        tree = checkpoint.restore(path, {"params": model.param_shapes(
+            sess.cfg)})
+        sess.params = sess._cast_once(model.params_from_numpy(
             tree["params"], sess.device, cfg=sess.cfg))
         return sess
 

@@ -4,23 +4,29 @@ plan-sharded serving forward.
 
 The serving forward splits each input batch along the entry stage's
 partitioned dims into the mesh's shards, each made contiguous on its
-shard's device, runs ``models/cosmoflow.forward`` once per shard through
-``core.spmd.run``, and returns shard 0's predictions: the FC stage of a
-plan with data degree 1 is replicated, so every shard holds them.
+shard's device, and runs the model's forward (``models/cosmoflow`` or
+``models/unet3d``, by ``cfg.arch``) once per shard through
+``core.spmd.run``. CosmoFlow returns shard 0's predictions: the FC stage
+of a plan with data degree 1 is replicated, so every shard holds them.
+The U-Net returns per-voxel logits, each shard's block put back in
+place on shard 0's device (``gather_blocks``).
 
 The train step (``make_convnet_train_step``) runs the reference's
 hybrid step over a data x spatial mesh whose shards all lie on one
 device (``["cuda:0"] * n`` on a card, ``["cpu"] * n`` in the tests):
 
 1. each shard, in its thread, takes its batch slice (the entry stage's
-   batch axes) and depth slab of x and its batch slice of y, and
-   computes ``mse_loss`` with dropout masks drawn for the GLOBAL sample
-   ids (so they do not depend on the mesh), batch-norm statistics summed
-   over every mesh axis and the loss divided by the plan's
-   ``loss_redundancy``; under ``overlap`` the parameters' reduction
-   hooks go into its graph (``core/grad_comm.py``). Each shard has
-   parameter leaves of its own (views of the same masters), so that its
-   gradient is its own partial sum;
+   batch axes) and depth slab of x and its batch slice of y (the U-Net's
+   voxel labels: its batch slice and depth slab, like x), and computes
+   the loss: CosmoFlow's ``mse_loss`` with dropout masks drawn for the
+   GLOBAL sample ids (so they do not depend on the mesh) and divided by
+   the plan's ``loss_redundancy``, or the U-Net's
+   ``segmentation_loss`` over ``global_batch * W^3`` voxels; batch-norm
+   statistics summed over every mesh axis; under ``overlap`` the
+   parameters' reduction hooks go into its graph
+   (``core/grad_comm.py``). Each shard has parameter leaves of its own
+   (views of the same masters), so that its gradient is its own partial
+   sum;
 2. ONE backward over the shards' losses (fp16: each times the running
    loss scale), from the calling thread: each collective is one autograd
    node over every shard (``core/spmd.py``), so its adjoint is a data
@@ -51,6 +57,8 @@ from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
 from repro_torch.core import spmd
 from repro_torch.models import cosmoflow as cosmoflow_lib
+from repro_torch.models import for_config
+from repro_torch.models import unet3d as unet_lib
 from repro_torch.train import guard as guard_lib
 
 STAGES = ("fwd", "bwd", "grad_comm", "step")
@@ -117,6 +125,43 @@ def split_batch(y: torch.Tensor, mesh, stage: plan_lib.Stage
             for r, d in enumerate(mesh.devices)]
 
 
+def split_targets(cfg: ConvNetConfig, y: torch.Tensor, mesh,
+                  stage: plan_lib.Stage) -> List[torch.Tensor]:
+    """Shard r's targets: CosmoFlow's batch slice of y (N, out_dim), or
+    the U-Net's block of its voxel labels (N, D, H, W), split like x."""
+    if cfg.arch == "unet3d":
+        return split_input(y, mesh, stage)
+    return split_batch(y, mesh, stage)
+
+
+def gather_blocks(outs: Sequence[torch.Tensor], mesh,
+                  stage: plan_lib.Stage) -> torch.Tensor:
+    """The inverse of ``split_input``: the shards' blocks of a tensor
+    split like ``stage``'s input put back in place, batch slices in
+    order and each partitioned dim's pieces in axis order, on shard 0's
+    device (a shard whose block another shard also holds — a replica —
+    is read once)."""
+    active = list(stage.part.active)
+    blocks = {}
+    for r, t in enumerate(outs):
+        at = mesh.coords(r)
+        key = (batch_slice(mesh, r, stage)[0],) + tuple(
+            at[a] for _, a in active)
+        blocks.setdefault(key, t)
+    home = mesh.devices[0]
+
+    def join(prefix, dims):
+        if not dims:
+            return blocks[prefix].to(home)
+        (d, a), rest = dims[0], dims[1:]
+        parts = [join(prefix + (i,), rest) for i in range(mesh.degree(a))]
+        return torch.cat(parts, d + 1) if len(parts) > 1 else parts[0]
+
+    slices = sorted({key[0] for key in blocks})
+    parts = [join((i,), active) for i in slices]
+    return torch.cat(parts, 0) if len(parts) > 1 else parts[0]
+
+
 def sample_ids(batch: int, mesh, stage: plan_lib.Stage) -> List[range]:
     """Shard r's global sample ids: ``index * n_loc + arange(n_loc)``,
     the reference's, so that dropout masks do not depend on the mesh."""
@@ -136,39 +181,39 @@ def make_convnet_forward_step(
     overlap: Optional[bool] = None,
     precision=None,
 ) -> Callable[[Sequence[Params], torch.Tensor], torch.Tensor]:
-    """Returns ``fwd(params_per_shard, x) -> (N, out_dim)`` predictions
-    on shard 0's device. ``params_per_shard``: one dict per shard on its
-    device (``replicate``); ``x``: the whole batch, on any device."""
-    if cfg.arch != "cosmoflow":
-        raise NotImplementedError(
-            f"{cfg.arch} comes with the U-Net slice of the port")
+    """Returns ``fwd(params_per_shard, x)``: CosmoFlow's (N, out_dim)
+    predictions or the U-Net's (N, D, H, W, out_dim) logits, on shard 0's
+    device. ``params_per_shard``: one dict per shard on its device
+    (``replicate``); ``x``: the whole batch, on any device."""
     if plan.data_degree != 1:
         raise NotImplementedError(
             f"plan {plan.name!r} has data degree {plan.data_degree}; "
             "batch-sharded serving comes with the plans slice of the port")
-    head = plan.stage_for(cosmoflow_lib.num_blocks(cfg))
-    if head.part.active:
+    unet = cfg.arch == "unet3d"
+    if not unet and plan.stage_for(
+            cosmoflow_lib.num_blocks(cfg)).part.active:
         raise NotImplementedError(
             f"plan {plan.name!r} partitions the FC head; the port serves "
             "plans whose FC stage is replicated")
     entry = plan.stages[0]
+    model = for_config(cfg)
 
     def body(params: Params, x: torch.Tensor) -> torch.Tensor:
-        return cosmoflow_lib.forward(params, x, cfg, plan=plan,
-                                     overlap=overlap, precision=precision)
+        return model.forward(params, x, cfg, plan=plan, overlap=overlap,
+                             precision=precision)
 
     def fwd(params_per_shard: Sequence[Params],
             x: torch.Tensor) -> torch.Tensor:
-        return spmd.run(mesh, body, params_per_shard,
-                        split_input(x, mesh, entry))[0]
+        outs = spmd.run(mesh, body, params_per_shard,
+                        split_input(x, mesh, entry))
+        return gather_blocks(outs, mesh, entry) if unet else outs[0]
 
     return fwd
 
 
 def _check_mesh(cfg: ConvNetConfig, mesh, plan) -> None:
-    if cfg.arch != "cosmoflow":
-        raise NotImplementedError(
-            f"{cfg.arch} comes with the U-Net slice of the port")
+    if cfg.arch not in ("cosmoflow", "unet3d"):
+        raise NotImplementedError(f"no train step for arch {cfg.arch!r}")
     if plan.n_groups != 1:
         raise NotImplementedError(
             f"plan {plan.name!r} is pipelined; the pipeline axis comes "
@@ -229,11 +274,17 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
     n = mesh.size
 
     def shard_loss(params, x, y, ids, seed, scale):
-        loss = cosmoflow_lib.mse_loss(
-            params, x, y, cfg, plan=plan, bn_axes=axes,
-            global_batch=global_batch, train=True, dropout_seed=seed,
-            sample_ids=ids, mask_source=mask_source, overlap=overlap,
-            precision=policy, grad_axes=hook_axes)
+        if cfg.arch == "unet3d":
+            loss = unet_lib.segmentation_loss(
+                params, x, y, cfg, plan=plan, bn_axes=axes,
+                global_voxels=global_batch * cfg.input_width ** 3,
+                overlap=overlap, precision=policy, grad_axes=hook_axes)
+        else:
+            loss = cosmoflow_lib.mse_loss(
+                params, x, y, cfg, plan=plan, bn_axes=axes,
+                global_batch=global_batch, train=True, dropout_seed=seed,
+                sample_ids=ids, mask_source=mask_source, overlap=overlap,
+                precision=policy, grad_axes=hook_axes)
         # fp16: the loss times the running scale, so that small
         # cotangents survive; the unscaled loss is reported
         return loss, (loss if scale is None else loss * scale)
@@ -262,7 +313,7 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
 
     def step(params, opt_state, x, y, seed):
         xs = split_input(x, mesh, entry)
-        ys = split_batch(y, mesh, entry)
+        ys = split_targets(cfg, y, mesh, entry)
         ids = sample_ids(x.shape[0], mesh, entry)
         seeds = [int(seed)] * n
         if stage == "fwd":
@@ -302,8 +353,9 @@ def make_convnet_train_step(cfg: ConvNetConfig, mesh, optimizer, *,
     loss)`` (``guard=True``: ``(params, opt, loss, applied)``). ``params``
     are the fp32 masters and ``opt_state`` comes from
     ``make_convnet_opt_state`` with the same policy; neither is modified:
-    the step returns new ones. ``seed`` (the step count) seeds the
-    dropout masks."""
+    the step returns new ones. ``y``: CosmoFlow's (N, out_dim) targets
+    or the U-Net's (N, D, H, W) voxel labels. ``seed`` (the step count)
+    seeds CosmoFlow's dropout masks (the U-Net has no dropout)."""
     return _build_convnet_step(
         cfg, mesh, optimizer, global_batch=global_batch, overlap=overlap,
         grad_comm=grad_comm, stage="step", plan=plan, precision=precision,
@@ -333,35 +385,51 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
                            ) -> Callable[[Params, torch.Tensor,
                                           torch.Tensor], Tuple[Any, Any]]:
     """Returns ``eval(params, x, y) -> (loss, preds)`` over the step's
-    mesh: the forward without dropout, no gradients recorded; the fp32
-    MSE over ``global_batch`` samples summed over every shard, and the
-    predictions of every batch slice in order (from the first shard of
-    each), on shard 0's device."""
+    mesh: the forward without dropout, no gradients recorded. CosmoFlow:
+    the fp32 MSE over ``global_batch`` samples summed over every shard,
+    and the predictions of every batch slice in order (from the first
+    shard of each); the U-Net: the voxel cross-entropy over
+    ``global_batch * W^3`` voxels (``segmentation_loss``'s operations)
+    and the per-voxel logits put back together (``gather_blocks``). Both
+    on shard 0's device."""
     _check_mesh(cfg, mesh, plan)
     entry = plan.stages[0]
     axes = plan.axis_names
     n = mesh.size
+    unet = cfg.arch == "unet3d"
     firsts = sorted({batch_slice(mesh, r, entry)[0]: r
                      for r in reversed(range(n))}.items())
 
     def local_eval(params, x, y):
-        pred = cosmoflow_lib.forward(params, x, cfg, plan=plan,
-                                     overlap=overlap, precision=precision)
-        loss = cosmoflow_lib.mse(pred, y, global_batch * plan.loss_redundancy)
+        if unet:
+            pred = unet_lib.forward(params, x, cfg, plan=plan,
+                                    overlap=overlap, precision=precision)
+            loss = unet_lib.voxel_nll(
+                pred, y, global_batch * cfg.input_width ** 3)
+        else:
+            pred = cosmoflow_lib.forward(params, x, cfg, plan=plan,
+                                         overlap=overlap,
+                                         precision=precision)
+            loss = cosmoflow_lib.mse(pred, y,
+                                     global_batch * plan.loss_redundancy)
         return spmd.axis(axes).psum(loss), pred
 
     def fn(params, x, y):
         with torch.no_grad():
             out = spmd.run(mesh, local_eval, [params] * n,
                            split_input(x, mesh, entry),
-                           split_batch(y, mesh, entry))
+                           split_targets(cfg, y, mesh, entry))
+        if unet:
+            return out[0][0], gather_blocks([o[1] for o in out], mesh,
+                                            entry)
         preds = [out[r][1] for _, r in firsts]
         return out[0][0], preds[0] if len(preds) == 1 else torch.cat(preds)
 
     return fn
 
 
-__all__ = ["STAGES", "batch_slice", "make_convnet_forward_step",
-           "make_convnet_opt_state", "make_convnet_train_step",
-           "make_convnet_phase_probes", "make_convnet_eval_step",
-           "replicate", "sample_ids", "split_batch", "split_input"]
+__all__ = ["STAGES", "batch_slice", "gather_blocks",
+           "make_convnet_forward_step", "make_convnet_opt_state",
+           "make_convnet_train_step", "make_convnet_phase_probes",
+           "make_convnet_eval_step", "replicate", "sample_ids",
+           "split_batch", "split_input", "split_targets"]

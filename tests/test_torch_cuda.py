@@ -127,6 +127,41 @@ def test_conv3d_kernel_at_every_cosmoflow_128_layer(cuda, layer, dtype):
     assert (got.float() - want.float()).abs().max().item() <= rel * scale
 
 
+# the U-Net's extreme input widths at a small depth: enc0_w0 (Cin = 1,
+# 4-byte gather pieces in fp32, 2-byte in bf16) and dec2_w0 (Cin = 512,
+# K = 13,824), and mid_w1's input gradient (K = 27 * 512)
+UNET_CONVS = [((1, 8, 16, 16, 1), 32), ((1, 4, 8, 8, 512), 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xs,cout", UNET_CONVS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv3d_kernel_at_the_unet_input_widths(cuda, xs, cout, dtype):
+    """``plan`` takes Cin = 1 and Cin = 512 (the gather kernel), and the
+    kernel holds there and in the input gradient at ``chip_smoke.py``'s
+    tolerances (fp32: 1e-6 sqrt(K) of the output scale; bf16 one ulp)."""
+    ws = (3, 3, 3, xs[-1], cout)
+    pads = ((1, 1),) * 3
+    g = torch.Generator(device=cuda).manual_seed(xs[-1])
+    x = torch.randn(xs, generator=g, device=cuda).to(TORCH_DT[dtype])
+    w = (torch.randn(ws, generator=g, device=cuda)
+         * (2.0 / (27 * xs[-1])) ** 0.5).to(TORCH_DT[dtype])
+    plan = conv_ops.plan(xs, ws, xs[:4] + (cout,), TORCH_DT[dtype],
+                         conv_ops._sms(0), x.data_ptr(), 1)
+    assert plan.stages == 0  # the gather kernel
+    got = conv_ops.conv3d_valid(x, w, 1, pads)
+    want = conv_ref.conv3d_valid(x, w, 1, pads)
+    dy = torch.randn(got.shape, generator=g, device=cuda).to(TORCH_DT[dtype])
+    dx = conv_ops.conv3d_input_grad(dy, w, xs, 1, pads)
+    w_t = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+    want_dx = conv_ref.conv3d_valid(dy, w_t, 1, pads)
+    torch.cuda.synchronize()
+    for a, b, k in ((got, want, 27 * xs[-1]), (dx, want_dx, 27 * cout)):
+        rel = 1e-6 * k ** 0.5 if dtype == "float32" else 2 ** -7
+        scale = max(1.0, b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= rel * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_conv3d_split_k_gives_the_same_bits_every_run(cuda, dtype):

@@ -223,8 +223,10 @@ def test_mode_dispatch_and_train_slice():
     with pytest.raises(RunConfigError) as e:
         compile_infer(RunConfig(model=TINY), device="cpu")
     assert e.value.field == "mode"
+    # the U-Net serves too; a model the registry lacks names the field
+    RunConfig(model="unet3d-256", mode="infer").validate()
     with pytest.raises(RunConfigError) as e:
-        RunConfig(model="unet3d-256", mode="infer").validate()
+        RunConfig(model="unet3d-512", mode="infer").validate()
     assert e.value.field == "model"
 
 

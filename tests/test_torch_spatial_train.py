@@ -17,10 +17,12 @@ on the CPU (every shard a thread on ``"cpu"``).
   with the reference's dropout masks (``jax_masks``), within 1e-5 of
   each leaf's max-abs — or, where the reference's own step lies farther
   than that from the fp64 step, nearer it than the reference and
-  within 1e-5 of it; ``overlap`` against ``monolithic`` after two
-  steps (atol 1e-5, rtol 1e-4, ``tests/test_grad_comm.py``); a 2 x 2
-  step against a 1 x 1 step (``tests/test_multidevice.py``'s
-  tolerances); launches per step against ``kernel_launches``;
+  within 1e-5 of it; the same for the 3D U-Net (``unet3d-smoke``, voxel
+  labels split like the input) at 1 x 2, 1 x 4 and 2 x 2; ``overlap``
+  against ``monolithic`` after two steps (atol 1e-5, rtol 1e-4,
+  ``tests/test_grad_comm.py``); a 2 x 2 step against a 1 x 1 step
+  (``tests/test_multidevice.py``'s tolerances); launches per step
+  against ``kernel_launches``;
 * a 2 x 2 checkpoint resumed by the reference's ``Session`` and by a
   one-device port ``Session``; bf16, fp16 and the guard at 2 x 2; a
   step that completes under a timeout with its shards in threads.
@@ -41,6 +43,7 @@ import torch
 from repro.kernels.halo_pack import ref as jpack_ref
 from repro_torch.api import RunConfig, Session, compile
 from repro_torch.configs import cosmoflow as cosmo_cfg
+from repro_torch.configs import unet3d as unet_cfg
 from repro_torch.configs.base import ConvNetConfig
 from repro_torch.core import faults, grad_comm, spmd
 from repro_torch.core import plan as plan_lib
@@ -49,7 +52,7 @@ from repro_torch.kernels.bn_act import ops as bn_ops
 from repro_torch.kernels.conv3d import ops as conv_ops
 from repro_torch.kernels.halo_pack import ops as pack_ops
 from repro_torch.launch.mesh import Mesh
-from repro_torch.models import cosmoflow
+from repro_torch.models import cosmoflow, unet3d
 from repro_torch.train import train_step
 
 FIVE = ConvNetConfig(name="cosmoflow-five", family="conv3d",
@@ -60,6 +63,7 @@ CFGS = {"smoke": cosmo_cfg.SMOKE, "five": FIVE}
 # (config, data, spatial, every block split)
 TRAIN_RUNS = [("smoke", 1, 2, False), ("smoke", 1, 4, False),
               ("smoke", 2, 2, False), ("five", 1, 2, True)]
+UNET_RUNS = [(1, 2), (1, 4), (2, 2)]  # (data, spatial) of the U-Net probe
 COLLECTIVES = ("ppermute", "psum", "all_gather")
 SEED = 3
 GB = 4
@@ -174,6 +178,32 @@ for name, D, S, deep in TRAIN_RUNS:
     for k, v in grads.items():
         out[f"grad_{tag}_{k}"] = np.asarray(v)
 
+# the U-Net's grad_comm probe (voxel labels split like x)
+from repro.configs import unet3d as unet_cfg
+from repro.models import unet3d
+up = {k: np.asarray(v) for k, v in jax.jit(lambda k: unet3d.init_params(
+    k, unet_cfg.SMOKE))(jax.random.PRNGKey(1)).items()}
+r = np.random.RandomState(6)
+for k in sorted(up):  # non-trivial BN scales and biases
+    if up[k].ndim == 1:
+        up[k] = (up[k] + 0.1 * r.randn(*up[k].shape)).astype(np.float32)
+w = unet_cfg.SMOKE.input_width
+out["x_unet"] = r.randn(GB, w, w, w, 1).astype(np.float32)
+out["y_unet"] = r.randint(0, 3, (GB, w, w, w)).astype(np.int32)
+for k, v in up.items():
+    out["uparam_" + k] = v
+for D, S in UNET_RUNS:
+    mesh = compat.make_mesh((D, S), ("data", "model"))
+    opt = Adam(lr=constant(1e-3))
+    probe = make_convnet_phase_probes(unet_cfg.SMOKE, mesh, opt,
+                                      global_batch=GB)["grad_comm"]
+    params = {k: jnp.asarray(v) for k, v in up.items()}
+    loss, grads = probe(params, opt.init(params), out["x_unet"],
+                        out["y_unet"], jnp.asarray(SEED, jnp.int32))
+    out[f"uloss_{D}_{S}"] = np.asarray(loss)
+    for k, v in grads.items():
+        out[f"ugrad_{D}_{S}_{k}"] = np.asarray(v)
+
 # the port's 2 x 2 checkpoint, resumed for one step
 sess = api.Session.restore(CKPT)
 xs, ys = np.load(BATCH)["x"], np.load(BATCH)["y"]
@@ -211,7 +241,8 @@ def reference(multidevice, tmp_path_factory):
         port_next = float(sess.step(x2, y2))
     path = root / "reference.npz"
     script = (f"OUT = {str(path)!r}\nCKPT = {ckpt!r}\nBATCH = {batch!r}\n"
-              f"TRAIN_RUNS = {TRAIN_RUNS!r}\nSEED = {SEED}\nGB = {GB}\n"
+              f"TRAIN_RUNS = {TRAIN_RUNS!r}\nUNET_RUNS = {UNET_RUNS!r}\n"
+              f"SEED = {SEED}\nGB = {GB}\n"
               + inspect.getsource(deep_plan) + REFERENCE)
     multidevice(script, devices=4)
     return dict(np.load(path), ckpt=ckpt, batch=(x2, y2),
@@ -417,6 +448,87 @@ def test_grad_comm_probe_matches_reference(reference, name, D, S, deep):
         port_err = _scale_err(g, exact[k])
         ref_err = _scale_err(reference[f"grad_{tag}_{k}"], exact[k])
         assert port_err <= min(1e-5, ref_err), (k, err, port_err, ref_err)
+
+
+def _unet_fp64_grads(reference):
+    """The U-Net's ``grad_comm`` probe on one device in fp64 (convs by
+    ``F.conv3d``, batch norm and the loss in fp64): the exact gradient."""
+    import torch.nn.functional as F
+    from unittest import mock
+
+    def conv64(x, w, stride=1, pads=((0, 0),) * 3):
+        (pd, qd), (ph, qh), (pw, qw) = pads
+        xc = F.pad(x, (0, 0, pw, qw, ph, qh, pd, qd)).permute(0, 4, 1, 2, 3)
+        return F.conv3d(xc, w.permute(4, 3, 0, 1, 2), stride=stride
+                        ).permute(0, 2, 3, 4, 1)
+
+    def bn64(x, scale, bias, reduce_axes=(), eps=1e-5,
+             activation_slope=None):
+        dims = tuple(range(x.dim() - 1))
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        return F.leaky_relu((x - mean) * torch.rsqrt(var + eps) * scale
+                            + bias, activation_slope)
+
+    def nll64(logits, labels, denominator):
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, labels.long().unsqueeze(-1)).sum(
+        ) / denominator
+
+    params = {k: torch.from_numpy(v).double()
+              for k, v in _unet_params(reference).items()}
+    with mock.patch.object(conv_ops, "conv3d", conv64), \
+            mock.patch.object(unet3d.dist_norm, "distributed_batchnorm",
+                              bn64), \
+            mock.patch.object(unet3d, "voxel_nll", nll64), \
+            _unet_session(1, 1) as sess:
+        probe = train_step.make_convnet_phase_probes(
+            sess.cfg, sess.mesh, sess.optimizer, global_batch=GB,
+            plan=sess.plan)["grad_comm"]
+        return probe(params, sess.opt_state,
+                     torch.from_numpy(reference["x_unet"]).double(),
+                     torch.from_numpy(reference["y_unet"]), SEED)[1]
+
+
+def _unet_params(reference):
+    return {k[len("uparam_"):]: v for k, v in reference.items()
+            if k.startswith("uparam_")}
+
+
+def _unet_session(D, S):
+    return compile(RunConfig(model="unet3d-256", smoke=True,
+                             global_batch=GB, data=D, spatial=S),
+                   devices=["cpu"] * (D * S))
+
+
+@pytest.mark.parametrize("D,S", UNET_RUNS)
+def test_unet_grad_comm_probe_matches_reference(reference, D, S):
+    """The U-Net's reduced gradients over the mesh, labels split over the
+    batch and depth like x, against the reference's, with the rule of
+    ``test_grad_comm_probe_matches_reference``."""
+    with _unet_session(D, S) as sess:
+        assert sess.mesh.shape == {"data": D, "model": S}
+        params = unet3d.params_from_numpy(_unet_params(reference), "cpu",
+                                          cfg=unet_cfg.SMOKE)
+        probe = train_step.make_convnet_phase_probes(
+            sess.cfg, sess.mesh, sess.optimizer, global_batch=GB,
+            plan=sess.plan)["grad_comm"]
+        loss, grads = probe(params, sess.opt_state,
+                            torch.from_numpy(reference["x_unet"]),
+                            torch.from_numpy(reference["y_unet"]), SEED)
+    want = float(reference[f"uloss_{D}_{S}"])
+    assert abs(float(loss) - want) <= 1e-5 * abs(want)
+    assert set(grads) == set(params)
+    exact = None
+    for k, g in grads.items():
+        ref_g = reference[f"ugrad_{D}_{S}_{k}"]
+        if _scale_err(g, ref_g) <= 1e-5:
+            continue
+        if exact is None:
+            exact = _unet_fp64_grads(reference)
+        port_err = _scale_err(g, exact[k])
+        ref_err = _scale_err(ref_g, exact[k])
+        assert port_err <= min(1e-5, ref_err), (k, port_err, ref_err)
 
 
 def test_overlap_matches_monolithic_after_two_steps():

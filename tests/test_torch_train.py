@@ -22,6 +22,7 @@ trajectory.
 """
 import dataclasses
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -118,6 +119,31 @@ def test_batchnorm_leaky_relu_gradients_match_reference():
     ty.backward(torch.from_numpy(dy))
     for t, w in zip(ins, want):
         assert _scale_err(t.grad, w) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_statistics_node_gives_autograds_values(dtype):
+    """The statistics' autograd node (``dist_norm._Stats``, which saves x
+    rather than an fp32 copy and writes its backward a piece at a time)
+    against autograd of the two fp32 sums it replaces: the same sums and
+    the same gradient bits, also when x spans several of the backward's
+    pieces."""
+    r = np.random.RandomState(4)
+    x0 = torch.from_numpy((1.0 + 2.0 * r.randn(3, 5, 4, 2, 6)).astype(
+        np.float32)).to(dtype)
+    ds, dss = (torch.from_numpy(r.randn(6).astype(np.float32))
+               for _ in range(2))
+    dims = (0, 1, 2, 3)
+    a = x0.clone().requires_grad_(True)
+    with mock.patch.object(dist_norm.bn_ops, "BACKWARD_CHUNK_BYTES", 100):
+        s, ss = dist_norm._Stats.apply(a)
+        (ga,) = torch.autograd.grad((s * ds).sum() + (ss * dss).sum(), a)
+    b = x0.clone().requires_grad_(True)
+    bf = b.float()
+    s2, ss2 = bf.sum(dim=dims), bf.square().sum(dim=dims)
+    (gb,) = torch.autograd.grad((s2 * ds).sum() + (ss2 * dss).sum(), b)
+    assert torch.equal(s, s2) and torch.equal(ss, ss2)
+    assert ga.dtype == dtype and torch.equal(ga, gb)
 
 
 def test_maxpool_gradient_follows_reference_tie_rule():
