@@ -20,8 +20,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
               S = 2) and cosmoflow-512 batch 1 (S = 4), the sharded
               training steps' faces (batch 2 at 2 x 2) and those of
               unpack's adjoint, the U-Net's (unet3d-256 b1 at S = 2, 4,
-              its training steps at 64^3), plus k = 5 (lo = hi = 2) and
-              a row of 180 bytes, fp32 and bf16.
+              its training steps at 64^3), plus k = 5 (lo = hi = 2), a
+              row of 180 bytes and the edges of the copy's work split
+              (``HALO_EDGES``), fp32 and bf16, on each of the kernel's
+              two paths (bulk copies, registers), and unpack of a pack
+              buffer's faces (views off 16 bytes).
 4. serve    — ``repro_torch.api.compile(RunConfig(model="cosmoflow-128",
               mode="infer", global_batch=4))`` at fp32 and bf16: predict
               on a seeded batch, held against the same forward through the
@@ -47,7 +50,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
               device time per call, calls queued back to back, and the
               single call's time, for the kernel and for F.conv3d; which
               of its two kernels and how many K splits; the share of the
-              bound; the per-forward sums against F.conv3d); end-to-end
+              bound; the per-forward sums against F.conv3d; pack and
+              unpack at every face of the spatial configs and of
+              unet3d-256 b1 at S = 2, 4 in fp32 and bf16, each beside
+              torch.cat, its byte bound, the launch floor and its share
+              of the bound); end-to-end
               predict time per batch, unsharded and spatial; the
               overlapped conv lowering against the blocking one
               (``overlap_halo=False``) at cosmoflow-128 S=2, S=4 and
@@ -207,6 +214,18 @@ SPATIAL = (("cosmoflow-128", 4, 2, "fp32", "fixed"),
 # extra halo cases beyond the main path's: k = 5 (lo = hi = 2), and a
 # depth row of 3*5*3 fp32 = 180 bytes, not a multiple of 16
 HALO_EXTRA = (((2, 8, 16, 16, 8), 2, 2), ((2, 6, 3, 5, 3), 1, 1))
+# the edges of the halo copy's work split (tests/test_torch_cuda.py): a
+# run shorter than a chunk; not a multiple of one (40,000-byte rows);
+# larger than the bulk ring (1 MB runs); lo = 0 and hi = 0 alone;
+# 7-element rows (14 bytes in bf16); more samples than either path's grid
+# has blocks (3 x 30,000 runs)
+HALO_EDGES = (((2, 4, 4, 4, 8), 1, 1), ((2, 5, 25, 25, 16), 2, 1),
+              ((1, 6, 64, 64, 16), 2, 2), ((2, 6, 8, 8, 8), 0, 2),
+              ((2, 6, 8, 8, 8), 2, 0), ((2, 5, 1, 1, 7), 1, 2),
+              ((30000, 3, 1, 2, 2), 1, 1))
+# the halo kernel's two paths, each held by patching
+# ``kernels/halo_pack/ops.BULK_MIN_BYTES``
+HALO_PATHS = {"bulk": 0, "registers": 1 << 62}
 # "conv3d_dgrad": the conv3d kernel launched for a conv's input gradient
 # (counted apart from the forward's launches)
 KERNELS = ("conv3d", "conv3d_dgrad", "bn_act", "pack", "unpack", "ssd_scan")
@@ -251,6 +270,8 @@ MODES_ATOL, MODES_RTOL = 1e-5, 1e-4
 # the 3D U-Net (unet3d-256, 256^3 x 1 input, base 32, depth 3): serving
 # at batch 1, (spatial degree, precision), every shard on this card
 UNET_SERVE = ((1, "fp32"), (1, "bf16"), (2, "fp32"), (4, "fp32"))
+# (spatial degree, precision) of the U-Net's faces in the halo timings
+UNET_HALO = ((2, "fp32"), (2, "bf16"), (4, "fp32"), (4, "bf16"))
 # training at batch 1: a warm-up, then this many timed steps
 UNET_STEPS = 3
 # step 1's accuracy and the sharded steps: unet3d-256's widths and depth
@@ -624,35 +645,66 @@ def spatial_plan(plan_lib, part, cfg, S, kind):
 
 
 def phase_halo_kernels(pack_ops, pack_ref, cases) -> dict:
-    """pack and unpack against their plain versions, bit for bit; the
-    largest absolute difference seen is kept for the summary."""
+    """pack and unpack against their plain versions, bit for bit, on each
+    of the kernel's two paths (``BULK_MIN_BYTES`` patched each way), at
+    ``cases`` and the edges of the work split; the largest absolute
+    difference seen is kept for the summary."""
     g = torch.Generator(device="cuda").manual_seed(4)
     n_cmp = 0
     worst = {"pack": 0.0, "unpack": 0.0}
-    for dt in DTYPES.values():
-        for shape, lo, hi in cases:
-            x = torch.randn(shape, generator=g, device="cuda").to(dt)
-            got = pack_ops.pack(x, lo, hi)
-            n, _, h, w, c = shape
-            bufs = [torch.randn((n, k, h, w, c), generator=g,
-                                device="cuda").to(dt) if k else None
-                    for k in (lo, hi)]
-            out = pack_ops.unpack(x, *bufs)
-            torch.cuda.synchronize()
-            for name, a, b in (("pack", got.buf, pack_ref.pack(x, lo, hi).buf),
-                               ("unpack", out, pack_ref.unpack(x, *bufs))):
-                check(a.shape == b.shape, f"{name} {shape} lo={lo} hi={hi} "
-                      f"{dt}: shape {tuple(a.shape)} != {tuple(b.shape)}")
-                worst[name] = max(worst[name], max_err(a, b))
-                check(torch.equal(a, b),
-                      f"{name} {shape} lo={lo} hi={hi} {dt} differs")
-            n_cmp += 2
-            del x, got, bufs, out
+    cases = sorted(set(cases) | set(HALO_EDGES))
+    built = pack_ops.BULK_MIN_BYTES
+    try:
+        for path, threshold in HALO_PATHS.items():
+            pack_ops.BULK_MIN_BYTES = threshold
+            for dt in DTYPES.values():
+                for shape, lo, hi in cases:
+                    n_cmp += halo_compare(pack_ops, pack_ref, g, shape, lo,
+                                          hi, dt, path, worst)
+    finally:
+        pack_ops.BULK_MIN_BYTES = built
+    torch.cuda.empty_cache()  # the U-Net's 4 GB cases, before phase 10e
     log("kernels", f"halo_pack ok: {n_cmp} comparisons over {len(cases)} "
-        f"shapes x {len(DTYPES)} dtypes, all bit-exact; largest abs "
-        f"difference {worst}")
+        f"shapes x {len(DTYPES)} dtypes x paths {list(HALO_PATHS)}, all "
+        f"bit-exact; largest abs difference {worst}")
     return {"comparisons": n_cmp, "max_abs_err": worst,
+            "paths": list(HALO_PATHS),
             "cases": [list(map(str, c)) for c in cases]}
+
+
+def halo_compare(pack_ops, pack_ref, g, shape, lo, hi, dt, path,
+                 worst) -> int:
+    """One case on one path: pack, unpack, and unpack of the pack
+    buffer's faces (views that need not start on 16 bytes), each against
+    its plain version; returns the number of comparisons."""
+    x = torch.randn(shape, generator=g, device="cuda").to(dt)
+    n, d, h, w, c = shape
+    row = h * w * c * x.element_size()
+    for kind in ("pack", "unpack"):
+        sp = pack_ops.split(pack_ops.parts(kind, n, d, row, lo, hi), n,
+                            pack_ops._sms(0))
+        check(sp.path == path or sp.total == 0,
+              f"{kind} {shape} lo={lo} hi={hi}: path {sp.path}, not {path}")
+    got = pack_ops.pack(x, lo, hi)
+    bufs = [torch.randn((n, k, h, w, c), generator=g,
+                        device="cuda").to(dt) if k else None
+            for k in (lo, hi)]
+    pairs = [("pack", got.buf, lambda: pack_ref.pack(x, lo, hi).buf),
+             ("unpack", pack_ops.unpack(x, *bufs),
+              lambda: pack_ref.unpack(x, *bufs))]
+    if lo and hi:
+        pairs.append(("unpack", pack_ops.unpack(x, got.to_prev, got.to_next),
+                      lambda: pack_ref.unpack(x, got.to_prev, got.to_next)))
+    torch.cuda.synchronize()
+    for name, a, plain in pairs:
+        b = plain()
+        what = f"{name} {shape} lo={lo} hi={hi} {dt} {path}"
+        check(a.shape == b.shape, f"{what}: shape {tuple(a.shape)} != "
+              f"{tuple(b.shape)}")
+        worst[name] = max(worst[name], max_err(a, b))
+        check(torch.equal(a, b), f"{what} differs")
+        del b
+    return len(pairs)
 
 
 def ssd_inputs(g, B, L, H, P, N, dt):
@@ -2135,41 +2187,46 @@ def phase_unet(k, cfg, cfg64, RunConfig, compile, plan_lib, depth,
     return out, launches, paths
 
 
-def halo_rows(k, cases, reps) -> dict:
+def halo_rows(k, cases, reps, floor_ms) -> dict:
     """pack and unpack at each (shape, lo, hi, dtype): kernel, plain
     version and library call (one ``torch.cat`` of the same views), each
     timed as device time per call (``queued_ms``: one call alone is
-    shorter than its launch), and the byte bound (each input read once,
-    each output written once)."""
+    shorter than its launch), the path the kernel took, the byte bound
+    (each input read once, each output written once), the launch floor
+    and the kernel's share of its bound."""
     gt = torch.Generator(device="cuda").manual_seed(5)
     rows = {"pack": {}, "unpack": {}}
     for shape, lo, hi, prec in cases:
         dt = DTYPES[prec]
         x = torch.randn(shape, generator=gt, device="cuda").to(dt)
         n, d, h, w, c = shape
-        face = n * (lo + hi) * h * w * c * x.element_size()
+        row = h * w * c * x.element_size()
+        face = n * (lo + hi) * row
         nxt, prv = x[:, d - lo:], x[:, :hi]
         bufs = [torch.randn((n, m, h, w, c), generator=gt,
                             device="cuda").to(dt) if m else None
                 for m in (lo, hi)]
         parts = [b for b in (bufs[0], x, bufs[1]) if b is not None]
         key = (tuple(shape), lo, hi, prec)
-        rows["pack"][key] = {
-            "x": list(shape), "lo": lo, "hi": hi, "dtype": prec,
-            "ms": queued_ms(lambda: k.pack_ops.pack(x, lo, hi), reps),
-            "plain_ms": queued_ms(lambda: k.pack_ref.pack(x, lo, hi),
-                                  reps),
-            "library_ms": queued_ms(lambda: torch.cat((nxt, prv), 1),
-                                    reps),
-            "bound_ms": 2 * face / PEAK_BYTES * 1e3, "bound_by": "bytes"}
-        rows["unpack"][key] = {
-            "x": list(shape), "lo": lo, "hi": hi, "dtype": prec,
-            "ms": queued_ms(lambda: k.pack_ops.unpack(x, *bufs), reps),
-            "plain_ms": queued_ms(lambda: k.pack_ref.unpack(x, *bufs),
-                                  reps),
-            "library_ms": queued_ms(lambda: torch.cat(parts, 1), reps),
-            "bound_ms": 2 * (face + x.numel() * x.element_size())
-            / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        for name, fn, plain, cat, nbytes in (
+                ("pack", lambda: k.pack_ops.pack(x, lo, hi),
+                 lambda: k.pack_ref.pack(x, lo, hi),
+                 lambda: torch.cat((nxt, prv), 1), 2 * face),
+                ("unpack", lambda: k.pack_ops.unpack(x, *bufs),
+                 lambda: k.pack_ref.unpack(x, *bufs),
+                 lambda: torch.cat(parts, 1),
+                 2 * (face + x.numel() * x.element_size()))):
+            ms = queued_ms(fn, reps)
+            bound = nbytes / PEAK_BYTES * 1e3
+            sp = k.pack_ops.split(k.pack_ops.parts(name, n, d, row, lo, hi),
+                                  n, k.pack_ops._sms(0))
+            rows[name][key] = {
+                "x": list(shape), "lo": lo, "hi": hi, "dtype": prec,
+                "path": sp.path, "ms": ms,
+                "plain_ms": queued_ms(plain, reps),
+                "library_ms": queued_ms(cat, reps), "bound_ms": bound,
+                "bound_by": "bytes", "launch_floor_ms": floor_ms,
+                "share_of_bound": bound / ms}
         # unpack's adjoint: d_lo and d_hi out of the padded gradient, by
         # one pack launch (as the port does) or two narrow copies
         dout = torch.randn((n, lo + d + hi, h, w, c), generator=gt,
@@ -2184,6 +2241,22 @@ def halo_rows(k, cases, reps) -> dict:
             log("timings", f"{name} " + json.dumps(rows[name][key]))
         del x, nxt, prv, bufs, parts, dout
     return rows
+
+
+def unet_halo_totals(halo, name, unet3d, plan_lib, depth, cfg) -> dict:
+    """pack's or unpack's calls in one unet3d-256 b1 forward at each of
+    ``UNET_HALO``, summed over every shard (None where it has none)."""
+    out = {}
+    for S, prec in UNET_HALO:
+        plan = plan_lib.legacy_convnet_plan(cfg, depth, (S, 1, 1))
+        rows = [halo[name][(sc.shape, sc.lo, sc.hi, prec)]
+                for sc in unet3d.split_convs(cfg, plan, 1)
+                if name == "pack" or sc.no_interior]
+        out[f"S{S}/{prec}"] = {
+            key: S * sum(r[key] for r in rows) if rows else None
+            for key in ("ms", "library_ms", "bound_ms")}
+        out[f"S{S}/{prec}"]["calls"] = S * len(rows)
+    return out
 
 
 def main() -> int:
@@ -2401,21 +2474,26 @@ def main() -> int:
         conv_vs_library[key] = per_forward(timing, cfg, batch, prec)
         log("timings", f"conv3d per forward {key}: "
             + json.dumps(conv_vs_library[key]))
-    # pack and unpack at every shape the spatial path gave them
+    # the launch floor: device time per call of a kernel that does nothing
+    # (a spin of zero cycles), queued as pack and unpack are
+    timing["launch_floor_ms"] = queued_ms(lambda: torch.cuda._sleep(0))
+    log("timings", f"launch floor {timing['launch_floor_ms']:.5f} ms a "
+        "call (queued)")
+    # pack and unpack at every shape the spatial paths gave them, and at
+    # the U-Net's faces served at S = 2 and 4 (the largest in the repo)
     halo_keys = set()
     for name, batch, S, prec, kind in SPATIAL:
         for sc in cosmoflow.split_convs(
                 cfgs[name], spatial_plan(plan_lib, depth, cfgs[name], S,
                                          kind), batch):
             halo_keys.add((sc.shape, sc.lo, sc.hi, prec))
-    halo = halo_rows(k, sorted(halo_keys), 20)
+    for S, prec in UNET_HALO:
+        for sc in unet3d.split_convs(ucfg, plan_lib.legacy_convnet_plan(
+                ucfg, depth, (S, 1, 1)), 1):
+            halo_keys.add((sc.shape, sc.lo, sc.hi, prec))
+    halo = halo_rows(k, sorted(halo_keys), 20, timing["launch_floor_ms"])
     timing["pack"] = list(halo["pack"].values())
     timing["unpack"] = list(halo["unpack"].values())
-    # the launch floor: device time per call of a kernel that does nothing
-    # (a spin of zero cycles), queued as pack and unpack are
-    timing["launch_floor_ms"] = queued_ms(lambda: torch.cuda._sleep(0))
-    log("timings", f"launch floor {timing['launch_floor_ms']:.5f} ms a "
-        "call (queued)")
 
     e2e = {
         "cosmoflow-128/fp32/b4": host_ms(lambda: sessions["fp32"].predict(
@@ -2583,6 +2661,8 @@ def main() -> int:
                 entry["adjoint"] = {
                     key: halo_total(name, kind, key)
                     for key in ("adjoint_pack_ms", "adjoint_narrow_ms")}
+            entry["unet3d-256"] = unet_halo_totals(
+                halo, name, unet3d, plan_lib, depth, ucfg)
             # one launch floor per call of that forward
             entry["launch_floor_ms"] = timing["launch_floor_ms"] * sum(
                 2 for sc in cosmoflow.split_convs(

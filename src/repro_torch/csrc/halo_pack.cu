@@ -2,133 +2,425 @@
 // (sm_90a).
 //
 // Replaces the two Pallas kernels of src/repro/kernels/halo_pack/kernel.py:
-//   pack_depth   (:26) -> halo_pack:   the trailing `lo` depth rows of each
+//   pack_depth   (:26) -> ops.pack:   the trailing `lo` depth rows of each
 //                        sample (sent to the next shard) and the leading
 //                        `hi` rows (sent to the previous shard), written in
 //                        one launch into ONE allocation:
 //                        [to_next (N,lo,H,W,C) | to_prev (N,hi,H,W,C)].
-//   unpack_depth (:69) -> halo_unpack: [lo_buf | x | hi_buf] along depth,
+//   unpack_depth (:69) -> ops.unpack: [lo_buf | x | hi_buf] along depth,
 //                        written in one launch into one (N,D+lo+hi,H,W,C)
 //                        buffer.
 //
-// Both are pure data movement, so they are bound by bytes: each byte is
-// read once and written once. One depth row of one sample is H*W*C
-// contiguous elements, so each sample's face (or body) is ONE contiguous
-// run of bytes, at most 3N runs per launch. Each run is spread over all
-// blocks that share blockIdx.y and copied in 16-byte vectors when both of
-// its addresses are 16-byte aligned (4-byte words, else 2-byte halves,
-// otherwise), with the ragged tail masked. The copy is byte-exact, so one
-// kernel serves every float type of at least 2 bytes. Offsets are 64-bit:
-// a shard at 512^3 holds more than 2^31 elements. A width of 0 (lo = 0 or
-// hi = 0) launches no block for that face.
+// Both are pure data movement: each byte is read once and written once.
+// One depth row of one sample is H*W*C contiguous elements, so each
+// sample's face (or body) is ONE contiguous run of bytes: 2 runs a sample
+// for pack (to_next, to_prev), 3 for unpack (lo_buf, x, hi_buf). What
+// bounds a call depends on its size:
+//   - at the main path's faces (a few MB a launch) the launch and ONE
+//     DRAM round trip: the time is set by latency, not by bytes;
+//   - at the largest faces and bodies (hundreds of MB) the bytes, at
+//     3.35 TB/s.
 //
-// Plain C interface (loaded with ctypes); each entry point launches on the
-// given stream and returns cudaGetLastError().
+// One copy engine serves both entry points. A launch's runs are cut into
+// fixed chunks; ONE flat chunk index spans every run of every sample, so
+// face runs and body runs share the blocks evenly and no block idles
+// (samples do not ride on blockIdx.y, so their number is not capped).
+// The host (kernels/halo_pack/ops.py, `split`) picks the path, the chunk,
+// the ring and the grid from the launch's total bytes:
+//   - registers: one block a chunk, the grid just what the work needs, so
+//     the resident blocks sweep the runs in order as a memcpy does; each
+//     thread issues ALL its loads (1-4 vectors of 16 bytes, unrolled)
+//     before any store, so a call pays one DRAM round trip, not one a
+//     vector; past the L2, chunks of one vector a thread;
+//   - bulk: a persistent grid (as many blocks as fit on the SMs), each
+//     walking its chunks. One thread keeps `stages - 1` chunks of loads
+//     in flight through a ring in dynamic shared memory (cp.async.bulk
+//     global -> shared, completing on an mbarrier) and stores each
+//     arrived chunk with cp.async.bulk shared -> global, reusing a stage
+//     once its store has read it (wait_group.read). No registers or
+//     instructions are spent per byte.
+// Measured on an H100 (scripts/halo_variants.py), the bulk path lost to
+// the register path at every size of the sweep: ~1 us a call at the main
+// path's faces (its chain load -> store -> store complete is longer) and
+// 1-3% from 8 MB to 4 GB, where the register path is level with
+// torch.cat. So `BULK_MIN_BYTES` keeps it off by default; it is held to
+// the plain version on the card all the same.
+// Bulk copies take 16-byte addresses and sizes. A chunk's ragged head and
+// tail (under 16 bytes each), or the whole chunk where source and
+// destination are not 16-byte aligned alike, go by the other warps in
+// vectors of 16, 4 or 2 bytes: a depth row need not be a multiple of 16
+// bytes (3*5*3 fp32, odd bf16 rows) and a view may start anywhere. The
+// copy is byte-exact, so one kernel serves every float type of at least 2
+// bytes. Offsets are 64-bit: a shard at 512^3 holds more than 2^31
+// elements. A width of 0 (lo = 0 or hi = 0) gives its face no chunk.
+//
+// Plain C interface (loaded with ctypes): ONE entry point, halo_copy, for
+// both; it launches on the given stream and returns cudaGetLastError()
+// (cudaErrorInvalidValue, without launching, for a split it cannot take).
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocksPerRun = 2048;
+constexpr int kRegThreads = 256;   // register path: one chunk a block
+constexpr int kBulkThreads = 128;  // bulk path: thread 0 drives the copies,
+                                   // warps 1-3 the ragged edges
+constexpr int kMaxStages = 8;
+constexpr int kMaxSmem = 232448;   // 227 KB, a block's dynamic maximum
 
-// Copy `bytes` (a multiple of 2) from src to dst with every thread of the
-// blocks that share this blockIdx.y.
-__device__ __forceinline__ void copy_run(const char* __restrict__ src,
-                                         char* __restrict__ dst,
-                                         int64_t bytes) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const uintptr_t mis = reinterpret_cast<uintptr_t>(src) |
-                        reinterpret_cast<uintptr_t>(dst);
-  int64_t done = 0;
-  if ((mis & 15) == 0) {
-    const int64_t n = bytes >> 4;
-    const int4* s = reinterpret_cast<const int4*>(src);
-    int4* d = reinterpret_cast<int4*>(dst);
-    for (int64_t i = tid; i < n; i += stride) d[i] = __ldg(s + i);
-    done = n << 4;
-  } else if ((mis & 3) == 0) {
-    const int64_t n = bytes >> 2;
-    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
-    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-    for (int64_t i = tid; i < n; i += stride) d[i] = __ldg(s + i);
-    done = n << 2;
+// One part of a launch: the run of sample s is `bytes` from
+// src + s * src_stride to dst + s * dst_stride, cut into `chunks` chunks.
+struct Part {
+  const char* src;
+  char* dst;
+  int64_t src_stride;
+  int64_t dst_stride;
+  int64_t bytes;
+  uint32_t chunks;
+};
+
+struct Work {
+  Part part[3];
+  uint32_t per_sample;  // chunks of one sample, every part
+  uint32_t total;       // chunks of the launch
+  uint32_t chunk;       // bytes a chunk (a multiple of 16)
+};
+
+struct Piece {
+  const char* src;
+  char* dst;
+  uint32_t bytes;
+};
+
+// Chunk i of the flat index: its sample, its part (empty parts have no
+// chunk and are stepped over), its place in the run.
+__device__ __forceinline__ Piece piece(const Work& w, uint32_t i) {
+  const uint32_t s = i / w.per_sample;
+  uint32_t j = i - s * w.per_sample;
+  Part q = w.part[0];
+  if (j >= q.chunks) {
+    j -= q.chunks;
+    q = w.part[1];
+    if (j >= q.chunks) {
+      j -= q.chunks;
+      q = w.part[2];
+    }
   }
-  // the tail of the vector paths, or the whole run when only 2-aligned
-  const int64_t n = (bytes - done) >> 1;
-  const uint16_t* s = reinterpret_cast<const uint16_t*>(src + done);
-  uint16_t* d = reinterpret_cast<uint16_t*>(dst + done);
-  for (int64_t i = tid; i < n; i += stride) d[i] = __ldg(s + i);
+  const int64_t off = static_cast<int64_t>(j) * w.chunk;
+  const int64_t left = q.bytes - off;
+  return {q.src + s * q.src_stride + off, q.dst + s * q.dst_stride + off,
+          static_cast<uint32_t>(left < w.chunk ? left : w.chunk)};
 }
 
-// blockIdx.y < n_next: to_next of sample blockIdx.y; else to_prev of
-// sample blockIdx.y - n_next. `row` is one depth row in bytes.
-__global__ void __launch_bounds__(kThreads)
-pack_kernel(const char* __restrict__ x, char* __restrict__ out, int64_t n,
-            int64_t d, int64_t row, int lo, int hi, int64_t n_next) {
-  const int64_t seg = blockIdx.y;
-  if (seg < n_next) {
-    copy_run(x + (seg * d + d - lo) * row, out + seg * lo * row, lo * row);
+// n 16-byte vectors from s to d by the block's threads: each thread
+// issues its V loads before its V stores.
+template <int V, int kThreads>
+__device__ __forceinline__ void copy16(const int4* __restrict__ s,
+                                       int4* __restrict__ d, uint32_t n,
+                                       uint32_t t) {
+  for (uint32_t base = t; base < n; base += V * kThreads) {
+    int4 r[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const uint32_t i = base + v * kThreads;
+      if (i < n) r[v] = __ldg(s + i);
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const uint32_t i = base + v * kThreads;
+      if (i < n) d[i] = r[v];
+    }
+  }
+}
+
+// `bytes` (a multiple of sizeof(T)) from src to dst, both aligned to
+// sizeof(T), by threads t of nt, four vectors a thread at a time.
+template <typename T>
+__device__ __forceinline__ void copy_vectors(const char* __restrict__ src,
+                                             char* __restrict__ dst,
+                                             uint32_t bytes, int t, int nt) {
+  const T* s = reinterpret_cast<const T*>(src);
+  T* d = reinterpret_cast<T*>(dst);
+  const uint32_t n = bytes / sizeof(T);
+  for (uint32_t base = t; base < n; base += 4 * nt) {
+    T r[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      if (base + v * nt < n) r[v] = __ldg(s + base + v * nt);
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      if (base + v * nt < n) d[base + v * nt] = r[v];
+    }
+  }
+}
+
+// The 2-byte halves of [0, bytes) (bytes < 32), one a thread.
+__device__ __forceinline__ void copy_halves(const char* src, char* dst,
+                                            uint32_t bytes, int t) {
+  if (t < static_cast<int>(bytes / 2)) {
+    reinterpret_cast<uint16_t*>(dst)[t] =
+        __ldg(reinterpret_cast<const uint16_t*>(src) + t);
+  }
+}
+
+// How a piece splits for the widest vector g (16, 4 or 2 bytes) that its
+// source and destination are aligned to alike: `head` bytes up to the
+// first g-aligned source byte, `body` bytes of whole g-vectors.
+struct Cut {
+  uint32_t g;
+  uint32_t head;
+  uint32_t body;
+};
+
+__device__ __forceinline__ Cut cut(const Piece& p) {
+  const uint32_t a = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p.src));
+  const uint32_t b = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p.dst));
+  const uint32_t g = ((a ^ b) & 15) == 0 ? 16 : ((a ^ b) & 3) == 0 ? 4 : 2;
+  uint32_t head = (g - (a & (g - 1))) & (g - 1);
+  if (head > p.bytes) head = p.bytes;
+  return {g, head, (p.bytes - head) & ~(g - 1)};
+}
+
+// A piece in any alignment by threads t of nt: its ragged head and tail
+// as 2-byte halves, the rest in the widest vectors it allows. Out of line:
+// the aligned path's code stays small.
+__device__ __noinline__ void copy_any(Piece p, int t, int nt) {
+  const Cut c = cut(p);
+  const uint32_t tail = c.head + c.body;
+  copy_halves(p.src, p.dst, c.head, t);
+  copy_halves(p.src + tail, p.dst + tail, p.bytes - tail, t);
+  const char* s = p.src + c.head;
+  char* d = p.dst + c.head;
+  if (c.g == 16) {
+    copy_vectors<int4>(s, d, c.body, t, nt);
+  } else if (c.g == 4) {
+    copy_vectors<uint32_t>(s, d, c.body, t, nt);
   } else {
-    const int64_t s = seg - n_next;
-    copy_run(x + s * d * row, out + (n * lo + s * hi) * row, hi * row);
+    copy_vectors<uint16_t>(s, d, c.body, t, nt);
   }
 }
 
-// blockIdx.y = 3 * sample + part; part 0 = lo_buf, 1 = x, 2 = hi_buf.
-__global__ void __launch_bounds__(kThreads)
-unpack_kernel(const char* __restrict__ lo_buf, const char* __restrict__ x,
-              const char* __restrict__ hi_buf, char* __restrict__ out,
-              int64_t d, int64_t row, int lo, int hi) {
-  const int64_t s = blockIdx.y / 3;
-  const int part = blockIdx.y % 3;
-  char* base = out + s * (lo + d + hi) * row;
-  if (part == 0) {
-    copy_run(lo_buf + s * lo * row, base, lo * row);
-  } else if (part == 1) {
-    copy_run(x + s * d * row, base + lo * row, d * row);
+__device__ __forceinline__ bool aligned16(const Piece& p) {
+  return ((reinterpret_cast<uintptr_t>(p.src) |
+           reinterpret_cast<uintptr_t>(p.dst) | p.bytes) & 15) == 0;
+}
+
+// one block a chunk: the grid is the launch's chunks
+template <int V>
+__global__ void __launch_bounds__(kRegThreads) register_kernel(Work w) {
+  const Piece p = piece(w, blockIdx.x);
+  if (aligned16(p)) {
+    copy16<V, kRegThreads>(reinterpret_cast<const int4*>(p.src),
+                           reinterpret_cast<int4*>(p.dst), p.bytes / 16,
+                           threadIdx.x);
   } else {
-    copy_run(hi_buf + s * hi * row, base + (lo + d) * row, hi * row);
+    copy_any(p, threadIdx.x, kRegThreads);
   }
 }
 
-// Blocks along x for runs of up to `bytes`: about four 16-byte vectors a
-// thread, at most kMaxBlocksPerRun.
-unsigned blocks_for(int64_t bytes) {
-  const int64_t per_block = static_cast<int64_t>(kThreads) * 16 * 4;
-  int64_t b = (bytes + per_block - 1) / per_block;
-  if (b < 1) b = 1;
-  if (b > kMaxBlocksPerRun) b = kMaxBlocksPerRun;
-  return static_cast<unsigned>(b);
+// ------------------------------------------ barriers and bulk copies --
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+// a barrier that has not completed after ~10 s of spinning traps: the
+// launch fails instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  do {
+    if (clock64() - start > (1LL << 34)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
+}
+
+// The bytes of a piece the bulk copies take: [head, head + body) when
+// source and destination are 16-byte aligned alike, else none.
+__device__ __forceinline__ Cut bulk_part(const Piece& p) {
+  Cut c = cut(p);
+  if (c.g != 16) c.body = 0;
+  return c;
+}
+
+// the flat index of this block's k-th chunk: blocks take chunks in turn,
+// so the resident blocks sweep one window of the runs together
+__device__ __forceinline__ uint32_t chunk_of(uint32_t k) {
+  return blockIdx.x + k * gridDim.x;
+}
+
+__device__ __forceinline__ uint32_t chunks_of_block(const Work& w) {
+  return blockIdx.x < w.total ? (w.total - 1 - blockIdx.x) / gridDim.x + 1
+                              : 0;
+}
+
+__global__ void __launch_bounds__(kBulkThreads)
+bulk_kernel(Work w, int stages) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + stages * w.chunk);
+  const uint32_t mine = chunks_of_block(w);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(smem_u32(bars + s));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // chunk k of this block lies in stage k % stages; a chunk with nothing
+    // for the bulk copies still arrives (0 bytes) and commits an empty
+    // group, so every stage's phase and the group count stay in step
+    auto issue = [&](uint32_t k) {
+      const uint32_t st = k % stages;
+      const Piece p = piece(w, chunk_of(k));
+      const Cut c = bulk_part(p);
+      const uint32_t bar = smem_u32(bars + st);
+      mbar_expect_tx(bar, c.body);
+      if (c.body) {
+        bulk_load(smem_u32(ring + st * w.chunk), p.src + c.head, c.body,
+                  bar);
+      }
+    };
+    const uint32_t ahead = stages - 1;
+    for (uint32_t k = 0; k < ahead && k < mine; ++k) issue(k);
+    for (uint32_t k = 0; k < mine; ++k) {
+      const uint32_t st = k % stages;
+      mbar_wait(smem_u32(bars + st), (k / stages) & 1);
+      const Piece p = piece(w, chunk_of(k));
+      const Cut c = bulk_part(p);
+      if (c.body) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        bulk_store(p.dst + c.head, smem_u32(ring + st * w.chunk), c.body);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      if (k + ahead < mine) {
+        // the stage of chunk k - 1 is free once its store has read it:
+        // every group but the newest (chunk k's store)
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+        issue(k + ahead);
+      }
+    }
+    // every store complete before the block's shared memory goes
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  } else if (threadIdx.x >= 32) {
+    const int t = threadIdx.x - 32;
+    const int nt = kBulkThreads - 32;
+    for (uint32_t k = 0; k < mine; ++k) {
+      const Piece p = piece(w, chunk_of(k));
+      const Cut c = bulk_part(p);
+      if (c.g == 16) {  // the ragged edges around the bulk bytes
+        const uint32_t tail = c.head + c.body;
+        copy_halves(p.src, p.dst, c.head, t);
+        copy_halves(p.src + tail, p.dst + tail, p.bytes - tail, t);
+      } else {
+        copy_any(p, t, nt);
+      }
+    }
+  }
+}
+
+// path 0: bulk, with `stages` ring stages of `chunk` bytes; path 1: the
+// register path with `vectors` 16-byte vectors a thread.
+cudaError_t launch(Work w, int64_t n, int64_t chunk, int grid, int path,
+                   int stages, int vectors, cudaStream_t stream) {
+  const int64_t per_sample = static_cast<int64_t>(w.part[0].chunks) +
+                             w.part[1].chunks + w.part[2].chunks;
+  if (n * per_sample == 0) return cudaSuccess;
+  // the flat index is 32-bit: at most 2^32 - 1 chunks a launch
+  if (chunk <= 0 || chunk % 16 != 0 || chunk > kMaxSmem || grid < 1 ||
+      n * per_sample > UINT32_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  w.chunk = static_cast<uint32_t>(chunk);
+  w.per_sample = static_cast<uint32_t>(per_sample);
+  w.total = static_cast<uint32_t>(n * per_sample);
+  if (path == 0) {
+    if (stages < 2 || stages > kMaxStages) return cudaErrorInvalidValue;
+    const int64_t smem = stages * chunk + stages * 8;
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    // above 48 KB only once the function allows it, once per device
+    static std::atomic<uint64_t> allowed{0};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const uint64_t bit = 1ull << (dev & 63);
+    if (!(allowed.load() & bit)) {
+      e = cudaFuncSetAttribute(bulk_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+      if (e != cudaSuccess) return e;
+      allowed.fetch_or(bit);
+    }
+    bulk_kernel<<<grid, kBulkThreads, static_cast<size_t>(smem), stream>>>(
+        w, stages);
+  } else if (path == 1) {
+    if (static_cast<uint32_t>(grid) != w.total) return cudaErrorInvalidValue;
+    switch (vectors) {
+      case 1: register_kernel<1><<<grid, kRegThreads, 0, stream>>>(w); break;
+      case 2: register_kernel<2><<<grid, kRegThreads, 0, stream>>>(w); break;
+      case 4: register_kernel<4><<<grid, kRegThreads, 0, stream>>>(w); break;
+      case 8: register_kernel<8><<<grid, kRegThreads, 0, stream>>>(w); break;
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int halo_pack(const void* x, void* out, long long n, long long d,
-                         long long row_bytes, int lo, int hi, void* stream) {
-  const int64_t n_next = lo > 0 ? n : 0;
-  const int64_t n_seg = n_next + (hi > 0 ? n : 0);
-  if (n_seg == 0) return static_cast<int>(cudaSuccess);
-  const int64_t widest = static_cast<int64_t>(lo > hi ? lo : hi) * row_bytes;
-  const dim3 grid(blocks_for(widest), static_cast<unsigned>(n_seg));
-  pack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(x), static_cast<char*>(out), n, d, row_bytes,
-      lo, hi, n_next);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int halo_unpack(const void* lo_buf, const void* x,
-                           const void* hi_buf, void* out, long long n,
-                           long long d, long long row_bytes, int lo, int hi,
-                           void* stream) {
-  if (n == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(blocks_for(d * row_bytes), static_cast<unsigned>(3 * n));
-  unpack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(lo_buf), static_cast<const char*>(x),
-      static_cast<const char*>(hi_buf), static_cast<char*>(out), d,
-      row_bytes, lo, hi);
-  return static_cast<int>(cudaGetLastError());
+// One launch over the parts the host laid out (kernels/halo_pack/ops.py,
+// `parts`): part p copies, for every sample s < n, geom[5p + 4] bytes from
+// src_p + geom[5p] + s * geom[5p + 1] to dst + geom[5p + 2] + s *
+// geom[5p + 3]. pack has two parts (to_next, to_prev; both read x),
+// unpack three (lo_buf, x, hi_buf); an unused part has 0 bytes.
+extern "C" int halo_copy(const void* src0, const void* src1,
+                         const void* src2, void* dst, const long long* geom,
+                         long long n, long long chunk, int grid, int path,
+                         int stages, int vectors, void* stream) {
+  if (n < 0 || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const void* srcs[3] = {src0, src1, src2};
+  Work w{};
+  for (int p = 0; p < 3; ++p) {
+    const long long* g = geom + 5 * p;
+    if (g[4] < 0 || g[4] % 2 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long chunks = (g[4] + chunk - 1) / chunk;
+    if (chunks > UINT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    w.part[p] = {static_cast<const char*>(srcs[p]) + g[0],
+                 static_cast<char*>(dst) + g[2], g[1], g[3], g[4],
+                 static_cast<uint32_t>(chunks)};
+  }
+  return static_cast<int>(launch(w, n, chunk, grid, path, stages, vectors,
+                                 static_cast<cudaStream_t>(stream)));
 }

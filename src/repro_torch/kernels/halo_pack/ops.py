@@ -7,6 +7,19 @@ take raises. On a CPU tensor each runs its plain version in ``ref.py``.
 There is no fallback to the plain version or to ``torch.cat`` for a CUDA
 tensor.
 
+Both go through ONE copy engine, ``halo_copy``. ``parts`` lays a call out
+as 2 (pack) or 3 (unpack) parts, each one contiguous run a sample;
+``split`` cuts every run into chunks over one flat index and picks the
+path from the launch's total bytes: at ``BULK_MIN_BYTES`` or more the
+bulk path (a persistent grid, bulk asynchronous copies through a ring of
+``BULK_STAGES`` chunks of ``BULK_CHUNK`` bytes in shared memory), below
+it the register path (one block a chunk, every load of a thread issued
+before its stores). On an H100 the register path was the faster at every
+size measured, so the threshold lies above any launch (the header of
+``csrc/halo_pack.cu``). The kernel receives ``parts`` and ``split`` as
+they are. Tests hold one path by patching ``BULK_MIN_BYTES`` (0: bulk; the default:
+registers).
+
 Both carry gradients where autograd records (the reference has no
 backward kernel for either; it trains through XLA): pack's adjoint adds
 the two face gradients into the trailing ``lo`` and leading ``hi``
@@ -20,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -28,14 +41,112 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.halo_pack import ref
 from repro_torch.kernels.halo_pack.ref import PackedFaces
 
-_MAX_SEGMENTS = 65535  # blockIdx.y: 2 runs a sample for pack, 3 for unpack
+# a launch of at least this many bytes (read) takes the bulk path: none,
+# since the bulk path lost at every size of scripts/halo_variants.py's
+# sweep on an H100 (8 KB to 4 GB a launch)
+BULK_MIN_BYTES = 1 << 62
+BULK_CHUNK = 32 << 10          # bytes a chunk on the bulk path
+BULK_STAGES = 4                # chunks in the ring, one block's
+SMEM_PER_SM = 228 << 10        # an H100 SM's shared memory
+SMEM_PER_BLOCK = 1 << 10       # reserved by the card for each block
+REG_THREADS = 256              # threads a block on the register path
+REG_VECTORS = (4, 2, 1)        # 16-byte vectors a thread, widest first
+# a launch reading at least this many bytes streams past the 50 MB L2:
+# one vector a thread (4 KB chunks) was ~1.3% faster there on an H100
+REG_STREAM_BYTES = 64 << 20
+_PATH = {"bulk": 0, "registers": 1}
 
 
-def _entry(name: str, n_ptrs: int):
-    fn = getattr(_build.load("halo_pack"), name)
+class Part(NamedTuple):
+    """One run a sample: ``bytes`` from ``src_offset + s * src_stride``
+    of the part's source to ``dst_offset + s * dst_stride`` of the
+    output, for each sample s (offsets in bytes)."""
+
+    src_offset: int
+    src_stride: int
+    dst_offset: int
+    dst_stride: int
+    bytes: int
+
+
+class Split(NamedTuple):
+    """How one launch cuts its work: the kernel's arguments."""
+
+    path: str                  # "bulk" or "registers"
+    chunk: int                 # bytes a chunk, a multiple of 16
+    stages: int                # the bulk path's ring (0 on registers)
+    vectors: int               # the register path's (0 on bulk)
+    chunks: Tuple[int, ...]    # chunks of each part's run of one sample
+    total: int                 # chunks of the launch, over one index
+    grid: int                  # blocks (0 when there is no work)
+
+
+def parts(kind: str, n: int, d: int, row: int, lo: int,
+          hi: int) -> Tuple[Part, ...]:
+    """The runs of a ``pack`` (to_next, to_prev: both read x) or an
+    ``unpack`` (lo_buf, x, hi_buf) of N samples of D depth rows of
+    ``row`` bytes; a width of 0 gives a part of 0 bytes."""
+    if kind == "pack":
+        return (Part((d - lo) * row, d * row, 0, lo * row, lo * row),
+                Part(0, d * row, n * lo * row, hi * row, hi * row))
+    pad = (lo + d + hi) * row
+    return (Part(0, lo * row, 0, pad, lo * row),
+            Part(0, d * row, lo * row, pad, d * row),
+            Part(0, hi * row, (lo + d) * row, pad, hi * row))
+
+
+def _chunks(ps: Sequence[Part], chunk: int) -> Tuple[int, ...]:
+    return tuple(-(-p.bytes // chunk) for p in ps)
+
+
+def split(ps: Sequence[Part], n: int, sms: int) -> Split:
+    """The launch's path, chunk and grid. Bulk: ``BULK_CHUNK`` chunks, as
+    many blocks as the SMs hold rings (no more than the chunks).
+    Registers: one block a chunk, the widest ``REG_VECTORS`` whose chunks
+    still give every SM a block, or one vector a thread from
+    ``REG_STREAM_BYTES`` on."""
+    work = n * sum(p.bytes for p in ps)
+    if work >= BULK_MIN_BYTES:
+        chunks = _chunks(ps, BULK_CHUNK)
+        total = n * sum(chunks)
+        ring = BULK_STAGES * (BULK_CHUNK + 8) + SMEM_PER_BLOCK
+        grid = min(total, sms * max(1, SMEM_PER_SM // ring))
+        return Split("bulk", BULK_CHUNK, BULK_STAGES, 0, chunks, total, grid)
+    for v in (1,) if work >= REG_STREAM_BYTES else REG_VECTORS:
+        chunks = _chunks(ps, v * REG_THREADS * 16)
+        total = n * sum(chunks)
+        if total >= sms:
+            break
+    return Split("registers", v * REG_THREADS * 16, 0, v, chunks, total,
+                 total)
+
+
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _copy(srcs, dst: torch.Tensor, ps: Sequence[Part], n: int,
+          what: str) -> None:
+    """ONE launch of ``halo_copy`` over ``ps`` on dst's current stream."""
+    sp = split(ps, n, _sms(dst.device.index))
+    geom = [v for p in ps for v in p] + [0] * (5 * (3 - len(ps)))
+    ptrs = [None if t is None else t.data_ptr() for t in srcs]
+    ptrs += [None] * (3 - len(ptrs))
+    with torch.cuda.device(dst.device):
+        err = _entry()(*ptrs, dst.data_ptr(), (ctypes.c_longlong * 15)(*geom),
+                       n, sp.chunk, sp.grid, _PATH[sp.path], sp.stages,
+                       sp.vectors,
+                       torch.cuda.current_stream(dst.device).cuda_stream)
+    _build.check(err, what)
+
+
+def _entry():
+    fn = _build.load("halo_pack").halo_copy
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong] * 3
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -77,17 +188,11 @@ def _pack(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
         return ref.pack(x, lo, hi).buf
     if not x.is_contiguous():
         raise ValueError("pack's kernel takes a contiguous x")
-    if 2 * x.shape[0] > _MAX_SEGMENTS:
-        raise ValueError(f"pack's kernel takes at most "
-                         f"{_MAX_SEGMENTS // 2} samples")
     n, d = x.shape[:2]
     buf = torch.empty(n * (lo + hi) * math.prod(x.shape[2:]),
                       dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _entry("halo_pack", 2)(
-            x.data_ptr(), buf.data_ptr(), n, d, _row_bytes(x), lo, hi,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "halo_pack")
+    _copy((x, x), buf, parts("pack", n, d, _row_bytes(x), lo, hi), n,
+          "halo_pack")
     _build.count_launch(pack)
     return buf
 
@@ -144,24 +249,16 @@ def _unpack(x: torch.Tensor, lo_buf: Optional[torch.Tensor],
     if x.device.type == "cpu":
         return ref.unpack(x, lo_buf, hi_buf)
     n, d = x.shape[:2]
-    parts = [t for t in (lo_buf, x, hi_buf) if t is not None]
-    if not all(t.is_contiguous() for t in parts):
+    if not all(t.is_contiguous() for t in (lo_buf, x, hi_buf)
+               if t is not None):
         raise ValueError("unpack's kernel takes contiguous x, lo_buf and "
                          "hi_buf")
-    if 3 * n > _MAX_SEGMENTS:
-        raise ValueError(f"unpack's kernel takes at most "
-                         f"{_MAX_SEGMENTS // 3} samples")
     lo = 0 if lo_buf is None else lo_buf.shape[1]
     hi = 0 if hi_buf is None else hi_buf.shape[1]
     out = torch.empty((n, lo + d + hi) + tuple(x.shape[2:]), dtype=x.dtype,
                       device=x.device)
-    with torch.cuda.device(x.device):
-        err = _entry("halo_unpack", 4)(
-            None if lo_buf is None else lo_buf.data_ptr(), x.data_ptr(),
-            None if hi_buf is None else hi_buf.data_ptr(), out.data_ptr(), n,
-            d, _row_bytes(x), lo, hi,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "halo_unpack")
+    _copy((lo_buf, x, hi_buf), out,
+          parts("unpack", n, d, _row_bytes(x), lo, hi), n, "halo_unpack")
     _build.count_launch(unpack)
     return out
 
