@@ -22,8 +22,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
               unpack's adjoint, the U-Net's (unet3d-256 b1 at S = 2, 4,
               its training steps at 64^3), plus k = 5 (lo = hi = 2), a
               row of 180 bytes and the edges of the copy's work split
-              (``HALO_EDGES``), fp32 and bf16, on each of the kernel's
-              two paths (bulk copies, registers), and unpack of a pack
+              (``HALO_EDGES``), fp32 and bf16, at each of the kernel's
+              vector counts (``HALO_VECTORS``), and unpack of a pack
               buffer's faces (views off 16 bytes).
 4. serve    — ``repro_torch.api.compile(RunConfig(model="cosmoflow-128",
               mode="infer", global_batch=4))`` at fp32 and bf16: predict
@@ -214,18 +214,18 @@ SPATIAL = (("cosmoflow-128", 4, 2, "fp32", "fixed"),
 # extra halo cases beyond the main path's: k = 5 (lo = hi = 2), and a
 # depth row of 3*5*3 fp32 = 180 bytes, not a multiple of 16
 HALO_EXTRA = (((2, 8, 16, 16, 8), 2, 2), ((2, 6, 3, 5, 3), 1, 1))
-# the edges of the halo copy's work split (tests/test_torch_cuda.py): a
-# run shorter than a chunk; not a multiple of one (40,000-byte rows);
-# larger than the bulk ring (1 MB runs); lo = 0 and hi = 0 alone;
-# 7-element rows (14 bytes in bf16); more samples than either path's grid
-# has blocks (3 x 30,000 runs)
+# the edges of the halo copy's work split (tests/test_torch_cuda.py holds
+# the kernel at them too): a run shorter than a chunk; not a multiple of
+# one (40,000-byte rows); many chunks a run (1 MB runs); lo = 0 and hi = 0
+# alone; 7-element rows (14 bytes in bf16); more runs than a grid's
+# y-dimension once took (3 x 30,000)
 HALO_EDGES = (((2, 4, 4, 4, 8), 1, 1), ((2, 5, 25, 25, 16), 2, 1),
               ((1, 6, 64, 64, 16), 2, 2), ((2, 6, 8, 8, 8), 0, 2),
               ((2, 6, 8, 8, 8), 2, 0), ((2, 5, 1, 1, 7), 1, 2),
               ((30000, 3, 1, 2, 2), 1, 1))
-# the halo kernel's two paths, each held by patching
-# ``kernels/halo_pack/ops.BULK_MIN_BYTES``
-HALO_PATHS = {"bulk": 0, "registers": 1 << 62}
+# the halo kernel's vector counts a thread (its three instantiations),
+# each held by patching ``kernels/halo_pack/ops.REG_VECTORS``
+HALO_VECTORS = (4, 2, 1)
 # "conv3d_dgrad": the conv3d kernel launched for a conv's input gradient
 # (counted apart from the forward's launches)
 KERNELS = ("conv3d", "conv3d_dgrad", "bn_act", "pack", "unpack", "ssd_scan")
@@ -645,36 +645,33 @@ def spatial_plan(plan_lib, part, cfg, S, kind):
 
 
 def phase_halo_kernels(pack_ops, pack_ref, cases) -> dict:
-    """pack and unpack against their plain versions, bit for bit, on each
-    of the kernel's two paths (``BULK_MIN_BYTES`` patched each way), at
-    ``cases`` and the edges of the work split; the largest absolute
-    difference seen is kept for the summary."""
+    """pack and unpack against their plain versions, bit for bit, at each
+    of the kernel's vector counts (``REG_VECTORS`` patched to each of
+    ``HALO_VECTORS``), at ``cases`` and the edges of the work split; the
+    largest absolute difference seen is kept for the summary."""
     g = torch.Generator(device="cuda").manual_seed(4)
     n_cmp = 0
     worst = {"pack": 0.0, "unpack": 0.0}
     cases = sorted(set(cases) | set(HALO_EDGES))
-    built = pack_ops.BULK_MIN_BYTES
-    try:
-        for path, threshold in HALO_PATHS.items():
-            pack_ops.BULK_MIN_BYTES = threshold
+    for v in HALO_VECTORS:
+        with mock.patch.multiple(pack_ops, REG_VECTORS=(v,),
+                                 REG_STREAM_BYTES=1 << 62):
             for dt in DTYPES.values():
                 for shape, lo, hi in cases:
                     n_cmp += halo_compare(pack_ops, pack_ref, g, shape, lo,
-                                          hi, dt, path, worst)
-    finally:
-        pack_ops.BULK_MIN_BYTES = built
+                                          hi, dt, v, worst)
     torch.cuda.empty_cache()  # the U-Net's 4 GB cases, before phase 10e
     log("kernels", f"halo_pack ok: {n_cmp} comparisons over {len(cases)} "
-        f"shapes x {len(DTYPES)} dtypes x paths {list(HALO_PATHS)}, all "
+        f"shapes x {len(DTYPES)} dtypes x vectors {HALO_VECTORS}, all "
         f"bit-exact; largest abs difference {worst}")
     return {"comparisons": n_cmp, "max_abs_err": worst,
-            "paths": list(HALO_PATHS),
+            "vectors": list(HALO_VECTORS),
             "cases": [list(map(str, c)) for c in cases]}
 
 
-def halo_compare(pack_ops, pack_ref, g, shape, lo, hi, dt, path,
+def halo_compare(pack_ops, pack_ref, g, shape, lo, hi, dt, vectors,
                  worst) -> int:
-    """One case on one path: pack, unpack, and unpack of the pack
+    """One case at one vector count: pack, unpack, and unpack of the pack
     buffer's faces (views that need not start on 16 bytes), each against
     its plain version; returns the number of comparisons."""
     x = torch.randn(shape, generator=g, device="cuda").to(dt)
@@ -683,8 +680,8 @@ def halo_compare(pack_ops, pack_ref, g, shape, lo, hi, dt, path,
     for kind in ("pack", "unpack"):
         sp = pack_ops.split(pack_ops.parts(kind, n, d, row, lo, hi), n,
                             pack_ops._sms(0))
-        check(sp.path == path or sp.total == 0,
-              f"{kind} {shape} lo={lo} hi={hi}: path {sp.path}, not {path}")
+        check(sp.vectors == vectors, f"{kind} {shape} lo={lo} hi={hi}: "
+              f"{sp.vectors} vectors a thread, not {vectors}")
     got = pack_ops.pack(x, lo, hi)
     bufs = [torch.randn((n, k, h, w, c), generator=g,
                         device="cuda").to(dt) if k else None
@@ -698,7 +695,7 @@ def halo_compare(pack_ops, pack_ref, g, shape, lo, hi, dt, path,
     torch.cuda.synchronize()
     for name, a, plain in pairs:
         b = plain()
-        what = f"{name} {shape} lo={lo} hi={hi} {dt} {path}"
+        what = f"{name} {shape} lo={lo} hi={hi} {dt} {vectors} vectors"
         check(a.shape == b.shape, f"{what}: shape {tuple(a.shape)} != "
               f"{tuple(b.shape)}")
         worst[name] = max(worst[name], max_err(a, b))
@@ -2191,9 +2188,9 @@ def halo_rows(k, cases, reps, floor_ms) -> dict:
     """pack and unpack at each (shape, lo, hi, dtype): kernel, plain
     version and library call (one ``torch.cat`` of the same views), each
     timed as device time per call (``queued_ms``: one call alone is
-    shorter than its launch), the path the kernel took, the byte bound
-    (each input read once, each output written once), the launch floor
-    and the kernel's share of its bound."""
+    shorter than its launch), the vectors a thread the kernel took, the
+    byte bound (each input read once, each output written once), the
+    launch floor and the kernel's share of its bound."""
     gt = torch.Generator(device="cuda").manual_seed(5)
     rows = {"pack": {}, "unpack": {}}
     for shape, lo, hi, prec in cases:
@@ -2222,7 +2219,7 @@ def halo_rows(k, cases, reps, floor_ms) -> dict:
                                   n, k.pack_ops._sms(0))
             rows[name][key] = {
                 "x": list(shape), "lo": lo, "hi": hi, "dtype": prec,
-                "path": sp.path, "ms": ms,
+                "vectors": sp.vectors, "ms": ms,
                 "plain_ms": queued_ms(plain, reps),
                 "library_ms": queued_ms(cat, reps), "bound_ms": bound,
                 "bound_by": "bytes", "launch_floor_ms": floor_ms,

@@ -25,50 +25,37 @@
 // fixed chunks; ONE flat chunk index spans every run of every sample, so
 // face runs and body runs share the blocks evenly and no block idles
 // (samples do not ride on blockIdx.y, so their number is not capped).
-// The host (kernels/halo_pack/ops.py, `split`) picks the path, the chunk,
-// the ring and the grid from the launch's total bytes:
-//   - registers: one block a chunk, the grid just what the work needs, so
-//     the resident blocks sweep the runs in order as a memcpy does; each
-//     thread issues ALL its loads (1-4 vectors of 16 bytes, unrolled)
-//     before any store, so a call pays one DRAM round trip, not one a
-//     vector; past the L2, chunks of one vector a thread;
-//   - bulk: a persistent grid (as many blocks as fit on the SMs), each
-//     walking its chunks. One thread keeps `stages - 1` chunks of loads
-//     in flight through a ring in dynamic shared memory (cp.async.bulk
-//     global -> shared, completing on an mbarrier) and stores each
-//     arrived chunk with cp.async.bulk shared -> global, reusing a stage
-//     once its store has read it (wait_group.read). No registers or
-//     instructions are spent per byte.
-// Measured on an H100 (scripts/halo_variants.py), the bulk path lost to
-// the register path at every size of the sweep: ~1 us a call at the main
-// path's faces (its chain load -> store -> store complete is longer) and
-// 1-3% from 8 MB to 4 GB, where the register path is level with
-// torch.cat. So `BULK_MIN_BYTES` keeps it off by default; it is held to
-// the plain version on the card all the same.
-// Bulk copies take 16-byte addresses and sizes. A chunk's ragged head and
-// tail (under 16 bytes each), or the whole chunk where source and
-// destination are not 16-byte aligned alike, go by the other warps in
-// vectors of 16, 4 or 2 bytes: a depth row need not be a multiple of 16
-// bytes (3*5*3 fp32, odd bf16 rows) and a view may start anywhere. The
-// copy is byte-exact, so one kernel serves every float type of at least 2
-// bytes. Offsets are 64-bit: a shard at 512^3 holds more than 2^31
-// elements. A width of 0 (lo = 0 or hi = 0) gives its face no chunk.
+// One block copies one chunk and the grid is just the launch's chunks, so
+// the resident blocks sweep the runs in order as a memcpy does. Each
+// thread issues ALL its loads (1, 2 or 4 vectors of 16 bytes, unrolled)
+// before any store, so a call pays one DRAM round trip, not one a vector.
+// The host (kernels/halo_pack/ops.py, `split`) picks the vectors a thread,
+// and so the chunk, from the launch's total bytes: the widest that still
+// give every SM a block, and one a thread once a launch streams past the
+// L2.
+// A design with bulk asynchronous copies (cp.async.bulk through a ring in
+// shared memory, a persistent grid) lost to this one at every size on an
+// H100, by ~1 us a call to 8 MB and 1-3% from 8 MB to 4 GB; its source is
+// kept in scripts/halo_variants.py, which times it beside this one.
+// A chunk whose source and destination are not 16-byte aligned alike, or
+// whose size is not a multiple of 16, goes in 16-, 4- or 2-byte vectors
+// with its ragged head and tail as 2-byte halves: a depth row need not be
+// a multiple of 16 bytes (3*5*3 fp32, odd bf16 rows) and a view may start
+// anywhere. The copy is byte-exact, so one kernel serves every float type
+// of at least 2 bytes. Offsets are 64-bit: a shard at 512^3 holds more
+// than 2^31 elements. A width of 0 (lo = 0 or hi = 0) gives its face no
+// chunk.
 //
 // Plain C interface (loaded with ctypes): ONE entry point, halo_copy, for
 // both; it launches on the given stream and returns cudaGetLastError()
 // (cudaErrorInvalidValue, without launching, for a split it cannot take).
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstdint>
 
 namespace {
 
-constexpr int kRegThreads = 256;   // register path: one chunk a block
-constexpr int kBulkThreads = 128;  // bulk path: thread 0 drives the copies,
-                                   // warps 1-3 the ragged edges
-constexpr int kMaxStages = 8;
-constexpr int kMaxSmem = 232448;   // 227 KB, a block's dynamic maximum
+constexpr int kThreads = 256;  // one chunk a block
 
 // One part of a launch: the run of sample s is `bytes` from
 // src + s * src_stride to dst + s * dst_stride, cut into `chunks` chunks.
@@ -116,7 +103,7 @@ __device__ __forceinline__ Piece piece(const Work& w, uint32_t i) {
 
 // n 16-byte vectors from s to d by the block's threads: each thread
 // issues its V loads before its V stores.
-template <int V, int kThreads>
+template <int V>
 __device__ __forceinline__ void copy16(const int4* __restrict__ s,
                                        int4* __restrict__ d, uint32_t n,
                                        uint32_t t) {
@@ -210,188 +197,36 @@ __device__ __forceinline__ bool aligned16(const Piece& p) {
 
 // one block a chunk: the grid is the launch's chunks
 template <int V>
-__global__ void __launch_bounds__(kRegThreads) register_kernel(Work w) {
+__global__ void __launch_bounds__(kThreads) copy_kernel(Work w) {
   const Piece p = piece(w, blockIdx.x);
   if (aligned16(p)) {
-    copy16<V, kRegThreads>(reinterpret_cast<const int4*>(p.src),
-                           reinterpret_cast<int4*>(p.dst), p.bytes / 16,
-                           threadIdx.x);
+    copy16<V>(reinterpret_cast<const int4*>(p.src),
+              reinterpret_cast<int4*>(p.dst), p.bytes / 16, threadIdx.x);
   } else {
-    copy_any(p, threadIdx.x, kRegThreads);
+    copy_any(p, threadIdx.x, kThreads);
   }
 }
 
-// ------------------------------------------ barriers and bulk copies --
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-// a barrier that has not completed after ~10 s of spinning traps: the
-// launch fails instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done = 0;
-  do {
-    if (clock64() - start > (1LL << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
-                                           uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
-}
-
-// The bytes of a piece the bulk copies take: [head, head + body) when
-// source and destination are 16-byte aligned alike, else none.
-__device__ __forceinline__ Cut bulk_part(const Piece& p) {
-  Cut c = cut(p);
-  if (c.g != 16) c.body = 0;
-  return c;
-}
-
-// the flat index of this block's k-th chunk: blocks take chunks in turn,
-// so the resident blocks sweep one window of the runs together
-__device__ __forceinline__ uint32_t chunk_of(uint32_t k) {
-  return blockIdx.x + k * gridDim.x;
-}
-
-__device__ __forceinline__ uint32_t chunks_of_block(const Work& w) {
-  return blockIdx.x < w.total ? (w.total - 1 - blockIdx.x) / gridDim.x + 1
-                              : 0;
-}
-
-__global__ void __launch_bounds__(kBulkThreads)
-bulk_kernel(Work w, int stages) {
-  extern __shared__ __align__(128) unsigned char ring[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + stages * w.chunk);
-  const uint32_t mine = chunks_of_block(w);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(smem_u32(bars + s));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    // chunk k of this block lies in stage k % stages; a chunk with nothing
-    // for the bulk copies still arrives (0 bytes) and commits an empty
-    // group, so every stage's phase and the group count stay in step
-    auto issue = [&](uint32_t k) {
-      const uint32_t st = k % stages;
-      const Piece p = piece(w, chunk_of(k));
-      const Cut c = bulk_part(p);
-      const uint32_t bar = smem_u32(bars + st);
-      mbar_expect_tx(bar, c.body);
-      if (c.body) {
-        bulk_load(smem_u32(ring + st * w.chunk), p.src + c.head, c.body,
-                  bar);
-      }
-    };
-    const uint32_t ahead = stages - 1;
-    for (uint32_t k = 0; k < ahead && k < mine; ++k) issue(k);
-    for (uint32_t k = 0; k < mine; ++k) {
-      const uint32_t st = k % stages;
-      mbar_wait(smem_u32(bars + st), (k / stages) & 1);
-      const Piece p = piece(w, chunk_of(k));
-      const Cut c = bulk_part(p);
-      if (c.body) {
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        bulk_store(p.dst + c.head, smem_u32(ring + st * w.chunk), c.body);
-      }
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      if (k + ahead < mine) {
-        // the stage of chunk k - 1 is free once its store has read it:
-        // every group but the newest (chunk k's store)
-        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-        issue(k + ahead);
-      }
-    }
-    // every store complete before the block's shared memory goes
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-  } else if (threadIdx.x >= 32) {
-    const int t = threadIdx.x - 32;
-    const int nt = kBulkThreads - 32;
-    for (uint32_t k = 0; k < mine; ++k) {
-      const Piece p = piece(w, chunk_of(k));
-      const Cut c = bulk_part(p);
-      if (c.g == 16) {  // the ragged edges around the bulk bytes
-        const uint32_t tail = c.head + c.body;
-        copy_halves(p.src, p.dst, c.head, t);
-        copy_halves(p.src + tail, p.dst + tail, p.bytes - tail, t);
-      } else {
-        copy_any(p, t, nt);
-      }
-    }
-  }
-}
-
-// path 0: bulk, with `stages` ring stages of `chunk` bytes; path 1: the
-// register path with `vectors` 16-byte vectors a thread.
-cudaError_t launch(Work w, int64_t n, int64_t chunk, int grid, int path,
-                   int stages, int vectors, cudaStream_t stream) {
+// One block a chunk, `vectors` 16-byte vectors a thread; `grid` must be
+// the launch's chunks.
+cudaError_t launch(Work w, int64_t n, int64_t chunk, int grid, int vectors,
+                   cudaStream_t stream) {
   const int64_t per_sample = static_cast<int64_t>(w.part[0].chunks) +
                              w.part[1].chunks + w.part[2].chunks;
   if (n * per_sample == 0) return cudaSuccess;
-  // the flat index is 32-bit: at most 2^32 - 1 chunks a launch
-  if (chunk <= 0 || chunk % 16 != 0 || chunk > kMaxSmem || grid < 1 ||
-      n * per_sample > UINT32_MAX) {
+  // the flat index is 32-bit: at most 2^31 - 1 chunks (blocks) a launch
+  if (chunk % 16 != 0 || chunk > (1LL << 30) ||
+      n * per_sample > INT32_MAX || grid != n * per_sample) {
     return cudaErrorInvalidValue;
   }
   w.chunk = static_cast<uint32_t>(chunk);
   w.per_sample = static_cast<uint32_t>(per_sample);
   w.total = static_cast<uint32_t>(n * per_sample);
-  if (path == 0) {
-    if (stages < 2 || stages > kMaxStages) return cudaErrorInvalidValue;
-    const int64_t smem = stages * chunk + stages * 8;
-    if (smem > kMaxSmem) return cudaErrorInvalidValue;
-    // above 48 KB only once the function allows it, once per device
-    static std::atomic<uint64_t> allowed{0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    const uint64_t bit = 1ull << (dev & 63);
-    if (!(allowed.load() & bit)) {
-      e = cudaFuncSetAttribute(bulk_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmem);
-      if (e != cudaSuccess) return e;
-      allowed.fetch_or(bit);
-    }
-    bulk_kernel<<<grid, kBulkThreads, static_cast<size_t>(smem), stream>>>(
-        w, stages);
-  } else if (path == 1) {
-    if (static_cast<uint32_t>(grid) != w.total) return cudaErrorInvalidValue;
-    switch (vectors) {
-      case 1: register_kernel<1><<<grid, kRegThreads, 0, stream>>>(w); break;
-      case 2: register_kernel<2><<<grid, kRegThreads, 0, stream>>>(w); break;
-      case 4: register_kernel<4><<<grid, kRegThreads, 0, stream>>>(w); break;
-      case 8: register_kernel<8><<<grid, kRegThreads, 0, stream>>>(w); break;
-      default: return cudaErrorInvalidValue;
-    }
-  } else {
-    return cudaErrorInvalidValue;
+  switch (vectors) {
+    case 1: copy_kernel<1><<<grid, kThreads, 0, stream>>>(w); break;
+    case 2: copy_kernel<2><<<grid, kThreads, 0, stream>>>(w); break;
+    case 4: copy_kernel<4><<<grid, kThreads, 0, stream>>>(w); break;
+    default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
@@ -405,8 +240,8 @@ cudaError_t launch(Work w, int64_t n, int64_t chunk, int grid, int path,
 // unpack three (lo_buf, x, hi_buf); an unused part has 0 bytes.
 extern "C" int halo_copy(const void* src0, const void* src1,
                          const void* src2, void* dst, const long long* geom,
-                         long long n, long long chunk, int grid, int path,
-                         int stages, int vectors, void* stream) {
+                         long long n, long long chunk, int grid, int vectors,
+                         void* stream) {
   if (n < 0 || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const void* srcs[3] = {src0, src1, src2};
   Work w{};
@@ -421,6 +256,6 @@ extern "C" int halo_copy(const void* src0, const void* src1,
                  static_cast<char*>(dst) + g[2], g[1], g[3], g[4],
                  static_cast<uint32_t>(chunks)};
   }
-  return static_cast<int>(launch(w, n, chunk, grid, path, stages, vectors,
+  return static_cast<int>(launch(w, n, chunk, grid, vectors,
                                  static_cast<cudaStream_t>(stream)));
 }

@@ -9,16 +9,14 @@ tensor.
 
 Both go through ONE copy engine, ``halo_copy``. ``parts`` lays a call out
 as 2 (pack) or 3 (unpack) parts, each one contiguous run a sample;
-``split`` cuts every run into chunks over one flat index and picks the
-path from the launch's total bytes: at ``BULK_MIN_BYTES`` or more the
-bulk path (a persistent grid, bulk asynchronous copies through a ring of
-``BULK_STAGES`` chunks of ``BULK_CHUNK`` bytes in shared memory), below
-it the register path (one block a chunk, every load of a thread issued
-before its stores). On an H100 the register path was the faster at every
-size measured, so the threshold lies above any launch (the header of
-``csrc/halo_pack.cu``). The kernel receives ``parts`` and ``split`` as
-they are. Tests hold one path by patching ``BULK_MIN_BYTES`` (0: bulk; the default:
-registers).
+``split`` cuts every run into chunks over one flat index, one block a
+chunk, and picks the 16-byte vectors a thread (so the chunk) from the
+launch's total bytes (the header of ``csrc/halo_pack.cu``). The kernel
+receives ``parts`` and ``split`` as they are; both, and the C array the
+kernel reads them from, are kept per launch shape (``_launch``), so a
+call on the sharded paths does no more host work than a launch. Tests
+hold one vector count by patching ``REG_VECTORS`` (and
+``REG_STREAM_BYTES`` above the launch); the cache keys on both.
 
 Both carry gradients where autograd records (the reference has no
 backward kernel for either; it trains through XLA): pack's adjoint adds
@@ -32,6 +30,7 @@ launch of the pack kernel, whose faces they are with the widths swapped
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -41,20 +40,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.halo_pack import ref
 from repro_torch.kernels.halo_pack.ref import PackedFaces
 
-# a launch of at least this many bytes (read) takes the bulk path: none,
-# since the bulk path lost at every size of scripts/halo_variants.py's
-# sweep on an H100 (8 KB to 4 GB a launch)
-BULK_MIN_BYTES = 1 << 62
-BULK_CHUNK = 32 << 10          # bytes a chunk on the bulk path
-BULK_STAGES = 4                # chunks in the ring, one block's
-SMEM_PER_SM = 228 << 10        # an H100 SM's shared memory
-SMEM_PER_BLOCK = 1 << 10       # reserved by the card for each block
-REG_THREADS = 256              # threads a block on the register path
+REG_THREADS = 256              # threads a block (kThreads in the source)
 REG_VECTORS = (4, 2, 1)        # 16-byte vectors a thread, widest first
 # a launch reading at least this many bytes streams past the 50 MB L2:
 # one vector a thread (4 KB chunks) was ~1.3% faster there on an H100
 REG_STREAM_BYTES = 64 << 20
-_PATH = {"bulk": 0, "registers": 1}
 
 
 class Part(NamedTuple):
@@ -70,15 +60,13 @@ class Part(NamedTuple):
 
 
 class Split(NamedTuple):
-    """How one launch cuts its work: the kernel's arguments."""
+    """How one launch cuts its work: the kernel's arguments. One block a
+    chunk, so the grid is ``total``."""
 
-    path: str                  # "bulk" or "registers"
-    chunk: int                 # bytes a chunk, a multiple of 16
-    stages: int                # the bulk path's ring (0 on registers)
-    vectors: int               # the register path's (0 on bulk)
+    vectors: int               # 16-byte vectors a thread
+    chunk: int                 # bytes a chunk: vectors * REG_THREADS * 16
     chunks: Tuple[int, ...]    # chunks of each part's run of one sample
     total: int                 # chunks of the launch, over one index
-    grid: int                  # blocks (0 when there is no work)
 
 
 def parts(kind: str, n: int, d: int, row: int, lo: int,
@@ -95,59 +83,58 @@ def parts(kind: str, n: int, d: int, row: int, lo: int,
             Part(0, hi * row, (lo + d) * row, pad, hi * row))
 
 
-def _chunks(ps: Sequence[Part], chunk: int) -> Tuple[int, ...]:
-    return tuple(-(-p.bytes // chunk) for p in ps)
-
-
 def split(ps: Sequence[Part], n: int, sms: int) -> Split:
-    """The launch's path, chunk and grid. Bulk: ``BULK_CHUNK`` chunks, as
-    many blocks as the SMs hold rings (no more than the chunks).
-    Registers: one block a chunk, the widest ``REG_VECTORS`` whose chunks
-    still give every SM a block, or one vector a thread from
-    ``REG_STREAM_BYTES`` on."""
+    """The widest ``REG_VECTORS`` whose chunks still give every SM a
+    block, or one vector a thread from ``REG_STREAM_BYTES`` on."""
     work = n * sum(p.bytes for p in ps)
-    if work >= BULK_MIN_BYTES:
-        chunks = _chunks(ps, BULK_CHUNK)
-        total = n * sum(chunks)
-        ring = BULK_STAGES * (BULK_CHUNK + 8) + SMEM_PER_BLOCK
-        grid = min(total, sms * max(1, SMEM_PER_SM // ring))
-        return Split("bulk", BULK_CHUNK, BULK_STAGES, 0, chunks, total, grid)
     for v in (1,) if work >= REG_STREAM_BYTES else REG_VECTORS:
-        chunks = _chunks(ps, v * REG_THREADS * 16)
+        chunk = v * REG_THREADS * 16
+        chunks = tuple(-(-p.bytes // chunk) for p in ps)
         total = n * sum(chunks)
         if total >= sms:
             break
-    return Split("registers", v * REG_THREADS * 16, 0, v, chunks, total,
-                 total)
+    return Split(v, chunk, chunks, total)
 
 
+@functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _copy(srcs, dst: torch.Tensor, ps: Sequence[Part], n: int,
-          what: str) -> None:
-    """ONE launch of ``halo_copy`` over ``ps`` on dst's current stream."""
-    sp = split(ps, n, _sms(dst.device.index))
+@functools.lru_cache(maxsize=4096)
+def _launch(kind: str, n: int, d: int, row: int, lo: int, hi: int,
+            sms: int, vectors: Tuple[int, ...], stream_bytes: int):
+    """(split, C array of the parts) of one launch shape; ``vectors`` and
+    ``stream_bytes`` are the constants ``split`` reads, in the key so
+    that a patch of them is seen."""
+    ps = parts(kind, n, d, row, lo, hi)
     geom = [v for p in ps for v in p] + [0] * (5 * (3 - len(ps)))
+    return split(ps, n, sms), (ctypes.c_longlong * 15)(*geom)
+
+
+def _copy(srcs, dst: torch.Tensor, kind: str, n: int, d: int, row: int,
+          lo: int, hi: int) -> None:
+    """ONE launch of ``halo_copy`` on dst's current stream."""
+    index = dst.device.index
+    if torch.cuda.current_device() != index:
+        with torch.cuda.device(index):
+            return _copy(srcs, dst, kind, n, d, row, lo, hi)
+    sp, geom = _launch(kind, n, d, row, lo, hi, _sms(index), REG_VECTORS,
+                       REG_STREAM_BYTES)
     ptrs = [None if t is None else t.data_ptr() for t in srcs]
     ptrs += [None] * (3 - len(ptrs))
-    with torch.cuda.device(dst.device):
-        err = _entry()(*ptrs, dst.data_ptr(), (ctypes.c_longlong * 15)(*geom),
-                       n, sp.chunk, sp.grid, _PATH[sp.path], sp.stages,
-                       sp.vectors,
-                       torch.cuda.current_stream(dst.device).cuda_stream)
-    _build.check(err, what)
+    err = _entry()(*ptrs, dst.data_ptr(), geom, n, sp.chunk, sp.total,
+                   sp.vectors, torch.cuda.current_stream(index).cuda_stream)
+    _build.check(err, f"halo_{kind}")
 
 
+@functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("halo_pack").halo_copy
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4
-                       + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -191,8 +178,7 @@ def _pack(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     n, d = x.shape[:2]
     buf = torch.empty(n * (lo + hi) * math.prod(x.shape[2:]),
                       dtype=x.dtype, device=x.device)
-    _copy((x, x), buf, parts("pack", n, d, _row_bytes(x), lo, hi), n,
-          "halo_pack")
+    _copy((x, x), buf, "pack", n, d, _row_bytes(x), lo, hi)
     _build.count_launch(pack)
     return buf
 
@@ -257,8 +243,7 @@ def _unpack(x: torch.Tensor, lo_buf: Optional[torch.Tensor],
     hi = 0 if hi_buf is None else hi_buf.shape[1]
     out = torch.empty((n, lo + d + hi) + tuple(x.shape[2:]), dtype=x.dtype,
                       device=x.device)
-    _copy((lo_buf, x, hi_buf), out,
-          parts("unpack", n, d, _row_bytes(x), lo, hi), n, "halo_unpack")
+    _copy((lo_buf, x, hi_buf), out, "unpack", n, d, _row_bytes(x), lo, hi)
     _build.count_launch(unpack)
     return out
 

@@ -13,12 +13,13 @@ pieces of the overlapped spatial lowering, through both of its kernels,
 and its split-K sum must give the same bits on every run. The halo
 pack and unpack kernels are copies, so they must equal their plain
 versions exactly, at every face of the depth-split layers that
-``chip_smoke.py`` checks, and on each of their two paths (bulk copies,
-registers; ``ops.BULK_MIN_BYTES`` patched each way) at the edges of the
-work split: runs shorter than a chunk, not a multiple of it, larger than
-the ring, one width 0, rows of 2-byte elements not a multiple of 16
-bytes, more samples than the grid has blocks; a split the kernel cannot
-take raises; a 2-way session, one stream per shard on one
+``chip_smoke.py`` checks, and at each of their vector counts a thread
+(``ops.REG_VECTORS`` patched to each) at the edges of the work split
+(``chip_smoke.HALO_EDGES``): runs shorter than a chunk, not a multiple
+of it, of many chunks, one width 0, rows of 2-byte elements not a
+multiple of 16 bytes, more runs than a grid's y-dimension once took; a
+split the kernel cannot take raises; a 2-way session, one stream per
+shard on one
 card, must match the unsharded forward. The SSD scan kernel is held
 against its plain (sequential) version at ``tests/test_kernels.py``'s
 shapes and two ragged ones, at 3e-4 in fp32 (the reference's kernel
@@ -339,25 +340,29 @@ def test_halo_pack_unpack_kernels_equal_plain_on_card(cuda, dtype):
         assert torch.equal(out, pack_ref.unpack(x, lo_b, hi_b)), shape
 
 
-# the edges of the halo copy's work split: a run shorter than a chunk; not
-# a multiple of one (40,000-byte rows); larger than the bulk ring (1 MB
-# runs); lo = 0 and hi = 0 alone; 7-element rows (14 bytes in bf16);
-# more samples than either path's grid has blocks (3 x 30,000 runs)
-HALO_EDGES = [((2, 4, 4, 4, 8), 1, 1), ((2, 5, 25, 25, 16), 2, 1),
-              ((1, 6, 64, 64, 16), 2, 2), ((2, 6, 8, 8, 8), 0, 2),
-              ((2, 6, 8, 8, 8), 2, 0), ((2, 5, 1, 1, 7), 1, 2),
-              ((30000, 3, 1, 2, 2), 1, 1)]
-PATHS = {"bulk": 0, "registers": 1 << 62}  # ops.BULK_MIN_BYTES
+def _halo_edges():
+    """The edges of the halo copy's work split, as ``chip_smoke.py``
+    holds the kernel at them."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return list(cs.HALO_EDGES)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("vectors", [4, 2, 1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_halo_kernels_equal_plain_on_both_paths_at_the_split_edges(
-        cuda, path, dtype):
+def test_halo_kernels_equal_plain_at_each_vector_count_at_the_split_edges(
+        cuda, vectors, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
-    with mock.patch.object(pack_ops, "BULK_MIN_BYTES", PATHS[path]):
-        for shape, lo, hi in HALO_EDGES + _halo_cases():
+    with mock.patch.multiple(pack_ops, REG_VECTORS=(vectors,),
+                             REG_STREAM_BYTES=1 << 62):
+        for shape, lo, hi in _halo_edges() + _halo_cases():
             x = torch.randn(shape, generator=g, device=cuda).to(
                 TORCH_DT[dtype])
             n, d, h, w, c = shape
@@ -365,7 +370,7 @@ def test_halo_kernels_equal_plain_on_both_paths_at_the_split_edges(
             for kind in ("pack", "unpack"):
                 sp = pack_ops.split(pack_ops.parts(kind, n, d, row, lo, hi),
                                     n, pack_ops._sms(0))
-                assert sp.path == path
+                assert sp.vectors == vectors
             bufs = [torch.randn((n, k, h, w, c), generator=g,
                                 device=cuda).to(x.dtype) if k else None
                     for k in (lo, hi)]
@@ -389,9 +394,9 @@ def test_halo_copy_raises_on_a_split_it_cannot_take(cuda):
     from repro_torch.kernels import _build
 
     x = torch.randn(2, 6, 8, 8, 8, device=cuda)
-    for bad in ({"BULK_CHUNK": 24}, {"BULK_CHUNK": 64 << 10},
-                {"BULK_STAGES": 1}):
-        with mock.patch.multiple(pack_ops, BULK_MIN_BYTES=0, **bad):
+    # no instantiation for 3 or 8 vectors a thread
+    for bad in ((3,), (8,)):
+        with mock.patch.object(pack_ops, "REG_VECTORS", bad):
             with pytest.raises(_build.KernelLaunchError):
                 pack_ops.pack(x, 1, 1)
             with pytest.raises(_build.KernelLaunchError):

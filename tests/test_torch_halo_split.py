@@ -1,17 +1,15 @@
-"""The halo copy engine's work list, on the CPU.
+"""The halo copy engine's work split, on the CPU.
 
 ``kernels/halo_pack/ops.py`` lays a pack or an unpack out as parts (one
-run a sample each) and cuts the runs into chunks over one flat index
-(``split``); the CUDA kernel receives both as they are. ``pieces`` and
-``bulk_bytes`` below restate the kernel's walk (``piece``, ``cut`` and
-``bulk_part`` in ``csrc/halo_pack.cu``), and these tests replay it on
-bytes:
-for any (N, D, row, lo, hi, element size) and either path, the chunks
-cover every run exactly once, never cross a run, write every output byte
-exactly once and give ``ref.pack`` / ``ref.unpack``'s bytes; on the bulk
-path the bytes the bulk copies take are 16-byte aligned at both ends and
-a multiple of 16; the path follows ``BULK_MIN_BYTES``. The kernel itself
-is held on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+run a sample each, ``parts``) and cuts the runs into chunks over one
+flat index (``split``); the CUDA kernel receives both as they are. These
+tests hold the host's side: for any (N, D, row, lo, hi, element size)
+the parts, copied run by run, give ``ref.pack`` / ``ref.unpack``'s bytes
+and write every output byte once; the chunks cover every run and none
+reaches past its run's end; the vectors a thread follow the rule; a
+width of 0 gives its face no chunk; more runs than 65,535 are taken. The
+kernel itself is held bit for bit on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
 """
 from unittest import mock
 
@@ -26,90 +24,11 @@ SMS = 132
 DTYPES = {2: torch.float16, 4: torch.float32, 8: torch.float64}
 
 
-def pieces(ps, sp):
-    """(sample, part, offset in the run, bytes) of each chunk, in the
-    order of the kernel's flat index (``piece`` in the CUDA source)."""
-    per_sample = sum(sp.chunks)
-    for i in range(sp.total):
-        s, j = divmod(i, per_sample)
-        p = 0
-        while j >= sp.chunks[p]:
-            j -= sp.chunks[p]
-            p += 1
-        off = j * sp.chunk
-        yield s, p, off, min(sp.chunk, ps[p].bytes - off)
-
-
-def bulk_bytes(src, dst, nbytes):
-    """(head, body) of a chunk at byte addresses ``src`` -> ``dst`` on the
-    bulk path: the bulk copies take ``body`` bytes from ``head`` on (0
-    unless both addresses are 16-byte aligned alike); the rest goes by
-    the threads (``cut`` and ``bulk_part`` in the CUDA source)."""
-    if (src ^ dst) & 15:
-        return 0, 0
-    head = min((16 - (src & 15)) & 15, nbytes)
-    return head, (nbytes - head) & ~15
-
-
 def _bytes(t: torch.Tensor) -> np.ndarray:
     return t.contiguous().view(torch.uint8).numpy().ravel()
 
 
-def _replay(kind, x, lo_buf, hi_buf, lo, hi, sp, residues):
-    """The output the kernel writes under split ``sp``, chunk by chunk,
-    with the sources and the output at byte addresses ``residues``
-    (mod 16); checks each chunk on the way."""
-    n, d = x.shape[:2]
-    row = x[0, 0].numel() * x.element_size()
-    ps = ops.parts(kind, n, d, row, lo, hi)
-    srcs = ([_bytes(x)] * 2 if kind == "pack" else
-            [None if b is None else _bytes(b) for b in (lo_buf, x, hi_buf)])
-    out_len = (n * (lo + hi) * row if kind == "pack"
-               else n * (lo + d + hi) * row)
-    out = np.zeros(out_len, np.uint8)
-    seen = np.zeros(out_len, np.int32)
-    covered = {}
-    for s, p, off, length in pieces(ps, sp):
-        part = ps[p]
-        assert 0 <= off and 0 < length <= sp.chunk
-        assert off + length <= part.bytes, "a chunk crosses its run"
-        covered.setdefault((s, p), []).append((off, length))
-        a = part.src_offset + s * part.src_stride + off
-        b = part.dst_offset + s * part.dst_stride + off
-        out[b:b + length] = srcs[p][a:a + length]
-        seen[b:b + length] += 1
-        if sp.path == "bulk":
-            src_addr, dst_addr = residues[p] + a, residues[3] + b
-            head, body = bulk_bytes(src_addr, dst_addr, length)
-            assert body % 16 == 0 and head + body <= length
-            if body:
-                assert (src_addr + head) % 16 == 0
-                assert (dst_addr + head) % 16 == 0
-            if (src_addr - dst_addr) % 16 == 0:
-                assert head < 16 and length - head - body < 16
-    for p, part in enumerate(ps):
-        for s in range(n if part.bytes else 0):
-            runs = sorted(covered.pop((s, p)))
-            assert [o for o, _ in runs] == list(range(0, part.bytes,
-                                                      sp.chunk))
-            assert sum(m for _, m in runs) == part.bytes
-    assert not covered, "a chunk of an empty part"
-    assert (seen == 1).all(), "an output byte written twice or never"
-    return out
-
-
-@settings(deadline=None, max_examples=60)
-@given(kind=st.sampled_from(["pack", "unpack"]), n=st.integers(1, 3),
-       d=st.integers(1, 6), row=st.integers(1, 1500),
-       elem=st.sampled_from([2, 4, 8]), lo=st.integers(0, 6),
-       hi=st.integers(0, 6), threshold=st.integers(0, 1 << 16),
-       chunk=st.sampled_from([16, 48, 1024, 32768]),
-       stages=st.sampled_from([2, 4]),
-       residues=st.lists(st.integers(0, 7), min_size=4, max_size=4),
-       seed=st.integers(0, 2 ** 16))
-def test_chunks_cover_every_run_once_and_give_the_plain_bytes(
-        kind, n, d, row, elem, lo, hi, threshold, chunk, stages, residues,
-        seed):
+def _inputs(kind, n, d, row, elem, lo, hi, seed):
     if kind == "pack":
         lo, hi = min(lo, d), min(hi, d)
     dt = DTYPES[elem]
@@ -117,26 +36,63 @@ def test_chunks_cover_every_run_once_and_give_the_plain_bytes(
     x = torch.randn((n, d, row, 1, 1), generator=g).to(dt)
     bufs = [torch.randn((n, k, row, 1, 1), generator=g).to(dt) if k
             else None for k in (lo, hi)]
+    return x, bufs, lo, hi
+
+
+@settings(deadline=None, max_examples=60)
+@given(kind=st.sampled_from(["pack", "unpack"]), n=st.integers(1, 3),
+       d=st.integers(1, 6), row=st.integers(1, 1500),
+       elem=st.sampled_from([2, 4, 8]), lo=st.integers(0, 6),
+       hi=st.integers(0, 6), seed=st.integers(0, 2 ** 16))
+def test_parts_copied_run_by_run_give_the_plain_bytes(kind, n, d, row,
+                                                      elem, lo, hi, seed):
+    x, bufs, lo, hi = _inputs(kind, n, d, row, elem, lo, hi, seed)
     ps = ops.parts(kind, n, d, row * elem, lo, hi)
-    with mock.patch.multiple(ops, BULK_MIN_BYTES=threshold, BULK_CHUNK=chunk,
-                             BULK_STAGES=stages):
-        sp = ops.split(ps, n, SMS)
-    work = n * sum(p.bytes for p in ps)
-    assert sp.path == ("bulk" if work >= threshold else "registers")
+    srcs = ([_bytes(x)] * 2 if kind == "pack" else
+            [None if b is None else _bytes(b) for b in (bufs[0], x,
+                                                         bufs[1])])
+    want = _bytes(ref.pack(x, lo, hi).buf if kind == "pack"
+                  else ref.unpack(x, *bufs))
+    out = np.zeros_like(want)
+    seen = np.zeros(want.size, np.int32)
+    for p, part in enumerate(ps):
+        for s in range(n if part.bytes else 0):
+            a = part.src_offset + s * part.src_stride
+            b = part.dst_offset + s * part.dst_stride
+            assert a + part.bytes <= srcs[p].size
+            out[b:b + part.bytes] = srcs[p][a:a + part.bytes]
+            seen[b:b + part.bytes] += 1
+    assert (seen == 1).all(), "an output byte written twice or never"
+    np.testing.assert_array_equal(out, want)
+
+
+@settings(deadline=None, max_examples=200)
+@given(kind=st.sampled_from(["pack", "unpack"]), n=st.integers(1, 40),
+       d=st.integers(1, 64), row=st.integers(1, 1 << 20),
+       elem=st.sampled_from([2, 4, 8]), lo=st.integers(0, 3),
+       hi=st.integers(0, 3), sms=st.sampled_from([1, 16, 132]))
+def test_chunks_cover_every_run_and_follow_the_vector_rule(
+        kind, n, d, row, elem, lo, hi, sms):
+    if kind == "pack":
+        lo, hi = min(lo, d), min(hi, d)
+    ps = ops.parts(kind, n, d, row * elem, lo, hi)
+    sp = ops.split(ps, n, sms)
+    assert sp.chunk == sp.vectors * ops.REG_THREADS * 16
     assert sp.chunk % 16 == 0 and sp.total == n * sum(sp.chunks)
-    assert (sp.grid == 0) == (sp.total == 0) and sp.grid <= sp.total
-    if sp.path == "bulk":
-        assert (sp.chunk, sp.stages, sp.vectors) == (chunk, stages, 0)
+    for part, k in zip(ps, sp.chunks):
+        # k chunks from offset 0 cover the run, the last one not empty
+        assert (k - 1) * sp.chunk < part.bytes <= k * sp.chunk or (
+            k == part.bytes == 0)
+    work = n * sum(p.bytes for p in ps)
+    if work >= ops.REG_STREAM_BYTES:
+        assert sp.vectors == 1
     else:
-        assert sp.vectors in ops.REG_VECTORS and sp.stages == 0
-        assert sp.chunk == sp.vectors * ops.REG_THREADS * 16
-    # the chunk's addresses: each source and the output at a residue of
-    # its element size mod 16, as a view into a larger buffer may lie
-    res = [r * elem % 16 for r in residues]
-    got = _replay(kind, x, *bufs, lo, hi, sp, res)
-    want = (ref.pack(x, lo, hi).buf if kind == "pack"
-            else ref.unpack(x, *bufs))
-    np.testing.assert_array_equal(got, _bytes(want))
+        wider = [v for v in ops.REG_VECTORS if v > sp.vectors]
+        # every wider count leaves an SM without a block
+        for v in wider:
+            c = v * ops.REG_THREADS * 16
+            assert n * sum(-(-p.bytes // c) for p in ps) < sms
+        assert sp.total >= sms or sp.vectors == ops.REG_VECTORS[-1]
 
 
 @pytest.mark.parametrize("work,vectors", [
@@ -148,36 +104,33 @@ def test_register_path_takes_the_widest_vectors_that_fill_every_sm(
     """The widest vectors whose chunks give every SM a block, and one a
     thread once a launch streams past the L2."""
     ps = (ops.Part(0, work, 0, work, work),)
-    with mock.patch.object(ops, "BULK_MIN_BYTES", 1 << 62):
-        sp = ops.split(ps, 1, SMS)
-    assert (sp.path, sp.vectors) == ("registers", vectors)
-    assert sp.grid == sp.total == -(-work // sp.chunk)
+    sp = ops.split(ps, 1, SMS)
+    assert sp.vectors == vectors
+    assert sp.total == -(-work // sp.chunk)
 
 
-def test_bulk_grid_is_persistent_and_no_larger_than_the_work():
-    row = 4 << 20  # a cosmoflow-512 S=4 depth row at layer 0, fp32
-    with mock.patch.object(ops, "BULK_MIN_BYTES", 0):
-        big = ops.split(ops.parts("unpack", 1, 128, row, 1, 1), 1, SMS)
-        small = ops.split(ops.parts("pack", 2, 4, 4096, 1, 1), 2, SMS)
-    assert big.path == "bulk" and big.total == 2 * 128 + 128 * 128
-    per_sm = ops.SMEM_PER_SM // (ops.BULK_STAGES * (ops.BULK_CHUNK + 8)
-                                 + ops.SMEM_PER_BLOCK)
-    assert big.grid == SMS * per_sm
-    assert small.path == "bulk" and small.grid == small.total == 4
+def test_a_patch_of_the_vectors_is_seen_by_the_launch_cache():
+    """``_launch`` keys on the constants ``split`` reads, so a test that
+    holds one vector count gets it on a shape seen before."""
+    args = ("unpack", 2, 6, 512, 1, 1, SMS)
+    built = ops._launch(*args, ops.REG_VECTORS, ops.REG_STREAM_BYTES)[0]
+    assert ops._launch(*args, ops.REG_VECTORS,
+                       ops.REG_STREAM_BYTES)[0] is built
+    for v in (4, 2, 1):
+        with mock.patch.multiple(ops, REG_VECTORS=(v,),
+                                 REG_STREAM_BYTES=1 << 62):
+            sp, geom = ops._launch(*args, ops.REG_VECTORS,
+                                   ops.REG_STREAM_BYTES)
+        assert sp.vectors == v
+        assert list(geom) == [f for p in ops.parts(*args[:6]) for f in p]
 
 
 def test_samples_are_not_capped_by_the_grid():
     """More runs than 65,535 (a grid's y-dimension cap, where samples
-    once rode): the flat index runs on, over a grid of one block a chunk
-    (registers) or fewer blocks than chunks (bulk)."""
+    once rode): the flat index runs on, one block a chunk."""
     n = 30_000
-    ps = ops.parts("unpack", n, 3, 16, 1, 1)
-    for threshold, path in ((0, "bulk"), (1 << 62, "registers")):
-        with mock.patch.object(ops, "BULK_MIN_BYTES", threshold):
-            sp = ops.split(ps, n, SMS)
-        assert sp.total == 3 * n > 65_535 and sp.path == path
-        assert (sp.grid < sp.total) == (path == "bulk")
-        assert sum(1 for _ in pieces(ps, sp)) == sp.total
+    sp = ops.split(ops.parts("unpack", n, 3, 16, 1, 1), n, SMS)
+    assert sp.total == 3 * n > 65_535
 
 
 def test_a_width_of_zero_gives_its_face_no_chunk():
@@ -187,6 +140,5 @@ def test_a_width_of_zero_gives_its_face_no_chunk():
         sp = ops.split(ps, 2, SMS)
         empty = [i for i, p in enumerate(ps) if p.bytes == 0]
         assert empty and all(sp.chunks[i] == 0 for i in empty)
-        assert all(p not in empty for _, p, _, _ in pieces(ps, sp))
     sp = ops.split(ops.parts("pack", 2, 6, 512, 0, 0), 2, SMS)
-    assert sp.total == sp.grid == 0
+    assert sp.total == 0
