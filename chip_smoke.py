@@ -130,6 +130,27 @@ Phases, each printing one line; any failure raises and exits non-zero:
               (u-a) fp32 1 x 2, (u-b) fp32 1 x 4 (its bottleneck has no
               interior: unpack and its adjoint), (u-c) fp32 2 x 2 overlap
               and monolithic, (u-d) bf16 1 x 2.
+10g. train_remat (run right after 10e) — cosmoflow-128 b4 fp32 at 1 x 1,
+              1 x 2 and 1 x 2 with all 7 blocks split (the recompute
+              unpacks): step 1 (the ``grad_comm`` probe) with every
+              stage rematerialized against the same step without (loss
+              1e-5, each reduced gradient atol 1e-5 rtol 1e-4: the
+              reference's contract), whether the two are bitwise equal,
+              launches against ``kernel_launches(train=True)`` with the
+              recompute counted, the peak memory and ms per step of both;
+              then, every stage rematerialized, cosmoflow-512 b2 (2
+              steps; it is not run without remat), cosmoflow-512 b1 and
+              unet3d-256 b1 at 256^3: losses finite, launches, ms per
+              step and peak memory, and after phase 10 the 512^3 b1 and
+              256^3 runs beside the same steps without remat (10, 10e).
+10h. train_io — 8 synthetic cosmoflow-128 volumes written to a temporary
+              store; ``Session.make_loader`` at prefetch 0 and 2, at 1 x 1
+              and 1 x 2: the batches bitwise equal across loaders, 4
+              steps from each (two epochs) with bitwise equal losses at
+              each degree, each rank's store bytes (half a volume a
+              sample at S = 2; plus one row of each neighbour with
+              ``halo_voxels=1``), launches against ``kernel_launches``;
+              ms per step with its load, and ``io_stall_s``.
 11. ssd     — the SSD scan kernel against its plain (sequential) version
               at the shapes of ``tests/test_kernels.py``, a ragged L and
               mamba2-370m's layer shape (B=4, L=4096, H=32, P=64, N=128,
@@ -156,7 +177,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
               one profiled mamba2-370m forward in fp32 and one in bf16.
 
 Phases 4-6, 7-8, 10 (the training steps), 10b (the sharded training
-steps), 10c, 10e and 10f (the U-Net's) and 12-13 are the main paths:
+steps), 10c, 10e and 10f (the U-Net's), 10g, 10h and 12-13 are the main
+paths:
 the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
@@ -286,6 +308,21 @@ UNET_SPATIAL = (("u-a", 1, 2, "fp32", "overlap", "fixed"),
 # Cin = 1 (4-byte gather pieces in fp32, 2-byte in bf16) and dec2_w0's
 # Cin = 512 (K = 13,824): (input shape, Cout)
 UNET_GRID = (((1, 8, 16, 16, 1), 32), ((1, 4, 8, 8, 512), 256))
+# rematerialization (phase 10g): step 1 with every block rematerialized
+# against without, at cosmoflow-128 b4 fp32 at these (spatial degree,
+# plan) — "deep" splits all 7 blocks, so the recompute unpacks — (the
+# reference's contract: loss 1e-5, gradients atol 1e-5, rtol 1e-4);
+# then the memory runs, largest first, each (model, batch, steps): the
+# first step is the warm-up, the rest timed
+REMAT_PARITY = ((1, "fixed"), (2, "fixed"), (2, "deep"))
+REMAT_LOSS, REMAT_ATOL, REMAT_RTOL = 1e-5, 1e-5, 1e-4
+REMAT_RUNS = (("cosmoflow-512", 2, 2), ("cosmoflow-512", 1, 2),
+              ("unet3d-256", 1, 3))
+# the input pipeline (phase 10h): a store of IO_SAMPLES cosmoflow-128
+# volumes, loaders at these spatial degrees and prefetch depths, IO_STEPS
+# training steps each (two epochs), and the margin of a halo read
+IO_SAMPLES, IO_BATCH, IO_STEPS = 8, 4, 4
+IO_S, IO_DEPTHS, IO_HALO = (1, 2), (0, 2), 1
 # (B, L, H, P, N, chunk): tests/test_kernels.py's four (B=2), L=40 with
 # chunk 16 (lowered to 10), and mamba2-370m's layer at 4 x 4096 tokens
 SSD_SHAPES = ((2, 32, 2, 8, 16, 8), (2, 64, 3, 8, 16, 16),
@@ -1493,7 +1530,11 @@ def phase_train(k, cfgs, RunConfig, compile) -> tuple:
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         c0 = counts(k)
-        losses = [sess.step(x, y).item() for _ in range(n_steps)]
+        losses, step_ms = [], []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            losses.append(sess.step(x, y).item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         got = delta(counts(k), c0)
         expected = {n: expected[n] + per_step[n] * n_steps for n in KERNELS}
@@ -1506,7 +1547,8 @@ def phase_train(k, cfgs, RunConfig, compile) -> tuple:
             check(abs(losses[0] - first) <= 1e-6 * abs(first),
                   f"{tag}: step 1's loss {losses[0]} vs {first}")
         row = out["steps"][tag] = {
-            "losses": losses, "launches": got,
+            "losses": losses, "launches": got, "step_ms": step_ms,
+            "ms_per_step": statistics.median(step_ms[1:]),
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
             "resident_bytes_before": resident,
@@ -2256,6 +2298,285 @@ def unet_halo_totals(halo, name, unet3d, plan_lib, depth, cfg) -> dict:
     return out
 
 
+def remat_plan(plan_lib, depth, cfg, S: int, remat: bool = True,
+               kind: str = "fixed"):
+    """``spatial_plan``'s plan of ``cfg`` at spatial degree ``S`` (depth
+    split, ``depth``) with every stage rematerialized (``remat``) or
+    none."""
+    plan = spatial_plan(plan_lib, depth, cfg, S, kind)
+    return dataclasses.replace(plan, stages=tuple(
+        dataclasses.replace(st, remat=remat) for st in plan.stages))
+
+
+def phase_train_remat(k, cfgs, ucfg, RunConfig, compile, plan_lib, depth,
+                      card: str) -> tuple:
+    """Rematerialization on the card (a main path: every call below is
+    counted). First step 1 of cosmoflow-128 b4 fp32 at each of
+    ``REMAT_PARITY`` (every shard on this card) with every stage
+    rematerialized against the same step without: the ``grad_comm``
+    probe's loss within ``REMAT_LOSS`` and each reduced gradient within
+    ``REMAT_ATOL``/``REMAT_RTOL`` (the reference's contract), whether
+    the two are bitwise equal, the launches of each against
+    ``kernel_launches(train=True)`` (the recompute counted), and the
+    peak memory allocated and reserved of each; ms per step of each
+    (host clock, median of 3). Then ``REMAT_RUNS``, each with every
+    stage rematerialized, after the cached memory is released: its
+    steps (the first a warm-up), every loss finite, launches per step
+    against ``kernel_launches``, ms per timed step and the peak memory.
+    Returns (report, launches)."""
+    out = {"parity": {}, "runs": {}, "card": card}
+    g = torch.Generator(device="cuda").manual_seed(21)
+    cfg = cfgs["cosmoflow-128"]
+    x, y = train_batch(cfg, 4, g)
+    zero_counts(k)
+    expected = dict(NO_LAUNCHES)
+    for S, kind in REMAT_PARITY:
+        got, sessions = {}, {}
+        where = f"1x{S}" + ("" if kind == "fixed" else f" {kind}")
+        for tag, remat in (("off", False), ("on", True)):
+            sess = compile(RunConfig(model=cfg, mode="train", global_batch=4,
+                                     spatial=S,
+                                     plan=remat_plan(plan_lib, depth, cfg,
+                                                     S, remat, kind)),
+                           devices=["cuda:0"] * S)
+            per_step = dict(NO_LAUNCHES, **k.cosmoflow.kernel_launches(
+                cfg, sess.plan, train=True))
+            probe = k.train_step.make_convnet_phase_probes(
+                sess.cfg, sess.mesh, sess.optimizer, global_batch=4,
+                plan=sess.plan)["grad_comm"]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            c0 = counts(k)
+            loss, grads = within_limit(
+                lambda: probe(sess.params, sess.opt_state, x, y, 0),
+                SPATIAL_LIMIT_S, f"remat {tag} {where}")
+            torch.cuda.synchronize()
+            launched = delta(counts(k), c0)
+            check(launched == per_step, f"remat {tag} {where}: launches "
+                  f"{launched}, kernel_launches {per_step}")
+            expected = {n: expected[n] + per_step[n] for n in KERNELS}
+            got[tag] = {"loss": loss.item(), "grads": grads,
+                        "launches": per_step,
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "peak_reserved_bytes":
+                            torch.cuda.max_memory_reserved()}
+            sessions[tag] = sess
+        on, off = got["on"], got["off"]
+        loss_err = abs(on["loss"] - off["loss"])
+        bad = [n for n in off["grads"] if not torch.allclose(
+            on["grads"][n], off["grads"][n], atol=REMAT_ATOL,
+            rtol=REMAT_RTOL)]
+        check(loss_err <= REMAT_LOSS and not bad,
+              f"remat {where}: loss {loss_err}, gradients out of bounds {bad}")
+        bitwise = on["loss"] == off["loss"] and all(
+            torch.equal(on["grads"][n], off["grads"][n])
+            for n in off["grads"])
+        worst = max((on["grads"][n] - off["grads"][n]).abs().max().item()
+                    for n in off["grads"])
+        for tag in ("off", "on"):  # the steps, counted
+            c0 = counts(k)
+            ms = host_ms(lambda: sessions[tag].step(x, y), 3)
+            per_step = got[tag]["launches"]
+            launched = delta(counts(k), c0)
+            check(launched == {n: 4 * v for n, v in per_step.items()},
+                  f"remat {tag} {where}: steps' launches {launched}")
+            expected = {n: expected[n] + launched[n] for n in KERNELS}
+            got[tag]["ms_per_step"] = ms
+            sessions[tag].close()
+        row = out["parity"][f"cosmoflow-128/fp32/b4/{where}"] = {
+            "loss_abs_err": loss_err, "max_abs_grad_diff": worst,
+            "bitwise": bitwise, **{tag: {key: v for key, v in got[tag].items()
+                                         if key != "grads"}
+                                   for tag in ("off", "on")}}
+        log("train_remat", f"cosmoflow-128 fp32 b4 {where}: step 1 every "
+            f"block rematerialized vs none: loss {loss_err:.3g} <= "
+            f"{REMAT_LOSS}, gradients max abs {worst:.3g} (atol "
+            f"{REMAT_ATOL}, rtol {REMAT_RTOL}); bitwise equal: {bitwise}; "
+            f"launches per step {json.dumps(on['launches'])} (without "
+            f"{json.dumps(off['launches'])}) = kernel_launches; peak "
+            f"{on['peak_bytes'] / 2 ** 30:.3f} GiB allocated, "
+            f"{on['peak_reserved_bytes'] / 2 ** 30:.3f} reserved (without "
+            f"{off['peak_bytes'] / 2 ** 30:.3f}, "
+            f"{off['peak_reserved_bytes'] / 2 ** 30:.3f}); ms per step "
+            f"{row['on']['ms_per_step']:.2f} (without "
+            f"{row['off']['ms_per_step']:.2f}) ({card})")
+        del sessions, got
+    del x, y
+
+    for name, batch, n_steps in REMAT_RUNS:
+        big = ucfg if name == "unet3d-256" else cfgs[name]
+        model = k.unet3d if big.arch == "unet3d" else k.cosmoflow
+        tag = f"{name}/fp32/b{batch}/remat"
+        release_cached(tag)
+        x, y = train_batch(big, batch, g)
+        sess = compile(RunConfig(model=big, mode="train", global_batch=batch,
+                                 plan=remat_plan(plan_lib, depth, big, 1)))
+        per_step = dict(NO_LAUNCHES, **model.kernel_launches(
+            big, sess.plan, train=True))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        c0 = counts(k)
+        losses, ms = [], []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            losses.append(sess.step(x, y).item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launched = delta(counts(k), c0)
+        check(launched == {n: v * n_steps for n, v in per_step.items()},
+              f"{tag}: launches {launched} over {n_steps} steps, expected "
+              f"{per_step} per step (kernel_launches)")
+        check(all(math.isfinite(v) for v in losses),
+              f"{tag}: non-finite losses {losses}")
+        expected = {n: expected[n] + launched[n] for n in KERNELS}
+        row = out["runs"][tag] = {
+            "losses": losses, "step_ms": ms,
+            "ms_per_step": statistics.median(ms[1:]),
+            "launches_per_step": per_step,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "resident_bytes_before": resident}
+        log("train_remat", f"{tag}: {n_steps} steps (the first a warm-up), "
+            f"losses {losses}; {row['ms_per_step']:.1f} ms a step; "
+            f"launches per step {json.dumps(per_step)} = kernel_launches; "
+            f"peak {row['peak_bytes'] / 2 ** 30:.2f} GiB allocated, "
+            f"{row['peak_reserved_bytes'] / 2 ** 30:.2f} GiB reserved "
+            f"({card})")
+        sess.close()
+        del sess, x, y
+    launches = counts(k)
+    check(launches == expected, f"train_remat launches {launches}, "
+          f"expected {expected}")
+    log("main path", f"train_remat: launches {launches}")
+    release_cached("the phases after train_remat")
+    return out, launches
+
+
+def phase_train_io(k, cfg, RunConfig, compile, card: str) -> tuple:
+    """The input pipeline on the card (a main path for its training
+    steps): ``IO_SAMPLES`` synthetic cosmoflow-128 volumes written to a
+    temporary store; for each spatial degree of ``IO_S`` (every shard on
+    this card) and prefetch depth of ``IO_DEPTHS``, a train session's
+    ``make_loader`` feeds ``IO_STEPS`` steps over two epochs. Checked:
+    the batches of every loader bitwise equal (prefetched against
+    synchronous, S = 2 against S = 1), the losses of the two depths
+    bitwise equal at each S, each rank's store bytes (``IOStats``) at
+    S = 2 half of S = 1's, and at S = 2 with ``IO_HALO`` margin voxels
+    half plus the margin's rows, every loss finite, launches per step
+    against ``kernel_launches``. Printed: ms per step (host clock,
+    median of the steps after the first) and ``io_stall_s``. Returns
+    (report, launches)."""
+    import tempfile
+
+    from repro_torch.data import store, synthetic
+
+    out = {"runs": {}, "card": card}
+    w, c = cfg.input_width, cfg.in_channels
+    vol_bytes = w ** 3 * c * 4
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as root:
+        t0 = time.perf_counter()
+        cubes, targets = synthetic.make_cosmology_dataset(
+            IO_SAMPLES, w, channels=c, seed=0)
+        store.write_dataset(root, cubes, targets)
+        del cubes
+        log("train_io", f"{IO_SAMPLES} synthetic {cfg.name} volumes "
+            f"({IO_SAMPLES * vol_bytes / 2 ** 20:.0f} MiB) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        zero_counts(k)
+        expected = dict(NO_LAUNCHES)
+        batches, losses_at = None, {}
+        for S in IO_S:
+            for depth in IO_DEPTHS:
+                tag = f"{cfg.name}/fp32/b{IO_BATCH}/1x{S}/prefetch{depth}"
+                sess = compile(RunConfig(model=cfg, mode="train",
+                                         global_batch=IO_BATCH, spatial=S,
+                                         data_dir=root, prefetch=depth),
+                               devices=["cuda:0"] * S)
+                per_step = dict(NO_LAUNCHES, **k.cosmoflow.kernel_launches(
+                    cfg, sess.plan, train=True))
+                ld = sess.make_loader()
+                seen, losses, ms = [], [], []
+                c0 = counts(k)
+                for _ in range(IO_STEPS * IO_BATCH // IO_SAMPLES):
+                    order = ld.epoch_schedule()
+                    for lo in range(0, IO_SAMPLES, IO_BATCH):
+                        t1 = time.perf_counter()
+                        x, y = ld.load_batch(order[lo:lo + IO_BATCH])
+                        losses.append(sess.step(x, y).item())
+                        ms.append((time.perf_counter() - t1) * 1e3)
+                        seen.append((x, y))
+                launched = delta(counts(k), c0)
+                check(launched == {n: v * IO_STEPS
+                                   for n, v in per_step.items()},
+                      f"{tag}: launches {launched}, expected {per_step} "
+                      "per step (kernel_launches)")
+                expected = {n: expected[n] + launched[n] for n in KERNELS}
+                check(all(math.isfinite(v) for v in losses),
+                      f"{tag}: non-finite losses {losses}")
+                if batches is None:
+                    batches = seen
+                same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                           for a, b in zip(seen, batches))
+                check(same, f"{tag}: batches differ from the first loader's")
+                if depth:
+                    check(losses == losses_at[S], f"{tag}: losses {losses}"
+                          f" vs synchronous {losses_at[S]}")
+                losses_at.setdefault(S, losses)
+                ranks = dict(sorted(ld.stats.rank_pfs_bytes.items()))
+                check(ranks == {r: IO_SAMPLES * vol_bytes // S
+                                for r in range(S)},
+                      f"{tag}: store bytes per rank {ranks}")
+                tele = sess.telemetry()
+                row = out["runs"][tag] = {
+                    "losses": losses, "step_ms": ms,
+                    "ms_per_step": statistics.median(ms[1:]),
+                    "rank_pfs_bytes": ranks,
+                    "io_stall_s": tele.get("io_stall_s"),
+                    "io_queue_occupancy": tele.get("io_queue_occupancy"),
+                    "io_cache_hit_ratio": tele["io_cache_hit_ratio"]}
+                log("train_io", f"{tag}: {IO_STEPS} steps from the loader, "
+                    f"losses {losses}; {row['ms_per_step']:.2f} ms a step "
+                    f"with its load; store bytes per rank "
+                    f"{json.dumps(ranks)}; io_stall_s {row['io_stall_s']}, "
+                    f"queue occupancy {row['io_queue_occupancy']}, cache "
+                    f"hit ratio {row['io_cache_hit_ratio']:.3f} ({card})")
+                del seen, x, y
+                sess.close()
+        launches = counts(k)
+        check(launches == expected, f"train_io launches {launches}, "
+              f"expected {expected}")
+        log("main path", f"train_io: launches {launches}")
+        # the margin: each rank also reads IO_HALO depth rows of each
+        # neighbour it has
+        S = max(IO_S)
+        sess = compile(RunConfig(model=cfg, mode="train",
+                                 global_batch=IO_BATCH, spatial=S,
+                                 data_dir=root, prefetch=2),
+                       devices=["cuda:0"] * S)
+        ld = sess.make_loader(halo_voxels=IO_HALO)
+        order = ld.epoch_schedule()
+        for i, lo in enumerate(range(0, IO_SAMPLES, IO_BATCH)):
+            x, y = ld.load_batch(order[lo:lo + IO_BATCH])
+            check(torch.equal(x, batches[i][0]),
+                  "halo loader: the batch differs from the exact slabs'")
+        row_bytes = vol_bytes // w
+        ranks = dict(sorted(ld.stats.rank_pfs_bytes.items()))
+        want = {r: IO_SAMPLES * (vol_bytes // S + row_bytes * IO_HALO
+                                 * ((r > 0) + (r < S - 1)))
+                for r in range(S)}
+        check(ranks == want, f"halo loader: store bytes per rank {ranks}, "
+              f"expected {want}")
+        out["halo"] = {"halo_voxels": IO_HALO, "rank_pfs_bytes": ranks}
+        log("train_io", f"{cfg.name} 1x{S} halo_voxels={IO_HALO}: store "
+            f"bytes per rank {json.dumps(ranks)} = half a volume plus "
+            f"{IO_HALO} row(s) of each neighbour, per sample; batches "
+            "equal the exact slabs'")
+        sess.close()
+        del batches, x, y
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -2315,6 +2636,11 @@ def main() -> int:
     # reserves ~73 GB, and the later phases leave cached segments pinned
     # by small live blocks (~23 GB reserved with 3 GB allocated)
     unet_train = phase_unet_train(k, ucfg, RunConfig, compile)
+    # phase 10g next, for the same reason: cosmoflow-512 b2 and the U-Net
+    # at 256^3, every block rematerialized
+    release_cached("train_remat")
+    train_remat, got_remat = phase_train_remat(
+        k, cfgs, ucfg, RunConfig, compile, plan_lib, depth, report["card"])
 
     # ------------------------------------------- main path 1: 4-6 ----
     n128, n512 = cosmoflow.num_blocks(cf128), cosmoflow.num_blocks(cf512)
@@ -2551,12 +2877,35 @@ def main() -> int:
     train, got = phase_train(k, cfgs, RunConfig, compile)
     main_paths["train"] = {"launches": got}
     launches = {n: launches[n] + got[n] for n in KERNELS}
+    main_paths["train_remat"] = {"launches": got_remat}
+    launches = {n: launches[n] + got_remat[n] for n in KERNELS}
+    # every block rematerialized (phase 10g) beside the same configs
+    # without (phases 10 and 10e), in this run
+    vs = train_remat["vs_no_remat"] = {}
+    for tag, plain in (("cosmoflow-512/fp32/b1", train["steps"]),
+                       ("unet3d-256/fp32/b1", unet_train[0]["steps"])):
+        on, off = train_remat["runs"][tag + "/remat"], plain[tag]
+        vs[tag] = {key: (on[key], off[key]) for key in
+                   ("peak_bytes", "peak_reserved_bytes", "ms_per_step")}
+        log("train_remat", f"{tag}: remat vs none: peak "
+            f"{on['peak_bytes'] / 2 ** 30:.2f} vs "
+            f"{off['peak_bytes'] / 2 ** 30:.2f} GiB allocated, "
+            f"{on['peak_reserved_bytes'] / 2 ** 30:.2f} vs "
+            f"{off['peak_reserved_bytes'] / 2 ** 30:.2f} GiB reserved; "
+            f"{on['ms_per_step']:.1f} vs {off['ms_per_step']:.1f} ms a step "
+            f"({report['card']})")
 
     # ------------------------------------------ main path 4: 10b ----
     train_spatial, got = phase_train_spatial(
         k, cf128, TRAIN_SPATIAL, 4, {"e"}, RunConfig, compile, plan_lib,
         depth, report["card"])
     main_paths["train_spatial"] = {"launches": got}
+    launches = {n: launches[n] + got[n] for n in KERNELS}
+
+    # ------------------------------------------ main path: 10h ----
+    train_io, got = phase_train_io(k, cf128, RunConfig, compile,
+                                   report["card"])
+    main_paths["train_io"] = {"launches": got}
     launches = {n: launches[n] + got[n] for n in KERNELS}
 
     # ------------------------------ the 3D U-Net: main paths 10c-10f ----
@@ -2697,7 +3046,8 @@ def main() -> int:
                     for key in ("ms", "plain_ms", "bound_ms")}
         summary.append(entry)
     report.update(score=score, decode=decode_row, train=train,
-                  train_spatial=train_spatial, unet=unet)
+                  train_spatial=train_spatial, unet=unet,
+                  train_remat=train_remat, train_io=train_io)
     report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
                   conv_vs_library=conv_vs_library,
                   lowering=lowering, profile=profiles, bounds=PEAKS_USED,

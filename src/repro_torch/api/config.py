@@ -78,6 +78,8 @@ class RunConfig:
     save_every: Optional[int] = None
     keep_last: Optional[int] = None
     guard: Optional[bool] = None
+    # --- input pipeline (Session.make_loader): the store's directory
+    # (None: a synthetic dataset) and the prefetch queue's depth ---
     data_dir: Optional[str] = None
     prefetch: int = 2
     # --- observability: False = off, True = record spans in memory, a

@@ -11,7 +11,8 @@ bn_act and halo kernels, one backward, the gradient reduction, the Adam
 update) with the parameters, optimizer state and dropout seed threaded
 inside; ``save``/``Session.restore`` write and read the reference's
 checkpoint format, so each package resumes the other's runs, on any
-mesh shape. Both run CosmoFlow (``y``: (N, out_dim) targets) and the 3D
+mesh shape; ``make_loader`` gives it batches from a hyperslab store
+(``data/pipeline.py``). Both run CosmoFlow (``y``: (N, out_dim) targets) and the 3D
 U-Net (``y``: (N, D, H, W) voxel labels; ``evaluate`` returns per-voxel
 logits).
 
@@ -28,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import tempfile
 import threading
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -40,6 +42,8 @@ from repro_torch.core import faults
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
 from repro_torch.core.spatial_conv import SpatialPartitioning
+from repro_torch.data import pipeline, store, synthetic
+from repro_torch.data import prefetch as prefetch_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import DeviceLike
 from repro_torch.models import cosmoflow as cosmoflow_lib
@@ -249,6 +253,8 @@ class Session(_Traced):
         self._guarded_steps = 0
         self._applied_acc = torch.zeros((), device=self.device)
         self.resumes = 0
+        self._loaders: list = []  # telemetry and close()
+        self._tmpdirs: list = []
         self._init_trace(config)
         self._metrics_sink = None
         if config.metrics_jsonl:
@@ -331,22 +337,87 @@ class Session(_Traced):
                 overlap=self.config.overlap_halo, precision=self.precision)
         return fn(self.params, self._as_input(x), self._as_target(y))
 
+    # ------------------------------------------------------------ data ----
+    def make_loader(self, root: Optional[str] = None, *,
+                    num_samples: int = 16, seed: int = 0, cache: bool = True,
+                    prefetch: Optional[int] = None, halo_voxels: int = 0):
+        """A loader of global batches for ``step``, each mesh rank's block
+        of the plan's entry stage read on its own (``data/pipeline.py``).
+        ``root`` (or ``config.data_dir``) names an existing
+        ``HyperslabStore``; with neither, a synthetic dataset of
+        ``num_samples`` volumes (the model's: cosmology cubes and targets,
+        or segmentation volumes and voxel labels) is written to a
+        directory the Session owns, which ``close()`` removes.
+
+        ``prefetch`` (default ``config.prefetch``): 0 returns the
+        synchronous ``SpatialParallelLoader`` (the bitwise oracle); >= 1
+        wraps it in a ``PrefetchLoader`` of that queue depth, whose worker
+        reads the next batch and enqueues its copies while the current
+        step computes. ``halo_voxels`` widens each rank's reads by that
+        margin."""
+        root = root or self.config.data_dir
+        if root is None:
+            tmp = tempfile.TemporaryDirectory()
+            self._tmpdirs.append(tmp)
+            root = tmp.name
+            if self.cfg.arch == "cosmoflow":
+                cubes, targets = synthetic.make_cosmology_dataset(
+                    num_samples, self.cfg.input_width,
+                    channels=self.cfg.in_channels, seed=seed)
+                store.write_dataset(root, cubes, targets)
+            else:
+                cubes, labels = synthetic.make_segmentation_dataset(
+                    num_samples, self.cfg.input_width,
+                    num_classes=self.cfg.out_dim,
+                    channels=self.cfg.in_channels, seed=seed)
+                store.write_dataset(root, cubes, labels=labels)
+        loader = pipeline.SpatialParallelLoader(
+            store.HyperslabStore(root), self.mesh, self.plan.stages[0],
+            global_batch=self.config.global_batch, seed=seed, cache=cache,
+            halo_voxels=halo_voxels)
+        depth = self.config.prefetch if prefetch is None else prefetch
+        if depth:
+            loader = prefetch_lib.PrefetchLoader(loader, depth=depth)
+        self._loaders.append(loader)
+        return loader
+
     # --------------------------------------------------- introspection ----
     def telemetry(self) -> Dict[str, float]:
-        """Guard and recovery counters through the session's
+        """Guard, recovery and input counters through the session's
         ``MetricsRegistry``: ``steps``, ``skipped_steps`` (guarded steps
         whose update was vetoed; reading it waits for the device),
         ``loss_scale`` (the live fp16 scale, else 1), ``loader_retries``
-        (0: the input pipeline comes with its slice) and ``resumes``."""
+        (store reads retried, over this Session's loaders) and
+        ``resumes``. With a loader: ``io_pfs_bytes`` (store bytes read)
+        and ``io_cache_hit_ratio`` (the share of loader bytes the cache
+        served); with a prefetching loader also ``io_stall_s`` (time the
+        steps still waited for a queued batch) and ``io_queue_occupancy``
+        (the mean queue depth when a batch was served)."""
         skipped = (self._guarded_steps - float(self._applied_acc)
                    if self._guarded_steps else 0.0)
         scale = (float(self.opt_state.loss_scale)
                  if isinstance(self.opt_state, precision_lib.MPState)
                  else 1.0)
-        return self._metrics.absorb({
-            "steps": float(self._t), "skipped_steps": round(skipped),
-            "loss_scale": scale, "loader_retries": 0.0,
-            "resumes": float(self.resumes)})
+        out = {"steps": float(self._t), "skipped_steps": round(skipped),
+               "loss_scale": scale,
+               "loader_retries": float(sum(ld.store.retries
+                                           for ld in self._loaders)),
+               "resumes": float(self.resumes)}
+        if self._loaders:
+            out["io_pfs_bytes"] = float(
+                sum(ld.stats.pfs_bytes for ld in self._loaders))
+            served = sum(
+                ld.stats.pfs_bytes + ld.stats.cache_bytes_local
+                + ld.stats.cache_bytes_redistributed for ld in self._loaders)
+            out["io_cache_hit_ratio"] = (
+                1.0 - out["io_pfs_bytes"] / served if served else 0.0)
+            queued = [ld for ld in self._loaders
+                      if hasattr(ld, "queue_occupancy")]
+            if queued:
+                out["io_stall_s"] = sum(ld.stall_s for ld in queued)
+                out["io_queue_occupancy"] = (
+                    sum(ld.queue_occupancy() for ld in queued) / len(queued))
+        return self._metrics.absorb(out)
 
     def describe(self) -> Report:
         return Report(
@@ -434,6 +505,12 @@ class Session(_Traced):
 
     # ------------------------------------------------------- lifecycle ----
     def _release(self) -> None:
+        for ld in self._loaders:
+            ld.close()
+        self._loaders = []
+        for tmp in self._tmpdirs:
+            tmp.cleanup()
+        self._tmpdirs = []
         if self._metrics_sink is not None:
             self._metrics_sink.close()
 

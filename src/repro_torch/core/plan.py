@@ -12,8 +12,10 @@ reference checkpoint reads back. ``legacy_convnet_plan`` builds the
 fixed-degree plan ``RunConfig(plan="fixed")`` resolves to: for
 CosmoFlow, depth partitioned over ``spatial`` shards until a block's
 local width would drop below 4, then gathered; for the U-Net, one
-spatial stage over every level. The cost-model planner comes with the
-plans slice.
+spatial stage over every level. ``uniform_plan`` is the reference's
+one-stage plan (the equivalence oracle of its memory tests), and
+``plan_remat_schedule`` its per-layer remat flags. The cost-model
+planner comes with the plans slice.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.configs.base import ConvNetConfig
-from repro_torch.core import perf_model
+from repro_torch.core import flags, perf_model
 from repro_torch.core.spatial_conv import SpatialPartitioning
 
 AxesT = Tuple[Optional[str], Optional[str], Optional[str]]
@@ -194,6 +196,20 @@ class ParallelPlan:
             d *= n
         return d
 
+    @property
+    def uses_remat(self) -> bool:
+        """Whether any stage asks for rematerialization. When False, the
+        models fall back to ``core/flags.REMAT`` for every conv block;
+        when True, each stage's own choice wins outright."""
+        return any(st.remat for st in self.stages)
+
+
+def stage_remat(plan: ParallelPlan, stage: Stage) -> bool:
+    """Whether ``stage``'s conv blocks are rematerialized: the stage's
+    own ``remat`` when ``plan`` marks any stage, else ``flags.REMAT``
+    (the reference's rule)."""
+    return stage.remat if plan.uses_remat else flags.REMAT
+
 
 def cosmoflow_n_layers(cfg: ConvNetConfig) -> int:
     return len(cfg.conv_channels) + 1  # conv blocks + the FC head
@@ -201,6 +217,58 @@ def cosmoflow_n_layers(cfg: ConvNetConfig) -> int:
 
 def unet_n_layers(cfg: ConvNetConfig) -> int:
     return cfg.depth + 1  # resolution levels + the bottleneck
+
+
+def uniform_plan(
+    cfg: ConvNetConfig,
+    *,
+    spatial_axes: AxesT = ("model", None, None),
+    spatial_degrees: Tuple[int, ...] = (1, 1, 1),
+    data_axes: Tuple[str, ...] = ("data",),
+    data_degrees: Tuple[int, ...] = (1,),
+) -> ParallelPlan:
+    """The reference's one-stage plan (its ``convnet_plan`` with
+    ``boundary=None, kind="replicated"``): the spatial layout through
+    the last conv layer, then, for CosmoFlow, the FC head replicated.
+    Named as the reference names it."""
+    mesh_axes = tuple(zip(tuple(data_axes), (int(d) for d in
+                                             data_degrees))) + tuple(
+        (a, int(d)) for a, d in zip(spatial_axes, spatial_degrees) if a)
+    if cfg.arch != "cosmoflow":
+        n = unet_n_layers(cfg)
+        return ParallelPlan(
+            (Stage(0, n, tuple(spatial_axes), tuple(data_axes)),),
+            mesh_axes, n, name=f"{cfg.arch}.uniform")
+    n = cosmoflow_n_layers(cfg)
+    stages = (Stage(0, n - 1, tuple(spatial_axes), tuple(data_axes)),
+              Stage(n - 1, n, (None, None, None), tuple(data_axes)))
+    return ParallelPlan(stages, mesh_axes, n,
+                        name="cosmoflow.uniform.replicated")
+
+
+def plan_remat_schedule(cfg: ConvNetConfig,
+                        plan: ParallelPlan) -> List[bool]:
+    """Per-layer remat flags, in the order of the reference's per-layer
+    schedule: CosmoFlow's conv blocks, then its FC head; the U-Net's two
+    convs per encoder level, the bottleneck's two, then per decoder
+    level its up-convolution and two convs. A conv layer's flag is its
+    stage's ``stage_remat`` (the rule the models checkpoint by, the
+    ``flags.REMAT`` fallback included); the FC head and the
+    up-convolutions are never rematerialized (the models do not
+    checkpoint them)."""
+
+    def rm(layer: int) -> bool:
+        return stage_remat(plan, plan.stage_for(layer))
+
+    if cfg.arch == "cosmoflow":
+        return [rm(i) for i in range(len(cfg.conv_channels))] + [False]
+    sched: List[bool] = []
+    for lvl in range(cfg.depth):
+        sched += [rm(lvl)] * 2
+    sched += [rm(cfg.depth)] * 2
+    for lvl in reversed(range(cfg.depth)):
+        sched += [False] + [rm(lvl)] * 2
+    return sched
 
 
 def legacy_convnet_plan(

@@ -54,6 +54,17 @@ blocked node starves the peers it waits for.) Autograd replays each
 node on the stream its forward ran on and orders the streams by events.
 Gradients through collectives are defined for groups on one device.
 
+Rematerialization. ``checkpoint(fn, *args)`` runs a block ``fn`` with
+autograd off on every shard, saving only its inputs, and is itself ONE
+autograd node over every shard (deposited like a collective). Its
+backward runs ``fn`` again with gradients on through ``run`` over the
+same mesh, so the block's halo exchanges and statistics sums meet every
+shard of their groups again, each one node as above, and then takes one
+nested ``torch.autograd.grad`` over every shard's output. (A
+``torch.utils.checkpoint`` per shard would recompute in the thread of
+the backward, where every axis has size 1: with zero halos and local
+statistics, and no error.)
+
 Outside ``run`` every axis has size 1 (the one-device mesh). The
 interface is kept narrow so that a ``torch.distributed`` group can stand
 behind it for runs over several processes.
@@ -279,6 +290,102 @@ class _PsumGrad(torch.autograd.Function):
             parts.append(total[off:off + g.numel()].view(g.shape))
             off += g.numel()
         return (None,) + tuple(parts) * len(members)
+
+
+class _Recompute(torch.autograd.Function):
+    """``checkpoint``'s node over every shard of a mesh (``plan.mesh``;
+    None outside ``run``): ``flat`` is every shard's inputs,
+    member-major, saved as they are; the outputs are the shards' outputs
+    of the forward, computed before with autograd off. The backward
+    runs ``plan.fn`` again over the saved inputs with gradients on — on
+    every shard together through ``run``, so its collectives are nodes
+    over every shard again — and takes one nested ``autograd.grad`` of
+    every shard's output."""
+
+    @staticmethod
+    def forward(ctx, plan, *flat):
+        ctx.plan = plan
+        ctx.save_for_backward(*flat)
+        outs, plan.outs = plan.outs, None  # the node does not hold them
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        n = plan.n_args
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, plan.needs)]
+        shards = [ins[r * n:(r + 1) * n] for r in range(len(grads))]
+
+        def again(event, *args):
+            if event is not None:  # the forward's output is written
+                stream = torch.cuda.current_stream()  # the shard's
+                stream.wait_event(event)
+                for t in args:  # read on this stream, freed by the node
+                    t.record_stream(stream)
+            return plan.fn(*args)
+
+        with torch.enable_grad():
+            if plan.mesh is None:
+                outs = [plan.fn(*shards[0])]
+            else:
+                outs = run(plan.mesh, again, plan.events, *zip(*shards))
+        wrt = [t for t in ins if t.requires_grad]
+        found = iter(torch.autograd.grad(outs, wrt, grads,
+                                         allow_unused=True))
+        out = []
+        for t in ins:
+            g = next(found) if t.requires_grad else None
+            if g is not None and g.device.type == "cuda":
+                # made on the shard's stream, read on the node's
+                g.record_stream(torch.cuda.current_stream(g.device))
+            out.append(g)
+        return (None,) + tuple(out)
+
+
+class _CheckpointPlan:
+    """What ``_Recompute`` needs: the mesh (None: no run), the block, its
+    argument count per shard, which inputs need gradients, and the
+    forward's outputs and their events (one per shard)."""
+
+    def __init__(self, mesh, fn, n_args, needs, outs, events):
+        self.mesh, self.fn, self.n_args = mesh, fn, n_args
+        self.needs, self.outs, self.events = tuple(needs), outs, events
+
+
+def checkpoint(fn: Callable[..., torch.Tensor],
+               *args: torch.Tensor) -> torch.Tensor:
+    """``fn(*args)`` (tensors in, one tensor out) rematerialized: where
+    autograd records, ``fn`` runs with autograd off and only ``args``
+    are saved; the backward runs ``fn`` again, on every shard of the
+    current run together (the module docstring), before it takes the
+    gradients. The same value as ``fn(*args)`` and the same gradients.
+    Every shard of a run must reach it, as a collective. Elsewhere it is
+    ``fn(*args)``."""
+    if not _records(args):
+        return fn(*args)
+    if not all(isinstance(t, torch.Tensor) for t in args):
+        raise TypeError("checkpoint takes tensor arguments only")
+    with torch.no_grad():
+        out = fn(*args)
+    needs = [t.requires_grad for t in args]
+    shard = getattr(_LOCAL, "shard", None)
+    if shard is None or shard.run.mesh.size == 1:
+        mesh = None if shard is None else shard.run.mesh
+        plan = _CheckpointPlan(mesh, fn, len(args), needs, [out],
+                               [_mark(out)[1]])
+        return _Recompute.apply(plan, *args)[0]
+    mesh = shard.run.mesh
+
+    def node(ranks, entries):
+        plan = _CheckpointPlan(
+            mesh, fn, len(args), [nd for e in entries for nd in e[1]],
+            [e[2][0] for e in entries], [e[2][1] for e in entries])
+        return list(_Recompute.apply(plan, *(t for e in entries
+                                            for t in e[0])))
+
+    group = Group(mesh.axis_names, shard.run, shard.rank)
+    return group._collective("checkpoint", (args, needs, _mark(out)), node)
 
 
 class Received:
@@ -514,11 +621,12 @@ def run(mesh, fn: Callable, *per_shard_args: Sequence[Any]) -> List[Any]:
                        torch.is_inference_mode_enabled())
     if mesh.size == 1:
         run_ = _Run(mesh)
+        outer = getattr(_LOCAL, "shard", None)
         _LOCAL.shard = _Shard(run_, 0)
         try:
             return [fn(*(a[0] for a in per_shard_args))]
         finally:
-            _LOCAL.shard = None
+            _LOCAL.shard = outer
     results: List[Any] = [None] * mesh.size
     errors: List[Optional[BaseException]] = [None] * mesh.size
     with mesh.lock:
@@ -560,4 +668,4 @@ def run(mesh, fn: Callable, *per_shard_args: Sequence[Any]) -> List[Any]:
 
 
 __all__ = ["Group", "Received", "ShardAborted", "axis", "check_mesh",
-           "current_mesh", "run"]
+           "checkpoint", "current_mesh", "run"]

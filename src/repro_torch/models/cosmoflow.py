@@ -22,6 +22,7 @@ match the reference passes the reference's masks as the source.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import (Any, Callable, Dict, List, Mapping, NamedTuple,
                     Optional, Sequence, Tuple)
@@ -187,6 +188,22 @@ def _default_plan(cfg: ConvNetConfig) -> plan_lib.ParallelPlan:
     return plan_lib.legacy_convnet_plan(cfg, SpatialPartitioning())
 
 
+def _block(h: torch.Tensor, w: torch.Tensor, *bn: torch.Tensor, part,
+           stride: int, pool: bool, bn_axes: Sequence[str],
+           overlap: Optional[bool]) -> torch.Tensor:
+    """One conv block: the conv, batch-norm fused with leaky-ReLU (or the
+    leaky-ReLU alone without ``bn``), then max pooling if ``pool``."""
+    h = conv3d(h, w, part, stride=stride, overlap=overlap)
+    if bn:
+        h = dist_norm.distributed_batchnorm(h, bn[0], bn[1], bn_axes,
+                                            activation_slope=0.01)
+    else:
+        h = F.leaky_relu(h, negative_slope=0.01)
+    if pool:
+        h = maxpool3d(h, part, window=2, stride=2)
+    return h
+
+
 def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
             plan: Optional[plan_lib.ParallelPlan] = None,
             bn_axes: Optional[Sequence[str]] = None,
@@ -217,7 +234,13 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     caller's tensors require them; ``grad_axes`` hooks the parameters'
     gradient reduction over those mesh axes into the backward
     (``core/grad_comm.GradMarker``: each master marked at its use, ahead
-    of the compute-dtype cast, so that the sums run in fp32)."""
+    of the compute-dtype cast, so that the sums run in fp32).
+
+    Rematerialization: a conv block whose stage sets ``remat`` (every
+    block under ``core/flags.REMAT`` when the plan marks no stage) runs
+    through ``spmd.checkpoint``: only its input and its cast parameters
+    are saved, and the backward recomputes it on every shard together.
+    The parameters are marked and cast outside the checkpointed body."""
     plan = plan if plan is not None else _default_plan(cfg)
     spmd.check_mesh(plan.mesh_axes,
                     f"plan {plan.name!r} ({plan.device_count} devices)")
@@ -244,16 +267,18 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
         if st != cur:
             h = reshard.apply(h, cur, st)
             cur = st
-        h = conv3d(h, cst(params[f"conv{i}_w"]), cur.part,
-                   stride=2 if i == 3 else 1, overlap=overlap)
+        # marked and cast here, outside a checkpointed body, so that a
+        # reduction hook fires once per leaf, not again in the recompute
+        args = [cst(params[f"conv{i}_w"])]
         if cfg.batchnorm:
-            h = dist_norm.distributed_batchnorm(
-                h, cst(params[f"bn{i}_scale"]), cst(params[f"bn{i}_bias"]),
-                bn_axes, activation_slope=0.01)
+            args += [cst(params[f"bn{i}_scale"]), cst(params[f"bn{i}_bias"])]
+        body = functools.partial(_block, part=cur.part,
+                                 stride=2 if i == 3 else 1, pool=i < npool,
+                                 bn_axes=bn_axes, overlap=overlap)
+        if plan_lib.stage_remat(plan, st):
+            h = spmd.checkpoint(body, h, *args)
         else:
-            h = F.leaky_relu(h, negative_slope=0.01)
-        if i < npool:
-            h = maxpool3d(h, cur.part, window=2, stride=2)
+            h = body(h, *args)
     # CNN -> FC stage boundary: the legacy plan gathers, and the FC head
     # runs replicated on every shard
     fc_stage = plan.stage_for(n)
@@ -322,16 +347,22 @@ def kernel_launches(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan,
     (a gathered stage runs replicated). A training step adds the
     backward's: the input gradient of each conv launch of every block
     but the first (whose input needs none) on the conv kernel
-    (``conv3d_dgrad``), and one pack for the adjoint of each such
-    block's unpack."""
-    return count_launches(num_blocks(cfg), split_convs(cfg, plan, 1),
-                          plan.device_count, cfg.batchnorm, train)
+    (``conv3d_dgrad``), one pack for the adjoint of each such block's
+    unpack, and each rematerialized block's forward launches once more
+    (its recompute)."""
+    n = num_blocks(cfg)
+    return count_launches(
+        n, split_convs(cfg, plan, 1), plan.device_count, cfg.batchnorm,
+        train, [plan_lib.stage_remat(plan, plan.stage_for(i))
+                for i in range(n)])
 
 
 def count_launches(n: int, splits: Sequence[SplitConv], shards: int,
-                   batchnorm: bool, train: bool) -> Dict[str, int]:
+                   batchnorm: bool, train: bool,
+                   remat: Sequence[bool] = ()) -> Dict[str, int]:
     """``kernel_launches`` of a model with ``n`` convs in forward order,
-    of which ``splits`` are depth-split, over ``shards`` shards."""
+    of which ``splits`` are depth-split, over ``shards`` shards;
+    ``remat[i]``: conv i's block is rematerialized."""
     convs, packs, unpacks = [1] * n, [0] * n, [0] * n
     for sc in splits:
         packs[sc.block] = 1
@@ -345,6 +376,11 @@ def count_launches(n: int, splits: Sequence[SplitConv], shards: int,
     if train:
         out["conv3d_dgrad"] = shards * sum(convs[1:])
         out["pack"] += shards * sum(unpacks[1:])
+        again = [i for i, r in enumerate(remat) if r]
+        out["conv3d"] += shards * sum(convs[i] for i in again)
+        out["bn_act"] += shards * len(again) if batchnorm else 0
+        out["pack"] += shards * sum(packs[i] for i in again)
+        out["unpack"] += shards * sum(unpacks[i] for i in again)
     return out
 
 

@@ -25,6 +25,7 @@ labels split like the input line up with them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -125,6 +126,12 @@ def _conv_bn_relu(h, w, s, b, part, bn_axes, overlap):
                                            activation_slope=0.0)
 
 
+def _pair(h, w0, s0, b0, w1, s1, b1, *, part, bn_axes, overlap):
+    """A conv pair: conv, batch norm + ReLU, twice."""
+    h = _conv_bn_relu(h, w0, s0, b0, part, bn_axes, overlap)
+    return _conv_bn_relu(h, w1, s1, b1, part, bn_axes, overlap)
+
+
 def head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The 1^3 conv to per-voxel logits: one (voxels, Cin) @ (Cin, Cout)
     product, fp32 with TF32 off."""
@@ -152,16 +159,18 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     the input and, at each use, the parameters. ``grad_axes`` hooks the
     parameters' gradient reduction into the backward: each master,
     the up-convolutions' and the head's included, marked ahead of the
-    compute-dtype cast. A plan that asks for rematerialization raises
-    where autograd records: remat is not ported."""
+    compute-dtype cast.
+
+    Rematerialization is per level, as in the reference: a stage with
+    ``remat`` (every stage under ``core/flags.REMAT`` when the plan marks
+    none) checkpoints its encoder pair, its decoder pair or the
+    bottleneck (``spmd.checkpoint``), so that only the pairs' inputs are
+    saved. The up-convolutions, the skip concat and the head stay
+    outside; each pair's parameters are marked and cast outside its
+    body."""
     plan = plan if plan is not None else _default_plan(cfg)
     spmd.check_mesh(plan.mesh_axes,
                     f"plan {plan.name!r} ({plan.device_count} devices)")
-    if torch.is_grad_enabled() and any(st.remat for st in plan.stages):
-        raise NotImplementedError(
-            f"plan {plan.name!r} asks for rematerialization, which the "
-            "port does not run: the U-Net trains at 256^3 on one card "
-            "without it")
     bn_axes = plan.axis_names if bn_axes is None else tuple(bn_axes)
     policy = precision_lib.get(
         precision if precision is not None else plan.precision)
@@ -173,11 +182,13 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     def cst(t):
         return cast(marker.mark(t))
 
-    def conv_pair(h, prefix, part):
-        w0, s0, b0, w1, s1, b1 = (cst(params[f"{prefix}_{k}"])
-                                  for k in _PAIR)
-        h = _conv_bn_relu(h, w0, s0, b0, part, bn_axes, overlap)
-        return _conv_bn_relu(h, w1, s1, b1, part, bn_axes, overlap)
+    def conv_pair(h, prefix, st):
+        args = [cst(params[f"{prefix}_{k}"]) for k in _PAIR]
+        body = functools.partial(_pair, part=st.part, bn_axes=bn_axes,
+                                 overlap=overlap)
+        if plan_lib.stage_remat(plan, st):
+            return spmd.checkpoint(body, h, *args)
+        return body(h, *args)
 
     h = x
     if policy.casts_params and h.is_floating_point():
@@ -190,14 +201,14 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
         if st != cur:
             h = reshard.apply(h, cur, st)
             cur = st
-        h = conv_pair(h, f"enc{lvl}", cur.part)
+        h = conv_pair(h, f"enc{lvl}", cur)
         skips.append(h)
         h = maxpool3d(h, cur.part, window=2, stride=2)
     st = plan.stage_for(cfg.depth)
     if st != cur:
         h = reshard.apply(h, cur, st)
         cur = st
-    h = conv_pair(h, "mid", cur.part)
+    h = conv_pair(h, "mid", cur)
     for lvl in reversed(range(cfg.depth)):
         h = deconv3d(h, cst(params[f"dec{lvl}_up"]), cur.part, stride=2)
         st = plan.stage_for(lvl)
@@ -208,7 +219,7 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
         # (the conv saves the concat): at 256^3 they are 8.6 GB
         cat = torch.cat([skips[lvl], h], dim=-1)
         skips[lvl] = h = None
-        h = conv_pair(cat, f"dec{lvl}", cur.part)
+        h = conv_pair(cat, f"dec{lvl}", cur)
         del cat
     out = head(h, cst(params["head_w"]))
     marker.assert_all_marked()
@@ -290,11 +301,13 @@ def kernel_launches(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan,
     either the interior conv plus its boundary pieces or (no interior)
     one unpack and one conv; a step adds the input gradient of each conv
     launch but the first conv's, and one pack for each such unpack's
-    adjoint. The up-convolutions and the head are ``torch.matmul``s: no
-    kernel."""
-    return cosmoflow.count_launches(len(_convs(cfg)),
-                                    split_convs(cfg, plan, 1),
-                                    plan.device_count, True, train)
+    adjoint, and each conv of a rematerialized pair launches its forward
+    once more (its recompute). The up-convolutions and the head are
+    ``torch.matmul``s: no kernel."""
+    return cosmoflow.count_launches(
+        len(_convs(cfg)), split_convs(cfg, plan, 1), plan.device_count,
+        True, train, [plan_lib.stage_remat(plan, plan.stage_for(lvl))
+                      for lvl in _levels(cfg)])
 
 
 def _convs(cfg: ConvNetConfig):

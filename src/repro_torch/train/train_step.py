@@ -97,25 +97,37 @@ def _rows(t: torch.Tensor, index: int, count: int) -> torch.Tensor:
     return t.narrow(0, index * n, n)
 
 
+def block_index(shape: Sequence[int], mesh, rank: int,
+                stage: plan_lib.Stage) -> Tuple[slice, ...]:
+    """Shard ``rank``'s block of a tensor of ``shape`` (N, D, H, W, ...):
+    its slice of the batch (``batch_slice``), and each dim ``stage``
+    partitions cut into the mesh degree of its axis, the piece at
+    ``rank``'s coordinate; every other dim whole."""
+    index, count = batch_slice(mesh, rank, stage)
+    if shape[0] % count:
+        raise ValueError(f"a batch of {shape[0]} does not divide over "
+                         f"{count} data shards")
+    n = shape[0] // count
+    out = [slice(index * n, (index + 1) * n)] + [
+        slice(0, s) for s in shape[1:]]
+    at = mesh.coords(rank)
+    for d, a in stage.part.active:
+        k = mesh.degree(a)
+        if shape[d + 1] % k:
+            raise ValueError(
+                f"dim {d + 1} of the input ({shape[d + 1]}) does not "
+                f"divide over the {k}-way axis {a!r}")
+        w = shape[d + 1] // k
+        out[d + 1] = slice(at[a] * w, (at[a] + 1) * w)
+    return tuple(out)
+
+
 def split_input(x: torch.Tensor, mesh, stage: plan_lib.Stage
                 ) -> List[torch.Tensor]:
-    """Shard r's block of ``x`` (N, D, H, W, C): its slice of the batch
-    (``batch_slice``), each dim ``stage`` partitions cut into the mesh
-    degree of its axis and the piece at r's coordinate, contiguous on
-    r's device."""
-    out = []
-    for r, device in enumerate(mesh.devices):
-        t, at = _rows(x, *batch_slice(mesh, r, stage)), mesh.coords(r)
-        for d, a in stage.part.active:
-            k = mesh.degree(a)
-            if t.shape[d + 1] % k:
-                raise ValueError(
-                    f"dim {d + 1} of the input ({t.shape[d + 1]}) does not "
-                    f"divide over the {k}-way axis {a!r}")
-            w = t.shape[d + 1] // k
-            t = t.narrow(d + 1, at[a] * w, w)
-        out.append(t.to(device).contiguous())
-    return out
+    """Shard r's block of ``x`` (N, D, H, W, C) (``block_index``),
+    contiguous on r's device."""
+    return [x[block_index(x.shape, mesh, r, stage)].to(device).contiguous()
+            for r, device in enumerate(mesh.devices)]
 
 
 def split_batch(y: torch.Tensor, mesh, stage: plan_lib.Stage
@@ -428,7 +440,7 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
     return fn
 
 
-__all__ = ["STAGES", "batch_slice", "gather_blocks",
+__all__ = ["STAGES", "batch_slice", "block_index", "gather_blocks",
            "make_convnet_forward_step", "make_convnet_opt_state",
            "make_convnet_train_step", "make_convnet_phase_probes",
            "make_convnet_eval_step", "replicate", "sample_ids",

@@ -31,7 +31,12 @@ scan. The conv's input gradient (the same kernel over the flipped,
 transposed filter) is held at every cosmoflow-128 layer that has one
 against autograd through the plain conv, and a training ``Session`` on
 the card launches 7 conv, 6 input-gradient and 7 bn_act kernels a
-step and agrees with the same session on the CPU.
+step and agrees with the same session on the CPU. A step with every
+block rematerialized, at 1 x 1 and 1 x 2 on the card, matches the step
+without (the reference's remat contract) and launches what
+``kernel_launches`` counts with the recompute; the input pipeline's
+batches on the card (pinned buffers, a copy stream) equal the CPU
+loader's, prefetched or not.
 """
 from unittest import mock
 
@@ -629,3 +634,93 @@ def test_train_session_on_card_matches_cpu(cuda):
         assert abs(got - want) <= 1e-4 * abs(want), (got, want)
     # 3 conv blocks: the first needs no input gradient
     assert [c.launches - b for c, b in zip(counters, before)] == [6, 4, 6]
+
+
+def _remat_plan(plan):
+    import dataclasses
+
+    return dataclasses.replace(plan, stages=tuple(
+        dataclasses.replace(s, remat=True) for s in plan.stages))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2])
+def test_remat_on_card_matches_no_remat(cuda, S):
+    """Every block rematerialized, on one card (S shards, one stream
+    each): the step's loss and reduced gradients against the same step
+    without remat (loss 1e-5, gradients atol 1e-5, rtol 1e-4), and its
+    launches against ``kernel_launches(train=True)`` with the
+    recompute."""
+    from repro_torch.configs import cosmoflow as cosmo_cfg
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.spatial_conv import SpatialPartitioning
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import cosmoflow
+    from repro_torch.optim.adam import Adam, constant
+    from repro_torch.train import train_step
+
+    cfg = cosmo_cfg.SMOKE
+    base = plan_lib.legacy_convnet_plan(
+        cfg, SpatialPartitioning(("model", None, None)), (S, 1, 1))
+    r = np.random.RandomState(1)
+    x = torch.from_numpy(r.randn(4, 32, 32, 32, 2).astype(np.float32))
+    y = torch.from_numpy(r.randn(4, 4).astype(np.float32))
+    p = cosmoflow.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    counters = {"conv3d": conv_ops.conv3d_valid,
+                "conv3d_dgrad": conv_ops.conv3d_input_grad,
+                "bn_act": bn_ops.bn_leaky_relu, "pack": pack_ops.pack,
+                "unpack": pack_ops.unpack}
+    out = {}
+    for tag, plan in (("off", base), ("on", _remat_plan(base))):
+        mesh = Mesh(plan.mesh_axes, [cuda] * S)
+        probe = train_step.make_convnet_phase_probes(
+            cfg, mesh, Adam(lr=constant(1e-3)), global_batch=4,
+            plan=plan)["grad_comm"]
+        before = {k: c.launches for k, c in counters.items()}
+        loss, grads = probe(p, None, x.to(cuda), y.to(cuda), 0)
+        torch.cuda.synchronize()
+        got = {k: c.launches - before[k] for k, c in counters.items()}
+        assert got == cosmoflow.kernel_launches(cfg, plan, train=True), tag
+        out[tag] = loss.item(), {k: v.cpu() for k, v in grads.items()}
+    assert abs(out["on"][0] - out["off"][0]) <= 1e-5
+    for k, v in out["off"][1].items():
+        np.testing.assert_allclose(out["on"][1][k].numpy(), v.numpy(),
+                                   atol=1e-5, rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2])
+def test_loader_on_card_matches_the_cpu_loader(cuda, S, tmp_path):
+    """``Session.make_loader`` on the card (pinned buffers, the copy
+    stream): prefetched and synchronous batches bitwise equal to the CPU
+    loader's, each rank's store bytes 1/S of the volume, and training
+    from either loader gives the same losses."""
+    from repro_torch.api import RunConfig, compile
+    from repro_torch.data import store, synthetic
+
+    cubes, targets = synthetic.make_cosmology_dataset(4, 32, channels=2,
+                                                      seed=0)
+    store.write_dataset(str(tmp_path), cubes, targets)
+    cfg = RunConfig(model="cosmoflow-128", smoke=True, global_batch=2,
+                    spatial=S, data_dir=str(tmp_path))
+    cpu = compile(cfg, devices=["cpu"] * S)
+    want = cpu.make_loader(prefetch=0)
+    order = want.epoch_schedule()
+    losses = {}
+    for depth in (0, 2):
+        sess = compile(cfg, devices=[cuda] * S)
+        ld = sess.make_loader(prefetch=depth)
+        assert np.array_equal(ld.epoch_schedule(), order)
+        losses[depth] = []
+        for lo in (0, 2):
+            x, y = ld.load_batch(order[lo:lo + 2])
+            wx, wy = want.load_batch(order[lo:lo + 2])
+            assert x.device.type == "cuda"
+            assert torch.equal(x.cpu(), wx) and torch.equal(y.cpu(), wy)
+            losses[depth].append(float(sess.step(x, y)))
+        rank = ld.stats.rank_pfs_bytes
+        assert sorted(rank) == list(range(S))
+        assert all(v >= 2 * 32 ** 3 * 2 * 4 // S for v in rank.values())
+        sess.close()
+    assert losses[0] == losses[2]
+    cpu.close()

@@ -412,14 +412,36 @@ def test_config_rejects_bad_degrees_naming_the_field():
     assert e.value.field == "spatial"  # local width 2 < 4
 
 
-def test_remat_is_not_ported():
+def test_a_remat_plan_trains_the_unet(monkeypatch):
+    """A train ``Session`` on a plan whose level-0 stage sets ``remat``
+    trains (the forward once raised), recomputes exactly that level's
+    encoder and decoder pairs (4 convs, counted by the bn_act wrapper),
+    and its step equals the no-remat step; serving ignores the marks."""
     plan = plan_lib.ParallelPlan(
-        (plan_lib.Stage(0, 3, (None, None, None), ("data",), remat=True),),
+        (plan_lib.Stage(0, 1, (None, None, None), ("data",), remat=True),
+         plan_lib.Stage(1, 3, (None, None, None), ("data",))),
         (("data", 1),), 3, name="remat")
+    calls = []
+    real = bn_ops.bn_leaky_relu
+    monkeypatch.setattr(bn_ops, "bn_leaky_relu",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    x, y = _batch(41)
+    got = {}
+    for tag, pl in (("on", plan), ("off", "fixed")):
+        with compile(RunConfig(model="unet3d-256", smoke=True,
+                               global_batch=GB, plan=pl),
+                     device="cpu") as sess:
+            calls.clear()
+            got[tag] = float(sess.step(x, y)), sess.params
+            assert len(calls) == unet3d.kernel_launches(
+                CFG, sess.plan, train=True)["bn_act"]
+            assert len(calls) == 10 + (4 if tag == "on" else 0)
+    assert got["on"][0] == got["off"][0]
+    for k, v in got["off"][1].items():
+        np.testing.assert_allclose(got["on"][1][k].numpy(), v.numpy(),
+                                   atol=1e-5, rtol=1e-4, err_msg=k)
     p = unet3d.init_params(CFG, torch.Generator().manual_seed(0), "cpu")
-    x = torch.from_numpy(_batch(1)[0])
-    with torch.no_grad():  # remat changes nothing without a backward
-        unet3d.forward(p, x, CFG, plan=plan)
-    p = {k: v.requires_grad_(True) for k, v in p.items()}
-    with pytest.raises(NotImplementedError, match="remat"):
-        unet3d.forward(p, x, CFG, plan=plan)
+    with torch.no_grad():
+        a = unet3d.forward(p, torch.from_numpy(x), CFG, plan=plan)
+        b = unet3d.forward(p, torch.from_numpy(x), CFG)
+    assert torch.equal(a, b)
