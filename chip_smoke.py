@@ -139,7 +139,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
               launches against ``kernel_launches(train=True)`` with the
               recompute counted, the peak memory and ms per step of both;
               then, every stage rematerialized, cosmoflow-512 b2 (2
-              steps; it is not run without remat), cosmoflow-512 b1 and
+              steps; then again without remat), cosmoflow-512 b1 and
               unet3d-256 b1 at 256^3: losses finite, launches, ms per
               step and peak memory, and after phase 10 the 512^3 b1 and
               256^3 runs beside the same steps without remat (10, 10e).
@@ -151,6 +151,24 @@ Phases, each printing one line; any failure raises and exits non-zero:
               sample at S = 2; plus one row of each neighbour with
               ``halo_voxels=1``), launches against ``kernel_launches``;
               ms per step with its load, and ``io_stall_s``.
+10z. train_zero1 — ZeRO-1 (``grad_comm="reduce_scatter"``) at cosmoflow-
+              128 b4, every shard on this card: fp32 2 x 1, 4 x 1, 2 x 2
+              and bf16 2 x 2, each against ``overlap`` from the same
+              parameters after 2 steps (atol 1e-5, rtol 1e-4; whether
+              bitwise), launches against ``kernel_launches(train=True)``,
+              each shard's optimizer state exactly its 1/N of every
+              padded bucket (spatial peers equal); ms per step and the
+              probes' split of both at 2 x 2; fp16 at 2 x 1 with a NaN in
+              one data index's rows vetoed on every shard by the guard; a
+              ZeRO-1 checkpoint restored on the card, resuming bitwise.
+              10z-u: the same against ``overlap`` for the U-Net at 64^3
+              b2, 2 x 2, with its timings (after 10f).
+m.  memory_model — every measured peak of phases 5, 10, 10c, 10e and
+              10g (512^3 b2 now also without remat) beside the session's
+              ``describe().modeled_peak`` (``core/memory.py``), and the
+              serving peak at 128^3 b4 (``measured_peak_bytes``, after
+              phase 4's path is read): modeled over allocated and over
+              reserved. No gate.
 11. ssd     — the SSD scan kernel against its plain (sequential) version
               at the shapes of ``tests/test_kernels.py``, a ragged L and
               mamba2-370m's layer shape (B=4, L=4096, H=32, P=64, N=128,
@@ -177,8 +195,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
               one profiled mamba2-370m forward in fp32 and one in bf16.
 
 Phases 4-6, 7-8, 10 (the training steps), 10b (the sharded training
-steps), 10c, 10e and 10f (the U-Net's), 10g, 10h and 12-13 are the main
-paths:
+steps), 10c, 10e and 10f (the U-Net's), 10g, 10h, 10z, 10z-u and 12-13
+are the main paths:
 the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
@@ -312,17 +330,25 @@ UNET_GRID = (((1, 8, 16, 16, 1), 32), ((1, 4, 8, 8, 512), 256))
 # against without, at cosmoflow-128 b4 fp32 at these (spatial degree,
 # plan) — "deep" splits all 7 blocks, so the recompute unpacks — (the
 # reference's contract: loss 1e-5, gradients atol 1e-5, rtol 1e-4);
-# then the memory runs, largest first, each (model, batch, steps): the
-# first step is the warm-up, the rest timed
+# then the memory runs, largest first, each (model, batch, steps, every
+# stage rematerialized or none): the first step is the warm-up, the rest
+# timed
 REMAT_PARITY = ((1, "fixed"), (2, "fixed"), (2, "deep"))
 REMAT_LOSS, REMAT_ATOL, REMAT_RTOL = 1e-5, 1e-5, 1e-4
-REMAT_RUNS = (("cosmoflow-512", 2, 2), ("cosmoflow-512", 1, 2),
-              ("unet3d-256", 1, 3))
+REMAT_RUNS = (("cosmoflow-512", 2, 2, True), ("cosmoflow-512", 2, 2, False),
+              ("cosmoflow-512", 1, 2, True), ("unet3d-256", 1, 3, True))
 # the input pipeline (phase 10h): a store of IO_SAMPLES cosmoflow-128
 # volumes, loaders at these spatial degrees and prefetch depths, IO_STEPS
 # training steps each (two epochs), and the margin of a halo read
 IO_SAMPLES, IO_BATCH, IO_STEPS = 8, 4, 4
 IO_S, IO_DEPTHS, IO_HALO = (1, 2), (0, 2), 1
+# ZeRO-1 (phase 10z): ``reduce_scatter`` against ``overlap`` after
+# ZERO1_STEPS steps from the same parameters and masks, each (precision,
+# data, spatial), at cosmoflow-128 b4 and (10z-u) the U-Net at 64^3 b2;
+# the reference's tolerance between the modes (tests/test_grad_comm.py)
+ZERO1 = (("fp32", 2, 1), ("fp32", 4, 1), ("fp32", 2, 2), ("bf16", 2, 2))
+ZERO1_UNET = (("fp32", 2, 2),)
+ZERO1_STEPS = 2
 # (B, L, H, P, N, chunk): tests/test_kernels.py's four (B=2), L=40 with
 # chunk 16 (lowered to 10), and mamba2-370m's layer at 4 x 4096 tokens
 SSD_SHAPES = ((2, 32, 2, 8, 16, 8), (2, 64, 3, 8, 16, 16),
@@ -1552,7 +1578,8 @@ def phase_train(k, cfgs, RunConfig, compile) -> tuple:
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
             "resident_bytes_before": resident,
-            "reckoned_saved_bytes": reckoned,
+            "foreign_bytes": foreign_bytes(resident, sess, x, y),
+            "reckoned_saved_bytes": reckoned, "modeled": modeled(sess),
             "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
         log("train", f"{tag}: {n_steps} steps, losses {losses}; launches "
             f"{json.dumps(got)}; peak {row['peak_bytes'] / 2 ** 30:.2f} GiB "
@@ -1668,7 +1695,8 @@ def train_batch(cfg, batch: int, g) -> tuple:
 
 
 def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
-                        compile, plan_lib, depth, card: str) -> tuple:
+                        compile, plan_lib, depth, card: str,
+                        split_reps: int = 3) -> tuple:
     """Hybrid data x spatial training of ``cfg`` at ``batch``, every shard
     on this card, in each of ``runs`` (``TRAIN_SPATIAL`` for
     cosmoflow-128 b4, ``UNET_SPATIAL`` for the U-Net at 64^3 b2; the runs
@@ -1688,7 +1716,7 @@ def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
        ``monolithic`` runs' parameters after 2 steps within
        ``MODES_ATOL``/``MODES_RTOL``;
     3. timings: ms per step (host clock, median of 3 after a warm-up),
-       the probes' split, peak memory.
+       the probes' split (median of ``split_reps``), peak memory.
 
     Each part of each configuration runs under ``within_limit``.
     Returns (report, launches of the main path)."""
@@ -1843,7 +1871,7 @@ def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             return {"step_ms": host_ms(lambda: sess.step(x, y), 3),
-                    **step_split(k, sess, x, y, 3)}
+                    **step_split(k, sess, x, y, split_reps)}
 
         row = out["timing"][key] = within_limit(timed, SPATIAL_LIMIT_S,
                                                 f"{key} timings")
@@ -1942,7 +1970,9 @@ def phase_unet_serve(k, cfg, RunConfig, compile) -> tuple:
         out["predict"][tag] = {
             "ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
-            "resident_bytes_before": resident}
+            "resident_bytes_before": resident,
+            "foreign_bytes": foreign_bytes(resident, sess, x),
+            "modeled": modeled(sess)}
         log("timings", f"unet predict {tag}: " + json.dumps(
             out["predict"][tag]))
     out["profile"] = device_profile(
@@ -2083,6 +2113,8 @@ def phase_unet_train(k, cfg, RunConfig, compile) -> tuple:
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
             "resident_bytes_before": resident,
+            "foreign_bytes": foreign_bytes(resident, sess, x, y),
+            "modeled": modeled(sess),
             "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
         log("unet_train", f"{tag}: warm-up + {UNET_STEPS} steps, losses "
             f"{losses}; {row['ms_per_step']:.1f} ms a step (median of "
@@ -2218,7 +2250,7 @@ def phase_unet(k, cfg, cfg64, RunConfig, compile, plan_lib, depth,
     out["train"], paths["unet_train"] = train
     out["train_spatial"], paths["unet_train_spatial"] = phase_train_spatial(
         k, cfg64, UNET_SPATIAL, UNET_CHECK_BATCH, {"u-b"}, RunConfig,
-        compile, plan_lib, depth, card)
+        compile, plan_lib, depth, card, split_reps=1)
     launches = {n: sum(p[n] for p in paths.values()) for n in KERNELS}
     out["seconds"] = time.perf_counter() - t0
     log("unet", f"all U-Net phases ok in {out['seconds']:.0f}s; launches "
@@ -2404,14 +2436,15 @@ def phase_train_remat(k, cfgs, ucfg, RunConfig, compile, plan_lib, depth,
         del sessions, got
     del x, y
 
-    for name, batch, n_steps in REMAT_RUNS:
+    for name, batch, n_steps, remat in REMAT_RUNS:
         big = ucfg if name == "unet3d-256" else cfgs[name]
         model = k.unet3d if big.arch == "unet3d" else k.cosmoflow
-        tag = f"{name}/fp32/b{batch}/remat"
+        tag = f"{name}/fp32/b{batch}" + ("/remat" if remat else "")
         release_cached(tag)
         x, y = train_batch(big, batch, g)
         sess = compile(RunConfig(model=big, mode="train", global_batch=batch,
-                                 plan=remat_plan(plan_lib, depth, big, 1)))
+                                 plan=remat_plan(plan_lib, depth, big, 1,
+                                                 remat)))
         per_step = dict(NO_LAUNCHES, **model.kernel_launches(
             big, sess.plan, train=True))
         torch.cuda.synchronize()
@@ -2436,7 +2469,9 @@ def phase_train_remat(k, cfgs, ucfg, RunConfig, compile, plan_lib, depth,
             "launches_per_step": per_step,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
-            "resident_bytes_before": resident}
+            "resident_bytes_before": resident,
+            "foreign_bytes": foreign_bytes(resident, sess, x, y),
+            "modeled": modeled(sess)}
         log("train_remat", f"{tag}: {n_steps} steps (the first a warm-up), "
             f"losses {losses}; {row['ms_per_step']:.1f} ms a step; "
             f"launches per step {json.dumps(per_step)} = kernel_launches; "
@@ -2451,6 +2486,380 @@ def phase_train_remat(k, cfgs, ucfg, RunConfig, compile, plan_lib, depth,
     log("main path", f"train_remat: launches {launches}")
     release_cached("the phases after train_remat")
     return out, launches
+
+
+def held_bytes(*roots) -> int:
+    """Bytes of the distinct CUDA storages among the tensors in ``roots``
+    (tensors, and dicts, lists and tuples of them, nested)."""
+    storages, stack = {}, list(roots)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, torch.Tensor):
+            if t.is_cuda:
+                st = t.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+        elif isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+    return sum(storages.values())
+
+
+def foreign_bytes(resident: int, sess, *inputs) -> int:
+    """Of ``resident`` (the bytes allocated just before a measured run),
+    those that neither ``sess``' own state (parameters, optimizer state,
+    serving replicas) nor the run's ``inputs`` hold: what earlier phases
+    and other sessions left alive, which no model of this run counts."""
+    return resident - held_bytes(sess.params, getattr(sess, "opt_state", None),
+                                 getattr(sess, "_replicas", None), *inputs)
+
+
+def modeled(sess) -> dict:
+    """The session's modeled peak bytes per shard, by source
+    (``describe().modeled_peak``: ``core/memory.py``)."""
+    peak = sess.describe().modeled_peak
+    return dict(dataclasses.asdict(peak), total=peak.total)
+
+
+def zero1_state_bytes(k, sess) -> dict:
+    """Each shard's ZeRO-1 optimizer state checked against the layout:
+    every chunk of m and v exactly padded / N fp32 elements of a bucket
+    in a storage of its own, on the card, spatial peers (the same data
+    index) equal; returns the bytes a shard holds, the buckets' and the
+    scalars', and the unsharded state's."""
+    plan = k.train_step.convnet_grad_plan(sess.cfg)
+    n = k.train_step.data_degree(sess.plan)
+    entry = sess.plan.stages[0]
+    want = sum(2 * 4 * plan.padded_size(b, n) // n for b in plan.buckets)
+    owners = {}
+    rows = []
+    for r, st in enumerate(sess.opt_state):
+        inner = getattr(st, "inner", st)
+        chunks = (*inner.m, *inner.v)
+        check(all(t.device.type == "cuda" and t.dtype == torch.float32
+                  and t.untyped_storage().nbytes() == 4 * t.numel()
+                  for t in chunks)
+              and [t.numel() for t in inner.m] == [
+                  plan.padded_size(b, n) // n for b in plan.buckets],
+              f"shard {r}: ZeRO-1 chunks off the layout")
+        scalars = [t for t in (inner.step, getattr(st, "loss_scale", None),
+                               getattr(st, "good_steps", None))
+                   if t is not None]
+        got = sum(4 * t.numel() for t in chunks)
+        check(got == want, f"shard {r}: {got} state bytes, expected {want}")
+        d = k.train_step.batch_slice(sess.mesh, r, entry)[0]
+        if d in owners:
+            peer = owners[d]
+            check(all(torch.equal(a, b) for a, b in zip(chunks, peer)),
+                  f"shard {r}: its chunk differs from its spatial peer's")
+        owners[d] = chunks
+        rows.append(got + sum(t.element_size() * t.numel() for t in scalars))
+    return {"bucket_bytes_per_shard": want, "shard_bytes": rows,
+            "unsharded_bytes": 2 * 4 * sess.cfg.param_count(),
+            "buckets": plan.num_buckets, "padded_per_bucket": [
+                plan.padded_size(b, n) for b in plan.buckets]}
+
+
+def phase_train_zero1(k, cfg, runs, batch: int, RunConfig, compile,
+                      card: str) -> tuple:
+    """ZeRO-1 on the card, every shard on it (a main path: every step
+    below is counted). For each of ``runs`` (precision, data, spatial):
+    an ``overlap`` and a ``reduce_scatter`` session from the same seeded
+    parameters and masks take ``ZERO1_STEPS`` steps on one seeded batch
+    (``cfg`` at ``batch``), every loss finite, launches per step equal
+    to ``kernel_launches(train=True)``; the parameters of the two within
+    ``MODES_ATOL``/``MODES_RTOL``, and whether bitwise; each
+    ``reduce_scatter`` shard's state exactly its 1/N chunk of every
+    bucket (``zero1_state_bytes``). Then, at fp32 2 x 2, ms per step of
+    both (host clock, median of 3, timed overlap, ZeRO-1, ZeRO-1,
+    overlap) and what runs after the backward (``update_split``).
+    CosmoFlow also: an fp16 step at 2 x 1 with a NaN in data index 0's
+    batch rows only, vetoed by the guard on every shard (the step
+    function called directly); fp16 without the guard, an inf in one
+    gradient element that only data shard 0's chunk holds, skipped on
+    every shard (``zero1_chunk_overflow``); a ZeRO-1 checkpoint saved
+    and restored on the card, resuming bitwise. Returns (report,
+    launches of the main path)."""
+    unet = cfg.arch == "unet3d"
+    phase = "train_zero1" + ("_unet" if unet else "")
+    model = k.unet3d if unet else k.cosmoflow
+    out = {"runs": {}, "timing": {}, "card": card}
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x, y = train_batch(cfg, batch, g)
+    zero_counts(k)
+    expected = dict(NO_LAUNCHES)
+    timed = {}
+    for prec, D, S in runs:
+        key = f"{D}x{S}/{prec}"
+        params = {}
+        for mode in ("overlap", "reduce_scatter"):
+            def steps():
+                sess = compile(RunConfig(
+                    model=cfg, mode="train", global_batch=batch,
+                    precision=prec, data=D, spatial=S, grad_comm=mode),
+                    devices=["cuda:0"] * (D * S))
+                c0 = counts(k)
+                losses = [sess.step(x, y).item() for _ in range(ZERO1_STEPS)]
+                torch.cuda.synchronize()
+                return sess, losses, delta(counts(k), c0)
+
+            sess, losses, got = within_limit(steps, SPATIAL_LIMIT_S,
+                                             f"{key} {mode}")
+            per_step = dict(NO_LAUNCHES, **model.kernel_launches(
+                cfg, sess.plan, train=True))
+            check(got == {n: v * ZERO1_STEPS for n, v in per_step.items()},
+                  f"{key} {mode}: launches {got}, expected {per_step} a step")
+            check(all(math.isfinite(v) for v in losses),
+                  f"{key} {mode}: non-finite losses {losses}")
+            expected = {n: expected[n] + got[n] for n in KERNELS}
+            params[mode] = sess.params
+            row = out["runs"].setdefault(key, {})
+            row[mode] = {"losses": losses}
+            if mode == "reduce_scatter":
+                row["state"] = zero1_state_bytes(k, sess)
+                row["modeled"] = modeled(sess)
+            if (prec, D, S) == ("fp32", 2, 2):
+                timed[mode] = sess
+            else:
+                sess.close()
+        ov, rs = params["overlap"], params["reduce_scatter"]
+        bad = {n for n in ov if not torch.allclose(
+            rs[n], ov[n], atol=MODES_ATOL, rtol=MODES_RTOL)}
+        check(not bad, f"{key}: reduce_scatter vs overlap after "
+              f"{ZERO1_STEPS} steps: {sorted(bad)}")
+        row = out["runs"][key]
+        row["max_abs_diff"] = max((rs[n] - ov[n]).abs().max().item()
+                                  for n in ov)
+        row["bitwise"] = all(torch.equal(rs[n], ov[n]) for n in ov)
+        log(phase, f"{key}: reduce_scatter vs overlap after {ZERO1_STEPS} "
+            f"steps: max abs difference {row['max_abs_diff']:.3g} (atol "
+            f"{MODES_ATOL}, rtol {MODES_RTOL}); bitwise {row['bitwise']}; "
+            f"losses {row['reduce_scatter']['losses']} vs "
+            f"{row['overlap']['losses']}; state per shard "
+            f"{row['state']['shard_bytes']} bytes (buckets "
+            f"{row['state']['bucket_bytes_per_shard']}; unsharded "
+            f"{row['state']['unsharded_bytes']})")
+    launches = counts(k)
+    check(launches == expected, f"{phase} path launches {launches}, "
+          f"expected {expected}")
+    log("main path", f"{phase}: launches {launches}")
+
+    # ------------------------------------------------------ timings ----
+    fns = [lambda: timed["overlap"].step(x, y),
+           lambda: timed["reduce_scatter"].step(x, y)]
+    t = within_limit(lambda: [host_ms(fns[i], 3) for i in (0, 1, 1, 0)],
+                     SPATIAL_LIMIT_S, f"{phase} timings")
+    out["timing"]["step_ms"] = {"overlap": [t[0], t[3]],
+                                "reduce_scatter": [t[1], t[2]]}
+    for mode, sess in timed.items():
+        out["timing"][mode] = within_limit(
+            lambda: update_split(k, sess, 5), SPATIAL_LIMIT_S,
+            f"{phase} {mode} update")
+    log("timings", f"{phase} 2x2/fp32 ({card}; every shard on one card): "
+        + json.dumps(out["timing"]))
+    if not unet:
+        out["fp16_veto"] = zero1_fp16_veto(k, cfg, x, y)
+        out["fp16_chunk_overflow"] = zero1_chunk_overflow(k, cfg)
+        out["checkpoint"] = zero1_checkpoint(k, timed["reduce_scatter"], x,
+                                             y)
+    for sess in timed.values():
+        sess.close()
+    del timed, fns, x, y
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def update_split(k, sess, reps: int) -> dict:
+    """What a step runs after its backward, alone, on fixed seeded
+    gradients (one set a shard) and the session's state, every shard on
+    the card: host ms (around ``spmd.run`` + synchronize, median of
+    ``reps`` after a warm-up) of the update — ``overlap``: the optimizer
+    on every leaf of every shard (the reduction ran in the backward);
+    ZeRO-1: ``sharded_update``, its buckets' reduce-scatter, the update
+    of each shard's chunk and the gather — and, under ZeRO-1, of the
+    reduce-scatter and gather alone (the ``grad_comm`` probe's part).
+    The probes' differences (``step_split``) are host noise at this
+    size."""
+    from repro_torch.core import grad_comm as gc
+    from repro_torch.core import precision as precision_lib
+
+    mesh, n = sess.mesh, sess.mesh.size
+    g = torch.Generator(device="cuda").manual_seed(29)
+    grads = [{name: torch.randn(p.shape, generator=g, device=p.device)
+              for name, p in sess.params.items()} for _ in range(n)]
+    opt = precision_lib.wrap_optimizer(sess.optimizer, sess.precision)
+    params = [sess.params] * n
+    if sess.grad_comm != "reduce_scatter":
+        out = {"update_ms": host_ms(lambda: k.spmd.run(
+            mesh, lambda gr, st, p: opt.update(gr, st, p), grads,
+            [sess.opt_state] * n, params), reps)}
+        return out
+    buckets = k.train_step.convnet_grad_plan(sess.cfg)
+    axes = tuple(sess.plan.stages[0].batch_axes)
+
+    def comm(gr):
+        return gc.all_gather_params(gc.reduce_scatter_grads(
+            gr, buckets, axes), buckets, axes, gr)
+
+    return {"update_ms": host_ms(lambda: k.spmd.run(
+        mesh, lambda gr, st, p: gc.sharded_update(opt, gr, st, p, buckets,
+                                                  axes),
+        grads, sess.opt_state, params), reps),
+        "scatter_gather_ms": host_ms(lambda: k.spmd.run(mesh, comm, grads),
+                                     reps)}
+
+
+def zero1_fp16_veto(k, cfg, x, y) -> dict:
+    """fp16 at 2 x 1 under the guard, the step function called directly
+    (the session's ``grads.nonfinite`` site poisons the whole batch): a
+    step, then one with a NaN in data index 0's batch rows only, which
+    every shard must veto — parameters and its state held bitwise, its
+    loss scale halved."""
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.spatial_conv import SpatialPartitioning
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim.adam import Adam, constant
+
+    plan = plan_lib.legacy_convnet_plan(
+        cfg, SpatialPartitioning(("model", None, None)), (1, 1, 1),
+        data_degrees=(2,))
+    mesh = Mesh(plan.mesh_axes, ["cuda:0"] * 2)
+    opt = Adam(lr=constant(1e-3))
+    step = k.train_step.make_convnet_train_step(
+        cfg, mesh, opt, global_batch=x.shape[0], plan=plan,
+        grad_comm="reduce_scatter", precision="fp16", guard=True)
+    params = k.cosmoflow.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cuda")
+    state = k.train_step.make_convnet_opt_state(
+        cfg, opt, params, grad_comm="reduce_scatter", plan=plan,
+        mesh=mesh, precision="fp16")
+    params, state, loss, applied = step(params, state, x, y, 0)
+    check(applied.item() == 1.0, "fp16 ZeRO-1: a finite step was vetoed")
+    bad = x.clone()
+    bad[:x.shape[0] // 2, 0] = float("nan")  # data index 0's rows
+    new_params, new_state, loss, applied = step(params, state, bad, y, 1)
+    held = all(torch.equal(new_params[n], params[n]) for n in params) and all(
+        torch.equal(a, b) for old, new in zip(state, new_state)
+        for a, b in zip((*old.inner.m, *old.inner.v, old.inner.step),
+                        (*new.inner.m, *new.inner.v, new.inner.step)))
+    scales = [(old.loss_scale.item(), new.loss_scale.item())
+              for old, new in zip(state, new_state)]
+    check(applied.item() == 0.0 and held
+          and all(b == a / 2 for a, b in scales),
+          f"fp16 ZeRO-1 overflow on one data index: applied "
+          f"{applied.item()}, held {held}, loss scales {scales}")
+    log("train_zero1", f"fp16 2x1: a NaN in data index 0's rows vetoed the "
+        f"step on both shards (parameters and states held bitwise); loss "
+        f"scales {scales}")
+    return {"applied": applied.item(), "held": held, "loss_scales": scales}
+
+
+def zero1_chunk_overflow(k, cfg) -> dict:
+    """fp16 without the guard, ``sharded_update`` called directly at
+    2 x 1 on the card over ``cfg``'s seeded parameters: one inf in the
+    gradients that the reduce-scatter hands to data shard 0's chunk
+    alone. Shard 1's chunks are finite, so only the finite verdict that
+    ``MixedPrecision`` sums over the data axis skips its step: both
+    shards must hold their parameters and inner states bitwise and halve
+    their loss scales."""
+    from repro_torch.core import grad_comm as gc
+    from repro_torch.core import precision as precision_lib
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim.adam import Adam, constant
+
+    buckets = k.train_step.convnet_grad_plan(cfg)
+    params = k.cosmoflow.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cuda")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    grads = [{n: torch.randn(p.shape, generator=g, device="cuda")
+              for n, p in params.items()} for _ in range(2)]
+    first = buckets.buckets[0].names[0]
+    grads[1][first].view(-1)[0] = float("inf")  # chunk 0 of bucket 0
+    opt = precision_lib.MixedPrecision(Adam(lr=constant(1e-3)),
+                                       precision_lib.FP16)
+    whole = gc.init_sharded_opt_state(opt, buckets, num_shards=2,
+                                      device="cuda")
+    states = [gc.local_opt_state(whole, buckets, i, 2) for i in range(2)]
+
+    def fn(gr, st):
+        chunks = gc.reduce_scatter_grads(gr, buckets, ("data",))
+        return (bool(torch.isfinite(torch.cat(chunks)).all()),
+                gc.sharded_update(opt, gr, st, params, buckets, ("data",)))
+
+    outs = k.spmd.run(Mesh([("data", 2)], ["cuda:0"] * 2), fn, grads,
+                      states)
+    torch.cuda.synchronize()
+    finite = [o[0] for o in outs]
+    held = all(torch.equal(new[n], params[n]) for _, (new, _) in outs
+               for n in params) and all(
+        torch.equal(a, b) for (_, (_, new)), old in zip(outs, states)
+        for a, b in zip((*old.inner.m, *old.inner.v, old.inner.step),
+                        (*new.inner.m, *new.inner.v, new.inner.step)))
+    scales = [(old.loss_scale.item(), new.loss_scale.item())
+              for (_, (_, new)), old in zip(outs, states)]
+    check(finite == [False, True] and held
+          and all(b == a / 2 for a, b in scales),
+          f"fp16 ZeRO-1 overflow in shard 0's chunk, no guard: chunks "
+          f"finite {finite}, held {held}, loss scales {scales}")
+    log("train_zero1", f"fp16 2x1 without the guard: an inf in shard 0's "
+        f"chunk alone (chunks finite {finite}) skipped the update on both "
+        f"shards (parameters and states held bitwise); loss scales "
+        f"{scales}")
+    return {"chunks_finite": finite, "held": held, "loss_scales": scales}
+
+
+def zero1_checkpoint(k, sess, x, y) -> dict:
+    """A ZeRO-1 session's checkpoint, restored on the card: the next
+    step's loss and parameters bitwise the session's own."""
+    import tempfile
+
+    from repro_torch.api import Session
+
+    with tempfile.TemporaryDirectory() as d:
+        sess.save(os.path.join(d, "c"))
+        again = Session.restore(os.path.join(d, "c"),
+                                devices=["cuda:0"] * sess.mesh.size)
+    want = sess.step(x, y).item()
+    got = again.step(x, y).item()
+    same = got == want and all(torch.equal(again.params[n], sess.params[n])
+                               for n in sess.params)
+    check(same, f"ZeRO-1 checkpoint on the card: loss {got} vs {want}, "
+          "or the parameters differ")
+    again.close()
+    log("train_zero1", f"2x2 checkpoint saved and restored on the card: "
+        f"the next step bitwise equal (loss {got})")
+    return {"loss": got, "bitwise": same}
+
+
+def phase_memory_model(rows: dict, card: str) -> dict:
+    """(m) Each measured peak beside the session's modeled peak
+    (``core/memory.py``, the reference's coefficients): the ratio of
+    modeled to allocated and to reserved bytes, and to the run's own
+    allocated peak — the peak less the bytes earlier phases and other
+    sessions held throughout (``foreign_bytes``). No gate: the model's
+    coefficients were fitted to XLA's liveness, not to this allocator."""
+    out = {}
+    for tag, row in rows.items():
+        m = row["modeled"]["total"]
+        own = row["peak_bytes"] - row["foreign_bytes"]
+        out[tag] = {"modeled_bytes": m, "allocated_bytes": row["peak_bytes"],
+                    "reserved_bytes": row["peak_reserved_bytes"],
+                    "resident_bytes_before": row["resident_bytes_before"],
+                    "foreign_bytes": row["foreign_bytes"],
+                    "own_allocated_bytes": own,
+                    "modeled_over_allocated": m / row["peak_bytes"],
+                    "modeled_over_own_allocated": m / own,
+                    "modeled_over_reserved": m / row["peak_reserved_bytes"],
+                    "modeled": row["modeled"]}
+        log("memory_model", f"{tag}: modeled {m / 2 ** 30:.3f} GiB, measured "
+            f"{row['peak_bytes'] / 2 ** 30:.3f} allocated "
+            f"({row['foreign_bytes'] / 2 ** 30:.3f} of it other phases', "
+            f"{own / 2 ** 30:.3f} the run's own) and "
+            f"{row['peak_reserved_bytes'] / 2 ** 30:.3f} reserved: ratios "
+            f"{out[tag]['modeled_over_allocated']:.3f} allocated, "
+            f"{out[tag]['modeled_over_own_allocated']:.3f} own and "
+            f"{out[tag]['modeled_over_reserved']:.3f} reserved ({card})")
+    return out
 
 
 def phase_train_io(k, cfg, RunConfig, compile, card: str) -> tuple:
@@ -2592,6 +3001,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.api import RunConfig, compile
     from repro_torch.configs import get_config
+    from repro_torch.core import memory
     from repro_torch.core import plan as plan_lib
     from repro_torch.core import spmd
     from repro_torch.core.spatial_conv import SpatialPartitioning
@@ -2610,15 +3020,19 @@ def main() -> int:
     from repro_torch.train import train_step
 
     t_start = time.perf_counter()
+
+    def clock(what: str) -> None:
+        log("clock", f"{what}: done at {time.perf_counter() - t_start:.0f} s")
     k = argparse.Namespace(conv_ops=conv_ops, conv_ref=conv_ref,
                            bn_ops=bn_ops, bn_ref=bn_ref, pack_ops=pack_ops,
                            pack_ref=pack_ref, ssd_ops=ssd_ops,
                            ssd_ref=ssd_ref, mamba2=mamba2, ssm_lm=ssm_lm,
                            lm=lm, cosmoflow=cosmoflow, unet3d=unet3d,
                            for_config=for_config, train_step=train_step,
-                           spmd=spmd)
+                           spmd=spmd, memory=memory)
     report = {"card": phase_card()}
     report["build"] = phase_build(_build)
+    clock("build")
     cf128, cf512 = get_config("cosmoflow-128"), get_config("cosmoflow-512")
     cfgs = {"cosmoflow-128": cf128, "cosmoflow-512": cf512}
     depth = SpatialPartitioning(("model", None, None))
@@ -2636,11 +3050,13 @@ def main() -> int:
     # reserves ~73 GB, and the later phases leave cached segments pinned
     # by small live blocks (~23 GB reserved with 3 GB allocated)
     unet_train = phase_unet_train(k, ucfg, RunConfig, compile)
+    clock("kernels, halo kernels, unet_train")
     # phase 10g next, for the same reason: cosmoflow-512 b2 and the U-Net
     # at 256^3, every block rematerialized
     release_cached("train_remat")
     train_remat, got_remat = phase_train_remat(
         k, cfgs, ucfg, RunConfig, compile, plan_lib, depth, report["card"])
+    clock("train_remat")
 
     # ------------------------------------------- main path 1: 4-6 ----
     n128, n512 = cosmoflow.num_blocks(cf128), cosmoflow.num_blocks(cf512)
@@ -2668,11 +3084,12 @@ def main() -> int:
     x512 = torch.randn((1, 512, 512, 512, 4), generator=g, device="cuda")
     sess512 = compile(RunConfig(model="cosmoflow-512", mode="infer",
                                 global_batch=1, precision="fp32"))
-    torch.cuda.reset_peak_memory_stats()
     c0 = counts(k)
-    pred512 = sess512.predict(x512)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+    box = []
+    resident = torch.cuda.memory_allocated()
+    peak = k.memory.measured_peak_bytes(
+        lambda: box.append(sess512.predict(x512)))
+    pred512 = box.pop()
     check(delta(counts(k), c0) == dict(NO_LAUNCHES, conv3d=n512,
                                        bn_act=n512),
           "cosmoflow-512: launches per forward")
@@ -2685,11 +3102,16 @@ def main() -> int:
     err512 = rel_err(pred512, want512)
     check(err512 <= 1e-4, f"cosmoflow-512 vs plain forward {err512}")
     del want512
-    serve["cosmoflow-512/fp32"] = {"rel_err_vs_plain": err512, "tol": 1e-4,
-                                   "peak_bytes": peak}
+    serve["cosmoflow-512/fp32"] = {
+        "rel_err_vs_plain": err512, "tol": 1e-4, "peak_bytes": peak.allocated,
+        "peak_reserved_bytes": peak.reserved,
+        "resident_bytes_before": resident,
+        "foreign_bytes": foreign_bytes(resident, sess512, x512),
+        "modeled": modeled(sess512)}
     log("serve512", f"cosmoflow-512 fp32 batch 1: finite "
         f"{tuple(pred512.shape)}; vs plain forward {err512:.3g}; peak "
-        f"device memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
+        f"device memory {peak.allocated / 2 ** 30:.2f} GiB allocated, "
+        f"{peak.reserved / 2 ** 30:.2f} reserved (measured_peak_bytes)")
 
     sess = sessions["fp32"]
     reqs = np.random.default_rng(2).standard_normal(
@@ -2712,6 +3134,16 @@ def main() -> int:
           f"and 7 bn_act per forward x {forwards} forwards")
     log("main path", f"unsharded: {forwards} forwards; launches {launches}")
     main_paths = {"unsharded": {"forwards": forwards, "launches": launches}}
+    # the serving peak at 128^3 b4 (phase m), after the path is read
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    peak = k.memory.measured_peak_bytes(lambda: sessions["fp32"].predict(
+        x128))
+    serve["cosmoflow-128/fp32"].update(
+        peak_bytes=peak.allocated, peak_reserved_bytes=peak.reserved,
+        resident_bytes_before=resident,
+        foreign_bytes=foreign_bytes(resident, sessions["fp32"], x128),
+        modeled=modeled(sessions["fp32"]))
 
     # ------------------------------------------- main path 2: 7-8 ----
     zero_counts(k)
@@ -2872,9 +3304,11 @@ def main() -> int:
     del x128, x512, sessions, sess512, blocking, spatial_sessions, preds
     del x, sess, blk, pred, pred512
     release_cached("the training phases")
+    clock("serving, spatial serving, timings")
 
     # ------------------------------------------------ main path 3: 10 ----
     train, got = phase_train(k, cfgs, RunConfig, compile)
+    clock("train")
     main_paths["train"] = {"launches": got}
     launches = {n: launches[n] + got[n] for n in KERNELS}
     main_paths["train_remat"] = {"launches": got_remat}
@@ -2883,6 +3317,7 @@ def main() -> int:
     # without (phases 10 and 10e), in this run
     vs = train_remat["vs_no_remat"] = {}
     for tag, plain in (("cosmoflow-512/fp32/b1", train["steps"]),
+                       ("cosmoflow-512/fp32/b2", train_remat["runs"]),
                        ("unet3d-256/fp32/b1", unet_train[0]["steps"])):
         on, off = train_remat["runs"][tag + "/remat"], plain[tag]
         vs[tag] = {key: (on[key], off[key]) for key in
@@ -2898,14 +3333,23 @@ def main() -> int:
     # ------------------------------------------ main path 4: 10b ----
     train_spatial, got = phase_train_spatial(
         k, cf128, TRAIN_SPATIAL, 4, {"e"}, RunConfig, compile, plan_lib,
-        depth, report["card"])
+        depth, report["card"], split_reps=2)
     main_paths["train_spatial"] = {"launches": got}
+    clock("train_spatial")
     launches = {n: launches[n] + got[n] for n in KERNELS}
 
     # ------------------------------------------ main path: 10h ----
     train_io, got = phase_train_io(k, cf128, RunConfig, compile,
                                    report["card"])
     main_paths["train_io"] = {"launches": got}
+    clock("train_io")
+    launches = {n: launches[n] + got[n] for n in KERNELS}
+
+    # ------------------------------------------ main path: 10z ----
+    train_zero1, got = phase_train_zero1(k, cf128, ZERO1, 4, RunConfig,
+                                         compile, report["card"])
+    main_paths["train_zero1"] = {"launches": got}
+    clock("train_zero1")
     launches = {n: launches[n] + got[n] for n in KERNELS}
 
     # ------------------------------ the 3D U-Net: main paths 10c-10f ----
@@ -2913,7 +3357,27 @@ def main() -> int:
                                   plan_lib, depth, report["card"],
                                   unet_train)
     main_paths.update({name: {"launches": v} for name, v in paths.items()})
+    clock("the U-Net phases")
     launches = {n: launches[n] + got[n] for n in KERNELS}
+    # ------------------------------------------ main path: 10z-u ----
+    unet["train_zero1"], got = phase_train_zero1(
+        k, ucfg64, ZERO1_UNET, UNET_CHECK_BATCH, RunConfig, compile,
+        report["card"])
+    main_paths["train_zero1_unet"] = {"launches": got}
+    clock("train_zero1_unet")
+    launches = {n: launches[n] + got[n] for n in KERNELS}
+
+    # -------------------------------- (m) modeled against measured ----
+    memory_rows = {f"train {tag}": row for tag, row in train["steps"].items()}
+    memory_rows.update({f"train {tag}": row for tag, row in
+                        train_remat["runs"].items()})
+    memory_rows.update({f"train {tag}": row for tag, row in
+                        unet_train[0]["steps"].items()})
+    memory_rows.update({f"serve {tag}": serve[tag] for tag in (
+        "cosmoflow-128/fp32", "cosmoflow-512/fp32")})
+    memory_rows[f"serve {ucfg.name}/fp32/S1"] = unet["serve"]["predict"][
+        f"{ucfg.name}/fp32/S1"]
+    memory_model = phase_memory_model(memory_rows, report["card"])
 
     # ------------------------------------------ mamba2-370m: 11-14 ----
     release_cached("the Mamba2 phases")
@@ -2935,6 +3399,7 @@ def main() -> int:
           f"per forward x {forwards_lm} forwards")
     log("main path", f"mamba2-370m: {forwards_lm} forwards; launches {got}")
     main_paths["mamba2"] = {"forwards": forwards_lm, "launches": got}
+    clock("ssd, score, decode")
     launches = {n: launches[n] + got[n] for n in KERNELS}
     timing["ssd_scan"] = ssd_rows(k)
     lm_tokens = lm_batch(mcfg, 4, 4096, seed=7)["tokens"]
@@ -3047,7 +3512,8 @@ def main() -> int:
         summary.append(entry)
     report.update(score=score, decode=decode_row, train=train,
                   train_spatial=train_spatial, unet=unet,
-                  train_remat=train_remat, train_io=train_io)
+                  train_remat=train_remat, train_io=train_io,
+                  train_zero1=train_zero1, memory_model=memory_model)
     report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
                   conv_vs_library=conv_vs_library,
                   lowering=lowering, profile=profiles, bounds=PEAKS_USED,

@@ -9,10 +9,11 @@ points take ``device=`` or ``devices=`` (``repro_torch.api.compile``).
 ``validate`` raises ``RunConfigError`` naming the offending field and a
 fix, as the reference does. What the port cannot run yet is rejected
 the same way, naming the slice that brings it: batch-sharded serving
-(``data`` with ``mode="infer"``), the ZeRO-1 gradient reduction
-(``grad_comm="reduce_scatter"``), the cost-model planner
+(``data`` with ``mode="infer"``), the cost-model planner
 (``plan="auto"``, ``memory_budget_gib``) and the pipeline axis
-(``pipeline``).
+(``pipeline``). Training takes every ``grad_comm``, ZeRO-1
+(``reduce_scatter``) included; serving none but ``auto``, as the
+reference rules.
 """
 from __future__ import annotations
 
@@ -146,8 +147,8 @@ class RunConfig:
 
     def _validate_train(self) -> None:
         """What the training slice runs: data x spatial shards (no
-        pipeline axis), the fixed or a pinned plan, a reduction mode
-        among auto, overlap and monolithic."""
+        pipeline axis), the fixed or a pinned plan, and any reduction
+        mode."""
         if not isinstance(self.pipeline, int) or self.pipeline < 1:
             raise RunConfigError(
                 "pipeline", f"group count must be an int >= 1, got "
@@ -159,12 +160,6 @@ class RunConfig:
                 f"pipeline={self.pipeline} needs the pipeline axis, which "
                 "the pipeline slice of the port brings",
                 "set pipeline=1")
-        if self.grad_comm == "reduce_scatter":
-            raise RunConfigError(
-                "grad_comm",
-                "'reduce_scatter' (ZeRO-1 sharded optimizer state) comes "
-                "with the gradient reduction slice of the port",
-                "use grad_comm='auto', 'overlap' or 'monolithic'")
 
     def _validate_infer(self) -> None:
         """Reject knobs that configure training machinery a forward-only

@@ -9,12 +9,15 @@ one device: ``step`` runs the hybrid train step of
 ``train/train_step.py`` (each shard's forward through the conv3d,
 bn_act and halo kernels, one backward, the gradient reduction, the Adam
 update) with the parameters, optimizer state and dropout seed threaded
-inside; ``save``/``Session.restore`` write and read the reference's
-checkpoint format, so each package resumes the other's runs, on any
-mesh shape; ``make_loader`` gives it batches from a hyperslab store
-(``data/pipeline.py``). Both run CosmoFlow (``y``: (N, out_dim) targets) and the 3D
-U-Net (``y``: (N, D, H, W) voxel labels; ``evaluate`` returns per-voxel
-logits).
+inside (under ``grad_comm="reduce_scatter"``, ZeRO-1, one optimizer
+state a shard, each over its 1/N of the flat buckets);
+``save``/``Session.restore`` write and read the reference's checkpoint
+format (ZeRO-1's state as the reference's global padded buckets), so
+each package resumes the other's runs, on any mesh shape; ``describe``
+reports the modeled peak memory (``core/memory.py``); ``make_loader``
+gives it batches from a hyperslab store (``data/pipeline.py``). Both
+run CosmoFlow (``y``: (N, out_dim) targets) and the 3D U-Net (``y``:
+(N, D, H, W) voxel labels; ``evaluate`` returns per-voxel logits).
 
 Entry points run on the card unless the caller says otherwise:
 ``device="cpu"`` (one shard, as the tests run), or ``devices=[...]`` with
@@ -39,9 +42,12 @@ import torch
 from repro_torch.api.config import RunConfig, RunConfigError
 from repro_torch.configs.base import ConvNetConfig
 from repro_torch.core import faults
+from repro_torch.core import grad_comm as grad_comm_lib
+from repro_torch.core import memory as memory_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
 from repro_torch.core.spatial_conv import SpatialPartitioning
+from repro_torch.core.tree import key_paths
 from repro_torch.data import pipeline, store, synthetic
 from repro_torch.data import prefetch as prefetch_lib
 from repro_torch.launch import mesh as mesh_lib
@@ -117,7 +123,7 @@ def _compile_train(config: RunConfig, device: DeviceLike,
     params = for_config(cfg).init_params(
         cfg, torch.Generator().manual_seed(config.seed), mesh.devices[0])
     opt_state = train_step_lib.make_convnet_opt_state(
-        cfg, optimizer, params, grad_comm=grad_comm, plan=plan,
+        cfg, optimizer, params, grad_comm=grad_comm, plan=plan, mesh=mesh,
         precision=precision)
     return Session(config, cfg, mesh, plan, precision, grad_comm, optimizer,
                    params, opt_state, mask_source)
@@ -188,9 +194,9 @@ class _Traced:
 @dataclasses.dataclass(frozen=True)
 class Report:
     """``Session.describe()``: the plan, mesh, device, precision,
-    reduction mode and the guard's telemetry. The modeled peak memory
-    and step time come with the memory and plans slices and are None
-    until then."""
+    reduction mode, the guard's telemetry and the modeled peak memory
+    per shard (``core/memory.py``). The modeled step time comes with the
+    plans slice and is None until then."""
 
     plan_name: str
     stages: Tuple[Tuple[int, int, Tuple[Optional[str], ...],
@@ -201,8 +207,8 @@ class Report:
     global_batch: int
     param_count: int
     device: str
+    modeled_peak: Any
     telemetry: Dict[str, float] = dataclasses.field(default_factory=dict)
-    modeled_peak: Optional[Any] = None
     predicted_step_s: Optional[float] = None
 
     def __str__(self) -> str:
@@ -214,8 +220,8 @@ class Report:
             f"  mesh {self.mesh_shape}  precision={self.precision}  "
             f"grad_comm={self.grad_comm}  global_batch={self.global_batch}\n"
             f"  stages: {stages}\n"
-            f"  params {self.param_count / 1e6:.2f}M  modeled peak and step "
-            f"time: not modeled yet"
+            f"  params {self.param_count / 1e6:.2f}M  modeled peak/shard "
+            f"{self.modeled_peak.describe()}  step time: not modeled yet"
             + (("\n  guard: " + "  ".join(
                 f"{k}={v:g}" for k, v in sorted(self.telemetry.items())))
                if self.telemetry else ""))
@@ -224,7 +230,8 @@ class Report:
 class Session(_Traced):
     """A training run over a data x spatial mesh on one device. The
     session holds one copy of the fp32 masters and the optimizer state
-    (every shard's update is the same). Build with
+    (every shard's update is the same); under ZeRO-1 one state a shard
+    (a list in rank order). Build with
     ``repro_torch.api.compile(RunConfig(mode="train"))`` or
     ``Session.restore(checkpoint_dir)``, not directly."""
 
@@ -395,9 +402,10 @@ class Session(_Traced):
         (the mean queue depth when a batch was served)."""
         skipped = (self._guarded_steps - float(self._applied_acc)
                    if self._guarded_steps else 0.0)
-        scale = (float(self.opt_state.loss_scale)
-                 if isinstance(self.opt_state, precision_lib.MPState)
-                 else 1.0)
+        state = (self.opt_state[0] if isinstance(self.opt_state, list)
+                 else self.opt_state)
+        scale = (float(state.loss_scale)
+                 if isinstance(state, precision_lib.MPState) else 1.0)
         out = {"steps": float(self._t), "skipped_steps": round(skipped),
                "loss_scale": scale,
                "loader_retries": float(sum(ld.store.retries
@@ -420,6 +428,9 @@ class Session(_Traced):
         return self._metrics.absorb(out)
 
     def describe(self) -> Report:
+        peak = memory_lib.plan_peak_bytes(
+            self.cfg, self.plan, global_batch=self.config.global_batch,
+            grad_comm=self.grad_comm, precision=self.precision)
         return Report(
             plan_name=self.plan.name,
             stages=tuple((s.start, s.stop, tuple(s.spatial_axes),
@@ -429,7 +440,7 @@ class Session(_Traced):
             grad_comm=self.grad_comm,
             global_batch=self.config.global_batch,
             param_count=self.cfg.param_count(), device=str(self.device),
-            telemetry=self.telemetry())
+            telemetry=self.telemetry(), modeled_peak=peak)
 
     # ------------------------------------------------------ checkpoint ----
     def save(self, path: Optional[str] = None) -> str:
@@ -448,9 +459,19 @@ class Session(_Traced):
         """What a checkpoint taken now holds, as ``checkpoint.save``'s
         keywords."""
         meta = {"run_config": self._pinned_config().to_json()}
-        return {"tree": {"params": self.params, "opt": self.opt_state},
+        opt, specs = self.opt_state, None
+        if self.grad_comm == "reduce_scatter":
+            # the reference's layout: global padded buckets, dim 0 sharded
+            # over the data axes, scalars replicated
+            opt = grad_comm_lib.global_opt_state(
+                [self.opt_state[r] for r in train_step_lib.data_shards(
+                    self.mesh, self.plan.stages[0])])
+            axes = list(self.plan.stages[0].batch_axes)
+            specs = {path: [axes] if leaf.dim() else []
+                     for path, leaf in key_paths({"opt": opt})}
+        return {"tree": {"params": self.params, "opt": opt},
                 "step": self._t, "precision": self.precision,
-                "extra_files": {_META_FILE: meta}}
+                "extra_files": {_META_FILE: meta}, "specs": specs}
 
     def _pinned_config(self) -> RunConfig:
         """The config with every ``"auto"`` resolved: the concrete model,
@@ -494,12 +515,22 @@ class Session(_Traced):
                                          spatial=new_spatial, plan="fixed")
         sess = _compile_train(config, device, devices, mask_source)
         model = for_config(sess.cfg)
+        zero1 = sess.grad_comm == "reduce_scatter"
         tree = checkpoint.restore(path, {
-            "params": model.param_shapes(sess.cfg), "opt": sess.opt_state})
+            "params": sess.params,
+            "opt": sess.opt_state[0] if zero1 else sess.opt_state})
         sess.params = model.params_from_numpy(
             tree["params"], sess.device, torch.float32, cfg=sess.cfg)
-        sess.opt_state = model.opt_state_from_numpy(
-            tree["opt"], sess.device, cfg=sess.cfg)
+        if zero1:  # each shard's chunk of the global buckets, anew
+            buckets = train_step_lib.convnet_grad_plan(sess.cfg)
+            n = train_step_lib.data_degree(sess.plan)
+            sess.opt_state = [grad_comm_lib.local_opt_state(
+                tree["opt"], buckets, train_step_lib.batch_slice(
+                    sess.mesh, r, sess.plan.stages[0])[0], n, sess.device)
+                for r in range(sess.mesh.size)]
+        else:
+            sess.opt_state = model.opt_state_from_numpy(
+                tree["opt"], sess.device, cfg=sess.cfg)
         sess._t = checkpoint.latest_step(path)
         return sess
 

@@ -1,14 +1,17 @@
 """Per-layer width bookkeeping of CosmoFlow and the 3D U-Net, from the
 reference's ``core/perf_model.py``: the single holder of CosmoFlow's
 pool-count / stride-2 structure that ``core/plan.py`` derives its
-stages from, and of the U-Net's conv and deconv shapes (its conv
-shapes and launch counts, ``models/unet3d.py``). The analytic time and
-memory model comes with the plans slice."""
+stages from and ``core/memory.py`` walks, and of the U-Net's conv and
+deconv shapes (its conv shapes and launch counts, ``models/unet3d.py``);
+the optimizer state's bytes (``opt_state_bytes``, shared with the memory
+model) and the paper's activation bytes per sample
+(``memory_per_sample_bytes``). The time model (``iteration_time``,
+``Hardware``) comes with the plans slice."""
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+from typing import List, Optional
 
 from repro_torch.configs.base import ConvNetConfig
 
@@ -59,3 +62,32 @@ def unet_layers(cfg: ConvNetConfig) -> List[ConvLayer]:
         layers.append(ConvLayer(skip, skip, w, 1, 3, False))
         up = skip
     return layers
+
+
+def opt_state_bytes(n_params: int, *, grad_comm: str = "overlap",
+                    data_degree: int = 1) -> float:
+    """Adam's m and v in fp32; ZeRO-1 (``reduce_scatter``) shards them
+    over the data-parallel degree."""
+    total = 2.0 * n_params * 4
+    if grad_comm == "reduce_scatter":
+        total /= max(data_degree, 1)
+    return total
+
+
+def memory_per_sample_bytes(cfg: ConvNetConfig,
+                            batchnorm: Optional[bool] = None) -> float:
+    """Activation memory per sample (forward stores and gradients), the
+    paper's Table I: every layer's input and output in fp32, times 3.8
+    (stored activations, gradient buffers and cuDNN's workspace: 0.82 /
+    6.56 / 52.6 GiB at 128^3 / 256^3 / 512^3 against the paper's 0.824 /
+    6.59 / 52.7), doubled with batch norm (the paper's §IV)."""
+    layers = (cosmoflow_layers(cfg) if cfg.arch == "cosmoflow"
+              else unet_layers(cfg))
+    total = 0.0
+    for l in layers:
+        out_w = l.width // l.stride
+        total += (l.width ** 3 * l.cin + out_w ** 3 * l.cout) * 4
+    total *= 3.8
+    if cfg.batchnorm if batchnorm is None else batchnorm:
+        total *= 2
+    return total

@@ -47,6 +47,11 @@ class PrecisionPolicy:
         return self.dynamic_scale or self.loss_scale != 1.0
 
     @property
+    def act_bytes(self) -> int:
+        """Bytes of one activation element (the compute dtype's)."""
+        return self.compute_dtype.itemsize
+
+    @property
     def casts_params(self) -> bool:
         return self.compute_dtype != self.master_dtype
 

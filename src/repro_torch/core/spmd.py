@@ -7,9 +7,10 @@ a worker thread of its own, with the shard's device current and, on a
 CUDA device, the shard's own stream current. Inside ``fn``,
 ``axis(names)`` is the shard's group along one mesh axis or several
 (the ranks that share every other coordinate, in rank order):
-``index``, ``size``, ``ppermute``, ``psum``, ``all_gather`` and
-``psum_grad``, with the semantics of ``lax.axis_index`` /
-``lax.axis_size`` / ``lax.ppermute`` / ``lax.psum`` /
+``index``, ``size``, ``ppermute``, ``psum``, ``psum_scatter``,
+``all_gather`` and ``psum_grad``, with the semantics of
+``lax.axis_index`` / ``lax.axis_size`` / ``lax.ppermute`` /
+``lax.psum`` / ``lax.psum_scatter(tiled=True)`` /
 ``lax.all_gather(tiled=True)``:
 
 * ``ppermute`` gives each destination its source's tensor: the tensor
@@ -21,10 +22,16 @@ CUDA device, the shard's own stream current. Inside ``fn``,
 * ``psum`` adds the group's tensors in rank order (0 + 1 + ...), on
   every shard alike, so a result does not vary from run to run. A tuple
   is summed element by element, each on its own, in one exchange.
+  ``psum_scatter`` adds in the same order and hands shard ``index`` its
+  chunk of the sum (ZeRO-1's gradient reduction; no gradient).
 * ``psum_grad`` hands its tensors back unchanged; in the backward their
-  cotangents, concatenated flat, are summed over the group once, in
-  rank order (the reference's gradient-reduction hooks,
-  ``core/grad_comm.py``).
+  cotangents, concatenated flat, are summed over the group once (the
+  reference's gradient-reduction hooks, ``core/grad_comm.py``): over
+  several axes axis by axis, the mesh's minor axis first (over a data
+  x spatial group the spatial peers' sums, then those summed in data
+  order), each axis in rank order — the order in which ZeRO-1's spatial
+  hooks and its data reduce-scatter add, so that every gradient
+  reduction adds the same numbers in the same order.
 
 The shards take turns on the host, in rank order: a shard runs until
 its next collective, deposits its tensor and hands the turn on. The
@@ -265,15 +272,31 @@ class _Gather(torch.autograd.Function):
                                for i in range(len(grads)))
 
 
+def _nested_sum(xs: Sequence[torch.Tensor],
+                degrees: Sequence[int]) -> torch.Tensor:
+    """The sum of ``xs`` (row-major over axes of ``degrees``), the last
+    axis first: each run of ``degrees[-1]`` added in order, then those
+    sums over the axis before it, and so on."""
+    if len(degrees) > 1:
+        step = len(xs) // degrees[0]
+        xs = [_nested_sum(xs[i:i + step], degrees[1:])
+              for i in range(0, len(xs), step)]
+    total = xs[0]
+    for x in xs[1:]:
+        total = total + x
+    return total
+
+
 class _PsumGrad(torch.autograd.Function):
     """``psum_grad``'s node over one group: the identity on every
     member's ``n`` tensors (member-major); the adjoint concatenates each
-    member's cotangents flat, sums the members' in rank order, once, and
-    hands every member the pieces."""
+    member's cotangents flat, sums the members', once, the minor axis of
+    the group's ``degrees`` first (``_nested_sum``), and hands every
+    member the pieces."""
 
     @staticmethod
-    def forward(ctx, n, *xs):
-        ctx.n = n
+    def forward(ctx, n, degrees, *xs):
+        ctx.n, ctx.degrees = n, degrees
         return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
@@ -282,14 +305,12 @@ class _PsumGrad(torch.autograd.Function):
         members = [grads[i:i + n] for i in range(0, len(grads), n)]
         flats = [torch.cat([g.reshape(-1) for g in gs]) if n > 1
                  else gs[0].reshape(-1) for gs in members]
-        total = flats[0]
-        for f in flats[1:]:
-            total = total + f
+        total = _nested_sum(flats, ctx.degrees)
         parts, off = [], 0
         for g in members[0]:
             parts.append(total[off:off + g.numel()].view(g.shape))
             off += g.numel()
-        return (None,) + tuple(parts) * len(members)
+        return (None, None) + tuple(parts) * len(members)
 
 
 class _Recompute(torch.autograd.Function):
@@ -527,19 +548,52 @@ class Group:
 
         return self._collective("all_gather", _mark(t), gather)
 
+    def psum_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The group's ``t`` summed in rank order, as ``psum`` adds them,
+        cut along ``dim`` into ``size`` equal chunks: this shard gets
+        chunk ``index`` (``lax.psum_scatter(..., tiled=True)``). Records
+        no gradient: it reduces gradients after the backward."""
+        if self.size == 1:
+            return t
+        if t.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not cut "
+                             f"into {self.size} chunks")
+        mesh = self._run.mesh
+
+        def scatter(ranks, entries):
+            w = entries[0][0].shape[dim] // len(ranks)
+            outs = []
+            with torch.no_grad():
+                for i, r in enumerate(ranks):
+                    device = mesh.devices[r]
+                    with _on(mesh, r):
+                        parts = [_read(e, device).narrow(dim, i * w, w)
+                                 for e in entries]
+                        acc = parts[0] + parts[1]
+                        for p in parts[2:]:
+                            acc = acc + p
+                    outs.append(acc)
+            return outs
+
+        return self._collective("psum_scatter", _mark(t), scatter)
+
     def psum_grad(self, ts: Sequence[torch.Tensor]
                   ) -> Tuple[torch.Tensor, ...]:
         """``ts`` unchanged (views); in the backward their cotangents,
-        concatenated flat, are summed over the group once, in rank order,
-        and every shard receives the sum. The identity where autograd
-        does not record."""
+        concatenated flat, are summed over the group once, the mesh's
+        minor axis first (the module docstring), and every shard
+        receives the sum. The identity where autograd does not record."""
         ts = tuple(ts)
         if self.size == 1 or not _records(ts):
             return ts
         n = len(ts)
+        mesh = self._run.mesh
+        degrees = tuple(mesh.degree(a) for a in mesh.axis_names
+                        if a in self.axes)
 
         def mark(ranks, entries):
-            outs = _PsumGrad.apply(n, *(x for e in entries for x in e))
+            outs = _PsumGrad.apply(n, degrees,
+                                   *(x for e in entries for x in e))
             return [outs[m * n:(m + 1) * n] for m in range(len(ranks))]
 
         return self._collective("psum_grad", ts, mark)

@@ -1,8 +1,9 @@
 """Trees of tensors: the port's counterpart of ``jax.tree``.
 
 A tree is a dict (keys visited in sorted order, as ``jax.tree`` visits
-them), a NamedTuple (fields in order), ``None`` (an empty subtree, as in
-``jax.tree``) or a leaf. The optimizer states (``optim/adam.py``,
+them), a NamedTuple (fields in order), a tuple (items in order: the
+flat buckets of a ZeRO-1 optimizer state, ``core/grad_comm.py``),
+``None`` (an empty subtree, as in ``jax.tree``) or a leaf. The optimizer states (``optim/adam.py``,
 ``core/precision.py``) and the checkpoint's ``{"params", "opt"}`` tree are
 such trees; ``key_paths`` names their leaves as ``jax.tree_util.keystr``
 does (``['opt'].m['conv0_w']``), which is how a checkpoint names its
@@ -27,6 +28,9 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return type(tree)(*(tree_map(fn, getattr(tree, f),
                                      *(getattr(r, f) for r in rest))
                             for f in tree._fields))
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, t, *(r[i] for r in rest))
+                     for i, t in enumerate(tree))
     if tree is None:
         return None
     return fn(tree, *rest)
@@ -41,6 +45,9 @@ def key_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     if _is_namedtuple(tree):
         return [pair for f in tree._fields
                 for pair in key_paths(getattr(tree, f), f"{prefix}.{f}")]
+    if isinstance(tree, tuple):
+        return [pair for i, t in enumerate(tree)
+                for pair in key_paths(t, f"{prefix}[{i}]")]
     if tree is None:
         return []
     return [(prefix, tree)]

@@ -35,6 +35,7 @@ import torch
 from repro_torch.api import session as session_lib
 from repro_torch.api.config import RunConfig, RunConfigError
 from repro_torch.configs.base import ConvNetConfig
+from repro_torch.core import memory as memory_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
 from repro_torch.launch import mesh as mesh_lib
@@ -57,14 +58,14 @@ _TRAIN_ONLY = dict(mode="infer", guard=None, grad_comm="auto",
 @dataclasses.dataclass(frozen=True)
 class InferReport:
     """``InferenceSession.describe()``: the serving plan, mesh, devices
-    and precision. ``modeled_peak`` (the forward-only memory model) comes
-    with the memory slice and is None until then."""
+    and precision, and the modeled forward-only peak per shard
+    (``core/memory.py::infer_peak_bytes``)."""
 
     plan_name: str
     mesh_shape: Dict[str, int]
     precision: str
     param_count: int
-    modeled_peak: Optional[Any]
+    modeled_peak: Any
     device: str
     devices: Tuple[str, ...] = ()
 
@@ -73,7 +74,7 @@ class InferReport:
             f"InferenceSession[{self.plan_name}] on {', '.join(self.devices)}"
             f"\n  mesh {self.mesh_shape}  precision={self.precision}\n"
             f"  params {self.param_count / 1e6:.2f}M  modeled forward "
-            f"peak: not modeled yet")
+            f"peak/shard {self.modeled_peak.describe()}")
 
 
 def compile_infer(config: RunConfig, *, device: DeviceLike = None,
@@ -244,12 +245,15 @@ class InferenceSession(session_lib._Traced):
         return self._metrics.absorb(out)
 
     def describe(self) -> InferReport:
-        """The serving plan, mesh, devices, precision and parameter
-        count."""
+        """The serving plan, mesh, devices, precision, parameter count
+        and the modeled forward-only peak at this config's batch."""
+        peak = memory_lib.infer_peak_bytes(
+            self.cfg, self.plan, global_batch=self.config.global_batch,
+            precision=self.precision)
         return InferReport(
             plan_name=self.plan.name, mesh_shape=self.mesh.shape,
             precision=self.precision, param_count=self.cfg.param_count(),
-            modeled_peak=None, device=str(self.device),
+            modeled_peak=peak, device=str(self.device),
             devices=tuple(str(d) for d in self.mesh.devices))
 
     # ------------------------------------------------------ checkpoint ----
@@ -304,8 +308,9 @@ class InferenceSession(session_lib._Traced):
             trace=config.trace if trace is None else trace)
         sess = _compile_infer(config, device, devices)
         model = for_config(sess.cfg)
-        tree = checkpoint.restore(path, {"params": model.param_shapes(
-            sess.cfg)})
+        tree = checkpoint.restore(path, {"params": {
+            k: torch.empty(s, device="meta")
+            for k, s in model.param_shapes(sess.cfg).items()}})
         sess.params = sess._cast_once(model.params_from_numpy(
             tree["params"], sess.device, cfg=sess.cfg))
         return sess

@@ -10,8 +10,11 @@ also writes ``run_config.json`` beside them. A retention root holds
 ``step_<n>`` checkpoint directories.
 
 Both packages read and write the same files, so each restores the
-other's checkpoints. ``save`` never touches an existing checkpoint in
-place: every file is written into a sibling ``<dir>.tmp-<nonce>``
+other's checkpoints. A leaf may carry its ``PartitionSpec`` as the
+reference writes it (``"spec": [["data"]]`` for ZeRO-1's optimizer
+state, dim 0 sharded over the data axes; ``[]`` replicated), so that the
+reference restores it sharded on its mesh. ``save`` never touches an
+existing checkpoint in place: every file is written into a sibling ``<dir>.tmp-<nonce>``
 directory, which is renamed into place once complete (a writer killed
 between leaf writes — the ``checkpoint.write`` fault site fires there —
 leaves the previous checkpoint intact and a stale ``.tmp`` directory
@@ -98,12 +101,14 @@ def _host_array(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
 
 def save(ckpt_dir: str, tree: Any, step: int = 0, *,
          precision: Optional[str] = None,
-         extra_files: Optional[Dict[str, Any]] = None) -> None:
-    """Write ``tree`` (dicts, NamedTuples, tensor leaves) as a
+         extra_files: Optional[Dict[str, Any]] = None,
+         specs: Optional[Mapping[str, List[Any]]] = None) -> None:
+    """Write ``tree`` (dicts, NamedTuples, tuples, tensor leaves) as a
     checkpoint at ``ckpt_dir``, atomically. ``precision`` records the
     training policy in the manifest (then a restore keeps widened half
     leaves as the fp32 masters they are); ``extra_files`` maps file
-    names to JSON-serializable objects written in the same publish."""
+    names to JSON-serializable objects written in the same publish;
+    ``specs`` maps leaf paths to the manifest ``spec`` they record."""
     with trace_lib.span("ckpt.save", path=ckpt_dir, step=step):
         parent = os.path.dirname(os.path.abspath(ckpt_dir))
         os.makedirs(parent, exist_ok=True)
@@ -122,6 +127,8 @@ def save(ckpt_dir: str, tree: Any, step: int = 0, *,
                      "crc32": zlib.crc32(np.ascontiguousarray(arr).tobytes())}
             if dtype != str(arr.dtype):
                 entry["stored_as"] = str(arr.dtype)
+            if specs and path in specs:
+                entry["spec"] = specs[path]
             manifest["leaves"].append(entry)
         with open(os.path.join(tmp, MANIFEST), "w") as f:
             json.dump(manifest, f)
@@ -132,9 +139,9 @@ def save(ckpt_dir: str, tree: Any, step: int = 0, *,
 
 
 def restore(ckpt_dir: str, like: Any, *, verify: bool = True) -> Any:
-    """Read the leaves named by the tree ``like`` (dicts and NamedTuples;
-    its leaf values are ignored, only its structure selects) as CPU
-    tensors, in the same structure. ``verify`` checks each leaf against
+    """Read the leaves named by the tree ``like`` (dicts, NamedTuples and
+    tuples; its leaf values are ignored, only its structure selects) as
+    CPU tensors, in the same structure. ``verify`` checks each leaf against
     its manifest CRC and raises ``CheckpointCorrupt`` on mismatch."""
     with trace_lib.span("ckpt.restore", path=ckpt_dir):
         manifest = _load_manifest(ckpt_dir)
@@ -166,6 +173,9 @@ def restore(ckpt_dir: str, like: Any, *, verify: bool = True) -> Any:
             if isinstance(node, tuple) and hasattr(node, "_fields"):
                 return type(node)(*(walk(getattr(node, f), f"{prefix}.{f}")
                                     for f in node._fields))
+            if isinstance(node, tuple):
+                return tuple(walk(v, f"{prefix}[{i}]")
+                             for i, v in enumerate(node))
             return None if node is None else load_leaf(prefix)
 
         return walk(like, "")
@@ -217,11 +227,13 @@ def step_dir(root: str, step: int) -> str:
 def save_step(root: str, tree: Any, step: int, *,
               precision: Optional[str] = None,
               extra_files: Optional[Dict[str, Any]] = None,
+              specs: Optional[Mapping[str, List[Any]]] = None,
               keep_last: Optional[int] = None) -> str:
     """``save`` into ``step_dir(root, step)``; with ``keep_last``, delete
     older step checkpoints (and stale temp dirs) afterwards."""
     path = step_dir(root, step)
-    save(path, tree, step, precision=precision, extra_files=extra_files)
+    save(path, tree, step, precision=precision, extra_files=extra_files,
+         specs=specs)
     if keep_last is not None:
         gc_steps(root, keep_last)
     return path

@@ -24,9 +24,9 @@ device (``["cuda:0"] * n`` on a card, ``["cpu"] * n`` in the tests):
    ``segmentation_loss`` over ``global_batch * W^3`` voxels; batch-norm
    statistics summed over every mesh axis; under ``overlap`` the
    parameters' reduction hooks go into its graph
-   (``core/grad_comm.py``). Each shard has parameter leaves of its own
-   (views of the same masters), so that its gradient is its own partial
-   sum;
+   (``core/grad_comm.py``; under ``reduce_scatter`` over the spatial
+   axes only). Each shard has parameter leaves of its own (views of the
+   same masters), so that its gradient is its own partial sum;
 2. ONE backward over the shards' losses (fp16: each times the running
    loss scale), from the calling thread: each collective is one autograd
    node over every shard (``core/spmd.py``), so its adjoint is a data
@@ -35,17 +35,25 @@ device (``["cuda:0"] * n`` on a card, ``["cpu"] * n`` in the tests):
    ``monolithic`` reduction of every gradient (``overlap`` has reduced
    them inside the backward), the guard's verdict agreed over every
    shard, and the optimizer's update — the same on every shard, as
-   every input to it is. Shard 0's results are returned.
+   every input to it is. Shard 0's results are returned. Under
+   ``reduce_scatter`` (ZeRO-1) the update is ``grad_comm.sharded_update``:
+   each shard reduce-scatters its buckets over the data axes, updates
+   its chunk against its own 1/N of the optimizer state and gathers the
+   parameters; the step takes and returns one state a shard (a list in
+   rank order, ``make_convnet_opt_state``), spatial peers holding the
+   same chunk.
 
 With the reduced gradients the same on every shard, the fp16 skip
-machine of ``MixedPrecision`` decides alike everywhere, and the one loss
-scale is the optimizer state's. Stages nest as the reference's probes
+machine of ``MixedPrecision`` decides alike everywhere (under ZeRO-1 its
+finite verdict is summed over the data axes), and the one loss scale is
+the optimizer state's. Stages nest as the reference's probes
 do: ``fwd`` returns the loss, ``bwd`` adds the backward (no reduction:
 the loss and the sum of every shard's gradients), ``grad_comm`` the
 reduction (the loss and the reduced gradients), ``step`` the update.
 """
 from __future__ import annotations
 
+import math
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
                     Tuple)
 
@@ -174,6 +182,14 @@ def gather_blocks(outs: Sequence[torch.Tensor], mesh,
     return torch.cat(parts, 0) if len(parts) > 1 else parts[0]
 
 
+def data_shards(mesh, stage: plan_lib.Stage) -> List[int]:
+    """The first shard of each of ``stage``'s batch slices, the slices in
+    order: one holder of each data index."""
+    firsts = {batch_slice(mesh, r, stage)[0]: r
+              for r in reversed(range(mesh.size))}
+    return [firsts[i] for i in sorted(firsts)]
+
+
 def sample_ids(batch: int, mesh, stage: plan_lib.Stage) -> List[range]:
     """Shard r's global sample ids: ``index * n_loc + arange(n_loc)``,
     the reference's, so that dropout masks do not depend on the mesh."""
@@ -240,19 +256,52 @@ def _check_mesh(cfg: ConvNetConfig, mesh, plan) -> None:
             f"shard group")
 
 
+def convnet_grad_plan(cfg: ConvNetConfig) -> grad_comm_lib.Plan:
+    """The bucket plan of ``cfg``'s parameters (the reference's): the
+    flat layout of ZeRO-1's gradients and optimizer state."""
+    return grad_comm_lib.make_plan(
+        {k: torch.empty(s, device="meta")
+         for k, s in for_config(cfg).param_shapes(cfg).items()})
+
+
+def data_degree(plan: plan_lib.ParallelPlan) -> int:
+    """N of ZeRO-1: the product of the entry stage's batch axes'
+    degrees."""
+    return math.prod(plan.degree(a) for a in plan.stages[0].batch_axes)
+
+
 def make_convnet_opt_state(cfg: ConvNetConfig, optimizer, params, *,
                            grad_comm: Optional[str] = None,
                            plan: Optional[plan_lib.ParallelPlan] = None,
-                           precision=None):
+                           mesh=None, precision=None):
     """Optimizer state matching ``make_convnet_train_step``: the
     optimizer wrapped for the policy (fp16 carries the loss-scale
     machine; fp32/bf16 are unwrapped), initialized on ``params``'
     device, the same for every shard. ``precision`` defaults to the
-    plan's."""
-    grad_comm_lib.resolve(grad_comm)
+    plan's. Under ``reduce_scatter`` (which needs ``plan`` and its
+    ``mesh``): a list of one state per shard of the mesh, in rank order,
+    each its data index's 1/N of the padded flat buckets
+    (``grad_comm.local_opt_state`` of ``init_sharded_opt_state`` over
+    ``convnet_grad_plan``; N the data degree), its step count and loss
+    scale replicated."""
+    mode = grad_comm_lib.resolve(grad_comm)
     if precision is None and plan is not None:
         precision = plan.precision
-    return precision_lib.wrap_optimizer(optimizer, precision).init(params)
+    optimizer = precision_lib.wrap_optimizer(optimizer, precision)
+    if mode != "reduce_scatter":
+        return optimizer.init(params)
+    if plan is None or mesh is None:
+        raise ValueError("grad_comm='reduce_scatter' shards the optimizer "
+                         "state over the plan's data axes: pass plan= "
+                         "and mesh=")
+    buckets = convnet_grad_plan(cfg)
+    n = data_degree(plan)
+    device = next(iter(params.values())).device
+    whole = grad_comm_lib.init_sharded_opt_state(
+        optimizer, buckets, num_shards=n, device=device)
+    return [grad_comm_lib.local_opt_state(
+        whole, buckets, batch_slice(mesh, r, plan.stages[0])[0], n)
+        for r in range(mesh.size)]
 
 
 def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
@@ -281,8 +330,15 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
     optimizer = precision_lib.wrap_optimizer(optimizer, policy)
     entry = plan.stages[0]
     axes = plan.axis_names
-    hook_axes = axes if mode == "overlap" and stage in ("grad_comm",
-                                                        "step") else ()
+    zero1 = mode == "reduce_scatter"
+    data_axes = tuple(entry.batch_axes)
+    buckets = convnet_grad_plan(cfg) if zero1 else None
+    # where the backward reduces: every axis (overlap), the spatial axes
+    # (ZeRO-1: the data axes are the buckets' reduce-scatter), none
+    hook_axes = ()
+    if stage in ("grad_comm", "step"):
+        hook_axes = (axes if mode == "overlap" else
+                     plan.spatial_axis_names if zero1 else ())
     n = mesh.size
 
     def shard_loss(params, x, y, ids, seed, scale):
@@ -309,13 +365,22 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
         if mode == "monolithic":
             grads = grad_comm_lib.reduce_grads(grads, axes)
         if stage == "grad_comm":
+            if zero1:  # the scatter and the gather, no optimizer math
+                grads = grad_comm_lib.all_gather_params(
+                    grad_comm_lib.reduce_scatter_grads(grads, buckets,
+                                                       data_axes),
+                    buckets, data_axes, grads)
             return loss, grads
         applied = None
         if guard:
             applied = guard_lib.agreed_finite(loss, grads, axes)
             if policy.uses_scaling:
                 grads = guard_lib.poison_unless(applied, grads)
-        new_params, new_opt = optimizer.update(grads, opt_state, params)
+        if zero1:
+            new_params, new_opt = grad_comm_lib.sharded_update(
+                optimizer, grads, opt_state, params, buckets, data_axes)
+        else:
+            new_params, new_opt = optimizer.update(grads, opt_state, params)
         if guard and not policy.uses_scaling:
             new_params = guard_lib.tree_select(applied, new_params, params)
             new_opt = guard_lib.tree_select(applied, new_opt, opt_state)
@@ -335,7 +400,8 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
             with torch.no_grad():
                 return spmd.run(mesh, fwd, [params] * n, xs, ys, ids, seeds,
                                 [None] * n)[0]
-        scale = (precision_lib.current_scale(opt_state, policy).to(
+        states = opt_state if zero1 else [opt_state] * n
+        scale = (precision_lib.current_scale(states[0], policy).to(
             mesh.devices[0]) if policy.uses_scaling else None)
         leaves = [{k: v.detach().requires_grad_(True)
                    for k, v in params.items()} for _ in range(n)]
@@ -347,8 +413,11 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
         names = list(params)
         grads = [dict(zip(names, found[r * len(names):(r + 1) * len(names)]))
                  for r in range(n)]
-        return spmd.run(mesh, finish, grads, [opt_state] * n, [params] * n,
-                        [v.detach() for v, _ in out])[0]
+        outs = spmd.run(mesh, finish, grads, states, [params] * n,
+                        [v.detach() for v, _ in out])
+        if zero1 and stage == "step":  # every shard's own state
+            return (outs[0][0], [o[1] for o in outs]) + tuple(outs[0][2:])
+        return outs[0]
 
     return step
 
@@ -364,7 +433,8 @@ def make_convnet_train_step(cfg: ConvNetConfig, mesh, optimizer, *,
     """Returns ``step(params, opt_state, x, y, seed) -> (params, opt,
     loss)`` (``guard=True``: ``(params, opt, loss, applied)``). ``params``
     are the fp32 masters and ``opt_state`` comes from
-    ``make_convnet_opt_state`` with the same policy; neither is modified:
+    ``make_convnet_opt_state`` with the same policy and ``grad_comm``
+    (under ``reduce_scatter``, one state a shard); neither is modified:
     the step returns new ones. ``y``: CosmoFlow's (N, out_dim) targets
     or the U-Net's (N, D, H, W) voxel labels. ``seed`` (the step count)
     seeds CosmoFlow's dropout masks (the U-Net has no dropout)."""
@@ -409,8 +479,7 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
     axes = plan.axis_names
     n = mesh.size
     unet = cfg.arch == "unet3d"
-    firsts = sorted({batch_slice(mesh, r, entry)[0]: r
-                     for r in reversed(range(n))}.items())
+    firsts = data_shards(mesh, entry)
 
     def local_eval(params, x, y):
         if unet:
@@ -434,13 +503,14 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
         if unet:
             return out[0][0], gather_blocks([o[1] for o in out], mesh,
                                             entry)
-        preds = [out[r][1] for _, r in firsts]
+        preds = [out[r][1] for r in firsts]
         return out[0][0], preds[0] if len(preds) == 1 else torch.cat(preds)
 
     return fn
 
 
-__all__ = ["STAGES", "batch_slice", "block_index", "gather_blocks",
+__all__ = ["STAGES", "batch_slice", "block_index", "convnet_grad_plan",
+           "data_degree", "data_shards", "gather_blocks",
            "make_convnet_forward_step", "make_convnet_opt_state",
            "make_convnet_train_step", "make_convnet_phase_probes",
            "make_convnet_eval_step", "replicate", "sample_ids",

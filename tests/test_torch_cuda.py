@@ -724,3 +724,57 @@ def test_loader_on_card_matches_the_cpu_loader(cuda, S, tmp_path):
         sess.close()
     assert losses[0] == losses[2]
     cpu.close()
+
+
+@pytest.mark.cuda
+def test_zero1_on_card_holds_its_chunk_and_matches_overlap(cuda):
+    """ZeRO-1 at 2 x 2 on one card: each shard's optimizer state is its
+    1/N of every padded bucket on the card (2 x 4 x padded / N bytes a
+    bucket), spatial peers hold the same chunk, and the parameters after
+    2 steps lie within atol 1e-5, rtol 1e-4 of ``overlap``'s."""
+    from repro_torch.api import RunConfig, compile
+    from repro_torch.train import train_step
+
+    r = np.random.RandomState(2)
+    batches = [(r.randn(4, 32, 32, 32, 2).astype(np.float32),
+                r.randn(4, 4).astype(np.float32)) for _ in range(2)]
+    got = {}
+    for mode in ("overlap", "reduce_scatter"):
+        sess = compile(RunConfig(model="cosmoflow-128", smoke=True,
+                                 global_batch=4, data=2, spatial=2,
+                                 grad_comm=mode), devices=[cuda] * 4)
+        for x, y in batches:
+            sess.step(x, y)
+        got[mode] = {k: v.cpu() for k, v in sess.params.items()}
+        if mode == "reduce_scatter":
+            plan = train_step.convnet_grad_plan(sess.cfg)
+            for rank, st in enumerate(sess.opt_state):
+                assert all(t.device.type == "cuda" for t in st.m)
+                assert sum(t.numel() * t.element_size()
+                           for t in (*st.m, *st.v)) == sum(
+                    2 * 4 * plan.padded_size(b, 2) // 2
+                    for b in plan.buckets)
+                peer = sess.opt_state[rank ^ 1]
+                assert all(torch.equal(a, b) for a, b in zip(st.v, peer.v))
+        sess.close()
+    for k, v in got["overlap"].items():
+        np.testing.assert_allclose(got["reduce_scatter"][k].numpy(),
+                                   v.numpy(), atol=1e-5, rtol=1e-4,
+                                   err_msg=k)
+
+
+@pytest.mark.cuda
+def test_measured_peak_bytes_reads_the_allocator(cuda):
+    """``measured_peak_bytes`` counts what a call allocates (a 64 MiB
+    tensor alive at its end) in ``allocated``, and ``reserved`` holds at
+    least as much."""
+    from repro_torch.core import memory
+
+    keep = []
+    base = torch.cuda.memory_allocated(cuda)
+    peak = memory.measured_peak_bytes(
+        lambda: keep.append(torch.empty(16 << 20, device=cuda)))
+    assert peak.allocated >= base + (64 << 20)
+    assert peak.reserved >= peak.allocated
+    with pytest.raises(ValueError):
+        memory.measured_peak_bytes(lambda: None, device="cpu")

@@ -25,7 +25,7 @@ from repro.configs.base import ConvNetConfig as JConvNetConfig
 from repro.serve import InferenceSession as JInferenceSession
 from repro_torch.api import RunConfig, RunConfigError, compile
 from repro_torch.configs.base import ConvNetConfig
-from repro_torch.core import faults
+from repro_torch.core import faults, memory
 from repro_torch.obs import export as export_lib
 from repro_torch.serve import InferenceSession, compile_infer
 
@@ -205,7 +205,11 @@ def test_mode_dispatch_and_train_slice():
     sess = _session(global_batch=2)
     assert isinstance(sess, InferenceSession)
     rep = sess.describe()
-    assert rep.plan_name == "cosmoflow.legacy" and rep.modeled_peak is None
+    assert rep.plan_name == "cosmoflow.legacy"
+    # the forward-only memory model at this batch (core/memory.py)
+    assert rep.modeled_peak == memory.infer_peak_bytes(
+        TINY, sess.plan, global_batch=2, precision="fp32")
+    assert rep.modeled_peak.total > 0 and "modeled forward" in str(rep)
     assert rep.param_count == TINY.param_count()
     # float64 volumes are served as fp32, as the reference serves them
     x64 = _batch(n=2)[0].astype(np.float64)

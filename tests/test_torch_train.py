@@ -392,20 +392,26 @@ def test_train_config_rejects_what_this_slice_does_not_run():
             assert sess.mesh.shape == {"data": kw.get("data", 1),
                                        "model": kw.get("spatial", 1)}
     for kw, field in ((dict(pipeline=2), "pipeline"),
-                      (dict(grad_comm="reduce_scatter"), "grad_comm"),
                       (dict(plan="auto"), "plan"),
                       (dict(memory_budget_gib=4.0), "memory_budget_gib")):
         with pytest.raises(RunConfigError) as e:
             compile(RunConfig(model="cosmoflow-128", smoke=True, **kw),
                     device="cpu")
         assert e.value.field == field, kw
-    for kw, field in ((dict(data=2, mode="infer"), "data"),
-                      (dict(data=2, spatial=2, grad_comm="reduce_scatter"),
-                       "grad_comm")):
-        with pytest.raises(RunConfigError) as e:
-            compile(RunConfig(model="cosmoflow-128", smoke=True, **kw),
-                    devices=["cpu"] * 4 if kw.get("spatial") else
-                    ["cpu"] * 2)
-        assert e.value.field == field, kw
-    for mode in ("monolithic", "overlap"):
+    with pytest.raises(RunConfigError) as e:
+        compile(RunConfig(model="cosmoflow-128", smoke=True, data=2,
+                          mode="infer"), devices=["cpu"] * 2)
+    assert e.value.field == "data"
+    # ZeRO-1 compiles and steps at 1 x 1 and 2 x 2: one state a shard
+    for D, S in ((1, 1), (2, 2)):
+        with compile(RunConfig(model="cosmoflow-128", smoke=True,
+                               global_batch=2 * D, data=D, spatial=S,
+                               grad_comm="reduce_scatter"),
+                     devices=["cpu"] * (D * S)) as sess:
+            x, y = _batches(1)[0]
+            loss = sess.step(np.concatenate([x] * D), np.concatenate([y] * D))
+            assert torch.isfinite(loss) and sess.grad_comm == "reduce_scatter"
+            assert isinstance(sess.opt_state, list)
+            assert len(sess.opt_state) == D * S
+    for mode in ("monolithic", "overlap", "reduce_scatter"):
         RunConfig(model="cosmoflow-128", grad_comm=mode).validate()
