@@ -163,6 +163,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
               ZeRO-1 checkpoint restored on the card, resuming bitwise.
               10z-u: the same against ``overlap`` for the U-Net at 64^3
               b2, 2 x 2, with its timings (after 10f).
+10p. plans  — the cost-model planner's layouts, every shard on this
+              card: the all_to_all bitwise its oracle at the planned
+              boundaries; training cosmoflow-128 b4 fp32 under the b1/b2 batch
+              plans and the uniform batch plan (1 x 2; b1 and b2 at 1 x
+              4) beside the fixed plan of each mesh, and the U-Net at
+              64^3 b2 under its b1 batch plan, with phase 10b's checks
+              and timings (beside ``describe().predicted_step_s``) and
+              overlap against ZeRO-1 after 2 steps; ``plan="auto"`` and
+              ``memory_budget_gib`` (the chosen plan, its modeled peak,
+              the measured own peak; a budget below the floor raises
+              naming it); batch-sharded serving of cosmoflow-128 b4 at
+              data 2 and 2 x 2 against data 1, and the U-Net's batch plan
+              served at 256^3 b2 S = 2 against its fixed plan.
 m.  memory_model — every measured peak of phases 5, 10, 10c, 10e and
               10g (512^3 b2 now also without remat) beside the session's
               ``describe().modeled_peak`` (``core/memory.py``), and the
@@ -195,8 +208,8 @@ m.  memory_model — every measured peak of phases 5, 10, 10c, 10e and
               one profiled mamba2-370m forward in fp32 and one in bf16.
 
 Phases 4-6, 7-8, 10 (the training steps), 10b (the sharded training
-steps), 10c, 10e and 10f (the U-Net's), 10g, 10h, 10z, 10z-u and 12-13
-are the main paths:
+steps), 10c, 10e and 10f (the U-Net's), 10g, 10h, 10z, 10z-u, 10p and
+12-13 are the main paths:
 the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
@@ -307,6 +320,38 @@ SPATIAL_STEPS = 3
 SPATIAL_LIMIT_S = 240
 # overlap against monolithic after 2 steps (tests/test_grad_comm.py)
 MODES_ATOL, MODES_RTOL = 1e-5, 1e-4
+# planned layouts (phase 10p): one transition each, the spatial group
+# turned into batch shards after block (U-Net: level) 1 or 2, or at the
+# FC head (core/plan.py::convnet_plan)
+PLAN_KINDS = {"b1_batch": dict(boundary=1, kind="batch"),
+              "b2_batch": dict(boundary=2, kind="batch"),
+              "uniform_batch": dict(boundary=None, kind="batch")}
+# phase 10p's training runs at cosmoflow-128 b4 fp32, as TRAIN_SPATIAL,
+# beside the fixed plan of each mesh; "p-b" twice: overlap against ZeRO-1
+# after 2 steps. No uniform batch plan at 1 x 4: blocks 5-6 are 2 deep
+PLANS_TRAIN = (("p-a", 1, 2, "fp32", "overlap", "fixed"),
+               ("p-b", 1, 2, "fp32", "overlap", "b1_batch"),
+               ("p-b", 1, 2, "fp32", "reduce_scatter", "b1_batch"),
+               ("p-c", 1, 2, "fp32", "overlap", "b2_batch"),
+               ("p-d", 1, 2, "fp32", "overlap", "uniform_batch"),
+               ("p-e", 1, 4, "fp32", "overlap", "fixed"),
+               ("p-f", 1, 4, "fp32", "overlap", "b1_batch"),
+               ("p-g", 1, 4, "fp32", "overlap", "b2_batch"))
+# the U-Net's at 64^3 b2 (UNET_CHECK_*), and its batch plan served at
+# 256^3 b2, S = 2, against the fixed plan
+PLANS_UNET = (("pu-a", 1, 2, "fp32", "overlap", "fixed"),
+              ("pu-b", 1, 2, "fp32", "overlap", "b1_batch"))
+PLANS_UNET_SERVE = (2, 2, "b1_batch")  # (batch, spatial degree, plan)
+# plan="auto" and memory budgets at cosmoflow-128 b4 (tag, RunConfig
+# fields, shards given): the budgets' spatial options are the shards
+PLANS_AUTO = (("auto 1x2", dict(spatial=2, plan="auto"), 2),
+              ("auto 1x4", dict(spatial=4, plan="auto"), 4),
+              ("budget 1.0 GiB", dict(memory_budget_gib=1.0), 4),
+              ("budget 1.5 GiB fp32", dict(memory_budget_gib=1.5,
+                                           precision="fp32"), 4))
+PLANS_FLOOR_BUDGET_GIB = 0.5  # below every candidate's modeled peak
+# batch-sharded serving of cosmoflow-128 b4 fp32: (data, spatial, plan)
+PLANS_SERVE = ((2, 1, "fixed"), (2, 2, "fixed"), (1, 2, "auto"))
 # the 3D U-Net (unet3d-256, 256^3 x 1 input, base 32, depth 3): serving
 # at batch 1, (spatial degree, precision), every shard on this card
 UNET_SERVE = ((1, "fp32"), (1, "bf16"), (2, "fp32"), (4, "fp32"))
@@ -667,7 +712,7 @@ def halo_cases(cosmoflow, plan_lib, part, cfgs) -> list:
     runs = [(cfgs[name], batch, S, kind) for name, batch, S, _, kind
             in SPATIAL]
     runs += [(cfgs["cosmoflow-128"], 4 // D, S, kind)
-             for _, D, S, _, _, kind in TRAIN_SPATIAL]
+             for _, D, S, _, _, kind in TRAIN_SPATIAL + PLANS_TRAIN]
     for cfg, batch, S, kind in runs:
         plan = spatial_plan(plan_lib, part, cfg, S, kind)
         for sc in cosmoflow.split_convs(cfg, plan, batch):
@@ -681,14 +726,17 @@ def halo_cases(cosmoflow, plan_lib, part, cfgs) -> list:
 def unet_halo_cases(unet3d, plan_lib, part, cfg, cfg64) -> set:
     """(shard input shape, lo, hi) of every depth-split conv of the U-Net
     paths: unet3d-256 b1 served at S = 2 and 4, and the sharded training
-    steps at 64^3 (batch 2 over D data shards), with the faces of the
-    unpack's adjoint where a shard has no interior."""
+    steps at 64^3 (batch 2 over D data shards), phase 10p's planned
+    runs, with the faces of the unpack's adjoint where a shard has no
+    interior."""
     cases = set()
-    runs = [(cfg, 1, S) for S, _ in UNET_SERVE if S > 1]
-    runs += [(cfg64, UNET_CHECK_BATCH // D, S)
-             for _, D, S, *_ in UNET_SPATIAL]
-    for c, batch, S in runs:
-        plan = plan_lib.legacy_convnet_plan(c, part, (S, 1, 1))
+    runs = [(cfg, 1, S, "fixed") for S, _ in UNET_SERVE if S > 1]
+    runs += [(cfg64, UNET_CHECK_BATCH // D, S, kind)
+             for _, D, S, _, _, kind in UNET_SPATIAL + PLANS_UNET]
+    batch, S, kind = PLANS_UNET_SERVE
+    runs += [(cfg, batch, S, kind), (cfg, batch, S, "fixed")]
+    for c, batch, S, kind in runs:
+        plan = spatial_plan(plan_lib, part, c, S, kind)
         for sc in unet3d.split_convs(c, plan, batch):
             cases.add((sc.shape, sc.lo, sc.hi))
             if sc.no_interior:  # the unpack's adjoint: a pack of dout
@@ -697,10 +745,18 @@ def unet_halo_cases(unet3d, plan_lib, part, cfg, cfg64) -> set:
     return cases
 
 
-def spatial_plan(plan_lib, part, cfg, S, kind):
-    n = len(cfg.conv_channels)
+def spatial_plan(plan_lib, part, cfg, S, kind, data: int = 1):
+    """The plan of ``kind``: "fixed" (the legacy plan), one of
+    ``PLAN_KINDS`` (a one-transition plan), or "deep" (CosmoFlow's depth
+    split through every conv block, data 1)."""
     if kind == "fixed":
-        return plan_lib.legacy_convnet_plan(cfg, part, (S, 1, 1))
+        return plan_lib.legacy_convnet_plan(cfg, part, (S, 1, 1),
+                                            data_degrees=(data,))
+    if kind in PLAN_KINDS:
+        return plan_lib.convnet_plan(cfg, spatial_degrees=(S, 1, 1),
+                                     data_degrees=(data,),
+                                     **PLAN_KINDS[kind])
+    n = len(cfg.conv_channels)
     return plan_lib.ParallelPlan(
         (plan_lib.Stage(0, n, ("model", None, None)),
          plan_lib.Stage(n, n + 1, (None, None, None))),
@@ -1659,25 +1715,43 @@ def shard_decisions(k, taken: dict):
         yield
 
 
-def global_decisions(k, taken: dict, cfg, plan, mesh) -> list:
-    """The sharded step's decisions as the unsharded step's: depth slabs
-    concatenated along depth, batch slices along the batch, and a block
-    the plan gathers (replicated over the spatial group) from the
-    group's first shard. (The U-Net's legacy plan is one stage: every
-    decision is split alike.)"""
-    n_data, n_model = mesh.degree("data"), mesh.degree("model")
+def decision_layouts(k, cfg, plan) -> list:
+    """The layout of each decision a step records (``decisions``' call
+    order: CosmoFlow's batch norm and pool of each block; the U-Net's two
+    batch norms and the pool of each encoder level, the bottleneck's
+    two, each decoder level's two) under ``plan``: "spatial" (depth split
+    over the spatial axis), "batch" (the spatial axis moved into the
+    batch) or "replicated" (gathered)."""
+    def layout(layer):
+        st = plan.stage_for(layer)
+        if st.part.active:
+            return "spatial"
+        return "batch" if "model" in st.batch_axes else "replicated"
+
     if cfg.arch == "unet3d":
-        splits = [bool(plan.stages[0].part.active)] * len(taken[0])
+        d = cfg.depth
+        layers = ([lvl for lvl in range(d) for _ in range(3)] + [d, d]
+                  + [lvl for lvl in reversed(range(d)) for _ in range(2)])
     else:
         npool = k.cosmoflow.num_pools(cfg)
-        splits = [bool(plan.stage_for(i).part.active)
-                  for i in range(k.cosmoflow.num_blocks(cfg))
+        layers = [i for i in range(k.cosmoflow.num_blocks(cfg))
                   for _ in range(2 if i < npool else 1)]
+    return [layout(i) for i in layers]
+
+
+def global_decisions(k, taken: dict, cfg, plan, mesh) -> list:
+    """The sharded step's decisions as the unsharded step's: depth slabs
+    concatenated along depth, the spatial group's batch chunks (a stage
+    that moved it into the batch) and the data slices along the batch,
+    and a block the plan gathers (replicated over the spatial group)
+    from the group's first shard."""
+    n_data, n_model = mesh.degree("data"), mesh.degree("model")
     out = []
-    for j, split in enumerate(splits):
+    for j, lay in enumerate(decision_layouts(k, cfg, plan)):
         out.append(torch.cat([
             torch.cat([taken[d * n_model + m][j]
-                       for m in (range(n_model) if split else (0,))], 1)
+                       for m in (range(n_model) if lay != "replicated"
+                                 else (0,))], 1 if lay == "spatial" else 0)
             for d in range(n_data)], 0))
     return out
 
@@ -1696,7 +1770,7 @@ def train_batch(cfg, batch: int, g) -> tuple:
 
 def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
                         compile, plan_lib, depth, card: str,
-                        split_reps: int = 3) -> tuple:
+                        split_reps: int = 3, name: str = "") -> tuple:
     """Hybrid data x spatial training of ``cfg`` at ``batch``, every shard
     on this card, in each of ``runs`` (``TRAIN_SPATIAL`` for
     cosmoflow-128 b4, ``UNET_SPATIAL`` for the U-Net at 64^3 b2; the runs
@@ -1709,14 +1783,17 @@ def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
        within max(``STEP1_FP32``, the plain fp32 unsharded step's own
        distance from fp64) of its max-abs; bf16 no farther from fp64
        than ``STEP1_BF16`` x the plain bf16 step; the loss within
-       ``STEP1_LOSS`` of the plain unsharded step's;
+       ``STEP1_LOSS`` of the plain unsharded step's; a planned run's
+       distance from the fixed plan's step 1 on its mesh, where the runs
+       hold one (recorded; the loss within ``STEP1_LOSS``);
     2. the main path: ``SPATIAL_STEPS`` steps each, every loss finite,
        the launches per step of each kernel equal to
-       ``kernel_launches(train=True)``; the 2 x 2 ``overlap`` and
-       ``monolithic`` runs' parameters after 2 steps within
-       ``MODES_ATOL``/``MODES_RTOL``;
-    3. timings: ms per step (host clock, median of 3 after a warm-up),
-       the probes' split (median of ``split_reps``), peak memory.
+       ``kernel_launches(train=True)``; two runs with one tag (two
+       reduction lowerings) agree after 2 steps within
+       ``MODES_ATOL``/``MODES_RTOL`` (and whether bitwise);
+    3. timings: ms per step (host clock, median of 3 after a warm-up)
+       beside ``describe().predicted_step_s``, the probes' split (median
+       of ``split_reps``), peak memory.
 
     Each part of each configuration runs under ``within_limit``.
     Returns (report, launches of the main path)."""
@@ -1726,7 +1803,8 @@ def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
     g = torch.Generator(device="cuda").manual_seed(11)
     x, y = train_batch(cfg, batch, g)
     model = k.unet3d if cfg.arch == "unet3d" else k.cosmoflow
-    phase = "train_spatial" + ("_unet" if cfg.arch == "unet3d" else "")
+    phase = name or "train_spatial" + ("_unet" if cfg.arch == "unet3d"
+                                       else "")
 
     def rel(a, b):
         return ((a.double() - b.double()).abs().max().item()
@@ -1743,11 +1821,11 @@ def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
         base[prec] = (one, plain_loss.item(), plain, exact)
     torch.cuda.synchronize()
 
-    sessions = {}
+    sessions, step1 = {}, {}
     for tag, D, S, prec, mode, kind in runs:
         key = f"{tag}/{D}x{S}/{prec}/{mode}/{kind}"
         plan = "fixed" if kind == "fixed" else spatial_plan(
-            plan_lib, depth, cfg, S, kind)
+            plan_lib, depth, cfg, S, kind, D)
         one, plain_loss, plain, exact = base[prec]
 
         def check_step1():
@@ -1788,6 +1866,7 @@ def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
                   f"{key}: step 1 vs the unsharded step: loss {loss_err}; "
                   f"gradients out of bounds {bad}")
             worst = max(row, key=lambda n: row[n][worst_key])
+            step1[key] = (loss.item(), grads)
             out["vs_unsharded"][key] = {"loss": loss.item(),
                                         "plain_loss": plain_loss,
                                         "loss_rel_err": loss_err,
@@ -1804,6 +1883,26 @@ def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
     for one, *_ in base.values():
         one.close()
     del base
+    # a planned run beside the fixed plan's step 1 on its mesh
+    for (tag, D, S, prec, mode, kind), key in zip(runs, list(step1)):
+        fixed = next((k2 for (t2, D2, S2, p2, m2, kind2), k2 in zip(
+            runs, step1) if kind2 == "fixed" and (D2, S2, p2, m2)
+                      == (D, S, prec, mode)), None)
+        if kind == "fixed" or fixed is None:
+            continue
+        (loss, grads), (floss, fgrads) = step1[key], step1[fixed]
+        loss_err = abs(loss - floss) / abs(floss)
+        dist = {n: rel(grads[n], fgrads[n]) for n in grads}
+        check(loss_err <= STEP1_LOSS[prec], f"{key}: step 1's loss vs the "
+              f"fixed plan's {loss_err}")
+        worst = max(dist, key=dist.get)
+        out["vs_unsharded"][key]["vs_fixed"] = {
+            "loss_rel_err": loss_err, "grads": dist}
+        log(phase, f"{key}: step 1 vs the fixed plan's ({fixed}): loss "
+            f"{loss_err:.3g}; farthest gradient {worst} {dist[worst]:.3g} "
+            "of its max-abs (each plan's own decisions; both within their "
+            "bounds from fp64 above)")
+    del step1
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ the main path ----
@@ -1853,17 +1952,22 @@ def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
     check(launches == expected, f"{phase} path launches {launches}, "
           f"expected {expected}")
     log("main path", f"{phase}: launches {launches}")
-    both = next(r[0] for r in runs if r[4] == "monolithic")
-    ov, mono = (after_two[key] for key in sessions
-                if key.startswith(both + "/"))
-    modes = {n: (ov[n] - mono[n]).abs().max().item() for n in ov}
-    bad = {n for n in ov if not torch.allclose(
-        ov[n], mono[n], atol=MODES_ATOL, rtol=MODES_RTOL)}
-    check(not bad, f"2x2 overlap vs monolithic after 2 steps: {bad}")
-    out["overlap_vs_monolithic_max_abs"] = max(modes.values())
-    log(phase, f"2x2 overlap vs monolithic after 2 steps: max "
-        f"abs difference {max(modes.values()):.3g} (atol {MODES_ATOL}, "
-        f"rtol {MODES_RTOL})")
+    tags = [r[0] for r in runs]
+    out["modes"] = {}
+    for tag in sorted({t for t in tags if tags.count(t) == 2}):
+        (ka, a), (kb, b) = ((key, after_two[key]) for key in sessions
+                            if key.startswith(tag + "/"))
+        what = f"{ka.split('/')[1]} {ka.split('/')[3]} vs {kb.split('/')[3]}"
+        diff = {n: (a[n] - b[n]).abs().max().item() for n in a}
+        bad = {n for n in a if not torch.allclose(
+            a[n], b[n], atol=MODES_ATOL, rtol=MODES_RTOL)}
+        check(not bad, f"{tag} {what} after 2 steps: {bad}")
+        bitwise = all(torch.equal(a[n], b[n]) for n in a)
+        out["modes"][f"{tag} {what}"] = {"max_abs": max(diff.values()),
+                                          "bitwise": bitwise}
+        log(phase, f"{what} ({tag}) after 2 steps: max abs difference "
+            f"{max(diff.values()):.3g} (atol {MODES_ATOL}, rtol "
+            f"{MODES_RTOL}); bitwise {bitwise}")
 
     # ------------------------------------------------------ timings ----
     for key, sess in sessions.items():
@@ -1871,16 +1975,275 @@ def phase_train_spatial(k, cfg, runs, batch: int, unpack_tags, RunConfig,
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             return {"step_ms": host_ms(lambda: sess.step(x, y), 3),
-                    **step_split(k, sess, x, y, split_reps)}
+                    **step_split(k, sess, x, y, split_reps),
+                    "plan": sess.plan.name,
+                    "predicted_step_s": sess.describe().predicted_step_s}
 
         row = out["timing"][key] = within_limit(timed, SPATIAL_LIMIT_S,
                                                 f"{key} timings")
-        log("timings", f"train_spatial {key} ({card}; every shard on one "
-            "card: the sharded step's overhead, not scaling): "
-            + json.dumps(row))
+        log("timings", f"{phase} {key} ({card}; every shard on one "
+            "card: the sharded step's overhead, not scaling; predicted: "
+            "the H100 model, a card a shard): " + json.dumps(row))
         sess.close()
     del sessions, after_two, x, y
     torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_plans(k, cfg, ucfg, ucfg64, RunConfig, compile, plan_lib, depth,
+                card: str) -> tuple:
+    """Phase 10p: the cost-model planner's layouts on the card, every
+    shard on it (main paths, the launch counters zeroed before each part
+    and read after):
+
+    1. training under one-transition plans (``PLANS_TRAIN``,
+       cosmoflow-128 b4 fp32; ``PLANS_UNET``, the U-Net at 64^3 b2):
+       phase 10b's checks (step 1 against the unsharded fp64 step with
+       the run's own decisions, launches per step against
+       ``kernel_launches``, timings beside ``predicted_step_s``), the
+       distance from the fixed plan's step 1 on the same mesh, and
+       overlap against ZeRO-1 after 2 steps;
+    2. the all_to_all (``reshard.spatial_to_batch``) at the b1 and b2
+       plans' boundary shapes, 1 x 2 and 1 x 4: bitwise its gather-and-
+       slice oracle, undone by ``batch_to_spatial``, both timed;
+       ``plan="auto"`` and ``memory_budget_gib`` (``PLANS_AUTO``): the
+       chosen plan, its modeled peak and the measured peak of a step
+       (allocated, less ``foreign_bytes``: the run's own), the step's
+       launches and time beside ``predicted_step_s``; a budget below
+       every candidate (``PLANS_FLOOR_BUDGET_GIB``) raises naming the
+       floor;
+    3. batch-sharded serving (``PLANS_SERVE``: cosmoflow-128 b4 at data
+       2, at 2 x 2, and plan="auto" at S = 2) against data 1 (fp32
+       1e-5), a harness at data 2, and the U-Net's batch plan served at
+       256^3 b2 S = 2 against its fixed plan (fp32 1e-5), launches per
+       forward against ``kernel_launches``.
+
+    Returns (report, launches of its main paths)."""
+    t0 = time.perf_counter()
+    out = {"card": card}
+    launches = dict(NO_LAUNCHES)
+
+    def add(got):
+        nonlocal launches
+        launches = {n: launches[n] + got[n] for n in KERNELS}
+
+    release_cached("the plans phase")
+    out["train"], got = phase_train_spatial(
+        k, cfg, PLANS_TRAIN, 4, {"p-d"}, RunConfig, compile, plan_lib,
+        depth, card, split_reps=1, name="plans")
+    add(got)
+    out["train_unet"], got = phase_train_spatial(
+        k, ucfg64, PLANS_UNET, UNET_CHECK_BATCH, set(), RunConfig, compile,
+        plan_lib, depth, card, split_reps=1, name="plans_unet")
+    add(got)
+
+    # ------------------------ the all_to_all against its oracle ----
+    from repro_torch.core import reshard
+    from repro_torch.launch.mesh import Mesh
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    out["all_to_all"] = {}
+    layers = plan_lib.perf_model.cosmoflow_layers(cfg)
+    for S, b in ((2, 1), (2, 2), (4, 1), (4, 2)):
+        mesh = Mesh([("data", 1), ("model", S)], ["cuda:0"] * S)
+        w, c = layers[b].width, layers[b].cin  # block b's input at b4
+        xs = [torch.randn((4, w // S, w, w, c), generator=g, device="cuda")
+              for _ in range(S)]
+
+        def a2a(t):
+            return reshard.spatial_to_batch(t, "model", 1)
+
+        def oracle(t):
+            return reshard.spatial_to_batch_oracle(t, "model", 1)
+
+        got, want = k.spmd.run(mesh, a2a, xs), k.spmd.run(mesh, oracle, xs)
+        back = k.spmd.run(mesh, lambda t: reshard.batch_to_spatial(
+            t, "model", 1), got)
+        check(all(torch.equal(a, o) for a, o in zip(got, want))
+              and all(torch.equal(a, x_) for a, x_ in zip(back, xs)),
+              f"all_to_all 1x{S} at block {b}'s input: not the oracle's "
+              "bits, or batch_to_spatial does not undo it")
+        row = out["all_to_all"][f"1x{S}/block{b}"] = {
+            "shard_shape": list(xs[0].shape), "bitwise_vs_oracle": True,
+            "ms": host_ms(lambda: k.spmd.run(mesh, a2a, xs), 5),
+            "oracle_ms": host_ms(lambda: k.spmd.run(mesh, oracle, xs), 5)}
+        log("plans", f"spatial_to_batch 1x{S} at block {b}'s input (a "
+            f"shard {tuple(xs[0].shape)} fp32): bitwise the gather-and-"
+            f"slice oracle's, undone by batch_to_spatial; {row['ms']:.3f} "
+            f"ms against the oracle's {row['oracle_ms']:.3f} (host clock, "
+            f"every shard's copy on this card; {card})")
+        del xs, got, want, back
+
+    # ------------------------------------- plan="auto", the budget ----
+    x, y = train_batch(cfg, 4, g)
+    out["auto"] = {}
+    zero_counts(k)
+    expected = dict(NO_LAUNCHES)
+    for tag, kw, n in PLANS_AUTO:
+        sess = compile(RunConfig(model=cfg, mode="train", global_batch=4,
+                                 **kw), devices=["cuda:0"] * n)
+        rep = sess.describe()
+        per_step = dict(NO_LAUNCHES, **k.cosmoflow.kernel_launches(
+            cfg, sess.plan, train=True))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        c0 = counts(k)
+        first = sess.step(x, y).item()  # the warm-up
+        resident = torch.cuda.memory_allocated()
+        peak = k.memory.measured_peak_bytes(lambda: sess.step(x, y))
+        got = delta(counts(k), c0)
+        want = {n_: 2 * v for n_, v in per_step.items()}
+        check(got == want, f"{tag}: launches {got} over 2 steps, expected "
+              f"{per_step} a step (kernel_launches)")
+        expected = {n_: expected[n_] + want[n_] for n_ in KERNELS}
+        ms = host_ms(lambda: sess.step(x, y), 3)
+        expected = {n_: expected[n_] + 4 * per_step[n_] for n_ in KERNELS}
+        check(math.isfinite(first), f"{tag}: loss {first}")
+        foreign = foreign_bytes(resident, sess, x, y)
+        own = peak.allocated - foreign
+        budget = rep.memory_budget_bytes
+        row = out["auto"][tag] = {
+            "plan": sess.plan.name, "precision": sess.precision,
+            "mesh": sess.mesh.shape, "loss": first,
+            "modeled": modeled(sess), "budget_bytes": budget,
+            "peak_bytes": peak.allocated,
+            "peak_reserved_bytes": peak.reserved,
+            "resident_bytes_before": resident, "foreign_bytes": foreign,
+            "own_peak_bytes": own,
+            "modeled_over_own_peak": rep.modeled_peak.total / own,
+            "ms_per_step": ms, "predicted_step_s": rep.predicted_step_s,
+            "launches_per_step": per_step}
+        check(budget is None or rep.modeled_peak.total <= budget,
+              f"{tag}: modeled peak over the budget")
+        log("plans", f"{tag}: chose {sess.plan.name} ({sess.precision}, "
+            f"mesh {sess.mesh.shape}); modeled peak "
+            f"{rep.modeled_peak.total / 2 ** 30:.3f} GiB a shard"
+            + ("" if budget is None else
+               f" (budget {budget / 2 ** 30:.2f})")
+            + f"; measured {peak.allocated / 2 ** 30:.3f} GiB allocated, "
+            f"{foreign / 2 ** 30:.3f} of it other phases' (own "
+            f"{own / 2 ** 30:.3f}, every shard on this card), "
+            f"{peak.reserved / 2 ** 30:.3f} reserved; {ms:.2f} ms a step "
+            f"against {rep.predicted_step_s * 1e3:.2f} predicted (the "
+            f"H100 model, a card a shard; {card})")
+        sess.close()
+    got = counts(k)
+    check(got == expected, f"plans auto path launches {got}, expected "
+          f"{expected}")
+    log("main path", f"plans auto: launches {got}")
+    add(got)
+    floor = min(
+        k.memory.plan_peak_bytes(cfg, dataclasses.replace(v, precision=p),
+                                 global_batch=4).total
+        for s in (1, 2, 4)
+        for c in plan_lib.candidate_convnet_plans(
+            cfg, plan_lib.perf_model.H100, spatial_degree=s,
+            global_batch=4)
+        for v in plan_lib.remat_variants(cfg, c) for p in ("fp32", "bf16"))
+    try:
+        compile(RunConfig(model=cfg, mode="train", global_batch=4,
+                          memory_budget_gib=PLANS_FLOOR_BUDGET_GIB),
+                devices=["cuda:0"] * 4)
+        raised = None
+    except ValueError as e:  # RunConfigError
+        raised = e
+    check(raised is not None and getattr(raised, "field", "")
+          == "memory_budget_gib"
+          and f"{floor / 2 ** 30:.3f} GiB" in str(raised),
+          f"a {PLANS_FLOOR_BUDGET_GIB} GiB budget: {raised!r}, floor "
+          f"{floor / 2 ** 30:.3f} GiB")
+    out["floor"] = {"budget_gib": PLANS_FLOOR_BUDGET_GIB,
+                    "floor_bytes": floor, "error": str(raised)}
+    log("plans", f"budget {PLANS_FLOOR_BUDGET_GIB} GiB: raises "
+        f"RunConfigError(memory_budget_gib) naming the "
+        f"{floor / 2 ** 30:.3f} GiB floor: {raised}")
+    del x, y
+
+    # ------------------------------------ batch-sharded serving ----
+    out["serve"] = {}
+    x = torch.randn((4, 128, 128, 128, 4), generator=g, device="cuda")
+    base = compile(RunConfig(model=cfg, mode="infer", global_batch=4))
+    want = base.predict(x)
+    base.close()
+    zero_counts(k)
+    expected = dict(NO_LAUNCHES)
+    for D, S, plan in PLANS_SERVE:
+        tag = f"{cfg.name}/fp32/{D}x{S}/{plan}"
+        sess = compile(RunConfig(model=cfg, mode="infer", global_batch=4,
+                                 data=D, spatial=S, plan=plan),
+                       devices=["cuda:0"] * (D * S))
+        per_fwd = dict(NO_LAUNCHES, **k.cosmoflow.kernel_launches(
+            cfg, sess.plan))
+        c0 = counts(k)
+        pred = sess.predict(x)
+        check(delta(counts(k), c0) == per_fwd,
+              f"{tag}: launches per forward (kernel_launches)")
+        err = rel_err(pred, want)
+        check(tuple(pred.shape) == (4, 4) and err <= 1e-5,
+              f"{tag}: vs data 1 {err}")
+        ms = host_ms(lambda: sess.predict(x), 5)
+        forwards = 7  # the checked one, host_ms's warm-up and 5
+        if D > 1:  # the harness pads 3 requests to 4
+            with sess.serve(max_batch=4, max_wait_ms=50) as h:
+                rows = [f.result(timeout=300) for f in h.submit_many(
+                    [r.cpu().numpy() for r in x[:3]])]
+            check(all(r.shape == (4,) and np.all(np.isfinite(r))
+                      for r in rows), f"{tag}: harness replies")
+            forwards += int(sess.telemetry()["serve.batches"])
+        expected = {n: expected[n] + forwards * per_fwd[n] for n in KERNELS}
+        out["serve"][tag] = {"plan": sess.plan.name, "rel_err_vs_data1": err,
+                             "tol": 1e-5, "ms": ms,
+                             "launches_per_forward": per_fwd}
+        log("plans", f"serve {tag}: plan {sess.plan.name}; vs data 1 "
+            f"{err:.3g} <= 1e-5; launches per forward {json.dumps(per_fwd)}"
+            f"; {ms:.2f} ms a batch ({card})")
+        sess.close()
+    del x, want, pred
+    release_cached("the U-Net's planned serving")
+    batch, S, kind = PLANS_UNET_SERVE
+    x = torch.randn((batch, 256, 256, 256, 1), generator=g, device="cuda")
+    logits = {}
+    for name in ("fixed", kind):
+        tag = f"{ucfg.name}/fp32/b{batch}/S{S}/{name}"
+        plan = "fixed" if name == "fixed" else spatial_plan(
+            plan_lib, depth, ucfg, S, name)
+        sess = compile(RunConfig(model=ucfg, mode="infer",
+                                 global_batch=batch, spatial=S, plan=plan),
+                       devices=["cuda:0"] * S)
+        per_fwd = dict(NO_LAUNCHES, **k.unet3d.kernel_launches(ucfg,
+                                                               sess.plan))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = counts(k)
+        logits[name] = sess.predict(x)
+        check(delta(counts(k), c0) == per_fwd,
+              f"{tag}: launches per forward (kernel_launches)")
+        expected = {n: expected[n] + per_fwd[n] for n in KERNELS}
+        ms = host_ms(lambda: sess.predict(x), 1)
+        expected = {n: expected[n] + 2 * per_fwd[n] for n in KERNELS}
+        out["serve"][tag] = {"plan": sess.plan.name, "ms": ms,
+                             "peak_bytes": torch.cuda.max_memory_allocated(),
+                             "launches_per_forward": per_fwd}
+        sess.close()
+    err = rel_err(logits[kind], logits["fixed"])
+    check(tuple(logits[kind].shape) == (batch, 256, 256, 256, 3)
+          and err <= 1e-5, f"{ucfg.name} b{batch} S{S} {kind} vs fixed {err}")
+    out["serve"][f"{ucfg.name}/fp32/b{batch}/S{S}/{kind}"][
+        "rel_err_vs_fixed"] = err
+    log("plans", f"serve {ucfg.name} b{batch} S={S}: {kind} vs the fixed "
+        f"plan {err:.3g} <= 1e-5; " + json.dumps(
+            {n: out["serve"][f"{ucfg.name}/fp32/b{batch}/S{S}/{n}"]
+             for n in ("fixed", kind)}) + f" ({card})")
+    del x, logits
+    got = counts(k)
+    check(got == expected, f"plans serving launches {got}, expected "
+          f"{expected}")
+    log("main path", f"plans serving: launches {got}")
+    add(got)
+    release_cached("the phases after 10p")
+    out["seconds"] = time.perf_counter() - t0
+    log("plans", f"all plan checks ok in {out['seconds']:.0f}s; launches "
+        f"{json.dumps(launches)}")
     return out, launches
 
 
@@ -3366,6 +3729,12 @@ def main() -> int:
     main_paths["train_zero1_unet"] = {"launches": got}
     clock("train_zero1_unet")
     launches = {n: launches[n] + got[n] for n in KERNELS}
+    # ------------------------------------------ main path: 10p ----
+    plans, got = phase_plans(k, cf128, ucfg, ucfg64, RunConfig, compile,
+                             plan_lib, depth, report["card"])
+    main_paths["plans"] = {"launches": got}
+    clock("plans")
+    launches = {n: launches[n] + got[n] for n in KERNELS}
 
     # -------------------------------- (m) modeled against measured ----
     memory_rows = {f"train {tag}": row for tag, row in train["steps"].items()}
@@ -3513,7 +3882,8 @@ def main() -> int:
     report.update(score=score, decode=decode_row, train=train,
                   train_spatial=train_spatial, unet=unet,
                   train_remat=train_remat, train_io=train_io,
-                  train_zero1=train_zero1, memory_model=memory_model)
+                  train_zero1=train_zero1, memory_model=memory_model,
+                  plans=plans)
     report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
                   conv_vs_library=conv_vs_library,
                   lowering=lowering, profile=profiles, bounds=PEAKS_USED,

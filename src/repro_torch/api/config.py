@@ -7,13 +7,16 @@ checkpoint embeds reads back here. The device is not a field: the entry
 points take ``device=`` or ``devices=`` (``repro_torch.api.compile``).
 
 ``validate`` raises ``RunConfigError`` naming the offending field and a
-fix, as the reference does. What the port cannot run yet is rejected
-the same way, naming the slice that brings it: batch-sharded serving
-(``data`` with ``mode="infer"``), the cost-model planner
-(``plan="auto"``, ``memory_budget_gib``) and the pipeline axis
-(``pipeline``). Training takes every ``grad_comm``, ZeRO-1
-(``reduce_scatter``) included; serving none but ``auto``, as the
-reference rules.
+fix, as the reference does. ``plan`` is ``"fixed"`` (the fixed-degree
+legacy plan), ``"auto"`` (the cost-model planner's choice at the
+config's degrees) or a pinned ``ParallelPlan``; ``memory_budget_gib``
+(> 0) makes the planner choose under that modeled peak a device
+(``core/memory.py``), raising the spatial degree, the precision or the
+remat set where it must. Both modes take data x spatial degrees. What
+the port cannot run yet is rejected the same way, naming the slice that
+brings it: the pipeline axis (``pipeline``). Training takes every
+``grad_comm``, ZeRO-1 (``reduce_scatter``) included; serving none but
+``auto``, as the reference rules.
 """
 from __future__ import annotations
 
@@ -163,14 +166,7 @@ class RunConfig:
 
     def _validate_infer(self) -> None:
         """Reject knobs that configure training machinery a forward-only
-        program does not have, and batch sharding, which serving does
-        not run yet."""
-        if isinstance(self.data, int) and self.data > 1:
-            raise RunConfigError(
-                "data", f"data={self.data} shards a serving batch, which "
-                "the plans slice of the port brings (training takes "
-                "data > 1)",
-                "set data=1; use spatial= to shard large volumes")
+        program does not have."""
         if self.grad_comm != "auto":
             raise RunConfigError(
                 "grad_comm",
@@ -230,22 +226,15 @@ class RunConfig:
 
         if isinstance(self.plan, plan_lib.ParallelPlan):
             self._validate_plan_degrees(self.plan)
-        elif self.plan == "auto":
-            raise RunConfigError(
-                "plan", "'auto' needs the cost-model planner, which comes "
-                "with the plans slice of the port",
-                "use plan='fixed' (or pass a ParallelPlan)")
         elif self.plan not in PLAN_POLICIES:
             raise RunConfigError(
                 "plan", f"unknown policy {self.plan!r}",
                 f"pass one of {PLAN_POLICIES} or a ParallelPlan instance")
 
-        if self.memory_budget_gib is not None:
-            raise RunConfigError(
-                "memory_budget_gib",
-                "a memory budget drives the cost-model planner, which "
-                "comes with the plans slice of the port",
-                "drop memory_budget_gib")
+        if self.memory_budget_gib is not None and self.memory_budget_gib <= 0:
+            raise RunConfigError("memory_budget_gib",
+                                 f"must be > 0, got {self.memory_budget_gib}",
+                                 "pass the per-device budget in GiB")
 
         if self.lr_schedule not in LR_SCHEDULES:
             raise RunConfigError("lr_schedule",

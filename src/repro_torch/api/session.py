@@ -14,7 +14,8 @@ state a shard, each over its 1/N of the flat buckets);
 ``save``/``Session.restore`` write and read the reference's checkpoint
 format (ZeRO-1's state as the reference's global padded buckets), so
 each package resumes the other's runs, on any mesh shape; ``describe``
-reports the modeled peak memory (``core/memory.py``); ``make_loader``
+reports the modeled peak memory (``core/memory.py``) and the predicted
+step time (``core/perf_model.py``); ``make_loader``
 gives it batches from a hyperslab store (``data/pipeline.py``). Both
 run CosmoFlow (``y``: (N, out_dim) targets) and the 3D U-Net (``y``:
 (N, D, H, W) voxel labels; ``evaluate`` returns per-voxel logits).
@@ -26,6 +27,14 @@ one device per shard of a run over data x spatial > 1 shards —
 CPU. With neither, a one-shard run takes the CUDA device and an n-shard
 run ``cuda:0..n-1``; without enough cards they raise instead of running
 elsewhere.
+
+The plan: ``plan="fixed"`` is the fixed-degree legacy plan,
+``plan="auto"`` the cost-model planner's argmin at the config's degrees
+(``core/plan.py::plan_convnet``, priced on ``perf_model.H100``), and
+``memory_budget_gib`` the planner's choice under that modeled peak a
+shard, over spatial degrees up to what the devices given allow (give
+more devices than data x spatial shards to let it raise the degree; the
+plan's mesh takes the first ones).
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from repro_torch.configs.base import ConvNetConfig
 from repro_torch.core import faults
 from repro_torch.core import grad_comm as grad_comm_lib
 from repro_torch.core import memory as memory_lib
+from repro_torch.core import perf_model
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
 from repro_torch.core.spatial_conv import SpatialPartitioning
@@ -64,17 +74,88 @@ from repro_torch.train import train_step as train_step_lib
 _META_FILE = "run_config.json"
 
 
-def _resolve_plan(config: RunConfig, cfg: ConvNetConfig
-                  ) -> Tuple["plan_lib.ParallelPlan", str]:
+def _spatial_options(cfg: ConvNetConfig, config: RunConfig,
+                     device_count: int) -> Tuple[int, ...]:
+    """Spatial degrees the budgeted planner may raise to: powers of two
+    from the configured degree while ``device_count`` (the devices the
+    session is given) and layer 0's local width admit them."""
+    opts, s = [], max(config.spatial, 1)
+    while (config.data * s <= device_count and cfg.input_width % s == 0
+           and cfg.input_width // s >= 4):
+        opts.append(s)
+        s *= 2
+    return tuple(opts) or (config.spatial,)
+
+
+def _resolve_plan(config: RunConfig, cfg: ConvNetConfig, grad_comm: str,
+                  device_count: int) -> Tuple["plan_lib.ParallelPlan", str]:
     """(plan, precision name) for a validated config: a pinned plan as
-    given, else the fixed-degree legacy plan at the config's degrees."""
+    given; under ``plan="auto"`` or a memory budget the planner's choice
+    (priced on ``perf_model.H100`` with ``grad_comm``; a budget searches
+    the spatial degrees ``device_count`` devices allow); else the
+    fixed-degree legacy plan at the config's degrees."""
     explicit = None if config.precision == "auto" else config.precision
     if isinstance(config.plan, plan_lib.ParallelPlan):
         return config.plan, explicit or config.plan.precision
+    if config.plan == "auto" or config.memory_budget_gib is not None:
+        kw: Dict[str, Any] = dict(
+            spatial_degree=config.spatial, data_degree=config.data,
+            global_batch=config.global_batch, grad_comm=grad_comm)
+        if config.memory_budget_gib is not None:
+            options = _spatial_options(cfg, config, device_count)
+            kw.update(memory_budget_bytes=config.memory_budget_gib * 2 ** 30,
+                      precisions=(explicit,) if explicit else ("fp32",
+                                                               "bf16"),
+                      spatial_options=options)
+            try:
+                plan = plan_lib.plan_convnet(cfg, perf_model.H100, **kw)
+            except ValueError as e:
+                # the planner attaches the smallest modeled peak of every
+                # candidate it priced: the floor the error reports
+                mem = getattr(e, "best_infeasible_mem", None)
+                if mem is None:
+                    raise RunConfigError(
+                        "spatial", str(e),
+                        "no admissible plan at these degrees; lower "
+                        "spatial or give more devices") from e
+                raise RunConfigError(
+                    "memory_budget_gib",
+                    f"{config.memory_budget_gib:.3f} GiB is below every "
+                    f"feasible plan",
+                    f"raise to at least {mem.total / 2 ** 30:.3f} GiB "
+                    f"(the {e.best_infeasible_plan.name} floor over "
+                    f"spatial options {list(options)}), give more "
+                    f"devices, or allow lower precision") from e
+            return plan, explicit or plan.precision
+        if explicit:
+            kw["precisions"] = (explicit,)
+        plan = plan_lib.plan_convnet(cfg, perf_model.H100, **kw)
+        return plan, explicit or plan.precision
     plan = plan_lib.legacy_convnet_plan(
         cfg, SpatialPartitioning(("model", None, None)),
         (config.spatial, 1, 1), data_degrees=(config.data,))
     return plan, explicit or "fp32"
+
+
+def _place(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
+           devices: Optional[Sequence[DeviceLike]], grad_comm: str
+           ) -> Tuple["plan_lib.ParallelPlan", str, Tuple[torch.device, ...]]:
+    """(plan, precision, one device per shard of the plan) for a config
+    validated without a device count: exactly one device per data x
+    spatial shard, save that under a memory budget the devices given are
+    the pool the planner may raise the spatial degree over (the plan's
+    mesh takes the first ones)."""
+    shards = config.data * config.spatial
+    devs = mesh_lib.mesh_devices(shards, device=device, devices=devices)
+    config.validate(device_count=len(devs))
+    plan, precision = _resolve_plan(config, cfg, grad_comm, len(devs))
+    n = plan.device_count
+    if len(devs) == n or (config.memory_budget_gib is not None
+                          and len(devs) > n):
+        return plan, precision, devs[:n]
+    raise RunConfigError(
+        "spatial", f"{len(devs)} devices given for data x spatial = "
+        f"{shards} shards", "pass one device per shard")
 
 
 def _build_optimizer(config: RunConfig) -> Adam:
@@ -108,16 +189,9 @@ def _compile_train(config: RunConfig, device: DeviceLike,
                    devices: Optional[Sequence[DeviceLike]],
                    mask_source) -> "Session":
     config.validate(device_count=None)
-    shards = config.data * config.spatial
-    devs = mesh_lib.mesh_devices(shards, device=device, devices=devices)
-    config.validate(device_count=len(devs))
-    if len(devs) != shards:
-        raise RunConfigError(
-            "spatial", f"{len(devs)} devices given for data x spatial = "
-            f"{shards} shards", "pass one device per shard")
     cfg = config.resolve_model()
-    plan, precision = _resolve_plan(config, cfg)
     grad_comm = "overlap" if config.grad_comm == "auto" else config.grad_comm
+    plan, precision, devs = _place(config, cfg, device, devices, grad_comm)
     mesh = mesh_lib.make_plan_mesh(plan, devs)
     optimizer = _build_optimizer(config)
     params = for_config(cfg).init_params(
@@ -194,9 +268,10 @@ class _Traced:
 @dataclasses.dataclass(frozen=True)
 class Report:
     """``Session.describe()``: the plan, mesh, device, precision,
-    reduction mode, the guard's telemetry and the modeled peak memory
-    per shard (``core/memory.py``). The modeled step time comes with the
-    plans slice and is None until then."""
+    reduction mode, the guard's telemetry, the modeled peak memory per
+    shard (``core/memory.py``) beside the budget, and the predicted step
+    time (``plan.price_plan`` on ``perf_model.H100``: a mesh whose
+    shards are on separate cards, not the shards of one card)."""
 
     plan_name: str
     stages: Tuple[Tuple[int, int, Tuple[Optional[str], ...],
@@ -208,20 +283,26 @@ class Report:
     param_count: int
     device: str
     modeled_peak: Any
+    predicted_step_s: float
+    memory_budget_bytes: Optional[float] = None
     telemetry: Dict[str, float] = dataclasses.field(default_factory=dict)
-    predicted_step_s: Optional[float] = None
 
     def __str__(self) -> str:
         stages = "; ".join(
             f"[{a},{b}) spatial={[x for x in sp if x]} batch={list(ba)}"
             + (" remat" if rm else "") for a, b, sp, ba, rm in self.stages)
+        budget = ("none" if self.memory_budget_bytes is None
+                  else f"{self.memory_budget_bytes / 2 ** 30:.2f}GiB")
         return (
             f"Session[{self.plan_name}] on {self.device}\n"
             f"  mesh {self.mesh_shape}  precision={self.precision}  "
             f"grad_comm={self.grad_comm}  global_batch={self.global_batch}\n"
             f"  stages: {stages}\n"
             f"  params {self.param_count / 1e6:.2f}M  modeled peak/shard "
-            f"{self.modeled_peak.describe()}  step time: not modeled yet"
+            f"{self.modeled_peak.describe()}\n"
+            f"  budget {budget}  predicted step "
+            f"{self.predicted_step_s * 1e3:.2f}ms (perf model, H100, a "
+            f"card a shard)"
             + (("\n  guard: " + "  ".join(
                 f"{k}={v:g}" for k, v in sorted(self.telemetry.items())))
                if self.telemetry else ""))
@@ -428,9 +509,21 @@ class Session(_Traced):
         return self._metrics.absorb(out)
 
     def describe(self) -> Report:
+        """The plan, the modeled peak a shard (``core/memory.py``), the
+        budget, and the predicted step time: ``plan.price_plan`` on
+        ``perf_model.H100``, which prices the plan's mesh with every
+        shard on a card of its own (here they may share one)."""
+        priced = (self.plan if self.plan.precision == self.precision
+                  else dataclasses.replace(self.plan,
+                                           precision=self.precision))
+        t = plan_lib.price_plan(self.cfg, perf_model.H100, priced,
+                                global_batch=self.config.global_batch,
+                                grad_comm=self.grad_comm)
         peak = memory_lib.plan_peak_bytes(
             self.cfg, self.plan, global_batch=self.config.global_batch,
             grad_comm=self.grad_comm, precision=self.precision)
+        budget = (None if self.config.memory_budget_gib is None
+                  else self.config.memory_budget_gib * 2 ** 30)
         return Report(
             plan_name=self.plan.name,
             stages=tuple((s.start, s.stop, tuple(s.spatial_axes),
@@ -440,7 +533,8 @@ class Session(_Traced):
             grad_comm=self.grad_comm,
             global_batch=self.config.global_batch,
             param_count=self.cfg.param_count(), device=str(self.device),
-            telemetry=self.telemetry(), modeled_peak=peak)
+            telemetry=self.telemetry(), modeled_peak=peak,
+            predicted_step_s=t, memory_budget_bytes=budget)
 
     # ------------------------------------------------------ checkpoint ----
     def save(self, path: Optional[str] = None) -> str:

@@ -1,29 +1,42 @@
-"""Per-stage parallelism plans (the reference's ``core/plan.py``, data
-part).
+"""Per-stage parallelism plans and the cost-model planner (the
+reference's ``core/plan.py``).
 
 A ``ParallelPlan`` is an ordered list of ``Stage``s, each naming the
 mesh axes that shard the batch and the D/H/W dims for a contiguous
 range of layers (cosmoflow: layers ``0..n_blocks-1`` are the conv
 blocks, layer ``n_blocks`` the FC head; the U-Net: layers
 ``0..depth-1`` are the resolution levels, layer ``depth`` the
-bottleneck). The dataclasses, their names and their JSON
-(``api/config.py``) are the reference's, so a plan pinned in a
-reference checkpoint reads back. ``legacy_convnet_plan`` builds the
-fixed-degree plan ``RunConfig(plan="fixed")`` resolves to: for
-CosmoFlow, depth partitioned over ``spatial`` shards until a block's
-local width would drop below 4, then gathered; for the U-Net, one
-spatial stage over every level. ``uniform_plan`` is the reference's
-one-stage plan (the equivalence oracle of its memory tests), and
-``plan_remat_schedule`` its per-layer remat flags. The cost-model
-planner comes with the plans slice.
+bottleneck, each decoder level running its encoder level's stage). The
+dataclasses, their names and their JSON (``api/config.py``) are the
+reference's, so a plan pinned in a reference checkpoint reads back.
+``legacy_convnet_plan`` builds the fixed-degree plan
+``RunConfig(plan="fixed")`` resolves to: for CosmoFlow, depth
+partitioned over ``spatial`` shards until a block's local width would
+drop below 4, then gathered; for the U-Net, one spatial stage over
+every level. ``convnet_plan`` builds a one-transition plan: the spatial
+group partitions the volume up to a boundary and then either turns into
+extra batch shards (``kind="batch"``, an ``all_to_all``,
+``core/reshard.py``) or gathers the volume and runs replicated
+(``"replicated"``).
+
+The planner (``plan_convnet``) prices every admissible boundary and
+kind with ``perf_model.iteration_time`` over the plan's per-layer
+layout (``plan_schedule``) and returns the argmin; under a memory
+budget it searches transition x kind x remat x precision x spatial
+degree subject to ``core/memory.py``'s modeled peak. The arithmetic,
+the candidate order and the tie-breaks are the reference's, so that on
+the same ``Hardware`` both pick the same plan. Pipelined candidates
+come with the pipeline slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import itertools
+from typing import Any, List, Optional, Sequence, Tuple
 
 from repro_torch.configs.base import ConvNetConfig
 from repro_torch.core import flags, perf_model
+from repro_torch.core import precision as precision_lib
 from repro_torch.core.spatial_conv import SpatialPartitioning
 
 AxesT = Tuple[Optional[str], Optional[str], Optional[str]]
@@ -149,6 +162,19 @@ class ParallelPlan:
         return tuple(out)
 
     @property
+    def batch_extension_axes(self) -> Tuple[str, ...]:
+        """Axes moved from spatial to batch, in transition order: the
+        order in which targets are sliced to follow the activations
+        (``reshard.shard_batch``)."""
+        base = set(self.stages[0].batch_axes)
+        out: List[str] = []
+        for st in self.stages[1:]:
+            for a in st.batch_axes:
+                if a not in base and a not in out:
+                    out.append(a)
+        return tuple(out)
+
+    @property
     def data_degree(self) -> int:
         """Product of the entry stage's batch-axis degrees."""
         d = 1
@@ -219,6 +245,54 @@ def unet_n_layers(cfg: ConvNetConfig) -> int:
     return cfg.depth + 1  # resolution levels + the bottleneck
 
 
+def _axes_pairs(axes: Sequence[str], degrees: Sequence[int]):
+    return tuple(zip(tuple(axes), tuple(int(d) for d in degrees)))
+
+
+def convnet_plan(
+    cfg: ConvNetConfig,
+    *,
+    boundary: Optional[int] = None,
+    kind: str = "batch",
+    spatial_axes: AxesT = ("model", None, None),
+    spatial_degrees: Tuple[int, ...] = (1, 1, 1),
+    data_axes: Tuple[str, ...] = ("data",),
+    data_degrees: Tuple[int, ...] = (1,),
+    cost: Optional[float] = None,
+) -> ParallelPlan:
+    """A one-transition plan: layers ``[0, boundary)`` spatially
+    partitioned, layers ``[boundary, n)`` not, the spatial group either
+    turned into batch shards (``kind="batch"``) or gathered and
+    replicated (``"replicated"``). ``boundary=None`` (or ``n``) keeps the
+    spatial layout through the last conv layer; CosmoFlow's FC head then
+    still transitions by ``kind`` (the reference's uniform plan is
+    ``boundary=None, kind="replicated"``). Named as the reference names
+    it."""
+    if kind not in ("batch", "replicated"):
+        raise ValueError(f"kind={kind!r}; expected 'batch' or 'replicated'")
+    n = (cosmoflow_n_layers(cfg) if cfg.arch == "cosmoflow"
+         else unet_n_layers(cfg))
+    b = n if boundary is None else boundary
+    if cfg.arch == "cosmoflow":
+        b = min(b, n - 1)  # the FC head is never spatial
+    if not 1 <= b <= n:
+        raise ValueError(f"boundary={boundary} outside [1, {n}]")
+    moved = tuple(a for a in spatial_axes if a) if kind == "batch" else ()
+    stages = [Stage(0, b, tuple(spatial_axes), tuple(data_axes))]
+    if b < n:
+        stages.append(Stage(b, n, (None, None, None),
+                            tuple(data_axes) + moved))
+    mesh_axes = _axes_pairs(data_axes, data_degrees) + tuple(
+        (a, d) for a, d in zip(spatial_axes, spatial_degrees) if a)
+    if len(stages) == 1:
+        name = f"{cfg.arch}.uniform"  # one stage: no kind
+    else:
+        label = ("uniform" if cfg.arch == "cosmoflow" and b == n - 1
+                 else f"b{b}")
+        name = f"{cfg.arch}.{label}.{kind}"
+    return ParallelPlan(tuple(stages), mesh_axes, n, name=name, cost=cost)
+
+
 def uniform_plan(
     cfg: ConvNetConfig,
     *,
@@ -227,23 +301,13 @@ def uniform_plan(
     data_axes: Tuple[str, ...] = ("data",),
     data_degrees: Tuple[int, ...] = (1,),
 ) -> ParallelPlan:
-    """The reference's one-stage plan (its ``convnet_plan`` with
-    ``boundary=None, kind="replicated"``): the spatial layout through
-    the last conv layer, then, for CosmoFlow, the FC head replicated.
-    Named as the reference names it."""
-    mesh_axes = tuple(zip(tuple(data_axes), (int(d) for d in
-                                             data_degrees))) + tuple(
-        (a, int(d)) for a, d in zip(spatial_axes, spatial_degrees) if a)
-    if cfg.arch != "cosmoflow":
-        n = unet_n_layers(cfg)
-        return ParallelPlan(
-            (Stage(0, n, tuple(spatial_axes), tuple(data_axes)),),
-            mesh_axes, n, name=f"{cfg.arch}.uniform")
-    n = cosmoflow_n_layers(cfg)
-    stages = (Stage(0, n - 1, tuple(spatial_axes), tuple(data_axes)),
-              Stage(n - 1, n, (None, None, None), tuple(data_axes)))
-    return ParallelPlan(stages, mesh_axes, n,
-                        name="cosmoflow.uniform.replicated")
+    """The reference's one-stage plan: the spatial layout through the
+    last conv layer, then, for CosmoFlow, the FC head replicated (the
+    equivalence oracle of its memory tests)."""
+    return convnet_plan(cfg, boundary=None, kind="replicated",
+                        spatial_axes=spatial_axes,
+                        spatial_degrees=spatial_degrees,
+                        data_axes=data_axes, data_degrees=data_degrees)
 
 
 def plan_remat_schedule(cfg: ConvNetConfig,
@@ -288,8 +352,7 @@ def legacy_convnet_plan(
     and the bottleneck, never gathered (``unet3d.legacy``)."""
     axes = list(part.axes)
     shards = tuple(int(s) for s in spatial_shards)
-    mesh_axes = tuple(zip(tuple(data_axes), tuple(int(d) for d in
-                                                  data_degrees))) + tuple(
+    mesh_axes = _axes_pairs(data_axes, data_degrees) + tuple(
         (a, s) for a, s in zip(axes, shards) if a)
     if cfg.arch != "cosmoflow":
         n = unet_n_layers(cfg)
@@ -314,3 +377,257 @@ def legacy_convnet_plan(
                         tuple(data_axes)))
     return ParallelPlan(tuple(stages), mesh_axes, n_blocks + 1,
                         name="cosmoflow.legacy")
+
+
+# ------------------------------------------------------------- planner ----
+def plan_schedule(cfg: ConvNetConfig, plan: ParallelPlan) -> List[str]:
+    """The per-layer layout ``perf_model.iteration_time`` prices:
+    CosmoFlow's conv layers and one trailing FC entry; the U-Net's
+    encoder, bottleneck and decoder convs mapped to their levels (a
+    decoder level's up-convolution runs in the level below's layout, so
+    the ascent's reshards are priced too)."""
+
+    def mode(layer: int) -> str:
+        st = plan.stage_for(layer)
+        if st.spatial_names:
+            return "spatial"
+        return "batch" if set(st.batch_axes) > set(
+            plan.stages[0].batch_axes) else "replicated"
+
+    if cfg.arch == "cosmoflow":
+        return [mode(i) for i in range(len(cfg.conv_channels) + 1)]
+    sched: List[str] = []
+    for lvl in range(cfg.depth):          # encoder: 2 convs a level
+        sched += [mode(lvl)] * 2
+    sched += [mode(cfg.depth)] * 2        # bottleneck
+    for lvl in reversed(range(cfg.depth)):  # decoder: deconv + 2 convs
+        sched += [mode(lvl + 1)] + [mode(lvl)] * 2
+    return sched
+
+
+def _no_pipeline(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: pipelined plans come with the pipeline slice of the port")
+
+
+def price_plan(cfg: ConvNetConfig, hw: "perf_model.Hardware",
+               plan: ParallelPlan, *, global_batch: int,
+               overlap: bool = True, grad_comm: str = "overlap") -> float:
+    """The predicted seconds of a training iteration under ``plan``
+    (``plan_schedule``'s layout, its remat recompute and its precision's
+    activation width), on the mesh the plan records, its shards on
+    separate accelerators of ``hw``."""
+    if plan.pipeline is not None and plan.pipeline.n_groups > 1:
+        raise _no_pipeline(f"price_plan of {plan.name!r}")
+    ways = 1
+    for a in plan.spatial_axis_names:
+        ways *= plan.degree(a)
+    data = 1
+    for a in plan.stages[0].batch_axes:
+        data *= plan.degree(a)
+    pol = precision_lib.get(plan.precision)
+    act_bytes = None if pol.act_bytes == 4 else pol.act_bytes
+    r = perf_model.iteration_time(
+        cfg, hw, num_gpus=max(ways, 1) * data, ways=max(ways, 1),
+        global_batch=global_batch, overlap=overlap, grad_comm=grad_comm,
+        schedule=plan_schedule(cfg, plan),
+        remat_schedule=plan_remat_schedule(cfg, plan),
+        act_bytes=act_bytes)
+    return r["total"]
+
+
+def remat_variants(cfg: ConvNetConfig,
+                   plan: ParallelPlan) -> List[ParallelPlan]:
+    """Every per-stage remat assignment of ``plan``, the no-remat one
+    first; a stage holding only CosmoFlow's FC head is never marked."""
+    n_conv = plan.n_layers - (1 if cfg.arch == "cosmoflow" else 0)
+    idxs = [i for i, st in enumerate(plan.stages) if st.start < n_conv]
+    out: List[ParallelPlan] = []
+    for mask in itertools.product((False, True), repeat=len(idxs)):
+        stages = list(plan.stages)
+        for i, flag in zip(idxs, mask):
+            stages[i] = dataclasses.replace(stages[i], remat=flag)
+        name = plan.name
+        if any(mask):
+            name += ".remat" + "".join(
+                str(i) for i, f in zip(idxs, mask) if f)
+        out.append(dataclasses.replace(plan, stages=tuple(stages),
+                                       name=name))
+    return out
+
+
+def candidate_convnet_plans(
+    cfg: ConvNetConfig,
+    hw: "perf_model.Hardware",
+    *,
+    spatial_axis: str = "model",
+    spatial_degree: int,
+    data_axes: Tuple[str, ...] = ("data",),
+    data_degree: int = 1,
+    global_batch: int,
+    overlap: bool = True,
+    grad_comm: str = "overlap",
+    min_local_width: int = 4,
+) -> List[ParallelPlan]:
+    """Every admissible one-transition plan (each boundary x {batch,
+    replicated}, the uniform plan included), priced. A batch transition
+    needs the group's batch to divide by the spatial degree; a spatial
+    stage needs every layer's local width >= ``min_local_width``."""
+    per_group_batch = global_batch / max(data_degree, 1)
+    batch_ok = (per_group_batch >= spatial_degree
+                and per_group_batch % spatial_degree == 0)
+    n = (cosmoflow_n_layers(cfg) if cfg.arch == "cosmoflow"
+         else unet_n_layers(cfg))
+    if cfg.arch == "cosmoflow":
+        widths = [l.width for l in perf_model.cosmoflow_layers(cfg)]
+    else:
+        widths = [cfg.input_width // 2 ** lvl for lvl in range(n)]
+    b_max = n
+    for i, w in enumerate(widths):
+        if w // spatial_degree < min_local_width:
+            b_max = i
+            break
+    if b_max == 0:
+        raise ValueError(
+            f"{cfg.arch}: {spatial_degree}-way spatial decomposition gives "
+            f"layer-0 local width {widths[0] // spatial_degree} < "
+            f"{min_local_width}; reduce the spatial degree")
+
+    out: List[ParallelPlan] = []
+    seen = set()
+    kinds = ("batch", "replicated") if batch_ok else ("replicated",)
+    for b, kind in itertools.product(range(1, min(b_max, n) + 1), kinds):
+        plan = convnet_plan(
+            cfg, boundary=b, kind=kind,
+            spatial_axes=(spatial_axis, None, None),
+            spatial_degrees=(spatial_degree, 1, 1),
+            data_axes=data_axes,
+            data_degrees=(data_degree,) + (1,) * (len(data_axes) - 1))
+        key = tuple(plan.stages)  # the kind lives in the stages
+        if key in seen:
+            continue
+        seen.add(key)
+        cost = price_plan(cfg, hw, plan, global_batch=global_batch,
+                          overlap=overlap, grad_comm=grad_comm)
+        out.append(dataclasses.replace(plan, cost=cost))
+    return out
+
+
+def plan_convnet(
+    cfg: ConvNetConfig,
+    hw: "perf_model.Hardware",
+    *,
+    memory_budget_bytes: Optional[float] = None,
+    precisions: Sequence[str] = ("fp32",),
+    spatial_options: Optional[Sequence[int]] = None,
+    remat_options: Optional[bool] = None,
+    pipeline_options: Optional[Sequence[int]] = None,
+    **kw,
+) -> ParallelPlan:
+    """The cost model's argmin over ``candidate_convnet_plans`` (``kw``
+    are its arguments); ties go to the fewest stages.
+
+    With ``memory_budget_bytes`` the argmin runs over transition x kind x
+    remat set x precision subject to ``core/memory.py``'s modeled peak a
+    device fitting the budget; ``spatial_options`` lets it raise the
+    spatial degree (the data degree stays), ``remat_options`` expands
+    the per-stage remat sets (default: under a budget). Among plans
+    within 1% of the fastest it prefers the highest precision, then no
+    remat, then the fewest stages. When nothing fits, the ``ValueError``
+    carries the candidate of the smallest modeled peak
+    (``best_infeasible_plan``, ``best_infeasible_mem``)."""
+    if any(int(p) > 1 for p in (pipeline_options or ())):
+        raise _no_pipeline(f"plan_convnet(pipeline_options="
+                           f"{tuple(pipeline_options)})")
+    prec_rank = {"fp32": 0, "bf16": 1, "fp16": 2}
+    expand_remat = (remat_options if remat_options is not None
+                    else memory_budget_bytes is not None)
+    plain = (memory_budget_bytes is None and spatial_options is None
+             and not expand_remat and tuple(precisions) == ("fp32",))
+    if plain:
+        cands = candidate_convnet_plans(cfg, hw, **kw)
+        if not cands:
+            raise ValueError(
+                "no admissible plans (spatial degree too large?)")
+        return min(cands, key=lambda p: (p.cost, len(p.stages)))
+
+    from repro_torch.core import memory as memory_lib  # imports plan
+
+    global_batch = kw["global_batch"]
+    overlap = kw.get("overlap", True)
+    grad_comm = kw.get("grad_comm", "overlap")
+    base_degree = kw.pop("spatial_degree")
+    options = tuple(spatial_options) if spatial_options else (base_degree,)
+    bases: List[ParallelPlan] = []
+    for s in options:
+        try:
+            bases += candidate_convnet_plans(cfg, hw, spatial_degree=s, **kw)
+        except ValueError:
+            continue  # the degree over-decomposes layer 0
+
+    feasible: List[ParallelPlan] = []
+    best_infeasible: Optional[Tuple[ParallelPlan, Any]] = None
+    for base in bases:
+        for var in (remat_variants(cfg, base) if expand_remat else [base]):
+            for prec in precisions:
+                p = dataclasses.replace(
+                    var, precision=prec,
+                    name=(var.name if prec == "fp32"
+                          else f"{var.name}@{prec}"))
+                if prec == "fp32" and not p.uses_remat:
+                    cost = base.cost  # priced above
+                else:
+                    cost = price_plan(cfg, hw, p, global_batch=global_batch,
+                                      overlap=overlap, grad_comm=grad_comm)
+                p = dataclasses.replace(p, cost=cost)
+                if memory_budget_bytes is not None:
+                    mem = memory_lib.plan_peak_bytes(
+                        cfg, p, global_batch=global_batch,
+                        grad_comm=grad_comm)
+                    if mem.total > memory_budget_bytes:
+                        if (best_infeasible is None
+                                or mem.total < best_infeasible[1].total):
+                            best_infeasible = (p, mem)
+                        continue
+                feasible.append(p)
+    if not feasible:
+        if best_infeasible is not None:
+            p, mem = best_infeasible
+            err = ValueError(
+                f"no plan fits memory_budget_bytes="
+                f"{memory_budget_bytes / 2 ** 30:.2f}GiB; closest is "
+                f"{p.name} at {mem.describe()} — raise the budget, the "
+                f"spatial_options, or allow lower precision")
+            err.best_infeasible_plan = p
+            err.best_infeasible_mem = mem
+            raise err
+        raise ValueError("no admissible plans (spatial degree too large?)")
+    cut = min(p.cost for p in feasible) * 1.01
+    pool = [p for p in feasible if p.cost <= cut]
+    return min(pool, key=lambda p: (prec_rank.get(p.precision, 99),
+                                    int(p.uses_remat), len(p.stages),
+                                    p.cost))
+
+
+def price_fixed_degree(
+    cfg: ConvNetConfig,
+    hw: "perf_model.Hardware",
+    *,
+    spatial_axis: str = "model",
+    spatial_degree: int,
+    data_degree: int = 1,
+    global_batch: int,
+    overlap: bool = True,
+    grad_comm: str = "overlap",
+) -> Tuple[ParallelPlan, float]:
+    """(the fixed-degree legacy plan, its priced iteration time): the
+    baseline a chosen plan is compared with, built directly rather than
+    drawn from the planner's candidates."""
+    fixed = legacy_convnet_plan(
+        cfg, SpatialPartitioning((spatial_axis, None, None)),
+        (spatial_degree, 1, 1), data_degrees=(data_degree,))
+    cost = perf_model.iteration_time(
+        cfg, hw, num_gpus=spatial_degree * data_degree,
+        ways=spatial_degree, global_batch=global_batch, overlap=overlap,
+        grad_comm=grad_comm, schedule=plan_schedule(cfg, fixed))["total"]
+    return fixed, cost

@@ -8,10 +8,10 @@ CUDA device, the shard's own stream current. Inside ``fn``,
 ``axis(names)`` is the shard's group along one mesh axis or several
 (the ranks that share every other coordinate, in rank order):
 ``index``, ``size``, ``ppermute``, ``psum``, ``psum_scatter``,
-``all_gather`` and ``psum_grad``, with the semantics of
+``all_gather``, ``all_to_all`` and ``psum_grad``, with the semantics of
 ``lax.axis_index`` / ``lax.axis_size`` / ``lax.ppermute`` /
 ``lax.psum`` / ``lax.psum_scatter(tiled=True)`` /
-``lax.all_gather(tiled=True)``:
+``lax.all_gather(tiled=True)`` / ``lax.all_to_all(tiled=True)``:
 
 * ``ppermute`` gives each destination its source's tensor: the tensor
   itself where both lie on one device (a collective's inputs are
@@ -53,8 +53,9 @@ shards' losses run from one thread (``torch.autograd.grad(losses,
 data dependency, with no rendezvous: ``ppermute``'s is the inverse
 permutation, ``psum``'s the ``psum`` of the cotangents, ``all_gather``'s
 the group's cotangents summed and sliced to each shard (a
-reduce-scatter) — the transposes of the reference's ``shard_map``. (A
-backward per shard thread, meeting its peers inside a collective's
+reduce-scatter), ``all_to_all``'s the reverse ``all_to_all`` — the
+transposes of the reference's ``shard_map``. (A backward per shard
+thread, meeting its peers inside a collective's
 backward, would hang on a card: PyTorch's autograd engine runs every
 CUDA node of every caller on one worker thread per device, and a
 blocked node starves the peers it waits for.) Autograd replays each
@@ -270,6 +271,46 @@ class _Gather(torch.autograd.Function):
             total = total + g
         return (None,) + tuple(total.narrow(ctx.dim, i * ctx.w, ctx.w)
                                for i in range(len(grads)))
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all``'s node over one group: member i's output is chunk
+    i (along ``split``) of every member's tensor, concatenated along
+    ``concat`` in rank order, written on its own stream. The adjoint is
+    the reverse all_to_all: member j's cotangent is chunk j (along
+    ``concat``) of every member's output cotangent, concatenated along
+    ``split``."""
+
+    @staticmethod
+    def forward(ctx, plan, *xs):
+        ctx.split, ctx.concat = plan[3], plan[4]
+        return _AllToAll.exchange(plan, xs)
+
+    @staticmethod
+    def exchange(plan, xs):
+        mesh, ranks, events, split, concat = plan
+        c = xs[0].shape[split] // len(xs)
+        w = xs[0].shape[concat]
+        shape = list(xs[0].shape)
+        shape[split], shape[concat] = c, w * len(xs)
+        outs = []
+        for i, r in enumerate(ranks):
+            device = mesh.devices[r]
+            with _on(mesh, r):
+                out = torch.empty(shape, dtype=xs[0].dtype, device=device)
+                for j, (x, ev) in enumerate(zip(xs, events)):
+                    out.narrow(concat, j * w, w).copy_(
+                        _read((x, ev), device).narrow(split, i * c, c))
+            outs.append(out)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = len(grads)
+        w = grads[0].shape[ctx.concat] // n
+        return (None,) + tuple(
+            torch.cat([g.narrow(ctx.concat, j * w, w) for g in grads],
+                      ctx.split) for j in range(n))
 
 
 def _nested_sum(xs: Sequence[torch.Tensor],
@@ -547,6 +588,30 @@ class Group:
                     else _Gather.gathers(plan, xs))
 
         return self._collective("all_gather", _mark(t), gather)
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``t`` cut along ``split_dim`` into ``size`` chunks, chunk i
+        sent to the group's member i; this shard's result is the chunks
+        it receives, concatenated along ``concat_dim`` in axis order
+        (``lax.all_to_all(..., tiled=True)``)."""
+        if self.size == 1:
+            return t
+        if split_dim == concat_dim:
+            raise ValueError("all_to_all needs two different dims")
+        if t.shape[split_dim] % self.size:
+            raise ValueError(f"dim {split_dim} of {tuple(t.shape)} does not "
+                             f"cut into {self.size} chunks")
+        mesh = self._run.mesh
+
+        def exchange(ranks, entries):
+            plan = (mesh, ranks, [ev for _, ev in entries], split_dim,
+                    concat_dim)
+            xs = [v for v, _ in entries]
+            return (_AllToAll.apply(plan, *xs) if _records(xs)
+                    else _AllToAll.exchange(plan, xs))
+
+        return self._collective("all_to_all", _mark(t), exchange)
 
     def psum_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The group's ``t`` summed in rank order, as ``psum`` adds them,

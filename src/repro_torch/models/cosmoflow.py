@@ -212,8 +212,11 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
             dropout_seed: Optional[int] = None,
             sample_ids: Optional[Sequence[int]] = None,
             mask_source: Optional[MaskSource] = None,
-            grad_axes: Sequence[str] = ()) -> torch.Tensor:
-    """x: local shard (N, D_loc, H_loc, W_loc, Cin) -> (N, out_dim).
+            grad_axes: Sequence[str] = (),
+            reshard_oracle: bool = False) -> torch.Tensor:
+    """x: local shard (N, D_loc, H_loc, W_loc, Cin) -> (N_fc, out_dim),
+    N_fc the FC stage's local batch: N, or N / n after a batch move over
+    an n-way axis.
 
     The per-shard body of a plan-sharded forward: run it inside
     ``core.spmd.run`` over a mesh of the plan's degrees
@@ -261,11 +264,15 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     h = h.contiguous()
     n = num_blocks(cfg)
     npool = num_pools(cfg)
+    ids = sample_ids
+    if ids is None and train and dropout_seed is not None:
+        ids = range(h.shape[0])
     cur = plan.stage_for(0)
     for i in range(n):
         st = plan.stage_for(i)
         if st != cur:
-            h = reshard.apply(h, cur, st)
+            h, ids = reshard.apply(h, cur, st, sample_ids=ids,
+                                   oracle=reshard_oracle)
             cur = st
         # marked and cast here, outside a checkpointed body, so that a
         # reduction hook fires once per leaf, not again in the recompute
@@ -279,11 +286,12 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
             h = spmd.checkpoint(body, h, *args)
         else:
             h = body(h, *args)
-    # CNN -> FC stage boundary: the legacy plan gathers, and the FC head
-    # runs replicated on every shard
+    # CNN -> FC stage boundary: a batch move (each sample's head on one
+    # shard), or the legacy gather (the head replicated on every shard)
     fc_stage = plan.stage_for(n)
     if fc_stage != cur:
-        h = reshard.apply(h, cur, fc_stage)
+        h, ids = reshard.apply(h, cur, fc_stage, sample_ids=ids,
+                               oracle=reshard_oracle)
     h = h.reshape(h.shape[0], -1)
     n_fc = len(cfg.fc_dims) + 1
     for j in range(n_fc):
@@ -291,8 +299,6 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
         if j < n_fc - 1:
             h = F.leaky_relu(h, negative_slope=0.01)
             if train and dropout_seed is not None:
-                ids = (range(h.shape[0]) if sample_ids is None
-                       else sample_ids)
                 mask = (mask_source or generator_masks)(
                     dropout_seed, j, ids, h.shape[1], h.device)
                 h = torch.where(mask.to(h.device), h / KEEP, 0.0)
@@ -393,20 +399,26 @@ def mse_loss(params: Params, x: torch.Tensor, y: torch.Tensor,
              sample_ids: Optional[Sequence[int]] = None,
              mask_source: Optional[MaskSource] = None,
              overlap: Optional[bool] = None,
-             grad_axes: Sequence[str] = ()) -> torch.Tensor:
+             grad_axes: Sequence[str] = (),
+             reshard_oracle: bool = False) -> torch.Tensor:
     """The local loss: the per-sample mean squared errors of the local
     samples summed and divided by ``global_batch`` (default: the local
     batch) times the plan's ``loss_redundancy``, in fp32 whatever the
     compute precision — the reference's ``mse_loss``: summed over every
     shard of the mesh it is the global loss, also where a gathered FC
-    head computes each sample on every shard of the spatial group.
-    ``train``/``dropout_seed``/``sample_ids``/``mask_source``/
-    ``grad_axes`` are ``forward``'s."""
+    head computes each sample on every shard of the spatial group (a
+    batch-moved head computes each once: redundancy 1). ``y`` is the
+    entry stage's batch slice of the targets, cut here to the FC stage's
+    chunk (``plan.batch_extension_axes``). ``train``/``dropout_seed``/
+    ``sample_ids``/``mask_source``/``grad_axes``/``reshard_oracle`` are
+    ``forward``'s."""
     plan = plan if plan is not None else _default_plan(cfg)
     pred = forward(params, x, cfg, plan=plan, bn_axes=bn_axes,
                    overlap=overlap, precision=precision, train=train,
                    dropout_seed=dropout_seed, sample_ids=sample_ids,
-                   mask_source=mask_source, grad_axes=grad_axes)
+                   mask_source=mask_source, grad_axes=grad_axes,
+                   reshard_oracle=reshard_oracle)
+    y = reshard.shard_batch(y, plan.batch_extension_axes)
     return mse(pred, y, (global_batch or x.shape[0]) * plan.loss_redundancy)
 
 

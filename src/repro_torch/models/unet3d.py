@@ -20,8 +20,8 @@ Activations are contiguous (N, D, H, W, C) and weights (k, k, k, Cin,
 Cout), the reference's layouts, so its parameters carry over unchanged
 (``params_from_numpy``). ``forward`` is the per-shard body of the
 plan-sharded forward (``core/spmd.py``); the logits come back in the
-input's layout (the legacy plan is one stage over every level), so
-labels split like the input line up with them.
+input's layout (every reshard on the way down is undone on the way up),
+so labels split like the input line up with them.
 """
 from __future__ import annotations
 
@@ -143,7 +143,8 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
             plan: Optional[plan_lib.ParallelPlan] = None,
             bn_axes: Optional[Sequence[str]] = None,
             overlap: Optional[bool] = None, precision=None,
-            grad_axes: Sequence[str] = ()) -> torch.Tensor:
+            grad_axes: Sequence[str] = (),
+            reshard_oracle: bool = False) -> torch.Tensor:
     """x: local shard (N, D_loc, H_loc, W_loc, Cin) -> per-voxel logits
     (N, D_loc, H_loc, W_loc, out_dim), in the input's layout.
 
@@ -153,7 +154,11 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     bottleneck (plan layer ``depth``) each run their stage's layout;
     each decoder level runs its encoder level's, so a stage boundary
     reshards on the way down and back on the way up (after the
-    up-convolution). ``bn_axes`` (default: every axis of the plan) are
+    up-convolution): a batch move down is a ``batch_to_spatial`` up, so
+    that the skip concats stay local and the logits come back in the
+    input's layout, where voxel labels split like the input line up
+    with them. ``reshard_oracle`` lowers batch moves by a gather and a
+    slice. ``bn_axes`` (default: every axis of the plan) are
     the axes the batch-norm statistics are summed over; ``overlap``
     picks the conv lowering; ``precision`` (or the plan's policy) casts
     the input and, at each use, the parameters. ``grad_axes`` hooks the
@@ -199,21 +204,21 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     for lvl in range(cfg.depth):
         st = plan.stage_for(lvl)
         if st != cur:
-            h = reshard.apply(h, cur, st)
+            h, _ = reshard.apply(h, cur, st, oracle=reshard_oracle)
             cur = st
         h = conv_pair(h, f"enc{lvl}", cur)
         skips.append(h)
         h = maxpool3d(h, cur.part, window=2, stride=2)
     st = plan.stage_for(cfg.depth)
     if st != cur:
-        h = reshard.apply(h, cur, st)
+        h, _ = reshard.apply(h, cur, st, oracle=reshard_oracle)
         cur = st
     h = conv_pair(h, "mid", cur)
     for lvl in reversed(range(cfg.depth)):
         h = deconv3d(h, cst(params[f"dec{lvl}_up"]), cur.part, stride=2)
         st = plan.stage_for(lvl)
         if st != cur:
-            h = reshard.apply(h, cur, st)
+            h, _ = reshard.apply(h, cur, st, oracle=reshard_oracle)
             cur = st
         # the skip and the up-convolution's output die at the concat
         # (the conv saves the concat): at 256^3 they are 8.6 GB
@@ -242,7 +247,8 @@ def segmentation_loss(params: Params, x: torch.Tensor, labels: torch.Tensor,
                       bn_axes: Optional[Sequence[str]] = None,
                       global_voxels: int = 0,
                       overlap: Optional[bool] = None, precision=None,
-                      grad_axes: Sequence[str] = ()) -> torch.Tensor:
+                      grad_axes: Sequence[str] = (),
+                      reshard_oracle: bool = False) -> torch.Tensor:
     """The LOCAL cross-entropy contribution: summed over the local voxels
     and divided by ``global_voxels`` (default: the local voxel count),
     so that its sum over every shard of the mesh is the global mean.
@@ -250,7 +256,7 @@ def segmentation_loss(params: Params, x: torch.Tensor, labels: torch.Tensor,
     ``x``. The other arguments are ``forward``'s."""
     logits = forward(params, x, cfg, plan=plan, bn_axes=bn_axes,
                      overlap=overlap, precision=precision,
-                     grad_axes=grad_axes)
+                     grad_axes=grad_axes, reshard_oracle=reshard_oracle)
     return voxel_nll(logits, labels, global_voxels or labels.numel())
 
 

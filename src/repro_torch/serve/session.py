@@ -10,7 +10,11 @@ dtype once. The forward is the plan-sharded
 depth into S shards that run the model's forward together
 (``core/spmd.py``), through the port's conv3d, bn_act and halo
 pack/unpack kernels on the card. CosmoFlow returns (N, out_dim)
-predictions, the 3D U-Net (N, D, H, W, out_dim) per-voxel logits.
+predictions, the 3D U-Net (N, D, H, W, out_dim) per-voxel logits. With
+``data=D`` each batch is also split into D slices (a batch then needs a
+multiple of D volumes; the harness pads to one), and a plan whose deep
+stages move the spatial group into the batch (``plan="auto"``, or a
+pinned plan) serves each sample's deep layers on one shard.
 
 ``InferenceSession.restore(path)`` serves a checkpoint the reference
 trained: it reads the embedded run config, strips the training-only
@@ -100,15 +104,10 @@ def _compile_infer(config: RunConfig, device: DeviceLike,
             "set RunConfig(mode='infer') (repro_torch.api.compile "
             "dispatches on it)")
     config.validate(device_count=None)
-    shards = config.data * config.spatial
-    devs = mesh_lib.mesh_devices(shards, device=device, devices=devices)
-    config.validate(device_count=len(devs))
-    if len(devs) != shards:
-        raise RunConfigError(
-            "spatial", f"{len(devs)} devices given for data x spatial = "
-            f"{shards} shards", "pass one device per shard")
     cfg = config.resolve_model()
-    plan, precision = session_lib._resolve_plan(config, cfg)
+    # the planner prices the default reduction; serving reduces nothing
+    plan, precision, devs = session_lib._place(config, cfg, device, devices,
+                                               "overlap")
     return InferenceSession(config, cfg, mesh_lib.make_plan_mesh(plan, devs),
                             plan, precision)
 

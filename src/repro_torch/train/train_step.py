@@ -6,10 +6,13 @@ The serving forward splits each input batch along the entry stage's
 partitioned dims into the mesh's shards, each made contiguous on its
 shard's device, and runs the model's forward (``models/cosmoflow`` or
 ``models/unet3d``, by ``cfg.arch``) once per shard through
-``core.spmd.run``. CosmoFlow returns shard 0's predictions: the FC stage
-of a plan with data degree 1 is replicated, so every shard holds them.
-The U-Net returns per-voxel logits, each shard's block put back in
-place on shard 0's device (``gather_blocks``).
+``core.spmd.run``. CosmoFlow's predictions are put together from one
+holder of each of the FC stage's batch slices, in order: the entry
+stage's data slices where the head is replicated over the spatial
+group, their chunks where a plan moved the spatial group into the
+batch. The U-Net returns per-voxel logits in the entry stage's layout,
+each shard's block put back in place on shard 0's device
+(``gather_blocks``).
 
 The train step (``make_convnet_train_step``) runs the reference's
 hybrid step over a data x spatial mesh whose shards all lie on one
@@ -19,8 +22,9 @@ device (``["cuda:0"] * n`` on a card, ``["cpu"] * n`` in the tests):
    batch axes) and depth slab of x and its batch slice of y (the U-Net's
    voxel labels: its batch slice and depth slab, like x), and computes
    the loss: CosmoFlow's ``mse_loss`` with dropout masks drawn for the
-   GLOBAL sample ids (so they do not depend on the mesh) and divided by
-   the plan's ``loss_redundancy``, or the U-Net's
+   GLOBAL sample ids (so they do not depend on the mesh or the plan:
+   ids and targets are cut with the rows at a batch move) and divided
+   by the plan's ``loss_redundancy``, or the U-Net's
    ``segmentation_loss`` over ``global_batch * W^3`` voxels; batch-norm
    statistics summed over every mesh axis; under ``overlap`` the
    parameters' reduction hooks go into its graph
@@ -63,7 +67,7 @@ from repro_torch.configs.base import ConvNetConfig
 from repro_torch.core import grad_comm as grad_comm_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
-from repro_torch.core import spmd
+from repro_torch.core import reshard, spmd
 from repro_torch.models import cosmoflow as cosmoflow_lib
 from repro_torch.models import for_config
 from repro_torch.models import unet3d as unet_lib
@@ -201,6 +205,16 @@ def sample_ids(batch: int, mesh, stage: plan_lib.Stage) -> List[range]:
     return out
 
 
+def gather_rows(outs: Sequence[torch.Tensor], mesh,
+                stage: plan_lib.Stage) -> torch.Tensor:
+    """CosmoFlow's per-sample outputs of the shards, whose rows are
+    ``stage``'s batch slices (the FC stage's), put together in batch
+    order on shard 0's device, one holder of each slice read."""
+    home = mesh.devices[0]
+    rows = [outs[r].to(home) for r in data_shards(mesh, stage)]
+    return rows[0] if len(rows) == 1 else torch.cat(rows)
+
+
 def make_convnet_forward_step(
     cfg: ConvNetConfig,
     mesh,
@@ -212,11 +226,8 @@ def make_convnet_forward_step(
     """Returns ``fwd(params_per_shard, x)``: CosmoFlow's (N, out_dim)
     predictions or the U-Net's (N, D, H, W, out_dim) logits, on shard 0's
     device. ``params_per_shard``: one dict per shard on its device
-    (``replicate``); ``x``: the whole batch, on any device."""
-    if plan.data_degree != 1:
-        raise NotImplementedError(
-            f"plan {plan.name!r} has data degree {plan.data_degree}; "
-            "batch-sharded serving comes with the plans slice of the port")
+    (``replicate``); ``x``: the whole batch, on any device (split over
+    the entry stage's batch axes and partitioned dims)."""
     unet = cfg.arch == "unet3d"
     if not unet and plan.stage_for(
             cosmoflow_lib.num_blocks(cfg)).part.active:
@@ -234,7 +245,9 @@ def make_convnet_forward_step(
             x: torch.Tensor) -> torch.Tensor:
         outs = spmd.run(mesh, body, params_per_shard,
                         split_input(x, mesh, entry))
-        return gather_blocks(outs, mesh, entry) if unet else outs[0]
+        if unet:
+            return gather_blocks(outs, mesh, entry)
+        return gather_rows(outs, mesh, plan.final_stage)
 
     return fwd
 
@@ -468,9 +481,10 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
                                           torch.Tensor], Tuple[Any, Any]]:
     """Returns ``eval(params, x, y) -> (loss, preds)`` over the step's
     mesh: the forward without dropout, no gradients recorded. CosmoFlow:
-    the fp32 MSE over ``global_batch`` samples summed over every shard,
-    and the predictions of every batch slice in order (from the first
-    shard of each); the U-Net: the voxel cross-entropy over
+    the fp32 MSE over ``global_batch`` samples summed over every shard
+    (each shard's targets cut to its FC stage's rows), and the
+    predictions of every batch slice of the FC stage in order
+    (``gather_rows``); the U-Net: the voxel cross-entropy over
     ``global_batch * W^3`` voxels (``segmentation_loss``'s operations)
     and the per-voxel logits put back together (``gather_blocks``). Both
     on shard 0's device."""
@@ -479,7 +493,6 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
     axes = plan.axis_names
     n = mesh.size
     unet = cfg.arch == "unet3d"
-    firsts = data_shards(mesh, entry)
 
     def local_eval(params, x, y):
         if unet:
@@ -491,6 +504,7 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
             pred = cosmoflow_lib.forward(params, x, cfg, plan=plan,
                                          overlap=overlap,
                                          precision=precision)
+            y = reshard.shard_batch(y, plan.batch_extension_axes)
             loss = cosmoflow_lib.mse(pred, y,
                                      global_batch * plan.loss_redundancy)
         return spmd.axis(axes).psum(loss), pred
@@ -503,14 +517,14 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
         if unet:
             return out[0][0], gather_blocks([o[1] for o in out], mesh,
                                             entry)
-        preds = [out[r][1] for r in firsts]
-        return out[0][0], preds[0] if len(preds) == 1 else torch.cat(preds)
+        return out[0][0], gather_rows([o[1] for o in out], mesh,
+                                      plan.final_stage)
 
     return fn
 
 
 __all__ = ["STAGES", "batch_slice", "block_index", "convnet_grad_plan",
-           "data_degree", "data_shards", "gather_blocks",
+           "data_degree", "data_shards", "gather_blocks", "gather_rows",
            "make_convnet_forward_step", "make_convnet_opt_state",
            "make_convnet_train_step", "make_convnet_phase_probes",
            "make_convnet_eval_step", "replicate", "sample_ids",

@@ -778,3 +778,49 @@ def test_measured_peak_bytes_reads_the_allocator(cuda):
     assert peak.reserved >= peak.allocated
     with pytest.raises(ValueError):
         memory.measured_peak_bytes(lambda: None, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4])
+def test_reshards_on_card_are_their_oracle_and_plans_serve_alike(cuda, S):
+    """On one card, each shard on its own stream: ``spatial_to_batch`` is
+    bitwise its gather-and-slice oracle and ``batch_to_spatial`` undoes
+    it, with the reverse all_to_all as the adjoint; a b1 batch plan
+    serves within 1e-5 of the fixed plan (the spatial contract)."""
+    from repro_torch.api import RunConfig, compile
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core import reshard, spmd
+    from repro_torch.launch.mesh import Mesh
+
+    r = np.random.RandomState(S)
+    x = torch.from_numpy(r.randn(S, 4, 2 * S, 3, 5, 2).astype(np.float32))
+    mesh = Mesh([("model", S)], [cuda] * S)
+    xs = [x[i].to(cuda).requires_grad_(True) for i in range(S)]
+    with torch.enable_grad():
+        ys = spmd.run(mesh, lambda t: reshard.spatial_to_batch(
+            t, "model", 1), xs)
+        oracle = spmd.run(mesh, lambda t: reshard.spatial_to_batch_oracle(
+            t, "model", 1), xs)
+        back = spmd.run(mesh, lambda t: reshard.batch_to_spatial(
+            t, "model", 1), ys)
+        gs = torch.autograd.grad(sum((b * (i + 1)).sum()
+                                     for i, b in enumerate(back)), xs)
+    for i in range(S):
+        assert torch.equal(ys[i], oracle[i])
+        assert torch.equal(back[i], xs[i])
+        assert torch.equal(gs[i], torch.full_like(gs[i], i + 1))
+    cfg_x = r.randn(4, 32, 32, 32, 2).astype(np.float32)
+    preds = {}
+    for name in ("fixed", "b1"):
+        from repro_torch.configs import cosmoflow as cosmo_cfg
+
+        plan = "fixed" if name == "fixed" else plan_lib.convnet_plan(
+            cosmo_cfg.SMOKE, boundary=1, kind="batch",
+            spatial_degrees=(S, 1, 1))
+        sess = compile(RunConfig(model="cosmoflow-128", smoke=True,
+                                 mode="infer", global_batch=4, spatial=S,
+                                 plan=plan), devices=[cuda] * S)
+        preds[name] = sess.predict(cfg_x).cpu()
+        sess.close()
+    np.testing.assert_allclose(preds["b1"].numpy(), preds["fixed"].numpy(),
+                               atol=1e-5, rtol=0)

@@ -70,6 +70,17 @@ WRAPPED = ((conv_ops, "conv3d_valid", "conv3d"),
            (pack_ops, "pack", "pack"), (pack_ops, "unpack", "unpack"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small and
+    its shards are threads already, and beside other test workers a
+    thread pool a shard only contends (restored after the module)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _with_remat(plan, flag=True):
     return dataclasses.replace(plan, stages=tuple(
         dataclasses.replace(s, remat=flag) for s in plan.stages))

@@ -9,8 +9,9 @@
   rounds after every op, the port's kernel once).
 * queue semantics of the harness: coalescing, a worker fault surfacing
   as a failed future, ``close()`` draining or failing what is queued.
-* config surface: ``mode="infer"``'s FIELD-named rejections, the slices
-  still to come, and the device rule (entry points run on the card
+* config surface: ``mode="infer"``'s FIELD-named rejections (data x
+  spatial degrees, ``plan="auto"`` and budgets serve since the plans
+  slice: ``tests/test_torch_plans.py``), and the device rule (entry points run on the card
   unless told ``device="cpu"``).
 """
 import json
@@ -187,10 +188,10 @@ def test_serve_trace_exports_the_reference_spans(tmp_path):
     (dict(guard=True), "guard"),
     (dict(save_every=5, checkpoint_dir="x"), "save_every"),
     (dict(keep_last=2, checkpoint_dir="x"), "keep_last"),
-    (dict(data=2, global_batch=2), "data"),
+    (dict(data=0), "data"),
     (dict(spatial=2), "spatial"),
-    (dict(plan="auto"), "plan"),
-    (dict(memory_budget_gib=1.0), "memory_budget_gib"),
+    (dict(plan="bogus"), "plan"),
+    (dict(memory_budget_gib=0.0), "memory_budget_gib"),
     (dict(precision="fp8"), "precision"),
     (dict(global_batch=0), "global_batch"),
 ])

@@ -64,6 +64,14 @@ CFGS = {"smoke": cosmo_cfg.SMOKE, "five": FIVE}
 TRAIN_RUNS = [("smoke", 1, 2, False), ("smoke", 1, 4, False),
               ("smoke", 2, 2, False), ("five", 1, 2, True)]
 UNET_RUNS = [(1, 2), (1, 4), (2, 2)]  # (data, spatial) of the U-Net probe
+# (model, spatial, plan) of the planned probes: one transition each (the
+# U-Net's uniform plan is one stage, its legacy plan: UNET_RUNS probes it)
+PLANS = {"b1_batch": dict(boundary=1, kind="batch"),
+         "b2_replicated": dict(boundary=2, kind="replicated"),
+         "uniform_batch": dict(boundary=None, kind="batch")}
+PLAN_RUNS = [(m, S, p) for m in ("smoke", "unet") for S in (2, 4)
+             for p in sorted(PLANS)
+             if not (m == "unet" and p == "uniform_batch")]
 COLLECTIVES = ("ppermute", "psum", "all_gather")
 SEED = 3
 GB = 4
@@ -101,7 +109,8 @@ from repro.configs import cosmoflow as cosmo_cfg
 from repro.configs.base import ConvNetConfig
 from repro.models import cosmoflow
 from repro.optim.adam import Adam, constant
-from repro.train.train_step import make_convnet_phase_probes
+from repro.train.train_step import (make_convnet_eval_step,
+                                    make_convnet_phase_probes)
 
 FIVE = ConvNetConfig(name="cosmoflow-five", family="conv3d", arch="cosmoflow",
                      input_width=16, in_channels=2, out_dim=4,
@@ -204,6 +213,33 @@ for D, S in UNET_RUNS:
     for k, v in grads.items():
         out[f"ugrad_{D}_{S}_{k}"] = np.asarray(v)
 
+# planned probes (1 x S): the grad_comm probe and the eval step's
+# predictions under each pinned one-transition plan
+for m, S, pname in PLAN_RUNS:
+    if m == "unet":
+        cfg, params = unet_cfg.SMOKE, {k: jnp.asarray(v)
+                                       for k, v in up.items()}
+        x, y = out["x_unet"], out["y_unet"]
+    else:
+        cfg = CFGS[m]
+        params = {k[len(f"param_{m}_"):]: jnp.asarray(v)
+                  for k, v in out.items() if k.startswith(f"param_{m}_")}
+        x, y = out["x_" + m], out["y_" + m]
+    plan = plan_lib.convnet_plan(cfg, spatial_degrees=(S, 1, 1),
+                                 **PLANS[pname])
+    mesh = compat.make_mesh((1, S), ("data", "model"))
+    opt = Adam(lr=constant(1e-3))
+    probe = make_convnet_phase_probes(cfg, mesh, opt, global_batch=GB,
+                                      plan=plan)["grad_comm"]
+    loss, grads = probe(params, opt.init(params), x, y,
+                        jnp.asarray(SEED, jnp.int32))
+    tag = f"{m}_{S}_{pname}"
+    out["ploss_" + tag] = np.asarray(loss)
+    for k, v in grads.items():
+        out[f"pgrad_{tag}_{k}"] = np.asarray(v)
+    ev = make_convnet_eval_step(cfg, mesh, global_batch=GB, plan=plan)
+    out["ppred_" + tag] = np.asarray(ev(params, x, y)[1])
+
 # the port's 2 x 2 checkpoint, resumed for one step
 sess = api.Session.restore(CKPT)
 xs, ys = np.load(BATCH)["x"], np.load(BATCH)["y"]
@@ -242,6 +278,7 @@ def reference(multidevice, tmp_path_factory):
     path = root / "reference.npz"
     script = (f"OUT = {str(path)!r}\nCKPT = {ckpt!r}\nBATCH = {batch!r}\n"
               f"TRAIN_RUNS = {TRAIN_RUNS!r}\nUNET_RUNS = {UNET_RUNS!r}\n"
+              f"PLANS = {PLANS!r}\nPLAN_RUNS = {PLAN_RUNS!r}\n"
               f"SEED = {SEED}\nGB = {GB}\n"
               + inspect.getsource(deep_plan) + REFERENCE)
     multidevice(script, devices=4)
@@ -375,6 +412,26 @@ def _ref_params(reference, name):
             if k.startswith(pre)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small and
+    its shards are threads already, and beside other test workers a
+    thread pool a shard only contends (restored after the module)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _exact(reference, key, fn):
+    """``fn()``, the fp64 gradients the rule below falls back to, once a
+    reference run (they do not depend on the mesh or the plan)."""
+    cache = reference.setdefault("_exact", {})
+    if key not in cache:
+        cache[key] = fn()
+    return cache[key]
+
+
 def _fp64_grads(reference, name):
     """The ``grad_comm`` probe's gradients on one device in fp64 (the
     convs by ``F.conv3d``, batch norm and the loss in fp64, the same
@@ -444,7 +501,8 @@ def test_grad_comm_probe_matches_reference(reference, name, D, S, deep):
         # then lie nearer the fp64 step than the reference does, and
         # within 1e-5 of it
         if exact is None:
-            exact = _fp64_grads(reference, name)
+            exact = _exact(reference, name,
+                           lambda: _fp64_grads(reference, name))
         port_err = _scale_err(g, exact[k])
         ref_err = _scale_err(reference[f"grad_{tag}_{k}"], exact[k])
         assert port_err <= min(1e-5, ref_err), (k, err, port_err, ref_err)
@@ -525,7 +583,59 @@ def test_unet_grad_comm_probe_matches_reference(reference, D, S):
         if _scale_err(g, ref_g) <= 1e-5:
             continue
         if exact is None:
-            exact = _unet_fp64_grads(reference)
+            exact = _exact(reference, "unet",
+                           lambda: _unet_fp64_grads(reference))
+        port_err = _scale_err(g, exact[k])
+        ref_err = _scale_err(ref_g, exact[k])
+        assert port_err <= min(1e-5, ref_err), (k, port_err, ref_err)
+
+
+@pytest.mark.parametrize("model,S,plan_name", PLAN_RUNS)
+def test_planned_probe_matches_reference(reference, model, S, plan_name):
+    """A pinned one-transition plan (a batch move after block or level
+    1, a replicated gather after 2, a batch move at the FC head or, for
+    the U-Net, one stage) at 1 x S: the ``grad_comm`` probe's loss and
+    reduced gradients and the eval step's predictions against the
+    reference's same plan on the same inputs and (CosmoFlow) dropout
+    masks, within the reference's planned-model tolerance (atol 1e-5,
+    rtol 1e-4, ``tests/test_plan.py``)."""
+    unet = model == "unet"
+    cfg = unet_cfg.SMOKE if unet else CFGS[model]
+    plan = plan_lib.convnet_plan(cfg, spatial_degrees=(S, 1, 1),
+                                 **PLANS[plan_name])
+    params = (unet3d.params_from_numpy(_unet_params(reference), "cpu",
+                                       cfg=cfg) if unet else
+              cosmoflow.params_from_numpy(_ref_params(reference, model),
+                                          "cpu", cfg=cfg))
+    x = torch.from_numpy(reference["x_" + model])
+    y = torch.from_numpy(reference["y_" + model])
+    with compile(RunConfig(model=cfg, global_batch=GB, spatial=S,
+                           plan=plan), devices=["cpu"] * S,
+                 mask_source=jax_masks) as sess:
+        probe = train_step.make_convnet_phase_probes(
+            cfg, sess.mesh, sess.optimizer, global_batch=GB,
+            plan=sess.plan, mask_source=jax_masks)["grad_comm"]
+        loss, grads = probe(params, sess.opt_state, x, y, SEED)
+        sess.params = params
+        _, preds = sess.evaluate(x, y)
+    tag = f"{model}_{S}_{plan_name}"
+    assert abs(float(loss) - float(reference["ploss_" + tag])) <= 1e-5
+    np.testing.assert_allclose(preds.numpy(), reference["ppred_" + tag],
+                               atol=1e-5, rtol=1e-4)
+    assert set(grads) == set(params)
+    exact = None
+    for k, g in grads.items():
+        ref_g = reference[f"pgrad_{tag}_{k}"]
+        if np.allclose(g.numpy(), ref_g, atol=1e-5, rtol=1e-4):
+            continue
+        # the reference's own step strays from the exact gradient here
+        # (its 1 x 4 U-Net step, as at its fixed plan): the port must lie
+        # nearer the fp64 step (the same for every plan) than the
+        # reference does, and within 1e-5 of its scale
+        if exact is None:
+            exact = _exact(reference, model, lambda: (
+                _unet_fp64_grads(reference) if unet
+                else _fp64_grads(reference, model)))
         port_err = _scale_err(g, exact[k])
         ref_err = _scale_err(ref_g, exact[k])
         assert port_err <= min(1e-5, ref_err), (k, port_err, ref_err)

@@ -59,6 +59,17 @@ GB = 2
 STEPS = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small and
+    its shards are threads already, and beside other test workers a
+    thread pool a shard only contends (restored after the module)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _scale_err(got, want):
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
@@ -399,7 +410,7 @@ def test_kernel_launches_at_unet3d_256():
 def test_config_rejects_bad_degrees_naming_the_field():
     for kw, field in ((dict(spatial=3), "spatial"),
                       (dict(spatial=8), "spatial"),
-                      (dict(data=2, mode="infer"), "data")):
+                      (dict(data=0, mode="infer"), "data")):
         with pytest.raises(RunConfigError) as e:
             RunConfig(model="unet3d-256", smoke=True, global_batch=GB,
                       **kw).validate(device_count=None)

@@ -162,6 +162,17 @@ np.savez(OUT, **out)
 RUNS = [("cosmo", D, S) for D, S in MESHES] + [("unet", 2, 2)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small and
+    its shards are threads already, and beside other test workers a
+    thread pool a shard only contends (restored after the module)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def jax_masks(seed, layer, sample_ids, width, device):
     """The reference's dropout masks, as a port mask source."""
     layer_rng = jax.random.fold_in(jax.random.PRNGKey(seed), layer)
