@@ -12,10 +12,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
               tensor-core instructions (HMMA or HGMMA) in both dtypes.
 3. kernels  — each kernel against its plain PyTorch version on the card:
               conv3d over the shape grid of ``tests/test_kernels.py`` and
-              every conv of cosmoflow-128 at batch 4 and the U-Net's Cin =
-              1 and Cin = 512 at a small depth, bn_act over the same
-              rows x C shapes, fp32 and bf16; halo pack and unpack, bit
-              for bit, at every face of the depth-split convs of
+              every conv of cosmoflow-128 at batch 4 (and of the
+              quickstart's cosmoflow-512 smoke variant at batch 4) and the
+              U-Net's Cin = 1 and Cin = 512 at a small depth, bn_act over
+              the same rows x C shapes, fp32 and bf16; halo pack and
+              unpack, bit for bit, at every face of the depth-split convs of
               cosmoflow-128 batch 4 (S = 2, 4, and all 7 blocks split at
               S = 2) and cosmoflow-512 batch 1 (S = 4), the sharded
               training steps' faces (batch 2 at 2 x 2) and those of
@@ -176,6 +177,23 @@ Phases, each printing one line; any failure raises and exits non-zero:
               naming it); batch-sharded serving of cosmoflow-128 b4 at
               data 2 and 2 x 2 against data 1, and the U-Net's batch plan
               served at 256^3 b2 S = 2 against its fixed plan.
+10s. supervise — the auto-resume supervisor at cosmoflow-128 b4 fp32
+              (``SUP_*``): 1 x 1, 6 steps, checkpoints every 2, without a
+              fault (launches exactly 6 steps' ``kernel_launches``) and
+              with ``device.loss`` at step 4, bitwise equal (losses, every
+              parameter), with ``recovery_s``; ``comm.stall`` of 0.8 s at
+              step 3 under a 0.5 s watchdog (one restart);
+              ``grads.nonfinite`` at steps 3-5, patience 3 (one rollback);
+              a flipped byte in the newest checkpoint's leaf walked past;
+              2 x 2 ZeRO-1 on this card killed and resumed bitwise, and
+              re-degreed to 1 x 2 by ``available=2`` (finite losses, the
+              state carried over). ``Session.report()`` (the drift table:
+              the time model on the H100 beside the probes' spans and two
+              loader batches) at 1 x 1, 1 x 2 and 1 x 2 with every block
+              split (unpack), each row printed; ``repro_torch.launch.train
+              --arch cosmoflow-128 --full-config`` for 3 steps and the
+              quickstart for 2 (cosmoflow-512's smoke variant, whose conv
+              and bn_act shapes phase 3 checks too).
 m.  memory_model — every measured peak of phases 5, 10, 10c, 10e and
               10g (512^3 b2 now also without remat) beside the session's
               ``describe().modeled_peak`` (``core/memory.py``), and the
@@ -208,8 +226,8 @@ m.  memory_model — every measured peak of phases 5, 10, 10c, 10e and
               one profiled mamba2-370m forward in fp32 and one in bf16.
 
 Phases 4-6, 7-8, 10 (the training steps), 10b (the sharded training
-steps), 10c, 10e and 10f (the U-Net's), 10g, 10h, 10z, 10z-u, 10p and
-12-13 are the main paths:
+steps), 10c, 10e and 10f (the U-Net's), 10g, 10h, 10z, 10z-u, 10p, 10s
+and 12-13 are the main paths:
 the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
@@ -394,6 +412,13 @@ IO_S, IO_DEPTHS, IO_HALO = (1, 2), (0, 2), 1
 ZERO1 = (("fp32", 2, 1), ("fp32", 4, 1), ("fp32", 2, 2), ("bf16", 2, 2))
 ZERO1_UNET = (("fp32", 2, 2),)
 ZERO1_STEPS = 2
+# phase 10s: the supervisor at cosmoflow-128 b4 fp32; the drift tables'
+# meshes (tag, spatial degree, plan kind)
+SUP_BATCH, SUP_STEPS, SUP_EVERY = 4, 6, 2
+SUP_ZERO1 = (2, 2)
+SUP_WATCHDOG_S, SUP_STALL_S = 0.5, 0.8
+SUP_REPORTS = (("1x1", 1, "fixed"), ("1x2", 2, "fixed"),
+               ("1x2 all blocks split", 2, "deep"))
 # (B, L, H, P, N, chunk): tests/test_kernels.py's four (B=2), L=40 with
 # chunk 16 (lowered to 10), and mamba2-370m's layer at 4 x 4096 tokens
 SSD_SHAPES = ((2, 32, 2, 8, 16, 8), (2, 64, 3, 8, 16, 16),
@@ -650,7 +675,8 @@ def phase_kernels(conv_ops, conv_ref, bn_ops, bn_ref, conv_shapes) -> dict:
             conv_case(xs, (k, k, k, xs[-1], cout), s, ((0, 0),) * 3, dt, 0.1,
                       lambda want: base * (
                           1 + want.float().abs().max().item()), "grid")
-        # every conv of cosmoflow-128 at batch 4, He-scaled weights. fp32:
+        # every conv of the main paths (cosmoflow-128 and the quickstart's
+        # smoke variant at batch 4), He-scaled weights. fp32:
         # kernel and plain version sum the same k^3*Cin products in another
         # order, an error growing like sqrt(k^3*Cin) * 6e-8 of the output
         # scale — 1e-6 * sqrt(k^3*Cin) leaves a wide margin. bf16: both
@@ -662,7 +688,7 @@ def phase_kernels(conv_ops, conv_ref, bn_ops, bn_ref, conv_shapes) -> dict:
             err = conv_case(
                 xs, ws, s, pads, dt, math.sqrt(2.0 / kc),
                 lambda want, rel=rel: rel * max(
-                    1.0, want.float().abs().max().item()), "cosmoflow-128")
+                    1.0, want.float().abs().max().item()), "main paths")
             if dt == torch.float32:
                 worst["conv3d"] = max(worst["conv3d"], err)
         for xs, cout in UNET_GRID:
@@ -696,7 +722,7 @@ def phase_kernels(conv_ops, conv_ref, bn_ops, bn_ref, conv_shapes) -> dict:
                        2 ** -8 * max(1.0, want.float().abs().max().item()))
                 check(err <= tol, f"bn_act {shape} {dt} slope {slope}: err "
                       f"{err} > tol {tol}")
-                rows.append(("bn_act", "grid+cosmoflow-128", shape, str(dt),
+                rows.append(("bn_act", "grid+main paths", shape, str(dt),
                              err, tol))
                 if dt == torch.float32 and shape in bn_shapes[len(BN_GRID):]:
                     worst["bn_act"] = max(worst["bn_act"], err)
@@ -3348,6 +3374,192 @@ def phase_train_io(k, cfg, RunConfig, compile, card: str) -> tuple:
         del batches, x, y
     return out, launches
 
+def phase_supervise(k, cfg, RunConfig, compile, plan_lib, part,
+                    card: str) -> tuple:
+    """The auto-resume supervisor, the drift report and the drivers on
+    the card (a main path): ``supervisor.run`` at ``cfg`` b4 fp32 1 x 1
+    for ``SUP_STEPS`` steps, checkpoints every ``SUP_EVERY``: without a
+    fault (its launches exactly ``SUP_STEPS`` x ``kernel_launches``) and
+    with ``device.loss`` at step 4, the two bitwise equal (losses, every
+    parameter); ``comm.stall`` of ``SUP_STALL_S`` at step 3 under a
+    ``SUP_WATCHDOG_S`` watchdog (one restart); ``grads.nonfinite`` at
+    steps 3-5 with patience 3 (one rollback); a flipped byte in the
+    newest checkpoint's leaf walked past (the resumed run bitwise the
+    clean one). Then 2 x 2 ZeRO-1, every shard on this card: a kill and
+    resume bitwise, and ``available=2`` re-degreeing to 1 x 2 with
+    finite losses and the optimizer state carried over. Then
+    ``Session.report()`` at each of ``SUP_REPORTS`` (each row printed),
+    ``python -m repro_torch.launch.train --arch <cfg> --full-config`` for
+    3 steps and the quickstart for 2 (their ``main``). Returns (report,
+    launches)."""
+    import io
+    import tempfile
+
+    from repro_torch.api import supervisor
+    from repro_torch.core import faults
+    from repro_torch.data import store, synthetic
+    from repro_torch.examples import quickstart
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint
+
+    out = {"runs": {}, "reports": {}, "card": card}
+    t_phase = time.perf_counter()
+    zero_counts(k)
+    one = ["cuda:0"]
+
+    def same_params(a, b) -> bool:
+        return all(torch.equal(a.params[n], b.params[n]) for n in a.params)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sup_") as tmp:
+        def supervised(tag, steps, spec=None, devices=one, root=None,
+                       **kw):
+            config = RunConfig(model=cfg, global_batch=SUP_BATCH,
+                               checkpoint_dir=root or os.path.join(tmp, tag),
+                               **kw.pop("config", {}))
+            t0 = time.perf_counter()
+            with (faults.active(spec) if spec else contextlib.nullcontext()):
+                r = supervisor.run(config, steps, save_every=SUP_EVERY,
+                                   devices=devices, **kw)
+            row = out["runs"][tag] = {
+                "losses": r.losses, "restarts": r.restarts,
+                "resumes": r.resumes, "cold_starts": r.cold_starts,
+                "rollbacks": r.rollbacks, "replans": r.replans,
+                "final": [r.final_data, r.final_spatial],
+                "recovery_s": r.recovery_s, "events": r.events,
+                "wall_s": time.perf_counter() - t0}
+            log("supervise", f"{tag}: losses {r.losses}; restarts "
+                f"{r.restarts}, resumes {r.resumes}, rollbacks "
+                f"{r.rollbacks}, replans {r.replans}, final "
+                f"{r.final_data} x {r.final_spatial}; recovery_s "
+                f"{r.recovery_s}; {row['wall_s']:.1f} s; events "
+                f"{json.dumps(r.events)} ({card})")
+            return r
+
+        c0 = counts(k)
+        clean = supervised("1x1", SUP_STEPS)
+        per_step = dict(NO_LAUNCHES, **k.cosmoflow.kernel_launches(
+            cfg, clean.session.plan, train=True))
+        check(delta(counts(k), c0) == {n: v * SUP_STEPS
+                                       for n, v in per_step.items()},
+              f"1x1: launches {delta(counts(k), c0)}, expected {SUP_STEPS}"
+              f" x {per_step}")
+        check(all(math.isfinite(v) for v in clean.losses)
+              and clean.restarts == 0, "1x1: the clean run")
+        got = supervised("1x1 device.loss@4", SUP_STEPS,
+                         faults.FaultSpec("device.loss", at_steps=(4,),
+                                          max_fires=1))
+        check(got.restarts == 1 and got.resumes == 1
+              and got.losses == clean.losses and same_params(
+                  got.session, clean.session),
+              f"1x1: the resumed run is not the clean run's bits: "
+              f"{got.losses} vs {clean.losses}")
+        got.session.close()
+        r = supervised("1x1 comm.stall@3", 5, faults.FaultSpec(
+            "comm.stall", at_steps=(3,), max_fires=1, stall_s=SUP_STALL_S),
+            watchdog_timeout_s=SUP_WATCHDOG_S)
+        check(r.restarts == 1 and any("StepTimeout" in e for e in r.events)
+              and r.losses == clean.losses[:5],
+              "1x1: the watchdog did not catch the stall once")
+        r.session.close()
+        r = supervised("1x1 grads.nonfinite@3-5", 8, faults.FaultSpec(
+            "grads.nonfinite", at_steps=(3, 4, 5), max_fires=3),
+            divergence_patience=3)
+        check(r.rollbacks == 1 and all(math.isfinite(v)
+                                       for v in r.losses[4:]),
+              "1x1: the divergence did not roll back once")
+        r.session.close()
+        root = os.path.join(tmp, "corrupt")
+        supervised("1x1 first 4", 4, root=root).session.close()
+        newest = checkpoint.step_dir(root, 4)
+        leaf = os.path.join(newest, sorted(
+            f for f in os.listdir(newest) if f.endswith(".npy"))[0])
+        with open(leaf, "r+b") as f:
+            f.seek(os.path.getsize(leaf) - 1)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        check(not checkpoint.validate(newest), "the flipped byte went unseen")
+        r = supervised("1x1 corrupt step 4", SUP_STEPS, root=root)
+        check(r.resumes == 1 and r.events[0].startswith("resumed from step 2")
+              and r.losses[2:] == clean.losses[2:]
+              and same_params(r.session, clean.session),
+              f"1x1: the corrupt checkpoint was not walked past: {r.events}")
+        r.session.close()
+        clean.session.close()
+
+        # 2 x 2 ZeRO-1, every shard on the card
+        D, S = SUP_ZERO1
+        z1 = dict(config={"data": D, "spatial": S,
+                          "grad_comm": "reduce_scatter"},
+                  devices=["cuda:0"] * (D * S))
+        clean = supervised(f"{D}x{S} zero1", SUP_STEPS, **dict(z1))
+        got = supervised(f"{D}x{S} zero1 device.loss@4", SUP_STEPS,
+                         faults.FaultSpec("device.loss", at_steps=(4,),
+                                          max_fires=1), **dict(z1))
+        check(got.restarts == 1 and got.losses == clean.losses
+              and same_params(got.session, clean.session),
+              f"{D}x{S}: the resumed run is not the clean run's bits")
+        got.session.close()
+        clean.session.close()
+        el = supervised(f"{D}x{S} zero1 available=2@3", SUP_STEPS,
+                        faults.FaultSpec("device.loss", at_steps=(3,),
+                                         max_fires=1, available=2),
+                        **dict(z1))
+        check(el.replans == 1 and (el.final_data, el.final_spatial) == (1, 2)
+              and el.session.mesh.shape == {"data": 1, "model": 2}
+              and all(math.isfinite(v) for v in el.losses)
+              and not any("reset" in e for e in el.events),
+              f"{D}x{S}: the elastic re-plan {el.events}")
+        el.session.close()
+
+        # the drift table: the time model (H100, a card a shard) beside
+        # the measured probes' spans and two loader batches
+        data = os.path.join(tmp, "store")
+        w, c = cfg.input_width, cfg.in_channels
+        cubes, targets = synthetic.make_cosmology_dataset(
+            SUP_BATCH, w, channels=c, seed=0)
+        store.write_dataset(data, cubes, targets)
+        del cubes
+        for tag, S, kind in SUP_REPORTS:
+            plan = ("fixed" if kind == "fixed"
+                    else spatial_plan(plan_lib, part, cfg, S, kind))
+            with compile(RunConfig(model=cfg, global_batch=SUP_BATCH,
+                                   spatial=S, plan=plan),
+                         devices=["cuda:0"] * S) as sess:
+                sess.make_loader(data)
+                t0 = time.perf_counter()
+                rep = sess.report()
+                out["reports"][tag] = dict(rep.to_json(),
+                                           seconds=time.perf_counter() - t0)
+            log("supervise", f"drift {cfg.name} b{SUP_BATCH} fp32 {tag} "
+                f"({card}):\n" + str(rep))
+
+        # the drivers, in this process (their own printing kept aside)
+        for tag, main, argv in (
+                ("launch.train", launch_train.main,
+                 ["--arch", cfg.name, "--full-config", "--steps", "3"]),
+                ("quickstart", quickstart.main, ["--steps", "2"])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                main(argv)
+            text = buf.getvalue()
+            losses = [float(v) for v in re.findall(r"loss (\S+)", text)]
+            check(losses and all(math.isfinite(v) for v in losses),
+                  f"{tag}: losses {losses}\n{text}")
+            out[tag] = {"losses": losses,
+                        "seconds": time.perf_counter() - t0,
+                        "tail": text.splitlines()[-3:]}
+            log("supervise", f"{tag} {' '.join(argv)}: losses {losses} in "
+                f"{out[tag]['seconds']:.1f} s")
+    launches = counts(k)
+    for name in ("conv3d", "conv3d_dgrad", "bn_act", "pack", "unpack"):
+        check(launches[name] > 0, f"supervise: {name} never launched")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("main path", f"supervise: launches {launches}; the phase took "
+        f"{out['seconds']:.1f} s")
+    return out, launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3363,7 +3575,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.api import RunConfig, compile
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import memory
     from repro_torch.core import plan as plan_lib
     from repro_torch.core import spmd
@@ -3400,8 +3612,11 @@ def main() -> int:
     cfgs = {"cosmoflow-128": cf128, "cosmoflow-512": cf512}
     depth = SpatialPartitioning(("model", None, None))
     shapes128 = cosmoflow.conv_shapes(cf128, 4)
-    report["kernels"] = phase_kernels(conv_ops, conv_ref, bn_ops, bn_ref,
-                                      shapes128)
+    # and the quickstart's (phase 10s): cosmoflow-512's smoke variant, b4
+    report["kernels"] = phase_kernels(
+        conv_ops, conv_ref, bn_ops, bn_ref,
+        shapes128 + cosmoflow.conv_shapes(get_smoke_config("cosmoflow-512"),
+                                          4))
     ucfg = get_config("unet3d-256")
     ucfg64 = dataclasses.replace(ucfg, name=f"{ucfg.name}@{UNET_CHECK_WIDTH}",
                                  input_width=UNET_CHECK_WIDTH)
@@ -3735,6 +3950,12 @@ def main() -> int:
     main_paths["plans"] = {"launches": got}
     clock("plans")
     launches = {n: launches[n] + got[n] for n in KERNELS}
+    # ------------------------------------------ main path: 10s ----
+    supervise, got = phase_supervise(k, cf128, RunConfig, compile, plan_lib,
+                                     depth, report["card"])
+    main_paths["supervise"] = {"launches": got}
+    clock("supervise")
+    launches = {n: launches[n] + got[n] for n in KERNELS}
 
     # -------------------------------- (m) modeled against measured ----
     memory_rows = {f"train {tag}": row for tag, row in train["steps"].items()}
@@ -3883,7 +4104,7 @@ def main() -> int:
                   train_spatial=train_spatial, unet=unet,
                   train_remat=train_remat, train_io=train_io,
                   train_zero1=train_zero1, memory_model=memory_model,
-                  plans=plans)
+                  plans=plans, supervise=supervise)
     report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
                   conv_vs_library=conv_vs_library,
                   lowering=lowering, profile=profiles, bounds=PEAKS_USED,

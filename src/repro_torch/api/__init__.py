@@ -16,8 +16,16 @@ checkpoint); ``"train"`` returns a training ``Session`` on one device
     sess = compile(RunConfig(model="cosmoflow-128", mode="train",
                              global_batch=4))
     loss = sess.step(volumes, targets)   # one Adam step
+
+For a long run, ``repro_torch.api.supervisor.run(config, steps)`` wraps
+the training ``Session`` in the recovery loop: guarded steps, a step
+watchdog, keep-last-K checkpoints, auto-resume from the newest valid
+one, and re-degreeing when the device count shrinks.
 """
+from repro_torch.api import supervisor
 from repro_torch.api.config import RunConfig, RunConfigError
 from repro_torch.api.session import Session, compile
+from repro_torch.api.supervisor import SupervisorReport
 
-__all__ = ["RunConfig", "RunConfigError", "Session", "compile"]
+__all__ = ["RunConfig", "RunConfigError", "Session", "SupervisorReport",
+           "compile", "supervisor"]

@@ -15,8 +15,10 @@ state a shard, each over its 1/N of the flat buckets);
 format (ZeRO-1's state as the reference's global padded buckets), so
 each package resumes the other's runs, on any mesh shape; ``describe``
 reports the modeled peak memory (``core/memory.py``) and the predicted
-step time (``core/perf_model.py``); ``make_loader``
-gives it batches from a hyperslab store (``data/pipeline.py``). Both
+step time (``core/perf_model.py``); ``profile`` times the step's phases
+and ``report`` sets them beside the time model's (``obs/report.py``);
+``make_loader`` gives it batches from a hyperslab store
+(``data/pipeline.py``). Both
 run CosmoFlow (``y``: (N, out_dim) targets) and the 3D U-Net (``y``:
 (N, D, H, W) voxel labels; ``evaluate`` returns per-voxel logits).
 
@@ -398,9 +400,13 @@ class Session(_Traced):
         if sink is not None:
             # host-side counters only: reading the loss would wait for
             # the device every step
-            sink.write({"step": self._t - 1,
-                        "wall_s": time.perf_counter() - t0,
-                        "guarded_steps": self._guarded_steps})
+            row = {"step": self._t - 1,
+                   "wall_s": time.perf_counter() - t0,
+                   "guarded_steps": self._guarded_steps}
+            if self._loaders:  # the reference's rule: with a loader only
+                row["io_stall_s"] = sum(getattr(ld, "stall_s", 0.0)
+                                        for ld in self._loaders)
+            sink.write(row)
         if (self.config.checkpoint_dir and self.config.save_every
                 and self._t % self.config.save_every == 0):
             if self.config.keep_last is not None:
@@ -535,6 +541,108 @@ class Session(_Traced):
             param_count=self.cfg.param_count(), device=str(self.device),
             telemetry=self.telemetry(), modeled_peak=peak,
             predicted_step_s=t, memory_budget_bytes=budget)
+
+    def profile(self, batch=None, reps: int = 3) -> Dict[str, float]:
+        """Measured phases: seconds of the ``fwd``, ``bwd``, ``grad_comm``
+        and ``step`` probes (the train step's cumulative prefixes, the
+        last without the guard), each a mean of ``reps`` after one call
+        that builds what it needs, and their differences ``backward``,
+        ``comm`` and ``optimizer``, plus the telemetry. Each rep is a
+        ``probe.<phase>`` span that ends after the device has finished it.
+        ``batch=None`` profiles a synthetic batch. The session's
+        parameters and state are not changed."""
+        if self._closed:
+            raise RuntimeError("Session is closed")
+        x, y = batch if batch is not None else self._synthetic_batch()
+        x, y = self._as_input(x), self._as_target(y)
+        probes = train_step_lib.make_convnet_phase_probes(
+            self.cfg, self.mesh, self.optimizer,
+            global_batch=self.config.global_batch, plan=self.plan,
+            overlap=self.config.overlap_halo, grad_comm=self.grad_comm,
+            precision=self.precision, mask_source=self.mask_source)
+        out: Dict[str, float] = {}
+        for stage, fn in probes.items():
+            fn(self.params, self.opt_state, x, y, 0)
+            self._sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                with trace_lib.span(f"probe.{stage}"):
+                    fn(self.params, self.opt_state, x, y, 0)
+                    self._sync()
+            out[stage] = (time.perf_counter() - t0) / reps
+        out["backward"] = max(out["bwd"] - out["fwd"], 0.0)
+        out["comm"] = max(out["grad_comm"] - out["bwd"], 0.0)
+        out["optimizer"] = max(out["step"] - out["grad_comm"], 0.0)
+        for key, v in self.telemetry().items():
+            out[f"telemetry.{key}"] = v
+        return out
+
+    def report(self, batch=None, reps: int = 2, flag_ratio: float = 2.0):
+        """The drift table (``obs/report.py``): the time model's seconds
+        a phase on ``perf_model.H100`` (a card a shard) beside the
+        measured span aggregates, each ratio flagged when off by more
+        than ``flag_ratio`` either way. The phase probes run under this
+        session's tracer unless their ``probe.*`` spans are there
+        already, and two batches are loaded for the ``io`` row unless a
+        loader's spans are; the table reads ``tracer.span_seconds()``.
+        An untraced session's tracer is active only during the call."""
+        from repro_torch.obs import report as drift_lib
+
+        prev = trace_lib.active()
+        trace_lib.enable(self.tracer)
+        try:
+            have = self.tracer.span_seconds()
+            if not all(f"probe.{p}" in have for p in train_step_lib.STAGES):
+                self.profile(batch, reps=reps)
+            have = self.tracer.span_seconds()
+            if "io.load" not in have and "io.load.sync" not in have:
+                self._drive_io_sample()
+        finally:
+            if prev is not None and prev is not self.tracer:
+                trace_lib.enable(prev)
+            elif not self.config.trace:
+                trace_lib.disable(self.tracer)
+        modeled = drift_lib.modeled_phases(
+            self.cfg, perf_model.H100, self.plan,
+            global_batch=self.config.global_batch,
+            grad_comm=self.grad_comm, precision=self.precision)
+        measured = drift_lib.measured_phases(self.tracer)
+        return drift_lib.drift(modeled, measured, flag_ratio=flag_ratio)
+
+    def _drive_io_sample(self, batches: int = 2) -> None:
+        """Load a couple of batches through the newest loader (a
+        synthetic one if there is none) so the drift table's ``io`` row
+        has spans."""
+        gb = self.config.global_batch
+        loader = (self._loaders[-1] if self._loaders
+                  else self.make_loader(num_samples=max(gb, 4)))
+        order = loader.schedule_for_epoch(0)
+        n = max(len(order) // gb, 1)
+        for b in range(min(batches, n)):
+            loader.load_batch(order[b * gb:(b + 1) * gb])
+        self._sync()
+
+    def _synthetic_batch(self):
+        """A seeded batch on the session's device: normal volumes, and
+        normal targets (CosmoFlow) or uniform voxel labels (the U-Net)."""
+        w, gb = self.cfg.input_width, self.config.global_batch
+        g = torch.Generator(device=self.device).manual_seed(
+            self.config.seed + 1)
+        x = torch.randn((gb, w, w, w, self.cfg.in_channels), generator=g,
+                        device=self.device)
+        if self.cfg.arch == "cosmoflow":
+            y = torch.randn((gb, self.cfg.out_dim), generator=g,
+                            device=self.device)
+        else:
+            y = torch.randint(0, self.cfg.out_dim, (gb, w, w, w), generator=g,
+                              device=self.device, dtype=torch.int32)
+        return x, y
+
+    def _sync(self) -> None:
+        """Wait for every card of the mesh."""
+        for d in set(self.mesh.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     # ------------------------------------------------------ checkpoint ----
     def save(self, path: Optional[str] = None) -> str:

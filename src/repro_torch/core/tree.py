@@ -57,4 +57,18 @@ def leaves(tree: Any) -> List[Any]:
     return [leaf for _, leaf in key_paths(tree)]
 
 
-__all__ = ["tree_map", "key_paths", "leaves"]
+def structure(tree: Any) -> Any:
+    """``tree``'s nodes without its leaves (the counterpart of a
+    ``jax`` treedef): two trees compare equal here when they have the
+    same dict keys, NamedTuple types, tuple lengths and ``None``s."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, structure(tree[k])) for k in sorted(tree)))
+    if _is_namedtuple(tree):
+        return (type(tree), tuple(structure(getattr(tree, f))
+                                  for f in tree._fields))
+    if isinstance(tree, tuple):
+        return ("tuple", tuple(structure(t) for t in tree))
+    return None if tree is None else "leaf"
+
+
+__all__ = ["tree_map", "key_paths", "leaves", "structure"]

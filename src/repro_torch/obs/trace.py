@@ -86,8 +86,8 @@ class Tracer:
 
     Every finished span also feeds a ``span.<name>`` histogram in
     ``self.metrics`` — that aggregate view is the *measured* side of
-    the drift table (the reference's ``obs.report``), so reports are sourced
-    from spans rather than from any probe's return value.
+    the drift table (``repro_torch.obs.report``), so reports are
+    sourced from spans rather than from any probe's return value.
     """
 
     def __init__(self, max_events: int = 1_000_000) -> None:
