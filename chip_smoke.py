@@ -194,9 +194,34 @@ Phases, each printing one line; any failure raises and exits non-zero:
               --arch cosmoflow-128 --full-config`` for 3 steps and the
               quickstart for 2 (cosmoflow-512's smoke variant, whose conv
               and bn_act shapes phase 3 checks too).
-m.  memory_model — every measured peak of phases 5, 10, 10c, 10e and
-              10g (512^3 b2 now also without remat) beside the session's
-              ``describe().modeled_peak`` (``core/memory.py``), and the
+10q. train_pipeline (run right after 10g) — the pipeline axis, two
+              device groups on this card at the boundary ``plan="fixed"``
+              prices cheapest on the H100 (beside the V100's pick),
+              pinned for both schedules: step 1 of cosmoflow-128 b4 (one
+              shard a group, M = 4, fp32 and bf16) and of the U-Net at
+              64^3 b2 (M = 2, on phase 10e's batch) through the
+              pipelined step against the plain versions and fp64 (phase
+              10's gates, the U-Net's decision-aware bf16 gate; the
+              oracle is the micro-batches one after another on one
+              device, and the pipelined step's probe must lie within
+              1e-5 of it); M = 1 against the unpipelined step of the same
+              data degree (1 and 2 shards, loss and every leaf 1e-5,
+              whether bitwise). Main path: cosmoflow-128 b4 at 1 shard a
+              group (M = 4) and 2 (M = 2), fp32 1F1B and sequential x
+              overlap and monolithic, bf16 1F1B overlap; unet3d-256 at
+              256^3 b2, M = 2, one shard a group, fp32 1F1B and
+              sequential; 2 steps each from the same parameters,
+              bitwise between schedules and lowerings, launches a step
+              against ``kernel_launches(train=True)``; ms a step (median
+              of 3 after a warm-up) of the fp32 overlap runs and the
+              U-Net's, peak memory (256^3 b2 must fit). After:
+              ``Session.profile`` (``pipeline_speedup``), ``describe()``
+              (bubble, predicted step) and ``report()``'s drift table
+              at cosmoflow-128 b4, one shard a group.
+m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
+              and 10q's U-Net (512^3 b2 now also without remat) beside
+              the session's ``describe().modeled_peak`` (``core/memory.py``,
+              a pipelined plan's: its largest group's), and the
               serving peak at 128^3 b4 (``measured_peak_bytes``, after
               phase 4's path is read): modeled over allocated and over
               reserved. No gate.
@@ -226,8 +251,8 @@ m.  memory_model — every measured peak of phases 5, 10, 10c, 10e and
               one profiled mamba2-370m forward in fp32 and one in bf16.
 
 Phases 4-6, 7-8, 10 (the training steps), 10b (the sharded training
-steps), 10c, 10e and 10f (the U-Net's), 10g, 10h, 10z, 10z-u, 10p, 10s
-and 12-13 are the main paths:
+steps), 10c, 10e and 10f (the U-Net's), 10g, 10q, 10h, 10z, 10z-u, 10p,
+10s and 12-13 are the main paths:
 the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
@@ -419,6 +444,23 @@ SUP_ZERO1 = (2, 2)
 SUP_WATCHDOG_S, SUP_STALL_S = 0.5, 0.8
 SUP_REPORTS = (("1x1", 1, "fixed"), ("1x2", 2, "fixed"),
                ("1x2 all blocks split", 2, "deep"))
+# the pipeline axis (phase 10q): two groups at the boundary plan="fixed"
+# prices cheapest on the H100. (q-a) cosmoflow-128 b4 fp32 with d = 1
+# shard a group (M = PIPE_M, micro-batch 1) and d = 2 (M = PIPE_M2: a
+# micro-batch of 1 does not split over 2 shards), 1F1B and sequential x
+# overlap and monolithic; (q-b) the same in bf16, 1F1B overlap; (q-c)
+# unet3d-256 at 256^3 b2, M = 2, d = 1, 1F1B and sequential. PIPE_STEPS
+# steps each from the same parameters; the fp32 overlap runs and the
+# U-Net's then go on to a warm-up and PIPE_TIMED timed steps in all
+PIPE_BATCH, PIPE_M, PIPE_M2, PIPE_STEPS, PIPE_TIMED = 4, 4, 2, 2, 3
+PIPE_RUNS = (("q-a", "fp32", 1), ("q-a", "fp32", 2), ("q-b", "bf16", 1),
+             ("q-b", "bf16", 2))
+PIPE_UNET_BATCH, PIPE_UNET_M, PIPE_UNET_PREC = 2, 2, "fp32"
+# M = 1 against the unpipelined step, and the pipelined step's probe
+# against its oracle (the micro-batches one after another on one device,
+# both through the kernels): loss (relative) and each gradient leaf (a
+# share of its max-abs)
+PIPE_M1_TOL = PIPE_ORACLE_TOL = 1e-5
 # (B, L, H, P, N, chunk): tests/test_kernels.py's four (B=2), L=40 with
 # chunk 16 (lowered to 10), and mamba2-370m's layer at 4 x 4096 tokens
 SSD_SHAPES = ((2, 32, 2, 8, 16, 8), (2, 64, 3, 8, 16, 16),
@@ -1254,24 +1296,42 @@ def plain_training(k):
         yield
 
 
-def loss_and_grads(k, sess, x, y, params=None, precision=None) -> tuple:
+def loss_and_grads(k, sess, x, y, params=None, precision=None,
+                   micro: int = 1) -> tuple:
     """Step 1 of ``sess`` without the update: its loss (CosmoFlow:
     dropout seed 0, the session's masks; the U-Net: the voxel
     cross-entropy) and the gradient of every parameter (of ``params``,
-    default the session's, at ``precision``, default the session's)."""
+    default the session's, at ``precision``, default the session's).
+    ``micro`` > 1: a pipelined step's oracle on one device — the batch cut
+    into ``micro`` micro-batches, each its own forward (its batch-norm
+    statistics) with the global normalizer and its rows' global ids, the
+    losses and each micro-batch's gradients added in micro-batch order
+    (the pipelined session's plan run as one group,
+    ``train_step.flat_plan``)."""
     p = {n: v.detach().requires_grad_(True)
          for n, v in (params or sess.params).items()}
-    if sess.cfg.arch == "unet3d":
-        loss = k.unet3d.segmentation_loss(
-            p, x, y, sess.cfg, plan=sess.plan,
-            precision=precision or sess.precision)
-    else:
-        loss = k.cosmoflow.mse_loss(p, x, y, sess.cfg, plan=sess.plan,
-                                    global_batch=x.shape[0], train=True,
-                                    dropout_seed=0,
-                                    precision=precision or sess.precision)
-    grads = torch.autograd.grad(loss, list(p.values()))
-    return loss.detach(), dict(zip(p, grads))
+    plan = k.train_step.flat_plan(sess.plan)
+    precision = precision or sess.precision
+    n = x.shape[0]
+    mb = n // micro
+    loss, grads = None, None
+    for m in range(micro):
+        rows = slice(m * mb, (m + 1) * mb)
+        if sess.cfg.arch == "unet3d":
+            lm = k.unet3d.segmentation_loss(
+                p, x[rows], y[rows], sess.cfg, plan=plan,
+                global_voxels=n * sess.cfg.input_width ** 3,
+                precision=precision)
+        else:
+            lm = k.cosmoflow.mse_loss(
+                p, x[rows], y[rows], sess.cfg, plan=plan, global_batch=n,
+                train=True, dropout_seed=0,
+                sample_ids=range(m * mb, (m + 1) * mb),
+                mask_source=sess.mask_source, precision=precision)
+        gm = dict(zip(p, torch.autograd.grad(lm, list(p.values()))))
+        loss = lm.detach() if loss is None else loss + lm.detach()
+        grads = gm if grads is None else {q: grads[q] + gm[q] for q in gm}
+    return loss, grads
 
 
 def _windows(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -1357,12 +1417,14 @@ def nll64(logits, labels, denominator):
     return -logp.gather(-1, labels.long().unsqueeze(-1)).sum() / denominator
 
 
-def fp64_grads(k, sess, x, y, within=contextlib.nullcontext) -> tuple:
+def fp64_grads(k, sess, x, y, within=contextlib.nullcontext,
+               micro: int = 1) -> tuple:
     """Step 1 in fp64, as near the exact gradient as the card computes:
     the session's fp32 masters widened, the convs by ``F.conv3d`` and the
     batch norm and the loss in fp64 (the U-Net's up-convolutions and head
     are products, in fp64 on fp64 inputs), the same masks; inside the
-    context ``within()`` (entered after those patches)."""
+    context ``within()`` (entered after those patches); ``micro`` as
+    ``loss_and_grads``'."""
     with mock.patch.object(k.conv_ops, "conv3d", conv64), \
             mock.patch.object(k.cosmoflow.dist_norm,
                               "distributed_batchnorm", bn64), \
@@ -1371,7 +1433,8 @@ def fp64_grads(k, sess, x, y, within=contextlib.nullcontext) -> tuple:
         return loss_and_grads(
             k, sess, x.double(), y if sess.cfg.arch == "unet3d"
             else y.double(), precision="fp32",
-            params={n: v.double() for n, v in sess.params.items()})
+            params={n: v.double() for n, v in sess.params.items()},
+            micro=micro)
 
 
 def block_of(name: str) -> int:
@@ -1500,7 +1563,8 @@ def grad_rows(k, cfg, batch: int, prec: str, reps: int) -> dict:
     return rows
 
 
-def step1_vs_plain(k, sess, x, y, tag: str, prec: str) -> tuple:
+def step1_vs_plain(k, sess, x, y, tag: str, prec: str, micro: int = 1,
+                   step=None) -> tuple:
     """Step 1's loss and every gradient through the kernels, held against
     the same step through the plain versions (``plain_training``) and in
     fp64 (``fp64_grads``), within ``STEP1_*``: fp32 from the fp64 step
@@ -1515,18 +1579,34 @@ def step1_vs_plain(k, sess, x, y, tag: str, prec: str) -> tuple:
     step's — in bf16 both steps flip ~690,000 of its ReLU signs and pool
     winners at 64^3 b2, and a leaf fed by the last level's ReLUs lies
     from fp64 where the flips put it (PERF.md §6). Returns
-    (report, loss)."""
+    (report, loss).
+
+    A pipelined session: the oracle is ``loss_and_grads(micro=)`` (its
+    decisions, one micro-batch after another, are the pipelined step's:
+    the same blocks on the same inputs), and ``step(x, y)`` — the
+    pipelined step's ``grad_comm`` probe, (loss, merged gradients) — is
+    the kernel and the plain step held to the gates."""
     taken, plain_taken, exact_taken = [], [], []
+
+    def oracle(params=None, precision=None):
+        return loss_and_grads(k, sess, x, y, params, precision, micro)
+
     with decisions(k, taken):
-        loss, grads = loss_and_grads(k, sess, x, y)
+        loss, grads = oracle()
+    if step is not None:
+        loss, grads = step(x, y)
     c0 = counts(k)
     with plain_training(k), decisions(k, plain_taken):
-        plain_loss, plain = loss_and_grads(k, sess, x, y)
+        plain_loss, plain = oracle()
+    if step is not None:
+        with plain_training(k):
+            plain_loss, plain = step(x, y)
     with plain_training(k), decisions(k, taken, replay=True):
-        _, pinned = loss_and_grads(k, sess, x, y)
-    _, exact = fp64_grads(k, sess, x, y, lambda: decisions(k, exact_taken))
+        _, pinned = oracle()
+    _, exact = fp64_grads(k, sess, x, y, lambda: decisions(k, exact_taken),
+                          micro)
     _, exact_same = fp64_grads(k, sess, x, y, lambda: decisions(
-        k, taken, replay=True))
+        k, taken, replay=True), micro)
     torch.cuda.synchronize()
     check(counts(k) == c0, f"{tag}: the plain or fp64 step launched a "
           "kernel")
@@ -3220,6 +3300,339 @@ def zero1_checkpoint(k, sess, x, y) -> dict:
     return {"loss": got, "bitwise": same}
 
 
+def pipe_plan(plan_lib, perf_model, cfg, batch: int, d: int, micro: int,
+              sched: str = "1f1b"):
+    """The two-group plan ``plan="fixed"`` resolves to for 1F1B (the
+    boundary priced cheapest on the H100), its schedule set to
+    ``sched``: both schedules run the same groups (a sequential config's
+    own pick, priced for that schedule, may cut elsewhere)."""
+    best = min(plan_lib.candidate_pipeline_plans(
+        cfg, perf_model.H100, pipeline_degrees=(2,),
+        micro_batch_options=(micro,), num_devices=2 * d,
+        global_batch=batch), key=lambda p: p.cost)
+    return dataclasses.replace(
+        best, pipeline=dataclasses.replace(best.pipeline, schedule=sched),
+        name=best.name.replace(".1f1b", f".{sched}"))
+
+
+def pipe_config(RunConfig, plan, cfg, batch: int, prec: str,
+                mode: str = "overlap", **kw):
+    """A training run of ``cfg`` pinned to the two-group ``plan``
+    (``pipe_plan``): its d shards a group (``data`` the total, 2d)."""
+    spec = plan.pipeline
+    return RunConfig(model=cfg, mode="train", global_batch=batch,
+                     precision=prec, data=2 * plan.data_degree, pipeline=2,
+                     micro_batches=spec.micro_batches,
+                     pipeline_schedule=spec.schedule, grad_comm=mode,
+                     plan=plan, **kw)
+
+
+def pipe_probe(k, sess):
+    """``sess``' pipelined step's ``grad_comm`` probe as ``step(x, y)`` ->
+    (loss, merged reduced gradients), on its parameters and state."""
+    fn = k.train_step.make_pipeline_train_step(
+        sess.cfg, sess.meshes, sess.optimizer, plan=sess.plan,
+        global_batch=sess.config.global_batch, grad_comm=sess.grad_comm,
+        precision=sess.precision, stage="grad_comm",
+        mask_source=sess.mask_source)
+    return lambda x, y: fn(sess.params, sess.opt_state, x, y, 0)
+
+
+def pipe_steps(k, sess, x, y, steps: int, timed: int = 0) -> dict:
+    """``steps`` steps of ``sess`` (host clock each), the launches they
+    made checked against ``kernel_launches(train=True)`` a step, the
+    parameters after the first ``PIPE_STEPS`` kept; peaks allocated and
+    reserved over all of them; with ``timed``, the median of the last
+    ``timed`` step times (the first step the warm-up)."""
+    model = k.unet3d if sess.cfg.arch == "unet3d" else k.cosmoflow
+    per_step = dict(NO_LAUNCHES, **model.kernel_launches(
+        sess.cfg, sess.plan, train=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    c0 = counts(k)
+    losses, ms, params = [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(sess.step(x, y).item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 == PIPE_STEPS:
+            params = dict(sess.params)
+    got = delta(counts(k), c0)
+    check(got == {n: v * steps for n, v in per_step.items()},
+          f"{sess.plan.name} {sess.precision}: launches {got} over {steps} "
+          f"steps, expected {per_step} a step (kernel_launches)")
+    check(all(math.isfinite(v) for v in losses),
+          f"{sess.plan.name}: non-finite losses {losses}")
+    row = {"losses": losses, "step_ms": ms, "launches": got,
+           "launches_per_step": per_step, "params": params,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "resident_bytes_before": resident,
+           "foreign_bytes": foreign_bytes(resident, sess, x, y),
+           "modeled": modeled(sess)}
+    if timed:
+        row["ms_per_step"] = statistics.median(ms[-timed:])
+    return row
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    return (a["losses"][:PIPE_STEPS] == b["losses"][:PIPE_STEPS]
+            and all(torch.equal(a["params"][n], b["params"][n])
+                    for n in a["params"]))
+
+
+def pipe_gate(k, sess, x, y, tag: str, prec: str, micro: int) -> dict:
+    """Step 1 of a pipelined session (d = 1) against the plain versions
+    and fp64 (``step1_vs_plain`` with the micro-batch oracle), and its
+    ``grad_comm`` probe through the kernels against the oracle through
+    the kernels (each leaf's distance, a share of its max-abs)."""
+    probe = pipe_probe(k, sess)
+    loss, grads = probe(x, y)
+    o_loss, oracle = loss_and_grads(k, sess, x, y, micro=micro)
+    dist = {n: ((grads[n].double() - oracle[n].double()).abs().max()
+                / oracle[n].double().abs().max().clamp_min(1e-30)).item()
+            for n in grads}
+    vs_oracle = {"loss": abs(loss.item() - o_loss.item()),
+                 "worst_leaf": max(dist.values()),
+                 "bitwise": all(torch.equal(grads[n], oracle[n])
+                                for n in grads)}
+    log("train_pipeline", f"{tag}: the pipelined step's probe against the "
+        f"oracle (micro-batches one after another, one device), both "
+        f"through the kernels: {json.dumps(vs_oracle)}")
+    check(vs_oracle["worst_leaf"] <= PIPE_ORACLE_TOL
+          and vs_oracle["loss"] <= PIPE_ORACLE_TOL * abs(o_loss.item()),
+          f"{tag}: the pipelined step against its oracle {vs_oracle}")
+    del grads, oracle
+    row, _ = within_limit(lambda: step1_vs_plain(
+        k, sess, x, y, tag, prec, micro=micro, step=probe),
+        SPATIAL_LIMIT_S, f"{tag} step 1")
+    row["vs_oracle"] = vs_oracle
+    return row
+
+
+def phase_train_pipeline(k, cfg, ucfg, ucfg64, RunConfig, compile,
+                         plan_lib, perf_model, card: str) -> tuple:
+    """(10q) The pipeline axis on the card, every group's shards on it (a
+    main path: every step below is counted). First, uncounted: the
+    boundary ``plan="fixed"`` picks on the H100 (the sessions' pricing)
+    beside the reference's V100; step 1 of cosmoflow-128 b4 (d = 1,
+    fp32 and bf16) and of the U-Net at 64^3 b2 (``UNET_CHECK_*``)
+    against the plain versions and fp64 (``pipe_gate``); M = 1 against
+    the unpipelined step of the same data degree (loss and each leaf
+    within ``PIPE_M1_TOL``, whether bitwise). Then the main path:
+    ``PIPE_RUNS`` at cosmoflow-128 b4 (fp32: 1F1B and sequential x
+    overlap and monolithic; bf16: 1F1B overlap) and the U-Net at 256^3
+    b2 (1F1B and sequential), ``PIPE_STEPS`` steps each from the same
+    seeded parameters and batch, launches a step against
+    ``kernel_launches``, 1F1B against sequential and overlap against
+    monolithic bitwise; the fp32 overlap runs take ``PIPE_TIMED`` more
+    steps, timed (host clock, median after the warm-up), and each run's
+    peak memory. After the path: ``Session.profile`` (1F1B against the
+    sequential oracle, ``pipeline_speedup``), ``describe()`` and
+    ``report()`` at cosmoflow-128 b4 d = 1. On one card the groups share
+    the SMs and the host: no speedup is expected. Returns (report,
+    launches of the main path, the U-Net run's memory row)."""
+    out = {"boundaries": {}, "vs_plain": {}, "m1": {}, "runs": {},
+           "card": card}
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x, y = train_batch(cfg, PIPE_BATCH, g)
+    for c, batch, micro, d in ((cfg, PIPE_BATCH, PIPE_M, 1),
+                               (cfg, PIPE_BATCH, PIPE_M2, 2),
+                               (ucfg, PIPE_UNET_BATCH, PIPE_UNET_M, 1)):
+        picks = {}
+        for hw in (perf_model.H100, perf_model.V100):
+            cands = plan_lib.candidate_pipeline_plans(
+                c, hw, pipeline_degrees=(2,), micro_batch_options=(micro,),
+                num_devices=2 * d, global_batch=batch)
+            best = min(cands, key=lambda p: p.cost)
+            picks[hw.name] = {"plan": best.name, "predicted_step_s":
+                              best.cost}
+        key = f"{c.name}/b{batch}/m{micro}/d{d}"
+        out["boundaries"][key] = picks
+        log("train_pipeline", f"{key}: plan=\"fixed\" picks "
+            + "; ".join(f"{hw}: {v['plan']} ({v['predicted_step_s'] * 1e3:.3f}"
+                        f" ms modeled)" for hw, v in picks.items()))
+
+    def plan(c, batch, d, micro, sched="1f1b"):
+        return pipe_plan(plan_lib, perf_model, c, batch, d, micro, sched)
+
+    # ------------------------------- step 1, M = 1 (not counted) ----
+    for prec in ("fp32", "bf16"):
+        with compile(pipe_config(RunConfig, plan(cfg, PIPE_BATCH, 1, PIPE_M),
+                                 cfg, PIPE_BATCH, prec),
+                     devices=["cuda:0"] * 2) as sess:
+            tag = f"{cfg.name} {prec} b{PIPE_BATCH} pipe2 d1 M{PIPE_M}"
+            out["vs_plain"][tag] = pipe_gate(k, sess, x, y, tag, prec,
+                                             PIPE_M)
+    # the U-Net's gate on phase 10e's own batch (its seed, its first
+    # draw): the decision-aware bf16 criterion held phase 10e's step
+    # there, and it is seed-fragile at these leaves for the unpipelined
+    # step as well (scripts/pipeline_accuracy.py, PERF.md §6); what the
+    # pipeline adds is held apart, its probe against its oracle
+    # (PIPE_ORACLE_TOL)
+    ux, uy = train_batch(ucfg64, UNET_CHECK_BATCH,
+                         torch.Generator(device="cuda").manual_seed(14))
+    for prec in ("fp32", "bf16"):
+        with compile(pipe_config(RunConfig, plan(
+                ucfg64, UNET_CHECK_BATCH, 1, PIPE_UNET_M), ucfg64,
+                UNET_CHECK_BATCH, prec), devices=["cuda:0"] * 2) as sess:
+            tag = (f"{ucfg64.name} {prec} b{UNET_CHECK_BATCH} "
+                   f"{sess.plan.name} d1")
+            out["vs_plain"][tag] = pipe_gate(k, sess, ux, uy, tag, prec,
+                                             PIPE_UNET_M)
+    del ux, uy
+    for d in (1, 2):
+        with compile(pipe_config(RunConfig, plan(cfg, PIPE_BATCH, d, 1),
+                                 cfg, PIPE_BATCH, "fp32"),
+                     devices=["cuda:0"] * (2 * d)) as sess:
+            loss, grads = pipe_probe(k, sess)(x, y)
+            flat = plan_lib.legacy_convnet_plan(
+                cfg, plan_lib.SpatialPartitioning(("model", None, None)),
+                (1, 1, 1), data_degrees=(d,))
+            mesh = k.mesh_lib.make_plan_mesh(flat, ["cuda:0"] * d)
+            want_loss, want = k.train_step.make_convnet_phase_probes(
+                cfg, mesh, sess.optimizer, global_batch=PIPE_BATCH,
+                plan=flat, precision="fp32")["grad_comm"](
+                    sess.params, sess.optimizer.init(sess.params), x, y, 0)
+            dist = {n: ((grads[n] - want[n]).abs().max()
+                        / want[n].abs().max().clamp_min(1e-30)).item()
+                    for n in want}
+            row = out["m1"][f"d{d}"] = {
+                "loss": loss.item(), "unpipelined_loss": want_loss.item(),
+                "worst_leaf": max(dist.values()),
+                "bitwise": bool(torch.equal(loss, want_loss) and all(
+                    torch.equal(grads[n], want[n]) for n in want))}
+            check(abs(row["loss"] - row["unpipelined_loss"])
+                  <= PIPE_M1_TOL * max(1.0, abs(row["unpipelined_loss"]))
+                  and row["worst_leaf"] <= PIPE_M1_TOL,
+                  f"M = 1, d = {d}: against the unpipelined step {row}")
+            log("train_pipeline", f"{cfg.name} fp32 b{PIPE_BATCH} M = 1, "
+                f"d = {d} ({sess.plan.name}) against the unpipelined "
+                f"step at data {d}: {json.dumps(row)}")
+
+    # ------------------------------------------------ the main path ----
+    zero_counts(k)
+    expected = dict(NO_LAUNCHES)
+    for tag, prec, d in PIPE_RUNS:
+        micro = PIPE_M if d == 1 else PIPE_M2
+        runs, names = {}, {}
+        for sched in (("1f1b", "sequential") if prec == "fp32"
+                      else ("1f1b",)):
+            for mode in (("overlap", "monolithic") if prec == "fp32"
+                         else ("overlap",)):
+                timed = PIPE_TIMED if mode == "overlap" and prec == "fp32" \
+                    else 0
+
+                def run():
+                    with compile(pipe_config(
+                            RunConfig, plan(cfg, PIPE_BATCH, d, micro, sched),
+                            cfg, PIPE_BATCH, prec, mode),
+                            devices=["cuda:0"] * (2 * d)) as s:
+                        return s.plan.name, pipe_steps(
+                            k, s, x, y, max(PIPE_STEPS, 1 + timed), timed)
+
+                names[sched], runs[(sched, mode)] = within_limit(
+                    run, SPATIAL_LIMIT_S, f"{tag} {prec} d{d} {sched} {mode}")
+                got = runs[(sched, mode)]["launches"]
+                expected = {n: expected[n] + got[n] for n in KERNELS}
+        key = f"{tag} {cfg.name} {prec} b{PIPE_BATCH} d{d} M{micro}"
+        name = names["1f1b"]
+        row = out["runs"][key] = {"plan": name, "checks": {}}
+        base = runs[("1f1b", "overlap")]
+        for other in runs:
+            if other == ("1f1b", "overlap"):
+                continue
+            same = same_bits(base, runs[other])
+            row["checks"][" vs ".join(("1f1b overlap", " ".join(other)))] = \
+                same
+            check(same, f"{key}: 1f1b overlap against {other} after "
+                  f"{PIPE_STEPS} steps is not bitwise")
+        for (sched, mode), r in runs.items():
+            row[f"{sched} {mode}"] = {n: v for n, v in r.items()
+                                      if n != "params"}
+        log("train_pipeline", f"{key} ({name}): losses "
+            f"{base['losses'][:PIPE_STEPS]}; bitwise {json.dumps(row['checks'])}; "
+            f"launches a step {json.dumps(base['launches_per_step'])} = "
+            "kernel_launches; " + "".join(
+                f"{s} {m}: {r['ms_per_step']:.2f} ms a step (median of "
+                f"{PIPE_TIMED} after a warm-up); " for (s, m), r
+                in runs.items() if "ms_per_step" in r)
+            + f"peak {base['peak_bytes'] / 2 ** 30:.3f} GiB allocated, "
+            f"{base['peak_reserved_bytes'] / 2 ** 30:.3f} reserved ({card})")
+    del runs, base
+    # (q-c) the U-Net at 256^3 b2
+    release_cached("the pipelined U-Net")
+    ux, uy = train_batch(ucfg, PIPE_UNET_BATCH, g)
+    runs, names = {}, {}
+    for sched in ("1f1b", "sequential"):
+        def run():
+            with compile(pipe_config(RunConfig, plan(
+                    ucfg, PIPE_UNET_BATCH, 1, PIPE_UNET_M, sched), ucfg,
+                    PIPE_UNET_BATCH, PIPE_UNET_PREC),
+                    devices=["cuda:0"] * 2) as s:
+                return s.plan.name, pipe_steps(k, s, ux, uy,
+                                               1 + PIPE_TIMED, PIPE_TIMED)
+
+        names[sched], runs[sched] = within_limit(run, 2 * SPATIAL_LIMIT_S,
+                                                 f"q-c {sched}")
+        expected = {n: expected[n] + runs[sched]["launches"][n]
+                    for n in KERNELS}
+        torch.cuda.empty_cache()
+    key = (f"q-c {ucfg.name} {PIPE_UNET_PREC} b{PIPE_UNET_BATCH} d1 "
+           f"M{PIPE_UNET_M}")
+    same = same_bits(runs["1f1b"], runs["sequential"])
+    check(same, f"{key}: 1f1b against sequential after {PIPE_STEPS} steps "
+          "is not bitwise")
+    unet_row = {n: v for n, v in runs["1f1b"].items() if n != "params"}
+    name = names["1f1b"]
+    out["runs"][key] = {"plan": name, "checks": {
+        "1f1b vs sequential": same}, "1f1b overlap": unet_row,
+        "sequential overlap": {n: v for n, v in runs["sequential"].items()
+                               if n != "params"}}
+    log("train_pipeline", f"{key} ({name}): losses "
+        f"{unet_row['losses']}; 1f1b vs sequential bitwise {same}; launches "
+        f"a step {json.dumps(unet_row['launches_per_step'])} = "
+        f"kernel_launches; 1f1b {unet_row['ms_per_step']:.1f} ms a step, "
+        f"sequential {runs['sequential']['ms_per_step']:.1f} (median of "
+        f"{PIPE_TIMED} after a warm-up); peak "
+        f"{unet_row['peak_bytes'] / 2 ** 30:.2f} GiB allocated, "
+        f"{unet_row['peak_reserved_bytes'] / 2 ** 30:.2f} reserved; "
+        f"modeled {unet_row['modeled']['total'] / 2 ** 30:.2f} GiB a group "
+        f"({card})")
+    del runs, ux, uy
+    launches = counts(k)
+    check(launches == expected, f"train_pipeline path launches {launches}, "
+          f"expected {expected}")
+    log("main path", f"train_pipeline: launches {launches}")
+
+    # ------------------------- profile, describe, report (after) ----
+    with compile(pipe_config(RunConfig, plan(cfg, PIPE_BATCH, 1, PIPE_M),
+                             cfg, PIPE_BATCH, "fp32", trace=True),
+                 devices=["cuda:0"] * 2) as sess:
+        prof = sess.profile((x, y))
+        rep = sess.describe()
+        drift = sess.report()
+        out["profile"] = {key_: v for key_, v in prof.items()
+                          if not key_.startswith("telemetry")}
+        out["describe"] = {"plan": rep.plan_name,
+                           "bubble_fraction": rep.bubble_fraction,
+                           "predicted_step_s": rep.predicted_step_s,
+                           "modeled_peak": dataclasses.asdict(
+                               rep.modeled_peak)}
+        out["report"] = drift.to_json()
+    log("train_pipeline", f"{cfg.name} fp32 b{PIPE_BATCH} d1 M{PIPE_M}: "
+        f"Session.profile {json.dumps(out['profile'])}; describe "
+        f"{json.dumps(out['describe'])} ({card}); the drift table:\n"
+        + str(drift))
+    out["seconds"] = time.perf_counter() - t_phase
+    log("train_pipeline", f"the phase took {out['seconds']:.1f} s")
+    del x, y
+    torch.cuda.empty_cache()
+    return out, launches, unet_row
+
+
 def phase_memory_model(rows: dict, card: str) -> dict:
     """(m) Each measured peak beside the session's modeled peak
     (``core/memory.py``, the reference's coefficients): the ratio of
@@ -3576,7 +3989,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.api import RunConfig, compile
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.core import memory
+    from repro_torch.core import memory, perf_model
     from repro_torch.core import plan as plan_lib
     from repro_torch.core import spmd
     from repro_torch.core.spatial_conv import SpatialPartitioning
@@ -3589,6 +4002,7 @@ def main() -> int:
     from repro_torch.kernels.halo_pack import ref as pack_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import cosmoflow, for_config, mamba2, ssm_lm
     from repro_torch.models import unet3d
     from repro_torch.serve import lm
@@ -3604,7 +4018,7 @@ def main() -> int:
                            ssd_ref=ssd_ref, mamba2=mamba2, ssm_lm=ssm_lm,
                            lm=lm, cosmoflow=cosmoflow, unet3d=unet3d,
                            for_config=for_config, train_step=train_step,
-                           spmd=spmd, memory=memory)
+                           spmd=spmd, memory=memory, mesh_lib=mesh_lib)
     report = {"card": phase_card()}
     report["build"] = phase_build(_build)
     clock("build")
@@ -3635,6 +4049,13 @@ def main() -> int:
     train_remat, got_remat = phase_train_remat(
         k, cfgs, ucfg, RunConfig, compile, plan_lib, depth, report["card"])
     clock("train_remat")
+    # phase 10q next: its U-Net at 256^3 b2 needs most of the card too
+    release_cached("train_pipeline")
+    train_pipeline, got_pipe, pipe_unet_row = phase_train_pipeline(
+        k, cf128, ucfg, ucfg64, RunConfig, compile, plan_lib, perf_model,
+        report["card"])
+    release_cached("the serving phases")
+    clock("train_pipeline")
 
     # ------------------------------------------- main path 1: 4-6 ----
     n128, n512 = cosmoflow.num_blocks(cf128), cosmoflow.num_blocks(cf512)
@@ -3891,6 +4312,8 @@ def main() -> int:
     launches = {n: launches[n] + got[n] for n in KERNELS}
     main_paths["train_remat"] = {"launches": got_remat}
     launches = {n: launches[n] + got_remat[n] for n in KERNELS}
+    main_paths["train_pipeline"] = {"launches": got_pipe}
+    launches = {n: launches[n] + got_pipe[n] for n in KERNELS}
     # every block rematerialized (phase 10g) beside the same configs
     # without (phases 10 and 10e), in this run
     vs = train_remat["vs_no_remat"] = {}
@@ -3963,6 +4386,8 @@ def main() -> int:
                         train_remat["runs"].items()})
     memory_rows.update({f"train {tag}": row for tag, row in
                         unet_train[0]["steps"].items()})
+    memory_rows[f"train {ucfg.name}/{PIPE_UNET_PREC}/b{PIPE_UNET_BATCH} "
+                f"pipe2 M{PIPE_UNET_M}"] = pipe_unet_row
     memory_rows.update({f"serve {tag}": serve[tag] for tag in (
         "cosmoflow-128/fp32", "cosmoflow-512/fp32")})
     memory_rows[f"serve {ucfg.name}/fp32/S1"] = unet["serve"]["predict"][
@@ -4104,7 +4529,8 @@ def main() -> int:
                   train_spatial=train_spatial, unet=unet,
                   train_remat=train_remat, train_io=train_io,
                   train_zero1=train_zero1, memory_model=memory_model,
-                  plans=plans, supervise=supervise)
+                  plans=plans, supervise=supervise,
+                  train_pipeline=train_pipeline)
     report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
                   conv_vs_library=conv_vs_library,
                   lowering=lowering, profile=profiles, bounds=PEAKS_USED,

@@ -33,9 +33,11 @@ def add_session_args(ap) -> None:
                     help="spatial-parallel degree (mesh 'model' axis)")
     ap.add_argument("--pipeline", type=int, default=1, metavar="P",
                     help="pipeline-parallel degree: split the layer chain "
-                         "into P stages on disjoint device groups; --data "
-                         "stays the TOTAL data degree (comes with the "
-                         "pipeline slice: P > 1 raises)")
+                         "into P stages on disjoint device groups, trained "
+                         "over micro-batches (1F1B or the sequential "
+                         "oracle); --data stays the TOTAL data degree, "
+                         "--data/P shards a group; no --model, --grad-clip "
+                         "or fp16 with it")
     ap.add_argument("--micro-batches", type=int, default=4, metavar="M",
                     help="micro-batches per step when --pipeline > 1")
     ap.add_argument("--pipeline-schedule", default="1f1b",

@@ -12,11 +12,13 @@ legacy plan), ``"auto"`` (the cost-model planner's choice at the
 config's degrees) or a pinned ``ParallelPlan``; ``memory_budget_gib``
 (> 0) makes the planner choose under that modeled peak a device
 (``core/memory.py``), raising the spatial degree, the precision or the
-remat set where it must. Both modes take data x spatial degrees. What
-the port cannot run yet is rejected the same way, naming the slice that
-brings it: the pipeline axis (``pipeline``). Training takes every
-``grad_comm``, ZeRO-1 (``reduce_scatter``) included; serving none but
-``auto``, as the reference rules.
+remat set where it must. Both modes take data x spatial degrees;
+training also ``pipeline`` > 1 device groups (``data`` then the total
+data degree, ``data // pipeline`` shards a group; ``micro_batches``,
+``pipeline_schedule``), with the reference's checks. Training takes
+every ``grad_comm``, ZeRO-1 (``reduce_scatter``) included, but not under
+a pipeline; serving none but ``auto``, and no pipeline, as the reference
+rules.
 """
 from __future__ import annotations
 
@@ -147,22 +149,88 @@ class RunConfig:
             self._validate_train()
         self._validate_common(device_count)
         self._validate_spatial(cfg)
+        if self.mode == "train":
+            self._validate_pipeline(cfg)
 
     def _validate_train(self) -> None:
-        """What the training slice runs: data x spatial shards (no
-        pipeline axis), the fixed or a pinned plan, and any reduction
-        mode."""
+        """The group count is an int >= 1 (``_validate_pipeline`` checks
+        a pipeline once the degrees are)."""
         if not isinstance(self.pipeline, int) or self.pipeline < 1:
             raise RunConfigError(
                 "pipeline", f"group count must be an int >= 1, got "
                 f"{self.pipeline!r}",
                 "pass 1 (no pipelining) or the number of stage groups")
-        if self.pipeline != 1:
+
+    def _validate_pipeline(self, cfg: ConvNetConfig) -> None:
+        """The reference's checks of a pipelined run: groups no more than
+        the model's plan layers, no spatial axis, ``data`` (the total)
+        split into ``pipeline`` equal groups, neither ZeRO-1, fp16 nor a
+        clip, and micro-batches dividing the batch and over each group's
+        data degree."""
+        if self.pipeline == 1:
+            return
+        n_layers = (plan_lib.cosmoflow_n_layers(cfg)
+                    if cfg.arch == "cosmoflow"
+                    else plan_lib.unet_n_layers(cfg))
+        if self.pipeline > n_layers:
             raise RunConfigError(
                 "pipeline",
-                f"pipeline={self.pipeline} needs the pipeline axis, which "
-                "the pipeline slice of the port brings",
-                "set pipeline=1")
+                f"{self.pipeline} groups exceed {cfg.name}'s {n_layers} "
+                f"plan layers", f"use pipeline <= {n_layers}")
+        if self.spatial > 1:
+            raise RunConfigError(
+                "pipeline",
+                f"pipeline={self.pipeline} with spatial={self.spatial}: "
+                "pipelined plans shard only the batch within each device "
+                "group", "set spatial=1 (or pipeline=1)")
+        if not isinstance(self.data, int) or self.data % self.pipeline:
+            raise RunConfigError(
+                "data",
+                f"data={self.data} does not split into "
+                f"pipeline={self.pipeline} equal device groups",
+                f"use a multiple of {self.pipeline} (e.g. "
+                f"{self.pipeline * max(1, self.data // self.pipeline)})")
+        if self.grad_comm == "reduce_scatter":
+            raise RunConfigError(
+                "grad_comm",
+                "'reduce_scatter' (ZeRO-1) shards the full param tree over "
+                "one mesh and does not compose with pipeline groups",
+                "use grad_comm='overlap' or 'monolithic'")
+        if self.precision == "fp16":
+            raise RunConfigError(
+                "precision",
+                "fp16 loss scaling is not supported under pipeline groups",
+                "use precision='bf16' or 'fp32'")
+        if self.grad_clip:
+            raise RunConfigError(
+                "grad_clip",
+                f"{self.grad_clip} needs the global grad norm across "
+                "disjoint device groups", "set grad_clip=0 under pipelined "
+                "runs")
+        if not isinstance(self.micro_batches, int) or self.micro_batches < 1:
+            raise RunConfigError(
+                "micro_batches", f"must be an int >= 1, got "
+                f"{self.micro_batches!r}",
+                "pass the micro-batch count (e.g. 4)")
+        if self.global_batch % self.micro_batches:
+            raise RunConfigError(
+                "micro_batches",
+                f"{self.micro_batches} does not divide "
+                f"global_batch={self.global_batch}",
+                "pick a divisor of the global batch")
+        group_data = self.data // self.pipeline
+        if (self.global_batch // self.micro_batches) % group_data:
+            raise RunConfigError(
+                "micro_batches",
+                f"micro-batch {self.global_batch // self.micro_batches} "
+                f"does not divide over the per-group data degree "
+                f"{group_data} (= data/pipeline)",
+                "lower micro_batches or the data degree")
+        if self.pipeline_schedule not in plan_lib.PIPELINE_SCHEDULES:
+            raise RunConfigError(
+                "pipeline_schedule",
+                f"unknown schedule {self.pipeline_schedule!r}",
+                f"choices: {', '.join(plan_lib.PIPELINE_SCHEDULES)}")
 
     def _validate_infer(self) -> None:
         """Reject knobs that configure training machinery a forward-only

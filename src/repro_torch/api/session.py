@@ -5,11 +5,14 @@ assembly path.
 places the plan's mesh on devices and returns a forward-only
 ``repro_torch.serve.InferenceSession``. ``mode="train"`` returns a
 training ``Session`` over a data x spatial mesh whose shards all lie on
-one device: ``step`` runs the hybrid train step of
+one device, or over ``pipeline`` device groups, each a data-parallel
+mesh (``RunConfig(pipeline=P, micro_batches=M, pipeline_schedule=)``;
+``data`` the total degree): ``step`` runs the hybrid train step of
 ``train/train_step.py`` (each shard's forward through the conv3d,
 bn_act and halo kernels, one backward, the gradient reduction, the Adam
-update) with the parameters, optimizer state and dropout seed threaded
-inside (under ``grad_comm="reduce_scatter"``, ZeRO-1, one optimizer
+update), or the pipelined step (1F1B or the sequential oracle over M
+micro-batches, one optimizer state a group), with the parameters,
+optimizer state and dropout seed threaded inside (under ``grad_comm="reduce_scatter"``, ZeRO-1, one optimizer
 state a shard, each over its 1/N of the flat buckets);
 ``save``/``Session.restore`` write and read the reference's checkpoint
 format (ZeRO-1's state as the reference's global padded buckets), so
@@ -36,7 +39,10 @@ The plan: ``plan="fixed"`` is the fixed-degree legacy plan,
 ``memory_budget_gib`` the planner's choice under that modeled peak a
 shard, over spatial degrees up to what the devices given allow (give
 more devices than data x spatial shards to let it raise the degree; the
-plan's mesh takes the first ones).
+plan's mesh takes the first ones). With ``pipeline`` > 1, ``"fixed"``
+is the priced argmin over the boundaries of exactly P groups and M
+micro-batches, ``"auto"`` the joint argmin over group counts up to P
+(or none).
 """
 from __future__ import annotations
 
@@ -58,6 +64,7 @@ from repro_torch.core import memory as memory_lib
 from repro_torch.core import perf_model
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
+from repro_torch.core import reshard
 from repro_torch.core.spatial_conv import SpatialPartitioning
 from repro_torch.core.tree import key_paths
 from repro_torch.data import pipeline, store, synthetic
@@ -89,20 +96,64 @@ def _spatial_options(cfg: ConvNetConfig, config: RunConfig,
     return tuple(opts) or (config.spatial,)
 
 
+def _pipeline_degree_options(pipeline: int) -> Tuple[int, ...]:
+    """The group counts ``plan="auto"`` may pick from: the powers of two
+    up to the configured ceiling, and the ceiling."""
+    opts = {pipeline} | {2 ** k for k in range(1, pipeline.bit_length())
+                         if 2 ** k <= pipeline}
+    return tuple(sorted(p for p in opts if p > 1))
+
+
+def _with_schedule(plan: "plan_lib.ParallelPlan",
+                   schedule: str) -> "plan_lib.ParallelPlan":
+    """A pipelined plan with its schedule set to ``schedule`` (the
+    planner prices 1F1B; a config asking for the sequential oracle keeps
+    the same groups)."""
+    spec = plan.pipeline
+    if spec is None or spec.schedule == schedule:
+        return plan
+    return dataclasses.replace(
+        plan, pipeline=dataclasses.replace(spec, schedule=schedule),
+        name=plan.name.replace(f".{spec.schedule}", f".{schedule}"))
+
+
 def _resolve_plan(config: RunConfig, cfg: ConvNetConfig, grad_comm: str,
                   device_count: int) -> Tuple["plan_lib.ParallelPlan", str]:
     """(plan, precision name) for a validated config: a pinned plan as
-    given; under ``plan="auto"`` or a memory budget the planner's choice
-    (priced on ``perf_model.H100`` with ``grad_comm``; a budget searches
-    the spatial degrees ``device_count`` devices allow); else the
-    fixed-degree legacy plan at the config's degrees."""
+    given; with ``pipeline`` > 1 and ``plan="fixed"`` the cheapest
+    boundaries for exactly that many groups and micro-batches; under
+    ``plan="auto"`` or a memory budget the planner's choice (with
+    ``pipeline`` > 1 over group counts up to it too); else the
+    fixed-degree legacy plan at the config's degrees. Everything priced
+    on ``perf_model.H100`` with ``grad_comm``; a budget searches the
+    spatial degrees ``device_count`` devices allow."""
     explicit = None if config.precision == "auto" else config.precision
     if isinstance(config.plan, plan_lib.ParallelPlan):
         return config.plan, explicit or config.plan.precision
+    if config.plan == "fixed" and config.pipeline > 1:
+        cands = plan_lib.candidate_pipeline_plans(
+            cfg, perf_model.H100, pipeline_degrees=(config.pipeline,),
+            micro_batch_options=(config.micro_batches,),
+            num_devices=config.data, global_batch=config.global_batch,
+            grad_comm=grad_comm, schedule=config.pipeline_schedule)
+        if not cands:
+            raise RunConfigError(
+                "pipeline",
+                f"no admissible {config.pipeline}-group split of "
+                f"{cfg.name} at data={config.data}, micro_batches="
+                f"{config.micro_batches}",
+                "lower pipeline/micro_batches, or make data a multiple "
+                "of pipeline")
+        plan = min(cands, key=lambda p: p.cost)
+        return plan, explicit or plan.precision
     if config.plan == "auto" or config.memory_budget_gib is not None:
         kw: Dict[str, Any] = dict(
             spatial_degree=config.spatial, data_degree=config.data,
             global_batch=config.global_batch, grad_comm=grad_comm)
+        if config.pipeline > 1:
+            kw.update(
+                pipeline_options=_pipeline_degree_options(config.pipeline),
+                micro_batch_options=(config.micro_batches,))
         if config.memory_budget_gib is not None:
             options = _spatial_options(cfg, config, device_count)
             kw.update(memory_budget_bytes=config.memory_budget_gib * 2 ** 30,
@@ -128,10 +179,13 @@ def _resolve_plan(config: RunConfig, cfg: ConvNetConfig, grad_comm: str,
                     f"(the {e.best_infeasible_plan.name} floor over "
                     f"spatial options {list(options)}), give more "
                     f"devices, or allow lower precision") from e
+            plan = _with_schedule(plan, config.pipeline_schedule)
             return plan, explicit or plan.precision
         if explicit:
             kw["precisions"] = (explicit,)
-        plan = plan_lib.plan_convnet(cfg, perf_model.H100, **kw)
+        plan = _with_schedule(plan_lib.plan_convnet(cfg, perf_model.H100,
+                                                    **kw),
+                              config.pipeline_schedule)
         return plan, explicit or plan.precision
     plan = plan_lib.legacy_convnet_plan(
         cfg, SpatialPartitioning(("model", None, None)),
@@ -194,8 +248,22 @@ def _compile_train(config: RunConfig, device: DeviceLike,
     cfg = config.resolve_model()
     grad_comm = "overlap" if config.grad_comm == "auto" else config.grad_comm
     plan, precision, devs = _place(config, cfg, device, devices, grad_comm)
-    mesh = mesh_lib.make_plan_mesh(plan, devs)
     optimizer = _build_optimizer(config)
+    if plan.n_groups > 1:
+        meshes = mesh_lib.make_pipeline_meshes(plan, devs)
+        params = for_config(cfg).init_params(
+            cfg, torch.Generator().manual_seed(config.seed),
+            meshes[0].devices[0])
+        for pg, m in zip(train_step_lib.pipeline_group_params(
+                cfg, plan, params), meshes):
+            params.update(reshard.to_group(pg, m.devices[0]))
+        opt_state = train_step_lib.make_pipeline_opt_state(
+            cfg, optimizer, params, plan=plan, meshes=meshes,
+            precision=precision)
+        return Session(config, cfg, meshes[0], plan, precision, grad_comm,
+                       optimizer, params, opt_state, mask_source,
+                       meshes=meshes)
+    mesh = mesh_lib.make_plan_mesh(plan, devs)
     params = for_config(cfg).init_params(
         cfg, torch.Generator().manual_seed(config.seed), mesh.devices[0])
     opt_state = train_step_lib.make_convnet_opt_state(
@@ -273,7 +341,10 @@ class Report:
     reduction mode, the guard's telemetry, the modeled peak memory per
     shard (``core/memory.py``) beside the budget, and the predicted step
     time (``plan.price_plan`` on ``perf_model.H100``: a mesh whose
-    shards are on separate cards, not the shards of one card)."""
+    shards are on separate cards, not the shards of one card). A
+    pipelined plan adds each stage's group, each group's span of the
+    device list, the micro-batch count, the schedule and the modeled
+    1F1B bubble (all None without a pipeline)."""
 
     plan_name: str
     stages: Tuple[Tuple[int, int, Tuple[Optional[str], ...],
@@ -288,6 +359,11 @@ class Report:
     predicted_step_s: float
     memory_budget_bytes: Optional[float] = None
     telemetry: Dict[str, float] = dataclasses.field(default_factory=dict)
+    stage_groups: Optional[Tuple[int, ...]] = None
+    group_devices: Optional[Tuple[Tuple[int, int], ...]] = None
+    micro_batches: Optional[int] = None
+    pipeline_schedule: Optional[str] = None
+    bubble_fraction: Optional[float] = None
 
     def __str__(self) -> str:
         stages = "; ".join(
@@ -295,11 +371,24 @@ class Report:
             + (" remat" if rm else "") for a, b, sp, ba, rm in self.stages)
         budget = ("none" if self.memory_budget_bytes is None
                   else f"{self.memory_budget_bytes / 2 ** 30:.2f}GiB")
+        pipe = ""
+        if self.stage_groups is not None:
+            assign = "; ".join(
+                f"stage{i}[{a},{b})->group{g} devices[{lo},{hi})"
+                for i, ((a, b, _, _, _), g) in enumerate(
+                    zip(self.stages, self.stage_groups))
+                for lo, hi in [self.group_devices[g]])
+            pipe = (
+                f"\n  pipeline: {len(self.group_devices)} groups  "
+                f"micro_batches={self.micro_batches}  "
+                f"schedule={self.pipeline_schedule}  "
+                f"bubble={self.bubble_fraction:.1%}\n"
+                f"  groups: {assign}")
         return (
             f"Session[{self.plan_name}] on {self.device}\n"
             f"  mesh {self.mesh_shape}  precision={self.precision}  "
             f"grad_comm={self.grad_comm}  global_batch={self.global_batch}\n"
-            f"  stages: {stages}\n"
+            f"  stages: {stages}{pipe}\n"
             f"  params {self.param_count / 1e6:.2f}M  modeled peak/shard "
             f"{self.modeled_peak.describe()}\n"
             f"  budget {budget}  predicted step "
@@ -314,15 +403,18 @@ class Session(_Traced):
     """A training run over a data x spatial mesh on one device. The
     session holds one copy of the fp32 masters and the optimizer state
     (every shard's update is the same); under ZeRO-1 one state a shard
-    (a list in rank order). Build with
-    ``repro_torch.api.compile(RunConfig(mode="train"))`` or
+    (a list in rank order); under a pipeline one state a group (a tuple
+    in group order, ``meshes`` the groups' meshes, ``mesh`` group 0's).
+    Build with ``repro_torch.api.compile(RunConfig(mode="train"))`` or
     ``Session.restore(checkpoint_dir)``, not directly."""
 
     def __init__(self, config, cfg, mesh, plan, precision, grad_comm,
-                 optimizer, params, opt_state, mask_source=None):
+                 optimizer, params, opt_state, mask_source=None,
+                 meshes=None):
         self.config: RunConfig = config
         self.cfg: ConvNetConfig = cfg
         self.mesh: mesh_lib.Mesh = mesh
+        self.meshes: Optional[Tuple[mesh_lib.Mesh, ...]] = meshes
         self.plan: plan_lib.ParallelPlan = plan
         self.precision: str = precision_lib.get(precision).name
         self.grad_comm: str = grad_comm
@@ -331,11 +423,18 @@ class Session(_Traced):
         self.params: Dict[str, torch.Tensor] = params
         self.opt_state = opt_state
         self.mask_source = mask_source
-        self._step_fn = train_step_lib.make_convnet_train_step(
-            cfg, mesh, optimizer, global_batch=config.global_batch,
-            plan=plan, overlap=config.overlap_halo, grad_comm=grad_comm,
-            precision=self.precision, guard=config.resolved_guard,
-            mask_source=mask_source)
+        if meshes is not None:
+            self._step_fn = train_step_lib.make_pipeline_train_step(
+                cfg, meshes, optimizer, plan=plan,
+                global_batch=config.global_batch, grad_comm=grad_comm,
+                precision=self.precision, guard=config.resolved_guard,
+                overlap=config.overlap_halo, mask_source=mask_source)
+        else:
+            self._step_fn = train_step_lib.make_convnet_train_step(
+                cfg, mesh, optimizer, global_batch=config.global_batch,
+                plan=plan, overlap=config.overlap_halo, grad_comm=grad_comm,
+                precision=self.precision, guard=config.resolved_guard,
+                mask_source=mask_source)
         self._eval_fns: Dict[int, Any] = {}
         self._t = 0
         # guard telemetry: the applied flags are summed on the device, so
@@ -420,7 +519,8 @@ class Session(_Traced):
     def evaluate(self, x, y):
         """(loss, predictions) on an eval batch: the forward without
         dropout and the fp32 MSE over its samples (the U-Net: the voxel
-        cross-entropy and the per-voxel logits)."""
+        cross-entropy and the per-voxel logits). A pipelined session
+        evaluates the whole model on group 0's mesh, data parallel."""
         if self._closed:
             raise RuntimeError("Session is closed")
         gb = int(x.shape[0])
@@ -429,7 +529,8 @@ class Session(_Traced):
             fn = self._eval_fns[gb] = train_step_lib.make_convnet_eval_step(
                 self.cfg, self.mesh, global_batch=gb, plan=self.plan,
                 overlap=self.config.overlap_halo, precision=self.precision)
-        return fn(self.params, self._as_input(x), self._as_target(y))
+        return fn(reshard.to_group(self.params, self.device),
+                  self._as_input(x), self._as_target(y))
 
     # ------------------------------------------------------------ data ----
     def make_loader(self, root: Optional[str] = None, *,
@@ -530,6 +631,16 @@ class Session(_Traced):
             grad_comm=self.grad_comm, precision=self.precision)
         budget = (None if self.config.memory_budget_gib is None
                   else self.config.memory_budget_gib * 2 ** 30)
+        pipe: Dict[str, Any] = {}
+        if self.plan.n_groups > 1:
+            spec, d = self.plan.pipeline, self.plan.data_degree
+            pipe = dict(
+                stage_groups=tuple(spec.stage_groups),
+                group_devices=tuple((g * d, (g + 1) * d)
+                                    for g in range(self.plan.n_groups)),
+                micro_batches=spec.micro_batches,
+                pipeline_schedule=spec.schedule,
+                bubble_fraction=spec.bubble_fraction)
         return Report(
             plan_name=self.plan.name,
             stages=tuple((s.start, s.stop, tuple(s.spatial_axes),
@@ -540,7 +651,7 @@ class Session(_Traced):
             global_batch=self.config.global_batch,
             param_count=self.cfg.param_count(), device=str(self.device),
             telemetry=self.telemetry(), modeled_peak=peak,
-            predicted_step_s=t, memory_budget_bytes=budget)
+            predicted_step_s=t, memory_budget_bytes=budget, **pipe)
 
     def profile(self, batch=None, reps: int = 3) -> Dict[str, float]:
         """Measured phases: seconds of the ``fwd``, ``bwd``, ``grad_comm``
@@ -550,16 +661,31 @@ class Session(_Traced):
         ``comm`` and ``optimizer``, plus the telemetry. Each rep is a
         ``probe.<phase>`` span that ends after the device has finished it.
         ``batch=None`` profiles a synthetic batch. The session's
-        parameters and state are not changed."""
+        parameters and state are not changed.
+
+        A pipelined session's phases interleave across its groups, so it
+        times the whole step instead: under the plan's schedule
+        (``step``), under the sequential oracle (``step_sequential``),
+        and their ratio ``pipeline_speedup``."""
         if self._closed:
             raise RuntimeError("Session is closed")
         x, y = batch if batch is not None else self._synthetic_batch()
         x, y = self._as_input(x), self._as_target(y)
-        probes = train_step_lib.make_convnet_phase_probes(
-            self.cfg, self.mesh, self.optimizer,
-            global_batch=self.config.global_batch, plan=self.plan,
-            overlap=self.config.overlap_halo, grad_comm=self.grad_comm,
-            precision=self.precision, mask_source=self.mask_source)
+        if self.meshes is not None:
+            probes = {label: train_step_lib.make_pipeline_train_step(
+                self.cfg, self.meshes, self.optimizer, plan=self.plan,
+                global_batch=self.config.global_batch,
+                grad_comm=self.grad_comm, precision=self.precision,
+                schedule=sched, overlap=self.config.overlap_halo,
+                mask_source=self.mask_source)
+                for label, sched in (("step", None),
+                                     ("step_sequential", "sequential"))}
+        else:
+            probes = train_step_lib.make_convnet_phase_probes(
+                self.cfg, self.mesh, self.optimizer,
+                global_batch=self.config.global_batch, plan=self.plan,
+                overlap=self.config.overlap_halo, grad_comm=self.grad_comm,
+                precision=self.precision, mask_source=self.mask_source)
         out: Dict[str, float] = {}
         for stage, fn in probes.items():
             fn(self.params, self.opt_state, x, y, 0)
@@ -570,9 +696,13 @@ class Session(_Traced):
                     fn(self.params, self.opt_state, x, y, 0)
                     self._sync()
             out[stage] = (time.perf_counter() - t0) / reps
-        out["backward"] = max(out["bwd"] - out["fwd"], 0.0)
-        out["comm"] = max(out["grad_comm"] - out["bwd"], 0.0)
-        out["optimizer"] = max(out["step"] - out["grad_comm"], 0.0)
+        if self.meshes is not None:
+            out["pipeline_speedup"] = (out["step_sequential"] / out["step"]
+                                       if out["step"] else 0.0)
+        else:
+            out["backward"] = max(out["bwd"] - out["fwd"], 0.0)
+            out["comm"] = max(out["grad_comm"] - out["bwd"], 0.0)
+            out["optimizer"] = max(out["step"] - out["grad_comm"], 0.0)
         for key, v in self.telemetry().items():
             out[f"telemetry.{key}"] = v
         return out
@@ -592,7 +722,9 @@ class Session(_Traced):
         trace_lib.enable(self.tracer)
         try:
             have = self.tracer.span_seconds()
-            if not all(f"probe.{p}" in have for p in train_step_lib.STAGES):
+            probes = (("step",) if self.meshes is not None
+                      else train_step_lib.STAGES)
+            if not all(f"probe.{p}" in have for p in probes):
                 self.profile(batch, reps=reps)
             have = self.tracer.span_seconds()
             if "io.load" not in have and "io.load.sync" not in have:
@@ -639,8 +771,9 @@ class Session(_Traced):
         return x, y
 
     def _sync(self) -> None:
-        """Wait for every card of the mesh."""
-        for d in set(self.mesh.devices):
+        """Wait for every card of the mesh (of every group's)."""
+        for d in {d for m in (self.meshes or (self.mesh,))
+                  for d in m.devices}:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
@@ -677,12 +810,19 @@ class Session(_Traced):
 
     def _pinned_config(self) -> RunConfig:
         """The config with every ``"auto"`` resolved: the concrete model,
-        the plan, precision, reduction mode and degrees."""
+        the plan, precision, reduction mode and degrees (``data`` the
+        total over a pipeline's groups, with its micro-batches and
+        schedule)."""
+        pipe: Dict[str, Any] = {}
+        if self.plan.n_groups > 1:
+            pipe = dict(micro_batches=self.plan.pipeline.micro_batches,
+                        pipeline_schedule=self.plan.pipeline.schedule)
         return dataclasses.replace(
             self.config, model=self.cfg, plan=self.plan,
             precision=self.precision, grad_comm=self.grad_comm,
-            data=self.plan.data_degree, spatial=self.plan.spatial_degree,
-            pipeline=self.plan.n_groups)
+            data=self.plan.data_degree * self.plan.n_groups,
+            spatial=self.plan.spatial_degree,
+            pipeline=self.plan.n_groups, **pipe)
 
     @classmethod
     def restore(cls, path: str, *, device: DeviceLike = None,
@@ -723,6 +863,10 @@ class Session(_Traced):
             "opt": sess.opt_state[0] if zero1 else sess.opt_state})
         sess.params = model.params_from_numpy(
             tree["params"], sess.device, torch.float32, cfg=sess.cfg)
+        if sess.meshes is not None:  # each group's on its device
+            for pg, m in zip(train_step_lib.pipeline_group_params(
+                    sess.cfg, sess.plan, sess.params), sess.meshes):
+                sess.params.update(reshard.to_group(pg, m.devices[0]))
         if zero1:  # each shard's chunk of the global buckets, anew
             buckets = train_step_lib.convnet_grad_plan(sess.cfg)
             n = train_step_lib.data_degree(sess.plan)
@@ -732,7 +876,8 @@ class Session(_Traced):
                 for r in range(sess.mesh.size)]
         else:
             sess.opt_state = model.opt_state_from_numpy(
-                tree["opt"], sess.device, cfg=sess.cfg)
+                tree["opt"], [m.devices[0] for m in sess.meshes]
+                if sess.meshes is not None else sess.device, cfg=sess.cfg)
         sess._t = checkpoint.latest_step(path)
         return sess
 

@@ -12,10 +12,15 @@ reads so far).
   Off by default. The models read it only for a plan that marks no
   stage: a plan whose stages set ``remat`` wins outright
   (``ParallelPlan.uses_remat``), as in the reference.
+* ``PIPELINE_LINK_LATENCY_S``: an emulated one-way latency (seconds) of
+  the link between pipeline groups, slept on a link thread before each
+  cross-group hand-off (``train/train_step.py``), so that a measurement
+  can show how much of it each schedule hides. 0.0: no emulation.
 """
 from __future__ import annotations
 
 OVERLAP_HALO = True
 REMAT = False
+PIPELINE_LINK_LATENCY_S = 0.0
 
-__all__ = ["OVERLAP_HALO", "REMAT"]
+__all__ = ["OVERLAP_HALO", "PIPELINE_LINK_LATENCY_S", "REMAT"]

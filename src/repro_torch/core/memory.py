@@ -142,14 +142,13 @@ def plan_peak_bytes(
     ``_WORKING_SET_COPIES`` of the in-flight block's output; activations
     in the compute dtype (``precision``, default the plan's), masters,
     gradients and optimizer state in fp32, and a parameter-sized compute
-    copy for a casting policy. A pipelined plan raises: its model comes
-    with the pipeline slice of the port."""
+    copy for a casting policy. A pipelined plan: ``_pipeline_peak_bytes``."""
     pol = _policy(precision, plan)
     act_bytes = pol.act_bytes
     if getattr(plan, "pipeline", None) is not None and plan.n_groups > 1:
-        raise NotImplementedError(
-            f"plan {plan.name!r} is pipelined: its memory model comes "
-            "with the pipeline slice of the port")
+        return _pipeline_peak_bytes(cfg, plan, pol,
+                                    global_batch=global_batch,
+                                    grad_comm=grad_comm)
 
     resident = 0.0   # saved-for-backward residuals
     transient = 0.0  # the largest recompute / backward working set
@@ -183,6 +182,76 @@ def plan_peak_bytes(
         opt_state=opt, activations=int(resident), workspace=int(transient))
 
 
+def _pipeline_peak_bytes(cfg: ConvNetConfig, plan,
+                         pol: precision_lib.PrecisionPolicy, *,
+                         global_batch: int, grad_comm: str
+                         ) -> MemoryBreakdown:
+    """The peak of a pipelined plan: the largest over its groups, each
+    charged its own layers and its parameters' share of the step state
+    (``perf_model.group_param_counts``). A node's backward recomputes its
+    segment from the node's saved input, so per micro-batch in flight a
+    group holds its entry activation (and the U-Net's down groups their
+    skips until the ascent, under the reference's ``arch == "unet"``
+    test, kept); 1F1B keeps ``min(P - g, M)`` micro-batches in flight on
+    group g, the sequential oracle one. The segment's residuals at one
+    micro-batch and one block's working set are the recompute's
+    workspace."""
+    act_bytes = pol.act_bytes
+    m = max(plan.pipeline.micro_batches, 1)
+    n_grp = plan.n_groups
+    sched = plan.pipeline.schedule
+    entries = _plan_entries(cfg, plan)
+    depth = cfg.depth if cfg.arch == "unet" else 0
+    per_group: List[List[Tuple[int, Any, Any]]] = [[] for _ in range(n_grp)]
+    for idx, (l, st) in enumerate(entries):
+        per_group[plan.stages.index(st)].append((idx, l, st))
+
+    group_params = perf_model.group_param_counts(
+        cfg, plan.group_layer_ranges())
+    best = None
+    for g, sub in enumerate(per_group):
+        if not sub:
+            continue
+        vox_div, batch_div = _stage_divisors(plan, sub[0][2])
+        b_micro = global_batch / m / max(batch_div, 1)
+        win = 1 if sched == "sequential" else min(n_grp - g, m)
+        resident = 0.0
+        transient = 0.0   # the segment's residuals, rebuilt by the recompute
+        work_max = 0.0    # one block's backward working set
+        entry_l = sub[0][1]
+        if entry_l is None:  # the group holds only the FC head
+            last = perf_model.cosmoflow_layers(cfg)[-1]
+            w_out = last.width // last.stride // (2 if last.pooled else 1)
+            resident += w_out ** 3 * last.cout * b_micro * act_bytes * win
+        else:
+            resident += (entry_l.width ** 3 / vox_div * entry_l.cin
+                         * b_micro * act_bytes * win)
+        for idx, l, st in sub:
+            if l is None:
+                transient += _fc_width(cfg) * b_micro * act_bytes
+                continue
+            n_in = l.width ** 3 / vox_div
+            n_out = (l.width // l.stride) ** 3 / vox_div
+            transient += (n_in * l.cin + _SAVED_PER_BLOCK * n_out
+                          * l.cout) * b_micro * act_bytes
+            work_max = max(work_max, _WORKING_SET_COPIES * n_out
+                           * l.cout * b_micro * act_bytes)
+            if cfg.arch == "unet" and idx < 2 * depth and idx % 2 == 1:
+                resident += n_out * l.cout * b_micro * act_bytes * win
+        n_params = group_params[g]
+        cand = MemoryBreakdown(
+            params=int(n_params * 4),
+            param_copy=int(n_params * act_bytes if pol.casts_params else 0),
+            grads=int(n_params * 4),
+            opt_state=int(perf_model.opt_state_bytes(
+                int(n_params), grad_comm=grad_comm,
+                data_degree=max(batch_div, 1))),
+            activations=int(resident), workspace=int(transient + work_max))
+        if best is None or cand.total > best.total:
+            best = cand
+    return best
+
+
 def infer_peak_bytes(
     cfg: ConvNetConfig,
     plan,
@@ -197,8 +266,9 @@ def infer_peak_bytes(
     gradients, no optimizer state. The U-Net's encoder skips would be
     resident, but the reference counts them under ``cfg.arch == "unet"``
     (src/repro/core/memory.py:343,358; its pipelined model too, :253,
-    :295) while the U-Net's configs say ``"unet3d"``: the test is kept
-    as it is, so that the port gives the reference's bytes."""
+    :295, and ``_pipeline_peak_bytes`` here) while the U-Net's configs
+    say ``"unet3d"``: the test is kept as it is, so that the port gives
+    the reference's bytes."""
     pol = _policy(precision, plan)
     act_bytes = pol.act_bytes
     resident = 0.0   # encoder skips parked across the descent

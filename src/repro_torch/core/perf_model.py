@@ -13,13 +13,15 @@ model (the paper's §III-C), with the reference's arithmetic:
 
 priced per layer layout (``_scheduled_fp_times``: spatial, batch or
 replicated, with the stage-boundary reshards between them) for the
-cost-model planner (``core/plan.py``). ``Hardware`` records hold roofline
-constants and an efficiency curve ``_eff`` for small local domains:
-``V100`` is the reference's record (its sessions price with it, and the
-planner's parity with the reference is checked on it); ``H100`` is the
-port's card. Both price a mesh whose shards sit on separate
-accelerators. The pipeline's pricing (``pipeline_iteration_time``)
-comes with the pipeline slice."""
+cost-model planner (``core/plan.py``), and a pipelined plan's
+iteration (``pipeline_iteration_time``: per micro-batch each group's
+forward and recompute backward, the 1F1B fill and drain or the
+sequential drain, the boundary transfers). ``Hardware`` records hold
+roofline constants and an efficiency curve ``_eff`` for small local
+domains: ``V100`` is the reference's record (its sessions price with
+it, and the planner's parity with the reference is checked on it);
+``H100`` is the port's card. Both price a mesh whose shards sit on
+separate accelerators."""
 from __future__ import annotations
 
 import dataclasses
@@ -349,6 +351,121 @@ def iteration_time(
         "total": total,
         "samples_per_s": global_batch / total,
         "per_gpu_batch": per_gpu_batch,
+    }
+
+
+def _plan_layer_map(
+        cfg: ConvNetConfig,
+        layers: List[ConvLayer]) -> List[Tuple[Tuple[int, ...], int, int]]:
+    """Per plan layer (``core/plan.py``'s indexing): the time-model layers
+    it covers and its entry activation's ``(width, channels)``.
+    CosmoFlow's plan layer i is conv block i, its last (the FC head)
+    covers no conv (unpriced) but places the CNN -> FC boundary. The
+    U-Net's plan layer is a resolution level: its two encoder convs and
+    its decoder's up-convolution and two convs (a level's descent and
+    ascent run on one group); the last is the bottleneck."""
+    if cfg.arch == "cosmoflow":
+        out: List[Tuple[Tuple[int, ...], int, int]] = [
+            ((i,), l.width, l.cin) for i, l in enumerate(layers)]
+        last = layers[-1]
+        w_out = last.width // last.stride // (2 if last.pooled else 1)
+        out.append(((), w_out, last.cout))
+        return out
+    depth = cfg.depth
+    out = []
+    for lvl in range(depth):
+        dec0 = 2 * depth + 2 + 3 * (depth - 1 - lvl)
+        idxs = (2 * lvl, 2 * lvl + 1, dec0, dec0 + 1, dec0 + 2)
+        out.append((idxs, layers[2 * lvl].width, layers[2 * lvl].cin))
+    out.append(((2 * depth, 2 * depth + 1),
+                layers[2 * depth].width, layers[2 * depth].cin))
+    return out
+
+
+def group_param_counts(
+        cfg: ConvNetConfig,
+        group_ranges: Sequence[Tuple[int, int]]) -> List[float]:
+    """Parameters of each group of a pipelined split: the conv kernels of
+    its plan layers, every other parameter (the FC head, batch norm's
+    scales and biases) charged to CosmoFlow's FC layer or the U-Net's
+    level 0. The allreduce pricing and the memory model share it."""
+    layers = (cosmoflow_layers(cfg) if cfg.arch == "cosmoflow"
+              else unet_layers(cfg))
+    pmap = _plan_layer_map(cfg, layers)
+    conv_params = [float(sum(layers[i].kernel ** 3 * layers[i].cin
+                             * layers[i].cout for i in idxs))
+                   for idxs, _, _ in pmap]
+    rem = max(cfg.param_count() - sum(conv_params), 0.0)
+    conv_params[-1 if cfg.arch == "cosmoflow" else 0] += rem
+    return [sum(conv_params[a:b]) for a, b in group_ranges]
+
+
+def pipeline_iteration_time(
+    cfg: ConvNetConfig,
+    hw: Hardware,
+    *,
+    group_ranges: Sequence[Tuple[int, int]],
+    data_degree: int,
+    micro_batches: int,
+    global_batch: int,
+    schedule: str = "1f1b",
+    grad_comm: str = "overlap",
+    act_bytes: Optional[int] = None,
+) -> Dict[str, float]:
+    """Predicted seconds an iteration of a pipelined plan: P =
+    ``len(group_ranges)`` groups, each ``data_degree``-way data parallel,
+    over ``micro_batches`` micro-batches. A group's time per micro-batch
+    is its forward plus the recomputing backward (4x the forward: the
+    segment's forward again inside it) and its gradient allreduce,
+    hidden behind the 3x backward under ``"overlap"``, after it under
+    ``"monolithic"``. ``"1f1b"`` takes (M + P - 1) slots of the slowest
+    group (the bubble ``(P-1)/(M+P-1)``), ``"sequential"`` M times the
+    groups' sum. Each boundary sends each device's activation shard, 2
+    directions (CosmoFlow) or 4 (the U-Net's ascent crosses back)."""
+    layers = (cosmoflow_layers(cfg) if cfg.arch == "cosmoflow"
+              else unet_layers(cfg))
+    pmap = _plan_layer_map(cfg, layers)
+    d = max(data_degree, 1)
+    m = max(micro_batches, 1)
+    p = len(group_ranges)
+    per_dev = global_batch / m / d
+    elt = act_bytes or hw.bytes_per_elt
+    fp_layer: List[float] = []
+    for idxs, _, _ in pmap:
+        fp_layer.append(sum(
+            _layer_fp_time(hw, layers[i], 1, per_dev,
+                           act_bytes=act_bytes)[0] for i in idxs))
+    group_params = group_param_counts(cfg, group_ranges)
+
+    stage_times: List[float] = []
+    ar_max = 0.0
+    for (a, b), gparams in zip(group_ranges, group_params):
+        fp = sum(fp_layer[a:b])
+        ar = _allreduce(hw, gparams * 4, d)
+        ar_max = max(ar_max, ar)
+        if grad_comm == "monolithic":
+            stage_times.append(4 * fp + ar)
+        else:  # overlap: the hooks hide the reduction behind the 3x bwd
+            stage_times.append(fp + max(3 * fp, ar))
+    if schedule == "sequential":
+        compute = m * sum(stage_times)
+    else:  # 1f1b: fill P - 1 slots, then the slowest group paces each
+        compute = (m + p - 1) * max(stage_times)
+    dirs = 2 if cfg.arch == "cosmoflow" else 4
+    transfer = 0.0
+    for a, _ in group_ranges[1:]:
+        _, w, c = pmap[a]
+        transfer += m * dirs * _sr(hw, w ** 3 * c * per_dev * elt)
+    total = compute + transfer
+    return {
+        "total": total,
+        "compute": compute,
+        "transfer": transfer,
+        "grad_comm": ar_max,
+        "stage_times": tuple(stage_times),
+        "bubble_fraction": (p - 1) / (m + p - 1),
+        "samples_per_s": global_batch / total,
+        "per_gpu_batch": per_dev,
     }
 
 

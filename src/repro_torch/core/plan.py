@@ -17,7 +17,10 @@ every level. ``convnet_plan`` builds a one-transition plan: the spatial
 group partitions the volume up to a boundary and then either turns into
 extra batch shards (``kind="batch"``, an ``all_to_all``,
 ``core/reshard.py``) or gathers the volume and runs replicated
-(``"replicated"``).
+(``"replicated"``). ``pipelined_convnet_plan`` builds a pipelined plan:
+the layers cut into contiguous groups, each a pure data-parallel mesh
+of its own devices (``PipelineSpec``; trained by
+``train_step.make_pipeline_train_step``).
 
 The planner (``plan_convnet``) prices every admissible boundary and
 kind with ``perf_model.iteration_time`` over the plan's per-layer
@@ -25,8 +28,10 @@ layout (``plan_schedule``) and returns the argmin; under a memory
 budget it searches transition x kind x remat x precision x spatial
 degree subject to ``core/memory.py``'s modeled peak. The arithmetic,
 the candidate order and the tie-breaks are the reference's, so that on
-the same ``Hardware`` both pick the same plan. Pipelined candidates
-come with the pipeline slice.
+the same ``Hardware`` both pick the same plan. ``pipeline_options``
+adds pipelined candidates (``candidate_pipeline_plans``, priced by
+``perf_model.pipeline_iteration_time``) to the same argmin; ties go to
+the plan without a pipeline.
 """
 from __future__ import annotations
 
@@ -67,8 +72,11 @@ class Stage:
 @dataclasses.dataclass(frozen=True)
 class PipelineSpec:
     """Stage -> device-group assignment plus the micro-batch schedule of
-    a pipelined training plan. Read from checkpoints; serving flattens
-    pipelined plans."""
+    a pipelined training plan: ``stage_groups[i]`` is the group running
+    stage ``i`` (groups are disjoint, equal slices of the devices, each a
+    data-parallel mesh); ``schedule`` is ``"1f1b"`` or the blocking
+    ``"sequential"`` oracle, both over ``micro_batches`` micro-batches
+    with the same arithmetic."""
 
     stage_groups: Tuple[int, ...]
     micro_batches: int = 4
@@ -93,12 +101,19 @@ class PipelineSpec:
     def n_groups(self) -> int:
         return self.stage_groups[-1] + 1
 
+    @property
+    def bubble_fraction(self) -> float:
+        """The idle share of 1F1B's fill and drain, ``(P-1)/(M+P-1)``."""
+        p, m = self.n_groups, self.micro_batches
+        return (p - 1) / (m + p - 1)
+
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
     """Ordered stages covering layers ``[0, n_layers)`` plus the mesh-axis
     degrees they reference. ``precision`` is the policy the plan was
-    priced for; ``pipeline`` maps stages onto device groups."""
+    priced for; ``pipeline`` maps stages onto device groups, and the
+    ``mesh_axes`` degrees are then those of each group."""
 
     stages: Tuple[Stage, ...]
     mesh_axes: Tuple[Tuple[str, int], ...]  # (axis name, degree)
@@ -127,6 +142,17 @@ class ParallelPlan:
             raise ValueError(
                 f"plan {self.name!r}: stages reference axes "
                 f"{sorted(used - known)} missing from mesh_axes")
+        if self.pipeline is not None:
+            if len(self.pipeline.stage_groups) != len(self.stages):
+                raise ValueError(
+                    f"plan {self.name!r}: pipeline maps "
+                    f"{len(self.pipeline.stage_groups)} stages but the "
+                    f"plan has {len(self.stages)}")
+            if self.pipeline.n_groups > 1 and self.spatial_axis_names:
+                raise ValueError(
+                    f"plan {self.name!r}: pipelined plans shard only the "
+                    f"batch within each device group; drop the spatial "
+                    f"axes or the pipeline")
 
     def stage_for(self, layer: int) -> Stage:
         for st in self.stages:
@@ -212,7 +238,30 @@ class ParallelPlan:
 
     @property
     def n_groups(self) -> int:
+        """Pipeline device groups (1 without a pipeline)."""
         return self.pipeline.n_groups if self.pipeline is not None else 1
+
+    def group_for(self, layer: int) -> int:
+        """The device group running ``layer`` (0 without a pipeline)."""
+        if self.pipeline is None:
+            self.stage_for(layer)  # the range check
+            return 0
+        for st, g in zip(self.stages, self.pipeline.stage_groups):
+            if st.start <= layer < st.stop:
+                return g
+        raise IndexError(f"layer {layer} outside plan [0, {self.n_layers})")
+
+    def group_layer_ranges(self) -> Tuple[Tuple[int, int], ...]:
+        """Each group's ``(start, stop)`` layer range, in group order: the
+        segment whose parameters and compute the group owns."""
+        if self.pipeline is None:
+            return ((0, self.n_layers),)
+        lo: dict = {}
+        hi: dict = {}
+        for st, g in zip(self.stages, self.pipeline.stage_groups):
+            lo.setdefault(g, st.start)
+            hi[g] = st.stop
+        return tuple((lo[g], hi[g]) for g in range(self.pipeline.n_groups))
 
     @property
     def device_count(self) -> int:
@@ -310,6 +359,40 @@ def uniform_plan(
                         data_axes=data_axes, data_degrees=data_degrees)
 
 
+def pipelined_convnet_plan(
+    cfg: ConvNetConfig,
+    *,
+    boundaries: Sequence[int],
+    micro_batches: int = 4,
+    schedule: str = "1f1b",
+    data_axes: Tuple[str, ...] = ("data",),
+    data_degrees: Tuple[int, ...] = (1,),
+    cost: Optional[float] = None,
+) -> ParallelPlan:
+    """A pipelined plan: ``len(boundaries) + 1`` device groups, group
+    ``g`` owning the layers between consecutive cuts, each stage pure
+    data parallel within its group (``data_degrees`` per group).
+    ``schedule`` is the 1F1B lowering or the blocking sequential oracle.
+    Named as the reference names it."""
+    n = (cosmoflow_n_layers(cfg) if cfg.arch == "cosmoflow"
+         else unet_n_layers(cfg))
+    cuts = tuple(sorted(int(b) for b in boundaries))
+    if any(b2 <= b1 for b1, b2 in zip(cuts, cuts[1:])) or any(
+            not 0 < b < n for b in cuts):
+        raise ValueError(
+            f"boundaries={boundaries}: need strictly increasing cuts "
+            f"inside (0, {n})")
+    edges = (0,) + cuts + (n,)
+    stages = tuple(Stage(a, b, (None, None, None), tuple(data_axes))
+                   for a, b in zip(edges, edges[1:]))
+    spec = PipelineSpec(tuple(range(len(stages))), micro_batches, schedule)
+    name = (f"{cfg.arch}.pipe{len(stages)}"
+            f"@{'-'.join(str(b) for b in cuts)}"
+            f".m{micro_batches}.{schedule}")
+    return ParallelPlan(stages, _axes_pairs(data_axes, data_degrees), n,
+                        name=name, cost=cost, pipeline=spec)
+
+
 def plan_remat_schedule(cfg: ConvNetConfig,
                         plan: ParallelPlan) -> List[bool]:
     """Per-layer remat flags, in the order of the reference's per-layer
@@ -405,20 +488,24 @@ def plan_schedule(cfg: ConvNetConfig, plan: ParallelPlan) -> List[str]:
     return sched
 
 
-def _no_pipeline(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: pipelined plans come with the pipeline slice of the port")
-
-
 def price_plan(cfg: ConvNetConfig, hw: "perf_model.Hardware",
                plan: ParallelPlan, *, global_batch: int,
                overlap: bool = True, grad_comm: str = "overlap") -> float:
     """The predicted seconds of a training iteration under ``plan``
     (``plan_schedule``'s layout, its remat recompute and its precision's
     activation width), on the mesh the plan records, its shards on
-    separate accelerators of ``hw``."""
+    separate accelerators of ``hw``. A pipelined plan is priced by
+    ``perf_model.pipeline_iteration_time`` (the bubble against the
+    transfers)."""
     if plan.pipeline is not None and plan.pipeline.n_groups > 1:
-        raise _no_pipeline(f"price_plan of {plan.name!r}")
+        pol = precision_lib.get(plan.precision)
+        return perf_model.pipeline_iteration_time(
+            cfg, hw, group_ranges=plan.group_layer_ranges(),
+            data_degree=plan.data_degree,
+            micro_batches=plan.pipeline.micro_batches,
+            schedule=plan.pipeline.schedule, global_batch=global_batch,
+            grad_comm=grad_comm,
+            act_bytes=None if pol.act_bytes == 4 else pol.act_bytes)["total"]
     ways = 1
     for a in plan.spatial_axis_names:
         ways *= plan.degree(a)
@@ -513,6 +600,46 @@ def candidate_convnet_plans(
     return out
 
 
+def candidate_pipeline_plans(
+    cfg: ConvNetConfig,
+    hw: "perf_model.Hardware",
+    *,
+    pipeline_degrees: Sequence[int],
+    micro_batch_options: Sequence[int] = (1, 2, 4, 8),
+    data_axes: Tuple[str, ...] = ("data",),
+    num_devices: int,
+    global_batch: int,
+    grad_comm: str = "overlap",
+    schedule: str = "1f1b",
+) -> List[ParallelPlan]:
+    """Every pipelined candidate, priced: each group count P >= 2 of
+    ``pipeline_degrees`` that divides ``num_devices`` (d = num_devices
+    / P devices a group), each micro-batch count whose micro-batch
+    divides over d, each placement of the P - 1 cuts. None under
+    ``reduce_scatter`` (ZeRO-1 shards one tree over one mesh)."""
+    if grad_comm == "reduce_scatter":
+        return []
+    n = (cosmoflow_n_layers(cfg) if cfg.arch == "cosmoflow"
+         else unet_n_layers(cfg))
+    out: List[ParallelPlan] = []
+    for p_ in sorted({int(p) for p in pipeline_degrees}):
+        if p_ < 2 or p_ > n or num_devices % p_:
+            continue
+        d = num_devices // p_
+        for m in micro_batch_options:
+            if global_batch % m or (global_batch // m) % d:
+                continue
+            for cuts in itertools.combinations(range(1, n), p_ - 1):
+                plan = pipelined_convnet_plan(
+                    cfg, boundaries=cuts, micro_batches=m,
+                    schedule=schedule, data_axes=data_axes,
+                    data_degrees=(d,) + (1,) * (len(data_axes) - 1))
+                cost = price_plan(cfg, hw, plan, global_batch=global_batch,
+                                  grad_comm=grad_comm)
+                out.append(dataclasses.replace(plan, cost=cost))
+    return out
+
+
 def plan_convnet(
     cfg: ConvNetConfig,
     hw: "perf_model.Hardware",
@@ -522,6 +649,7 @@ def plan_convnet(
     spatial_options: Optional[Sequence[int]] = None,
     remat_options: Optional[bool] = None,
     pipeline_options: Optional[Sequence[int]] = None,
+    micro_batch_options: Sequence[int] = (1, 2, 4, 8),
     **kw,
 ) -> ParallelPlan:
     """The cost model's argmin over ``candidate_convnet_plans`` (``kw``
@@ -535,21 +663,39 @@ def plan_convnet(
     within 1% of the fastest it prefers the highest precision, then no
     remat, then the fewest stages. When nothing fits, the ``ValueError``
     carries the candidate of the smallest modeled peak
-    (``best_infeasible_plan``, ``best_infeasible_mem``)."""
-    if any(int(p) > 1 for p in (pipeline_options or ())):
-        raise _no_pipeline(f"plan_convnet(pipeline_options="
-                           f"{tuple(pipeline_options)})")
+    (``best_infeasible_plan``, ``best_infeasible_mem``).
+
+    ``pipeline_options`` adds the pipelined candidates of every listed
+    group count > 1 dividing the devices (micro-batch counts from
+    ``micro_batch_options``) to the same argmin, never with remat
+    variants (a pipeline recomputes each segment already) nor fp16;
+    ties go to the plan without a pipeline."""
     prec_rank = {"fp32": 0, "bf16": 1, "fp16": 2}
     expand_remat = (remat_options if remat_options is not None
                     else memory_budget_bytes is not None)
+    pipe_degrees = tuple(p for p in (pipeline_options or ()) if int(p) > 1)
+
+    def pipeline_cands(num_devices: int) -> List[ParallelPlan]:
+        if not pipe_degrees:
+            return []
+        return candidate_pipeline_plans(
+            cfg, hw, pipeline_degrees=pipe_degrees,
+            micro_batch_options=micro_batch_options,
+            data_axes=kw.get("data_axes", ("data",)),
+            num_devices=num_devices, global_batch=kw["global_batch"],
+            grad_comm=kw.get("grad_comm", "overlap"))
+
     plain = (memory_budget_bytes is None and spatial_options is None
              and not expand_remat and tuple(precisions) == ("fp32",))
     if plain:
         cands = candidate_convnet_plans(cfg, hw, **kw)
+        cands += pipeline_cands(kw["spatial_degree"]
+                                * kw.get("data_degree", 1))
         if not cands:
             raise ValueError(
                 "no admissible plans (spatial degree too large?)")
-        return min(cands, key=lambda p: (p.cost, len(p.stages)))
+        return min(cands, key=lambda p: (p.cost, int(p.n_groups > 1),
+                                         len(p.stages)))
 
     from repro_torch.core import memory as memory_lib  # imports plan
 
@@ -558,18 +704,23 @@ def plan_convnet(
     grad_comm = kw.get("grad_comm", "overlap")
     base_degree = kw.pop("spatial_degree")
     options = tuple(spatial_options) if spatial_options else (base_degree,)
-    bases: List[ParallelPlan] = []
+    bases: List[Tuple[ParallelPlan, bool]] = []
     for s in options:
         try:
-            bases += candidate_convnet_plans(cfg, hw, spatial_degree=s, **kw)
+            cands = candidate_convnet_plans(cfg, hw, spatial_degree=s, **kw)
         except ValueError:
             continue  # the degree over-decomposes layer 0
+        bases += [(b, expand_remat) for b in cands]
+    bases += [(b, False) for b in
+              pipeline_cands(base_degree * kw.get("data_degree", 1))]
 
     feasible: List[ParallelPlan] = []
     best_infeasible: Optional[Tuple[ParallelPlan, Any]] = None
-    for base in bases:
-        for var in (remat_variants(cfg, base) if expand_remat else [base]):
+    for base, can_remat in bases:
+        for var in (remat_variants(cfg, base) if can_remat else [base]):
             for prec in precisions:
+                if base.pipeline is not None and prec == "fp16":
+                    continue  # no fp16 loss-scale machine under a pipeline
                 p = dataclasses.replace(
                     var, precision=prec,
                     name=(var.name if prec == "fp32"
@@ -605,6 +756,7 @@ def plan_convnet(
     cut = min(p.cost for p in feasible) * 1.01
     pool = [p for p in feasible if p.cost <= cut]
     return min(pool, key=lambda p: (prec_rank.get(p.precision, 99),
+                                    int(p.n_groups > 1),
                                     int(p.uses_remat), len(p.stages),
                                     p.cost))
 

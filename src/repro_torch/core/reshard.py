@@ -30,15 +30,23 @@ and the slice's gradient is zero outside the slab (autograd of
 spatial dim, in D/H/W order, slices the per-sample ids through batch
 moves (so that CosmoFlow's per-sample dropout masks do not depend on
 the plan), and counts ``reshard.transitions`` on the active tracer.
+
+Between pipeline groups (``train/train_step.py``'s pipelined step) a
+boundary activation, or its cotangent on the way back, is no collective
+inside one mesh: ``cross_group`` hands shard j of one group's tensors to
+shard j of the next group (both shard only the batch, at one data
+degree), across two meshes and so two sets of streams, and counts
+``pipe.cross_group``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, TypeVar
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, TypeVar
 
 import torch
 
 from repro_torch.core import halo as halo_lib
 from repro_torch.core import spmd
+from repro_torch.core.tree import tree_map
 from repro_torch.obs import trace as trace_lib
 
 # dimension indices in NDHWC (batch is 0)
@@ -158,6 +166,75 @@ def apply(h: torch.Tensor, src, dst, *,
     return h, sample_ids
 
 
-__all__ = ["apply", "batch_to_spatial", "replicated_to_spatial",
+# ------------------------------------------- between pipeline groups ----
+class GroupShard(NamedTuple):
+    """Where shard r of a pipeline group holds an activation: its device
+    and its slice ``index`` of ``count`` along the batch."""
+
+    device: torch.device
+    index: int
+    count: int
+
+
+def group_sharding(mesh, batch_axes: Sequence[str] = ("data",)
+                   ) -> Tuple[GroupShard, ...]:
+    """The layout every activation (and micro-batch input) holds inside
+    one pipeline group's mesh: each shard's device and its slice of the
+    batch over ``batch_axes`` (major first); every other dim whole."""
+    out = []
+    for r, device in enumerate(mesh.devices):
+        at, index, count = mesh.coords(r), 0, 1
+        for a in batch_axes:
+            if a in mesh.shape:
+                index = index * mesh.degree(a) + at[a]
+                count *= mesh.degree(a)
+        out.append(GroupShard(device, index, count))
+    return tuple(out)
+
+
+class Handoff:
+    """One group's per-shard tensors on their way to the next group's
+    shards: each with the event recorded on its producer's stream when it
+    was handed off. ``wait()``, on the consumer's thread, returns them
+    ready on the consumer's current streams."""
+
+    def __init__(self, entries: List[Tuple[torch.Tensor, Any]],
+                 dst: Sequence[GroupShard]):
+        self._entries, self._dst = entries, dst
+
+    def wait(self) -> List[torch.Tensor]:
+        # the consumer's stream waits on the producer's event, and the
+        # tensor is recorded on it for the caching allocator; a tensor on
+        # another device is copied behind the same event
+        return [spmd._read(e, s.device)
+                for e, s in zip(self._entries, self._dst)]
+
+
+def cross_group(values: Sequence[torch.Tensor],
+                dst: Sequence[GroupShard]) -> Handoff:
+    """Hand a stage-boundary activation (or its cotangent) from the
+    producing group's shards to the group ``dst`` (``group_sharding`` of
+    its mesh): shard j's tensor goes to shard j, the whole of it, the
+    least the layouts need. Call it on the producer's thread, after the
+    producer's ``spmd.run`` (whose caller stream has joined every shard
+    stream): an event is recorded on that stream here, and the consumer
+    waits on it in ``Handoff.wait``. Asynchronous: nothing blocks here,
+    so 1F1B overlaps the hand-off with both groups' work."""
+    if len(values) != len(dst):
+        raise ValueError(f"{len(values)} shards hand off to a group of "
+                         f"{len(dst)}")
+    trace_lib.count("pipe.cross_group")
+    return Handoff([spmd._mark(t) for t in values], dst)
+
+
+def to_group(tree: Any, device: torch.device) -> Any:
+    """A tree of tensors (a group's parameters or optimizer state) on the
+    group's ``device``; leaves already there are kept as they are."""
+    return tree_map(lambda t: t if t.device == device else t.to(device),
+                    tree)
+
+
+__all__ = ["GroupShard", "Handoff", "apply", "batch_to_spatial",
+           "cross_group", "group_sharding", "replicated_to_spatial",
            "shard_batch", "spatial_to_batch", "spatial_to_batch_oracle",
-           "spatial_to_replicated"]
+           "spatial_to_replicated", "to_group"]

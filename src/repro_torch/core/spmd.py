@@ -85,6 +85,8 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.obs import trace as trace_lib
+
 _LOCAL = threading.local()
 
 
@@ -333,7 +335,9 @@ class _PsumGrad(torch.autograd.Function):
     member's ``n`` tensors (member-major); the adjoint concatenates each
     member's cotangents flat, sums the members', once, the minor axis of
     the group's ``degrees`` first (``_nested_sum``), and hands every
-    member the pieces."""
+    member the pieces. Each backward is one reduction, counted on the
+    active tracer (``grad_comm.reductions``, and a ``grad_comm.reduce``
+    instant)."""
 
     @staticmethod
     def forward(ctx, n, degrees, *xs):
@@ -342,6 +346,8 @@ class _PsumGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        trace_lib.count("grad_comm.reductions")
+        trace_lib.instant("grad_comm.reduce")
         n = ctx.n
         members = [grads[i:i + n] for i in range(0, len(grads), n)]
         flats = [torch.cat([g.reshape(-1) for g in gs]) if n > 1

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv3d import ref
+from repro_torch.obs import trace as trace_lib
 from repro_torch.kernels.conv3d.ref import NO_PADS, Pads
 
 _ENTRY = {torch.float32: "conv3d_igemm_f32",
@@ -368,6 +369,7 @@ class _Conv3d(torch.autograd.Function):
             dw = conv3d_weight_grad(x, dy.contiguous(), tuple(w.shape),
                                     ctx.stride, ctx.pads).to(w.dtype)
         if ctx.needs_input_grad[0]:
+            trace_lib.instant("conv3d.input_grad")  # when, beside reductions
             dx = conv3d_input_grad(dy, w, tuple(x.shape), ctx.stride,
                                    ctx.pads)
         return dx, dw, None, None

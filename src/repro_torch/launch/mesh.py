@@ -141,13 +141,28 @@ class Mesh:
 
 def make_plan_mesh(plan, devices: Sequence[DeviceLike]) -> Mesh:
     """The mesh of exactly the axes (and degrees) ``plan`` records, over
-    ``devices``, one per shard."""
+    ``devices``, one per shard. For a pipelined plan (whose degrees are
+    each group's), group 0's mesh of ``make_pipeline_meshes``."""
     if plan.n_groups > 1:
-        raise NotImplementedError(
-            f"plan {plan.name!r} is pipelined; pipeline groups come with "
-            "the pipeline slice of the port")
+        return make_pipeline_meshes(plan, devices)[0]
     return Mesh(plan.mesh_axes, devices)
 
 
-__all__ = ["DeviceLike", "Mesh", "make_plan_mesh", "mesh_devices",
-           "resolve_device"]
+def make_pipeline_meshes(plan, devices: Sequence[DeviceLike]
+                         ) -> Tuple[Mesh, ...]:
+    """One mesh per pipeline group: group g takes ``devices[g*d:(g+1)*d]``
+    (d the product of the plan's degrees), disjoint equal slices in
+    order, so group 0 has the devices ``make_plan_mesh`` gives. On one
+    card the list is P*d entries of it (``mesh_devices``), and each
+    group's shards still get streams of their own."""
+    d = math.prod(n for _, n in plan.mesh_axes)
+    if plan.n_groups * d > len(devices):
+        raise ValueError(
+            f"plan {plan.name!r} needs {plan.n_groups} groups x {d} "
+            f"devices but {len(devices)} were given")
+    return tuple(Mesh(plan.mesh_axes, devices[g * d:(g + 1) * d])
+                 for g in range(plan.n_groups))
+
+
+__all__ = ["DeviceLike", "Mesh", "make_pipeline_meshes", "make_plan_mesh",
+           "mesh_devices", "resolve_device"]

@@ -141,17 +141,34 @@ def checked_tree(tree: Mapping[str, object],
 
 
 def opt_state_from_numpy(state: Any, device, *, cfg: ConvNetConfig,
-                         convert=None):
+                         shapes: Optional[Mapping[str, Tuple[int, ...]]]
+                         = None):
     """The reference's optimizer state (its ``AdamState(step, m, v)``, or
     ``MPState(inner, loss_scale, good_steps)`` under fp16, with numpy or
-    tensor leaves) as the port's: m and v through ``convert`` (default
-    ``params_from_numpy``; the U-Net passes its own) in fp32, the
-    counters as int32 and the loss scale as fp32 scalars on
-    ``device``."""
+    tensor leaves) as the port's: m and v checked against ``shapes``
+    (default this model's ``param_shapes``; the U-Net passes its own)
+    in fp32, the counters as int32 and the loss scale as fp32 scalars on
+    ``device`` (or on each group's device, a list). A plain tuple is a
+    pipelined run's one state a group (``make_pipeline_opt_state``):
+    each is converted over its group's parameters, which together must
+    be every parameter, once."""
     from repro_torch.core.precision import MPState
     from repro_torch.optim.adam import AdamState
 
-    convert = convert or params_from_numpy
+    shapes = param_shapes(cfg) if shapes is None else shapes
+    if type(state) is tuple:  # one state a pipeline group
+        devices = (device if isinstance(device, (list, tuple))
+                   else [device] * len(state))
+        names = [n for s in state for n in
+                 (s.inner if hasattr(s, "inner") else s).m]
+        if sorted(names) != sorted(shapes):
+            raise ValueError(
+                f"the groups' optimizer states hold {sorted(names)}, not "
+                f"each parameter of {cfg.name} once")
+        return tuple(opt_state_from_numpy(
+            s, dev, cfg=cfg, shapes={n: shapes[n] for n in (
+                s.inner if hasattr(s, "inner") else s).m})
+            for s, dev in zip(state, devices))
 
     def scalar(v, dtype):
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
@@ -160,14 +177,14 @@ def opt_state_from_numpy(state: Any, device, *, cfg: ConvNetConfig,
 
     if hasattr(state, "inner"):
         return MPState(opt_state_from_numpy(state.inner, device, cfg=cfg,
-                                            convert=convert),
+                                            shapes=shapes),
                        scalar(state.loss_scale, torch.float32),
                        scalar(state.good_steps, torch.int32))
     return AdamState(
         scalar(state.step, torch.int32),
-        convert(state.m, device, torch.float32, cfg=cfg),
-        None if state.v is None else convert(
-            state.v, device, torch.float32, cfg=cfg))
+        checked_tree(state.m, shapes, device, torch.float32, cfg.name),
+        None if state.v is None else checked_tree(
+            state.v, shapes, device, torch.float32, cfg.name))
 
 
 def generator_masks(seed: int, layer: int, sample_ids: Sequence[int],
@@ -248,20 +265,9 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     spmd.check_mesh(plan.mesh_axes,
                     f"plan {plan.name!r} ({plan.device_count} devices)")
     bn_axes = plan.axis_names if bn_axes is None else tuple(bn_axes)
-    policy = precision_lib.get(
-        precision if precision is not None else plan.precision)
-    cdt = policy.compute_dtype
-    marker = grad_comm.GradMarker(grad_axes)
-    params = marker.begin(params)
-    cast = (lambda t: t.to(cdt)) if policy.casts_params else (lambda t: t)
-
-    def cst(t):
-        return cast(marker.mark(t))
-
-    h = x
-    if policy.casts_params and h.is_floating_point():
-        h = h.to(cdt)
-    h = h.contiguous()
+    marker, params, h, cst = prologue(
+        params, x, precision if precision is not None else plan.precision,
+        grad_axes)
     n = num_blocks(cfg)
     npool = num_pools(cfg)
     ids = sample_ids
@@ -292,6 +298,41 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     if fc_stage != cur:
         h, ids = reshard.apply(h, cur, fc_stage, sample_ids=ids,
                                oracle=reshard_oracle)
+    h = _fc_head(h, params, cst, cfg, train=train,
+                 dropout_seed=dropout_seed, ids=ids, mask_source=mask_source)
+    marker.assert_all_marked()
+    return h
+
+
+def prologue(params: Params, x: torch.Tensor, precision,
+             grad_axes: Sequence[str]):
+    """What a forward starts with: ``(marker, params, h, cst)`` — the
+    reduction hooks' ``GradMarker`` over ``grad_axes`` begun on
+    ``params``, the input cast to the policy's compute dtype (a float
+    input) and made contiguous, and ``cst``, which marks a master at its
+    use and casts it to the compute dtype."""
+    policy = precision_lib.get(precision)
+    cdt = policy.compute_dtype
+    marker = grad_comm.GradMarker(grad_axes)
+    params = marker.begin(params)
+    cast = (lambda t: t.to(cdt)) if policy.casts_params else (lambda t: t)
+
+    def cst(t):
+        return cast(marker.mark(t))
+
+    h = x
+    if policy.casts_params and h.is_floating_point():
+        h = h.to(cdt)
+    return marker, params, h.contiguous(), cst
+
+
+def _fc_head(h: torch.Tensor, params: Params, cst, cfg: ConvNetConfig, *,
+             train: bool, dropout_seed: Optional[int],
+             ids: Optional[Sequence[int]],
+             mask_source: Optional[MaskSource]) -> torch.Tensor:
+    """The FC head on the local features: flattened, then each FC layer,
+    leaky-ReLU and (training with a seed) dropout with the masks of the
+    rows' global sample ``ids`` between them."""
     h = h.reshape(h.shape[0], -1)
     n_fc = len(cfg.fc_dims) + 1
     for j in range(n_fc):
@@ -302,6 +343,63 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
                 mask = (mask_source or generator_masks)(
                     dropout_seed, j, ids, h.shape[1], h.device)
                 h = torch.where(mask.to(h.device), h / KEEP, 0.0)
+    return h
+
+
+# ---------------------------------------------- pipeline segments ----
+def segment_param_names(cfg: ConvNetConfig, start: int,
+                        stop: int) -> Tuple[str, ...]:
+    """The parameters plan layers ``[start, stop)`` use: what the
+    pipeline group owning them holds. Plan layer ``num_blocks`` is the
+    FC head."""
+    n = num_blocks(cfg)
+    names: List[str] = []
+    for i in range(start, min(stop, n)):
+        names.append(f"conv{i}_w")
+        if cfg.batchnorm:
+            names += [f"bn{i}_scale", f"bn{i}_bias"]
+    if stop > n:
+        for j in range(len(cfg.fc_dims) + 1):
+            names += [f"fc{j}_w", f"fc{j}_b"]
+    return tuple(names)
+
+
+def forward_range(params: Params, h: torch.Tensor, cfg: ConvNetConfig,
+                  start: int, stop: int, *,
+                  bn_axes: Sequence[str] = (), train: bool = False,
+                  dropout_seed: Optional[int] = None,
+                  sample_ids: Optional[Sequence[int]] = None,
+                  mask_source: Optional[MaskSource] = None,
+                  grad_axes: Sequence[str] = (), precision=None,
+                  overlap: Optional[bool] = None) -> torch.Tensor:
+    """Plan layers ``[start, stop)`` in a pipeline group's pure
+    data-parallel layout: the blocks of ``forward`` with no spatial
+    partition and no reshard, then the FC head when the range covers it.
+    ``params`` holds exactly the segment's (``segment_param_names``);
+    ``bn_axes`` are the group mesh's axes the statistics are summed
+    over; ``sample_ids`` are the local rows' GLOBAL ids (the micro-batch
+    offset included), so that the dropout masks are the unpipelined
+    step's; ``grad_axes``, ``precision`` (default fp32) and ``overlap``
+    as in ``forward``."""
+    marker, params, h, cst = prologue(
+        params, h, precision if precision is not None else "fp32",
+        grad_axes)
+    n = num_blocks(cfg)
+    npool = num_pools(cfg)
+    part = SpatialPartitioning()
+    for i in range(start, min(stop, n)):
+        args = [cst(params[f"conv{i}_w"])]
+        if cfg.batchnorm:
+            args += [cst(params[f"bn{i}_scale"]), cst(params[f"bn{i}_bias"])]
+        h = _block(h, *args, part=part, stride=2 if i == 3 else 1,
+                   pool=i < npool, bn_axes=bn_axes, overlap=overlap)
+    if stop > n:
+        ids = sample_ids
+        if ids is None and train and dropout_seed is not None:
+            ids = range(h.shape[0])
+        h = _fc_head(h, params, cst, cfg, train=train,
+                     dropout_seed=dropout_seed, ids=ids,
+                     mask_source=mask_source)
     marker.assert_all_marked()
     return h
 
@@ -355,12 +453,34 @@ def kernel_launches(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan,
     but the first (whose input needs none) on the conv kernel
     (``conv3d_dgrad``), one pack for the adjoint of each such block's
     unpack, and each rematerialized block's forward launches once more
-    (its recompute)."""
+    (its recompute). A pipelined plan: per micro-batch, every block on
+    each of a group's d shards, each block of a group but the last run
+    twice in a step (its forward and the recompute in its backward);
+    without ``train``, one forward on group 0's mesh (the eval step)."""
     n = num_blocks(cfg)
+    if plan.n_groups > 1:
+        return pipeline_launches(
+            n, [plan.group_for(i) < plan.n_groups - 1 for i in range(n)],
+            plan, cfg.batchnorm, train)
     return count_launches(
         n, split_convs(cfg, plan, 1), plan.device_count, cfg.batchnorm,
         train, [plan_lib.stage_remat(plan, plan.stage_for(i))
                 for i in range(n)])
+
+
+def pipeline_launches(n: int, again: Sequence[bool],
+                      plan: plan_lib.ParallelPlan, batchnorm: bool,
+                      train: bool) -> Dict[str, int]:
+    """``kernel_launches`` of a pipelined ``plan`` for a model of ``n``
+    convs: each of the M micro-batches runs every conv on each of a
+    group's d shards once, and conv i again where ``again[i]`` (a
+    non-loss node's recompute); the input gradients as unpipelined.
+    Without ``train``: one forward over d shards."""
+    d = plan.data_degree
+    if not train:
+        return count_launches(n, [], d, batchnorm, False)
+    return count_launches(n, [], d * plan.pipeline.micro_batches,
+                          batchnorm, True, again)
 
 
 def count_launches(n: int, splits: Sequence[SplitConv], shards: int,

@@ -33,10 +33,8 @@ import torch
 
 from repro_torch.configs.base import ConvNetConfig
 from repro_torch.core import dist_norm
-from repro_torch.core import grad_comm
 from repro_torch.core import perf_model
 from repro_torch.core import plan as plan_lib
-from repro_torch.core import precision as precision_lib
 from repro_torch.core import reshard, spmd
 from repro_torch.core.spatial_conv import (SpatialPartitioning, conv3d,
                                            deconv3d, maxpool3d,
@@ -110,9 +108,10 @@ def params_from_numpy(tree: Mapping[str, object], device,
 
 def opt_state_from_numpy(state: Any, device, *, cfg: ConvNetConfig):
     """The reference's optimizer state for a U-Net tree as the port's
-    (``cosmoflow.opt_state_from_numpy`` with this model's names)."""
+    (``cosmoflow.opt_state_from_numpy`` with this model's names; a plain
+    tuple is one state a pipeline group)."""
     return cosmoflow.opt_state_from_numpy(state, device, cfg=cfg,
-                                          convert=params_from_numpy)
+                                          shapes=param_shapes(cfg))
 
 
 def _default_plan(cfg: ConvNetConfig) -> plan_lib.ParallelPlan:
@@ -177,15 +176,9 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     spmd.check_mesh(plan.mesh_axes,
                     f"plan {plan.name!r} ({plan.device_count} devices)")
     bn_axes = plan.axis_names if bn_axes is None else tuple(bn_axes)
-    policy = precision_lib.get(
-        precision if precision is not None else plan.precision)
-    cdt = policy.compute_dtype
-    marker = grad_comm.GradMarker(grad_axes)
-    params = marker.begin(params)
-    cast = (lambda t: t.to(cdt)) if policy.casts_params else (lambda t: t)
-
-    def cst(t):
-        return cast(marker.mark(t))
+    marker, params, h, cst = cosmoflow.prologue(
+        params, x, precision if precision is not None else plan.precision,
+        grad_axes)
 
     def conv_pair(h, prefix, st):
         args = [cst(params[f"{prefix}_{k}"]) for k in _PAIR]
@@ -195,10 +188,6 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
             return spmd.checkpoint(body, h, *args)
         return body(h, *args)
 
-    h = x
-    if policy.casts_params and h.is_floating_point():
-        h = h.to(cdt)
-    h = h.contiguous()
     skips = []
     cur = plan.stage_for(0)
     for lvl in range(cfg.depth):
@@ -229,6 +218,98 @@ def forward(params: Params, x: torch.Tensor, cfg: ConvNetConfig, *,
     out = head(h, cst(params["head_w"]))
     marker.assert_all_marked()
     return out
+
+
+# ---------------------------------------------- pipeline segments ----
+def down_param_names(cfg: ConvNetConfig, start: int,
+                     stop: int) -> Tuple[str, ...]:
+    """The descent's parameters of levels ``[start, stop)``, and the
+    bottleneck's when ``stop`` covers plan layer ``depth``: a pipeline
+    group's down node."""
+    names: List[str] = []
+    for lvl in range(start, min(stop, cfg.depth)):
+        names += [f"enc{lvl}_{k}" for k in _PAIR]
+    if stop > cfg.depth:
+        names += [f"mid_{k}" for k in _PAIR]
+    return tuple(names)
+
+
+def up_param_names(cfg: ConvNetConfig, start: int,
+                   stop: int) -> Tuple[str, ...]:
+    """The ascent's parameters of levels ``[start, stop)``, and the
+    head's when the group owns level 0."""
+    names: List[str] = []
+    for lvl in range(start, min(stop, cfg.depth)):
+        names += [f"dec{lvl}_up"] + [f"dec{lvl}_{k}" for k in _PAIR]
+    if start == 0:
+        names.append("head_w")
+    return tuple(names)
+
+
+def segment_param_names(cfg: ConvNetConfig, start: int,
+                        stop: int) -> Tuple[str, ...]:
+    """Every parameter of the pipeline group owning plan layers
+    ``[start, stop)``: its levels' descent and ascent (the skip concats
+    stay on the group), the bottleneck for the deepest group, the head
+    for group 0."""
+    return down_param_names(cfg, start, stop) + up_param_names(
+        cfg, start, stop)
+
+
+def down_range(params: Params, h: torch.Tensor, cfg: ConvNetConfig,
+               start: int, stop: int, *, bn_axes: Sequence[str] = (),
+               grad_axes: Sequence[str] = (), precision=None,
+               overlap: Optional[bool] = None):
+    """The descent through levels ``[start, min(stop, depth))`` in a
+    pipeline group's pure data-parallel layout (``forward``'s conv pairs
+    and pools with no partition and no reshard), and the bottleneck when
+    ``stop`` is ``depth + 1``: a group's down node. Returns ``(h,
+    skips)``, the activation for the next group down (or the ascent) and
+    the group's skips, which stay on it until its up node. ``params``
+    holds ``down_param_names``; the keywords are ``forward``'s
+    (``precision`` default fp32)."""
+    marker, params, h, cst = cosmoflow.prologue(
+        params, h, precision if precision is not None else "fp32",
+        grad_axes)
+    part = SpatialPartitioning()
+
+    def pair(h, prefix):
+        return _pair(h, *(cst(params[f"{prefix}_{k}"]) for k in _PAIR),
+                     part=part, bn_axes=bn_axes, overlap=overlap)
+
+    skips = []
+    for lvl in range(start, min(stop, cfg.depth)):
+        h = pair(h, f"enc{lvl}")
+        skips.append(h)
+        h = maxpool3d(h, part, window=2, stride=2)
+    if stop > cfg.depth:
+        h = pair(h, "mid")
+    marker.assert_all_marked()
+    return h, tuple(skips)
+
+
+def up_range(params: Params, h: torch.Tensor, skips, cfg: ConvNetConfig,
+             start: int, stop: int, *, bn_axes: Sequence[str] = (),
+             grad_axes: Sequence[str] = (), precision=None,
+             overlap: Optional[bool] = None) -> torch.Tensor:
+    """The ascent back through levels ``[start, min(stop, depth))``, the
+    deepest first: up-convolution, concat with the level's skip, conv
+    pair; then the head when the group owns level 0 (the logits).
+    ``skips`` is what the group's ``down_range`` returned, ``params``
+    holds ``up_param_names``."""
+    marker, params, h, cst = cosmoflow.prologue(
+        params, h, precision if precision is not None else "fp32",
+        grad_axes)
+    part = SpatialPartitioning()
+    for lvl in reversed(range(start, min(stop, cfg.depth))):
+        h = deconv3d(h, cst(params[f"dec{lvl}_up"]), part, stride=2)
+        h = _pair(torch.cat([skips[lvl - start], h], dim=-1),
+                  *(cst(params[f"dec{lvl}_{k}"]) for k in _PAIR),
+                  part=part, bn_axes=bn_axes, overlap=overlap)
+    if start == 0:
+        h = head(h, cst(params["head_w"]))
+    marker.assert_all_marked()
+    return h
 
 
 def voxel_nll(logits: torch.Tensor, labels: torch.Tensor,
@@ -309,7 +390,16 @@ def kernel_launches(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan,
     launch but the first conv's, and one pack for each such unpack's
     adjoint, and each conv of a rematerialized pair launches its forward
     once more (its recompute). The up-convolutions and the head are
-    ``torch.matmul``s: no kernel."""
+    ``torch.matmul``s: no kernel. A pipelined plan
+    (``cosmoflow.pipeline_launches``): every conv but those of group 0's
+    ascent (the loss node's) runs twice a micro-batch."""
+    if plan.n_groups > 1:
+        n_enc = 2 * cfg.depth + 2  # the descent's and the bottleneck's
+        return cosmoflow.pipeline_launches(
+            len(_convs(cfg)),
+            [i < n_enc or plan.group_for(lvl) > 0
+             for i, lvl in enumerate(_levels(cfg))],
+            plan, True, train)
     return cosmoflow.count_launches(
         len(_convs(cfg)), split_convs(cfg, plan, 1), plan.device_count,
         True, train, [plan_lib.stage_remat(plan, plan.stage_for(lvl))
@@ -328,7 +418,8 @@ def _levels(cfg: ConvNetConfig):
             + [lvl for lvl in reversed(range(d)) for _ in range(2)])
 
 
-__all__ = ["conv_shapes", "forward", "head", "init_params",
-           "kernel_launches", "opt_state_from_numpy", "param_shapes",
-           "params_from_numpy", "segmentation_loss", "split_convs",
+__all__ = ["conv_shapes", "down_param_names", "down_range", "forward",
+           "head", "init_params", "kernel_launches", "opt_state_from_numpy",
+           "param_shapes", "params_from_numpy", "segment_param_names",
+           "segmentation_loss", "split_convs", "up_param_names", "up_range",
            "voxel_nll"]

@@ -23,8 +23,10 @@ The phases (the probes are cumulative prefixes of the step):
   (``io.load.sync`` for the synchronous loader).
 * ``step`` — modeled ``total``; measured ``probe.step``.
 
-A plan with a pipeline axis raises: its pricing
-(``pipeline_iteration_time``) comes with the pipeline slice.
+A pipelined session has no phase probes (its phases interleave across
+its groups): it measures ``probe.step`` (and ``probe.step_sequential``)
+only, so its table has the ``step`` and ``io`` rows measured and the
+others modeled alone.
 """
 from __future__ import annotations
 
@@ -113,9 +115,10 @@ def modeled_phases(cfg, hw: "perf_model.Hardware",
                    global_batch: int, grad_comm: str,
                    precision: Optional[str] = None) -> Dict[str, float]:
     """Predicted seconds per phase for ``plan``: ``plan.price_plan``'s
-    routing, keeping the whole phase dict instead of only ``total``."""
-    if plan.pipeline is not None and plan.n_groups > 1:
-        raise plan_lib._no_pipeline(f"modeled_phases of {plan.name!r}")
+    routing, keeping the whole phase dict instead of only ``total``. A
+    pipelined plan's (``perf_model.pipeline_iteration_time``) splits its
+    compute 1:3 between forward and backward, as the time model does,
+    and its comm is the largest group's allreduce and the transfers."""
     pol = precision_lib.get(precision or plan.precision)
     act_bytes = None if pol.act_bytes == 4 else pol.act_bytes
     n_params = cfg.param_count()
@@ -124,6 +127,16 @@ def modeled_phases(cfg, hw: "perf_model.Hardware",
     opt_s = 7.0 * n_params * 4 / hw.mem_bw
     io_s = (global_batch * cfg.input_width ** 3 * cfg.in_channels * 4
             / hw.mem_bw)
+    if plan.pipeline is not None and plan.n_groups > 1:
+        r = perf_model.pipeline_iteration_time(
+            cfg, hw, group_ranges=plan.group_layer_ranges(),
+            data_degree=plan.data_degree,
+            micro_batches=plan.pipeline.micro_batches,
+            schedule=plan.pipeline.schedule, global_batch=global_batch,
+            grad_comm=grad_comm, act_bytes=act_bytes)
+        return {"fwd": r["compute"] / 4, "bwd": 3 * r["compute"] / 4,
+                "comm": r["grad_comm"] + r["transfer"],
+                "opt": opt_s, "io": io_s, "step": r["total"]}
     ways = 1
     for a in plan.spatial_axis_names:
         ways *= plan.degree(a)

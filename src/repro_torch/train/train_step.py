@@ -1,6 +1,8 @@
 """Step builders (the reference's ``train/train_step.py``): the
-conv-net train step, its phase probes, the eval step and the
-plan-sharded serving forward.
+conv-net train step, its phase probes, the eval step, the plan-sharded
+serving forward, and the pipelined train step over device groups
+(``make_pipeline_train_step``: its docstring has the schedule, the
+hand-offs and the equivalence contract).
 
 The serving forward splits each input batch along the entry stage's
 partitioned dims into the mesh's shards, each made contiguous on its
@@ -57,13 +59,19 @@ reduction (the loss and the reduced gradients), ``step`` the update.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
+import threading
+import time
+from concurrent import futures
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
                     Tuple)
 
 import torch
 
 from repro_torch.configs.base import ConvNetConfig
+from repro_torch.core import flags
 from repro_torch.core import grad_comm as grad_comm_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
@@ -71,6 +79,7 @@ from repro_torch.core import reshard, spmd
 from repro_torch.models import cosmoflow as cosmoflow_lib
 from repro_torch.models import for_config
 from repro_torch.models import unet3d as unet_lib
+from repro_torch.obs import trace as trace_lib
 from repro_torch.train import guard as guard_lib
 
 STAGES = ("fwd", "bwd", "grad_comm", "step")
@@ -252,13 +261,20 @@ def make_convnet_forward_step(
     return fwd
 
 
+def flat_plan(plan: plan_lib.ParallelPlan) -> plan_lib.ParallelPlan:
+    """``plan`` without its pipeline: a pipelined plan's stages share one
+    data-parallel layout, so the whole model runs as one group there
+    (the eval step, on group 0's mesh). Other plans as they are."""
+    if plan.n_groups == 1:
+        return plan
+    return dataclasses.replace(plan, pipeline=None)
+
+
 def _check_mesh(cfg: ConvNetConfig, mesh, plan) -> None:
+    """``mesh`` is the plan's (a pipelined plan's: one group's), its
+    shards on one device."""
     if cfg.arch not in ("cosmoflow", "unet3d"):
         raise NotImplementedError(f"no train step for arch {cfg.arch!r}")
-    if plan.n_groups != 1:
-        raise NotImplementedError(
-            f"plan {plan.name!r} is pipelined; the pipeline axis comes "
-            "with its slice of the port")
     if mesh.shape != dict(plan.mesh_axes):
         raise ValueError(f"plan {plan.name!r} has mesh {dict(plan.mesh_axes)}"
                          f", but the step runs on {mesh.shape}")
@@ -337,6 +353,9 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
     if stage not in STAGES:
         raise ValueError(f"stage={stage!r}; expected one of {STAGES}")
     mode = grad_comm_lib.resolve(grad_comm)
+    if plan.n_groups > 1:
+        raise ValueError(f"plan {plan.name!r} is pipelined; use "
+                         "make_pipeline_train_step")
     _check_mesh(cfg, mesh, plan)
     policy = precision_lib.get(
         precision if precision is not None else plan.precision)
@@ -487,8 +506,10 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
     (``gather_rows``); the U-Net: the voxel cross-entropy over
     ``global_batch * W^3`` voxels (``segmentation_loss``'s operations)
     and the per-voxel logits put back together (``gather_blocks``). Both
-    on shard 0's device."""
+    on shard 0's device. A pipelined plan evaluates on group 0's mesh
+    as plain data parallelism (``flat_plan``)."""
     _check_mesh(cfg, mesh, plan)
+    plan = flat_plan(plan)
     entry = plan.stages[0]
     axes = plan.axis_names
     n = mesh.size
@@ -523,9 +544,647 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
     return fn
 
 
+# ------------------------------------------------- pipeline groups ----
+def pipeline_group_params(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan,
+                          params: Mapping[str, torch.Tensor]
+                          ) -> Tuple[Params, ...]:
+    """The parameters each pipeline group owns: group g those its layers
+    ``plan.group_layer_ranges()[g]`` use (``segment_param_names``),
+    disjoint subsets whose union is ``params``."""
+    seg = for_config(cfg).segment_param_names
+    return tuple({k: params[k] for k in seg(cfg, a, b)}
+                 for a, b in plan.group_layer_ranges())
+
+
+def make_pipeline_opt_state(cfg: ConvNetConfig, optimizer, params, *,
+                            plan: plan_lib.ParallelPlan, meshes=None,
+                            precision=None) -> Tuple[Any, ...]:
+    """The state of ``make_pipeline_train_step``: one optimizer state a
+    group, over the group's parameters, each on its group's device when
+    ``meshes`` are given. fp16 raises, as the step does."""
+    policy = precision_lib.get(
+        precision if precision is not None else plan.precision)
+    if policy.uses_scaling:
+        raise ValueError("fp16 loss scaling is not supported under "
+                         "pipeline groups; use fp32 or bf16")
+    optimizer = precision_lib.wrap_optimizer(optimizer, policy)
+    groups = pipeline_group_params(cfg, plan, params)
+    if meshes is not None:
+        groups = tuple(reshard.to_group(g, m.devices[0])
+                       for g, m in zip(groups, meshes))
+    return tuple(optimizer.init(g) for g in groups)
+
+
+def _schedule_order(K: int, M: int, schedule: str):
+    """The host dispatch order of a K-node forward chain over M
+    micro-batches, the reference's. ``sequential``, the GPipe-naive
+    oracle: per micro-batch the whole forward chain, the loss node's
+    fused forward and backward (``FB``), the backward chain, then a
+    ``SYNC`` (nothing of the next micro-batch starts before this one has
+    drained). ``1f1b``: node k runs ``min(K-1-k, M)`` warm-up forwards,
+    then alternates forward and backward, the forward first in each
+    pair, so that ``K-k`` micro-batches stay in flight; the nodes'
+    streams merged by a dependency scan into a valid order. The order
+    changes no value, only what overlaps."""
+    if schedule == "sequential":
+        out = []
+        for m in range(M):
+            out += [("F", k, m) for k in range(K - 1)]
+            out.append(("FB", K - 1, m))
+            out += [("B", k, m) for k in range(K - 2, -1, -1)]
+            out.append(("SYNC", -1, m))
+        return out
+    per = []
+    for k in range(K - 1):
+        warm = min(K - 1 - k, M)
+        seq = [("F", k, m) for m in range(warm)]
+        f_next = warm
+        for b in range(M):
+            if f_next < M:
+                seq.append(("F", k, f_next))
+                f_next += 1
+            seq.append(("B", k, b))
+        per.append(seq)
+    per.append([("FB", K - 1, m) for m in range(M)])
+    done, order, pos = set(), [], [0] * K
+    total = sum(len(s) for s in per)
+    while len(order) < total:
+        progressed = False
+        for k in range(K):
+            while pos[k] < len(per[k]):
+                op, _, m = per[k][pos[k]]
+                if op == "F" and k > 0 and ("F", k - 1, m) not in done:
+                    break
+                if op == "FB" and ("F", k - 1, m) not in done:
+                    break
+                if op == "B" and ("B", k + 1, m) not in done \
+                        and ("FB", k + 1, m) not in done:
+                    break
+                done.add((op, k, m))
+                order.append((op, k, m))
+                pos[k] += 1
+                progressed = True
+        if not progressed:  # pragma: no cover — the schedule's invariant
+            raise RuntimeError("1F1B dependency scan deadlocked")
+    return order
+
+
+class _Slots:
+    """One-shot hand-off slots between dispatcher threads: ``set(key,
+    value)`` once, ``take(key)`` once, blocking until the value is there
+    (a ``Future`` value — an emulated link in flight — is resolved).
+    ``fail(exc)`` makes every outstanding and later slot raise ``exc``,
+    so that a dispatcher that died wakes its peers instead of leaving
+    them blocked."""
+
+    def __init__(self):
+        self._d: Dict[Any, futures.Future] = {}
+        self._lk = threading.Lock()
+        self._exc: Optional[BaseException] = None
+
+    def _fut(self, key) -> futures.Future:
+        with self._lk:
+            if self._exc is not None:
+                f = futures.Future()
+                f.set_exception(self._exc)
+                return f
+            f = self._d.get(key)
+            if f is None:
+                f = self._d[key] = futures.Future()
+            return f
+
+    def set(self, key, val) -> None:
+        self._fut(key).set_result(val)
+
+    def take(self, key):
+        v = self._fut(key).result()
+        if isinstance(v, futures.Future):
+            v = v.result()
+        with self._lk:
+            self._d.pop(key, None)
+        return v
+
+    def fail(self, exc: BaseException) -> None:
+        with self._lk:
+            self._exc = exc
+            for f in self._d.values():
+                if not f.done():
+                    f.set_exception(exc)
+
+
+class _Node:
+    """One node of the pipelined forward chain: its group, what it is
+    (``seg``, CosmoFlow's last ``loss``; the U-Net's ``down``, ``core``,
+    ``up`` and ``uploss``), the parameters it uses, its per-shard body
+    (``body(params, *inputs)``) and, for an up node, its down partner."""
+
+    def __init__(self, kind: str, group: int, names: Sequence[str],
+                 body: Callable, partner: Optional[int] = None):
+        self.kind, self.group, self.names = kind, group, tuple(names)
+        self.body, self.partner = body, partner
+
+    @property
+    def is_loss(self) -> bool:
+        return self.kind in ("loss", "uploss")
+
+
+def _flat(outs) -> List[torch.Tensor]:
+    """A shard's outputs (a tensor, or a tensor and a tuple of skips) as
+    a list of tensors."""
+    if isinstance(outs, torch.Tensor):
+        return [outs]
+    return [outs[0], *outs[1]]
+
+
+def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
+                             plan: plan_lib.ParallelPlan, global_batch: int,
+                             grad_comm: Optional[str] = None,
+                             precision=None, guard: bool = False,
+                             schedule: Optional[str] = None,
+                             stage: str = "step",
+                             overlap: Optional[bool] = None,
+                             mask_source: Optional[
+                                 cosmoflow_lib.MaskSource] = None):
+    """The pipelined train step over ``plan``'s groups (``meshes``, one a
+    group, ``launch.mesh.make_pipeline_meshes``; each a data-parallel
+    mesh on one device). Returns ``step(params, opt_states, x, y, seed)
+    -> (params, opt_states, loss[, applied])``: ``params`` the whole
+    fp32 tree (each leaf on its group's device), ``opt_states``
+    ``make_pipeline_opt_state``'s tuple, ``x``/``y`` the global batch,
+    cut here into the plan's M micro-batches. ``stage`` (``STAGES``)
+    builds the probes as ``_build_convnet_step`` does: ``fwd`` the loss,
+    ``bwd`` the loss and the sum of every shard's gradients unreduced,
+    ``grad_comm`` the loss and the reduced gradients of every group
+    merged into one tree (before the update), ``step`` the update.
+
+    The forward is a chain of K nodes: CosmoFlow's one segment a group
+    (``forward_range``), the last fused with the loss; the U-Net's
+    down_0 .. down_{P-2}, core_{P-1} (the deepest group's descent,
+    bottleneck and ascent), up_{P-2} .. up_1 and up_0 fused with the
+    loss, each group's skips staying on it. Each node runs over its
+    group's mesh through ``spmd.run``. A non-loss node's forward runs
+    under ``no_grad`` and keeps only its input; its backward runs the
+    segment again with gradients on (``spmd.run``, so its batch-norm
+    sums and reduction hooks are single autograd nodes over the group's
+    shards again) and takes ONE ``torch.autograd.grad`` over every
+    shard's output. ``schedule`` (default the plan's) gives the dispatch
+    order (``_schedule_order``); ONE dispatcher thread a group walks its
+    part of it, on a stream of its own on a card. Activations and
+    cotangents cross groups as ``reshard.cross_group`` hand-offs through
+    one-shot slots (``_Slots``), after ``flags.PIPELINE_LINK_LATENCY_S``
+    on a link thread when set; a dispatcher waits for another group only
+    there, between nodes, never inside a backward (the autograd engine
+    runs every CUDA node of every caller on one thread a device, and a
+    node blocked on a peer would starve it). A dispatcher that raises
+    breaks the barrier and poisons the slots, so the step ends with its
+    error.
+
+    Each node's gradients accumulate over the micro-batches in
+    micro-batch order; after the drain each group updates its own
+    parameters and state. The reduction is ``grad_comm``'s within each
+    group: ``overlap`` hooks the bucketed sums into each node's backward
+    (``GradMarker``), ``monolithic`` sums after it; ``reduce_scatter``
+    raises. ``guard`` multiplies every group's finiteness flag (the loss
+    group's with the loss), so every group holds its values unless all
+    are finite. The local loss is ``sum(per-sample)/global_batch`` (the
+    U-Net's over ``global_batch * W^3`` voxels), so the micro-batches'
+    losses and gradients sum to the whole batch's; dropout masks are
+    drawn for the global row ids (``m * micro-batch`` + the shard's
+    offset); batch-norm statistics span one micro-batch. fp16 and
+    ``grad_clip`` raise. The two schedules are bitwise equal."""
+    if stage not in STAGES:
+        raise ValueError(f"stage={stage!r}; expected one of {STAGES}")
+    mode = grad_comm_lib.resolve(grad_comm)
+    if mode == "reduce_scatter":
+        raise ValueError(
+            "grad_comm='reduce_scatter' does not compose with pipeline "
+            "groups (ZeRO-1 shards the full tree over one mesh); use "
+            "'overlap' or 'monolithic'")
+    spec, n_grp = plan.pipeline, plan.n_groups
+    if spec is None or n_grp < 2:
+        raise ValueError(f"plan {plan.name!r} has no pipeline axis; use "
+                         "make_convnet_train_step")
+    if len(meshes) != n_grp:
+        raise ValueError(f"plan {plan.name!r} has {n_grp} groups but "
+                         f"{len(meshes)} meshes were given")
+    for mesh in meshes:
+        _check_mesh(cfg, mesh, plan)
+    policy = precision_lib.get(
+        precision if precision is not None else plan.precision)
+    if policy.uses_scaling:
+        raise ValueError("fp16 loss scaling is not supported under "
+                         "pipeline groups; use fp32 or bf16")
+    if getattr(optimizer, "grad_clip", 0.0):
+        raise ValueError("grad_clip needs the global grad norm across "
+                         "groups; set grad_clip=0 under pipelined plans")
+    sched = schedule if schedule is not None else spec.schedule
+    if sched not in plan_lib.PIPELINE_SCHEDULES:
+        raise ValueError(f"schedule={sched!r}; expected one of "
+                         f"{plan_lib.PIPELINE_SCHEDULES}")
+    M = spec.micro_batches
+    if global_batch % M:
+        raise ValueError(f"global_batch={global_batch} not divisible by "
+                         f"micro_batches={M}")
+    mb = global_batch // M
+    if mb % plan.data_degree:
+        raise ValueError(f"micro-batch {mb} not divisible by the per-group "
+                         f"data degree {plan.data_degree}")
+    axes = plan.axis_names
+    entry = plan.stages[0]
+    hooks = stage in ("grad_comm", "step")
+    gx = axes if hooks and mode == "overlap" else ()
+    reduce_after = hooks and mode == "monolithic"
+    ranges = plan.group_layer_ranges()
+    layouts = [reshard.group_sharding(m, entry.batch_axes) for m in meshes]
+    kw = dict(bn_axes=axes, precision=policy, overlap=overlap)
+
+    def hooked():
+        # the reduction hooks only where autograd records (a backward's
+        # recompute), so that a forward counts no buckets
+        return gx if torch.is_grad_enabled() else ()
+
+    nodes: List[_Node] = []
+    if cfg.arch == "cosmoflow":
+        for g, (a, b) in enumerate(ranges):
+            names = cosmoflow_lib.segment_param_names(cfg, a, b)
+            if g < n_grp - 1:
+                def seg(p, h, _a=a, _b=b):
+                    return cosmoflow_lib.forward_range(
+                        p, h, cfg, _a, _b, train=True,
+                        grad_axes=hooked(), **kw)
+                nodes.append(_Node("seg", g, names, seg))
+            else:
+                def loss(p, h, y, seed, ids, _a=a, _b=b):
+                    pred = cosmoflow_lib.forward_range(
+                        p, h, cfg, _a, _b, train=True, dropout_seed=seed,
+                        sample_ids=ids, mask_source=mask_source,
+                        grad_axes=hooked(), **kw)
+                    return cosmoflow_lib.mse(pred, y, global_batch)
+                nodes.append(_Node("loss", g, names, loss))
+        loss_group = n_grp - 1
+    else:
+        voxels = global_batch * cfg.input_width ** 3
+
+        for g in range(n_grp - 1):
+            a, b = ranges[g]
+
+            def down(p, h, _a=a, _b=b):
+                return unet_lib.down_range(p, h, cfg, _a, _b,
+                                           grad_axes=hooked(), **kw)
+            nodes.append(_Node("down", g,
+                               unet_lib.down_param_names(cfg, a, b), down))
+        a, b = ranges[-1]
+        dn = unet_lib.down_param_names(cfg, a, b)
+        up = unet_lib.up_param_names(cfg, a, b)
+
+        def core(p, h, _a=a, _b=b):
+            h, sk = unet_lib.down_range({k: p[k] for k in dn}, h, cfg, _a,
+                                        _b, grad_axes=hooked(), **kw)
+            return unet_lib.up_range({k: p[k] for k in up}, h, sk, cfg, _a,
+                                     _b, grad_axes=hooked(), **kw)
+        nodes.append(_Node("core", n_grp - 1, dn + up, core))
+        for g in range(n_grp - 2, -1, -1):
+            a, b = ranges[g]
+            names = unet_lib.up_param_names(cfg, a, b)
+            if g > 0:
+                def up_node(p, h, sk, _a=a, _b=b):
+                    return unet_lib.up_range(p, h, sk, cfg, _a, _b,
+                                             grad_axes=hooked(), **kw)
+                nodes.append(_Node("up", g, names, up_node, partner=g))
+            else:
+                def uploss(p, h, sk, y, _a=a, _b=b):
+                    logits = unet_lib.up_range(p, h, sk, cfg, _a, _b,
+                                               grad_axes=hooked(), **kw)
+                    return unet_lib.voxel_nll(logits, y, voxels)
+                nodes.append(_Node("uploss", 0, names, uploss, partner=0))
+        loss_group = 0
+    K = len(nodes)
+    if stage == "fwd":
+        order = [("F", k, m) for m in range(M) for k in range(K)]
+    else:
+        order = _schedule_order(K, M, sched)
+    group_ops: Tuple[List, ...] = tuple([] for _ in range(n_grp))
+    for op in order:
+        for g in (range(n_grp) if op[0] == "SYNC"
+                  else (nodes[op[1]].group,)):
+            group_ops[g].append(op)
+    optimizer = precision_lib.wrap_optimizer(optimizer, policy)
+    streams: Dict[int, Any] = {}
+
+    def group_stream(g: int):
+        """Group g's dispatcher stream on a card (None on the CPU)."""
+        device = meshes[g].devices[0]
+        if device.type != "cuda":
+            return None
+        if g not in streams:
+            streams[g] = torch.cuda.Stream(device=device)
+        return streams[g]
+
+    def forward(nd: _Node, pg: Params, *ins):
+        """``nd``'s forward over its group, no gradients recorded: each
+        shard's outputs (``ins``: the arguments after the parameters, one
+        list of shards each)."""
+        mesh = meshes[nd.group]
+        with torch.no_grad():
+            return spmd.run(mesh, nd.body, [pg] * mesh.size, *ins)
+
+    def backward(nd: _Node, pg: Params, ins: Sequence[Sequence[Any]],
+                 needs: Sequence[bool], gouts):
+        """``nd``'s segment again with gradients on, then one backward
+        over every shard's outputs (the loss nodes': their losses; the
+        others': against the cotangents ``gouts``, a list of tensors a
+        shard). ``ins``: the arguments after the parameters, one list of
+        shards each (a tuple of skips is one argument); ``needs``: which
+        need a gradient. Returns (a loss node's shards' losses, shard 0's
+        parameter gradients reduced as ``grad_comm`` says — or, in the
+        ``bwd`` probe, the sum of every shard's —, each shard's input
+        gradients, one list an argument that needs one)."""
+        mesh = meshes[nd.group]
+        d = mesh.size
+        leaves = [{n: pg[n].detach().requires_grad_(True) for n in nd.names}
+                  for _ in range(d)]
+
+        def fresh(t, need):
+            if isinstance(t, tuple):
+                return tuple(fresh(u, need) for u in t)
+            return t.detach().requires_grad_(need) if need else t
+
+        args = [[fresh(t, need) for t in arg] for arg, need in zip(ins, needs)]
+        with torch.enable_grad():
+            outs = spmd.run(mesh, nd.body, leaves, *args)
+        wrt_in = [arg for arg, need in zip(args, needs) if need]
+        flat_in = [t for arg in wrt_in for shard in arg
+                   for t in (shard if isinstance(shard, tuple) else (shard,))]
+        flat_p = [leaf for shard in leaves for leaf in shard.values()]
+        if nd.is_loss:
+            found = torch.autograd.grad(outs, flat_p + flat_in)
+        else:
+            ys = [t for o in outs for t in _flat(o)]
+            gs = [t for shard in gouts for t in shard]
+            found = torch.autograd.grad(ys, flat_p + flat_in, gs)
+        n_p = len(nd.names)
+        grads = [dict(zip(nd.names, found[r * n_p:(r + 1) * n_p]))
+                 for r in range(d)]
+        if reduce_after:
+            grads = spmd.run(mesh, lambda g_: grad_comm_lib.reduce_grads(
+                g_, axes), grads)
+        if stage == "bwd":
+            gp = sum(g_.sum() for shard in grads for g_ in shard.values())
+        else:
+            gp = grads[0]
+        it = iter(found[d * n_p:])
+        gins = []
+        for arg in wrt_in:
+            gins.append([tuple(next(it) for _ in shard)
+                         if isinstance(shard, tuple) else next(it)
+                         for shard in arg])
+        return ([o.detach() for o in outs] if nd.is_loss else None), gp, gins
+
+    def step(params, opt_states, x, y, seed):
+        with trace_lib.span("pipe.place", micro_batches=M):
+            pgs = [reshard.to_group(pg, m.devices[0]) for pg, m in zip(
+                pipeline_group_params(cfg, plan, params), meshes)]
+            opts = [reshard.to_group(s, m.devices[0])
+                    for s, m in zip(opt_states, meshes)]
+            xs = [split_input(x[m * mb:(m + 1) * mb], meshes[0], entry)
+                  for m in range(M)]
+            ys = [split_targets(cfg, y[m * mb:(m + 1) * mb],
+                                meshes[loss_group], entry)
+                  for m in range(M)]
+        lmesh = meshes[loss_group]
+
+        def loss_extra(m):
+            if cfg.arch == "unet3d":
+                return [ys[m]]
+            ids = [range(m * mb + r.start, m * mb + r.stop)
+                   for r in sample_ids(mb, lmesh, entry)]
+            return [ys[m], [int(seed)] * lmesh.size, ids]
+
+        carry, gcar = _Slots(), _Slots()
+        for m in range(M):
+            carry.set((0, m), xs[m])
+        # each key is written and read by one dispatcher: skips stay on
+        # their group, a node's saved input backs its own recompute, and
+        # acc[k] belongs to k's group
+        saved: Dict[Any, Any] = {}
+        stash: Dict[Any, Any] = {}
+        gskips: Dict[Any, Any] = {}
+        acc: List[Any] = [None] * K
+        losses: List[Any] = [None] * M
+        barrier = threading.Barrier(n_grp)
+        # the caller's stream on each group's device (None on the CPU)
+        caller = [torch.cuda.current_stream(m.devices[0])
+                  if m.devices[0].type == "cuda" else None for m in meshes]
+        lat = flags.PIPELINE_LINK_LATENCY_S
+        links = (futures.ThreadPoolExecutor(
+            max_workers=min(32, max(2 * (n_grp - 1) * M, 1)),
+            thread_name_prefix="pipe-link") if lat else None)
+
+        def link(handoff):
+            # the emulated latency burns on a link thread, as a NIC would
+            # carry it: a schedule pays it only where a consumer has
+            # nothing else to dispatch
+            with trace_lib.span("pipe.link", latency_s=lat):
+                time.sleep(lat)
+                return handoff
+
+        def route(vals, dst_k, slot, m):
+            # consecutive nodes of the chain lie on different groups
+            handoff = reshard.cross_group(vals, layouts[nodes[dst_k].group])
+            slot.set((dst_k, m), links.submit(link, handoff) if links
+                     else handoff)
+
+        def take(slot, key):  # node 0's inputs come as the caller put them
+            v = slot.take(key)
+            return v.wait() if isinstance(v, reshard.Handoff) else v
+
+        def bump(k, gp):
+            if acc[k] is None:
+                acc[k] = gp
+            elif isinstance(gp, dict):
+                for n, v in gp.items():
+                    acc[k][n] += v
+            else:
+                acc[k] = acc[k] + gp
+
+        def micro_loss(outs):  # the shards' losses in rank order
+            return sum(outs[1:], outs[0])
+
+        def run_group(g: int):
+            s = group_stream(g)
+            ctx = (torch.cuda.stream(s) if s is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                if s is not None:  # the group sees what the caller enqueued
+                    s.wait_stream(caller[g])
+                dispatch(g)
+                if s is not None:
+                    return s.record_event()
+            return None
+
+        def dispatch(g: int):
+            pg = pgs[g]
+            for op, k, m in group_ops[g]:
+                if op == "SYNC":
+                    # GPipe-naive: nothing of micro-batch m + 1 starts
+                    # anywhere before micro-batch m has drained
+                    with trace_lib.span("pipe.sync", group=g, micro=m):
+                        barrier.wait()
+                        s = group_stream(g)
+                        if s is not None:
+                            s.synchronize()
+                        barrier.wait()
+                    continue
+                nd = nodes[k]
+                if op == "F":
+                    with trace_lib.span("pipe.wait", group=g, node=k,
+                                        micro=m, op="F"):
+                        h = take(carry, (k, m))
+                    with trace_lib.span("pipe.F", group=g, node=k, micro=m):
+                        if nd.is_loss:  # the fwd probe: the loss alone
+                            sk = ([stash[(nd.partner, m)]]
+                                  if nd.kind == "uploss" else [])
+                            losses[m] = micro_loss(forward(
+                                nd, pg, h, *sk, *loss_extra(m)))
+                            continue
+                        if nd.kind == "up":
+                            sk = stash[(nd.partner, m)]
+                            outs = forward(nd, pg, h, sk)
+                            saved[(k, m)] = (h, sk)
+                        else:
+                            outs = forward(nd, pg, h)
+                            saved[(k, m)] = (h,)
+                        if nd.kind == "down":
+                            stash[(k, m)] = [o[1] for o in outs]
+                            outs = [o[0] for o in outs]
+                        route(outs, k + 1, carry, m)
+                elif op == "FB":
+                    with trace_lib.span("pipe.wait", group=g, node=k,
+                                        micro=m, op="FB"):
+                        h = take(carry, (k, m))
+                    with trace_lib.span("pipe.FB", group=g, node=k,
+                                        micro=m):
+                        if nd.kind == "uploss":
+                            sk = stash[(nd.partner, m)]
+                            outs, gp, (gh, gsk) = backward(
+                                nd, pg, [h, sk, *loss_extra(m)],
+                                [True, True, False], None)
+                            gskips[(nd.partner, m)] = gsk
+                        else:
+                            outs, gp, (gh,) = backward(
+                                nd, pg, [h, *loss_extra(m)],
+                                [True, False, False, False], None)
+                        losses[m] = micro_loss(outs)
+                        bump(k, gp)
+                        route(gh, k - 1, gcar, m)
+                else:  # B
+                    with trace_lib.span("pipe.wait", group=g, node=k,
+                                        micro=m, op="B"):
+                        gout = take(gcar, (k, m))
+                    with trace_lib.span("pipe.B", group=g, node=k,
+                                        micro=m):
+                        if nd.kind == "down":
+                            gsk = gskips.pop((k, m))
+                            (h,) = saved.pop((k, m))
+                            stash.pop((k, m))
+                            gouts = [[go, *gs] for go, gs in zip(gout, gsk)]
+                            _, gp, gins = backward(nd, pg, [h], [k > 0],
+                                                   gouts)
+                        elif nd.kind == "up":
+                            h, sk = saved.pop((k, m))
+                            _, gp, (gh, gsk) = backward(
+                                nd, pg, [h, sk], [True, True],
+                                [[go] for go in gout])
+                            gskips[(nd.partner, m)] = gsk
+                            gins = [gh]
+                        else:
+                            (h,) = saved.pop((k, m))
+                            _, gp, gins = backward(nd, pg, [h], [k > 0],
+                                                   [[go] for go in gout])
+                        bump(k, gp)
+                        if k > 0:
+                            route(gins[0], k - 1, gcar, m)
+
+        try:
+            with futures.ThreadPoolExecutor(
+                    max_workers=n_grp,
+                    thread_name_prefix="pipe-dispatch") as pool:
+                futs = [pool.submit(run_group, g) for g in range(n_grp)]
+                done, _ = futures.wait(futs,
+                                       return_when=futures.FIRST_EXCEPTION)
+                errs = [f.exception() for f in done
+                        if f.exception() is not None]
+                if errs:
+                    # wake every peer (a blocked take raises, a blocked
+                    # barrier breaks) before raising the first error
+                    barrier.abort()
+                    carry.fail(errs[0])
+                    gcar.fail(errs[0])
+                    futures.wait(futs)
+                    raise errs[0]
+                ends = [f.result() for f in futs]
+        finally:
+            if links is not None:
+                links.shutdown()
+        for g, ev in enumerate(ends):  # the caller sees every group's work
+            if ev is not None:
+                caller[g].wait_event(ev)
+
+        home = meshes[loss_group].devices[0]
+        total = losses[0]
+        for v in losses[1:]:
+            total = total + v
+        if stage == "fwd":
+            return total
+        if stage == "bwd":
+            return total, sum(a.to(home) for a in acc)
+        merged = []
+        for g in range(n_grp):
+            mg: Params = {}
+            for k, nd in enumerate(nodes):
+                if nd.group == g:
+                    mg.update(acc[k])
+            merged.append(mg)
+        if stage == "grad_comm":
+            return total, {n: v for mg in merged for n, v in mg.items()}
+        with trace_lib.span("pipe.update"):
+            flags_ = None
+            if guard:
+                fin = [precision_lib.all_finite(merged[g]) for g in
+                       range(n_grp)]
+                fin[loss_group] = torch.logical_and(
+                    fin[loss_group], torch.isfinite(total))
+                flags_ = [f.float() for f in fin]
+            new_p: Params = {}
+            new_opt = []
+            applied = None
+            for g in range(n_grp):
+                dev = meshes[g].devices[0]
+                p2, s2 = optimizer.update(merged[g], opts[g], pgs[g])
+                if guard:
+                    f = flags_[g]
+                    for j in range(n_grp):
+                        if j != g:
+                            f = f * flags_[j].to(dev)
+                    ok = f > 0.5
+                    p2 = guard_lib.tree_select(ok, p2, pgs[g])
+                    s2 = guard_lib.tree_select(ok, s2, opts[g])
+                    if g == 0:
+                        applied = f
+                new_p.update(p2)
+                new_opt.append(s2)
+        if guard:
+            return new_p, tuple(new_opt), total, applied
+        return new_p, tuple(new_opt), total
+
+    return step
+
+
 __all__ = ["STAGES", "batch_slice", "block_index", "convnet_grad_plan",
-           "data_degree", "data_shards", "gather_blocks", "gather_rows",
-           "make_convnet_forward_step", "make_convnet_opt_state",
-           "make_convnet_train_step", "make_convnet_phase_probes",
-           "make_convnet_eval_step", "replicate", "sample_ids",
+           "data_degree", "data_shards", "flat_plan", "gather_blocks",
+           "gather_rows", "make_convnet_forward_step",
+           "make_convnet_opt_state", "make_convnet_train_step",
+           "make_convnet_phase_probes", "make_convnet_eval_step",
+           "make_pipeline_opt_state", "make_pipeline_train_step",
+           "pipeline_group_params", "replicate", "sample_ids",
            "split_batch", "split_input", "split_targets"]

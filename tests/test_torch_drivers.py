@@ -6,8 +6,9 @@ steps with ``--device cpu``.
 
 * ``config_from_args`` gives the reference's ``RunConfig`` (its JSON)
   for a set of argument lists over each preset; ``harness_kwargs`` the
-  same keywords; ``--pipeline 2`` raises ``RunConfigError`` naming the
-  pipeline slice when the config is validated;
+  same keywords; ``--pipeline 2`` trains two device groups (with one data
+  shard a group), and without enough data shards raises
+  ``RunConfigError`` naming the data degree;
 * ``big_config`` and ``run_preset`` equal the reference's at several
   widths;
 * ``conv_net_flops_per_sample`` (forward and training) and
@@ -25,6 +26,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,7 +36,7 @@ from repro.configs import cosmoflow as jcosmo_cfg
 from repro.configs import unet3d as junet_cfg
 from repro.launch import specs as jspecs
 from repro_torch import configs
-from repro_torch.api import RunConfigError, cli
+from repro_torch.api import RunConfigError, cli, compile
 from repro_torch.configs import cosmoflow as cosmo_cfg
 from repro_torch.configs import unet3d as unet_cfg
 from repro_torch.examples import (quickstart, serve_volumes, train_cosmoflow,
@@ -102,12 +104,26 @@ def test_harness_kwargs_match_reference(argv):
 
 
 def test_pipeline_flag_raises_naming_the_pipeline_slice():
+    """``--pipeline 2`` acts: alone (one data shard for two groups) it
+    raises naming the data degree and the pipeline; with ``--data 2``
+    and no clip it compiles two device groups that train."""
     config = cli.config_from_args(
         cosmo_cfg.run_preset(32),
         _parsed(cli.add_session_args, ["--pipeline", "2"]))
-    with pytest.raises(RunConfigError, match="pipeline slice") as e:
+    with pytest.raises(RunConfigError, match="pipeline=2") as e:
         config.validate(device_count=None)
-    assert e.value.field == "pipeline"
+    assert e.value.field == "data"
+    args = _parsed(cli.add_session_args,
+                   ["--pipeline", "2", "--data", "2", "--grad-clip", "0",
+                    "--micro-batches", "2", "--device", "cpu"])
+    config = cli.config_from_args(
+        dataclasses.replace(cosmo_cfg.run_preset(32), model=cosmo_cfg.SMOKE),
+        args)
+    with compile(config, **cli.placement(args, 2)) as sess:
+        assert sess.plan.n_groups == 2
+        x = np.random.RandomState(0).randn(4, 32, 32, 32, 2)
+        assert torch.isfinite(sess.step(x.astype(np.float32),
+                                        np.zeros((4, 4), np.float32)))
 
 
 @pytest.mark.parametrize("shards,argv,want", [

@@ -8,7 +8,7 @@ by field, over {cosmoflow-128, cosmoflow-512, unet3d-256, both SMOKEs} x
 2 x 2} x each ``grad_comm``, each package on its own fixed-degree plan;
 ``perf_model.opt_state_bytes`` and ``memory_per_sample_bytes`` the
 reference's numbers. Both sessions' ``describe().modeled_peak`` equal
-the reference sessions'. A pipelined plan raises, and
+the reference sessions'. A pipelined plan over spatial stages raises, and
 ``measured_peak_bytes`` raises on a CPU device.
 """
 import dataclasses
@@ -165,13 +165,21 @@ def test_infer_session_describe_matches_the_reference():
 
 
 def test_a_pipelined_plan_raises():
+    """A pipeline over a plan whose stages shard space raises, as the
+    reference's plans do (each group shards only the batch); a pipelined
+    plan is modeled per group (``_pipeline_peak_bytes``, the reference's
+    integers: ``tests/test_torch_pipeline.py``), its peak falling as the
+    micro-batches rise."""
     cfg = configs.get_smoke_config("cosmoflow-128")
     plan = plan_lib.legacy_convnet_plan(
         cfg, SpatialPartitioning(("model", None, None)), (1, 1, 1))
-    piped = dataclasses.replace(plan, pipeline=plan_lib.PipelineSpec(
-        tuple(range(len(plan.stages)))))
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        memory.plan_peak_bytes(cfg, piped, global_batch=4)
+    with pytest.raises(ValueError, match="pipeline"):
+        dataclasses.replace(plan, pipeline=plan_lib.PipelineSpec(
+            tuple(range(len(plan.stages)))))
+    peaks = [memory.plan_peak_bytes(cfg, plan_lib.pipelined_convnet_plan(
+        cfg, boundaries=(2,), micro_batches=m), global_batch=8).total
+        for m in (1, 2, 8)]
+    assert peaks[0] > peaks[1] > peaks[2] > 0
 
 
 def test_measured_peak_bytes_raises_on_a_cpu_device():

@@ -267,19 +267,33 @@ def test_h100_record_and_its_bf16_rate():
 
 
 def test_pipelined_pricing_names_the_pipeline_slice():
+    """A pipelined plan is priced by the pipeline's time model
+    (``perf_model.pipeline_iteration_time``, the reference's routing),
+    and ``pipeline_options`` adds pipelined candidates to the planner's
+    argmin, which takes one only where it is cheaper; a degree of 1 is no
+    pipeline (the plain argmin)."""
     cfg = configs.get_config("cosmoflow-128")
     spec = plan_lib.PipelineSpec((0, 1))
     plan = plan_lib.ParallelPlan(
         (plan_lib.Stage(0, 3), plan_lib.Stage(3, 8)), (("data", 1),), 8,
         name="pipe", pipeline=spec)
-    with pytest.raises(NotImplementedError, match="pipeline slice"):
-        plan_lib.price_plan(cfg, H100, plan, global_batch=4)
-    with pytest.raises(NotImplementedError, match="pipeline slice"):
-        plan_lib.plan_convnet(cfg, H100, spatial_degree=1, global_batch=4,
-                              pipeline_options=(2,))
+    assert plan_lib.price_plan(cfg, H100, plan, global_batch=4) == \
+        perf_model.pipeline_iteration_time(
+            cfg, H100, group_ranges=((0, 3), (3, 8)), data_degree=1,
+            micro_batches=4, global_batch=4)["total"]
+    plain = plan_lib.plan_convnet(cfg, H100, spatial_degree=1,
+                                  global_batch=4, data_degree=2)
+    joint = plan_lib.plan_convnet(cfg, H100, spatial_degree=1,
+                                  global_batch=4, data_degree=2,
+                                  pipeline_options=(2,))
+    cands = plan_lib.candidate_pipeline_plans(
+        cfg, H100, pipeline_degrees=(2,), num_devices=2, global_batch=4)
+    assert cands and joint.cost == min([plain.cost] + [c.cost
+                                                       for c in cands])
     # a degree of 1 is no pipeline: the reference's plain argmin
-    plan_lib.plan_convnet(cfg, H100, spatial_degree=1, global_batch=4,
-                          pipeline_options=(1,))
+    assert plan_lib.plan_convnet(cfg, H100, spatial_degree=1, global_batch=4,
+                                 data_degree=2,
+                                 pipeline_options=(1,)) == plain
 
 
 def test_convnet_plan_names_axes_and_redundancy():

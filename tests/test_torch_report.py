@@ -5,8 +5,8 @@ metrics row of a training step.
 * ``modeled_phases`` on ``V100`` equals the reference's to 1e-12
   relative: cosmoflow-128 and unet3d-256 under the fixed plan, the b1
   batch plan and the fixed plan with every stage rematerialized, at
-  1 x 2 and 2 x 2, fp32 and bf16; a pipelined plan raises naming the
-  pipeline slice;
+  1 x 2 and 2 x 2, fp32 and bf16, and a pipelined plan's (a pipeline
+  over spatial stages raises);
 * ``drift`` / ``DriftReport`` give the reference's rows, flags, ``str``
   and ``to_json`` on the same dicts;
 * ``measured_phases`` reads the same numbers as the reference's from
@@ -88,14 +88,35 @@ def test_modeled_phases_match_reference(arch, kind, data, spatial):
 
 
 def test_modeled_phases_of_a_pipelined_plan_raise():
+    """A pipeline over a plan whose stages shard space raises (the
+    reference's rule); a pipelined plan's modeled phases are the
+    reference's (``pipeline_iteration_time``, compute split 1:3), on
+    V100 and H100."""
     cfg = configs.get_config("cosmoflow-128")
     plan = plan_lib.legacy_convnet_plan(
         cfg, SpatialPartitioning(("model", None, None)), (1, 1, 1))
-    piped = dataclasses.replace(plan, pipeline=plan_lib.PipelineSpec(
-        (0,) * (len(plan.stages) - 1) + (1,), 4, "1f1b"))
-    with pytest.raises(NotImplementedError, match="pipeline slice"):
-        report.modeled_phases(cfg, perf_model.H100, piped, global_batch=4,
-                              grad_comm="overlap")
+    with pytest.raises(ValueError, match="pipeline"):
+        dataclasses.replace(plan, pipeline=plan_lib.PipelineSpec(
+            (0,) * (len(plan.stages) - 1) + (1,), 4, "1f1b"))
+    jcfg = jconfigs.get_config("cosmoflow-128")
+    for prec in ("fp32", "bf16"):
+        for gc in ("overlap", "monolithic"):
+            kw = dict(boundaries=(3,), micro_batches=4, data_degrees=(2,))
+            got = report.modeled_phases(
+                cfg, perf_model.V100,
+                plan_lib.pipelined_convnet_plan(cfg, **kw), global_batch=8,
+                grad_comm=gc, precision=prec)
+            want = jreport.modeled_phases(
+                jcfg, jperf.V100, jplan.pipelined_convnet_plan(jcfg, **kw),
+                global_batch=8, grad_comm=gc, precision=prec)
+            assert set(got) == set(want)
+            for k in got:
+                assert got[k] == pytest.approx(want[k], rel=1e-12), k
+            on_h100 = report.modeled_phases(
+                cfg, perf_model.H100,
+                plan_lib.pipelined_convnet_plan(cfg, **kw), global_batch=8,
+                grad_comm=gc, precision=prec)
+            assert 0 < on_h100["step"] < got["step"]
 
 
 # ------------------------------------------------------------ drift ----

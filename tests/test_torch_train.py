@@ -391,7 +391,9 @@ def test_train_config_rejects_what_this_slice_does_not_run():
                      devices=["cpu"] * 2) as sess:
             assert sess.mesh.shape == {"data": kw.get("data", 1),
                                        "model": kw.get("spatial", 1)}
-    for kw, field in ((dict(pipeline=2), "pipeline"),
+    # a pipeline trains (tests/test_torch_pipeline.py), but not over a
+    # spatial axis
+    for kw, field in ((dict(pipeline=2, spatial=2), "pipeline"),
                       (dict(plan="bogus"), "plan"),
                       (dict(memory_budget_gib=-4.0), "memory_budget_gib")):
         with pytest.raises(RunConfigError) as e:
