@@ -218,6 +218,26 @@ Phases, each printing one line; any failure raises and exits non-zero:
               ``Session.profile`` (``pipeline_speedup``), ``describe()``
               (bubble, predicted step) and ``report()``'s drift table
               at cosmoflow-128 b4, one shard a group.
+10w. procmesh — the process mesh (one process a shard, collectives
+              through ``torch.distributed``), 4 spawned processes
+              (``launch.dist.Pool``), every rank on this card, so the
+              transport is gloo (NCCL refuses two ranks on one card; it
+              runs only where ``torch.cuda.device_count()`` >= the world
+              size, else one line says it did not run). cosmoflow-128 b4
+              training (``PROCMESH_TRAIN``: fp32 1 x 2 and 2 x 2 under
+              ``overlap`` and ``monolithic``, bf16 1 x 2) and the U-Net at
+              64^3 b2 1 x 2, each against the in-process mesh at the same
+              degrees on this card: step 1's ``grad_comm`` probe per leaf
+              (fp32 within 1e-5 of its max-abs; bf16 no farther from the
+              in-process step than 1.5x the in-process step through the
+              plain versions), 2 steps' losses, and whether probe, losses
+              and parameters are bitwise; serving at S = 2 (cosmoflow-128
+              b4, unet3d-256 b1 at 256^3) against the unsharded forward
+              (1e-5); each rank's launches summed against
+              ``kernel_launches``; ms a step or predict beside the
+              in-process mesh's, each rank's peak. A child that fails or
+              does not answer within ``PROCMESH_LIMIT_S`` fails the run
+              (its threads' stacks printed).
 m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
               and 10q's U-Net (512^3 b2 now also without remat) beside
               the session's ``describe().modeled_peak`` (``core/memory.py``,
@@ -252,7 +272,7 @@ m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
 
 Phases 4-6, 7-8, 10 (the training steps), 10b (the sharded training
 steps), 10c, 10e and 10f (the U-Net's), 10g, 10q, 10h, 10z, 10z-u, 10p,
-10s and 12-13 are the main paths:
+10s, 10w (each rank's counters, summed) and 12-13 are the main paths:
 the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
@@ -358,6 +378,22 @@ TRAIN_SPATIAL = (("a", 1, 2, "fp32", "overlap", "fixed"),
                  ("d", 1, 2, "bf16", "overlap", "fixed"),
                  ("e", 1, 2, "fp32", "overlap", "deep"))
 SPATIAL_STEPS = 3
+# phase 10w: (tag, data, spatial, precision, reduction) of cosmoflow-128
+# b4 over processes, every rank on this card; the U-Net at 64^3 b2 1 x 2
+# is added in the phase
+PROCMESH_TRAIN = (("pm-a", 1, 2, "fp32", "overlap"),
+                  ("pm-a", 1, 2, "fp32", "monolithic"),
+                  ("pm-b", 2, 2, "fp32", "overlap"),
+                  ("pm-b", 2, 2, "fp32", "monolithic"),
+                  ("pm-c", 1, 2, "bf16", "overlap"))
+# the U-Net at 64^3 b2: (data, spatial, precision, reduction); serving:
+# (model, batch, spatial), fp32, against the unsharded forward
+PROCMESH_UNET = ((1, 2, "fp32", "overlap"),)
+PROCMESH_SERVE = (("cosmoflow-128", 4, 2), ("unet3d-256", 1, 2))
+PROCMESH_WORLD = 4
+PROCMESH_STEPS = 2
+PROCMESH_FP32 = 1e-5  # a leaf's share of its max-abs, and the losses
+PROCMESH_LIMIT_S = 300
 # wall clock a configuration's step-1 check, its steps or its timings
 # may take: a backward that deadlocks fails the run instead of hanging it
 SPATIAL_LIMIT_S = 240
@@ -3974,6 +4010,298 @@ def phase_supervise(k, cfg, RunConfig, compile, plan_lib, part,
     return out, launches
 
 
+# --------------------------------------------- 10w: the process mesh ----
+def _child_kernels():
+    """In a process-mesh child: TF32 off as in the parent (phase 1), and
+    the kernel wrappers whose counters the child reads."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels.bn_act import ops as bn_ops
+    from repro_torch.kernels.conv3d import ops as conv_ops
+    from repro_torch.kernels.halo_pack import ops as pack_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return argparse.Namespace(conv_ops=conv_ops, bn_ops=bn_ops,
+                              pack_ops=pack_ops, ssd_ops=ssd_ops)
+
+
+def procmesh_train_job(cfg, batch: int, D: int, S: int, prec: str,
+                       mode: str, steps: int, devices) -> dict:
+    """One rank of a process-mesh training run (``launch.dist.Pool``):
+    phase 10b's seeded batch; step 1's ``grad_comm`` probe; then, the
+    counters zeroed, ``steps`` steps (the main path), their losses and
+    this rank's launches and peak memory; then ms a step (median of 3
+    after a warm-up, every rank stepping together). Rank 0 also returns
+    the probe's gradients and the parameters after ``steps``."""
+    from repro_torch.api import RunConfig, compile
+    from repro_torch.train import train_step
+
+    k = _child_kernels()
+    x, y = train_batch(cfg, batch, torch.Generator(
+        device="cuda").manual_seed(11))
+    sess = compile(RunConfig(model=cfg, mode="train", global_batch=batch,
+                             precision=prec, data=D, spatial=S,
+                             grad_comm=mode), devices=devices)
+    rank = sess.mesh.rank
+    probe = train_step.make_convnet_phase_probes(
+        sess.cfg, sess.mesh, sess.optimizer, global_batch=batch,
+        plan=sess.plan, grad_comm=mode, precision=prec)["grad_comm"]
+    loss1, grads = probe(sess.params, sess.opt_state, x, y, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(k)
+    losses = [sess.step(x, y).item() for _ in range(steps)]
+    torch.cuda.synchronize()
+    out = {"rank": rank, "transport": sess.describe().transport,
+           "device": str(sess.device), "x_sum": x.double().sum().item(),
+           "loss1": loss1.item(), "losses": losses,
+           "launches": counts(k),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+    if rank == 0:
+        out["grads"] = {n: v.cpu() for n, v in grads.items()}
+        out["params"] = {n: v.cpu() for n, v in sess.params.items()}
+    out["step_ms"] = host_ms(lambda: sess.step(x, y), 3)
+    sess.close()
+    return out
+
+
+def procmesh_serve_job(cfg, batch: int, S: int, seed: int) -> dict:
+    """One rank of depth-split serving over processes: one predict with
+    the counters zeroed (after a warm-up), rank 0's predictions, ms a
+    predict (median of 3) and this rank's peak memory."""
+    from repro_torch.api import RunConfig, compile
+
+    k = _child_kernels()
+    w = cfg.input_width
+    x = torch.randn((batch, w, w, w, cfg.in_channels), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        seed))
+    sess = compile(RunConfig(model=cfg, mode="infer", global_batch=batch,
+                             spatial=S), devices=["cuda:0"] * S)
+    sess.predict(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(k)
+    pred = sess.predict(x)
+    torch.cuda.synchronize()
+    out = {"rank": sess.mesh.rank, "launches": counts(k),
+           "transport": sess.describe().transport,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "pred": pred.cpu() if sess.mesh.rank == 0 else None}
+    out["ms"] = host_ms(lambda: sess.predict(x), 3)
+    sess.close()
+    return out
+
+
+def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile,
+                   card: str) -> tuple:
+    """Phase 10w: the process mesh (one process a shard, collectives
+    through ``torch.distributed``) on this card, the transport gloo
+    (NCCL refuses two ranks on one card): one 4-process world
+    (``launch.dist.Pool``, spawned), its 1 x 2 runs on ranks 0-1.
+
+    (a) cosmoflow-128 b4 training (``PROCMESH_TRAIN``) and (c) the U-Net
+    at 64^3 b2 at 1 x 2, each held against the in-process mesh at the
+    same degrees on this card: step 1's ``grad_comm`` probe, every leaf
+    within ``PROCMESH_FP32`` of its max-abs (fp32), or (bf16) no farther
+    from the in-process step than ``STEP1_BF16`` x the in-process step
+    through the plain versions; the losses of ``PROCMESH_STEPS`` steps
+    within ``PROCMESH_FP32`` (fp32) or ``STEP1_LOSS`` (bf16); whether
+    the probe, the losses and the parameters after the steps are
+    bitwise. (b) serving at S = 2 (``PROCMESH_SERVE``) against the
+    unsharded forward (fp32 1e-5). (d) each rank's launches summed
+    against the plan's ``kernel_launches``. (e) ms a step or predict
+    beside the in-process mesh's, each rank's peak. (f) the NCCL
+    transport runs only where every rank has a card of its own.
+
+    A child that fails, or a pool that does not answer within
+    ``PROCMESH_LIMIT_S``, fails the run. Returns (report, the launches
+    the children's main paths made)."""
+    import tempfile
+
+    from repro_torch.launch import dist as dist_lib
+
+    out = {"card": card, "train": {}, "serve": {}, "note":
+           "every rank on one card, over gloo through pinned host "
+           "buffers: the process mesh's overhead, not scaling"}
+    total = dict(NO_LAUNCHES)
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max().item()
+                / max(1e-30, b.double().abs().max().item()))
+
+    def in_process(cfg, batch, D, S, prec, mode, x, y):
+        sess = compile(RunConfig(model=cfg, mode="train",
+                                 global_batch=batch, precision=prec, data=D,
+                                 spatial=S, grad_comm=mode),
+                       devices=["cuda:0"] * (D * S))
+        probe = k.train_step.make_convnet_phase_probes(
+            sess.cfg, sess.mesh, sess.optimizer, global_batch=batch,
+            plan=sess.plan, grad_comm=mode, precision=prec)["grad_comm"]
+        loss1, grads = probe(sess.params, sess.opt_state, x, y, 0)
+        plain = None
+        if prec == "bf16":
+            with plain_training(k):
+                plain = probe(sess.params, sess.opt_state, x, y, 0)[1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [sess.step(x, y).item() for _ in range(PROCMESH_STEPS)]
+        row = {"loss1": loss1.item(), "grads": grads, "plain": plain,
+               "losses": losses, "params": {n: v.clone() for n, v in
+                                            sess.params.items()},
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "plan": sess.plan}
+        row["step_ms"] = host_ms(lambda: sess.step(x, y), 3)
+        sess.close()
+        return row
+
+    root = tempfile.mkdtemp(prefix="procmesh-")
+    t0 = time.perf_counter()
+    with dist_lib.Pool(PROCMESH_WORLD, "file://" + os.path.join(
+            root, "rendezvous"), timeout_s=PROCMESH_LIMIT_S) as pool:
+        log("procmesh", f"{PROCMESH_WORLD} processes spawned and joined in "
+            f"{time.perf_counter() - t0:.1f} s")
+        runs = [(tag, cf128, 4, D, S, prec, mode)
+                for tag, D, S, prec, mode in PROCMESH_TRAIN]
+        runs += [("pm-u", ucfg64, UNET_CHECK_BATCH, D, S, prec, mode)
+                 for D, S, prec, mode in PROCMESH_UNET]
+        for tag, cfg, batch, D, S, prec, mode in runs:
+            key = f"{tag}/{cfg.name}/b{batch}/{D}x{S}/{prec}/{mode}"
+            n = D * S
+            got = pool.run(procmesh_train_job, cfg, batch, D, S, prec, mode,
+                           PROCMESH_STEPS, ["cuda:0"] * n, ranks=range(n))
+            g.manual_seed(11)
+            x, y = train_batch(cfg, batch, g)
+            want = in_process(cfg, batch, D, S, prec, mode, x, y)
+            zero = got[0]
+            check(all(r["transport"] == "gloo" and r["device"] == "cuda:0"
+                      and r["x_sum"] == x.double().sum().item()
+                      for r in got), f"{key}: transport, device or batch")
+            dist_ = {q: rel(zero["grads"][q], want["grads"][q].cpu())
+                     for q in want["grads"]}
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+                [zero["loss1"]] + zero["losses"],
+                [want["loss1"]] + want["losses"]))
+            if prec == "fp32":
+                bad = {q: v for q, v in dist_.items() if v > PROCMESH_FP32}
+                loss_tol = PROCMESH_FP32
+            else:
+                plain = {q: rel(want["plain"][q], want["grads"][q])
+                         for q in dist_}
+                bad = {q: (v, plain[q]) for q, v in dist_.items()
+                       if v > STEP1_BF16 * plain[q]}
+                loss_tol = STEP1_LOSS["bf16"]
+            check(not bad and loss_err <= loss_tol,
+                  f"{key}: against the in-process mesh: loss {loss_err}; "
+                  f"gradients out of bounds {bad}")
+            check(all(r["losses"] == zero["losses"] for r in got),
+                  f"{key}: the ranks' losses differ")
+            bitwise = (
+                all(torch.equal(zero["grads"][q], want["grads"][q].cpu())
+                    for q in want["grads"])
+                and zero["losses"] == want["losses"]
+                and all(torch.equal(zero["params"][q],
+                                    want["params"][q].cpu())
+                        for q in want["params"]))
+            model = k.unet3d if cfg.arch == "unet3d" else k.cosmoflow
+            per_step = dict(NO_LAUNCHES, **model.kernel_launches(
+                cfg, want["plan"], train=True))
+            summed = {q: sum(r["launches"][q] for r in got)
+                      for q in KERNELS}
+            expect = {q: v * PROCMESH_STEPS for q, v in per_step.items()}
+            check(summed == expect, f"{key}: launches summed over the ranks "
+                  f"{summed}, expected {expect} (kernel_launches x "
+                  f"{PROCMESH_STEPS})")
+            total = {q: total[q] + summed[q] for q in KERNELS}
+            worst = max(dist_, key=dist_.get)
+            row = out["train"][key] = {
+                "bitwise": bitwise, "loss_rel_err": loss_err,
+                "worst_grad": [worst, dist_[worst]],
+                "losses": zero["losses"], "launches_summed": summed,
+                "step_ms": [r["step_ms"] for r in got],
+                "in_process_step_ms": want["step_ms"],
+                "peak_bytes": [r["peak_bytes"] for r in got],
+                "peak_reserved_bytes": [r["peak_reserved_bytes"]
+                                        for r in got],
+                "in_process_peak_bytes": want["peak_bytes"]}
+            log("procmesh", f"{key}: transport gloo, {n} processes on "
+                f"cuda:0; vs the in-process mesh: loss {loss_err:.3g}, "
+                f"worst gradient {worst} {dist_[worst]:.3g} of its max-abs; "
+                f"bitwise {bitwise}; launches summed over the ranks "
+                f"{json.dumps(summed)} = kernel_launches x {PROCMESH_STEPS}")
+            log("timings", f"procmesh {key} ({card}): ms a step over "
+                f"processes {[round(v, 2) for v in row['step_ms']]} (each "
+                f"rank), in-process {want['step_ms']:.2f}; peak a rank "
+                f"{[round(v / 2 ** 30, 2) for v in row['peak_bytes']]} GiB "
+                f"allocated, in-process (every shard) "
+                f"{want['peak_bytes'] / 2 ** 30:.2f} GiB")
+            del want, got, x, y
+            torch.cuda.empty_cache()
+        for name, batch, S in PROCMESH_SERVE:
+            cfg = {cf128.name: cf128, ucfg.name: ucfg}[name]
+            key = f"{cfg.name}/b{batch}/S{S}/fp32"
+            got = pool.run(procmesh_serve_job, cfg, batch, S, 21,
+                           ranks=range(S))
+            w = cfg.input_width
+            x = torch.randn((batch, w, w, w, cfg.in_channels), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(21))
+            one = compile(RunConfig(model=cfg, mode="infer",
+                                    global_batch=batch))
+            want = one.predict(x)
+            spatial = compile(RunConfig(model=cfg, mode="infer",
+                                        global_batch=batch, spatial=S),
+                              devices=["cuda:0"] * S)
+            spatial.predict(x)
+            threads_ms = host_ms(lambda: spatial.predict(x), 3)
+            model = k.unet3d if cfg.arch == "unet3d" else k.cosmoflow
+            per_fwd = dict(NO_LAUNCHES, **model.kernel_launches(
+                cfg, spatial.plan))
+            one.close()
+            spatial.close()
+            err = rel_err(got[0]["pred"].cuda(), want)
+            summed = {q: sum(r["launches"][q] for r in got) for q in KERNELS}
+            check(err <= 1e-5, f"{key}: over processes vs the unsharded "
+                  f"forward {err} > 1e-5")
+            check(summed == per_fwd, f"{key}: launches summed over the "
+                  f"ranks {summed}, expected {per_fwd}")
+            total = {q: total[q] + summed[q] for q in KERNELS}
+            out["serve"][key] = {
+                "rel_err_vs_unsharded": err, "launches_summed": summed,
+                "ms": [r["ms"] for r in got], "in_process_ms": threads_ms,
+                "peak_bytes": [r["peak_bytes"] for r in got]}
+            log("procmesh", f"serve {key}: transport {got[0]['transport']}; "
+                f"vs the unsharded forward {err:.3g} <= 1e-5; launches "
+                f"summed over the ranks {json.dumps(summed)} = "
+                "kernel_launches")
+            log("timings", f"procmesh serve {key} ({card}): ms a predict "
+                f"over processes {[round(r['ms'], 2) for r in got]}, "
+                f"in-process {threads_ms:.2f}; peak a rank "
+                f"{[round(r['peak_bytes'] / 2 ** 30, 2) for r in got]} GiB")
+            del want, got, x
+            torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        got = dist_lib.spawn(procmesh_train_job, 2, "file://" + os.path.join(
+            root, "rendezvous-nccl"), cf128, 4, 1, 2, "fp32", "overlap",
+            PROCMESH_STEPS, None, timeout_s=PROCMESH_LIMIT_S)
+        check(all(r["transport"] == "nccl" for r in got), "NCCL transport")
+        out["nccl"] = {"losses": got[0]["losses"],
+                       "step_ms": [r["step_ms"] for r in got]}
+        log("procmesh", f"NCCL 1 x 2 on cuda:0-1: losses {got[0]['losses']}")
+    else:
+        out["nccl"] = f"not run: {n_cards} card visible, a 2-rank NCCL " \
+                      "world needs a card a rank"
+        log("procmesh", "NCCL transport not run: one card is visible "
+            "(NCCL refuses two ranks on one card; it runs where "
+            "torch.cuda.device_count() >= the world size)")
+    out["seconds"] = time.perf_counter() - t0
+    log("main path", f"procmesh: launches summed over the ranks "
+        f"{json.dumps(total)}")
+    return out, total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -4379,6 +4707,13 @@ def main() -> int:
     main_paths["supervise"] = {"launches": got}
     clock("supervise")
     launches = {n: launches[n] + got[n] for n in KERNELS}
+    # ------------------------------------------ main path: 10w ----
+    release_cached("procmesh")
+    procmesh, got = phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig,
+                                   compile, report["card"])
+    main_paths["procmesh"] = {"launches": got}
+    clock("procmesh")
+    launches = {n: launches[n] + got[n] for n in KERNELS}
 
     # -------------------------------- (m) modeled against measured ----
     memory_rows = {f"train {tag}": row for tag, row in train["steps"].items()}
@@ -4530,7 +4865,7 @@ def main() -> int:
                   train_remat=train_remat, train_io=train_io,
                   train_zero1=train_zero1, memory_model=memory_model,
                   plans=plans, supervise=supervise,
-                  train_pipeline=train_pipeline)
+                  train_pipeline=train_pipeline, procmesh=procmesh)
     report.update(serve=serve, spatial=spatial, timing=timing, e2e_ms=e2e,
                   conv_vs_library=conv_vs_library,
                   lowering=lowering, profile=profiles, bounds=PEAKS_USED,

@@ -3,7 +3,11 @@ argparse flags that map one to one onto ``RunConfig`` fields, so that
 every driver has the same knobs and ``repro_torch.api.compile`` is the
 only assembly path. ``--device`` says where the run goes (default: the
 card); ``placement(args, shards)`` turns it into ``compile``'s
-``device=`` / ``devices=``.
+``device=`` / ``devices=``. Under ``torchrun`` (``WORLD_SIZE`` > 1) the
+same flags build a process mesh, one process a shard: ``--device
+cuda:0`` puts every rank on that card (gloo), and without ``--device``
+each rank takes ``cuda:LOCAL_RANK`` (NCCL where those are cards of their
+own).
 """
 from __future__ import annotations
 

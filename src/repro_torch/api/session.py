@@ -25,6 +25,20 @@ and ``report`` sets them beside the time model's (``obs/report.py``);
 run CosmoFlow (``y``: (N, out_dim) targets) and the 3D U-Net (``y``:
 (N, D, H, W) voxel labels; ``evaluate`` returns per-voxel logits).
 
+Over processes (one process a shard, as torchrun starts them): when the
+process group is initialized, or torchrun's ``WORLD_SIZE`` > 1, both
+modes build a ``launch.mesh.ProcessMesh`` over the world
+(``launch/dist.py``), whose size must equal data x spatial. Each rank's
+device is ``cuda:LOCAL_RANK``, or ``devices[rank]`` when ``devices=``
+lists every rank's (``["cuda:0"] * 2`` for two ranks on one card,
+``["cpu"] * n`` in the tests), or ``device=`` for every rank. Every rank
+gets the global batch, runs its own shard and returns the same global
+loss; the initial parameters are rank 0's, broadcast and checked on
+every rank; ``save`` is written by rank 0 while the others wait at a
+barrier. ZeRO-1, remat, pipeline groups, ``plan="auto"`` and budgets,
+the loader, the harness and the supervisor over processes raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+
 Entry points run on the card unless the caller says otherwise:
 ``device="cpu"`` (one shard, as the tests run), or ``devices=[...]`` with
 one device per shard of a run over data x spatial > 1 shards —
@@ -69,6 +83,8 @@ from repro_torch.core.spatial_conv import SpatialPartitioning
 from repro_torch.core.tree import key_paths
 from repro_torch.data import pipeline, store, synthetic
 from repro_torch.data import prefetch as prefetch_lib
+from repro_torch.core import spmd
+from repro_torch.launch import dist as dist_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import DeviceLike
 from repro_torch.models import cosmoflow as cosmoflow_lib
@@ -214,6 +230,89 @@ def _place(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
         f"{shards} shards", "pass one device per shard")
 
 
+def _process_mesh(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
+                  devices: Optional[Sequence[DeviceLike]], grad_comm: str
+                  ) -> Tuple["plan_lib.ParallelPlan", str,
+                             mesh_lib.ProcessMesh]:
+    """(plan, precision, mesh) of a run over processes: this process's
+    rank of the world (joined here from torchrun's environment if it is
+    not yet), data x spatial = the world's size, the fixed plan or a
+    pinned one, each rank on ``devices[rank]``, ``device``, or
+    ``cuda:LOCAL_RANK``."""
+    dist_lib.init()
+    if config.pipeline > 1:
+        raise train_step_lib.not_over_processes("pipeline groups",
+                                                "pipeline")
+    if config.plan == "auto" or config.memory_budget_gib is not None:
+        raise train_step_lib.not_over_processes(
+            "plan='auto' and memory_budget_gib", "auto")
+    if grad_comm == "reduce_scatter":
+        raise train_step_lib.not_over_processes(
+            "ZeRO-1 (grad_comm='reduce_scatter')", "zero1")
+    world = dist_lib.world()
+    shards = config.data * config.spatial
+    if shards != len(world):
+        raise RunConfigError(
+            "spatial", f"data x spatial = {shards} shards over a world of "
+            f"{len(world)} processes", "make data x spatial equal the "
+            "world size: one process a shard")
+    config.validate(device_count=len(world))
+    plan, precision = _resolve_plan(config, cfg, grad_comm, len(world))
+    train_step_lib.check_process_plan(plan, grad_comm)
+    if device is not None and devices is not None:
+        raise ValueError("give device= or devices=, not both")
+    local = None
+    if devices is not None:
+        if len(devices) != len(world):
+            raise RunConfigError(
+                "spatial", f"{len(devices)} devices given for a world of "
+                f"{len(world)}", "pass one device per rank")
+        devices = [mesh_lib.resolve_device(d) for d in devices]
+    elif device is not None:
+        devices = [mesh_lib.resolve_device(device)] * len(world)
+    else:
+        local = mesh_lib.resolve_device(f"cuda:{dist_lib.local_rank()}"
+                                        if torch.cuda.is_available()
+                                        else None)
+    mesh = mesh_lib.ProcessMesh(plan.mesh_axes, devices, local_device=local)
+    if mesh.home.type == "cuda":
+        torch.cuda.set_device(mesh.home)
+    return plan, precision, mesh
+
+
+def _mesh_for(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
+              devices: Optional[Sequence[DeviceLike]], grad_comm: str
+              ) -> Tuple["plan_lib.ParallelPlan", str, mesh_lib.Mesh]:
+    """(plan, precision, the plan's mesh) of an unpipelined run: over
+    processes when the process group is wanted (``_process_mesh``), else
+    in this process over ``_place``'s devices."""
+    if dist_lib.wanted():
+        return _process_mesh(config, cfg, device, devices, grad_comm)
+    plan, precision, devs = _place(config, cfg, device, devices, grad_comm)
+    return plan, precision, mesh_lib.make_plan_mesh(plan, devs)
+
+
+def rank0_params(mesh, params: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """Over processes, rank 0's initial ``params`` on every rank; raises
+    where a rank's own differ (the seeded initialization should give
+    every rank the same bits). An in-process mesh's as they are."""
+    names = sorted(params)
+    got, same = spmd.from_rank0(mesh, [params[k] for k in names])
+    if not same:
+        raise RuntimeError(f"rank {mesh.rank}'s initial parameters differ "
+                           f"from rank 0's")
+    return dict(zip(names, got))
+
+
+def process_fields(mesh) -> Dict[str, Any]:
+    """``describe()``'s ``transport`` and ``process_rank``: a process
+    mesh's, else None."""
+    if not isinstance(mesh, mesh_lib.ProcessMesh):
+        return {}
+    return {"transport": mesh.transport, "process_rank": mesh.rank}
+
+
 def _build_optimizer(config: RunConfig) -> Adam:
     if config.lr_schedule == "constant":
         sched = constant(config.lr)
@@ -247,8 +346,18 @@ def _compile_train(config: RunConfig, device: DeviceLike,
     config.validate(device_count=None)
     cfg = config.resolve_model()
     grad_comm = "overlap" if config.grad_comm == "auto" else config.grad_comm
-    plan, precision, devs = _place(config, cfg, device, devices, grad_comm)
     optimizer = _build_optimizer(config)
+    if dist_lib.wanted():
+        plan, precision, mesh = _process_mesh(config, cfg, device, devices,
+                                              grad_comm)
+        params = rank0_params(mesh, for_config(cfg).init_params(
+            cfg, torch.Generator().manual_seed(config.seed), mesh.home))
+        opt_state = train_step_lib.make_convnet_opt_state(
+            cfg, optimizer, params, grad_comm=grad_comm, plan=plan,
+            mesh=mesh, precision=precision)
+        return Session(config, cfg, mesh, plan, precision, grad_comm,
+                       optimizer, params, opt_state, mask_source)
+    plan, precision, devs = _place(config, cfg, device, devices, grad_comm)
     if plan.n_groups > 1:
         meshes = mesh_lib.make_pipeline_meshes(plan, devs)
         params = for_config(cfg).init_params(
@@ -294,11 +403,16 @@ class _Traced:
     def export_trace(self, path: Optional[str] = None) -> str:
         """Write the session's span log as a Chrome/Perfetto trace. An
         existing file that this session did not write is not
-        overwritten: ``-1``, ``-2``, ... are appended to the name."""
+        overwritten: ``-1``, ``-2``, ... are appended to the name. Over
+        processes each rank writes its own (``trace_lib.rank_path``):
+        its spans and its counters."""
         path = path or self._trace_path
         if path is None:
             raise ValueError("no path: pass export_trace(path) or set "
                              "RunConfig(trace='out/trace.json')")
+        mesh = getattr(self, "mesh", None)
+        if isinstance(mesh, mesh_lib.ProcessMesh):  # one file a rank
+            path = trace_lib.rank_path(path, mesh.rank)
         if path not in self._exported_traces and os.path.exists(path):
             base, ext = os.path.splitext(path)
             i = 1
@@ -364,6 +478,8 @@ class Report:
     micro_batches: Optional[int] = None
     pipeline_schedule: Optional[str] = None
     bubble_fraction: Optional[float] = None
+    transport: Optional[str] = None
+    process_rank: Optional[int] = None
 
     def __str__(self) -> str:
         stages = "; ".join(
@@ -384,8 +500,11 @@ class Report:
                 f"schedule={self.pipeline_schedule}  "
                 f"bubble={self.bubble_fraction:.1%}\n"
                 f"  groups: {assign}")
+        procs = ("" if self.transport is None else
+                 f" (rank {self.process_rank} of a process mesh over "
+                 f"{self.transport})")
         return (
-            f"Session[{self.plan_name}] on {self.device}\n"
+            f"Session[{self.plan_name}] on {self.device}{procs}\n"
             f"  mesh {self.mesh_shape}  precision={self.precision}  "
             f"grad_comm={self.grad_comm}  global_batch={self.global_batch}\n"
             f"  stages: {stages}{pipe}\n"
@@ -419,7 +538,7 @@ class Session(_Traced):
         self.precision: str = precision_lib.get(precision).name
         self.grad_comm: str = grad_comm
         self.optimizer = optimizer
-        self.device: torch.device = mesh.devices[0]
+        self.device: torch.device = mesh.home
         self.params: Dict[str, torch.Tensor] = params
         self.opt_state = opt_state
         self.mask_source = mask_source
@@ -509,9 +628,9 @@ class Session(_Traced):
         if (self.config.checkpoint_dir and self.config.save_every
                 and self._t % self.config.save_every == 0):
             if self.config.keep_last is not None:
-                checkpoint.save_step(self.config.checkpoint_dir,
-                                     keep_last=self.config.keep_last,
-                                     **self._checkpoint())
+                checkpoint.on_rank0(self.mesh, lambda: checkpoint.save_step(
+                    self.config.checkpoint_dir,
+                    keep_last=self.config.keep_last, **self._checkpoint()))
             else:
                 self.save()
         return loss
@@ -550,6 +669,8 @@ class Session(_Traced):
         reads the next batch and enqueues its copies while the current
         step computes. ``halo_voxels`` widens each rank's reads by that
         margin."""
+        if isinstance(self.mesh, mesh_lib.ProcessMesh):
+            raise train_step_lib.not_over_processes("the loader", "loader")
         root = root or self.config.data_dir
         if root is None:
             tmp = tempfile.TemporaryDirectory()
@@ -651,7 +772,8 @@ class Session(_Traced):
             global_batch=self.config.global_batch,
             param_count=self.cfg.param_count(), device=str(self.device),
             telemetry=self.telemetry(), modeled_peak=peak,
-            predicted_step_s=t, memory_budget_bytes=budget, **pipe)
+            predicted_step_s=t, memory_budget_bytes=budget,
+            **process_fields(self.mesh), **pipe)
 
     def profile(self, batch=None, reps: int = 3) -> Dict[str, float]:
         """Measured phases: seconds of the ``fwd``, ``bwd``, ``grad_comm``
@@ -771,9 +893,10 @@ class Session(_Traced):
         return x, y
 
     def _sync(self) -> None:
-        """Wait for every card of the mesh (of every group's)."""
+        """Wait for every card of the mesh (of every group's) that this
+        process drives."""
         for d in {d for m in (self.meshes or (self.mesh,))
-                  for d in m.devices}:
+                  for d in m.local_devices}:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
@@ -787,7 +910,9 @@ class Session(_Traced):
         if path is None:
             raise ValueError("no path: pass save(path) or set "
                              "RunConfig.checkpoint_dir")
-        checkpoint.save(path, **self._checkpoint())
+        checkpoint.on_rank0(self.mesh,
+                            lambda: checkpoint.save(path,
+                                                    **self._checkpoint()))
         return path
 
     def _checkpoint(self) -> Dict[str, Any]:

@@ -51,7 +51,9 @@ from repro_torch.core import faults
 from repro_torch.core import grad_comm as grad_comm_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
+from repro_torch.core import reshard
 from repro_torch.core import tree as tree_lib
+from repro_torch.launch import dist as dist_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import DeviceLike
 from repro_torch.models import for_config
@@ -195,14 +197,19 @@ def _adapt_opt_state(old, new_template):
 
 def _state_template(config: RunConfig):
     """The ``{"params", "opt"}`` tree a checkpoint of ``config``'s run
-    holds (ZeRO-1's state as global padded buckets), on the meta device:
-    its structure selects the leaves to read."""
+    holds (ZeRO-1's state as global padded buckets; a pipelined run's as
+    one state a group, ``make_pipeline_opt_state``'s layout), on the
+    meta device: its structure selects the leaves to read."""
     cfg = config.resolve_model()
     grad_comm = "overlap" if config.grad_comm == "auto" else config.grad_comm
     plan, precision = _resolve_plan(config, cfg, grad_comm,
                                     config.data * config.spatial)
     params = {k: torch.empty(s, device="meta")
               for k, s in for_config(cfg).param_shapes(cfg).items()}
+    if plan.n_groups > 1:
+        return {"params": params, "opt": train_step_lib.make_pipeline_opt_state(
+            cfg, _build_optimizer(config), params, plan=plan,
+            precision=precision)}
     optimizer = precision_lib.wrap_optimizer(_build_optimizer(config),
                                              precision)
     if grad_comm == "reduce_scatter":
@@ -219,13 +226,19 @@ def _elastic_restore(path: str, new_config: RunConfig,
                      devices: Sequence[torch.device]) -> Session:
     """Resume a checkpoint saved at DIFFERENT degrees: read it through
     the old run's tree structure, compile the new run, and move the
-    parameters and the adapted optimizer state across."""
+    parameters and the adapted optimizer state across, a pipelined run's
+    each group's on its group's device (as ``Session.restore`` places
+    them)."""
     with open(os.path.join(path, _META_FILE)) as f:
         old_config = RunConfig.from_json(json.load(f)["run_config"])
     tree = checkpoint.restore(path, _state_template(old_config))
     sess = api_compile(new_config, devices=devices)
     sess.params = for_config(sess.cfg).params_from_numpy(
         tree["params"], sess.device, torch.float32, cfg=sess.cfg)
+    if sess.meshes is not None:
+        for pg, m in zip(train_step_lib.pipeline_group_params(
+                sess.cfg, sess.plan, sess.params), sess.meshes):
+            sess.params.update(reshard.to_group(pg, m.devices[0]))
     zero1 = sess.grad_comm == "reduce_scatter"
     mesh, entry = sess.mesh, sess.plan.stages[0]
     # the new run's state in the checkpoint's layout: global padded
@@ -315,6 +328,9 @@ def run(config: RunConfig, steps: int, *,
             "checkpoint_dir", "the supervisor recovers from checkpoints "
             "but has nowhere to write them",
             "set RunConfig.checkpoint_dir to a retention root")
+    if dist_lib.wanted():
+        raise train_step_lib.not_over_processes("the supervisor",
+                                                "supervisor")
     config.validate(device_count=None)
     devs = list(mesh_lib.mesh_devices(config.data * config.spatial,
                                       device=device, devices=devices))

@@ -148,15 +148,14 @@ def start_halo_exchange(x: torch.Tensor, axis_name: str, dim: int, lo: int,
         shape = x.shape[:dim] + (-1,) + x.shape[dim + 1:]
         i = g.index
 
-        def part(start, stop):
-            return spmd.Received(lambda: recv.wait()[start:stop].view(shape))
-
         recv_lo = recv_hi = None
         if lo:
             # only rank 1 has a previous rank; rank 0 sits on the boundary
-            recv_lo = part(0, lo * row) if i == 1 else zeros(lo)
+            recv_lo = g.slab(recv, 0, lo * row, shape, i == 1,
+                             lambda: zeros(lo))
         if hi:
-            recv_hi = part(lo * row, None) if i == 0 else zeros(hi)
+            recv_hi = g.slab(recv, lo * row, None, shape, i == 0,
+                             lambda: zeros(hi))
         return HaloSlabs(recv_lo, recv_hi)
 
     recv_lo = recv_hi = None

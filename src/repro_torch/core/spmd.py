@@ -73,9 +73,38 @@ nested ``torch.autograd.grad`` over every shard's output. (A
 the backward, where every axis has size 1: with zero halos and local
 statistics, and no error.)
 
-Outside ``run`` every axis has size 1 (the one-device mesh). The
-interface is kept narrow so that a ``torch.distributed`` group can stand
-behind it for runs over several processes.
+Outside ``run`` every axis has size 1 (the one-device mesh).
+
+Over processes. On a ``launch.mesh.ProcessMesh`` (one process per
+shard) ``run`` calls ``fn`` once, for this process's shard, in the
+calling thread on its current stream, and ``axis(names)`` hands back a
+group whose collectives go through ``torch.distributed``, over the
+mesh's subgroup of those axes. Each is an ``autograd.Function`` of the
+local tensors whose backward is its adjoint's collective, so the train
+step takes each process's own loss through one ``autograd.grad`` and
+the adjoints meet their peers inside each process's own autograd engine
+(the pattern of ``DistributedDataParallel``; the hang above needs
+several shards in one engine). The sums are the in-process mesh's, to
+the bit: ``psum``, ``psum_grad``, ``psum_scatter`` and the adjoint of
+``all_gather`` gather every member's tensor and add them here in rank
+order (``psum_grad`` the spatial peers first), never by a ring
+all-reduce, whose order differs. ``all_to_all`` is a gather and a
+slice. ``ppermute`` is a gather too, queued at ``ppermute_start``
+(asynchronous) and completed at ``Received.wait``: every exchange goes
+through the group's queue of collectives, in the same order on every
+rank, with no point-to-point message beside them (on one H100 over
+gloo, sends and receives interleaved with the statistics' gathers hung
+a 128^3 step). Every rank must issue every collective in the same
+order (``ProcessMesh.log`` records it), so every rank builds the same
+graph, and its engine meets the adjoints in the same order: a
+ppermute's result passes through one node on every rank, zeros where
+no pair sends to it, and a halo slab a boundary shard fills with zeros
+is a node of the received buffer too (``Group.slab``).
+With gloo a CUDA tensor is copied into a pinned host buffer after an
+event on its stream, and what arrives is copied back onto the reader's
+stream; with NCCL (every shard a card of its own) tensors go as they
+are. ``checkpoint`` over processes raises: rematerialization there
+comes with a later slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -85,6 +114,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs import trace as trace_lib
 
 _LOCAL = threading.local()
@@ -434,10 +464,14 @@ def checkpoint(fn: Callable[..., torch.Tensor],
         return fn(*args)
     if not all(isinstance(t, torch.Tensor) for t in args):
         raise TypeError("checkpoint takes tensor arguments only")
+    shard = getattr(_LOCAL, "shard", None)
+    if shard is not None and isinstance(shard.run, _ProcRun):
+        raise NotImplementedError(
+            "rematerialization over processes comes with ROADMAP §1 item "
+            "1.1 (ZeRO-1, remat and pipeline groups over processes)")
     with torch.no_grad():
         out = fn(*args)
     needs = [t.requires_grad for t in args]
-    shard = getattr(_LOCAL, "shard", None)
     if shard is None or shard.run.mesh.size == 1:
         mesh = None if shard is None else shard.run.mesh
         plan = _CheckpointPlan(mesh, fn, len(args), needs, [out],
@@ -547,6 +581,17 @@ class Group:
             return Received(lambda: torch.zeros_like(t))
         device = self.device
         return Received(lambda: _read(entry, device))
+
+    def slab(self, recv: Received, start: int, stop: Optional[int],
+             shape: Sequence[int], keep: bool,
+             zeros: Callable[[], torch.Tensor]):
+        """A slab of a received flat buffer, ``recv.wait()[start:stop]``
+        viewed as ``shape`` where this shard ``keep``s it, else
+        ``zeros()`` (a shard on the boundary): a ``Received`` or the
+        zeros."""
+        if keep:
+            return Received(lambda: recv.wait()[start:stop].view(shape))
+        return zeros()
 
     def psum(self, t):
         """The sum of the group's ``t`` in axis order: a tensor, a
@@ -670,6 +715,408 @@ class Group:
         return self._collective("psum_grad", ts, mark)
 
 
+# ------------------------------------------------- over processes ----
+_ALIGN = 16  # bytes: every part of a wire buffer starts on this
+
+
+def _nbytes(p) -> int:
+    n = p.numel() * p.element_size() if isinstance(p, torch.Tensor) else 8
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def _staged(mesh) -> bool:
+    """Whether this rank's tensors cross through pinned host buffers: a
+    CUDA shard under gloo."""
+    return (mesh.devices[mesh.rank].type == "cuda"
+            and mesh.transport == "gloo")
+
+
+def _wire_buffer(mesh, nbytes: int) -> torch.Tensor:
+    device = mesh.devices[mesh.rank]
+    staged = _staged(mesh)
+    return torch.empty(max(nbytes, _ALIGN), dtype=torch.uint8,
+                       device="cpu" if staged else device,
+                       pin_memory=staged)
+
+
+def _pack(mesh, parts: Sequence[Any]) -> torch.Tensor:
+    """``parts`` (tensors on this rank's device, or Python numbers, as 8
+    bytes) in one byte buffer of the transport's: pinned host memory,
+    filled after an event on the current stream, where a CUDA tensor
+    crosses gloo; else this rank's device."""
+    buf = _wire_buffer(mesh, sum(_nbytes(p) for p in parts))
+    staged = _staged(mesh)
+    off = 0
+    for p in parts:
+        if isinstance(p, torch.Tensor):
+            n = p.numel() * p.element_size()
+            src = p.detach().contiguous().reshape(-1).view(torch.uint8)
+            buf[off:off + n].copy_(src, non_blocking=staged)
+        else:
+            kind = torch.int64 if isinstance(p, int) else torch.float64
+            buf[off:off + 8].copy_(torch.tensor([p], dtype=kind).view(
+                torch.uint8))
+        off += _nbytes(p)
+    if staged:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(mesh.devices[mesh.rank]))
+        ev.synchronize()
+    return buf
+
+
+def _unpack(mesh, buf: torch.Tensor, like: Sequence[Any]) -> List[Any]:
+    """The parts of a buffer ``_pack`` made from parts shaped as
+    ``like``: tensors on this rank's device (one copy onto its current
+    stream from a host buffer), numbers as Python numbers."""
+    device = mesh.devices[mesh.rank]
+    on_device = buf
+    if buf.device != device and any(isinstance(p, torch.Tensor)
+                                    for p in like):
+        on_device = buf.to(device, non_blocking=True)
+    host = None
+    out, off = [], 0
+    for p in like:
+        if isinstance(p, torch.Tensor):
+            n = p.numel() * p.element_size()
+            out.append(on_device[off:off + n].view(p.dtype).view(p.shape))
+        else:
+            if host is None:
+                host = buf if buf.device.type == "cpu" else buf.cpu()
+            kind = torch.int64 if isinstance(p, int) else torch.float64
+            v = host[off:off + 8].view(kind).item()
+            out.append(int(v) if isinstance(p, int) else float(v))
+        off += _nbytes(p)
+    return out
+
+
+def _gather_start(mesh, axes: Sequence[str], parts: Sequence[Any]
+                  ) -> Callable[[], List[List[Any]]]:
+    """Start gathering every member's ``parts`` of this rank's group over
+    ``axes`` (its own among them): one all-gather of one buffer, queued
+    on the group's backend. The function returned waits for it and
+    gives the members' parts in rank order."""
+    buf = _pack(mesh, parts)
+    outs = [torch.empty(buf.shape, dtype=buf.dtype, device=buf.device,
+                        pin_memory=buf.is_pinned())
+            for _ in mesh.group(mesh.rank, axes)]
+    work = mesh.subgroup(axes).all_gather_start(outs, buf)
+
+    def finish() -> List[List[Any]]:
+        work.wait()
+        return [_unpack(mesh, o, parts) for o in outs]
+
+    return finish
+
+
+def _gather(mesh, axes: Sequence[str], parts: Sequence[Any]
+            ) -> List[List[Any]]:
+    """``_gather_start``'s result, waited for."""
+    return _gather_start(mesh, axes, parts)()
+
+
+def _add(values: Sequence[Any]) -> Any:
+    """``values`` summed in order: the in-process mesh's order."""
+    total = values[0]
+    for v in values[1:]:
+        total = total + v
+    return total
+
+
+def _proc_sums(group, kind: str, parts: Sequence[Any]) -> List[Any]:
+    """Each of ``parts`` (tensors or numbers) gathered from every member
+    of ``group`` and added in rank order."""
+    rows = group._gather(kind, list(parts))
+    return [_add([row[i] for row in rows]) for i in range(len(parts))]
+
+
+class _ProcSum(torch.autograd.Function):
+    """``psum`` over processes (``_proc_sums`` of this rank's tensors
+    ``xs`` and ``numbers``, the numbers' sums put in ``box``); the
+    adjoint gathers the cotangents and adds them the same way."""
+
+    @staticmethod
+    def forward(ctx, group, numbers, box, *xs):
+        ctx.group = group
+        sums = _proc_sums(group, "psum", list(xs) + list(numbers))
+        box.extend(sums[len(xs):])
+        return tuple(sums[:len(xs)])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None) + tuple(
+            _proc_sums(ctx.group, "psum.grad", grads))
+
+
+def _proc_cat(group, x, dim: int) -> torch.Tensor:
+    """The members' ``x`` concatenated along ``dim`` in rank order."""
+    return torch.cat([row[0] for row in group._gather("all_gather", [x])],
+                     dim)
+
+
+class _ProcGather(torch.autograd.Function):
+    """``all_gather`` over processes: the members' tensors concatenated
+    along ``dim`` in rank order; the adjoint adds the members'
+    cotangents in rank order and keeps this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, group, dim, x):
+        ctx.group, ctx.dim, ctx.w = group, dim, x.shape[dim]
+        return _proc_cat(group, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = _add([row[0] for row in ctx.group._gather(
+            "all_gather.grad", [g])])
+        return None, None, total.narrow(ctx.dim, ctx.group.index * ctx.w,
+                                        ctx.w)
+
+
+def _proc_all_to_all(group, x, split: int, concat: int, kind: str):
+    """Chunk ``index`` along ``split`` of every member's ``x``,
+    concatenated along ``concat`` in rank order (a gather and a slice)."""
+    c = x.shape[split] // group.size
+    i = group.index
+    return torch.cat([row[0].narrow(split, i * c, c)
+                      for row in group._gather(kind, [x])], concat)
+
+
+class _ProcAllToAll(torch.autograd.Function):
+    """``all_to_all`` over processes; the adjoint is the reverse
+    all_to_all."""
+
+    @staticmethod
+    def forward(ctx, group, split, concat, x):
+        ctx.group, ctx.split, ctx.concat = group, split, concat
+        return _proc_all_to_all(group, x, split, concat, "all_to_all")
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, _proc_all_to_all(
+            ctx.group, g, ctx.concat, ctx.split, "all_to_all.grad")
+
+
+class _ProcPermute(torch.autograd.Function):
+    """What a ppermute delivered to this rank (``got``: its source's
+    tensor, or zeros), as a node of ``x``, this rank's own tensor: the
+    adjoint gathers every member's cotangent, and ``x``'s is its
+    destination's (none where it sent nothing)."""
+
+    @staticmethod
+    def forward(ctx, group, pairs, x, got):
+        ctx.group, ctx.pairs = group, pairs
+        return got
+
+    @staticmethod
+    def backward(ctx, g):
+        dst = {s: d for s, d in ctx.pairs}.get(ctx.group.index)
+        rows = ctx.group._gather("ppermute.grad", [g])
+        return None, None, (None if dst is None else rows[dst][0]), None
+
+
+class _ProcSlab(torch.autograd.Function):
+    """A slab of a received flat buffer ``r`` (``r[start:stop]`` viewed
+    as ``shape``, copied), or zeros of ``shape`` where ``keep`` is False,
+    as a node of ``r`` either way: a shard on the boundary and its peer
+    then build the same graph, and their engines meet the exchange's
+    adjoint at the same point. The adjoint puts the slab's cotangent in
+    place in zeros the size of ``r`` (what autograd of the slice gives);
+    the zeros' adjoint is nothing."""
+
+    @staticmethod
+    def forward(ctx, r, start, stop, shape, keep):
+        ctx.keep, ctx.start, ctx.stop = keep, start, stop
+        ctx.like = (r.shape, r.dtype, r.device)
+        if keep:
+            return r[start:stop].view(shape).clone()
+        return torch.zeros(shape, dtype=r.dtype, device=r.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.keep:
+            return None, None, None, None, None
+        shape, dtype, device = ctx.like
+        out = torch.zeros(shape, dtype=dtype, device=device)
+        out[ctx.start:ctx.stop] = g.reshape(-1)
+        return out, None, None, None, None
+
+
+class _ProcPsumGrad(torch.autograd.Function):
+    """``psum_grad`` over processes: the identity; the adjoint gathers
+    every member's flat cotangent and sums them as the in-process node
+    does (``_nested_sum``, the minor axis first)."""
+
+    @staticmethod
+    def forward(ctx, group, degrees, *xs):
+        ctx.group, ctx.degrees = group, degrees
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        trace_lib.count("grad_comm.reductions")
+        trace_lib.instant("grad_comm.reduce")
+        flat = (torch.cat([g.reshape(-1) for g in grads]) if len(grads) > 1
+                else grads[0].reshape(-1))
+        total = _nested_sum([row[0] for row in ctx.group._gather(
+            "psum_grad", [flat])], ctx.degrees)
+        parts, off = [], 0
+        for g in grads:
+            parts.append(total[off:off + g.numel()].view(g.shape))
+            off += g.numel()
+        return (None, None) + tuple(parts)
+
+
+class _ProcGroup(Group):
+    """This process's group along mesh axes of a ``ProcessMesh``: the
+    collectives of ``Group`` through ``torch.distributed`` (the module
+    docstring)."""
+
+    def __init__(self, mesh, axes: Tuple[str, ...]):
+        super().__init__(axes, None, mesh.rank)
+        self._mesh = mesh
+        self.ranks = mesh.group(mesh.rank, axes)
+        self.device = mesh.devices[mesh.rank]
+
+    @property
+    def index(self) -> int:
+        return self.ranks.index(self._rank)
+
+    def _log(self, kind: str, *parts) -> None:
+        self._mesh.log.append((kind, self.axes, tuple(
+            tuple(p.shape) if isinstance(p, torch.Tensor) else type(p).__name__
+            for p in parts)))
+
+    def _gather(self, kind: str, parts: Sequence[Any]) -> List[List[Any]]:
+        self._log(kind, *parts)
+        return _gather(self._mesh, self.axes, parts)
+
+    def ppermute_start(self, t: torch.Tensor,
+                       perm: Sequence[Tuple[int, int]]) -> Received:
+        """Every member's ``t`` gathered, started now (a queued
+        all-gather: each rank takes its source's); ``wait()`` completes
+        it."""
+        if self.size == 1:
+            return super().ppermute_start(t, perm)
+        pairs = tuple(perm)
+        src = {d: s for s, d in pairs}.get(self.index)
+        self._log("ppermute", t)
+        records = _records([t])
+        finish = _gather_start(self._mesh, self.axes, [t])
+
+        def get():
+            rows = finish()
+            out = torch.zeros_like(t) if src is None else rows[src][0]
+            return _ProcPermute.apply(self, pairs, t, out) if records else out
+
+        return Received(get)
+
+    def slab(self, recv: Received, start: int, stop: Optional[int],
+             shape: Sequence[int], keep: bool,
+             zeros: Callable[[], torch.Tensor]) -> Received:
+        """``Group.slab``, the boundary's zeros too a node of the
+        received buffer (``_ProcSlab``), so that every rank's graph is
+        the same."""
+        def get():
+            r = recv.wait()
+            if not (torch.is_grad_enabled() and r.requires_grad):
+                return (r[start:stop].view(shape) if keep else zeros())
+            # the boundary's zeros: the shape ``zeros`` gives (``shape``
+            # may hold a -1)
+            return _ProcSlab.apply(r, start, stop, tuple(
+                shape) if keep else tuple(zeros().shape), keep)
+        return Received(get)
+
+    def psum(self, t):
+        if self.size == 1:
+            return t
+        parts = tuple(t) if isinstance(t, tuple) else (t,)
+        tensors = [p for p in parts if isinstance(p, torch.Tensor)]
+        if _records(tensors):
+            numbers = [p for p in parts if not isinstance(p, torch.Tensor)]
+            box: List[Any] = []
+            sums = iter(_ProcSum.apply(self, numbers, box, *tensors))
+            it_n = iter(box)
+            out = tuple(next(sums) if isinstance(p, torch.Tensor)
+                        else next(it_n) for p in parts)
+        else:
+            out = tuple(_proc_sums(self, "psum", parts))
+        return out if isinstance(t, tuple) else out[0]
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        if self.size == 1:
+            return t
+        if _records([t]):
+            return _ProcGather.apply(self, dim, t)
+        return _proc_cat(self, t, dim)
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        if self.size == 1:
+            return t
+        if split_dim == concat_dim:
+            raise ValueError("all_to_all needs two different dims")
+        if t.shape[split_dim] % self.size:
+            raise ValueError(f"dim {split_dim} of {tuple(t.shape)} does not "
+                             f"cut into {self.size} chunks")
+        if _records([t]):
+            return _ProcAllToAll.apply(self, split_dim, concat_dim, t)
+        return _proc_all_to_all(self, t, split_dim, concat_dim, "all_to_all")
+
+    def psum_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        if self.size == 1:
+            return t
+        if t.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not cut "
+                             f"into {self.size} chunks")
+        w = t.shape[dim] // self.size
+        with torch.no_grad():
+            return _add([row[0].narrow(dim, self.index * w, w)
+                         for row in self._gather("psum_scatter", [t])])
+
+    def psum_grad(self, ts: Sequence[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, ...]:
+        ts = tuple(ts)
+        if self.size == 1 or not _records(ts):
+            return ts
+        degrees = tuple(self._mesh.degree(a) for a in self._mesh.axis_names
+                        if a in self.axes)
+        return _ProcPsumGrad.apply(self, degrees, *ts)
+
+
+class _ProcRun:
+    """A process mesh's run: this rank's shard alone."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+
+def all_shards(mesh, outs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Every shard's tensor of a ``run``'s per-shard results: ``outs``
+    on an in-process mesh; over processes, each rank's tensor (the same
+    shape on every rank) gathered onto this rank's device, so that every
+    rank puts the whole result together."""
+    if not _over_processes(mesh) or mesh.size == 1:
+        return list(outs)
+    group = _ProcGroup(mesh, mesh.axis_names)
+    return [row[0] for row in group._gather("all_shards", list(outs))]
+
+
+def from_rank0(mesh, tensors: Sequence[torch.Tensor]
+               ) -> Tuple[List[torch.Tensor], bool]:
+    """Rank 0's ``tensors`` on every rank of a process mesh (one
+    broadcast over its transport), and whether this rank's own were the
+    same bits. An in-process mesh's are its own."""
+    if not _over_processes(mesh) or mesh.size == 1:
+        return list(tensors), True
+    buf = _pack(mesh, tensors)
+    mine = buf.clone()
+    mesh.wire.broadcast(buf, 0)
+    return _unpack(mesh, buf, tensors), bool(torch.equal(buf, mine))
+
+
+def _over_processes(mesh) -> bool:
+    return isinstance(mesh, mesh_lib.ProcessMesh)
+
+
 class _Shard:
     def __init__(self, run: _Run, rank: int):
         self.run = run
@@ -695,6 +1142,9 @@ def axis(names: Union[str, Sequence[str]]) -> Group:
         if name not in shard.run.mesh.axis_names:
             raise KeyError(f"mesh {shard.run.mesh.shape} has no axis "
                            f"{name!r}")
+    if isinstance(shard.run, _ProcRun):
+        return _ProcGroup(shard.run.mesh, tuple(
+            a for a in shard.run.mesh.axis_names if a in axes))
     return Group(axes, shard.run, shard.rank)
 
 
@@ -738,10 +1188,15 @@ def run(mesh, fn: Callable, *per_shard_args: Sequence[Any]) -> List[Any]:
     the shards taking turns between collectives; ``per_shard_args`` are
     sequences with one entry per shard. A one-shard mesh runs ``fn`` in
     the calling thread on its current stream. Raises the first error a
-    shard raised (by rank)."""
+    shard raised (by rank). Over processes (``ProcessMesh``) the
+    arguments and results are this process's shard's alone: ``fn`` runs
+    once, in the calling thread."""
+    n = len(mesh.local_ranks)
     for a in per_shard_args:
-        if len(a) != mesh.size:
-            raise ValueError(f"{len(a)} arguments for {mesh.size} shards")
+        if len(a) != n:
+            raise ValueError(f"{len(a)} arguments for {n} shards")
+    if _over_processes(mesh):
+        return _run_process(mesh, fn, per_shard_args)
     grad, inference = (torch.is_grad_enabled(),
                        torch.is_inference_mode_enabled())
     if mesh.size == 1:
@@ -792,5 +1247,17 @@ def run(mesh, fn: Callable, *per_shard_args: Sequence[Any]) -> List[Any]:
     return results
 
 
-__all__ = ["Group", "Received", "ShardAborted", "axis", "check_mesh",
-           "checkpoint", "current_mesh", "run"]
+def _run_process(mesh, fn: Callable, per_shard_args) -> List[Any]:
+    device = mesh.devices[mesh.rank]
+    outer = getattr(_LOCAL, "shard", None)
+    _LOCAL.shard = _Shard(_ProcRun(mesh), mesh.rank)
+    try:
+        with (torch.cuda.device(device) if device.type == "cuda"
+              else contextlib.nullcontext()):
+            return [fn(*(a[0] for a in per_shard_args))]
+    finally:
+        _LOCAL.shard = outer
+
+
+__all__ = ["Group", "Received", "ShardAborted", "all_shards", "axis",
+           "check_mesh", "checkpoint", "current_mesh", "from_rank0", "run"]

@@ -6,7 +6,8 @@ by a hash of the source and the flags, under ``build/repro_torch/`` at
 the repository root (listed in ``.gitignore``), and loaded with
 ``ctypes``. A library is built at first use; ``build_all`` starts one
 ``nvcc`` per source at once, so a cold start costs one compile, not the
-sum. A failed build raises ``KernelBuildError`` with the compiler's
+sum; the build directory is locked while it builds, so processes that
+start together build each library once. A failed build raises ``KernelBuildError`` with the compiler's
 output — there is no fallback.
 
 Every C entry point takes ``void*`` pointers and a ``void*`` stream
@@ -15,7 +16,9 @@ launch; ``check`` raises ``KernelLaunchError`` when that is not 0.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -87,11 +90,26 @@ def _finish(name: str, tmp: Path, log: Path,
     os.replace(tmp, library_path(name))  # atomic: no reader sees half a file
 
 
+@contextlib.contextmanager
+def _build_dir_lock():
+    """The build directory held by this process alone (an exclusive
+    ``flock`` on ``BUILD_DIR/.lock``): processes of one run starting at
+    once (one a shard) build each library once, the others wait and
+    find it built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Build every missing library, one ``nvcc`` per source, all
     started together. Returns ``{name: seconds}`` (0.0 when the
     library was already built)."""
-    with _LOCK:
+    with _LOCK, _build_dir_lock():
         t0 = time.perf_counter()
         started = {n: _start(n) for n in names
                    if not library_path(n).exists()}

@@ -9,10 +9,25 @@ host with S cards, ``cuda:0..S-1`` put each shard on a card of its own,
 and the copies go card to card. The caller chooses: with ``devices=None``
 an S-way mesh takes ``cuda:0..S-1`` and raises when fewer cards are
 visible, so a multi-shard run never shares a card without being asked.
+
+A ``ProcessMesh`` is the same mesh over one process per shard (the
+reference's mesh of devices, placed the way PyTorch places one): its
+rank in the mesh is the shard's row-major rank, ``devices`` holds every
+rank's device, and ``local_ranks`` is this process's one shard (a
+``Mesh``'s are all of them: every shard is a thread of this process).
+It makes its ``torch.distributed`` subgroups once, one per group of
+every set of its axes, over a transport chosen by placement: NCCL only
+where every rank's device is a CUDA card of its own, gloo otherwise
+(NCCL refuses two ranks on one card), with CUDA tensors staged through
+pinned host buffers by ``core/spmd.py``. Nothing falls back from one
+transport to the other.
 """
 from __future__ import annotations
 
+import collections
+import itertools
 import math
+import socket
 import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -96,6 +111,20 @@ class Mesh:
     def degree(self, axis: str) -> int:
         return self.shape[axis]
 
+    @property
+    def local_ranks(self) -> Tuple[int, ...]:
+        """The shards this process runs (each a thread): all of them."""
+        return tuple(range(self.size))
+
+    @property
+    def local_devices(self) -> Tuple[torch.device, ...]:
+        return tuple(self.devices[r] for r in self.local_ranks)
+
+    @property
+    def home(self) -> torch.device:
+        """Where results come back: the first local shard's device."""
+        return self.devices[self.local_ranks[0]]
+
     def coords(self, rank: int) -> Dict[str, int]:
         """Shard ``rank``'s index along each axis."""
         out = {}
@@ -139,6 +168,96 @@ class Mesh:
                 f"{[str(d) for d in self.devices]})")
 
 
+def placement_transport(hosts: Sequence[str],
+                        devices: Sequence[torch.device]) -> str:
+    """``"nccl"`` where every rank's device is a CUDA card of its own
+    (distinct (host, device) pairs), else ``"gloo"``."""
+    cards = [(h, str(d)) for h, d in zip(hosts, devices)]
+    if all(d.type == "cuda" for d in devices) and len(set(cards)) == len(
+            cards):
+        return "nccl"
+    return "gloo"
+
+
+class ProcessMesh(Mesh):
+    """A ``Mesh`` whose shards are processes of a ``torch.distributed``
+    world (``launch/dist.py``), this process one of them: ``ranks`` are
+    the world ranks of the mesh's shards in row-major order (default
+    ``dist.world()``), ``devices`` every shard's device (each rank gives
+    the same list), or None: each rank's ``local_device``, gathered.
+    ``transport`` is ``placement_transport``'s choice over every rank's
+    (host, device). Subgroups: one per group of each non-empty set of
+    axes that holds this rank and more than one shard, made now, every
+    rank in the same order."""
+
+    def __init__(self, axes: Sequence[Tuple[str, int]],
+                 devices: Optional[Sequence[DeviceLike]] = None, *,
+                 ranks: Optional[Sequence[int]] = None,
+                 local_device: DeviceLike = None):
+        import torch.distributed as dist
+
+        from repro_torch.launch import dist as dist_lib
+
+        ranks = dist_lib.world() if ranks is None else tuple(ranks)
+        if list(ranks) != sorted(set(ranks)):
+            raise ValueError(f"a mesh's ranks ascend: {ranks}")
+        n = math.prod(int(d) for _, d in axes)
+        if len(ranks) != n:
+            raise ValueError(f"mesh {dict(axes)} has {n} shards but "
+                             f"{len(ranks)} processes: data x spatial must "
+                             f"equal the world size")
+        rank = ranks.index(dist.get_rank())
+        world = dist_lib.group(ranks, "gloo")
+        mine = (torch.device(local_device) if devices is None
+                else torch.device(devices[rank]))
+        table = world.gather_objects((socket.gethostname(), str(mine)))
+        if devices is None:
+            devices = [d for _, d in table]
+        super().__init__(axes, devices)
+        for r, (_, dev) in enumerate(table):
+            if dev != str(self.devices[r]):
+                raise ValueError(f"rank {r} places its shard on {dev}, but "
+                                 f"this rank was told {self.devices[r]}")
+        self.ranks: Tuple[int, ...] = ranks
+        self.rank, self.world = rank, world
+        self.transport = placement_transport([h for h, _ in table],
+                                             self.devices)
+        if self.transport == "nccl" and not dist.is_nccl_available():
+            raise RuntimeError("every shard has a card of its own, but this "
+                               "PyTorch has no NCCL")
+        self.wire = (self.world if self.transport == "gloo"
+                     else dist_lib.group(self.ranks, "nccl"))
+        self._subgroups: Dict[Tuple[str, ...], object] = {}
+        names = self.axis_names
+        for k in range(1, len(names) + 1):
+            for axes_ in itertools.combinations(names, k):
+                members = self.group(self.rank, axes_)
+                if len(members) > 1:
+                    self._subgroups[axes_] = dist_lib.group(
+                        [self.ranks[m] for m in members], self.transport)
+        # the order of this rank's collectives (kind, axes), most recent
+        # last: every rank must issue the same sequence
+        self.log: collections.deque = collections.deque(maxlen=1 << 16)
+
+    @property
+    def local_ranks(self) -> Tuple[int, ...]:
+        return (self.rank,)
+
+    def subgroup(self, axes: Sequence[str]):
+        """The ``torch.distributed`` group of this rank's group over
+        ``axes`` (in the mesh's axis order)."""
+        return self._subgroups[tuple(a for a in self.axis_names
+                                     if a in axes)]
+
+    def barrier(self) -> None:
+        self.world.barrier()
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh({self.shape}, rank {self.rank} of ranks "
+                f"{list(self.ranks)}, devices="
+                f"{[str(d) for d in self.devices]}, {self.transport})")
+
+
 def make_plan_mesh(plan, devices: Sequence[DeviceLike]) -> Mesh:
     """The mesh of exactly the axes (and degrees) ``plan`` records, over
     ``devices``, one per shard. For a pipelined plan (whose degrees are
@@ -164,5 +283,6 @@ def make_pipeline_meshes(plan, devices: Sequence[DeviceLike]
                  for g in range(plan.n_groups))
 
 
-__all__ = ["DeviceLike", "Mesh", "make_pipeline_meshes", "make_plan_mesh",
-           "mesh_devices", "resolve_device"]
+__all__ = ["DeviceLike", "Mesh", "ProcessMesh", "make_pipeline_meshes",
+           "make_plan_mesh", "mesh_devices", "placement_transport",
+           "resolve_device"]

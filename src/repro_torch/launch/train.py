@@ -10,6 +10,13 @@ loader.
         --device cpu
     python -m repro_torch.launch.train --arch cosmoflow-128 --full-config \\
         --model 2 --device cuda:0          # both shards on one card
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch cosmoflow-128 --full-config --model 2   # a process a shard
+
+Under ``torchrun`` each process is one shard of a process mesh
+(``launch.mesh.ProcessMesh``) and every rank trains on the same seeded
+synthetic global batches (the loader over processes comes later); rank
+0 prints.
 
 A language model's ``--arch`` raises: LM training comes with the LM
 slice of the port.
@@ -19,7 +26,10 @@ from __future__ import annotations
 import argparse
 import time
 
+import torch
+
 from repro_torch import configs
+from repro_torch.launch.mesh import ProcessMesh
 
 
 def train_convnet(args) -> None:
@@ -35,27 +45,55 @@ def train_convnet(args) -> None:
         total_steps=args.steps, checkpoint_dir=args.ckpt)
     where = placement(args, config.data * config.spatial)
     with api_compile(config, **where) as session:
-        print(f"{session.cfg.name}: "
-              f"{session.cfg.param_count() / 1e6:.2f}M params")
-        print(session.describe())
-        n = max(2 * args.batch, 8)
-        loader = session.make_loader(num_samples=n)
-        order = loader.epoch_schedule()
+        rank = getattr(session.mesh, "rank", 0)
+        say = print if rank == 0 else (lambda *a, **k: None)
+        say(f"{session.cfg.name}: "
+            f"{session.cfg.param_count() / 1e6:.2f}M params")
+        say(session.describe())
+        batch_for = _batches(session, args.batch)
         t0 = time.time()
         for i in range(args.steps):
-            lo = (i * args.batch) % n
-            ids = order[lo:lo + args.batch]
-            if len(ids) < args.batch:
-                order, lo = loader.epoch_schedule(), 0
-                ids = order[:args.batch]
-            loss = session.step(loader.load_batch(ids))
+            loss = session.step(batch_for(i))
             if i % 5 == 0 or i == args.steps - 1:
                 sps = (i + 1) * args.batch / (time.time() - t0)
-                print(f"step {i:4d}  loss {float(loss):.4f}  "
-                      f"{sps:.2f} samples/s")
+                say(f"step {i:4d}  loss {float(loss):.4f}  "
+                    f"{sps:.2f} samples/s")
         if args.ckpt:
             session.save()
-            print("checkpoint ->", args.ckpt)
+            say("checkpoint ->", args.ckpt)
+
+
+def _batches(session, batch: int):
+    """``batch_for(i)``: step i's global batch. In one process, from the
+    session's loader over a synthetic store; over processes (the loader
+    does not run there yet) a synthetic batch seeded by the step, the
+    same on every rank."""
+    if isinstance(session.mesh, ProcessMesh):
+        cfg, w = session.cfg, session.cfg.input_width
+
+        def synthetic(i: int):
+            g = torch.Generator(device=session.device).manual_seed(1000 + i)
+            x = torch.randn((batch, w, w, w, cfg.in_channels), generator=g,
+                            device=session.device)
+            if cfg.arch == "cosmoflow":
+                return x, torch.randn((batch, cfg.out_dim), generator=g,
+                                      device=session.device)
+            return x, torch.randint(0, cfg.out_dim, (batch, w, w, w),
+                                    generator=g, device=session.device,
+                                    dtype=torch.int32)
+        return synthetic
+    n = max(2 * batch, 8)
+    loader = session.make_loader(num_samples=n)
+    state = {"order": loader.epoch_schedule()}
+
+    def from_loader(i: int):
+        lo = (i * batch) % n
+        ids = state["order"][lo:lo + batch]
+        if len(ids) < batch:
+            state["order"] = loader.epoch_schedule()
+            ids = state["order"][:batch]
+        return loader.load_batch(ids)
+    return from_loader
 
 
 def main(argv=None):

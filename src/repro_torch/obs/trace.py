@@ -13,9 +13,14 @@ Spans use ``time.perf_counter_ns`` (monotonic) and record the emitting
 thread's id and name, so the Chrome export gets one track per
 dispatcher/worker thread for free — the 1F1B bubble shows up as the
 gaps between ops on a ``pipe-dispatch_*`` track.
+
+Over processes (``launch.mesh.ProcessMesh``) each rank is a process with
+its own active tracer, so its spans and counters are its own shard's,
+and a session writes one file a rank (``rank_path``).
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -24,7 +29,7 @@ from repro_torch.obs.metrics import MetricsRegistry
 
 __all__ = [
     "Event", "Tracer", "NULL_SPAN", "active", "enable", "disable",
-    "span", "instant", "count",
+    "span", "instant", "count", "rank_path",
 ]
 
 
@@ -203,3 +208,10 @@ def count(name: str, n: float = 1.0) -> None:
     t = _ACTIVE
     if t is not None:
         t.count(name, n)
+
+
+def rank_path(path: str, rank: int) -> str:
+    """``path`` for process rank ``rank``: ``trace.json`` ->
+    ``trace.rank1.json``."""
+    base, ext = os.path.splitext(path)
+    return f"{base}.rank{rank}{ext}"

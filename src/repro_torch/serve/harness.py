@@ -46,8 +46,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from repro_torch.core import faults
+from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.obs import trace as trace_lib
 from repro_torch.serve.session import to_host
+from repro_torch.train.train_step import not_over_processes
 
 # raw latency samples retained for the p50/p95/p99 contract (the
 # Histogram aggregates count/sum/min/max only); bounded so a long-lived
@@ -77,6 +79,9 @@ class ServingHarness:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if workers < 1:
             raise ValueError(f"workers must be >= 1, got {workers}")
+        if isinstance(session.mesh, ProcessMesh):
+            # each rank's workers would coalesce their own batches
+            raise not_over_processes("the serving harness", "harness")
         self.session = session
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3

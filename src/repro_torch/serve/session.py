@@ -72,11 +72,16 @@ class InferReport:
     modeled_peak: Any
     device: str
     devices: Tuple[str, ...] = ()
+    transport: Optional[str] = None
+    process_rank: Optional[int] = None
 
     def __str__(self) -> str:
+        procs = ("" if self.transport is None else
+                 f" (rank {self.process_rank} of a process mesh over "
+                 f"{self.transport})")
         return (
             f"InferenceSession[{self.plan_name}] on {', '.join(self.devices)}"
-            f"\n  mesh {self.mesh_shape}  precision={self.precision}\n"
+            f"{procs}\n  mesh {self.mesh_shape}  precision={self.precision}\n"
             f"  params {self.param_count / 1e6:.2f}M  modeled forward "
             f"peak/shard {self.modeled_peak.describe()}")
 
@@ -90,8 +95,9 @@ def compile_infer(config: RunConfig, *, device: DeviceLike = None,
     initialized params."""
     sess = _compile_infer(config, device, devices)
     gen = torch.Generator().manual_seed(config.seed)
-    sess.params = sess._cast_once(
-        for_config(sess.cfg).init_params(sess.cfg, gen, sess.device))
+    sess.params = sess._cast_once(session_lib.rank0_params(
+        sess.mesh, for_config(sess.cfg).init_params(sess.cfg, gen,
+                                                    sess.device)))
     return sess
 
 
@@ -106,10 +112,9 @@ def _compile_infer(config: RunConfig, device: DeviceLike,
     config.validate(device_count=None)
     cfg = config.resolve_model()
     # the planner prices the default reduction; serving reduces nothing
-    plan, precision, devs = session_lib._place(config, cfg, device, devices,
-                                               "overlap")
-    return InferenceSession(config, cfg, mesh_lib.make_plan_mesh(plan, devs),
-                            plan, precision)
+    plan, precision, mesh = session_lib._mesh_for(config, cfg, device,
+                                                  devices, "overlap")
+    return InferenceSession(config, cfg, mesh, plan, precision)
 
 
 class InferenceSession(session_lib._Traced):
@@ -124,7 +129,7 @@ class InferenceSession(session_lib._Traced):
         self.plan: plan_lib.ParallelPlan = plan
         self.precision: str = precision_lib.get(precision).name
         # the parameters live here; the predictions come back here
-        self.device: torch.device = mesh.devices[0]
+        self.device: torch.device = mesh.home
         self.params: Dict[str, torch.Tensor] = {}
         self._replicas: Optional[tuple] = None  # (params, one per shard)
         self._step = train_step_lib.make_convnet_forward_step(
@@ -148,10 +153,10 @@ class InferenceSession(session_lib._Traced):
         """One parameter dict per shard, copies made once per device
         for the session's own parameters."""
         if params is not self.params:
-            return train_step_lib.replicate(params, self.mesh.devices)
+            return train_step_lib.replicate(params, self.mesh.local_devices)
         if self._replicas is None or self._replicas[0] is not params:
             self._replicas = (params, train_step_lib.replicate(
-                params, self.mesh.devices))
+                params, self.mesh.local_devices))
         return self._replicas[1]
 
     def _forward_for(self, batch: int) -> Callable:
@@ -253,7 +258,8 @@ class InferenceSession(session_lib._Traced):
             plan_name=self.plan.name, mesh_shape=self.mesh.shape,
             precision=self.precision, param_count=self.cfg.param_count(),
             modeled_peak=peak, device=str(self.device),
-            devices=tuple(str(d) for d in self.mesh.devices))
+            devices=tuple(str(d) for d in self.mesh.devices),
+            **session_lib.process_fields(self.mesh))
 
     # ------------------------------------------------------ checkpoint ----
     @classmethod

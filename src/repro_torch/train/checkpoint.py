@@ -19,7 +19,8 @@ directory, which is renamed into place once complete (a writer killed
 between leaf writes — the ``checkpoint.write`` fault site fires there —
 leaves the previous checkpoint intact and a stale ``.tmp`` directory
 that discovery ignores). ``save_step``/``gc_steps``/``latest_step``
-manage a retention root.
+manage a retention root. Over processes rank 0 writes and the other
+ranks wait at a barrier (``on_rank0``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import re
 import shutil
 import uuid
 import zlib
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -136,6 +137,19 @@ def save(ckpt_dir: str, tree: Any, step: int = 0, *,
             with open(os.path.join(tmp, name), "w") as f:
                 json.dump(obj, f, indent=1)
         _publish(tmp, ckpt_dir)
+
+
+def on_rank0(mesh, write: Callable[[], Any]) -> None:
+    """``write()`` (a ``save``) on a process mesh's rank 0 while the
+    other ranks wait at a barrier, so that every rank returns once the
+    checkpoint is published; on an in-process mesh, ``write()``. Every
+    rank holds the same state, so rank 0's bytes are the run's."""
+    if getattr(mesh, "barrier", None) is None:
+        write()
+        return
+    if mesh.rank == 0:
+        write()
+    mesh.barrier()
 
 
 def restore(ckpt_dir: str, like: Any, *, verify: bool = True) -> Any:

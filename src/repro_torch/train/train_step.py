@@ -76,6 +76,7 @@ from repro_torch.core import grad_comm as grad_comm_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
 from repro_torch.core import reshard, spmd
+from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models import cosmoflow as cosmoflow_lib
 from repro_torch.models import for_config
 from repro_torch.models import unet3d as unet_lib
@@ -146,16 +147,18 @@ def block_index(shape: Sequence[int], mesh, rank: int,
 def split_input(x: torch.Tensor, mesh, stage: plan_lib.Stage
                 ) -> List[torch.Tensor]:
     """Shard r's block of ``x`` (N, D, H, W, C) (``block_index``),
-    contiguous on r's device."""
-    return [x[block_index(x.shape, mesh, r, stage)].to(device).contiguous()
-            for r, device in enumerate(mesh.devices)]
+    contiguous on r's device, for each shard this process runs
+    (``mesh.local_ranks``)."""
+    return [x[block_index(x.shape, mesh, r, stage)].to(
+        mesh.devices[r]).contiguous() for r in mesh.local_ranks]
 
 
 def split_batch(y: torch.Tensor, mesh, stage: plan_lib.Stage
                 ) -> List[torch.Tensor]:
-    """Shard r's slice of ``y`` along the batch, on r's device."""
-    return [_rows(y, *batch_slice(mesh, r, stage)).to(d).contiguous()
-            for r, d in enumerate(mesh.devices)]
+    """Shard r's slice of ``y`` along the batch, on r's device (the
+    local shards)."""
+    return [_rows(y, *batch_slice(mesh, r, stage)).to(
+        mesh.devices[r]).contiguous() for r in mesh.local_ranks]
 
 
 def split_targets(cfg: ConvNetConfig, y: torch.Tensor, mesh,
@@ -171,9 +174,11 @@ def gather_blocks(outs: Sequence[torch.Tensor], mesh,
                   stage: plan_lib.Stage) -> torch.Tensor:
     """The inverse of ``split_input``: the shards' blocks of a tensor
     split like ``stage``'s input put back in place, batch slices in
-    order and each partitioned dim's pieces in axis order, on shard 0's
-    device (a shard whose block another shard also holds — a replica —
-    is read once)."""
+    order and each partitioned dim's pieces in axis order, on the mesh's
+    home device (a shard whose block another shard also holds — a
+    replica — is read once). ``outs``: the local shards' blocks (over
+    processes, every rank's is gathered first)."""
+    outs = spmd.all_shards(mesh, outs)
     active = list(stage.part.active)
     blocks = {}
     for r, t in enumerate(outs):
@@ -181,7 +186,7 @@ def gather_blocks(outs: Sequence[torch.Tensor], mesh,
         key = (batch_slice(mesh, r, stage)[0],) + tuple(
             at[a] for _, a in active)
         blocks.setdefault(key, t)
-    home = mesh.devices[0]
+    home = mesh.home
 
     def join(prefix, dims):
         if not dims:
@@ -205,9 +210,10 @@ def data_shards(mesh, stage: plan_lib.Stage) -> List[int]:
 
 def sample_ids(batch: int, mesh, stage: plan_lib.Stage) -> List[range]:
     """Shard r's global sample ids: ``index * n_loc + arange(n_loc)``,
-    the reference's, so that dropout masks do not depend on the mesh."""
+    the reference's, so that dropout masks do not depend on the mesh
+    (the local shards)."""
     out = []
-    for r in range(mesh.size):
+    for r in mesh.local_ranks:
         index, count = batch_slice(mesh, r, stage)
         n = batch // count
         out.append(range(index * n, (index + 1) * n))
@@ -218,8 +224,11 @@ def gather_rows(outs: Sequence[torch.Tensor], mesh,
                 stage: plan_lib.Stage) -> torch.Tensor:
     """CosmoFlow's per-sample outputs of the shards, whose rows are
     ``stage``'s batch slices (the FC stage's), put together in batch
-    order on shard 0's device, one holder of each slice read."""
-    home = mesh.devices[0]
+    order on the mesh's home device, one holder of each slice read
+    (``outs``: the local shards'; over processes every rank's is
+    gathered first)."""
+    outs = spmd.all_shards(mesh, outs)
+    home = mesh.home
     rows = [outs[r].to(home) for r in data_shards(mesh, stage)]
     return rows[0] if len(rows) == 1 else torch.cat(rows)
 
@@ -270,19 +279,58 @@ def flat_plan(plan: plan_lib.ParallelPlan) -> plan_lib.ParallelPlan:
     return dataclasses.replace(plan, pipeline=None)
 
 
-def _check_mesh(cfg: ConvNetConfig, mesh, plan) -> None:
+def _check_mesh(cfg: ConvNetConfig, mesh, plan,
+                grad_comm: Optional[str] = None) -> None:
     """``mesh`` is the plan's (a pipelined plan's: one group's), its
-    shards on one device."""
+    shards on one device, or one process a shard (``ProcessMesh``),
+    where ZeRO-1, remat and pipeline groups raise."""
     if cfg.arch not in ("cosmoflow", "unet3d"):
         raise NotImplementedError(f"no train step for arch {cfg.arch!r}")
     if mesh.shape != dict(plan.mesh_axes):
         raise ValueError(f"plan {plan.name!r} has mesh {dict(plan.mesh_axes)}"
                          f", but the step runs on {mesh.shape}")
+    if isinstance(mesh, ProcessMesh):
+        check_process_plan(plan, grad_comm)
+        return
     if len(set(mesh.devices)) != 1:
         raise NotImplementedError(
-            f"training puts every shard on one device; {mesh} spans "
-            f"several: shards on several cards come with the cross-process "
-            f"shard group")
+            f"training puts every shard of an in-process mesh on one "
+            f"device; {mesh} spans several: one process a shard "
+            f"(launch.mesh.ProcessMesh, under torchrun) places shards on "
+            f"cards of their own")
+
+
+# what the process mesh does not run yet, and the ROADMAP §1 item that
+# brings it
+_ITEM_1 = "item 1.1 (ZeRO-1, remat and pipeline groups over processes)"
+_ITEM_2 = ("item 1.2 (the supervisor, the per-rank loader and the serving "
+           "harness over processes)")
+PROCESS_ITEMS = {
+    "zero1": _ITEM_1, "remat": _ITEM_1, "pipeline": _ITEM_1,
+    "supervisor": _ITEM_2, "loader": _ITEM_2, "harness": _ITEM_2,
+    "auto": "item 1.3 (plan=\"auto\" and memory budgets over processes)",
+}
+
+
+def not_over_processes(what: str, feature: str) -> NotImplementedError:
+    """The error an unsupported composition over processes raises."""
+    return NotImplementedError(
+        f"{what} over processes comes with ROADMAP §1 "
+        f"{PROCESS_ITEMS[feature]}")
+
+
+def check_process_plan(plan: plan_lib.ParallelPlan,
+                       grad_comm: Optional[str] = None) -> None:
+    """Raise for what a process mesh does not train yet: pipeline
+    groups, rematerialized stages, ZeRO-1."""
+    if plan.n_groups > 1:
+        raise not_over_processes("pipeline groups", "pipeline")
+    if any(st.remat for st in plan.stages):
+        raise not_over_processes("rematerialization", "remat")
+    if grad_comm is not None and grad_comm_lib.resolve(
+            grad_comm) == "reduce_scatter":
+        raise not_over_processes("ZeRO-1 (grad_comm='reduce_scatter')",
+                                 "zero1")
 
 
 def convnet_grad_plan(cfg: ConvNetConfig) -> grad_comm_lib.Plan:
@@ -356,7 +404,7 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
     if plan.n_groups > 1:
         raise ValueError(f"plan {plan.name!r} is pipelined; use "
                          "make_pipeline_train_step")
-    _check_mesh(cfg, mesh, plan)
+    _check_mesh(cfg, mesh, plan, mode)
     policy = precision_lib.get(
         precision if precision is not None else plan.precision)
     optimizer = precision_lib.wrap_optimizer(optimizer, policy)
@@ -371,7 +419,7 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
     if stage in ("grad_comm", "step"):
         hook_axes = (axes if mode == "overlap" else
                      plan.spatial_axis_names if zero1 else ())
-    n = mesh.size
+    n = len(mesh.local_ranks)
 
     def shard_loss(params, x, y, ids, seed, scale):
         if cfg.arch == "unet3d":
@@ -434,7 +482,7 @@ def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
                                 [None] * n)[0]
         states = opt_state if zero1 else [opt_state] * n
         scale = (precision_lib.current_scale(states[0], policy).to(
-            mesh.devices[0]) if policy.uses_scaling else None)
+            mesh.home) if policy.uses_scaling else None)
         leaves = [{k: v.detach().requires_grad_(True)
                    for k, v in params.items()} for _ in range(n)]
         with torch.enable_grad():
@@ -512,7 +560,7 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
     plan = flat_plan(plan)
     entry = plan.stages[0]
     axes = plan.axis_names
-    n = mesh.size
+    n = len(mesh.local_ranks)
     unet = cfg.arch == "unet3d"
 
     def local_eval(params, x, y):
@@ -768,7 +816,7 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
         raise ValueError(f"plan {plan.name!r} has {n_grp} groups but "
                          f"{len(meshes)} meshes were given")
     for mesh in meshes:
-        _check_mesh(cfg, mesh, plan)
+        _check_mesh(cfg, mesh, plan, mode)
     policy = precision_lib.get(
         precision if precision is not None else plan.precision)
     if policy.uses_scaling:

@@ -23,6 +23,9 @@ on the CPU (every shard a thread on ``"cpu"``).
   ``tests/test_grad_comm.py``); a 2 x 2 step against a 1 x 1 step
   (``tests/test_multidevice.py``'s tolerances); launches per step
   against ``kernel_launches``;
+* the ``grad_comm`` probe over a process mesh (one process a shard,
+  gloo; ``launch.dist.Pool``) at 1 x 2 and 2 x 2 against the
+  reference's, by the same rule;
 * a 2 x 2 checkpoint resumed by the reference's ``Session`` and by a
   one-device port ``Session``; bf16, fp16 and the guard at 2 x 2; a
   step that completes under a timeout with its shards in threads.
@@ -32,6 +35,7 @@ inputs come from numpy with a seed, and the reference's parameters are
 carried across with ``params_from_numpy``.
 """
 import inspect
+import os
 import threading
 
 import jax
@@ -487,6 +491,13 @@ def test_grad_comm_probe_matches_reference(reference, name, D, S, deep):
         loss, grads = probe(params, sess.opt_state,
                             torch.from_numpy(reference["x_" + name]),
                             torch.from_numpy(reference["y_" + name]), SEED)
+    _check_probe(reference, name, D, S, loss, grads, params)
+
+
+def _check_probe(reference, name, D, S, loss, grads, params):
+    """The ``grad_comm`` probe's loss within 1e-5 relative of the
+    reference's, and each reduced gradient within 1e-5 of the leaf's
+    max-abs — or nearer the fp64 step than the reference's own."""
     tag = f"{name}_{D}_{S}"
     want = float(reference["loss_" + tag])
     assert abs(float(loss) - want) <= 1e-5 * abs(want)
@@ -506,6 +517,52 @@ def test_grad_comm_probe_matches_reference(reference, name, D, S, deep):
         port_err = _scale_err(g, exact[k])
         ref_err = _scale_err(reference[f"grad_{tag}_{k}"], exact[k])
         assert port_err <= min(1e-5, ref_err), (k, err, port_err, ref_err)
+
+
+PROCESS_RUNS = [(1, 2), (2, 2)]
+
+
+def process_probe_job(name, D, S, params, x, y):
+    """The ``grad_comm`` probe of a session over a process mesh (this
+    process one shard): its loss and reduced gradients."""
+    cfg = CFGS[name]
+    with _probe_session(name, D, S, False) as sess:
+        assert type(sess.mesh).__name__ == "ProcessMesh"
+        probe = train_step.make_convnet_phase_probes(
+            cfg, sess.mesh, sess.optimizer, global_batch=GB,
+            plan=sess.plan, mask_source=jax_masks)["grad_comm"]
+        return probe(cosmoflow.params_from_numpy(params, "cpu", cfg=cfg),
+                     sess.opt_state, torch.from_numpy(x),
+                     torch.from_numpy(y), SEED)
+
+
+@pytest.fixture(scope="module")
+def process_probes(reference, tmp_path_factory):
+    """Each of ``PROCESS_RUNS``'s probes on every rank of a 4-process
+    world (``launch.dist.Pool``, gloo)."""
+    from repro_torch.launch import dist as dist_lib
+
+    root = tmp_path_factory.mktemp("procmesh")
+    args = ("smoke", _ref_params(reference, "smoke"), reference["x_smoke"],
+            reference["y_smoke"])
+    with dist_lib.Pool(4, "file://" + str(root / "rendezvous"),
+                       timeout_s=300) as pool:
+        pool.run(os.nice, 10)  # beside the other test workers' timed steps
+        return {(D, S): pool.run(process_probe_job, args[0], D, S, *args[1:],
+                                 ranks=range(D * S))
+                for D, S in PROCESS_RUNS}
+
+
+@pytest.mark.parametrize("D,S", PROCESS_RUNS)
+def test_process_mesh_probe_matches_reference(reference, process_probes, D,
+                                              S):
+    """The probe over one process a shard (collectives through
+    ``torch.distributed``, each rank's own backward) against the
+    reference's ``shard_map`` step, with the rule of
+    ``test_grad_comm_probe_matches_reference``, on every rank."""
+    params = _ref_params(reference, "smoke")
+    for loss, grads in process_probes[(D, S)]:
+        _check_probe(reference, "smoke", D, S, loss, grads, params)
 
 
 def _unet_fp64_grads(reference):

@@ -19,7 +19,14 @@ the reference's ``repro.api.supervisor``, on the CPU.
   ``available=2``;
 * that elastic run against the reference's (one 4-device JAX
   subprocess, started before this file's first test), losses within
-  1e-5 relative, both ending at 1 x 2.
+  1e-5 relative, both ending at 1 x 2;
+* a pipelined run (cosmoflow-512 SMOKE at 16^3, data 4 over 2 groups,
+  2 micro-batches) that loses devices at step 3 with 2 left: re-planned
+  to data 2 spatial 1 and resumed from step 2 as the reference's same
+  run (the same subprocess), with every group's parameters and
+  optimizer state on its own devices; its losses within 1e-6 of its
+  clean run, and as near the reference's as the clean runs are
+  (the test's docstring).
 """
 import contextlib
 import dataclasses
@@ -80,11 +87,31 @@ with faults.active(faults.FaultSpec("device.loss", at_steps=(3,),
         dataclasses.replace(base, checkpoint_dir=tempfile.mkdtemp()), 6,
         save_every=2, batch_fn=batch_fn_for(4, 16, cfg.in_channels,
                                             cfg.out_dim))
+# a pipelined run (2 groups of 2 data shards) re-planned for 2 devices
+pbase = RunConfig(model="cosmoflow-512", smoke=True, global_batch=4, data=4,
+                  pipeline=2, micro_batches=2, grad_clip=0.0, total_steps=20)
+pbase = dataclasses.replace(pbase, model=cfg)
+pclean = supervisor.run(
+    dataclasses.replace(pbase, checkpoint_dir=tempfile.mkdtemp()), 6,
+    save_every=2, batch_fn=batch_fn_for(4, 16, cfg.in_channels, cfg.out_dim))
+with faults.active(faults.FaultSpec("device.loss", at_steps=(3,),
+                                    max_fires=1, available=2)):
+    pel = supervisor.run(
+        dataclasses.replace(pbase, checkpoint_dir=tempfile.mkdtemp()), 6,
+        save_every=2, batch_fn=batch_fn_for(4, 16, cfg.in_channels,
+                                            cfg.out_dim))
+
+
+def summary(r):
+    return {"losses": r.losses, "events": r.events,
+            "final": [r.final_data, r.final_spatial],
+            "counters": [r.restarts, r.resumes, r.cold_starts,
+                         r.rollbacks, r.replans]}
+
+
 with open(OUT, "w") as f:
-    json.dump({"losses": el.losses, "events": el.events,
-               "final": [el.final_data, el.final_spatial],
-               "counters": [el.restarts, el.resumes, el.cold_starts,
-                            el.rollbacks, el.replans]}, f)
+    json.dump(dict(summary(el), pipelined=summary(pel),
+                   pipelined_clean=pclean.losses), f)
 '''
 ELASTIC_HEAD = '''
 import dataclasses, json, tempfile
@@ -104,9 +131,12 @@ class _Pending:
     def __init__(self, script: str, out: str, init: str):
         env = dict(os.environ, PYTHONPATH=SRC,
                    XLA_FLAGS="--xla_force_host_platform_device_count=4")
+        # at a lowered priority: it runs beside this module's timed steps
+        # (the watchdog's 0.5 s budget)
         self.proc = subprocess.Popen(
             [sys.executable, "-c", script], env=env, text=True,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            preexec_fn=lambda: os.nice(10))
         self.paths, self.out = (out, init), None
 
     def result(self):
@@ -499,3 +529,62 @@ def test_elastic_zero1_matches_reference(reference_elastic, tmp_path):
             got.replans] == want["counters"]
     np.testing.assert_allclose(got.losses, want["losses"], rtol=RTOL)
     _close(got)
+
+
+def _pipelined_base(**kw):
+    base = _base(global_batch=4, data=4, pipeline=2, micro_batches=2,
+                 grad_clip=0.0, **kw)
+    return dataclasses.replace(base, model=dataclasses.replace(
+        base.resolve_model(), input_width=16))
+
+
+def test_elastic_pipelined_run_replans_like_the_reference(reference_elastic,
+                                                           tmp_path):
+    """A pipelined checkpoint holds one optimizer state a group: the
+    elastic restore reads it through the pipelined layout and places
+    each group's state on its group's device. The run re-plans and
+    resumes as the reference's does, and stays within 1e-6 of its own
+    clean run, as the reference's does of its own.
+
+    Against the reference's losses: step 0's within 1e-5. From step 1 on
+    the two packages' CLEAN pipelined runs already differ (2.6e-4 at
+    most): Adam's first update moves a few weights whose gradients
+    nearly cancel (6 of ~70,000 here) by a whole step in the direction
+    their summation order decides (ROADMAP §3, the reference's own
+    pipeline parity test). So each step's elastic distance from the
+    reference may exceed the clean runs' by no more than 1e-5 of the
+    loss: the replan adds nothing of its own."""
+    result, init = reference_elastic.result()
+    want = result["pipelined"]
+    cfg = _pipelined_base().resolve_model()
+    batches = batch_fn_for(4, 16, cfg.in_channels, cfg.out_dim)
+    with _as_reference(init):
+        clean = supervisor.run(
+            _pipelined_base(checkpoint_dir=str(tmp_path / "clean")), 6,
+            save_every=2, devices=["cpu"] * 4, batch_fn=batches)
+        with faults.active(faults.FaultSpec(
+                "device.loss", at_steps=(3,), max_fires=1, available=2)):
+            got = supervisor.run(
+                _pipelined_base(checkpoint_dir=str(tmp_path / "elastic")), 6,
+                save_every=2, devices=["cpu"] * 4, batch_fn=batches)
+    assert [got.final_data, got.final_spatial] == want["final"] == [2, 1]
+    for event in ("replanned for 2 devices: data=2 spatial=1",
+                  "resumed from step 2 (data=2 spatial=1)"):
+        assert event in got.events and event in want["events"], got.events
+    assert not any("reset" in e for e in got.events), got.events
+    assert [got.restarts, got.resumes, got.cold_starts, got.rollbacks,
+            got.replans] == want["counters"]
+    np.testing.assert_allclose(got.losses, clean.losses, rtol=1e-6)
+    np.testing.assert_allclose(want["losses"], result["pipelined_clean"],
+                               rtol=1e-6)
+    np.testing.assert_allclose(got.losses[0], want["losses"][0], rtol=RTOL)
+    drift = np.abs(np.subtract(clean.losses, result["pipelined_clean"]))
+    assert np.all(np.abs(np.subtract(got.losses, want["losses"]))
+                  <= drift + RTOL * np.abs(want["losses"])), (
+        got.losses, want["losses"], drift)
+    sess = got.session
+    assert sess.plan.n_groups == 2 and len(sess.opt_state) == 2
+    for state, mesh in zip(sess.opt_state, sess.meshes):
+        assert all(leaf.device == mesh.devices[0]
+                   for leaf in torch.utils._pytree.tree_leaves(state))
+    _close(got, clean)
