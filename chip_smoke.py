@@ -235,9 +235,21 @@ Phases, each printing one line; any failure raises and exits non-zero:
               b4, unet3d-256 b1 at 256^3) against the unsharded forward
               (1e-5); each rank's launches summed against
               ``kernel_launches``; ms a step or predict beside the
-              in-process mesh's, each rank's peak. A child that fails or
-              does not answer within ``PROCMESH_LIMIT_S`` fails the run
-              (its threads' stacks printed).
+              in-process mesh's, each rank's peak. Then ZeRO-1, remat
+              and pipeline groups over processes (``PROCMESH_COMPOSE``),
+              each bitwise the in-process mesh at the same plan or the
+              run fails: ZeRO-1 2 x 2 at 128^3 b4 fp32 and bf16 (each
+              rank's state exactly 2 x 4 x padded / N bytes a bucket,
+              its CRCs the in-process shard's; the fp32 run saves a
+              checkpoint over processes, restores it and steps: files,
+              loss and parameters the in-process run's), remat 1 x 2
+              with every block split, two pipeline groups of one shard
+              (M = 4) and of two (M = 2), 1F1B and sequential; the U-Net
+              at 64^3 b2 ZeRO-1 2 x 2, remat 1 x 2 and two groups (M =
+              2); each rank's modeled peak beside its measured one. A
+              child that fails or does not answer within
+              ``PROCMESH_LIMIT_S`` fails the run (its threads' stacks
+              printed).
 m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
               and 10q's U-Net (512^3 b2 now also without remat) beside
               the session's ``describe().modeled_peak`` (``core/memory.py``,
@@ -389,6 +401,23 @@ PROCMESH_TRAIN = (("pm-a", 1, 2, "fp32", "overlap"),
 # the U-Net at 64^3 b2: (data, spatial, precision, reduction); serving:
 # (model, batch, spatial), fp32, against the unsharded forward
 PROCMESH_UNET = ((1, 2, "fp32", "overlap"),)
+# ZeRO-1, remat and pipeline groups over processes: (tag, model, data
+# (the total over a pipeline's groups), spatial, precision, grad_comm,
+# plan kind, micro-batches, schedule); "remat-deep" is every block split
+# and rematerialized, "pipe" the two-group plan of ``pipe_plan``
+PROCMESH_COMPOSE = (
+    ("pz-a", "cosmo", 2, 2, "fp32", "reduce_scatter", "fixed", 1, None),
+    ("pz-b", "cosmo", 2, 2, "bf16", "reduce_scatter", "fixed", 1, None),
+    ("pr-a", "cosmo", 1, 2, "fp32", "overlap", "remat-deep", 1, None),
+    ("pp-a", "cosmo", 2, 1, "fp32", "overlap", "pipe", 4, "1f1b"),
+    ("pp-a", "cosmo", 2, 1, "fp32", "overlap", "pipe", 4, "sequential"),
+    ("pp-b", "cosmo", 4, 1, "fp32", "overlap", "pipe", 2, "1f1b"),
+    ("pp-b", "cosmo", 4, 1, "fp32", "overlap", "pipe", 2, "sequential"),
+    ("pz-u", "unet", 2, 2, "fp32", "reduce_scatter", "fixed", 1, None),
+    ("pr-u", "unet", 1, 2, "fp32", "overlap", "remat", 1, None),
+    ("pp-u", "unet", 2, 1, "fp32", "overlap", "pipe", 2, "1f1b"))
+# the runs that save a checkpoint over processes, restore it and step
+PROCMESH_CHECKPOINT = ("pz-a",)
 PROCMESH_SERVE = (("cosmoflow-128", 4, 2), ("unet3d-256", 1, 2))
 PROCMESH_WORLD = 4
 PROCMESH_STEPS = 2
@@ -4024,28 +4053,61 @@ def _child_kernels():
                               pack_ops=pack_ops, ssd_ops=ssd_ops)
 
 
+def procmesh_config(RunConfig, cfg, batch: int, D: int, S: int, prec: str,
+                    mode: str, plan=None):
+    """A phase-10w training run: ``D`` the total data degree, ``plan`` a
+    pinned plan (a remat or a two-group plan) or None (the fixed one)."""
+    if plan is not None and plan.n_groups > 1:
+        return pipe_config(RunConfig, plan, cfg, batch, prec, mode)
+    return RunConfig(model=cfg, mode="train", global_batch=batch,
+                     precision=prec, data=D, spatial=S, grad_comm=mode,
+                     **({} if plan is None else {"plan": plan}))
+
+
+def _crcs(tree) -> list:
+    """CRC-32 of every leaf's bytes, in ``key_paths`` order."""
+    import zlib
+
+    from repro_torch.core.tree import leaves
+    return [zlib.crc32(t.detach().contiguous().view(-1).view(
+        torch.uint8).cpu().numpy().tobytes()) for t in leaves(tree)]
+
+
+def _probe_of(k, sess, batch: int, prec: str, mode: str):
+    """``sess``' ``grad_comm`` probe as ``probe(x, y)`` -> (loss, reduced
+    gradients): the pipelined step's for a pipelined session."""
+    if sess.meshes is not None:
+        return pipe_probe(k, sess)
+    fn = k.train_step.make_convnet_phase_probes(
+        sess.cfg, sess.mesh, sess.optimizer, global_batch=batch,
+        plan=sess.plan, grad_comm=mode, precision=prec)["grad_comm"]
+    return lambda x, y: fn(sess.params, sess.opt_state, x, y, 0)
+
+
 def procmesh_train_job(cfg, batch: int, D: int, S: int, prec: str,
-                       mode: str, steps: int, devices) -> dict:
+                       mode: str, steps: int, devices, plan=None,
+                       ckpt=None) -> dict:
     """One rank of a process-mesh training run (``launch.dist.Pool``):
     phase 10b's seeded batch; step 1's ``grad_comm`` probe; then, the
     counters zeroed, ``steps`` steps (the main path), their losses and
     this rank's launches and peak memory; then ms a step (median of 3
     after a warm-up, every rank stepping together). Rank 0 also returns
-    the probe's gradients and the parameters after ``steps``."""
-    from repro_torch.api import RunConfig, compile
+    the probe's gradients (every group's); each group's shard 0 its
+    parameters after ``steps``; under ZeRO-1 every rank its state's
+    bytes and leaves' CRCs. With ``ckpt``: a save there, a restore and
+    one more step (its loss and rank 0's parameters)."""
+    from repro_torch.api import RunConfig, Session, compile
     from repro_torch.train import train_step
 
     k = _child_kernels()
+    k.train_step = train_step
     x, y = train_batch(cfg, batch, torch.Generator(
         device="cuda").manual_seed(11))
-    sess = compile(RunConfig(model=cfg, mode="train", global_batch=batch,
-                             precision=prec, data=D, spatial=S,
-                             grad_comm=mode), devices=devices)
-    rank = sess.mesh.rank
-    probe = train_step.make_convnet_phase_probes(
-        sess.cfg, sess.mesh, sess.optimizer, global_batch=batch,
-        plan=sess.plan, grad_comm=mode, precision=prec)["grad_comm"]
-    loss1, grads = probe(sess.params, sess.opt_state, x, y, 0)
+    sess = compile(procmesh_config(RunConfig, cfg, batch, D, S, prec, mode,
+                                   plan), devices=devices)
+    world = sess.mesh.pipeline
+    rank = sess.mesh.rank if world is None else world.rank
+    loss1, grads = _probe_of(k, sess, batch, prec, mode)(x, y)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(k)
@@ -4056,11 +4118,24 @@ def procmesh_train_job(cfg, batch: int, D: int, S: int, prec: str,
            "loss1": loss1.item(), "losses": losses,
            "launches": counts(k),
            "peak_bytes": torch.cuda.max_memory_allocated(),
-           "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "modeled_peak_bytes": sess.describe().modeled_peak.total}
     if rank == 0:
         out["grads"] = {n: v.cpu() for n, v in grads.items()}
+    if sess.mesh.rank == 0:  # the group's shard 0
         out["params"] = {n: v.cpu() for n, v in sess.params.items()}
+    if isinstance(sess.opt_state, list):  # ZeRO-1: this rank's chunk
+        (state,) = sess.opt_state
+        out["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in (*state.m, *state.v))
+        out["state_crcs"] = _crcs(state)
     out["step_ms"] = host_ms(lambda: sess.step(x, y), 3)
+    if ckpt is not None:
+        sess.save(ckpt)
+        again = Session.restore(ckpt, devices=devices)
+        out["resumed"] = again.step(x, y).item()
+        out["resumed_crcs"] = _crcs(again.params)
+        again.close()
     sess.close()
     return out
 
@@ -4093,32 +4168,67 @@ def procmesh_serve_job(cfg, batch: int, S: int, seed: int) -> dict:
     return out
 
 
-def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile,
-                   card: str) -> tuple:
+def procmesh_runs(cf128, ucfg64, plan_lib, depth, perf_model) -> list:
+    """Phase 10w's training runs, each (tag, cfg, batch, total data
+    degree, spatial degree, precision, grad_comm, pinned plan or None,
+    whether it checkpoints): ``PROCMESH_TRAIN`` and ``PROCMESH_UNET``
+    (the fixed plan), then ``PROCMESH_COMPOSE`` (ZeRO-1, remat, pipeline
+    groups)."""
+    runs = [(tag, cf128, 4, D, S, prec, mode, None, False)
+            for tag, D, S, prec, mode in PROCMESH_TRAIN]
+    runs += [("pm-u", ucfg64, UNET_CHECK_BATCH, D, S, prec, mode, None,
+              False) for D, S, prec, mode in PROCMESH_UNET]
+    for tag, model, D, S, prec, mode, kind, micro, sched in PROCMESH_COMPOSE:
+        cfg, batch = ((cf128, 4) if model == "cosmo"
+                      else (ucfg64, UNET_CHECK_BATCH))
+        plan = None
+        if kind.startswith("remat"):
+            plan = remat_plan(plan_lib, depth, cfg, S,
+                              kind="deep" if kind == "remat-deep"
+                              else "fixed")
+        elif kind == "pipe":
+            plan = pipe_plan(plan_lib, perf_model, cfg, batch, D // 2,
+                             micro, sched)
+        runs.append((tag, cfg, batch, D, S, prec, mode, plan,
+                     tag in PROCMESH_CHECKPOINT))
+    return runs
+
+
+def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile, plan_lib,
+                   depth, perf_model, card: str) -> tuple:
     """Phase 10w: the process mesh (one process a shard, collectives
     through ``torch.distributed``) on this card, the transport gloo
     (NCCL refuses two ranks on one card): one 4-process world
     (``launch.dist.Pool``, spawned), its 1 x 2 runs on ranks 0-1.
 
     (a) cosmoflow-128 b4 training (``PROCMESH_TRAIN``) and (c) the U-Net
-    at 64^3 b2 at 1 x 2, each held against the in-process mesh at the
-    same degrees on this card: step 1's ``grad_comm`` probe, every leaf
-    within ``PROCMESH_FP32`` of its max-abs (fp32), or (bf16) no farther
-    from the in-process step than ``STEP1_BF16`` x the in-process step
-    through the plain versions; the losses of ``PROCMESH_STEPS`` steps
-    within ``PROCMESH_FP32`` (fp32) or ``STEP1_LOSS`` (bf16); whether
-    the probe, the losses and the parameters after the steps are
-    bitwise. (b) serving at S = 2 (``PROCMESH_SERVE``) against the
-    unsharded forward (fp32 1e-5). (d) each rank's launches summed
-    against the plan's ``kernel_launches``. (e) ms a step or predict
-    beside the in-process mesh's, each rank's peak. (f) the NCCL
-    transport runs only where every rank has a card of its own.
+    at 64^3 b2 at 1 x 2, then (g) ZeRO-1, remat and pipeline groups
+    over processes (``PROCMESH_COMPOSE``), each held against the
+    in-process mesh at the same degrees and plan on this card: step 1's
+    ``grad_comm`` probe (a pipeline's: every group's merged tree),
+    every leaf within ``PROCMESH_FP32`` of its max-abs (fp32), or (bf16)
+    no farther from the in-process step than ``STEP1_BF16`` x the
+    in-process step through the plain versions; the losses of
+    ``PROCMESH_STEPS`` steps within ``PROCMESH_FP32`` (fp32) or
+    ``STEP1_LOSS`` (bf16); whether the probe, the losses and the
+    parameters after the steps (a pipeline's: each group's, from its
+    shard 0) are bitwise, and under ZeRO-1 each rank's state (its CRCs
+    against the in-process shard's), which must hold exactly 2 x 4 x
+    padded / N bytes a bucket; ``PROCMESH_CHECKPOINT``'s runs save over
+    processes, restore and step once more: the files, the loss and the
+    parameters against the in-process run's. (b) serving at S = 2
+    (``PROCMESH_SERVE``) against the unsharded forward (fp32 1e-5). (d)
+    each rank's launches summed against the plan's ``kernel_launches``.
+    (e) ms a step or predict beside the in-process mesh's, each rank's
+    peak. (f) the NCCL transport runs only where every rank has a card
+    of its own.
 
     A child that fails, or a pool that does not answer within
     ``PROCMESH_LIMIT_S``, fails the run. Returns (report, the launches
     the children's main paths made)."""
     import tempfile
 
+    from repro_torch.api import Session
     from repro_torch.launch import dist as dist_lib
 
     out = {"card": card, "train": {}, "serve": {}, "note":
@@ -4131,19 +4241,16 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile,
         return ((a.double() - b.double()).abs().max().item()
                 / max(1e-30, b.double().abs().max().item()))
 
-    def in_process(cfg, batch, D, S, prec, mode, x, y):
-        sess = compile(RunConfig(model=cfg, mode="train",
-                                 global_batch=batch, precision=prec, data=D,
-                                 spatial=S, grad_comm=mode),
+    def in_process(cfg, batch, D, S, prec, mode, plan, x, y, ckpt):
+        sess = compile(procmesh_config(RunConfig, cfg, batch, D, S, prec,
+                                       mode, plan),
                        devices=["cuda:0"] * (D * S))
-        probe = k.train_step.make_convnet_phase_probes(
-            sess.cfg, sess.mesh, sess.optimizer, global_batch=batch,
-            plan=sess.plan, grad_comm=mode, precision=prec)["grad_comm"]
-        loss1, grads = probe(sess.params, sess.opt_state, x, y, 0)
+        probe = _probe_of(k, sess, batch, prec, mode)
+        loss1, grads = probe(x, y)
         plain = None
         if prec == "bf16":
             with plain_training(k):
-                plain = probe(sess.params, sess.opt_state, x, y, 0)[1]
+                plain = probe(x, y)[1]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         losses = [sess.step(x, y).item() for _ in range(PROCMESH_STEPS)]
@@ -4152,9 +4259,21 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile,
                                             sess.params.items()},
                "peak_bytes": torch.cuda.max_memory_allocated(),
                "plan": sess.plan}
+        if isinstance(sess.opt_state, list):
+            row["state_crcs"] = [_crcs(s) for s in sess.opt_state]
         row["step_ms"] = host_ms(lambda: sess.step(x, y), 3)
+        if ckpt is not None:
+            sess.save(ckpt)
+            again = Session.restore(ckpt, devices=["cuda:0"] * (D * S))
+            row["resumed"] = again.step(x, y).item()
+            row["resumed_crcs"] = _crcs(again.params)
+            again.close()
         sess.close()
         return row
+
+    def files(path):
+        return {n: open(os.path.join(path, n), "rb").read()
+                for n in sorted(os.listdir(path))}
 
     root = tempfile.mkdtemp(prefix="procmesh-")
     t0 = time.perf_counter()
@@ -4162,18 +4281,22 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile,
             root, "rendezvous"), timeout_s=PROCMESH_LIMIT_S) as pool:
         log("procmesh", f"{PROCMESH_WORLD} processes spawned and joined in "
             f"{time.perf_counter() - t0:.1f} s")
-        runs = [(tag, cf128, 4, D, S, prec, mode)
-                for tag, D, S, prec, mode in PROCMESH_TRAIN]
-        runs += [("pm-u", ucfg64, UNET_CHECK_BATCH, D, S, prec, mode)
-                 for D, S, prec, mode in PROCMESH_UNET]
-        for tag, cfg, batch, D, S, prec, mode in runs:
-            key = f"{tag}/{cfg.name}/b{batch}/{D}x{S}/{prec}/{mode}"
+        for tag, cfg, batch, D, S, prec, mode, plan, ckpt in procmesh_runs(
+                cf128, ucfg64, plan_lib, depth, perf_model):
+            what = (plan.name if plan is not None else f"{D}x{S}")
+            key = f"{tag}/{cfg.name}/b{batch}/{what}/{prec}/{mode}"
             n = D * S
+            t_run = time.perf_counter()
+            dirs = ((os.path.join(root, f"{tag}-procs"),
+                     os.path.join(root, f"{tag}-threads")) if ckpt
+                    else (None, None))
             got = pool.run(procmesh_train_job, cfg, batch, D, S, prec, mode,
-                           PROCMESH_STEPS, ["cuda:0"] * n, ranks=range(n))
+                           PROCMESH_STEPS, ["cuda:0"] * n, plan, dirs[0],
+                           ranks=range(n))
             g.manual_seed(11)
             x, y = train_batch(cfg, batch, g)
-            want = in_process(cfg, batch, D, S, prec, mode, x, y)
+            want = in_process(cfg, batch, D, S, prec, mode, plan, x, y,
+                              dirs[1])
             zero = got[0]
             check(all(r["transport"] == "gloo" and r["device"] == "cuda:0"
                       and r["x_sum"] == x.double().sum().item()
@@ -4197,13 +4320,28 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile,
                   f"gradients out of bounds {bad}")
             check(all(r["losses"] == zero["losses"] for r in got),
                   f"{key}: the ranks' losses differ")
+            params = {}
+            for r in got:  # each group's shard 0's
+                params.update(r.get("params", {}))
+            check(set(params) == set(want["params"]),
+                  f"{key}: the groups' parameters cover the model")
             bitwise = (
                 all(torch.equal(zero["grads"][q], want["grads"][q].cpu())
                     for q in want["grads"])
                 and zero["losses"] == want["losses"]
-                and all(torch.equal(zero["params"][q],
-                                    want["params"][q].cpu())
+                and all(torch.equal(params[q], want["params"][q].cpu())
                         for q in want["params"]))
+            if mode == "reduce_scatter":
+                buckets = k.train_step.convnet_grad_plan(cfg)
+                chunk = sum(2 * 4 * buckets.padded_size(b_, D) // D
+                            for b_ in buckets.buckets)
+                check(all(r["state_bytes"] == chunk for r in got),
+                      f"{key}: each rank's ZeRO-1 state "
+                      f"{[r['state_bytes'] for r in got]} bytes, expected "
+                      f"{chunk} (2 x 4 x padded / N a bucket)")
+                bitwise = bitwise and all(
+                    r["state_crcs"] == want["state_crcs"][r["rank"]]
+                    for r in got)
             model = k.unet3d if cfg.arch == "unet3d" else k.cosmoflow
             per_step = dict(NO_LAUNCHES, **model.kernel_launches(
                 cfg, want["plan"], train=True))
@@ -4224,18 +4362,40 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile,
                 "peak_bytes": [r["peak_bytes"] for r in got],
                 "peak_reserved_bytes": [r["peak_reserved_bytes"]
                                         for r in got],
+                "modeled_peak_bytes": [r["modeled_peak_bytes"]
+                                       for r in got],
                 "in_process_peak_bytes": want["peak_bytes"]}
+            if ckpt:
+                same_files = files(dirs[0]) == files(dirs[1])
+                resumed = (all(r["resumed"] == want["resumed"] for r in got)
+                           and zero["resumed_crcs"] == want["resumed_crcs"])
+                check(same_files and resumed,
+                      f"{key}: the checkpoint saved over processes (files "
+                      f"equal: {same_files}) restored and stepped "
+                      f"{[r['resumed'] for r in got]}, in-process "
+                      f"{want['resumed']}")
+                row["checkpoint"] = {"files_equal": same_files,
+                                     "resumed_loss": zero["resumed"]}
+            if mode == "reduce_scatter" or plan is not None:
+                # ZeRO-1, remat and pipeline groups must be the in-process
+                # mesh's bits: the same kernels, sums in the same order
+                check(bitwise, f"{key}: not bitwise the in-process mesh")
             log("procmesh", f"{key}: transport gloo, {n} processes on "
                 f"cuda:0; vs the in-process mesh: loss {loss_err:.3g}, "
                 f"worst gradient {worst} {dist_[worst]:.3g} of its max-abs; "
                 f"bitwise {bitwise}; launches summed over the ranks "
-                f"{json.dumps(summed)} = kernel_launches x {PROCMESH_STEPS}")
+                f"{json.dumps(summed)} = kernel_launches x {PROCMESH_STEPS}"
+                + (f"; checkpoint saved over processes, restored and "
+                   f"resumed bitwise (files equal)" if ckpt else ""))
             log("timings", f"procmesh {key} ({card}): ms a step over "
                 f"processes {[round(v, 2) for v in row['step_ms']]} (each "
                 f"rank), in-process {want['step_ms']:.2f}; peak a rank "
                 f"{[round(v / 2 ** 30, 2) for v in row['peak_bytes']]} GiB "
-                f"allocated, in-process (every shard) "
-                f"{want['peak_bytes'] / 2 ** 30:.2f} GiB")
+                f"allocated (modeled "
+                f"{[round(v / 2 ** 30, 2) for v in row['modeled_peak_bytes']]}"
+                f"), in-process (every shard) "
+                f"{want['peak_bytes'] / 2 ** 30:.2f} GiB; "
+                f"{time.perf_counter() - t_run:.1f} s")
             del want, got, x, y
             torch.cuda.empty_cache()
         for name, batch, S in PROCMESH_SERVE:
@@ -4710,7 +4870,8 @@ def main() -> int:
     # ------------------------------------------ main path: 10w ----
     release_cached("procmesh")
     procmesh, got = phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig,
-                                   compile, report["card"])
+                                   compile, plan_lib, depth, perf_model,
+                                   report["card"])
     main_paths["procmesh"] = {"launches": got}
     clock("procmesh")
     launches = {n: launches[n] + got[n] for n in KERNELS}

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """``chip_smoke.py``'s phase 10w (the process mesh: one process a
 shard, collectives through ``torch.distributed`` over gloo, every rank
-on this card) alone, after its card and build phases.
+on this card; ZeRO-1, remat and pipeline groups over it) alone, after
+its card and build phases.
 
-    python3 scripts/procmesh_phase.py [--only TAG] [--limit SECONDS]
+    python3 scripts/procmesh_phase.py [--only TAG ...] [--limit SECONDS]
 
 Writes the phase's report to ``chiprun_out/procmesh_phase.json``. Needs
 a CUDA device.
@@ -21,6 +22,9 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.api import RunConfig, compile  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import perf_model  # noqa: E402
+from repro_torch.core import plan as plan_lib  # noqa: E402
+from repro_torch.core.spatial_conv import SpatialPartitioning  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bn_act import ops as bn_ops  # noqa: E402
 from repro_torch.kernels.conv3d import ops as conv_ops  # noqa: E402
@@ -33,8 +37,9 @@ from repro_torch.train import train_step  # noqa: E402
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", help="the PROCMESH_TRAIN runs of this tag "
-                    "only (the U-Net and serving runs then skipped)")
+    ap.add_argument("--only", nargs="+", help="the PROCMESH_TRAIN and "
+                    "PROCMESH_COMPOSE runs of these tags only (the fixed "
+                    "U-Net and serving runs then skipped)")
     ap.add_argument("--limit", type=float, default=cs.PROCMESH_LIMIT_S,
                     help="seconds a child may take to answer")
     args = ap.parse_args()
@@ -43,7 +48,9 @@ if __name__ == "__main__":
     cs.PROCMESH_LIMIT_S = args.limit
     if args.only:
         cs.PROCMESH_TRAIN = tuple(r for r in cs.PROCMESH_TRAIN
-                                  if r[0] == args.only)
+                                  if r[0] in args.only)
+        cs.PROCMESH_COMPOSE = tuple(r for r in cs.PROCMESH_COMPOSE
+                                    if r[0] in args.only)
         cs.PROCMESH_UNET = cs.PROCMESH_SERVE = ()
     t0 = time.perf_counter()
     card = cs.phase_card()
@@ -56,8 +63,10 @@ if __name__ == "__main__":
     ucfg64 = dataclasses.replace(
         ucfg, name=f"{ucfg.name}@{cs.UNET_CHECK_WIDTH}",
         input_width=cs.UNET_CHECK_WIDTH)
-    out, launches = cs.phase_procmesh(k, get_config("cosmoflow-128"), ucfg,
-                                      ucfg64, RunConfig, compile, card)
+    out, launches = cs.phase_procmesh(
+        k, get_config("cosmoflow-128"), ucfg, ucfg64, RunConfig, compile,
+        plan_lib, SpatialPartitioning(("model", None, None)), perf_model,
+        card)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "procmesh_phase.json"),
               "w") as f:

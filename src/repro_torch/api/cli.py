@@ -7,7 +7,8 @@ card); ``placement(args, shards)`` turns it into ``compile``'s
 same flags build a process mesh, one process a shard: ``--device
 cuda:0`` puts every rank on that card (gloo), and without ``--device``
 each rank takes ``cuda:LOCAL_RANK`` (NCCL where those are cards of their
-own).
+own). ``--grad-comm reduce_scatter`` (ZeRO-1) and ``--pipeline P`` run
+there as in one process.
 """
 from __future__ import annotations
 

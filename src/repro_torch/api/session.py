@@ -35,9 +35,18 @@ lists every rank's (``["cuda:0"] * 2`` for two ranks on one card,
 gets the global batch, runs its own shard and returns the same global
 loss; the initial parameters are rank 0's, broadcast and checked on
 every rank; ``save`` is written by rank 0 while the others wait at a
-barrier. ZeRO-1, remat, pipeline groups, ``plan="auto"`` and budgets,
-the loader, the harness and the supervisor over processes raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+barrier. ZeRO-1 keeps each rank's own chunk of the optimizer state (the
+checkpoint gathers the data shards'); a plan whose stages set ``remat``
+rematerializes over the ranks. With ``pipeline`` = P the world is P
+groups of data x spatial ranks (``launch.mesh.make_pipeline_meshes``):
+each rank holds its group's parameters and optimizer state (``params``
+and ``opt_state[group]``; the other groups' states None), hands its
+boundary activations and cotangents to the same shard of the
+neighbouring groups over links of their own, and ``save`` writes every
+group's, gathered from each group's shard 0, as the in-process run
+does. ``plan="auto"`` and budgets, the loader, the harness and the
+supervisor over processes raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 
 Entry points run on the card unless the caller says otherwise:
 ``device="cpu"`` (one shard, as the tests run), or ``devices=[...]`` with
@@ -80,7 +89,7 @@ from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
 from repro_torch.core import reshard
 from repro_torch.core.spatial_conv import SpatialPartitioning
-from repro_torch.core.tree import key_paths
+from repro_torch.core.tree import key_paths, tree_map
 from repro_torch.data import pipeline, store, synthetic
 from repro_torch.data import prefetch as prefetch_lib
 from repro_torch.core import spmd
@@ -233,22 +242,18 @@ def _place(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
 def _process_mesh(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
                   devices: Optional[Sequence[DeviceLike]], grad_comm: str
                   ) -> Tuple["plan_lib.ParallelPlan", str,
-                             mesh_lib.ProcessMesh]:
-    """(plan, precision, mesh) of a run over processes: this process's
+                             Tuple[mesh_lib.Mesh, ...]]:
+    """(plan, precision, meshes) of a run over processes: this process's
     rank of the world (joined here from torchrun's environment if it is
-    not yet), data x spatial = the world's size, the fixed plan or a
-    pinned one, each rank on ``devices[rank]``, ``device``, or
-    ``cuda:LOCAL_RANK``."""
+    not yet), data x spatial (``data`` the total over a pipeline's
+    groups) = the world's size, the fixed plan or a pinned one, each rank
+    on ``devices[rank]``, ``device``, or ``cuda:LOCAL_RANK``. ``meshes``:
+    the ``ProcessMesh``, or a pipeline's one mesh a group (this
+    process's group a ``ProcessMesh``, ``make_pipeline_meshes``)."""
     dist_lib.init()
-    if config.pipeline > 1:
-        raise train_step_lib.not_over_processes("pipeline groups",
-                                                "pipeline")
     if config.plan == "auto" or config.memory_budget_gib is not None:
         raise train_step_lib.not_over_processes(
             "plan='auto' and memory_budget_gib", "auto")
-    if grad_comm == "reduce_scatter":
-        raise train_step_lib.not_over_processes(
-            "ZeRO-1 (grad_comm='reduce_scatter')", "zero1")
     world = dist_lib.world()
     shards = config.data * config.spatial
     if shards != len(world):
@@ -274,10 +279,16 @@ def _process_mesh(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
         local = mesh_lib.resolve_device(f"cuda:{dist_lib.local_rank()}"
                                         if torch.cuda.is_available()
                                         else None)
-    mesh = mesh_lib.ProcessMesh(plan.mesh_axes, devices, local_device=local)
-    if mesh.home.type == "cuda":
-        torch.cuda.set_device(mesh.home)
-    return plan, precision, mesh
+    if plan.n_groups > 1:
+        meshes = mesh_lib.make_pipeline_meshes(plan, devices, processes=True,
+                                               local_device=local)
+    else:
+        meshes = (mesh_lib.ProcessMesh(plan.mesh_axes, devices,
+                                       local_device=local),)
+    home = meshes[train_step_lib.local_groups(meshes)[0]].home
+    if home.type == "cuda":
+        torch.cuda.set_device(home)
+    return plan, precision, meshes
 
 
 def _mesh_for(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
@@ -287,14 +298,17 @@ def _mesh_for(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
     processes when the process group is wanted (``_process_mesh``), else
     in this process over ``_place``'s devices."""
     if dist_lib.wanted():
-        return _process_mesh(config, cfg, device, devices, grad_comm)
+        plan, precision, (mesh,) = _process_mesh(config, cfg, device,
+                                                 devices, grad_comm)
+        return plan, precision, mesh
     plan, precision, devs = _place(config, cfg, device, devices, grad_comm)
     return plan, precision, mesh_lib.make_plan_mesh(plan, devs)
 
 
 def rank0_params(mesh, params: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
-    """Over processes, rank 0's initial ``params`` on every rank; raises
+    """Over processes (a ``ProcessMesh``, or a pipeline's
+    ``PipelineWorld``), rank 0's initial ``params`` on every rank; raises
     where a rank's own differ (the seeded initialization should give
     every rank the same bits). An in-process mesh's as they are."""
     names = sorted(params)
@@ -310,7 +324,9 @@ def process_fields(mesh) -> Dict[str, Any]:
     mesh's, else None."""
     if not isinstance(mesh, mesh_lib.ProcessMesh):
         return {}
-    return {"transport": mesh.transport, "process_rank": mesh.rank}
+    world = mesh.pipeline  # a pipeline's: the rank over every group
+    return {"transport": mesh.transport,
+            "process_rank": mesh.rank if world is None else world.rank}
 
 
 def _build_optimizer(config: RunConfig) -> Adam:
@@ -348,15 +364,26 @@ def _compile_train(config: RunConfig, device: DeviceLike,
     grad_comm = "overlap" if config.grad_comm == "auto" else config.grad_comm
     optimizer = _build_optimizer(config)
     if dist_lib.wanted():
-        plan, precision, mesh = _process_mesh(config, cfg, device, devices,
-                                              grad_comm)
-        params = rank0_params(mesh, for_config(cfg).init_params(
-            cfg, torch.Generator().manual_seed(config.seed), mesh.home))
-        opt_state = train_step_lib.make_convnet_opt_state(
-            cfg, optimizer, params, grad_comm=grad_comm, plan=plan,
-            mesh=mesh, precision=precision)
+        plan, precision, meshes = _process_mesh(config, cfg, device, devices,
+                                                grad_comm)
+        mesh = meshes[train_step_lib.local_groups(meshes)[0]]
+        params = rank0_params(mesh.pipeline or mesh, for_config(
+            cfg).init_params(cfg, torch.Generator().manual_seed(config.seed),
+                             mesh.home))
+        if mesh.pipeline is None:
+            opt_state = train_step_lib.make_convnet_opt_state(
+                cfg, optimizer, params, grad_comm=grad_comm, plan=plan,
+                mesh=mesh, precision=precision)
+            return Session(config, cfg, mesh, plan, precision, grad_comm,
+                           optimizer, params, opt_state, mask_source)
+        params = {k: params[k] for k in train_step_lib.pipeline_group_names(
+            cfg, plan)[mesh.pipeline.group]}
+        opt_state = train_step_lib.make_pipeline_opt_state(
+            cfg, optimizer, params, plan=plan, meshes=meshes,
+            precision=precision)
         return Session(config, cfg, mesh, plan, precision, grad_comm,
-                       optimizer, params, opt_state, mask_source)
+                       optimizer, params, opt_state, mask_source,
+                       meshes=meshes)
     plan, precision, devs = _place(config, cfg, device, devices, grad_comm)
     if plan.n_groups > 1:
         meshes = mesh_lib.make_pipeline_meshes(plan, devs)
@@ -522,8 +549,11 @@ class Session(_Traced):
     """A training run over a data x spatial mesh on one device. The
     session holds one copy of the fp32 masters and the optimizer state
     (every shard's update is the same); under ZeRO-1 one state a shard
-    (a list in rank order); under a pipeline one state a group (a tuple
-    in group order, ``meshes`` the groups' meshes, ``mesh`` group 0's).
+    (a list in rank order; over processes this rank's alone); under a
+    pipeline one state a group (a tuple in group order, ``meshes`` the
+    groups' meshes, ``mesh`` group 0's; over processes ``mesh`` is this
+    rank's group's, ``params`` its group's and the other groups' states
+    None).
     Build with ``repro_torch.api.compile(RunConfig(mode="train"))`` or
     ``Session.restore(checkpoint_dir)``, not directly."""
 
@@ -628,9 +658,10 @@ class Session(_Traced):
         if (self.config.checkpoint_dir and self.config.save_every
                 and self._t % self.config.save_every == 0):
             if self.config.keep_last is not None:
-                checkpoint.on_rank0(self.mesh, lambda: checkpoint.save_step(
+                held = self._checkpoint()  # on every rank: it may gather
+                checkpoint.on_rank0(self._writer, lambda: checkpoint.save_step(
                     self.config.checkpoint_dir,
-                    keep_last=self.config.keep_last, **self._checkpoint()))
+                    keep_last=self.config.keep_last, **held))
             else:
                 self.save()
         return loss
@@ -648,8 +679,37 @@ class Session(_Traced):
             fn = self._eval_fns[gb] = train_step_lib.make_convnet_eval_step(
                 self.cfg, self.mesh, global_batch=gb, plan=self.plan,
                 overlap=self.config.overlap_halo, precision=self.precision)
-        return fn(reshard.to_group(self.params, self.device),
+        return fn(reshard.to_group(self._full_params(), self.device),
                   self._as_input(x), self._as_target(y))
+
+    @property
+    def _pipeline_world(self):
+        """A pipeline over processes' ``PipelineWorld`` (else None)."""
+        return getattr(self.mesh, "pipeline", None)
+
+    @property
+    def _writer(self):
+        """Who writes a checkpoint while the others wait: the world of a
+        pipeline over processes, else the mesh (``checkpoint.on_rank0``)."""
+        return self._pipeline_world or self.mesh
+
+    def _from_group_firsts(self, tree) -> list:
+        """Over a pipeline's processes, every group's ``tree`` (this
+        rank's group's given here), taken from each group's shard 0 and
+        moved to this rank's device, in group order."""
+        world = self._pipeline_world
+        rows = world.gather_objects(tree_map(lambda t: t.cpu(), tree)
+                                    if world.rank % world.d == 0 else None)
+        return [tree_map(lambda t: t.to(self.device), rows[g * world.d])
+                for g in range(self.plan.n_groups)]
+
+    def _full_params(self) -> Dict[str, torch.Tensor]:
+        """Every parameter: ``params``, or over a pipeline's processes
+        every group's gathered onto this rank."""
+        if self._pipeline_world is None:
+            return self.params
+        return {k: v for part in self._from_group_firsts(self.params)
+                for k, v in part.items()}
 
     # ------------------------------------------------------------ data ----
     def make_loader(self, root: Optional[str] = None, *,
@@ -747,9 +807,11 @@ class Session(_Traced):
         t = plan_lib.price_plan(self.cfg, perf_model.H100, priced,
                                 global_batch=self.config.global_batch,
                                 grad_comm=self.grad_comm)
+        world = self._pipeline_world
         peak = memory_lib.plan_peak_bytes(
             self.cfg, self.plan, global_batch=self.config.global_batch,
-            grad_comm=self.grad_comm, precision=self.precision)
+            grad_comm=self.grad_comm, precision=self.precision,
+            group=None if world is None else world.group)
         budget = (None if self.config.memory_budget_gib is None
                   else self.config.memory_budget_gib * 2 ** 30)
         pipe: Dict[str, Any] = {}
@@ -910,26 +972,34 @@ class Session(_Traced):
         if path is None:
             raise ValueError("no path: pass save(path) or set "
                              "RunConfig.checkpoint_dir")
-        checkpoint.on_rank0(self.mesh,
-                            lambda: checkpoint.save(path,
-                                                    **self._checkpoint()))
+        held = self._checkpoint()  # on every rank: it may gather
+        checkpoint.on_rank0(self._writer,
+                            lambda: checkpoint.save(path, **held))
         return path
 
     def _checkpoint(self) -> Dict[str, Any]:
         """What a checkpoint taken now holds, as ``checkpoint.save``'s
-        keywords."""
+        keywords (the same on every rank: over processes, ZeRO-1's chunks
+        and a pipeline's groups are gathered here, so every rank calls
+        it)."""
         meta = {"run_config": self._pinned_config().to_json()}
-        opt, specs = self.opt_state, None
+        params, opt, specs = self.params, self.opt_state, None
         if self.grad_comm == "reduce_scatter":
             # the reference's layout: global padded buckets, dim 0 sharded
             # over the data axes, scalars replicated
+            states = spmd.all_shard_trees(self.mesh, self.opt_state)
             opt = grad_comm_lib.global_opt_state(
-                [self.opt_state[r] for r in train_step_lib.data_shards(
+                [states[r] for r in train_step_lib.data_shards(
                     self.mesh, self.plan.stages[0])])
             axes = list(self.plan.stages[0].batch_axes)
             specs = {path: [axes] if leaf.dim() else []
                      for path, leaf in key_paths({"opt": opt})}
-        return {"tree": {"params": self.params, "opt": opt},
+        elif self._pipeline_world is not None:
+            g = self._pipeline_world.group
+            parts = self._from_group_firsts((self.params, self.opt_state[g]))
+            params = {k: v for p, _ in parts for k, v in p.items()}
+            opt = tuple(o for _, o in parts)
+        return {"tree": {"params": params, "opt": opt},
                 "step": self._t, "precision": self.precision,
                 "extra_files": {_META_FILE: meta}, "specs": specs}
 
@@ -986,6 +1056,19 @@ class Session(_Traced):
         tree = checkpoint.restore(path, {
             "params": sess.params,
             "opt": sess.opt_state[0] if zero1 else sess.opt_state})
+        world = sess._pipeline_world
+        if world is not None:  # this rank's group's part alone
+            shapes = model.param_shapes(sess.cfg)
+            mine = {k: shapes[k] for k in sess.params}
+            sess.params = cosmoflow_lib.checked_tree(
+                tree["params"], mine, sess.device, torch.float32,
+                sess.cfg.name)
+            sess.opt_state = tuple(
+                None if s is None else cosmoflow_lib.opt_state_from_numpy(
+                    s, sess.device, cfg=sess.cfg, shapes=mine)
+                for s in tree["opt"])
+            sess._t = checkpoint.latest_step(path)
+            return sess
         sess.params = model.params_from_numpy(
             tree["params"], sess.device, torch.float32, cfg=sess.cfg)
         if sess.meshes is not None:  # each group's on its device
@@ -998,7 +1081,7 @@ class Session(_Traced):
             sess.opt_state = [grad_comm_lib.local_opt_state(
                 tree["opt"], buckets, train_step_lib.batch_slice(
                     sess.mesh, r, sess.plan.stages[0])[0], n, sess.device)
-                for r in range(sess.mesh.size)]
+                for r in sess.mesh.local_ranks]
         else:
             sess.opt_state = model.opt_state_from_numpy(
                 tree["opt"], [m.devices[0] for m in sess.meshes]

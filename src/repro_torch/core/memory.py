@@ -25,7 +25,7 @@ The layer walk is ``perf_model``'s (``cosmoflow_layers``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, NamedTuple, Tuple, Union
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -134,6 +134,7 @@ def plan_peak_bytes(
     global_batch: int,
     grad_comm: str = "overlap",
     precision: Union[str, precision_lib.PrecisionPolicy, None] = None,
+    group: Optional[int] = None,
 ) -> MemoryBreakdown:
     """Predicted peak bytes per device of one training step under
     ``plan``: each conv block's input plus ``_SAVED_PER_BLOCK``
@@ -142,13 +143,14 @@ def plan_peak_bytes(
     ``_WORKING_SET_COPIES`` of the in-flight block's output; activations
     in the compute dtype (``precision``, default the plan's), masters,
     gradients and optimizer state in fp32, and a parameter-sized compute
-    copy for a casting policy. A pipelined plan: ``_pipeline_peak_bytes``."""
+    copy for a casting policy. A pipelined plan: ``_pipeline_peak_bytes``
+    (``group``: that group's, else the largest)."""
     pol = _policy(precision, plan)
     act_bytes = pol.act_bytes
     if getattr(plan, "pipeline", None) is not None and plan.n_groups > 1:
         return _pipeline_peak_bytes(cfg, plan, pol,
                                     global_batch=global_batch,
-                                    grad_comm=grad_comm)
+                                    grad_comm=grad_comm, group=group)
 
     resident = 0.0   # saved-for-backward residuals
     transient = 0.0  # the largest recompute / backward working set
@@ -184,9 +186,10 @@ def plan_peak_bytes(
 
 def _pipeline_peak_bytes(cfg: ConvNetConfig, plan,
                          pol: precision_lib.PrecisionPolicy, *,
-                         global_batch: int, grad_comm: str
-                         ) -> MemoryBreakdown:
-    """The peak of a pipelined plan: the largest over its groups, each
+                         global_batch: int, grad_comm: str,
+                         group: Optional[int] = None) -> MemoryBreakdown:
+    """The peak of a pipelined plan: the largest over its groups (or
+    group ``group``'s: a process of that group's), each
     charged its own layers and its parameters' share of the step state
     (``perf_model.group_param_counts``). A node's backward recomputes its
     segment from the node's saved input, so per micro-batch in flight a
@@ -247,6 +250,8 @@ def _pipeline_peak_bytes(cfg: ConvNetConfig, plan,
                 int(n_params), grad_comm=grad_comm,
                 data_degree=max(batch_div, 1))),
             activations=int(resident), workspace=int(transient + work_max))
+        if g == group:
+            return cand
         if best is None or cand.total > best.total:
             best = cand
     return best

@@ -36,17 +36,25 @@ boundary activation, or its cotangent on the way back, is no collective
 inside one mesh: ``cross_group`` hands shard j of one group's tensors to
 shard j of the next group (both shard only the batch, at one data
 degree), across two meshes and so two sets of streams, and counts
-``pipe.cross_group``.
+``pipe.cross_group``. Over processes (each group's shards processes of
+their own) a ``Courier`` carries them over the pipeline's links
+(``launch.mesh.PipelineWorld.links``): the producer queues a header and
+the tensor's bytes on its link, a receiver thread takes them in the
+producer's order, and the consumer's ``wait`` puts them on its stream.
 """
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, TypeVar
+import contextlib
+import threading
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, TypeVar)
 
 import torch
 
 from repro_torch.core import halo as halo_lib
 from repro_torch.core import spmd
 from repro_torch.core.tree import tree_map
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs import trace as trace_lib
 
 # dimension indices in NDHWC (batch is 0)
@@ -227,6 +235,116 @@ def cross_group(values: Sequence[torch.Tensor],
     return Handoff([spmd._mark(t) for t in values], dst)
 
 
+# ------------------------------- between pipeline groups over processes ----
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+           torch.int32, torch.int64)
+_HEADER = 12  # numbers: the slot, the node, the micro-batch, the dtype,
+#               the rank, up to 7 dims
+
+
+class ProcessHandoff:
+    """A tensor a ``Courier`` received for this shard: ``wait()``, on the
+    consumer's thread, returns it (a list of one, as ``Handoff``'s) on
+    the consumer's current stream."""
+
+    def __init__(self, staging, buf: torch.Tensor, like: torch.Tensor,
+                 event):
+        self._staging, self._buf, self._like = staging, buf, like
+        self._event = event
+
+    def wait(self) -> List[torch.Tensor]:
+        if self._event is not None:  # a recv on the receiver's stream
+            stream = torch.cuda.current_stream(self._buf.device)
+            stream.wait_event(self._event)
+            self._buf.record_stream(stream)
+        return spmd._unpack(self._staging, self._buf, [self._like])
+
+
+class Courier:
+    """One step's hand-offs of this process's shard over its pipeline
+    links (``links[h]``: a ``dist.Link`` to shard j of group h, this
+    shard being shard j of its group; ``device`` this shard's).
+
+    ``send(h, key, t)`` hands ``t`` to group h's shard j: a header (the
+    ``key`` — slot, node, micro-batch — and ``t``'s dtype and shape),
+    then ``t``'s bytes, both queued on the link's outgoing backend in
+    this process's dispatch order, nothing waited for (a CUDA tensor
+    under gloo is first copied into pinned host memory, after its
+    stream). ``receive(h, count, deliver)`` starts a thread that takes
+    ``count`` hand-offs from group h in the order its sender queued
+    them and calls ``deliver(key, ProcessHandoff)`` for each; a failure
+    there is ``deliver``'d as the exception. ``close()`` waits for every
+    send and receiver."""
+
+    def __init__(self, links: Dict[int, Any], device: torch.device):
+        self._links, self._device = links, device
+        self._sent: List[Tuple[Any, torch.Tensor]] = []
+        self._threads: List[threading.Thread] = []
+        self._errors: List[BaseException] = []
+
+    def _staging(self, h: int):
+        return mesh_lib.Staging.of(self._device, self._links[h].backend)
+
+    def send(self, h: int, key: Tuple[int, int, int],
+             t: torch.Tensor) -> None:
+        trace_lib.count("pipe.cross_group")
+        link, staging = self._links[h], self._staging(h)
+        if t.dim() > _HEADER - 5:
+            raise ValueError(f"a hand-off of rank {t.dim()} > {_HEADER - 5}")
+        shape = list(t.shape) + [0] * (_HEADER - 5 - t.dim())
+        head = spmd._pack(staging, [*key, _DTYPES.index(t.dtype), t.dim(),
+                                    *shape])
+        body = spmd._pack(staging, [t])
+        for buf in (head, body):
+            self._sent.append((link.send(buf), buf))
+
+    def receive(self, h: int, count: int,
+                deliver: Callable[[Any, Any], None]) -> None:
+        if not count:
+            return
+        link, staging = self._links[h], self._staging(h)
+
+        def main():
+            try:
+                with (torch.cuda.device(self._device)
+                      if self._device.type == "cuda"
+                      else contextlib.nullcontext()):
+                    for _ in range(count):
+                        head = spmd._wire_buffer(staging,
+                                                 _HEADER * spmd._ALIGN)
+                        link.recv(head).wait()
+                        got = spmd._unpack(staging, head, [0] * _HEADER)
+                        like = torch.empty(got[5:5 + got[4]],
+                                           dtype=_DTYPES[got[3]],
+                                           device="meta")
+                        body = spmd._wire_buffer(staging, spmd._nbytes(like))
+                        link.recv(body).wait()
+                        event = None
+                        if body.device.type == "cuda":
+                            event = torch.cuda.Event()
+                            event.record()
+                        deliver(tuple(got[:3]), ProcessHandoff(
+                            staging, body, like, event))
+            except BaseException as e:  # noqa: BLE001 — the consumer raises
+                self._errors.append(e)
+                deliver(None, e)
+
+        th = threading.Thread(target=main, name=f"pipe-recv-{h}",
+                              daemon=True)
+        th.start()
+        self._threads.append(th)
+
+    def close(self) -> None:
+        for work, _ in self._sent:
+            work.wait()
+        self._sent = []
+        for th in self._threads:
+            th.join()
+        self._threads = []
+        if self._errors:
+            raise self._errors[0]
+
+
 def to_group(tree: Any, device: torch.device) -> Any:
     """A tree of tensors (a group's parameters or optimizer state) on the
     group's ``device``; leaves already there are kept as they are."""
@@ -234,7 +352,8 @@ def to_group(tree: Any, device: torch.device) -> Any:
                     tree)
 
 
-__all__ = ["GroupShard", "Handoff", "apply", "batch_to_spatial",
+__all__ = ["Courier", "GroupShard", "Handoff", "ProcessHandoff", "apply",
+           "batch_to_spatial",
            "cross_group", "group_sharding", "replicated_to_spatial",
            "shard_batch", "spatial_to_batch", "spatial_to_batch_oracle",
            "spatial_to_replicated", "to_group"]

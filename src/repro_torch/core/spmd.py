@@ -103,8 +103,13 @@ is a node of the received buffer too (``Group.slab``).
 With gloo a CUDA tensor is copied into a pinned host buffer after an
 event on its stream, and what arrives is copied back onto the reader's
 stream; with NCCL (every shard a card of its own) tensors go as they
-are. ``checkpoint`` over processes raises: rematerialization there
-comes with a later slice (ROADMAP).
+are. ``checkpoint`` over processes is one autograd node of this
+rank's block: its backward re-runs the block through ``run`` in the
+autograd engine's thread, where the re-run's halo exchanges and
+statistics sums meet the peers' re-runs, then takes one nested
+``autograd.grad``; every rank builds the same graph, so every rank meets
+its recompute at the same point of its backward (``ProcessMesh.log``
+records ``checkpoint`` and ``recompute`` among the collectives).
 """
 from __future__ import annotations
 
@@ -114,6 +119,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core import tree as tree_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs import trace as trace_lib
 
@@ -423,6 +429,7 @@ class _Recompute(torch.autograd.Function):
                     t.record_stream(stream)
             return plan.fn(*args)
 
+        _log_block(plan.mesh, "recompute", ins)
         with torch.enable_grad():
             if plan.mesh is None:
                 outs = [plan.fn(*shards[0])]
@@ -439,6 +446,14 @@ class _Recompute(torch.autograd.Function):
                 g.record_stream(torch.cuda.current_stream(g.device))
             out.append(g)
         return (None,) + tuple(out)
+
+
+def _log_block(mesh, kind: str, tensors: Sequence[torch.Tensor]) -> None:
+    """A rematerialized block's forward or recompute in a process mesh's
+    log, beside its collectives."""
+    if _over_processes(mesh):
+        mesh.log.append((kind, mesh.axis_names,
+                         tuple(tuple(t.shape) for t in tensors)))
 
 
 class _CheckpointPlan:
@@ -465,15 +480,13 @@ def checkpoint(fn: Callable[..., torch.Tensor],
     if not all(isinstance(t, torch.Tensor) for t in args):
         raise TypeError("checkpoint takes tensor arguments only")
     shard = getattr(_LOCAL, "shard", None)
-    if shard is not None and isinstance(shard.run, _ProcRun):
-        raise NotImplementedError(
-            "rematerialization over processes comes with ROADMAP §1 item "
-            "1.1 (ZeRO-1, remat and pipeline groups over processes)")
     with torch.no_grad():
         out = fn(*args)
     needs = [t.requires_grad for t in args]
-    if shard is None or shard.run.mesh.size == 1:
+    if (shard is None or shard.run.mesh.size == 1
+            or isinstance(shard.run, _ProcRun)):
         mesh = None if shard is None else shard.run.mesh
+        _log_block(mesh, "checkpoint", args)
         plan = _CheckpointPlan(mesh, fn, len(args), needs, [out],
                                [_mark(out)[1]])
         return _Recompute.apply(plan, *args)[0]
@@ -724,28 +737,22 @@ def _nbytes(p) -> int:
     return -(-n // _ALIGN) * _ALIGN
 
 
-def _staged(mesh) -> bool:
-    """Whether this rank's tensors cross through pinned host buffers: a
-    CUDA shard under gloo."""
-    return (mesh.devices[mesh.rank].type == "cuda"
-            and mesh.transport == "gloo")
-
-
-def _wire_buffer(mesh, nbytes: int) -> torch.Tensor:
-    device = mesh.devices[mesh.rank]
-    staged = _staged(mesh)
+def _wire_buffer(staging: mesh_lib.Staging, nbytes: int) -> torch.Tensor:
+    """A byte buffer of ``nbytes`` for the transport: pinned host memory
+    where ``staging`` pins, else on its device."""
     return torch.empty(max(nbytes, _ALIGN), dtype=torch.uint8,
-                       device="cpu" if staged else device,
-                       pin_memory=staged)
+                       device="cpu" if staging.pinned else staging.device,
+                       pin_memory=staging.pinned)
 
 
-def _pack(mesh, parts: Sequence[Any]) -> torch.Tensor:
+def _pack(staging: mesh_lib.Staging, parts: Sequence[Any]) -> torch.Tensor:
     """``parts`` (tensors on this rank's device, or Python numbers, as 8
-    bytes) in one byte buffer of the transport's: pinned host memory,
-    filled after an event on the current stream, where a CUDA tensor
-    crosses gloo; else this rank's device."""
-    buf = _wire_buffer(mesh, sum(_nbytes(p) for p in parts))
-    staged = _staged(mesh)
+    bytes) in one byte buffer of the transport's (``staging``, a mesh's
+    or a link's): pinned host memory, filled after an event on the
+    current stream, where a CUDA tensor crosses gloo; else this rank's
+    device."""
+    buf = _wire_buffer(staging, sum(_nbytes(p) for p in parts))
+    staged = staging.pinned
     off = 0
     for p in parts:
         if isinstance(p, torch.Tensor):
@@ -759,16 +766,18 @@ def _pack(mesh, parts: Sequence[Any]) -> torch.Tensor:
         off += _nbytes(p)
     if staged:
         ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(mesh.devices[mesh.rank]))
+        ev.record(torch.cuda.current_stream(staging.device))
         ev.synchronize()
     return buf
 
 
-def _unpack(mesh, buf: torch.Tensor, like: Sequence[Any]) -> List[Any]:
+def _unpack(staging: mesh_lib.Staging, buf: torch.Tensor,
+            like: Sequence[Any]) -> List[Any]:
     """The parts of a buffer ``_pack`` made from parts shaped as
-    ``like``: tensors on this rank's device (one copy onto its current
-    stream from a host buffer), numbers as Python numbers."""
-    device = mesh.devices[mesh.rank]
+    ``like`` (tensors, possibly on the meta device, or numbers): tensors
+    on ``staging``'s device (one copy onto its current stream from a
+    host buffer), numbers as Python numbers."""
+    device = staging.device
     on_device = buf
     if buf.device != device and any(isinstance(p, torch.Tensor)
                                     for p in like):
@@ -795,7 +804,8 @@ def _gather_start(mesh, axes: Sequence[str], parts: Sequence[Any]
     ``axes`` (its own among them): one all-gather of one buffer, queued
     on the group's backend. The function returned waits for it and
     gives the members' parts in rank order."""
-    buf = _pack(mesh, parts)
+    staging = mesh.staging
+    buf = _pack(staging, parts)
     outs = [torch.empty(buf.shape, dtype=buf.dtype, device=buf.device,
                         pin_memory=buf.is_pinned())
             for _ in mesh.group(mesh.rank, axes)]
@@ -803,7 +813,7 @@ def _gather_start(mesh, axes: Sequence[str], parts: Sequence[Any]
 
     def finish() -> List[List[Any]]:
         work.wait()
-        return [_unpack(mesh, o, parts) for o in outs]
+        return [_unpack(staging, o, parts) for o in outs]
 
     return finish
 
@@ -1100,17 +1110,32 @@ def all_shards(mesh, outs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [row[0] for row in group._gather("all_shards", list(outs))]
 
 
+def all_shard_trees(mesh, trees: Sequence[Any]) -> List[Any]:
+    """``all_shards`` of per-shard trees of tensors (``core/tree.py``; one
+    structure and shapes on every rank): every shard's tree, in rank
+    order, over processes each rank's gathered in one exchange."""
+    if not _over_processes(mesh) or mesh.size == 1:
+        return list(trees)
+    (tree,) = trees
+    group = _ProcGroup(mesh, mesh.axis_names)
+    return [tree_lib.unflatten(tree, row) for row in group._gather(
+        "all_shards", tree_lib.leaves(tree))]
+
+
 def from_rank0(mesh, tensors: Sequence[torch.Tensor]
                ) -> Tuple[List[torch.Tensor], bool]:
-    """Rank 0's ``tensors`` on every rank of a process mesh (one
-    broadcast over its transport), and whether this rank's own were the
-    same bits. An in-process mesh's are its own."""
-    if not _over_processes(mesh) or mesh.size == 1:
+    """Rank 0's ``tensors`` on every rank of a process mesh, or of a
+    pipeline's world (``launch.mesh.PipelineWorld``): one broadcast over
+    its transport; and whether this rank's own were the same bits. An
+    in-process mesh's are its own."""
+    if isinstance(mesh, mesh_lib.Mesh) and (not _over_processes(mesh)
+                                            or mesh.size == 1):
         return list(tensors), True
-    buf = _pack(mesh, tensors)
+    buf = _pack(mesh.staging, tensors)
     mine = buf.clone()
     mesh.wire.broadcast(buf, 0)
-    return _unpack(mesh, buf, tensors), bool(torch.equal(buf, mine))
+    return (_unpack(mesh.staging, buf, tensors),
+            bool(torch.equal(buf, mine)))
 
 
 def _over_processes(mesh) -> bool:
@@ -1183,6 +1208,14 @@ def _as_shard(run: _Run, rank: int, grad: bool, inference: bool):
             _LOCAL.shard = None
 
 
+def same_threads(n: int) -> None:
+    """Give this thread the caller's ``n`` intra-op threads. PyTorch sets
+    MKL's thread count per thread, so a fresh thread would run its
+    matrix products on every core and round them differently from the
+    caller (and from one process a shard, which runs in its caller)."""
+    torch.set_num_threads(n)
+
+
 def run(mesh, fn: Callable, *per_shard_args: Sequence[Any]) -> List[Any]:
     """``[fn(*args of shard r) for r in shards]``, one thread per shard,
     the shards taking turns between collectives; ``per_shard_args`` are
@@ -1209,6 +1242,7 @@ def run(mesh, fn: Callable, *per_shard_args: Sequence[Any]) -> List[Any]:
             _LOCAL.shard = outer
     results: List[Any] = [None] * mesh.size
     errors: List[Optional[BaseException]] = [None] * mesh.size
+    threads_n = torch.get_num_threads()
     with mesh.lock:
         run_ = _Run(mesh)
         cuda_devs = {d for d in mesh.devices if d.type == "cuda"}
@@ -1219,6 +1253,7 @@ def run(mesh, fn: Callable, *per_shard_args: Sequence[Any]) -> List[Any]:
 
         def shard_main(r: int) -> None:
             try:
+                same_threads(threads_n)
                 run_.wait_turn(r)
                 with _as_shard(run_, r, grad, inference):
                     results[r] = fn(*(a[r] for a in per_shard_args))
@@ -1259,5 +1294,6 @@ def _run_process(mesh, fn: Callable, per_shard_args) -> List[Any]:
         _LOCAL.shard = outer
 
 
-__all__ = ["Group", "Received", "ShardAborted", "all_shards", "axis",
+__all__ = ["Group", "Received", "ShardAborted", "all_shard_trees",
+           "all_shards", "axis",
            "check_mesh", "checkpoint", "current_mesh", "from_rank0", "run"]

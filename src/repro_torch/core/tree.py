@@ -11,7 +11,7 @@ files.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Sequence, Tuple
 
 
 def _is_namedtuple(node: Any) -> bool:
@@ -57,6 +57,24 @@ def leaves(tree: Any) -> List[Any]:
     return [leaf for _, leaf in key_paths(tree)]
 
 
+def unflatten(template: Any, values: Sequence[Any]) -> Any:
+    """``template``'s structure with ``values`` for its leaves, taken in
+    ``leaves`` order (the inverse of ``leaves``)."""
+    it = iter(values)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*(walk(getattr(node, f))
+                                for f in node._fields))
+        if isinstance(node, tuple):
+            return tuple(walk(t) for t in node)
+        return None if node is None else next(it)
+
+    return walk(template)
+
+
 def structure(tree: Any) -> Any:
     """``tree``'s nodes without its leaves (the counterpart of a
     ``jax`` treedef): two trees compare equal here when they have the
@@ -71,4 +89,4 @@ def structure(tree: Any) -> Any:
     return None if tree is None else "leaf"
 
 
-__all__ = ["tree_map", "key_paths", "leaves", "structure"]
+__all__ = ["tree_map", "key_paths", "leaves", "structure", "unflatten"]

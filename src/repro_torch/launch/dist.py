@@ -12,9 +12,13 @@ one process per shard, collectives through ``torch.distributed``.
 * ``world()`` is the ranks a compile places its mesh over: every rank,
   or the ranks ``sub_world`` names (a pool's workers serve meshes of
   several sizes from one world).
-* ``group(ranks, backend)`` makes a subgroup once, with only its members
-  taking part (its rendezvous keys in the world's store are named by its
-  ranks), and keeps it.
+* ``group(ranks, backend, tag)`` makes a subgroup once, with only its
+  members taking part (its rendezvous keys in the world's store are named
+  by its ranks, backend and tag), and keeps it.
+* ``Link(peer, backend)`` is the hand-off link between this process and
+  ``peer`` (a pipeline's shard j of two neighbouring groups): one
+  two-rank backend a direction, each carrying nothing else, so that a
+  send one way never waits behind a send the other way.
 * ``Pool`` starts ``n`` processes by the ``spawn`` start method (forking
   a process that has initialized CUDA breaks the child), each with one
   intra-op thread, joined in one world over ``init_method``, and runs
@@ -41,7 +45,7 @@ import torch
 import torch.distributed as dist
 
 _SUB_WORLD: Optional[Tuple[int, ...]] = None
-_GROUPS: Dict[Tuple[Tuple[int, ...], str], "Subgroup"] = {}
+_GROUPS: Dict[Tuple[Tuple[int, ...], str, str], "Subgroup"] = {}
 _STORE = None  # the world's store (``init``)
 _TIMEOUT = datetime.timedelta(seconds=600)
 
@@ -117,16 +121,18 @@ class Subgroup:
     """A ``torch.distributed`` backend over ``ranks`` (world ranks,
     ascending; this process among them), its collectives addressed by
     member index (``index`` is this process's). Its rendezvous keys are
-    named by its ranks and backend alone, so its members make it
-    whatever other groups each has made before."""
+    named by its ranks, backend and ``tag`` alone, so its members make it
+    whatever other groups each has made before, and two backends over
+    the same ranks differ by their tags."""
 
-    def __init__(self, ranks: Tuple[int, ...], backend: str):
+    def __init__(self, ranks: Tuple[int, ...], backend: str, tag: str = ""):
         store = _STORE
         if store is None:  # joined by the caller's own init_process_group
             store = dist.distributed_c10d._get_default_store()
         self.ranks = ranks
         self.index = ranks.index(dist.get_rank())
-        prefix = f"repro_torch/{backend}/" + "_".join(map(str, ranks))
+        prefix = (f"repro_torch/{backend}/" + "_".join(map(str, ranks))
+                  + (f"/{tag}" if tag else ""))
         store = dist.PrefixStore(prefix, store)
         if backend == "gloo":
             self._pg = dist.ProcessGroupGloo(store, self.index, len(ranks),
@@ -146,6 +152,16 @@ class Subgroup:
                    buf: torch.Tensor) -> None:
         """``outs[i]`` = member i's ``buf``."""
         self.all_gather_start(outs, buf).wait()
+
+    def send(self, buf: torch.Tensor, dst: int):
+        """Queue ``buf`` to member ``dst``: the work, which ``wait()``
+        completes (keep ``buf`` alive until then)."""
+        return self._pg.send([buf], dst, 0)
+
+    def recv(self, buf: torch.Tensor, src: int):
+        """Post ``buf`` for member ``src``'s next send: the work, which
+        ``wait()`` completes."""
+        return self._pg.recv([buf], src, 0)
 
     def broadcast(self, buf: torch.Tensor, root: int = 0) -> None:
         opts = dist.BroadcastOptions()
@@ -169,14 +185,40 @@ class Subgroup:
                 for o, k in zip(outs, sizes)]
 
 
-def group(ranks: Sequence[int], backend: str = "gloo") -> Subgroup:
-    """The subgroup of ``ranks`` over ``backend``, made at first use by
-    its members only and kept for the process's life."""
-    key = (tuple(ranks), backend)
+def group(ranks: Sequence[int], backend: str = "gloo",
+          tag: str = "") -> Subgroup:
+    """The subgroup of ``ranks`` over ``backend`` (``tag`` tells apart
+    two over the same ranks), made at first use by its members only and
+    kept for the process's life."""
+    key = (tuple(ranks), backend, tag)
     g = _GROUPS.get(key)
     if g is None:
-        g = _GROUPS[key] = Subgroup(key[0], backend)
+        g = _GROUPS[key] = Subgroup(key[0], backend, tag)
     return g
+
+
+class Link:
+    """The hand-off link between this process and world rank ``peer``
+    over ``backend``: ``send`` queues a buffer on this process's
+    outgoing backend, ``recv`` posts one on the peer's, two two-rank
+    backends that carry nothing else (tagged by direction, made by both
+    ranks in one order: the lower rank's direction first). Each
+    direction delivers in the order its sender queued."""
+
+    def __init__(self, peer: int, backend: str):
+        me = dist.get_rank()
+        pair = tuple(sorted((me, peer)))
+        ways = {(a, b): group(pair, backend, tag=f"{a}>{b}")
+                for a, b in (pair, pair[::-1])}
+        self.peer, self.backend = peer, backend
+        self._out, self._in = ways[(me, peer)], ways[(peer, me)]
+        self._at = pair.index(peer)
+
+    def send(self, buf: torch.Tensor):
+        return self._out.send(buf, self._at)
+
+    def recv(self, buf: torch.Tensor):
+        return self._in.recv(buf, self._at)
 
 
 # ------------------------------------------------------------ pools ----
@@ -324,7 +366,8 @@ def spawn(fn: Callable, world_size: int, init_method: str, *args,
         return pool.run(fn, *args)
 
 
-__all__ = ["Pool", "PoolError", "Subgroup", "env_world_size", "group",
+__all__ = ["Link", "Pool", "PoolError", "Subgroup", "env_world_size",
+           "group",
            "init",
            "initialized", "local_rank", "spawn", "sub_world", "wanted",
            "world"]

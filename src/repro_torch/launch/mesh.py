@@ -21,6 +21,13 @@ where every rank's device is a CUDA card of its own, gloo otherwise
 (NCCL refuses two ranks on one card), with CUDA tensors staged through
 pinned host buffers by ``core/spmd.py``. Nothing falls back from one
 transport to the other.
+
+A pipeline over processes (``make_pipeline_meshes(..., processes=True)``)
+cuts the world into P disjoint, equal slices of ranks, one a group: this
+process's group is a ``ProcessMesh`` over its slice, each other group a
+``PeerGroup`` (its axes, devices and ranks, run by other processes), and
+the groups share a ``PipelineWorld``: the world's gloo backend and this
+process's hand-off links to shard j of the neighbouring groups.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ import itertools
 import math
 import socket
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -168,13 +175,27 @@ class Mesh:
                 f"{[str(d) for d in self.devices]})")
 
 
+class Staging(NamedTuple):
+    """Where this process's tensors cross a transport: its device, and
+    whether a CUDA tensor goes through pinned host buffers (a card under
+    gloo)."""
+
+    device: torch.device
+    pinned: bool
+
+    @classmethod
+    def of(cls, device: torch.device, transport: str) -> "Staging":
+        return cls(device, device.type == "cuda" and transport == "gloo")
+
+
 def placement_transport(hosts: Sequence[str],
                         devices: Sequence[torch.device]) -> str:
-    """``"nccl"`` where every rank's device is a CUDA card of its own
-    (distinct (host, device) pairs), else ``"gloo"``."""
+    """``"nccl"`` where two or more ranks each have a CUDA card of their
+    own (distinct (host, device) pairs), else ``"gloo"`` (a mesh of one
+    rank exchanges nothing: a pipeline group of one shard)."""
     cards = [(h, str(d)) for h, d in zip(hosts, devices)]
-    if all(d.type == "cuda" for d in devices) and len(set(cards)) == len(
-            cards):
+    if (len(cards) > 1 and all(d.type == "cuda" for d in devices)
+            and len(set(cards)) == len(cards)):
         return "nccl"
     return "gloo"
 
@@ -238,6 +259,8 @@ class ProcessMesh(Mesh):
         # the order of this rank's collectives (kind, axes), most recent
         # last: every rank must issue the same sequence
         self.log: collections.deque = collections.deque(maxlen=1 << 16)
+        # a pipeline group's ``PipelineWorld`` (``make_pipeline_meshes``)
+        self.pipeline: Optional[PipelineWorld] = None
 
     @property
     def local_ranks(self) -> Tuple[int, ...]:
@@ -248,6 +271,10 @@ class ProcessMesh(Mesh):
         ``axes`` (in the mesh's axis order)."""
         return self._subgroups[tuple(a for a in self.axis_names
                                      if a in axes)]
+
+    @property
+    def staging(self) -> Staging:
+        return Staging.of(self.devices[self.rank], self.transport)
 
     def barrier(self) -> None:
         self.world.barrier()
@@ -267,22 +294,107 @@ def make_plan_mesh(plan, devices: Sequence[DeviceLike]) -> Mesh:
     return Mesh(plan.mesh_axes, devices)
 
 
-def make_pipeline_meshes(plan, devices: Sequence[DeviceLike]
+class PeerGroup(Mesh):
+    """A pipeline group whose shards are other processes: its axes, its
+    shards' devices and world ``ranks`` (what a hand-off to it needs);
+    this process runs none of its shards."""
+
+    def __init__(self, axes: Sequence[Tuple[str, int]],
+                 devices: Sequence[DeviceLike], ranks: Sequence[int]):
+        super().__init__(axes, devices)
+        self.ranks: Tuple[int, ...] = tuple(ranks)
+
+    @property
+    def local_ranks(self) -> Tuple[int, ...]:
+        return ()
+
+
+class PipelineWorld:
+    """What the groups of a pipeline over processes share: ``ranks``
+    (every group's world ranks, group after group, ``d`` a group), this
+    process's ``group`` and ``rank`` (its index over ``ranks``), ``wire``
+    (the world's gloo backend: barriers, the step's loss and guard
+    flags, gathers onto every rank, the initial parameters' broadcast)
+    and ``links[h]``, this process's ``dist.Link`` to shard ``rank % d``
+    of group h = group +- 1."""
+
+    def __init__(self, ranks: Tuple[int, ...], group: int, rank: int,
+                 d: int, wire, links: Dict[int, object],
+                 device: torch.device):
+        self.ranks, self.group, self.rank, self.d = ranks, group, rank, d
+        self.wire, self.links, self.device = wire, links, device
+
+    @property
+    def staging(self) -> Staging:
+        return Staging.of(self.device, "gloo")
+
+    def barrier(self) -> None:
+        self.wire.barrier()
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's picklable ``obj``, in rank order."""
+        return self.wire.gather_objects(obj)
+
+
+def make_pipeline_meshes(plan, devices: Optional[Sequence[DeviceLike]], *,
+                         processes: bool = False,
+                         local_device: DeviceLike = None
                          ) -> Tuple[Mesh, ...]:
     """One mesh per pipeline group: group g takes ``devices[g*d:(g+1)*d]``
     (d the product of the plan's degrees), disjoint equal slices in
     order, so group 0 has the devices ``make_plan_mesh`` gives. On one
     card the list is P*d entries of it (``mesh_devices``), and each
-    group's shards still get streams of their own."""
+    group's shards still get streams of their own.
+
+    ``processes=True``: over the world of processes (``dist.world()``,
+    P*d ranks, ``devices`` every rank's or None: each rank's
+    ``local_device``): group g is ranks ``[g*d, (g+1)*d)``, this
+    process's group a ``ProcessMesh`` carrying the ``PipelineWorld`` as
+    ``.pipeline``, every other a ``PeerGroup``. Made in one order on
+    every rank: the world's backend, then each group's mesh by its
+    members, then each link by its pair, the lower group's first."""
     d = math.prod(n for _, n in plan.mesh_axes)
-    if plan.n_groups * d > len(devices):
+    if not processes:
+        if plan.n_groups * d > len(devices):
+            raise ValueError(
+                f"plan {plan.name!r} needs {plan.n_groups} groups x {d} "
+                f"devices but {len(devices)} were given")
+        return tuple(Mesh(plan.mesh_axes, devices[g * d:(g + 1) * d])
+                     for g in range(plan.n_groups))
+    import torch.distributed as dist
+
+    from repro_torch.launch import dist as dist_lib
+
+    ranks = dist_lib.world()
+    if plan.n_groups * d != len(ranks):
         raise ValueError(
-            f"plan {plan.name!r} needs {plan.n_groups} groups x {d} "
-            f"devices but {len(devices)} were given")
-    return tuple(Mesh(plan.mesh_axes, devices[g * d:(g + 1) * d])
-                 for g in range(plan.n_groups))
+            f"plan {plan.name!r} has {plan.n_groups} groups x {d} shards "
+            f"but the world has {len(ranks)} processes: pipeline x data x "
+            f"spatial must equal the world size")
+    me = ranks.index(dist.get_rank())
+    g = me // d
+    wire = dist_lib.group(ranks, "gloo")
+    mine = torch.device(local_device if devices is None else devices[me])
+    table = wire.gather_objects((socket.gethostname(), str(mine)))
+    placed = [torch.device(dev) for _, dev in table]
+    meshes = []
+    for h in range(plan.n_groups):
+        part = slice(h * d, (h + 1) * d)
+        meshes.append(ProcessMesh(plan.mesh_axes, placed[part],
+                                  ranks=ranks[part]) if h == g
+                      else PeerGroup(plan.mesh_axes, placed[part],
+                                     ranks[part]))
+    links = {}
+    for h in (g - 1, g + 1):
+        if 0 <= h < plan.n_groups:
+            peer = h * d + me % d
+            links[h] = dist_lib.Link(ranks[peer], placement_transport(
+                [table[me][0], table[peer][0]], [placed[me], placed[peer]]))
+    meshes[g].pipeline = PipelineWorld(ranks, g, me, d, wire, links,
+                                       placed[me])
+    return tuple(meshes)
 
 
-__all__ = ["DeviceLike", "Mesh", "ProcessMesh", "make_pipeline_meshes",
-           "make_plan_mesh", "mesh_devices", "placement_transport",
-           "resolve_device"]
+__all__ = ["DeviceLike", "Mesh", "PeerGroup", "PipelineWorld", "ProcessMesh",
+           "Staging", "make_pipeline_meshes", "make_plan_mesh",
+           "mesh_devices", "placement_transport", "resolve_device"]

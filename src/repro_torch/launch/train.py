@@ -12,11 +12,21 @@ loader.
         --model 2 --device cuda:0          # both shards on one card
     torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch cosmoflow-128 --full-config --model 2   # a process a shard
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch cosmoflow-128 --full-config --data 2 --model 2 \\
+        --grad-comm reduce_scatter --device cuda:0     # ZeRO-1
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch cosmoflow-128 --full-config --data 4 --pipeline 2 \\
+        --micro-batches 2 --device cuda:0              # two groups of 2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch cosmoflow-128 --full-config --model 2 --remat
 
 Under ``torchrun`` each process is one shard of a process mesh
-(``launch.mesh.ProcessMesh``) and every rank trains on the same seeded
+(``launch.mesh.ProcessMesh``; with ``--pipeline P`` one of P groups'
+meshes, ``--data`` the total) and every rank trains on the same seeded
 synthetic global batches (the loader over processes comes later); rank
-0 prints.
+0 prints. A pipelined run trains without a gradient clip (the clip
+needs the norm across groups).
 
 A language model's ``--arch`` raises: LM training comes with the LM
 slice of the port.
@@ -24,6 +34,7 @@ slice of the port.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -41,8 +52,13 @@ def train_convnet(args) -> None:
     config = RunConfig(
         model=args.arch, smoke=not args.full_config, data=args.data,
         spatial=args.model, global_batch=args.batch,
-        lr=1e-3, lr_schedule="linear_decay", grad_clip=1.0,
+        lr=1e-3, lr_schedule="linear_decay",
+        grad_clip=1.0 if args.pipeline == 1 else 0.0,
+        grad_comm=args.grad_comm, pipeline=args.pipeline,
+        micro_batches=args.micro_batches,
         total_steps=args.steps, checkpoint_dir=args.ckpt)
+    if args.remat:
+        config = _with_remat(config)
     where = placement(args, config.data * config.spatial)
     with api_compile(config, **where) as session:
         rank = getattr(session.mesh, "rank", 0)
@@ -61,6 +77,19 @@ def train_convnet(args) -> None:
         if args.ckpt:
             session.save()
             say("checkpoint ->", args.ckpt)
+
+
+def _with_remat(config):
+    """``config`` pinned to the fixed plan it resolves to, every stage of
+    it rematerialized."""
+    from repro_torch.api import session as session_lib
+
+    plan, _ = session_lib._resolve_plan(
+        config, config.resolve_model(), "overlap" if config.grad_comm ==
+        "auto" else config.grad_comm, config.data * config.spatial)
+    return dataclasses.replace(config, plan=dataclasses.replace(
+        plan, stages=tuple(dataclasses.replace(s, remat=True)
+                           for s in plan.stages)))
 
 
 def _batches(session, batch: int):
@@ -104,6 +133,17 @@ def main(argv=None):
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1,
                     help="model-parallel degree (conv nets: spatial)")
+    ap.add_argument("--grad-comm", default="auto",
+                    choices=("auto", "monolithic", "overlap",
+                             "reduce_scatter"),
+                    help="gradient-reduction lowering (reduce_scatter: "
+                         "ZeRO-1)")
+    ap.add_argument("--pipeline", type=int, default=1, metavar="P",
+                    help="pipeline groups (--data the total data degree)")
+    ap.add_argument("--micro-batches", type=int, default=4, metavar="M",
+                    help="micro-batches a step when --pipeline > 1")
+    ap.add_argument("--remat", action="store_true",
+                    help="rematerialize every stage of the plan")
     ap.add_argument("--full-config", action="store_true",
                     help="use the full (non-smoke) config")
     ap.add_argument("--ckpt", default=None)

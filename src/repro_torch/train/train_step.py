@@ -282,8 +282,7 @@ def flat_plan(plan: plan_lib.ParallelPlan) -> plan_lib.ParallelPlan:
 def _check_mesh(cfg: ConvNetConfig, mesh, plan,
                 grad_comm: Optional[str] = None) -> None:
     """``mesh`` is the plan's (a pipelined plan's: one group's), its
-    shards on one device, or one process a shard (``ProcessMesh``),
-    where ZeRO-1, remat and pipeline groups raise."""
+    shards on one device, or one process a shard (``ProcessMesh``)."""
     if cfg.arch not in ("cosmoflow", "unet3d"):
         raise NotImplementedError(f"no train step for arch {cfg.arch!r}")
     if mesh.shape != dict(plan.mesh_axes):
@@ -302,14 +301,16 @@ def _check_mesh(cfg: ConvNetConfig, mesh, plan,
 
 # what the process mesh does not run yet, and the ROADMAP §1 item that
 # brings it
-_ITEM_1 = "item 1.1 (ZeRO-1, remat and pipeline groups over processes)"
 _ITEM_2 = ("item 1.2 (the supervisor, the per-rank loader and the serving "
            "harness over processes)")
 PROCESS_ITEMS = {
-    "zero1": _ITEM_1, "remat": _ITEM_1, "pipeline": _ITEM_1,
     "supervisor": _ITEM_2, "loader": _ITEM_2, "harness": _ITEM_2,
     "auto": "item 1.3 (plan=\"auto\" and memory budgets over processes)",
 }
+# ZeRO-1 and pipeline groups do not compose, in a process or over several
+ZERO1_PIPELINE = ("grad_comm='reduce_scatter' does not compose with pipeline "
+                  "groups (ZeRO-1 shards the full tree over one mesh); use "
+                  "'overlap' or 'monolithic'")
 
 
 def not_over_processes(what: str, feature: str) -> NotImplementedError:
@@ -321,16 +322,11 @@ def not_over_processes(what: str, feature: str) -> NotImplementedError:
 
 def check_process_plan(plan: plan_lib.ParallelPlan,
                        grad_comm: Optional[str] = None) -> None:
-    """Raise for what a process mesh does not train yet: pipeline
-    groups, rematerialized stages, ZeRO-1."""
-    if plan.n_groups > 1:
-        raise not_over_processes("pipeline groups", "pipeline")
-    if any(st.remat for st in plan.stages):
-        raise not_over_processes("rematerialization", "remat")
-    if grad_comm is not None and grad_comm_lib.resolve(
-            grad_comm) == "reduce_scatter":
-        raise not_over_processes("ZeRO-1 (grad_comm='reduce_scatter')",
-                                 "zero1")
+    """Raise for what a process mesh does not train: ZeRO-1 with
+    pipeline groups (``ValueError``, as in one process)."""
+    if (plan.n_groups > 1 and grad_comm is not None
+            and grad_comm_lib.resolve(grad_comm) == "reduce_scatter"):
+        raise ValueError(ZERO1_PIPELINE)
 
 
 def convnet_grad_plan(cfg: ConvNetConfig) -> grad_comm_lib.Plan:
@@ -360,7 +356,8 @@ def make_convnet_opt_state(cfg: ConvNetConfig, optimizer, params, *,
     each its data index's 1/N of the padded flat buckets
     (``grad_comm.local_opt_state`` of ``init_sharded_opt_state`` over
     ``convnet_grad_plan``; N the data degree), its step count and loss
-    scale replicated."""
+    scale replicated. Over processes (``ProcessMesh``) the list holds
+    this rank's state alone (its ``local_ranks``)."""
     mode = grad_comm_lib.resolve(grad_comm)
     if precision is None and plan is not None:
         precision = plan.precision
@@ -378,7 +375,7 @@ def make_convnet_opt_state(cfg: ConvNetConfig, optimizer, params, *,
         optimizer, buckets, num_shards=n, device=device)
     return [grad_comm_lib.local_opt_state(
         whole, buckets, batch_slice(mesh, r, plan.stages[0])[0], n)
-        for r in range(mesh.size)]
+        for r in mesh.local_ranks]
 
 
 def _build_convnet_step(cfg: ConvNetConfig, mesh, optimizer, *,
@@ -593,15 +590,29 @@ def make_convnet_eval_step(cfg: ConvNetConfig, mesh, *, global_batch: int,
 
 
 # ------------------------------------------------- pipeline groups ----
+def pipeline_group_names(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan
+                         ) -> Tuple[Tuple[str, ...], ...]:
+    """The names of the parameters each pipeline group owns: group g
+    those its layers ``plan.group_layer_ranges()[g]`` use
+    (``segment_param_names``), disjoint sets covering the model."""
+    seg = for_config(cfg).segment_param_names
+    return tuple(tuple(seg(cfg, a, b)) for a, b in plan.group_layer_ranges())
+
+
 def pipeline_group_params(cfg: ConvNetConfig, plan: plan_lib.ParallelPlan,
                           params: Mapping[str, torch.Tensor]
                           ) -> Tuple[Params, ...]:
-    """The parameters each pipeline group owns: group g those its layers
-    ``plan.group_layer_ranges()[g]`` use (``segment_param_names``),
+    """The parameters each pipeline group owns (``pipeline_group_names``),
     disjoint subsets whose union is ``params``."""
-    seg = for_config(cfg).segment_param_names
-    return tuple({k: params[k] for k in seg(cfg, a, b)}
-                 for a, b in plan.group_layer_ranges())
+    return tuple({k: params[k] for k in names}
+                 for names in pipeline_group_names(cfg, plan))
+
+
+def local_groups(meshes) -> Tuple[int, ...]:
+    """The pipeline groups this process runs: every group in one
+    process; over processes its own (``launch.mesh.PeerGroup``s run
+    elsewhere)."""
+    return tuple(g for g, m in enumerate(meshes) if m.local_ranks)
 
 
 def make_pipeline_opt_state(cfg: ConvNetConfig, optimizer, params, *,
@@ -609,18 +620,27 @@ def make_pipeline_opt_state(cfg: ConvNetConfig, optimizer, params, *,
                             precision=None) -> Tuple[Any, ...]:
     """The state of ``make_pipeline_train_step``: one optimizer state a
     group, over the group's parameters, each on its group's device when
-    ``meshes`` are given. fp16 raises, as the step does."""
+    ``meshes`` are given; over processes (``make_pipeline_meshes(...,
+    processes=True)``) None for every group but this process's, whose
+    parameters ``params`` must hold. fp16 raises, as the step does."""
     policy = precision_lib.get(
         precision if precision is not None else plan.precision)
     if policy.uses_scaling:
         raise ValueError("fp16 loss scaling is not supported under "
                          "pipeline groups; use fp32 or bf16")
     optimizer = precision_lib.wrap_optimizer(optimizer, policy)
-    groups = pipeline_group_params(cfg, plan, params)
-    if meshes is not None:
-        groups = tuple(reshard.to_group(g, m.devices[0])
-                       for g, m in zip(groups, meshes))
-    return tuple(optimizer.init(g) for g in groups)
+    names = pipeline_group_names(cfg, plan)
+    mine = range(len(names)) if meshes is None else local_groups(meshes)
+    out = []
+    for g, ns in enumerate(names):
+        if g not in mine:
+            out.append(None)
+            continue
+        pg = {k: params[k] for k in ns}
+        if meshes is not None:
+            pg = reshard.to_group(pg, meshes[g].home)
+        out.append(optimizer.init(pg))
+    return tuple(out)
 
 
 def _schedule_order(K: int, M: int, schedule: str):
@@ -799,15 +819,26 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
     losses and gradients sum to the whole batch's; dropout masks are
     drawn for the global row ids (``m * micro-batch`` + the shard's
     offset); batch-norm statistics span one micro-batch. fp16 and
-    ``grad_clip`` raise. The two schedules are bitwise equal."""
+    ``grad_clip`` raise. The two schedules are bitwise equal.
+
+    Over processes (``make_pipeline_meshes(..., processes=True)``: this
+    process a shard of one group's ``ProcessMesh``, the others
+    ``PeerGroup``s) the process walks its own group's ops alone, on its
+    one shard: ``params`` and ``opt_states`` hold its group's (the
+    others' states None) and so does the step's result. A hand-off to
+    another group goes over the ``PipelineWorld``'s link to the same
+    shard index there (``reshard.Courier``: queued, never waited for
+    inside a node; a receiver thread a link fills the slots); ``SYNC``
+    is a barrier over the world after the group's stream has drained;
+    the loss group's shards gather their losses; and the loss, every
+    group's guard flag (and the ``grad_comm`` probe's merged tree, the
+    ``bwd`` probe's sums) reach every rank from each group's shard 0.
+    The values are the in-process step's, to the bit."""
     if stage not in STAGES:
         raise ValueError(f"stage={stage!r}; expected one of {STAGES}")
     mode = grad_comm_lib.resolve(grad_comm)
     if mode == "reduce_scatter":
-        raise ValueError(
-            "grad_comm='reduce_scatter' does not compose with pipeline "
-            "groups (ZeRO-1 shards the full tree over one mesh); use "
-            "'overlap' or 'monolithic'")
+        raise ValueError(ZERO1_PIPELINE)
     spec, n_grp = plan.pipeline, plan.n_groups
     if spec is None or n_grp < 2:
         raise ValueError(f"plan {plan.name!r} has no pipeline axis; use "
@@ -815,8 +846,11 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
     if len(meshes) != n_grp:
         raise ValueError(f"plan {plan.name!r} has {n_grp} groups but "
                          f"{len(meshes)} meshes were given")
-    for mesh in meshes:
-        _check_mesh(cfg, mesh, plan, mode)
+    world = next((m.pipeline for m in meshes
+                  if getattr(m, "pipeline", None) is not None), None)
+    mine = local_groups(meshes)
+    for g in mine:
+        _check_mesh(cfg, meshes[g], plan, mode)
     policy = precision_lib.get(
         precision if precision is not None else plan.precision)
     if policy.uses_scaling:
@@ -843,6 +877,7 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
     gx = axes if hooks and mode == "overlap" else ()
     reduce_after = hooks and mode == "monolithic"
     ranges = plan.group_layer_ranges()
+    group_names = pipeline_group_names(cfg, plan)
     layouts = [reshard.group_sharding(m, entry.batch_axes) for m in meshes]
     kw = dict(bn_axes=axes, precision=policy, overlap=overlap)
 
@@ -916,12 +951,27 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
         for g in (range(n_grp) if op[0] == "SYNC"
                   else (nodes[op[1]].group,)):
             group_ops[g].append(op)
+
+    def dest(op: str, k: int) -> Optional[int]:
+        """The node to which ``op`` on node k hands a value (None:
+        none)."""
+        if op == "F":
+            return None if nodes[k].is_loss else k + 1
+        if op in ("FB", "B") and k > 0:
+            return k - 1
+        return None
+
+    # over processes: the hand-offs each neighbouring group sends this
+    # one a step (shard j to shard j), in that group's dispatch order
+    incoming = {} if world is None else {h: sum(
+        1 for op, k, _ in group_ops[h] if dest(op, k) is not None
+        and nodes[dest(op, k)].group == world.group) for h in world.links}
     optimizer = precision_lib.wrap_optimizer(optimizer, policy)
     streams: Dict[int, Any] = {}
 
     def group_stream(g: int):
         """Group g's dispatcher stream on a card (None on the CPU)."""
-        device = meshes[g].devices[0]
+        device = meshes[g].home
         if device.type != "cuda":
             return None
         if g not in streams:
@@ -930,25 +980,27 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
 
     def forward(nd: _Node, pg: Params, *ins):
         """``nd``'s forward over its group, no gradients recorded: each
-        shard's outputs (``ins``: the arguments after the parameters, one
-        list of shards each)."""
+        local shard's outputs (``ins``: the arguments after the
+        parameters, one list of local shards each)."""
         mesh = meshes[nd.group]
         with torch.no_grad():
-            return spmd.run(mesh, nd.body, [pg] * mesh.size, *ins)
+            return spmd.run(mesh, nd.body, [pg] * len(mesh.local_ranks),
+                            *ins)
 
     def backward(nd: _Node, pg: Params, ins: Sequence[Sequence[Any]],
                  needs: Sequence[bool], gouts):
         """``nd``'s segment again with gradients on, then one backward
-        over every shard's outputs (the loss nodes': their losses; the
-        others': against the cotangents ``gouts``, a list of tensors a
-        shard). ``ins``: the arguments after the parameters, one list of
-        shards each (a tuple of skips is one argument); ``needs``: which
-        need a gradient. Returns (a loss node's shards' losses, shard 0's
-        parameter gradients reduced as ``grad_comm`` says — or, in the
-        ``bwd`` probe, the sum of every shard's —, each shard's input
-        gradients, one list an argument that needs one)."""
+        over every local shard's outputs (the loss nodes': their losses;
+        the others': against the cotangents ``gouts``, a list of tensors
+        a shard). ``ins``: the arguments after the parameters, one list
+        of local shards each (a tuple of skips is one argument);
+        ``needs``: which need a gradient. Returns (a loss node's shards'
+        losses, the first local shard's parameter gradients reduced as
+        ``grad_comm`` says — or, in the ``bwd`` probe, the sum of every
+        shard's —, each shard's input gradients, one list an argument
+        that needs one)."""
         mesh = meshes[nd.group]
-        d = mesh.size
+        d = len(mesh.local_ranks)
         leaves = [{n: pg[n].detach().requires_grad_(True) for n in nd.names}
                   for _ in range(d)]
 
@@ -977,7 +1029,11 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
             grads = spmd.run(mesh, lambda g_: grad_comm_lib.reduce_grads(
                 g_, axes), grads)
         if stage == "bwd":
-            gp = sum(g_.sum() for shard in grads for g_ in shard.values())
+            sums = [g_.sum() for shard in grads for g_ in shard.values()]
+            if world is not None:  # every shard's, in rank order
+                sums = [v for row in spmd.all_shards(
+                    mesh, [torch.stack(sums)]) for v in row]
+            gp = sum(sums)
         else:
             gp = grads[0]
         it = iter(found[d * n_p:])
@@ -990,15 +1046,18 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
 
     def step(params, opt_states, x, y, seed):
         with trace_lib.span("pipe.place", micro_batches=M):
-            pgs = [reshard.to_group(pg, m.devices[0]) for pg, m in zip(
-                pipeline_group_params(cfg, plan, params), meshes)]
-            opts = [reshard.to_group(s, m.devices[0])
-                    for s, m in zip(opt_states, meshes)]
-            xs = [split_input(x[m * mb:(m + 1) * mb], meshes[0], entry)
-                  for m in range(M)]
-            ys = [split_targets(cfg, y[m * mb:(m + 1) * mb],
-                                meshes[loss_group], entry)
-                  for m in range(M)]
+            pgs = {g: reshard.to_group({k: params[k] for k in
+                                        group_names[g]}, meshes[g].home)
+                   for g in mine}
+            opts = {g: reshard.to_group(opt_states[g], meshes[g].home)
+                    for g in mine}
+            if 0 in mine:
+                xs = [split_input(x[m * mb:(m + 1) * mb], meshes[0], entry)
+                      for m in range(M)]
+            if loss_group in mine:
+                ys = [split_targets(cfg, y[m * mb:(m + 1) * mb],
+                                    meshes[loss_group], entry)
+                      for m in range(M)]
         lmesh = meshes[loss_group]
 
         def loss_extra(m):
@@ -1006,11 +1065,24 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
                 return [ys[m]]
             ids = [range(m * mb + r.start, m * mb + r.stop)
                    for r in sample_ids(mb, lmesh, entry)]
-            return [ys[m], [int(seed)] * lmesh.size, ids]
+            return [ys[m], [int(seed)] * len(lmesh.local_ranks), ids]
 
         carry, gcar = _Slots(), _Slots()
-        for m in range(M):
-            carry.set((0, m), xs[m])
+        if 0 in mine:
+            for m in range(M):
+                carry.set((0, m), xs[m])
+        courier = None
+        if world is not None:
+            courier = reshard.Courier(world.links, meshes[world.group].home)
+
+            def deliver(key, value):
+                if key is None:  # the receiver failed: wake the dispatcher
+                    carry.fail(value)
+                    gcar.fail(value)
+                else:
+                    (carry, gcar)[key[0]].set(tuple(key[1:]), value)
+            for h, count in incoming.items():
+                courier.receive(h, count, deliver)
         # each key is written and read by one dispatcher: skips stay on
         # their group, a node's saved input backs its own recompute, and
         # acc[k] belongs to k's group
@@ -1019,11 +1091,11 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
         gskips: Dict[Any, Any] = {}
         acc: List[Any] = [None] * K
         losses: List[Any] = [None] * M
-        barrier = threading.Barrier(n_grp)
-        # the caller's stream on each group's device (None on the CPU)
-        caller = [torch.cuda.current_stream(m.devices[0])
-                  if m.devices[0].type == "cuda" else None for m in meshes]
-        lat = flags.PIPELINE_LINK_LATENCY_S
+        barrier = threading.Barrier(len(mine))
+        # the caller's stream on each local group's device (None: CPU)
+        caller = {g: torch.cuda.current_stream(meshes[g].home)
+                  if meshes[g].home.type == "cuda" else None for g in mine}
+        lat = flags.PIPELINE_LINK_LATENCY_S if world is None else 0.0
         links = (futures.ThreadPoolExecutor(
             max_workers=min(32, max(2 * (n_grp - 1) * M, 1)),
             thread_name_prefix="pipe-link") if lat else None)
@@ -1038,13 +1110,18 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
 
         def route(vals, dst_k, slot, m):
             # consecutive nodes of the chain lie on different groups
-            handoff = reshard.cross_group(vals, layouts[nodes[dst_k].group])
+            h = nodes[dst_k].group
+            if h not in mine:  # another process's: over the link
+                courier.send(h, (int(slot is gcar), dst_k, m), vals[0])
+                return
+            handoff = reshard.cross_group(vals, layouts[h])
             slot.set((dst_k, m), links.submit(link, handoff) if links
                      else handoff)
 
         def take(slot, key):  # node 0's inputs come as the caller put them
             v = slot.take(key)
-            return v.wait() if isinstance(v, reshard.Handoff) else v
+            return (v.wait() if isinstance(
+                v, (reshard.Handoff, reshard.ProcessHandoff)) else v)
 
         def bump(k, gp):
             if acc[k] is None:
@@ -1058,7 +1135,10 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
         def micro_loss(outs):  # the shards' losses in rank order
             return sum(outs[1:], outs[0])
 
+        threads_n = torch.get_num_threads()
+
         def run_group(g: int):
+            spmd.same_threads(threads_n)
             s = group_stream(g)
             ctx = (torch.cuda.stream(s) if s is not None
                    else contextlib.nullcontext())
@@ -1070,18 +1150,26 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
                     return s.record_event()
             return None
 
+        def sync(g: int):
+            # GPipe-naive: nothing of micro-batch m + 1 starts anywhere
+            # before micro-batch m has drained
+            s = group_stream(g)
+            if world is not None:  # this group's work, then every process
+                if s is not None:
+                    s.synchronize()
+                world.barrier()
+                return
+            barrier.wait()
+            if s is not None:
+                s.synchronize()
+            barrier.wait()
+
         def dispatch(g: int):
             pg = pgs[g]
             for op, k, m in group_ops[g]:
                 if op == "SYNC":
-                    # GPipe-naive: nothing of micro-batch m + 1 starts
-                    # anywhere before micro-batch m has drained
                     with trace_lib.span("pipe.sync", group=g, micro=m):
-                        barrier.wait()
-                        s = group_stream(g)
-                        if s is not None:
-                            s.synchronize()
-                        barrier.wait()
+                        sync(g)
                     continue
                 nd = nodes[k]
                 if op == "F":
@@ -1155,9 +1243,9 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
 
         try:
             with futures.ThreadPoolExecutor(
-                    max_workers=n_grp,
+                    max_workers=len(mine),
                     thread_name_prefix="pipe-dispatch") as pool:
-                futs = [pool.submit(run_group, g) for g in range(n_grp)]
+                futs = [pool.submit(run_group, g) for g in mine]
                 done, _ = futures.wait(futs,
                                        return_when=futures.FIRST_EXCEPTION)
                 errs = [f.exception() for f in done
@@ -1174,56 +1262,94 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
         finally:
             if links is not None:
                 links.shutdown()
-        for g, ev in enumerate(ends):  # the caller sees every group's work
+        if courier is not None:
+            courier.close()
+        for g, ev in zip(mine, ends):  # the caller sees every group's work
             if ev is not None:
                 caller[g].wait_event(ev)
 
-        home = meshes[loss_group].devices[0]
-        total = losses[0]
-        for v in losses[1:]:
-            total = total + v
+        total = None
+        if loss_group in mine:
+            if world is not None:  # every shard's loss, a micro-batch each
+                rows = spmd.all_shards(lmesh, [torch.stack(losses)])
+                losses = [micro_loss([row[m] for row in rows])
+                          for m in range(M)]
+            total = losses[0]
+            for v in losses[1:]:
+                total = total + v
+        merged: Dict[int, Params] = {}
+        for g in (mine if stage in ("grad_comm", "step") else ()):
+            merged[g] = {}
+            for k, nd in enumerate(nodes):
+                if nd.group == g:
+                    merged[g].update(acc[k])
+        fin: Dict[int, Any] = {}
+        if guard and stage == "step":
+            fin = {g: precision_lib.all_finite(merged[g]) for g in mine}
+            if loss_group in mine:
+                fin[loss_group] = torch.logical_and(
+                    fin[loss_group], torch.isfinite(total))
+        if world is not None:
+            # the loss group's loss, each group's flag (and, in the bwd
+            # probe, each node's sum) from each group's shard 0 to every
+            # rank: the in-process step's values, on this rank's device
+            here = meshes[world.group].home
+            own = world.gather_objects({
+                "loss": None if total is None else total.detach().cpu(),
+                "finite": fin[world.group].cpu() if fin else None,
+                "acc": {k: acc[k].cpu() for k, nd in enumerate(nodes)
+                        if nd.group == world.group} if stage == "bwd"
+                else {}})
+            firsts = [own[h * world.d] for h in range(n_grp)]
+            total = firsts[loss_group]["loss"].to(here)
+            if fin:
+                fin = {h: firsts[h]["finite"].to(here)
+                       for h in range(n_grp)}
+            if stage == "bwd":
+                acc = [firsts[nodes[k].group]["acc"][k].to(here)
+                       for k in range(K)]
+            home = here
+        else:
+            home = meshes[loss_group].home
         if stage == "fwd":
             return total
         if stage == "bwd":
             return total, sum(a.to(home) for a in acc)
-        merged = []
-        for g in range(n_grp):
-            mg: Params = {}
-            for k, nd in enumerate(nodes):
-                if nd.group == g:
-                    mg.update(acc[k])
-            merged.append(mg)
         if stage == "grad_comm":
-            return total, {n: v for mg in merged for n, v in mg.items()}
+            if world is not None:  # every group's, from its shard 0
+                own = world.gather_objects({n: v.cpu() for n, v in
+                                            merged[world.group].items()})
+                return total, {n: v.to(home) for h in range(n_grp)
+                               for n, v in own[h * world.d].items()}
+            return total, {n: v for g in mine for n, v in merged[g].items()}
         with trace_lib.span("pipe.update"):
-            flags_ = None
-            if guard:
-                fin = [precision_lib.all_finite(merged[g]) for g in
-                       range(n_grp)]
-                fin[loss_group] = torch.logical_and(
-                    fin[loss_group], torch.isfinite(total))
-                flags_ = [f.float() for f in fin]
+            flags_ = ({h: f.float() for h, f in fin.items()} if guard
+                      else None)
+
+            def agreed(g, dev):
+                # group g's flag times every other group's
+                f = flags_[g].to(dev)
+                for j in range(n_grp):
+                    if j != g:
+                        f = f * flags_[j].to(dev)
+                return f
+
             new_p: Params = {}
-            new_opt = []
-            applied = None
-            for g in range(n_grp):
-                dev = meshes[g].devices[0]
+            new_opt: Dict[int, Any] = {}
+            for g in mine:
+                dev = meshes[g].home
                 p2, s2 = optimizer.update(merged[g], opts[g], pgs[g])
                 if guard:
-                    f = flags_[g]
-                    for j in range(n_grp):
-                        if j != g:
-                            f = f * flags_[j].to(dev)
-                    ok = f > 0.5
+                    ok = agreed(g, dev) > 0.5
                     p2 = guard_lib.tree_select(ok, p2, pgs[g])
                     s2 = guard_lib.tree_select(ok, s2, opts[g])
-                    if g == 0:
-                        applied = f
                 new_p.update(p2)
-                new_opt.append(s2)
+                new_opt[g] = s2
+            new_opt = tuple(new_opt.get(g) for g in range(n_grp))
         if guard:
-            return new_p, tuple(new_opt), total, applied
-        return new_p, tuple(new_opt), total
+            applied = agreed(0, meshes[0].home if 0 in mine else home)
+            return new_p, new_opt, total, applied
+        return new_p, new_opt, total
 
     return step
 
@@ -1233,6 +1359,7 @@ __all__ = ["STAGES", "batch_slice", "block_index", "convnet_grad_plan",
            "gather_rows", "make_convnet_forward_step",
            "make_convnet_opt_state", "make_convnet_train_step",
            "make_convnet_phase_probes", "make_convnet_eval_step",
-           "make_pipeline_opt_state", "make_pipeline_train_step",
+           "local_groups", "make_pipeline_opt_state",
+           "make_pipeline_train_step", "pipeline_group_names",
            "pipeline_group_params", "replicate", "sample_ids",
            "split_batch", "split_input", "split_targets"]

@@ -21,10 +21,10 @@ process while the children work.
   process mesh restoring it steps bitwise as the in-process one does;
 * depth-split serving equals the in-process serving; ``evaluate``
   gathers the predictions on every rank;
-* a world whose size is not data x spatial raises; ZeRO-1, remat,
-  pipeline groups, ``plan="auto"``, the loader, the harness and the
-  supervisor over processes raise ``NotImplementedError`` naming the
-  ROADMAP item.
+* a world whose size is not data x spatial raises; ``plan="auto"``, the
+  loader, the harness and the supervisor over processes raise
+  ``NotImplementedError`` naming the ROADMAP item (ZeRO-1, remat and
+  pipeline groups over processes: ``tests/test_torch_procmesh_compose.py``).
 """
 import dataclasses
 import math
@@ -35,9 +35,7 @@ import pytest
 import torch
 
 from repro_torch.api import RunConfig, Session, compile, supervisor
-from repro_torch.core import plan as plan_lib
 from repro_torch.core import spmd
-from repro_torch.core.spatial_conv import SpatialPartitioning
 from repro_torch.core.tree import key_paths
 from repro_torch.launch import dist as dist_lib
 from repro_torch.launch import mesh as mesh_lib
@@ -335,23 +333,8 @@ def refusal_job(what):
     try:
         if what == "world_size":
             compile(_config("cosmoflow-128", 1, 4, "overlap"), devices=devs)
-        elif what == "zero1":
-            compile(_config("cosmoflow-128", 1, 2, "reduce_scatter"),
-                    devices=devs)
-        elif what == "pipeline":
-            compile(dataclasses.replace(base, data=2, spatial=1, pipeline=2,
-                                        micro_batches=2, grad_clip=0.0),
-                    devices=devs)
         elif what == "auto":
             compile(dataclasses.replace(base, plan="auto"), devices=devs)
-        elif what == "remat":
-            cfg = base.resolve_model()
-            plan = plan_lib.legacy_convnet_plan(
-                cfg, SpatialPartitioning(("model", None, None)),
-                (2, 1, 1), data_degrees=(1,))
-            plan = dataclasses.replace(plan, stages=tuple(
-                dataclasses.replace(s, remat=True) for s in plan.stages))
-            compile(dataclasses.replace(base, plan=plan), devices=devs)
         elif what == "supervisor":
             supervisor.run(dataclasses.replace(base, checkpoint_dir="unused"),
                            1, devices=devs)
@@ -369,7 +352,6 @@ def refusal_job(what):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("zero1", "1.1"), ("remat", "1.1"), ("pipeline", "1.1"),
     ("supervisor", "1.2"), ("loader", "1.2"), ("harness", "1.2"),
     ("auto", "1.3")])
 def test_unsupported_compositions_raise_naming_the_roadmap(pool, what, item):
