@@ -249,7 +249,30 @@ Phases, each printing one line; any failure raises and exits non-zero:
               2); each rank's modeled peak beside its measured one. A
               child that fails or does not answer within
               ``PROCMESH_LIMIT_S`` fails the run (its threads' stacks
-              printed).
+              printed). Then the ``PROCMESH_IO`` runs, each against the
+              in-process mesh: (a) the per-rank loader, cosmoflow-128 b4
+              at 1 x 2 and 2 x 2 and the U-Net at 64^3 b2 1 x 2 from a
+              store of 8 volumes the run writes, synchronous and with
+              prefetch 2: each rank's blocks bitwise its slice of the
+              in-process loader's batch, its store bytes over the first
+              epoch exactly 1/S of a volume a sample of its rows, 4
+              loader-fed steps' losses and the parameters bitwise, the
+              synchronous run's launches summed over the ranks against
+              ``kernel_launches``; load + step ms and ``stall_s`` beside
+              the in-process loader's. (b) the harness, cosmoflow-128
+              S = 2, 16 one-volume requests at ``max_batch=4`` (rank 0
+              the front end, rank 1 following): 16/16 served, 0 failed,
+              each prediction within 1e-5 of the unsharded forward of
+              its batch, launches against ``kernel_launches`` x 4, p50
+              latency beside the in-process harness's. (c) the
+              supervisor, loader-fed cosmoflow-128 b4 2 x 2 ZeRO-1, 6
+              steps: a crash at step 3 on every rank and a persistent
+              ``loader.read`` error on rank 1 alone, the losses and
+              parameters bitwise the in-process unfaulted run's,
+              ``recovery_s`` printed; then ``DeviceLost(available=2)``
+              on rank 2 alone: ranks 0-1 re-plan to 1 x 2 with finite
+              losses and the in-process supervisor's events, ranks 2-3
+              are released.
 m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
               and 10q's U-Net (512^3 b2 now also without remat) beside
               the session's ``describe().modeled_peak`` (``core/memory.py``,
@@ -423,6 +446,19 @@ PROCMESH_WORLD = 4
 PROCMESH_STEPS = 2
 PROCMESH_FP32 = 1e-5  # a leaf's share of its max-abs, and the losses
 PROCMESH_LIMIT_S = 300
+# phase 10w's PROCMESH_IO runs, every rank on this card over gloo: the
+# per-rank loader, (tag, model, data, spatial), cosmoflow-128 b4 and the
+# U-Net at 64^3 b2, each synchronous and with a prefetch queue of
+# PROCMESH_IO_PREFETCH, from a store of PROCMESH_IO_SAMPLES volumes the
+# run writes; the harness, (requests, max_batch, spatial); the
+# supervisor, (data, spatial, steps, save_every), ZeRO-1 and loader-fed
+PROCMESH_IO = (("io-a", "cosmo", 1, 2), ("io-b", "cosmo", 2, 2),
+               ("io-u", "unet", 1, 2))
+PROCMESH_IO_SAMPLES = 8
+PROCMESH_IO_STEPS = 4
+PROCMESH_IO_PREFETCH = 2
+PROCMESH_IO_SERVE = (16, 4, 2)
+PROCMESH_IO_SUPERVISE = (2, 2, 6, 2)
 # wall clock a configuration's step-1 check, its steps or its timings
 # may take: a backward that deadlocks fails the run instead of hanging it
 SPATIAL_LIMIT_S = 240
@@ -4441,6 +4477,11 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile, plan_lib,
                 f"{[round(r['peak_bytes'] / 2 ** 30, 2) for r in got]} GiB")
             del want, got, x
             torch.cuda.empty_cache()
+        if PROCMESH_IO or PROCMESH_IO_SERVE or PROCMESH_IO_SUPERVISE:
+            out["io"], got = phase_procmesh_io(pool, k, cf128, ucfg64,
+                                               RunConfig, compile, root,
+                                               card)
+            total = {q: total[q] + got[q] for q in KERNELS}
     n_cards = torch.cuda.device_count()
     if n_cards >= 2:
         got = dist_lib.spawn(procmesh_train_job, 2, "file://" + os.path.join(
@@ -4459,6 +4500,442 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile, plan_lib,
     out["seconds"] = time.perf_counter() - t0
     log("main path", f"procmesh: launches summed over the ranks "
         f"{json.dumps(total)}")
+    return out, total
+
+
+# ------------------------------- 10w: PROCMESH_IO, over processes ----
+def io_blocks(batch, mesh, entry, arch: str, k) -> list:
+    """Per rank of ``mesh``, the CRCs of its (x, y) blocks of a loader's
+    batch: a rank's own ``Block``s over processes (one row), the slices
+    of the global tensors in one process (a row a rank)."""
+    from repro_torch.train.train_step import Block
+
+    x, y = batch
+    if isinstance(x, Block):
+        return [_crcs((x.t, y.t))]
+    out = []
+    for r in range(mesh.size):
+        ys = (y[k.train_step.block_index(y.shape, mesh, r, entry)]
+              if arch == "unet3d" else None)
+        if ys is None:
+            index, count = k.train_step.batch_slice(mesh, r, entry)
+            n = y.shape[0] // count
+            ys = y[index * n:(index + 1) * n]
+        out.append(_crcs((x[k.train_step.block_index(
+            x.shape, mesh, r, entry)].contiguous(), ys.contiguous())))
+    return out
+
+
+def io_steps(k, sess, root: str, batch: int, steps: int, depth: int
+             ) -> dict:
+    """``steps`` steps fed by ``sess``' loader over ``root`` (``depth``:
+    its prefetch queue, 0 synchronous), step ``t`` the chunk ``t % bpe``
+    of epoch ``t // bpe``'s schedule: the blocks' CRCs, the losses, ms of
+    each load + step (``.item()`` waits), the store bytes of each rank
+    after the first epoch, ``stall_s`` and the parameters' CRCs."""
+    loader = sess.make_loader(root, prefetch=depth)
+    bpe = loader.store.num_samples // batch
+    row = {"crcs": [], "losses": [], "ms": []}
+    for t in range(steps):
+        epoch, b = divmod(t, bpe)
+        order = loader.schedule_for_epoch(epoch)
+        t0 = time.perf_counter()
+        xy = loader.load_batch(order[b * batch:(b + 1) * batch])
+        row["losses"].append(sess.step(xy).item())
+        row["ms"].append((time.perf_counter() - t0) * 1e3)
+        row["crcs"].append(io_blocks(xy, sess.mesh, sess.plan.stages[0],
+                                     sess.cfg.arch, k))
+        if t == bpe - 1:
+            row["pfs"] = dict(loader.stats.rank_pfs_bytes)
+    row["stall_s"] = getattr(loader, "stall_s", 0.0)
+    row["params"] = _crcs(sess.params)
+    return row
+
+
+def io_train(k, compile, RunConfig, cfg, batch: int, D: int, S: int,
+             root: str, devices) -> dict:
+    """One session of ``cfg`` at D x S (a process's rank, or in one
+    process every shard), loader-fed ``PROCMESH_IO_STEPS`` steps
+    synchronously (launches counted), then again from the same initial
+    state with prefetch."""
+    from repro_torch.core.tree import tree_map
+
+    sess = compile(RunConfig(model=cfg, mode="train", global_batch=batch,
+                             data=D, spatial=S), devices=devices)
+    init = ({n: v.clone() for n, v in sess.params.items()},
+            tree_map(torch.clone, sess.opt_state))
+    out = {"rank": getattr(sess.mesh, "rank", None),
+           "plan": sess.plan if not hasattr(sess.mesh, "rank") else None}
+    for depth in (0, PROCMESH_IO_PREFETCH):
+        sess.params = {n: v.clone() for n, v in init[0].items()}
+        sess.opt_state = tree_map(torch.clone, init[1])
+        sess._t = 0
+        torch.cuda.synchronize()
+        zero_counts(k)
+        out[depth] = io_steps(k, sess, root, batch, PROCMESH_IO_STEPS,
+                              depth)
+        out[depth]["launches"] = counts(k)
+    sess.close()
+    return out
+
+
+def procmesh_io_job(cfg, batch: int, D: int, S: int, root: str,
+                    devices) -> dict:
+    """One rank of ``io_train`` over processes."""
+    from repro_torch.api import RunConfig, compile
+    from repro_torch.train import train_step
+
+    k = _child_kernels()
+    k.train_step = train_step
+    return io_train(k, compile, RunConfig, cfg, batch, D, S, root, devices)
+
+
+def io_volumes(cfg, n: int) -> torch.Tensor:
+    """``n`` seeded volumes of ``cfg`` on the host (the harness's
+    requests; the same bits in every process)."""
+    w = cfg.input_width
+    return torch.randn((n, w, w, w, cfg.in_channels),
+                       generator=torch.Generator().manual_seed(23))
+
+
+def io_serve(k, compile, RunConfig, cfg, n: int, max_batch: int, S: int,
+             devices) -> dict:
+    """``n`` one-volume requests through ``serve()`` (one worker, each
+    group of ``max_batch`` submitted together and awaited, so that every
+    batch is one group): on the front end the predictions, the
+    telemetry and the launches; on a follower its launches."""
+    sess = compile(RunConfig(model=cfg, mode="infer", global_batch=max_batch,
+                             spatial=S), devices=devices)
+    torch.cuda.synchronize()
+    zero_counts(k)
+    h = sess.serve(max_batch=max_batch, max_wait_ms=5000.0, workers=1)
+    out = {"rank": getattr(sess.mesh, "rank", 0)}
+    if type(h).__name__ == "ServingFollower":
+        h.close()
+        out.update(launches=counts(k), batches=h.batches)
+        sess.close()
+        return out
+    xs = io_volumes(cfg, n).numpy()
+    preds, errors = [], []
+    for i in range(0, n, max_batch):
+        for f in h.submit_many(xs[i:i + max_batch]):
+            try:
+                preds.append(f.result(timeout=PROCMESH_LIMIT_S))
+            except Exception as e:  # noqa: BLE001 — counted, then gated
+                errors.append(f"{type(e).__name__}: {e}")
+    h.close()
+    out.update(preds=np.stack(preds) if preds else None, errors=errors,
+               telemetry=sess.telemetry(), launches=counts(k))
+    sess.close()
+    return out
+
+
+def procmesh_serve_io_job(cfg, n: int, max_batch: int, S: int) -> dict:
+    from repro_torch.api import RunConfig, compile
+
+    k = _child_kernels()
+    return io_serve(k, compile, RunConfig, cfg, n, max_batch, S,
+                    ["cuda:0"] * S)
+
+
+def io_supervise(cfg, root: str, data_dir: str, devices, fault: str
+                 ) -> dict:
+    """A loader-fed ZeRO-1 run of ``cfg`` under the supervisor
+    (``PROCMESH_IO_SUPERVISE``), on every rank or in one process.
+    ``fault``: "" none; "crash+read" an ``InjectedCrash`` at step 3 on
+    every rank and a persistent ``loader.read`` error (every attempt of
+    one read) on rank 1 alone; "lost" ``DeviceLost(available=2)`` at
+    step 3 on rank 2 alone (in one process: in the process)."""
+    import torch.distributed as tdist
+
+    from repro_torch.api import RunConfig, supervisor
+    from repro_torch.core import faults
+
+    D, S, steps, every = PROCMESH_IO_SUPERVISE
+    rank = tdist.get_rank() if tdist.is_initialized() else None
+    specs = []
+    if fault == "crash+read" and rank in (1, None):
+        specs.append(faults.FaultSpec("loader.read", at_calls=(2, 3, 4, 5)))
+    if fault == "lost" and rank in (2, None):
+        specs.append(faults.FaultSpec("device.loss", at_steps=(3,),
+                                      max_fires=1, available=2))
+    real = supervisor._loader_batch_fn
+    fired = []
+
+    def batch_fn(sess, config):
+        make = real(sess, config)
+
+        def crashing(t):
+            if fault == "crash+read" and t == 3 and not fired:
+                fired.append(t)
+                raise faults.InjectedCrash("loader.read",
+                                           f"injected crash at step {t}")
+            return make(t)
+        return crashing
+
+    config = RunConfig(model=cfg, global_batch=4, data=D, spatial=S,
+                       grad_comm="reduce_scatter", checkpoint_dir=root,
+                       data_dir=data_dir)
+    supervisor._loader_batch_fn = batch_fn
+    t0 = time.perf_counter()
+    try:
+        with faults.active(*specs):
+            r = supervisor.run(config, steps, save_every=every,
+                               devices=devices)
+    finally:
+        supervisor._loader_batch_fn = real
+    out = {"rank": rank, "losses": r.losses, "events": r.events,
+           "restarts": r.restarts, "replans": r.replans,
+           "released": r.released, "final": [r.final_data, r.final_spatial],
+           "recovery_s": r.recovery_s, "wall_s": time.perf_counter() - t0}
+    if r.session is not None:
+        out["params"] = _crcs(r.session.params)
+        out["mesh"] = r.session.mesh.shape
+        r.session.close()
+    return out
+
+
+def procmesh_supervise_io_job(cfg, root: str, data_dir: str, fault: str,
+                              devices) -> dict:
+    """One rank of ``io_supervise``, with its launches."""
+    k = _child_kernels()
+    zero_counts(k)
+    return dict(io_supervise(cfg, root, data_dir, devices, fault),
+                launches=counts(k))
+
+
+def io_harness_runs(pool, k, cf128, RunConfig, compile, card: str,
+                    out: dict) -> dict:
+    """Phase 10w's ``PROCMESH_IO`` harness run (b): rank 0 the front end,
+    rank 1 following, against the unsharded forward and the in-process
+    harness. Returns the launches summed over the ranks."""
+    n_req, max_batch, S = PROCMESH_IO_SERVE
+    key = f"{cf128.name}/S{S}/{n_req}x1/max_batch{max_batch}"
+    got = pool.run(procmesh_serve_io_job, cf128, n_req, max_batch, S,
+                   ranks=range(S))
+    want = io_serve(k, compile, RunConfig, cf128, n_req, max_batch, S,
+                    ["cuda:0"] * S)
+    front = got[0]
+    tele = front["telemetry"]
+    check(not front["errors"] and tele["serve.requests"] == n_req
+          and tele["serve.worker_failures"] == 0
+          and all(r["batches"] == n_req // max_batch for r in got[1:]),
+          f"{key}: served {tele['serve.requests']}/{n_req}, failed "
+          f"{tele['serve.worker_failures']}: {front['errors'][:1]}")
+    one = compile(RunConfig(model=cf128, mode="infer",
+                            global_batch=max_batch))
+    xs = io_volumes(cf128, n_req)
+    err = 0.0
+    for i in range(0, n_req, max_batch):
+        ref = one.predict(xs[i:i + max_batch])
+        err = max(err, rel_err(torch.from_numpy(
+            front["preds"][i:i + max_batch]).cuda(), ref))
+    one.close()
+    check(err <= 1e-5, f"{key}: predictions against the unsharded forward "
+          f"of each batch {err} > 1e-5")
+    with compile(RunConfig(model=cf128, mode="infer", global_batch=max_batch,
+                           spatial=S), devices=["cuda:0"] * S) as sp:
+        per_fwd = dict(NO_LAUNCHES, **k.cosmoflow.kernel_launches(
+            cf128, sp.plan))
+    summed = {q: sum(r["launches"][q] for r in got) for q in KERNELS}
+    expect = {q: v * (n_req // max_batch) for q, v in per_fwd.items()}
+    check(summed == expect, f"{key}: launches summed over the ranks "
+          f"{summed}, expected {expect}")
+    out["serve"][key] = {
+        "served": tele["serve.requests"], "failed":
+        tele["serve.worker_failures"], "rel_err_vs_unsharded": err,
+        "p50_ms": tele["serve.latency_p50_ms"],
+        "in_process_p50_ms": want["telemetry"]["serve.latency_p50_ms"],
+        "launches_summed": summed}
+    log("procmesh", f"io harness {key}: {n_req}/{n_req} served, 0 failed, "
+        f"vs the unsharded forward {err:.3g} <= 1e-5; launches summed "
+        f"{json.dumps(summed)}")
+    log("timings", f"procmesh io harness {key} ({card}): p50 latency "
+        f"{tele['serve.latency_p50_ms']:.2f} ms over processes, "
+        f"{want['telemetry']['serve.latency_p50_ms']:.2f} ms in-process")
+    del got, want, xs
+    torch.cuda.empty_cache()
+    return summed
+
+
+def io_supervisor_runs(pool, k, cf128, root: str, stores: dict,
+                       card: str, out: dict) -> dict:
+    """Phase 10w's ``PROCMESH_IO`` supervisor runs (c), against the
+    in-process supervisor. Returns the children's launches."""
+    total = dict(NO_LAUNCHES)
+    D, S, steps, _ = PROCMESH_IO_SUPERVISE
+    n = D * S
+    key = f"{cf128.name}/b4/{D}x{S}/zero1/{steps} steps"
+    clean = io_supervise(cf128, os.path.join(root, "sup-clean"),
+                         stores["cosmo"], ["cuda:0"] * n, "")
+    got = pool.run(procmesh_supervise_io_job, cf128,
+                   os.path.join(root, "sup-faulted"), stores["cosmo"],
+                   "crash+read", ["cuda:0"] * n, ranks=range(n))
+    check(all(r["losses"] == clean["losses"] and r["params"] ==
+              clean["params"] and r["restarts"] == 2 for r in got),
+          f"{key}: the faulted run over processes "
+          f"{[r['losses'] for r in got]} (restarts "
+          f"{[r['restarts'] for r in got]}) is not the unfaulted run's bits "
+          f"{clean['losses']}")
+    check(all(r["events"] == got[0]["events"] for r in got),
+          f"{key}: the ranks' events differ")
+    total = {q: total[q] + sum(r["launches"][q] for r in got)
+             for q in KERNELS}
+    out["supervise"]["faulted"] = {
+        "losses": got[0]["losses"], "events": got[0]["events"],
+        "recovery_s": [r["recovery_s"] for r in got],
+        "wall_s": [r["wall_s"] for r in got],
+        "in_process_wall_s": clean["wall_s"]}
+    log("procmesh", f"io supervisor {key}: a crash at step 3 on every rank "
+        f"and a persistent loader.read error on rank 1 recovered to the "
+        f"unfaulted run's losses and parameters, bitwise; events "
+        f"{json.dumps(got[0]['events'])}")
+    log("timings", f"procmesh io supervisor {key} ({card}): recovery_s "
+        f"{[[round(v, 3) for v in r['recovery_s']] for r in got]} (a rank "
+        f"each), wall {[round(r['wall_s'], 1) for r in got]} s, in-process "
+        f"unfaulted {clean['wall_s']:.1f} s")
+    lost = io_supervise(cf128, os.path.join(root, "sup-lost-threads"),
+                        stores["cosmo"], ["cuda:0"] * n, "lost")
+    got = pool.run(procmesh_supervise_io_job, cf128,
+                   os.path.join(root, "sup-lost"), stores["cosmo"], "lost",
+                   ["cuda:0"] * n, ranks=range(n))
+    kept, released = got[:2], got[2:]
+    check(lost["final"] == [1, 2] and all(
+        r["final"] == [1, 2] and r["mesh"] == {"data": 1, "model": 2}
+        and not r["released"] and r["events"] == lost["events"]
+        and all(math.isfinite(v) for v in r["losses"]) for r in kept),
+          f"{key}: the elastic re-plan over processes "
+          f"{[r['events'] for r in kept]}, in-process {lost['events']}")
+    check(all(r["released"] and "params" not in r
+              and r["events"][-1].startswith("released") for r in released),
+          f"{key}: ranks 2-3 were not released: "
+          f"{[r['events'] for r in released]}")
+    out["supervise"]["elastic"] = {
+        "losses": kept[0]["losses"], "events": kept[0]["events"],
+        "bitwise_in_process": kept[0]["losses"] == lost["losses"]
+        and kept[0]["params"] == lost["params"],
+        "released_events": released[0]["events"]}
+    total = {q: total[q] + sum(r["launches"][q] for r in got)
+             for q in KERNELS}
+    log("procmesh", f"io supervisor elastic: DeviceLost(available=2) on "
+        f"rank 2 re-planned ranks 0-1 to 1 x 2 (losses "
+        f"{kept[0]['losses']}, bitwise the in-process elastic run: "
+        f"{out['supervise']['elastic']['bitwise_in_process']}), the "
+        f"in-process events {json.dumps(lost['events'])}; ranks 2-3 "
+        f"released")
+    return total
+
+
+def phase_procmesh_io(pool, k, cf128, ucfg64, RunConfig, compile,
+                      root: str, card: str) -> tuple:
+    """Phase 10w's ``PROCMESH_IO`` runs on ``pool`` (the module docstring
+    has the gates). Returns (report, the launches the children's main
+    paths made)."""
+    from repro_torch.data import store, synthetic
+    from repro_torch.launch.mesh import Mesh
+
+    out = {"loader": {}, "serve": {}, "supervise": {}}
+    total = dict(NO_LAUNCHES)
+    t_phase = time.perf_counter()
+    stores = {}
+    for model, cfg in (("cosmo", cf128), ("unet", ucfg64)):
+        path = os.path.join(root, f"store-{model}")
+        if cfg.arch == "cosmoflow":
+            cubes, targets = synthetic.make_cosmology_dataset(
+                PROCMESH_IO_SAMPLES, cfg.input_width,
+                channels=cfg.in_channels, seed=3)
+            store.write_dataset(path, cubes, targets)
+        else:
+            cubes, labels = synthetic.make_segmentation_dataset(
+                PROCMESH_IO_SAMPLES, cfg.input_width,
+                num_classes=cfg.out_dim, channels=cfg.in_channels, seed=4)
+            store.write_dataset(path, cubes, labels=labels)
+        del cubes
+        stores[model] = path
+    log("procmesh", f"io: stores written in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # (a) the per-rank loader
+    for tag, model, D, S in PROCMESH_IO:
+        cfg, batch = ((cf128, 4) if model == "cosmo"
+                      else (ucfg64, UNET_CHECK_BATCH))
+        key = f"{tag}/{cfg.name}/b{batch}/{D}x{S}"
+        n = D * S
+        t_run = time.perf_counter()
+        got = pool.run(procmesh_io_job, cfg, batch, D, S, stores[model],
+                       ["cuda:0"] * n, ranks=range(n))
+        want = io_train(k, compile, RunConfig, cfg, batch, D, S,
+                        stores[model], ["cuda:0"] * n)
+        plan = want["plan"]
+        w, c = cfg.input_width, cfg.in_channels
+        slab = (w // S) * w * w * c * 4 + (  # x, and int32 voxel labels
+            (w // S) * w * w * 4 if cfg.arch == "unet3d" else 0)
+        mine = PROCMESH_IO_SAMPLES // D * slab
+        for depth in (0, PROCMESH_IO_PREFETCH):
+            w_row = want[0]  # the synchronous in-process run: the oracle
+            for r in got:
+                row = r[depth]
+                check(all(c_[0] == want_[r["rank"]] for c_, want_ in zip(
+                    row["crcs"], w_row["crcs"])),
+                      f"{key} prefetch {depth}: rank {r['rank']}'s blocks "
+                      f"are not its slice of the in-process batch")
+                check(row["pfs"] == {r["rank"]: mine},
+                      f"{key} prefetch {depth}: rank {r['rank']} read "
+                      f"{row['pfs']} bytes over the first epoch, expected "
+                      f"{mine} (1/S of a volume a sample of its rows)")
+                check(row["losses"] == w_row["losses"]
+                      and row["params"] == w_row["params"],
+                      f"{key} prefetch {depth}: rank {r['rank']}'s losses "
+                      f"{row['losses']} or parameters are not the "
+                      f"in-process loader-fed run's {w_row['losses']}")
+        check(want[PROCMESH_IO_PREFETCH]["losses"] == want[0]["losses"],
+              f"{key}: in-process prefetch against synchronous")
+        model_ = k.unet3d if cfg.arch == "unet3d" else k.cosmoflow
+        per_step = dict(NO_LAUNCHES, **model_.kernel_launches(
+            cfg, plan, train=True))
+        summed = {q: sum(r[0]["launches"][q] for r in got) for q in KERNELS}
+        expect = {q: v * PROCMESH_IO_STEPS for q, v in per_step.items()}
+        check(summed == expect, f"{key}: launches summed over the ranks "
+              f"{summed}, expected {expect}")
+        total = {q: total[q] + summed[q] for q in KERNELS}
+        row = out["loader"][key] = {
+            "losses": want[0]["losses"], "rank_pfs_bytes": mine,
+            "launches_summed": summed,
+            "ms": {d: [r[d]["ms"] for r in got]
+                   for d in (0, PROCMESH_IO_PREFETCH)},
+            "stall_s": [r[PROCMESH_IO_PREFETCH]["stall_s"] for r in got],
+            "in_process_ms": {d: want[d]["ms"]
+                              for d in (0, PROCMESH_IO_PREFETCH)},
+            "in_process_stall_s": want[PROCMESH_IO_PREFETCH]["stall_s"],
+            "seconds": time.perf_counter() - t_run}
+
+        def med(v):
+            return round(statistics.median(v[1:]), 2)
+        log("procmesh", f"io {key}: each rank's blocks bitwise its slice "
+            f"of the in-process loader's batch, {mine} store bytes a rank "
+            f"over the first epoch, {PROCMESH_IO_STEPS} loader-fed steps' "
+            f"losses and the parameters bitwise, sync and prefetch "
+            f"{PROCMESH_IO_PREFETCH}; launches summed {json.dumps(summed)}")
+        log("timings", f"procmesh io {key} ({card}): load + step ms "
+            f"(median of steps 2-{PROCMESH_IO_STEPS}) over processes sync "
+            f"{[med(r[0]['ms']) for r in got]}, prefetch "
+            f"{[med(r[PROCMESH_IO_PREFETCH]['ms']) for r in got]} (stall_s "
+            f"{[round(v, 4) for v in row['stall_s']]}); in-process sync "
+            f"{med(want[0]['ms'])}, prefetch "
+            f"{med(want[PROCMESH_IO_PREFETCH]['ms'])} (stall_s "
+            f"{want[PROCMESH_IO_PREFETCH]['stall_s']:.4f}); "
+            f"{row['seconds']:.1f} s")
+        del got, want
+        torch.cuda.empty_cache()
+
+    if PROCMESH_IO_SERVE:
+        got = io_harness_runs(pool, k, cf128, RunConfig, compile, card, out)
+        total = {q: total[q] + got[q] for q in KERNELS}
+    if PROCMESH_IO_SUPERVISE:
+        got = io_supervisor_runs(pool, k, cf128, root, stores, card, out)
+        total = {q: total[q] + got[q] for q in KERNELS}
+    out["seconds"] = time.perf_counter() - t_phase
+    log("procmesh", f"io: the PROCMESH_IO runs took {out['seconds']:.1f} s")
     return out, total
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """``chip_smoke.py``'s phase 10w (the process mesh: one process a
 shard, collectives through ``torch.distributed`` over gloo, every rank
-on this card; ZeRO-1, remat and pipeline groups over it) alone, after
-its card and build phases.
+on this card; ZeRO-1, remat and pipeline groups over it; the per-rank
+loader, the harness and the supervisor over it, ``PROCMESH_IO``) alone,
+after its card and build phases.
 
     python3 scripts/procmesh_phase.py [--only TAG ...] [--limit SECONDS]
 
@@ -37,9 +38,10 @@ from repro_torch.train import train_step  # noqa: E402
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", nargs="+", help="the PROCMESH_TRAIN and "
-                    "PROCMESH_COMPOSE runs of these tags only (the fixed "
-                    "U-Net and serving runs then skipped)")
+    ap.add_argument("--only", nargs="+", help="the PROCMESH_TRAIN, "
+                    "PROCMESH_COMPOSE and PROCMESH_IO runs of these tags "
+                    "only (the fixed U-Net and serving runs then skipped; "
+                    "io-s the PROCMESH_IO harness, io-sup its supervisor)")
     ap.add_argument("--limit", type=float, default=cs.PROCMESH_LIMIT_S,
                     help="seconds a child may take to answer")
     args = ap.parse_args()
@@ -52,6 +54,12 @@ if __name__ == "__main__":
         cs.PROCMESH_COMPOSE = tuple(r for r in cs.PROCMESH_COMPOSE
                                     if r[0] in args.only)
         cs.PROCMESH_UNET = cs.PROCMESH_SERVE = ()
+        cs.PROCMESH_IO = tuple(r for r in cs.PROCMESH_IO
+                               if r[0] in args.only)
+        if "io-s" not in args.only:
+            cs.PROCMESH_IO_SERVE = None
+        if "io-sup" not in args.only:
+            cs.PROCMESH_IO_SUPERVISE = None
     t0 = time.perf_counter()
     card = cs.phase_card()
     cs.phase_build(_build)

@@ -32,10 +32,11 @@ modes build a ``launch.mesh.ProcessMesh`` over the world
 device is ``cuda:LOCAL_RANK``, or ``devices[rank]`` when ``devices=``
 lists every rank's (``["cuda:0"] * 2`` for two ranks on one card,
 ``["cpu"] * n`` in the tests), or ``device=`` for every rank. Every rank
-gets the global batch, runs its own shard and returns the same global
-loss; the initial parameters are rank 0's, broadcast and checked on
-every rank; ``save`` is written by rank 0 while the others wait at a
-barrier. ZeRO-1 keeps each rank's own chunk of the optimizer state (the
+gets the global batch, or its own blocks of it from its per-rank loader
+(``make_loader``: each rank reads only its hyperslab), runs its own
+shard and returns the same global loss; the initial parameters are
+rank 0's, broadcast and checked on every rank; ``save`` is written by
+rank 0 while the others wait at a barrier. ZeRO-1 keeps each rank's own chunk of the optimizer state (the
 checkpoint gathers the data shards'); a plan whose stages set ``remat``
 rematerializes over the ranks. With ``pipeline`` = P the world is P
 groups of data x spatial ranks (``launch.mesh.make_pipeline_meshes``):
@@ -44,9 +45,12 @@ and ``opt_state[group]``; the other groups' states None), hands its
 boundary activations and cotangents to the same shard of the
 neighbouring groups over links of their own, and ``save`` writes every
 group's, gathered from each group's shard 0, as the in-process run
-does. ``plan="auto"`` and budgets, the loader, the harness and the
-supervisor over processes raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+does. ``InferenceSession.serve()`` gives rank 0 the harness that takes
+the requests and every other rank a follower that runs its shard of
+each batch (``serve/harness.py``); ``api.supervisor.run`` runs on every
+rank and agrees on each recovery. ``plan="auto"`` and budgets over
+processes raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 
 Entry points run on the card unless the caller says otherwise:
 ``device="cpu"`` (one shard, as the tests run), or ``devices=[...]`` with
@@ -602,14 +606,20 @@ class Session(_Traced):
             self._metrics_sink = metrics_lib.MetricsJsonlSink(
                 config.metrics_jsonl)
 
-    def _as_input(self, x) -> torch.Tensor:
+    def _as_input(self, x):
+        """A global batch tensor on the session's device (float64 as
+        fp32); a rank's ``Block`` (the per-rank loader's) or None as it
+        is."""
+        if x is None or isinstance(x, train_step_lib.Block):
+            return x
         t = torch.as_tensor(x, device=self.device)
         return t.float() if t.dtype == torch.float64 else t
 
-    def _as_target(self, y) -> torch.Tensor:
+    def _as_target(self, y):
         """CosmoFlow's targets as ``_as_input``; the U-Net's voxel labels
         as they come (integer classes)."""
-        if self.cfg.arch == "unet3d":
+        if self.cfg.arch == "unet3d" and not (
+                y is None or isinstance(y, train_step_lib.Block)):
             return torch.as_tensor(y, device=self.device)
         return self._as_input(y)
 
@@ -618,14 +628,19 @@ class Session(_Traced):
     def step_count(self) -> int:
         return self._t
 
-    def step(self, batch, y=None) -> torch.Tensor:
+    def step(self, batch, y=None, *, agree=None) -> torch.Tensor:
         """One training step on a global batch (an ``(x, y)`` pair, or
-        ``step(x, y)``); returns the loss (a tensor on the device).
-        Parameters, optimizer state and the dropout seed (the step count)
-        are threaded inside; the checkpoint policy (``save_every``,
-        ``keep_last``) fires here, and so do the fault sites
-        ``comm.stall``, ``device.loss`` and ``grads.nonfinite`` (which
-        poisons the batch, so that the guard must skip the update)."""
+        ``step(x, y)``), or over processes on this rank's blocks (the
+        per-rank loader's ``RankBatch``); returns the loss (a tensor on
+        the device). Parameters, optimizer state and the dropout seed
+        (the step count) are threaded inside; the checkpoint policy
+        (``save_every``, ``keep_last``) fires here, and so do the fault
+        sites ``comm.stall``, ``device.loss`` and ``grads.nonfinite``
+        (which poisons the batch, so that the guard must skip the
+        update). ``agree`` (the supervisor's, over processes) is called
+        after the pre-step sites with the failure one of them raised, or
+        None, before any collective of the step: it raises what every
+        rank agreed on."""
         if self._closed:
             raise RuntimeError("Session is closed")
         x, y = batch if y is None else (batch, y)
@@ -633,10 +648,21 @@ class Session(_Traced):
         sink = self._metrics_sink
         t0 = time.perf_counter() if sink is not None else 0.0
         with trace_lib.span("train.step", step=self._t):
-            faults.fire("comm.stall", step=self._t)
-            faults.fire("device.loss", step=self._t)
-            if faults.fire("grads.nonfinite", step=self._t):
-                x = x * float("nan")  # the loss and every gradient
+            failure = None
+            try:
+                faults.fire("comm.stall", step=self._t)
+                faults.fire("device.loss", step=self._t)
+            except faults.InjectedFault as e:
+                if agree is None:
+                    raise
+                failure = e
+            if agree is not None:
+                agree(failure)
+            if faults.fire("grads.nonfinite", step=self._t) and x is not None:
+                # the loss and every gradient
+                x = (x.map(lambda t: t * float("nan"))
+                     if isinstance(x, train_step_lib.Block)
+                     else x * float("nan"))
             out = self._step_fn(self.params, self.opt_state, x, y, self._t)
             if self.config.resolved_guard:
                 self.params, self.opt_state, loss, applied = out
@@ -715,13 +741,18 @@ class Session(_Traced):
     def make_loader(self, root: Optional[str] = None, *,
                     num_samples: int = 16, seed: int = 0, cache: bool = True,
                     prefetch: Optional[int] = None, halo_voxels: int = 0):
-        """A loader of global batches for ``step``, each mesh rank's block
-        of the plan's entry stage read on its own (``data/pipeline.py``).
-        ``root`` (or ``config.data_dir``) names an existing
-        ``HyperslabStore``; with neither, a synthetic dataset of
-        ``num_samples`` volumes (the model's: cosmology cubes and targets,
-        or segmentation volumes and voxel labels) is written to a
-        directory the Session owns, which ``close()`` removes.
+        """A loader of batches for ``step``, each mesh rank's block of the
+        plan's entry stage read on its own (``data/pipeline.py``): global
+        batches in one process; over processes this rank's blocks alone
+        (a ``RankBatch``: a pipeline's entry group reads x, its loss
+        group y, each rank its slice of every micro-batch). ``root`` (or
+        ``config.data_dir``) names an existing ``HyperslabStore``; with
+        neither, a synthetic dataset of ``num_samples`` volumes (the
+        model's: cosmology cubes and targets, or segmentation volumes and
+        voxel labels) is written to a directory the Session owns, which
+        ``close()`` removes (over processes rank 0 writes it and owns it;
+        the exchange of its path after the write is every rank's
+        barrier).
 
         ``prefetch`` (default ``config.prefetch``): 0 returns the
         synchronous ``SpatialParallelLoader`` (the bitwise oracle); >= 1
@@ -729,28 +760,38 @@ class Session(_Traced):
         reads the next batch and enqueues its copies while the current
         step computes. ``halo_voxels`` widens each rank's reads by that
         margin."""
-        if isinstance(self.mesh, mesh_lib.ProcessMesh):
-            raise train_step_lib.not_over_processes("the loader", "loader")
+        procs = isinstance(self.mesh, mesh_lib.ProcessMesh)
+        world = (self._pipeline_world or self.mesh.world) if procs else None
         root = root or self.config.data_dir
         if root is None:
-            tmp = tempfile.TemporaryDirectory()
-            self._tmpdirs.append(tmp)
-            root = tmp.name
-            if self.cfg.arch == "cosmoflow":
-                cubes, targets = synthetic.make_cosmology_dataset(
-                    num_samples, self.cfg.input_width,
-                    channels=self.cfg.in_channels, seed=seed)
-                store.write_dataset(root, cubes, targets)
-            else:
-                cubes, labels = synthetic.make_segmentation_dataset(
-                    num_samples, self.cfg.input_width,
-                    num_classes=self.cfg.out_dim,
-                    channels=self.cfg.in_channels, seed=seed)
-                store.write_dataset(root, cubes, labels=labels)
+            if not procs or (self._pipeline_world or self.mesh).rank == 0:
+                tmp = tempfile.TemporaryDirectory()
+                self._tmpdirs.append(tmp)
+                root = tmp.name
+                if self.cfg.arch == "cosmoflow":
+                    cubes, targets = synthetic.make_cosmology_dataset(
+                        num_samples, self.cfg.input_width,
+                        channels=self.cfg.in_channels, seed=seed)
+                    store.write_dataset(root, cubes, targets)
+                else:
+                    cubes, labels = synthetic.make_segmentation_dataset(
+                        num_samples, self.cfg.input_width,
+                        num_classes=self.cfg.out_dim,
+                        channels=self.cfg.in_channels, seed=seed)
+                    store.write_dataset(root, cubes, labels=labels)
+            if procs:  # rank 0's path, once it is written
+                root = world.gather_objects(root)[0]
+        micro, reads = 1, ("x", "y")
+        pipe = self._pipeline_world
+        if pipe is not None:  # what this rank's group takes
+            micro = self.plan.pipeline.micro_batches
+            takes = {"x": 0, "y": train_step_lib.pipeline_loss_group(
+                self.cfg, self.plan)}
+            reads = tuple(k for k, g in takes.items() if g == pipe.group)
         loader = pipeline.SpatialParallelLoader(
             store.HyperslabStore(root), self.mesh, self.plan.stages[0],
             global_batch=self.config.global_batch, seed=seed, cache=cache,
-            halo_voxels=halo_voxels)
+            halo_voxels=halo_voxels, micro_batches=micro, reads=reads)
         depth = self.config.prefetch if prefetch is None else prefetch
         if depth:
             loader = prefetch_lib.PrefetchLoader(loader, depth=depth)

@@ -30,9 +30,27 @@ kernel that fails to launch, or a CUDA error, propagates and ends the
 run. The devices: ``device=`` / ``devices=`` as ``compile`` takes them
 (the card unless the caller says otherwise); a re-degreed run keeps the
 first data x spatial entries of the list.
+
+Over processes (a process group is up, or torchrun's ``WORLD_SIZE`` > 1:
+every rank calls ``run``, one process a shard, ``devices`` every rank's
+as ``compile`` takes them) every rank must take the same recovery, or a
+failure on one rank would leave its peers waiting in the step's first
+collective. So each step has two agreement points (``_Agreement``): one
+before the step's compute, after the batch and the pre-step fault
+sites, and one after ``float(loss)`` (the watchdog and divergence). At
+each every rank gives a status word (ok, or the failure's class, its
+message and ``DeviceLost.available``) in one small all-gather, and
+every rank raises the lowest failing rank's failure, or none. Rank 0
+writes the checkpoints and their garbage collection, the agreement
+after it the barrier; at a resume rank 0 picks the newest checkpoint
+that validates and broadcasts its step, so every rank restores the
+same one. An elastic re-degree to n shards keeps the first n ranks
+(``dist.sub_world``); the others close their session and return a
+report with ``released`` set and no session.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -51,8 +69,9 @@ from repro_torch.core import faults
 from repro_torch.core import grad_comm as grad_comm_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
-from repro_torch.core import reshard
+from repro_torch.core import reshard, spmd
 from repro_torch.core import tree as tree_lib
+from repro_torch.data import store as store_lib
 from repro_torch.launch import dist as dist_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import DeviceLike
@@ -90,6 +109,8 @@ class SupervisorReport:
     events: List[str] = dataclasses.field(default_factory=list)
     final_data: int = 0
     final_spatial: int = 0
+    # over processes: this rank left the run at an elastic re-degree
+    released: bool = False
     session: Optional[Session] = dataclasses.field(default=None, repr=False)
 
 
@@ -221,31 +242,123 @@ def _state_template(config: RunConfig):
     return {"params": params, "opt": opt}
 
 
+# the failures the loop recovers from (the reference's), and what an
+# agreement carries of each: its class by index (the most derived first,
+# so a rebuilt failure has the raising rank's class)
+_CAUGHT = (faults.InjectedFault, StepTimeout, Divergence,
+           checkpoint.CheckpointError, OSError)
+_KINDS = (faults.DeviceLost, faults.InjectedCrash, faults.InjectedIOError,
+          faults.InjectedFault, StepTimeout, Divergence,
+          checkpoint.CheckpointCorrupt, checkpoint.CheckpointError,
+          store_lib.StoreReadError, OSError)
+_WORD = 512  # bytes of a status word: kind, available, message length, text
+
+
+class _Agreement:
+    """Where the ranks of a run over processes agree on a failure: one
+    all-gather of a fixed-size status word over ``ranks``' gloo group.
+    In one process (``ranks`` None) the failure is this process's own."""
+
+    def __init__(self, ranks: Optional[Tuple[int, ...]]):
+        self.group = None if ranks is None else dist_lib.group(ranks, "gloo")
+        self.rank = 0 if self.group is None else self.group.index
+
+    def settle(self, failure: Optional[BaseException]
+               ) -> Optional[BaseException]:
+        """The failure every rank takes: the lowest failing rank's (its
+        own exception on that rank, one of its class and message on the
+        others), or None."""
+        if self.group is None:
+            return failure
+        word = torch.zeros(_WORD, dtype=torch.uint8)
+        if failure is not None:
+            kind = next(i for i, c in enumerate(_KINDS)
+                        if isinstance(failure, c))
+            text = str(failure).encode()[:_WORD - 24]
+            avail = getattr(failure, "available", None)
+            head = torch.tensor([kind + 1, -1 if avail is None else avail,
+                                 len(text)], dtype=torch.int64)
+            word[:24] = head.view(torch.uint8)
+            word[24:24 + len(text)] = torch.frombuffer(bytearray(text),
+                                                       dtype=torch.uint8)
+        rows = [torch.empty_like(word) for _ in self.group.ranks]
+        self.group.all_gather(rows, word)
+        for r, row in enumerate(rows):
+            kind, avail, n = row[:24].view(torch.int64).tolist()
+            if kind:
+                if r == self.rank:
+                    return failure
+                return _rebuild(_KINDS[kind - 1],
+                                bytes(row[24:24 + n].tolist()).decode(),
+                                None if avail < 0 else avail)
+        return None
+
+    def __call__(self, failure: Optional[BaseException]) -> None:
+        """``settle``, raising the agreed failure."""
+        agreed = self.settle(failure)
+        if agreed is not None:
+            raise agreed
+
+    def from_rank0(self, value: int) -> int:
+        """Rank 0's ``value`` (an int) on every rank."""
+        if self.group is None:
+            return value
+        buf = torch.tensor([value], dtype=torch.int64)
+        self.group.broadcast(buf, 0)
+        return int(buf.item())
+
+
+def _rebuild(cls, message: str, available: Optional[int]) -> BaseException:
+    """A failure of class ``cls`` whose ``str`` is ``message`` (another
+    rank's), without running its constructor."""
+    e = cls.__new__(cls)
+    e.args = (message,)
+    if issubclass(cls, faults.InjectedFault):
+        e.site = "peer"
+    if cls is faults.DeviceLost:
+        e.available = available
+    return e
+
+
 def _elastic_restore(path: str, new_config: RunConfig,
                      report: SupervisorReport,
-                     devices: Sequence[torch.device]) -> Session:
+                     devices: Optional[Sequence[DeviceLike]] = None,
+                     device: DeviceLike = None) -> Session:
     """Resume a checkpoint saved at DIFFERENT degrees: read it through
     the old run's tree structure, compile the new run, and move the
     parameters and the adapted optimizer state across, a pipelined run's
     each group's on its group's device (as ``Session.restore`` places
-    them)."""
+    them; over processes this rank's group's and its ZeRO-1 chunk)."""
     with open(os.path.join(path, _META_FILE)) as f:
         old_config = RunConfig.from_json(json.load(f)["run_config"])
     tree = checkpoint.restore(path, _state_template(old_config))
-    sess = api_compile(new_config, devices=devices)
-    sess.params = for_config(sess.cfg).params_from_numpy(
+    sess = api_compile(new_config, device=device, devices=devices)
+    world = sess._pipeline_world
+    params = for_config(sess.cfg).params_from_numpy(
         tree["params"], sess.device, torch.float32, cfg=sess.cfg)
-    if sess.meshes is not None:
+    if world is not None:  # this rank's group's part alone
+        sess.params = {k: params[k] for k in sess.params}
+    else:
+        sess.params = params
+    if sess.meshes is not None and world is None:
         for pg, m in zip(train_step_lib.pipeline_group_params(
                 sess.cfg, sess.plan, sess.params), sess.meshes):
             sess.params.update(reshard.to_group(pg, m.devices[0]))
     zero1 = sess.grad_comm == "reduce_scatter"
     mesh, entry = sess.mesh, sess.plan.stages[0]
     # the new run's state in the checkpoint's layout: global padded
-    # buckets under ZeRO-1, each shard's chunk cut again below from them
-    fresh = (grad_comm_lib.global_opt_state(
-        [sess.opt_state[r] for r in train_step_lib.data_shards(mesh, entry)])
-        if zero1 else sess.opt_state)
+    # buckets under ZeRO-1 (over processes every rank's chunk gathered),
+    # each shard's chunk cut again below from them
+    if zero1:
+        chunks = spmd.all_shard_trees(mesh, sess.opt_state)
+        fresh = grad_comm_lib.global_opt_state(
+            [chunks[r] for r in train_step_lib.data_shards(mesh, entry)])
+    elif world is not None:  # the old run's state of this group, if any
+        fresh = sess.opt_state[world.group]
+        if old_config.pipeline == sess.plan.n_groups:
+            tree["opt"] = tree["opt"][world.group]
+    else:
+        fresh = sess.opt_state
     state, reset = _adapt_opt_state(tree["opt"], fresh)
     step = checkpoint.latest_step(path)
     if reset:
@@ -257,7 +370,10 @@ def _elastic_restore(path: str, new_config: RunConfig,
         n = train_step_lib.data_degree(sess.plan)
         sess.opt_state = [grad_comm_lib.local_opt_state(
             state, buckets, train_step_lib.batch_slice(mesh, r, entry)[0], n,
-            sess.device) for r in range(mesh.size)]
+            sess.device) for r in mesh.local_ranks]
+    elif world is not None:
+        sess.opt_state = tuple(state if g == world.group else None
+                               for g in range(sess.plan.n_groups))
     else:
         sess.opt_state = state
     sess._t = step
@@ -265,26 +381,62 @@ def _elastic_restore(path: str, new_config: RunConfig,
 
 
 def _start_session(cfg_now: RunConfig, root: str, report: SupervisorReport,
-                   verbose: bool, devices: Sequence[torch.device]) -> Session:
-    found = checkpoint.latest_valid_step(root)
-    if found is None:
-        sess = api_compile(cfg_now, devices=devices)
+                   verbose: bool, place: dict,
+                   agreement: _Agreement) -> Session:
+    """A session to continue from: the newest checkpoint that validates
+    (rank 0's pick, broadcast), restored at the same degrees bitwise or
+    re-degreed, or a cold start; every rank's restore agreed on."""
+    found = checkpoint.latest_valid_step(root) if agreement.rank == 0 \
+        else None
+    step = agreement.from_rank0(-1 if found is None else found[0])
+    sess, failure = None, None
+    try:
+        if step < 0:
+            sess = api_compile(cfg_now, **place)
+        else:
+            path = checkpoint.step_dir(root, step)
+            with open(os.path.join(path, _META_FILE)) as f:
+                saved = RunConfig.from_json(json.load(f)["run_config"])
+            if (saved.data, saved.spatial) == (cfg_now.data,
+                                               cfg_now.spatial):
+                sess = Session.restore(path, **place)  # bitwise
+            else:
+                sess = _elastic_restore(path, cfg_now, report, **place)
+    except _CAUGHT as e:
+        failure = e
+    try:
+        agreement(failure)
+    except BaseException:
+        if sess is not None:
+            sess.close()
+        raise
+    if step < 0:
         report.cold_starts += 1
         _event(report, verbose, "cold start at step 0 "
                f"(data={cfg_now.data} spatial={cfg_now.spatial})")
     else:
-        step, path = found
-        with open(os.path.join(path, _META_FILE)) as f:
-            saved = RunConfig.from_json(json.load(f)["run_config"])
-        if (saved.data, saved.spatial) == (cfg_now.data, cfg_now.spatial):
-            sess = Session.restore(path, devices=devices)  # bitwise
-        else:
-            sess = _elastic_restore(path, cfg_now, report, devices)
         report.resumes += 1
         _event(report, verbose, f"resumed from step {step} "
                f"(data={cfg_now.data} spatial={cfg_now.spatial})")
     sess.resumes = report.resumes
     return sess
+
+
+def _save(sess: Session, agreement: _Agreement, root: str, step: int,
+          keep_last: int) -> None:
+    """Checkpoint ``step`` into the retention root and collect the old
+    ones: every rank takes part in the gathers, rank 0 writes, and the
+    agreement after it is the barrier (a write that fails on rank 0
+    fails every rank, where a barrier would leave them waiting)."""
+    held = sess._checkpoint()
+    failure = None
+    if agreement.rank == 0:
+        try:
+            checkpoint.save(checkpoint.step_dir(root, step), **held)
+            checkpoint.gc_steps(root, keep_last)
+        except _CAUGHT as e:
+            failure = e
+    agreement(failure)
 
 
 def _event(report: SupervisorReport, verbose: bool, msg: str) -> None:
@@ -309,12 +461,14 @@ def run(config: RunConfig, steps: int, *,
         ) -> SupervisorReport:
     """Train ``config`` for ``steps`` steps under the recovery loop, on
     ``device`` or ``devices`` (one per shard, as ``compile`` takes them;
-    neither: the card).
+    neither: the card). Over processes every rank calls it (the module
+    docstring).
 
     ``batch_fn(t)`` gives the global batch of step ``t`` and must be a
     pure function of ``t`` for bitwise replay (the default synthetic
     source is; with ``config.data_dir`` set the default streams the
-    store through ``Session.make_loader``, equally pure in ``t``).
+    store through ``Session.make_loader``, equally pure in ``t``, each
+    rank reading its own blocks over processes).
     ``save_every``/``keep_last`` default to the config's policy (else
     every ``max(1, steps // 4)`` steps, keep 3). ``watchdog_timeout_s``
     bounds one step's wall time, read after ``float(loss)`` has waited
@@ -328,12 +482,15 @@ def run(config: RunConfig, steps: int, *,
             "checkpoint_dir", "the supervisor recovers from checkpoints "
             "but has nowhere to write them",
             "set RunConfig.checkpoint_dir to a retention root")
-    if dist_lib.wanted():
-        raise train_step_lib.not_over_processes("the supervisor",
-                                                "supervisor")
     config.validate(device_count=None)
-    devs = list(mesh_lib.mesh_devices(config.data * config.spatial,
-                                      device=device, devices=devices))
+    ranks: Optional[Tuple[int, ...]] = None
+    if dist_lib.wanted():  # every rank runs this loop: one a shard
+        dist_lib.init()
+        ranks = dist_lib.world()
+        place = {"device": device, "devices": devices}
+    else:
+        place = {"devices": list(mesh_lib.mesh_devices(
+            config.data * config.spatial, device=device, devices=devices))}
     root = config.checkpoint_dir
     save_every = save_every or config.save_every or max(1, steps // 4)
     keep_last = keep_last or config.keep_last or 3
@@ -341,8 +498,6 @@ def run(config: RunConfig, steps: int, *,
     # retention root, so intervals and GC stay consistent across resumes
     cfg_now = dataclasses.replace(config, save_every=None, keep_last=None)
     loader_mode = batch_fn is None and config.data_dir is not None
-    if batch_fn is None and not loader_mode:
-        batch_fn = _default_batch_fn(config, devs[0])
 
     report = SupervisorReport(
         steps=steps, losses=[float("nan")] * steps,
@@ -354,48 +509,64 @@ def run(config: RunConfig, steps: int, *,
     warming = 2
 
     while True:
+        agreement = _Agreement(ranks)
         try:
             if sess is None:
-                sess = _start_session(cfg_now, root, report, verbose, devs)
+                with (dist_lib.sub_world(ranks) if ranks is not None
+                      else contextlib.nullcontext()):
+                    sess = _start_session(cfg_now, root, report, verbose,
+                                          place, agreement)
                 if loader_mode:
                     batch_fn = _loader_batch_fn(sess, cfg_now)
+                elif batch_fn is None:
+                    batch_fn = _default_batch_fn(config, sess.device)
                 prev_skipped = (sess._guarded_steps
                                 - float(sess._applied_acc))
                 warming = 2  # first use: builds, caches, allocations
             while sess.step_count < steps:
                 t = sess.step_count
                 t0 = time.perf_counter()
-                loss = float(sess.step(batch_fn(t)))  # waits: watchdog
+                try:
+                    batch = batch_fn(t)
+                except _CAUGHT as e:  # agreed on before any collective
+                    agreement(e)
+                    raise
+                # waits: the watchdog
+                loss = float(sess.step(batch, agree=agreement))
                 dt = time.perf_counter() - t0
+                failure: Optional[BaseException] = None
                 if (watchdog_timeout_s is not None and warming == 0
                         and dt > watchdog_timeout_s):
-                    raise StepTimeout(
+                    failure = StepTimeout(
                         f"step {t} took {dt:.2f}s > watchdog "
                         f"{watchdog_timeout_s:.2f}s")
+                skipped = (sess._guarded_steps - float(sess._applied_acc)
+                           if config.resolved_guard else 0.0)
+                bad = skipped > prev_skipped or not math.isfinite(loss)
+                if (failure is None and divergence_patience is not None
+                        and (consec_bad + 1 if bad else 0)
+                        >= divergence_patience):
+                    failure = Divergence(
+                        f"{divergence_patience} consecutive skipped/"
+                        f"non-finite steps ending at step {t}")
+                failure = agreement.settle(failure)
+                if isinstance(failure, StepTimeout):
+                    raise failure
                 warming = max(warming - 1, 0)
                 report.losses[t] = loss
                 if pending is not None and sess.step_count > pending[1]:
                     report.recovery_s.append(time.perf_counter()
                                              - pending[0])
                     pending = None
-                skipped = (sess._guarded_steps - float(sess._applied_acc)
-                           if config.resolved_guard else 0.0)
-                consec_bad = (consec_bad + 1
-                              if skipped > prev_skipped
-                              or not math.isfinite(loss) else 0)
+                consec_bad = consec_bad + 1 if bad else 0
                 prev_skipped = skipped
-                if (divergence_patience is not None
-                        and consec_bad >= divergence_patience):
+                if failure is not None:
                     consec_bad = 0
-                    raise Divergence(
-                        f"{divergence_patience} consecutive skipped/"
-                        f"non-finite steps ending at step {t}")
+                    raise failure
                 if (t + 1) % save_every == 0 or (t + 1) == steps:
-                    sess.save(checkpoint.step_dir(root, t + 1))
-                    checkpoint.gc_steps(root, keep_last)
+                    _save(sess, agreement, root, t + 1, keep_last)
             break
-        except (faults.InjectedFault, StepTimeout, Divergence,
-                checkpoint.CheckpointError, OSError) as e:
+        except _CAUGHT as e:
             fail_step = sess.step_count if sess is not None else 0
             report.restarts += 1
             _event(report, verbose,
@@ -408,13 +579,25 @@ def run(config: RunConfig, steps: int, *,
                     f"(last failure at step {fail_step}: {e})") from e
             if isinstance(e, faults.DeviceLost) and e.available is not None:
                 cfg_now = degrade_config(cfg_now, e.available)
-                devs = devs[:cfg_now.data * cfg_now.spatial]
+                n = cfg_now.data * cfg_now.spatial
+                if place.get("devices") is not None:
+                    place["devices"] = list(place["devices"])[:n]
                 report.replans += 1
                 report.final_data = cfg_now.data
                 report.final_spatial = cfg_now.spatial
                 _event(report, verbose,
                        f"replanned for {e.available} devices: "
                        f"data={cfg_now.data} spatial={cfg_now.spatial}")
+                if ranks is not None:
+                    if agreement.rank >= n:
+                        if sess is not None:
+                            sess.close()
+                        report.released = True
+                        _event(report, verbose,
+                               f"released: rank {agreement.rank} is not "
+                               f"among the {n} that continue")
+                        return report
+                    ranks = ranks[:n]
             if isinstance(e, Divergence):
                 report.rollbacks += 1
             if pending is None:

@@ -19,12 +19,28 @@ What carries over from the reference:
     by a margin on the partitioned dims (clamped at the volume); the
     served block is always the exact slab.
 
-What the port does instead of ``jax.make_array_from_callback``: it
-builds the ONE global ``(N, D, H, W, C)`` tensor that ``Session.step``
-takes, on the mesh's first device, each rank's slab copied into its
-place. On a card each slab goes through a pinned host buffer and is
-copied with ``non_blocking=True`` on the loader's own copy stream; a
-pinned buffer is reused only once its copy's event has completed, and
+What the port does instead of ``jax.make_array_from_callback``: on an
+in-process mesh (every shard a thread of this process) it builds the
+ONE global ``(N, D, H, W, C)`` tensor that ``Session.step`` takes, on
+the mesh's first device, each rank's slab copied into its place. Over a
+process mesh (``launch.mesh.ProcessMesh``, one process a shard) it
+reads the blocks of ``mesh.local_ranks`` alone, as the reference's
+callback runs for a process's addressable devices only: the rank's
+slice of the batch (under a pipelined plan, its slice of each
+micro-batch, ``micro_batches`` runs of rows), its depth slab, its
+``halo_voxels`` margin, and the U-Net's voxel labels split like x, or
+CosmoFlow's targets of its rows; ``load_batch`` returns them as a
+``train_step.RankBatch`` of ``train_step.Block``s (each with the global
+shape), which the step takes as they are. ``reads`` names what the
+rank's pipeline group takes (x the entry group, y the loss group). Its
+cache then holds its own slabs only, and ``rank_pfs_bytes`` its own
+reads; ``gather_stats`` sums the ranks' counters, one exchange on the
+caller's thread (never the prefetch worker's: two threads issuing
+collectives on one backend would interleave them).
+
+On a card each slab goes through a pinned host buffer and is copied
+with ``non_blocking=True`` on the loader's own copy stream; a pinned
+buffer is reused only once its copy's event has completed, and
 the global tensor is allocated on the copy stream. ``stage_batch``
 returns the batch with the event that marks its copies done;
 ``ready`` makes the caller's current stream wait for that event (the
@@ -51,6 +67,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.store import HyperslabStore
+from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.obs import trace as trace_lib
 from repro_torch.train import train_step
 
@@ -82,10 +99,11 @@ class IOStats:
 
 class Staged(NamedTuple):
     """A batch whose copies may still be in flight: ``event`` (None on
-    the CPU) completes when they are done."""
+    the CPU) completes when they are done. Over a process mesh ``x`` and
+    ``y`` are this rank's ``train_step.Block``s (or None: not read)."""
 
-    x: torch.Tensor
-    y: torch.Tensor
+    x: Any
+    y: Any
     event: Optional[Any]
 
 
@@ -122,16 +140,24 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
 
 
 class SpatialParallelLoader:
-    """Global batches for ``Session.step``: each mesh rank's block of the
-    plan's entry ``stage`` read (or served from the cache) on its own,
-    then copied into one tensor on ``mesh.devices[0]``."""
+    """Batches for ``Session.step``: each mesh rank's block of the plan's
+    entry ``stage`` read (or served from the cache) on its own, then
+    copied into one global tensor on ``mesh.home`` (an in-process mesh),
+    or kept as this rank's blocks on its own device (a process mesh:
+    ``micro_batches`` runs of rows, one a micro-batch of a pipelined
+    plan; ``reads`` the tensors its group takes, of ``("x", "y")``)."""
 
     def __init__(self, store: HyperslabStore, mesh, stage, global_batch: int,
-                 seed: int = 0, cache: bool = True, halo_voxels: int = 0):
+                 seed: int = 0, cache: bool = True, halo_voxels: int = 0,
+                 *, micro_batches: int = 1, reads: Tuple[str, ...] = ("x",
+                                                                     "y")):
         self.store = store
         self.mesh = mesh
         self.stage = stage
-        self.device = mesh.devices[0]
+        self.device = mesh.home
+        self.per_rank = isinstance(mesh, ProcessMesh)
+        self.micro_batches = micro_batches
+        self.reads = tuple(reads)
         self.global_batch = global_batch
         self.seed = seed
         self.cache_enabled = cache
@@ -246,30 +272,47 @@ class SpatialParallelLoader:
             done.record(stream)
         self._pinned.release(buf, done)
 
-    def _place(self, ids: np.ndarray, sample_shape, what: str
-               ) -> torch.Tensor:
-        """The global (N, *sample_shape) tensor of ``ids``: every rank's
-        block of the entry stage read on its own and copied into place
-        (a block another rank also holds is read by each; copied once)."""
+    def _rows(self, n: int, rank: int) -> List[int]:
+        """The rows of a batch of ``n`` that ``rank`` reads: its slice of
+        the entry stage's batch axes (``train_step.batch_slice``), of each
+        micro-batch in turn."""
+        M = self.micro_batches
+        mb = n // M
+        index, count = train_step.batch_slice(self.mesh, rank, self.stage)
+        k = mb // count
+        return [m * mb + index * k + i for m in range(M) for i in range(k)]
+
+    def _place(self, ids: np.ndarray, sample_shape, what: str):
+        """The (N, *sample_shape) batch of ``ids``: every local rank's
+        block of the entry stage read on its own; in process, copied
+        into the global tensor (a block another rank also holds is read
+        by each, copied once); over processes, this rank's block as a
+        ``train_step.Block`` on its device."""
         shape = (len(ids),) + tuple(sample_shape)
         out, done = None, set()
-        for rank in range(self.mesh.size):
+        for rank in self.mesh.local_ranks:
             idx = train_step.block_index(shape, self.mesh, rank, self.stage)
             slab = idx[1:4] + tuple(slice(None) for _ in shape[4:])
-            parts = [self._fetch(int(s), slab, rank, what)
-                     for s in ids[idx[0]]]
+            rows = self._rows(len(ids), rank)
+            parts = [self._fetch(int(ids[j]), slab, rank, what)
+                     for j in rows]
+            dtype = _torch_dtype(parts[0].dtype)
+            if self.per_rank:
+                out = self._alloc((len(parts),) + parts[0].shape, dtype)
+                self._put(out, parts)
+                return train_step.Block(out, shape, self.micro_batches)
             if out is None:
-                out = self._alloc(shape, _torch_dtype(parts[0].dtype))
+                out = self._alloc(shape, dtype)
             key = tuple((s.start, s.stop) for s in idx)
             if key not in done:
                 done.add(key)
                 self._put(out[idx], parts)
         return out
 
-    def _vector_labels(self, sample_ids: np.ndarray) -> torch.Tensor:
+    def _vector_labels(self, sample_ids: np.ndarray):
         """The batch's regression targets, cached as the placed tensor:
         ``store.target`` is re-read (and the batch copied) on a miss
-        only."""
+        only. Over processes this rank's rows alone, as a ``Block``."""
         key = tuple(int(s) for s in sample_ids)
         if self.cache_enabled:
             with self._lock:
@@ -278,11 +321,16 @@ class SpatialParallelLoader:
                     self._label_cache.move_to_end(key)
             if hit is not None:
                 return hit
-        tg = np.stack([self.store.target(int(s)) for s in sample_ids])
+        rows = (self._rows(len(key), self.mesh.rank) if self.per_rank
+                else range(len(key)))
+        tg = np.stack([self.store.target(key[j]) for j in rows])
         with self._lock:
-            self.stats.label_fetches += len(key)
+            self.stats.label_fetches += len(rows)
         y = self._alloc(tg.shape, _torch_dtype(tg.dtype))
         self._put(y, list(tg))
+        if self.per_rank:
+            y = train_step.Block(y, (len(key),) + tg.shape[1:],
+                                 self.micro_batches)
         if self.cache_enabled:
             with self._lock:
                 self._label_cache[key] = y
@@ -295,12 +343,14 @@ class SpatialParallelLoader:
         """The batch of ``sample_ids`` with its copies enqueued (on a
         card: not yet waited for; ``ready`` does)."""
         ids = np.asarray(sample_ids)
+        x = y = None
         with self._on_device():
-            x = self._place(ids, self.store.sample_shape, "x")
-            if self.store.label_kind == "voxel":
-                y = self._place(ids, self.store.sample_shape[:3], "y")
-            else:
-                y = self._vector_labels(ids)
+            if "x" in self.reads:
+                x = self._place(ids, self.store.sample_shape, "x")
+            if "y" in self.reads:
+                y = (self._place(ids, self.store.sample_shape[:3], "y")
+                     if self.store.label_kind == "voxel"
+                     else self._vector_labels(ids))
             return self._staged(x, y)
 
     def _staged(self, x: torch.Tensor, y: torch.Tensor) -> Staged:
@@ -312,21 +362,46 @@ class SpatialParallelLoader:
             event.record(self._stream())
         return Staged(x, y, event)
 
-    def ready(self, staged: Staged) -> Tuple[torch.Tensor, torch.Tensor]:
+    def ready(self, staged: Staged):
         """(x, y) for use on the caller's current stream, which waits
-        for the batch's copies (the host does not)."""
+        for the batch's copies (the host does not); over processes a
+        ``train_step.RankBatch`` of this rank's blocks."""
         if staged.event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(staged.event)
-            staged.x.record_stream(stream)
-            staged.y.record_stream(stream)
+            for t in (staged.x, staged.y):
+                if isinstance(t, train_step.Block):
+                    t = t.t
+                if t is not None:
+                    t.record_stream(stream)
+        if self.per_rank:
+            return train_step.RankBatch(staged.x, staged.y)
         return staged.x, staged.y
 
     def load_batch(self, sample_ids: np.ndarray):
-        """The global batch ``(x, y)`` of these samples, ready on the
-        caller's current stream."""
+        """The batch ``(x, y)`` of these samples, ready on the caller's
+        current stream: the global tensors, or over processes this
+        rank's ``RankBatch``."""
         with trace_lib.span("io.load.sync", samples=len(sample_ids)):
             return self.ready(self.stage_batch(sample_ids))
+
+    def gather_stats(self) -> IOStats:
+        """The counters summed over the ranks (``rank_pfs_bytes``
+        merged): over a process mesh one exchange over its world (a
+        pipeline's: every group's), so every rank calls it, on the
+        caller's thread; in process this loader's own."""
+        if not self.per_rank:
+            return dataclasses.replace(
+                self.stats, rank_pfs_bytes=dict(self.stats.rank_pfs_bytes))
+        world = self.mesh.pipeline or self.mesh.world
+        out = IOStats()
+        for st in world.gather_objects(dataclasses.asdict(self.stats)):
+            for f in ("pfs_bytes", "cache_bytes_local",
+                      "cache_bytes_redistributed", "label_fetches"):
+                setattr(out, f, getattr(out, f) + st[f])
+            for r, v in st["rank_pfs_bytes"].items():
+                out.rank_pfs_bytes[r] = out.rank_pfs_bytes.get(r, 0) + v
+        return out
 
     def close(self) -> None:
         """Sync loaders hold no threads; kept so every loader drains the

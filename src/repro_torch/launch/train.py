@@ -23,9 +23,9 @@ loader.
 
 Under ``torchrun`` each process is one shard of a process mesh
 (``launch.mesh.ProcessMesh``; with ``--pipeline P`` one of P groups'
-meshes, ``--data`` the total) and every rank trains on the same seeded
-synthetic global batches (the loader over processes comes later); rank
-0 prints. A pipelined run trains without a gradient clip (the clip
+meshes, ``--data`` the total) and each rank reads its own blocks of the
+same batches through its per-rank loader (rank 0 writes the synthetic
+store); rank 0 prints. A pipelined run trains without a gradient clip (the clip
 needs the norm across groups).
 
 A language model's ``--arch`` raises: LM training comes with the LM
@@ -37,10 +37,7 @@ import argparse
 import dataclasses
 import time
 
-import torch
-
 from repro_torch import configs
-from repro_torch.launch.mesh import ProcessMesh
 
 
 def train_convnet(args) -> None:
@@ -93,24 +90,9 @@ def _with_remat(config):
 
 
 def _batches(session, batch: int):
-    """``batch_for(i)``: step i's global batch. In one process, from the
-    session's loader over a synthetic store; over processes (the loader
-    does not run there yet) a synthetic batch seeded by the step, the
-    same on every rank."""
-    if isinstance(session.mesh, ProcessMesh):
-        cfg, w = session.cfg, session.cfg.input_width
-
-        def synthetic(i: int):
-            g = torch.Generator(device=session.device).manual_seed(1000 + i)
-            x = torch.randn((batch, w, w, w, cfg.in_channels), generator=g,
-                            device=session.device)
-            if cfg.arch == "cosmoflow":
-                return x, torch.randn((batch, cfg.out_dim), generator=g,
-                                      device=session.device)
-            return x, torch.randint(0, cfg.out_dim, (batch, w, w, w),
-                                    generator=g, device=session.device,
-                                    dtype=torch.int32)
-        return synthetic
+    """``batch_for(i)``: step i's batch from the session's loader over a
+    synthetic store, each epoch's schedule in turn (over processes each
+    rank's blocks of it)."""
     n = max(2 * batch, 8)
     loader = session.make_loader(num_samples=n)
     state = {"order": loader.epoch_schedule()}

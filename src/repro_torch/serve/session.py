@@ -24,7 +24,8 @@ forward's per-use cast is the identity.
 
 ``InferenceSession.serve()`` starts a ``ServingHarness``
 (``repro_torch.serve.harness``) whose worker threads feed coalesced
-batches into the session's forward.
+batches into the session's forward; over processes on rank 0, every
+other rank following it (``ServingFollower``).
 """
 from __future__ import annotations
 
@@ -136,6 +137,7 @@ class InferenceSession(session_lib._Traced):
             cfg, mesh, plan=plan, overlap=config.overlap_halo,
             precision=self.precision)
         self._harnesses: list = []
+        self._followers: list = []  # over processes, ranks other than 0
         self._init_trace(config)
 
     # --------------------------------------------------------- forward ----
@@ -209,10 +211,17 @@ class InferenceSession(session_lib._Traced):
         (``repro_torch.serve.harness.ServingHarness``): a bounded request
         queue, worker threads coalescing up to ``max_batch`` requests
         (waiting at most ``max_wait_ms`` to fill a batch), per-request
-        futures, backpressure at ``max_queue``. The session closes its
-        harnesses on ``close()``."""
-        from repro_torch.serve.harness import ServingHarness
+        futures, backpressure at ``max_queue``. Over processes rank 0
+        gets that harness, the one front end, and every other rank a
+        ``ServingFollower`` that runs its shard of each batch rank 0
+        broadcasts until rank 0's harness closes (every rank calls
+        ``serve``). The session closes its harnesses on ``close()``."""
+        from repro_torch.serve.harness import ServingFollower, ServingHarness
 
+        if isinstance(self.mesh, mesh_lib.ProcessMesh) and self.mesh.rank:
+            f = ServingFollower(self)
+            self._followers.append(f)
+            return f
         h = ServingHarness(self, max_batch=max_batch,
                            max_wait_ms=max_wait_ms, max_queue=max_queue,
                            workers=workers)
@@ -322,9 +331,12 @@ class InferenceSession(session_lib._Traced):
 
     # ------------------------------------------------------- lifecycle ----
     def _release(self) -> None:
-        """Drain and join every serving harness."""
+        """Drain and join every serving harness; a follower waits for
+        rank 0's harness to stop."""
         for h in self._harnesses:
             h.close(drain=True)
+        for f in self._followers:
+            f.close()
 
 
 def _quantile_ms(samples_s, q: float) -> float:

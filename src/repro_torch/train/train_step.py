@@ -32,7 +32,10 @@ device (``["cuda:0"] * n`` on a card, ``["cpu"] * n`` in the tests):
    parameters' reduction hooks go into its graph
    (``core/grad_comm.py``; under ``reduce_scatter`` over the spatial
    axes only). Each shard has parameter leaves of its own (views of the
-   same masters), so that its gradient is its own partial sum;
+   same masters), so that its gradient is its own partial sum. Over a
+   process mesh the step also takes this rank's blocks as they are (a
+   ``RankBatch`` of ``Block``s, the per-rank loader's), each checked
+   against ``block_index`` of the global shape it carries;
 2. ONE backward over the shards' losses (fp16: each times the running
    loss scale), from the calling thread: each collective is one autograd
    node over every shard (``core/spmd.py``), so its adjoint is a data
@@ -65,8 +68,8 @@ import math
 import threading
 import time
 from concurrent import futures
-from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
-                    Tuple)
+from typing import (Any, Callable, Dict, List, Mapping, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import torch
 
@@ -144,24 +147,105 @@ def block_index(shape: Sequence[int], mesh, rank: int,
     return tuple(out)
 
 
-def split_input(x: torch.Tensor, mesh, stage: plan_lib.Stage
-                ) -> List[torch.Tensor]:
+class Block:
+    """This process's block of a global batch tensor (a ``RankBatch``'s
+    x or y, from the per-rank loader over a process mesh): ``t`` the
+    block, ``shape`` the global tensor's (so ``shape[0]`` is the global
+    batch), ``micro_batches`` how ``t``'s rows are laid out: M runs of
+    equal length, run m the rank's rows of micro-batch m (a pipelined
+    plan's; 1 otherwise)."""
+
+    __slots__ = ("t", "shape", "micro_batches")
+
+    def __init__(self, t: torch.Tensor, shape: Sequence[int],
+                 micro_batches: int = 1):
+        self.t = t
+        self.shape = tuple(int(d) for d in shape)
+        self.micro_batches = int(micro_batches)
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Block":
+        return Block(fn(self.t), self.shape, self.micro_batches)
+
+    def __repr__(self) -> str:
+        return (f"Block({tuple(self.t.shape)} of {self.shape}, "
+                f"micro_batches={self.micro_batches})")
+
+
+class RankBatch(NamedTuple):
+    """A batch as the per-rank loader gives it over a process mesh: this
+    rank's ``Block`` of x and of y (None where the rank's group does not
+    take it: a pipeline's x goes to the entry group, y to the loss
+    group). It unpacks as ``x, y``; ``Session.step`` takes it as it
+    takes a global ``(x, y)``."""
+
+    x: Optional[Block]
+    y: Optional[Block]
+
+
+def micro_rows(x, m: int, mb: int):
+    """Micro-batch ``m`` (rows ``[m*mb, (m+1)*mb)``) of a global batch
+    tensor, or of a rank's ``Block`` whose rows are laid out by
+    micro-batch (its run m, as a ``Block`` of the micro-batch)."""
+    if not isinstance(x, Block):
+        return x[m * mb:(m + 1) * mb]
+    M = x.shape[0] // mb
+    if x.micro_batches != M:
+        raise ValueError(f"{x} is laid out in {x.micro_batches} "
+                         f"micro-batches; the step cuts {M}")
+    n = x.t.shape[0] // M
+    return Block(x.t[m * n:(m + 1) * n], (mb,) + x.shape[1:])
+
+
+def _block_rank(b: Block, mesh) -> int:
+    """The shard a rank's block feeds: its process mesh's one shard."""
+    if not isinstance(mesh, ProcessMesh):
+        raise ValueError(f"a rank's block ({b}) feeds a process mesh's "
+                         f"one shard; {mesh} runs every shard: pass the "
+                         "global batch")
+    if b.micro_batches != 1:
+        raise ValueError(f"{b} is laid out in {b.micro_batches} "
+                         "micro-batches: a pipelined step takes it")
+    return mesh.rank
+
+
+def _taken(b: Block, mesh, want: Sequence[slice], what: str
+           ) -> List[torch.Tensor]:
+    """A rank's block as it is, once its shape is checked against its
+    slice ``want`` of the global tensor, contiguous on its device."""
+    shape = tuple(s.stop - s.start for s in want)
+    if tuple(b.t.shape) != shape:
+        raise ValueError(f"rank {mesh.rank}'s block of {what} is "
+                         f"{tuple(b.t.shape)}, but its slice of the global "
+                         f"{b.shape} is {shape}")
+    return [b.t.to(mesh.devices[mesh.rank]).contiguous()]
+
+
+def split_input(x, mesh, stage: plan_lib.Stage) -> List[torch.Tensor]:
     """Shard r's block of ``x`` (N, D, H, W, C) (``block_index``),
     contiguous on r's device, for each shard this process runs
-    (``mesh.local_ranks``)."""
+    (``mesh.local_ranks``). A ``Block`` (the per-rank loader's) is this
+    rank's already: taken as it is once its shape is ``block_index``'s."""
+    if isinstance(x, Block):
+        r = _block_rank(x, mesh)
+        return _taken(x, mesh, block_index(x.shape, mesh, r, stage), "x")
     return [x[block_index(x.shape, mesh, r, stage)].to(
         mesh.devices[r]).contiguous() for r in mesh.local_ranks]
 
 
-def split_batch(y: torch.Tensor, mesh, stage: plan_lib.Stage
-                ) -> List[torch.Tensor]:
+def split_batch(y, mesh, stage: plan_lib.Stage) -> List[torch.Tensor]:
     """Shard r's slice of ``y`` along the batch, on r's device (the
-    local shards)."""
+    local shards); a ``Block`` taken as it is once checked."""
+    if isinstance(y, Block):
+        index, count = batch_slice(mesh, _block_rank(y, mesh), stage)
+        n = y.shape[0] // count
+        want = [slice(index * n, (index + 1) * n)] + [
+            slice(0, d) for d in y.shape[1:]]
+        return _taken(y, mesh, want, "y")
     return [_rows(y, *batch_slice(mesh, r, stage)).to(
         mesh.devices[r]).contiguous() for r in mesh.local_ranks]
 
 
-def split_targets(cfg: ConvNetConfig, y: torch.Tensor, mesh,
+def split_targets(cfg: ConvNetConfig, y, mesh,
                   stage: plan_lib.Stage) -> List[torch.Tensor]:
     """Shard r's targets: CosmoFlow's batch slice of y (N, out_dim), or
     the U-Net's block of its voxel labels (N, D, H, W), split like x."""
@@ -301,10 +385,7 @@ def _check_mesh(cfg: ConvNetConfig, mesh, plan,
 
 # what the process mesh does not run yet, and the ROADMAP §1 item that
 # brings it
-_ITEM_2 = ("item 1.2 (the supervisor, the per-rank loader and the serving "
-           "harness over processes)")
 PROCESS_ITEMS = {
-    "supervisor": _ITEM_2, "loader": _ITEM_2, "harness": _ITEM_2,
     "auto": "item 1.3 (plan=\"auto\" and memory budgets over processes)",
 }
 # ZeRO-1 and pipeline groups do not compose, in a process or over several
@@ -615,6 +696,14 @@ def local_groups(meshes) -> Tuple[int, ...]:
     return tuple(g for g, m in enumerate(meshes) if m.local_ranks)
 
 
+def pipeline_loss_group(cfg: ConvNetConfig,
+                        plan: plan_lib.ParallelPlan) -> int:
+    """The pipeline group whose node computes the loss, and so takes y:
+    CosmoFlow's last group, the U-Net's group 0 (its ascent ends where
+    its descent began). Group 0 takes x."""
+    return 0 if cfg.arch == "unet3d" else plan.n_groups - 1
+
+
 def make_pipeline_opt_state(cfg: ConvNetConfig, optimizer, params, *,
                             plan: plan_lib.ParallelPlan, meshes=None,
                             precision=None) -> Tuple[Any, ...]:
@@ -886,6 +975,7 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
         # recompute), so that a forward counts no buckets
         return gx if torch.is_grad_enabled() else ()
 
+    loss_group = pipeline_loss_group(cfg, plan)
     nodes: List[_Node] = []
     if cfg.arch == "cosmoflow":
         for g, (a, b) in enumerate(ranges):
@@ -904,7 +994,6 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
                         grad_axes=hooked(), **kw)
                     return cosmoflow_lib.mse(pred, y, global_batch)
                 nodes.append(_Node("loss", g, names, loss))
-        loss_group = n_grp - 1
     else:
         voxels = global_batch * cfg.input_width ** 3
 
@@ -940,7 +1029,6 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
                                                grad_axes=hooked(), **kw)
                     return unet_lib.voxel_nll(logits, y, voxels)
                 nodes.append(_Node("uploss", 0, names, uploss, partner=0))
-        loss_group = 0
     K = len(nodes)
     if stage == "fwd":
         order = [("F", k, m) for m in range(M) for k in range(K)]
@@ -1052,10 +1140,10 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
             opts = {g: reshard.to_group(opt_states[g], meshes[g].home)
                     for g in mine}
             if 0 in mine:
-                xs = [split_input(x[m * mb:(m + 1) * mb], meshes[0], entry)
+                xs = [split_input(micro_rows(x, m, mb), meshes[0], entry)
                       for m in range(M)]
             if loss_group in mine:
-                ys = [split_targets(cfg, y[m * mb:(m + 1) * mb],
+                ys = [split_targets(cfg, micro_rows(y, m, mb),
                                     meshes[loss_group], entry)
                       for m in range(M)]
         lmesh = meshes[loss_group]
@@ -1354,12 +1442,14 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
     return step
 
 
-__all__ = ["STAGES", "batch_slice", "block_index", "convnet_grad_plan",
+__all__ = ["Block", "RankBatch", "STAGES", "batch_slice", "block_index",
+           "convnet_grad_plan",
            "data_degree", "data_shards", "flat_plan", "gather_blocks",
            "gather_rows", "make_convnet_forward_step",
            "make_convnet_opt_state", "make_convnet_train_step",
            "make_convnet_phase_probes", "make_convnet_eval_step",
            "local_groups", "make_pipeline_opt_state",
-           "make_pipeline_train_step", "pipeline_group_names",
-           "pipeline_group_params", "replicate", "sample_ids",
+           "make_pipeline_train_step", "micro_rows", "pipeline_group_names",
+           "pipeline_group_params", "pipeline_loss_group", "replicate",
+           "sample_ids",
            "split_batch", "split_input", "split_targets"]

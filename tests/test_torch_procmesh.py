@@ -21,10 +21,11 @@ process while the children work.
   process mesh restoring it steps bitwise as the in-process one does;
 * depth-split serving equals the in-process serving; ``evaluate``
   gathers the predictions on every rank;
-* a world whose size is not data x spatial raises; ``plan="auto"``, the
-  loader, the harness and the supervisor over processes raise
-  ``NotImplementedError`` naming the ROADMAP item (ZeRO-1, remat and
-  pipeline groups over processes: ``tests/test_torch_procmesh_compose.py``).
+* a world whose size is not data x spatial raises; ``plan="auto"`` over
+  processes raises ``NotImplementedError`` naming the ROADMAP item
+  (ZeRO-1, remat and pipeline groups over processes:
+  ``tests/test_torch_procmesh_compose.py``; the loader, the harness and
+  the supervisor: ``tests/test_torch_procmesh_io.py``).
 """
 import dataclasses
 import math
@@ -34,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import RunConfig, Session, compile, supervisor
+from repro_torch.api import RunConfig, Session, compile
 from repro_torch.core import spmd
 from repro_torch.core.tree import key_paths
 from repro_torch.launch import dist as dist_lib
@@ -333,27 +334,14 @@ def refusal_job(what):
     try:
         if what == "world_size":
             compile(_config("cosmoflow-128", 1, 4, "overlap"), devices=devs)
-        elif what == "auto":
-            compile(dataclasses.replace(base, plan="auto"), devices=devs)
-        elif what == "supervisor":
-            supervisor.run(dataclasses.replace(base, checkpoint_dir="unused"),
-                           1, devices=devs)
-        elif what == "loader":
-            with compile(base, devices=devs) as sess:
-                sess.make_loader(num_samples=4)
         else:
-            with compile(dataclasses.replace(base, mode="infer",
-                                             grad_comm="auto"),
-                         devices=devs) as sess:
-                sess.serve()
+            compile(dataclasses.replace(base, plan="auto"), devices=devs)
     except Exception as e:  # noqa: BLE001 — the refusal is the result
         return type(e).__name__, str(e)
     return None, None
 
 
-@pytest.mark.parametrize("what,item", [
-    ("supervisor", "1.2"), ("loader", "1.2"), ("harness", "1.2"),
-    ("auto", "1.3")])
+@pytest.mark.parametrize("what,item", [("auto", "1.3")])
 def test_unsupported_compositions_raise_naming_the_roadmap(pool, what, item):
     for kind, msg in pool.run(refusal_job, what, ranks=(0, 1)):
         assert kind == "NotImplementedError", msg
