@@ -272,7 +272,29 @@ Phases, each printing one line; any failure raises and exits non-zero:
               ``recovery_s`` printed; then ``DeviceLost(available=2)``
               on rank 2 alone: ranks 0-1 re-plan to 1 x 2 with finite
               losses and the in-process supervisor's events, ranks 2-3
-              are released.
+              are released. Then the ``PROCMESH_PLANS`` runs (the
+              cost-model planner over processes), each bitwise the
+              in-process run of the same config or the run fails:
+              cosmoflow-128 b4 fp32 1 x 2 pinned ``b1_batch`` under
+              ``overlap`` and ``reduce_scatter`` and ``plan="auto"``,
+              1 x 4 ``plan="auto"``; a 1.0 GiB budget at data =
+              spatial = 1 over the 4 ranks, at b4 (the in-process
+              ``PLANS_AUTO`` budget run's plan, bf16 ``b1_batch`` on
+              every rank)
+              and at b2 (its plan on ranks 0-1, ranks 2-3 released: no
+              launch, no subgroup, nothing on the card), with each
+              rank's modeled peak beside its measured one (allocated,
+              less what its process held before); the U-Net 64^3 b2
+              1 x 2 ``b1_batch``; the per-rank loader under
+              ``uniform_batch`` (whole volumes of a rank's own samples:
+              1/(D x S) of the bytes); the U-Net's 256^3 b2 S = 2
+              ``b1_batch`` serving; the harness, 16 one-volume requests
+              at S = 2 under ``plan="auto"``; the supervisor, a pinned
+              ``b1_batch`` 2 x 2 ZeRO-1 loader-fed run losing a device
+              on rank 2, re-planned (``"auto"``) to 1 x 2 on ranks 0-1
+              with the in-process elastic run's events, losses,
+              parameters and plan, ranks 2-3 released. Launches summed
+              over the ranks against ``kernel_launches``.
 m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
               and 10q's U-Net (512^3 b2 now also without remat) beside
               the session's ``describe().modeled_peak`` (``core/memory.py``,
@@ -340,6 +362,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+LONG_CALL_MS = 2000.0  # median_ms times a call this long once
 PEAKS_USED = ("bound = max(FLOPs / peak, bytes / 3.35 TB/s); peak = "
               "67 TFLOP/s fp32 (CUDA cores: bn_act), 989 TFLOP/s bf16 "
               "(tensor cores); conv3d and ssd_scan fp32 run as 3xTF32 on the "
@@ -444,6 +467,9 @@ PROCMESH_CHECKPOINT = ("pz-a",)
 PROCMESH_SERVE = (("cosmoflow-128", 4, 2), ("unet3d-256", 1, 2))
 PROCMESH_WORLD = 4
 PROCMESH_STEPS = 2
+# timed steps a phase-10w run adds after a warm-up (no gate reads them;
+# a step over processes takes ~0.2-0.7 s)
+PROCMESH_TIMED = 1
 PROCMESH_FP32 = 1e-5  # a leaf's share of its max-abs, and the losses
 PROCMESH_LIMIT_S = 300
 # phase 10w's PROCMESH_IO runs, every rank on this card over gloo: the
@@ -459,6 +485,30 @@ PROCMESH_IO_STEPS = 4
 PROCMESH_IO_PREFETCH = 2
 PROCMESH_IO_SERVE = (16, 4, 2)
 PROCMESH_IO_SUPERVISE = (2, 2, 6, 2)
+# phase 10w's PROCMESH_PLANS runs, every rank on this card over gloo, each
+# gated bitwise against the in-process run of the same config: training
+# (tag, model, batch, data, spatial, precision, grad_comm, plan), the plan
+# a kind of PLAN_KINDS, "auto", or a memory budget in GiB over a world of
+# PROCMESH_WORLD ranks at data = spatial = 1 ("auto" precision: the
+# planner's); the per-rank loader (tag, model, data, spatial, plan kind),
+# as PROCMESH_IO; the U-Net's serving (tag, batch, spatial, plan kind) at
+# 256^3; the harness (requests, max_batch, spatial) under plan="auto";
+# the supervisor (data, spatial, steps, save_every, plan kind), a pinned
+# plan losing a device on rank 2. The budget at b4 resolves to bf16
+# b1_batch at 1 x 4 (PLANS_AUTO's "budget 1.0 GiB"): that run is the
+# bf16 b1_batch run over 4 processes
+PROCMESH_PLANS = (
+    ("pl-a", "cosmo", 4, 1, 2, "fp32", "overlap", "b1_batch"),
+    ("pl-a", "cosmo", 4, 1, 2, "fp32", "reduce_scatter", "b1_batch"),
+    ("pl-b", "cosmo", 4, 1, 2, "fp32", "overlap", "auto"),
+    ("pl-c", "cosmo", 4, 1, 4, "fp32", "overlap", "auto"),
+    ("pl-m", "cosmo", 4, 1, 1, "auto", "overlap", 1.0),
+    ("pl-r", "cosmo", 2, 1, 1, "auto", "overlap", 1.0),
+    ("pl-u", "unet", 2, 1, 2, "fp32", "overlap", "b1_batch"))
+PROCMESH_PLANS_IO = (("pl-io", "cosmo", 1, 2, "uniform_batch"),)
+PROCMESH_PLANS_SERVE = (("pl-us", 2, 2, "b1_batch"),)
+PROCMESH_PLANS_HARNESS = (16, 4, 2)
+PROCMESH_PLANS_SUPERVISE = (2, 2, 6, 2, "b1_batch")
 # wall clock a configuration's step-1 check, its steps or its timings
 # may take: a backward that deadlocks fails the run instead of hanging it
 SPATIAL_LIMIT_S = 240
@@ -582,8 +632,17 @@ def check(ok: bool, what: str) -> None:
 
 
 def median_ms(fn, reps: int = 5) -> float:
-    """Median over ``reps`` CUDA-event-timed calls, after one warm-up."""
+    """Median over ``reps`` CUDA-event-timed calls, after one warm-up; a
+    warm-up of ``LONG_CALL_MS`` or more is the time itself (one-time
+    costs are noise beside it, and each rep would add its length)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     fn()
+    b.record()
+    b.synchronize()
+    if a.elapsed_time(b) >= LONG_CALL_MS:
+        return a.elapsed_time(b)
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -4089,11 +4148,29 @@ def _child_kernels():
                               pack_ops=pack_ops, ssd_ops=ssd_ops)
 
 
+def _child_release() -> None:
+    """At the end of a process-mesh child's job (the pool's processes
+    live on): its cuBLAS workspaces and cached blocks handed back, so
+    that the parent's next run has the card."""
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+
+
 def procmesh_config(RunConfig, cfg, batch: int, D: int, S: int, prec: str,
                     mode: str, plan=None):
     """A phase-10w training run: ``D`` the total data degree, ``plan`` a
-    pinned plan (a remat or a two-group plan) or None (the fixed one)."""
-    if plan is not None and plan.n_groups > 1:
+    pinned plan (a remat, a two-group or a one-transition plan), "auto",
+    a memory budget in GiB (a float: the planner's choice over the
+    devices given), or None (the fixed one); ``prec`` "auto" leaves the
+    precision to the planner."""
+    if isinstance(plan, float):
+        return RunConfig(model=cfg, mode="train", global_batch=batch,
+                         precision=prec, data=D, spatial=S, grad_comm=mode,
+                         memory_budget_gib=plan)
+    if plan is not None and not isinstance(plan, str) and plan.n_groups > 1:
         return pipe_config(RunConfig, plan, cfg, batch, prec, mode)
     return RunConfig(model=cfg, mode="train", global_batch=batch,
                      precision=prec, data=D, spatial=S, grad_comm=mode,
@@ -4126,24 +4203,40 @@ def procmesh_train_job(cfg, batch: int, D: int, S: int, prec: str,
     """One rank of a process-mesh training run (``launch.dist.Pool``):
     phase 10b's seeded batch; step 1's ``grad_comm`` probe; then, the
     counters zeroed, ``steps`` steps (the main path), their losses and
-    this rank's launches and peak memory; then ms a step (median of 3
+    this rank's launches and peak memory; then ms a step (median of
+    ``PROCMESH_TIMED``
     after a warm-up, every rank stepping together). Rank 0 also returns
     the probe's gradients (every group's); each group's shard 0 its
     parameters after ``steps``; under ZeRO-1 every rank its state's
     bytes and leaves' CRCs. With ``ckpt``: a save there, a restore and
     one more step (its loss and rank 0's parameters)."""
     from repro_torch.api import RunConfig, Session, compile
+    from repro_torch.launch import dist as dist_lib
     from repro_torch.train import train_step
 
     k = _child_kernels()
     k.train_step = train_step
     x, y = train_batch(cfg, batch, torch.Generator(
         device="cuda").manual_seed(11))
+    torch.cuda.synchronize()
+    foreign = torch.cuda.memory_allocated()  # what this process held before
+    torch.cuda.reset_peak_memory_stats()
+    groups = set(dist_lib._GROUPS)
+    zero_counts(k)
     sess = compile(procmesh_config(RunConfig, cfg, batch, D, S, prec, mode,
                                    plan), devices=devices)
+    if sess.released:  # a budget's plan spans fewer ranks than the world
+        out = {"rank": torch.distributed.get_rank(), "released": True,
+               "plan": sess.plan.name, "ranks": list(sess.ranks),
+               "describe": str(sess.describe()), "launches": counts(k),
+               "subgroups": sorted(str(g_) for g_ in set(dist_lib._GROUPS)
+                                   - groups if g_[0] != dist_lib.world()),
+               "peak_bytes": torch.cuda.max_memory_allocated() - foreign}
+        sess.close()
+        return out
     world = sess.mesh.pipeline
     rank = sess.mesh.rank if world is None else world.rank
-    loss1, grads = _probe_of(k, sess, batch, prec, mode)(x, y)
+    loss1, grads = _probe_of(k, sess, batch, sess.precision, mode)(x, y)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(k)
@@ -4152,7 +4245,8 @@ def procmesh_train_job(cfg, batch: int, D: int, S: int, prec: str,
     out = {"rank": rank, "transport": sess.describe().transport,
            "device": str(sess.device), "x_sum": x.double().sum().item(),
            "loss1": loss1.item(), "losses": losses,
-           "launches": counts(k),
+           "launches": counts(k), "plan": sess.plan.name,
+           "precision": sess.precision, "foreign_bytes": foreign,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
            "modeled_peak_bytes": sess.describe().modeled_peak.total}
@@ -4165,7 +4259,7 @@ def procmesh_train_job(cfg, batch: int, D: int, S: int, prec: str,
         out["state_bytes"] = sum(t.numel() * t.element_size()
                                  for t in (*state.m, *state.v))
         out["state_crcs"] = _crcs(state)
-    out["step_ms"] = host_ms(lambda: sess.step(x, y), 3)
+    out["step_ms"] = host_ms(lambda: sess.step(x, y), PROCMESH_TIMED)
     if ckpt is not None:
         sess.save(ckpt)
         again = Session.restore(ckpt, devices=devices)
@@ -4173,13 +4267,17 @@ def procmesh_train_job(cfg, batch: int, D: int, S: int, prec: str,
         out["resumed_crcs"] = _crcs(again.params)
         again.close()
     sess.close()
+    _child_release()
     return out
 
 
-def procmesh_serve_job(cfg, batch: int, S: int, seed: int) -> dict:
-    """One rank of depth-split serving over processes: one predict with
-    the counters zeroed (after a warm-up), rank 0's predictions, ms a
-    predict (median of 3) and this rank's peak memory."""
+def procmesh_serve_job(cfg, batch: int, S: int, seed: int,
+                       plan="fixed", reps: int = 3) -> dict:
+    """One rank of depth-split serving over processes (under ``plan``):
+    one predict with the counters zeroed (after a warm-up), rank 0's
+    predictions, ms a predict (median of ``reps`` more) and this rank's
+    peak memory; with ``reps`` 0 no warm-up, and the counted predict's
+    ms (the pool's processes built the kernels before)."""
     from repro_torch.api import RunConfig, compile
 
     k = _child_kernels()
@@ -4188,28 +4286,34 @@ def procmesh_serve_job(cfg, batch: int, S: int, seed: int) -> dict:
                     generator=torch.Generator(device="cuda").manual_seed(
                         seed))
     sess = compile(RunConfig(model=cfg, mode="infer", global_batch=batch,
-                             spatial=S), devices=["cuda:0"] * S)
-    sess.predict(x)
+                             spatial=S, plan=plan), devices=["cuda:0"] * S)
+    if reps:
+        sess.predict(x)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(k)
+    t0 = time.perf_counter()
     pred = sess.predict(x)
     torch.cuda.synchronize()
+    once = (time.perf_counter() - t0) * 1e3
     out = {"rank": sess.mesh.rank, "launches": counts(k),
            "transport": sess.describe().transport,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "pred": pred.cpu() if sess.mesh.rank == 0 else None}
-    out["ms"] = host_ms(lambda: sess.predict(x), 3)
+    out["ms"] = host_ms(lambda: sess.predict(x), reps) if reps else once
     sess.close()
+    del x, pred
+    _child_release()
     return out
 
 
 def procmesh_runs(cf128, ucfg64, plan_lib, depth, perf_model) -> list:
     """Phase 10w's training runs, each (tag, cfg, batch, total data
-    degree, spatial degree, precision, grad_comm, pinned plan or None,
-    whether it checkpoints): ``PROCMESH_TRAIN`` and ``PROCMESH_UNET``
-    (the fixed plan), then ``PROCMESH_COMPOSE`` (ZeRO-1, remat, pipeline
-    groups)."""
+    degree, spatial degree, precision, grad_comm, pinned plan, "auto", a
+    budget in GiB or None, whether it checkpoints): ``PROCMESH_TRAIN``
+    and ``PROCMESH_UNET`` (the fixed plan), then ``PROCMESH_COMPOSE``
+    (ZeRO-1, remat, pipeline groups), then ``PROCMESH_PLANS`` (the
+    planner's layouts, ``plan="auto"`` and budgets)."""
     runs = [(tag, cf128, 4, D, S, prec, mode, None, False)
             for tag, D, S, prec, mode in PROCMESH_TRAIN]
     runs += [("pm-u", ucfg64, UNET_CHECK_BATCH, D, S, prec, mode, None,
@@ -4227,6 +4331,11 @@ def procmesh_runs(cf128, ucfg64, plan_lib, depth, perf_model) -> list:
                              micro, sched)
         runs.append((tag, cfg, batch, D, S, prec, mode, plan,
                      tag in PROCMESH_CHECKPOINT))
+    for tag, model, batch, D, S, prec, mode, kind in PROCMESH_PLANS:
+        cfg = cf128 if model == "cosmo" else ucfg64
+        plan = (spatial_plan(plan_lib, depth, cfg, S, kind, data=D)
+                if kind in PLAN_KINDS else kind)
+        runs.append((tag, cfg, batch, D, S, prec, mode, plan, False))
     return runs
 
 
@@ -4277,14 +4386,14 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile, plan_lib,
         return ((a.double() - b.double()).abs().max().item()
                 / max(1e-30, b.double().abs().max().item()))
 
-    def in_process(cfg, batch, D, S, prec, mode, plan, x, y, ckpt):
+    def in_process(cfg, batch, D, S, prec, mode, plan, x, y, ckpt, n):
         sess = compile(procmesh_config(RunConfig, cfg, batch, D, S, prec,
                                        mode, plan),
-                       devices=["cuda:0"] * (D * S))
-        probe = _probe_of(k, sess, batch, prec, mode)
+                       devices=["cuda:0"] * n)
+        probe = _probe_of(k, sess, batch, sess.precision, mode)
         loss1, grads = probe(x, y)
         plain = None
-        if prec == "bf16":
+        if sess.precision == "bf16":
             with plain_training(k):
                 plain = probe(x, y)[1]
         torch.cuda.synchronize()
@@ -4294,10 +4403,10 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile, plan_lib,
                "losses": losses, "params": {n: v.clone() for n, v in
                                             sess.params.items()},
                "peak_bytes": torch.cuda.max_memory_allocated(),
-               "plan": sess.plan}
+               "plan": sess.plan, "precision": sess.precision}
         if isinstance(sess.opt_state, list):
             row["state_crcs"] = [_crcs(s) for s in sess.opt_state]
-        row["step_ms"] = host_ms(lambda: sess.step(x, y), 3)
+        row["step_ms"] = host_ms(lambda: sess.step(x, y), PROCMESH_TIMED)
         if ckpt is not None:
             sess.save(ckpt)
             again = Session.restore(ckpt, devices=["cuda:0"] * (D * S))
@@ -4319,9 +4428,13 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile, plan_lib,
             f"{time.perf_counter() - t0:.1f} s")
         for tag, cfg, batch, D, S, prec, mode, plan, ckpt in procmesh_runs(
                 cf128, ucfg64, plan_lib, depth, perf_model):
-            what = (plan.name if plan is not None else f"{D}x{S}")
+            budget = isinstance(plan, float)
+            what = (f"{D}x{S}" if plan is None
+                    else f"{D}x{S} budget {plan} GiB" if budget
+                    else f"{D}x{S} auto" if plan == "auto" else plan.name)
             key = f"{tag}/{cfg.name}/b{batch}/{what}/{prec}/{mode}"
-            n = D * S
+            # a budget plans over the world: its plan takes the first ranks
+            n = PROCMESH_WORLD if budget else D * S
             t_run = time.perf_counter()
             dirs = ((os.path.join(root, f"{tag}-procs"),
                      os.path.join(root, f"{tag}-threads")) if ckpt
@@ -4332,7 +4445,28 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile, plan_lib,
             g.manual_seed(11)
             x, y = train_batch(cfg, batch, g)
             want = in_process(cfg, batch, D, S, prec, mode, plan, x, y,
-                              dirs[1])
+                              dirs[1], n)
+            prec = want["precision"]  # the planner's, under a budget
+            if plan is not None:
+                # every rank holds the in-process plan; ranks past it are
+                # released: no launch, no subgroup, nothing on the card
+                m = want["plan"].device_count
+                released = [r for r in got if r.get("released")]
+                check(all(r["plan"] == want["plan"].name for r in got)
+                      and [r["rank"] for r in released] == list(range(m, n))
+                      and all(r["ranks"] == list(range(m))
+                              and not any(r["launches"].values())
+                              and not r["subgroups"] and not r["peak_bytes"]
+                              for r in released),
+                      f"{key}: the ranks' plans "
+                      f"{[r['plan'] for r in got]} (in-process "
+                      f"{want['plan'].name}), released ranks "
+                      f"{[(r['rank'], r['launches'], r['subgroups']) for r in released]}")
+                got = got[:m]
+                if released:
+                    log("procmesh", f"{key}: ranks "
+                        f"{[r['rank'] for r in released]} released: "
+                        f"{released[0]['describe'].splitlines()[0]}")
             zero = got[0]
             check(all(r["transport"] == "gloo" and r["device"] == "cuda:0"
                       and r["x_sum"] == x.double().sum().item()
@@ -4400,7 +4534,19 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile, plan_lib,
                                         for r in got],
                 "modeled_peak_bytes": [r["modeled_peak_bytes"]
                                        for r in got],
+                # less what the rank's process held before the run
+                "own_peak_bytes": [r["peak_bytes"] - r["foreign_bytes"]
+                                   for r in got],
                 "in_process_peak_bytes": want["peak_bytes"]}
+            if plan is not None and not hasattr(plan, "stages"):
+                row["plan"] = want["plan"].name
+                log("procmesh", f"{key}: every rank chose "
+                    f"{want['plan'].name} ({prec}) as in one process; "
+                    f"modeled peak a rank "
+                    f"{row['modeled_peak_bytes'][0] / 2 ** 30:.3f} GiB, "
+                    f"measured (allocated, less what the process held "
+                    f"before) {[round(v / 2 ** 30, 3) for v in row['own_peak_bytes']]}"
+                    f" GiB")
             if ckpt:
                 same_files = files(dirs[0]) == files(dirs[1])
                 resumed = (all(r["resumed"] == want["resumed"] for r in got)
@@ -4477,10 +4623,12 @@ def phase_procmesh(k, cf128, ucfg, ucfg64, RunConfig, compile, plan_lib,
                 f"{[round(r['peak_bytes'] / 2 ** 30, 2) for r in got]} GiB")
             del want, got, x
             torch.cuda.empty_cache()
-        if PROCMESH_IO or PROCMESH_IO_SERVE or PROCMESH_IO_SUPERVISE:
-            out["io"], got = phase_procmesh_io(pool, k, cf128, ucfg64,
-                                               RunConfig, compile, root,
-                                               card)
+        if (PROCMESH_IO or PROCMESH_IO_SERVE or PROCMESH_IO_SUPERVISE
+                or PROCMESH_PLANS_IO or PROCMESH_PLANS_HARNESS
+                or PROCMESH_PLANS_SUPERVISE or PROCMESH_PLANS_SERVE):
+            out["io"], got = phase_procmesh_io(
+                pool, k, cf128, ucfg, ucfg64, RunConfig, compile, plan_lib,
+                depth, root, card)
             total = {q: total[q] + got[q] for q in KERNELS}
     n_cards = torch.cuda.device_count()
     if n_cards >= 2:
@@ -4553,15 +4701,15 @@ def io_steps(k, sess, root: str, batch: int, steps: int, depth: int
 
 
 def io_train(k, compile, RunConfig, cfg, batch: int, D: int, S: int,
-             root: str, devices) -> dict:
-    """One session of ``cfg`` at D x S (a process's rank, or in one
-    process every shard), loader-fed ``PROCMESH_IO_STEPS`` steps
-    synchronously (launches counted), then again from the same initial
-    state with prefetch."""
+             root: str, devices, plan="fixed") -> dict:
+    """One session of ``cfg`` at D x S under ``plan`` (a process's rank,
+    or in one process every shard), loader-fed ``PROCMESH_IO_STEPS``
+    steps synchronously (launches counted), then again from the same
+    initial state with prefetch."""
     from repro_torch.core.tree import tree_map
 
     sess = compile(RunConfig(model=cfg, mode="train", global_batch=batch,
-                             data=D, spatial=S), devices=devices)
+                             data=D, spatial=S, plan=plan), devices=devices)
     init = ({n: v.clone() for n, v in sess.params.items()},
             tree_map(torch.clone, sess.opt_state))
     out = {"rank": getattr(sess.mesh, "rank", None),
@@ -4580,14 +4728,15 @@ def io_train(k, compile, RunConfig, cfg, batch: int, D: int, S: int,
 
 
 def procmesh_io_job(cfg, batch: int, D: int, S: int, root: str,
-                    devices) -> dict:
+                    devices, plan="fixed") -> dict:
     """One rank of ``io_train`` over processes."""
     from repro_torch.api import RunConfig, compile
     from repro_torch.train import train_step
 
     k = _child_kernels()
     k.train_step = train_step
-    return io_train(k, compile, RunConfig, cfg, batch, D, S, root, devices)
+    return io_train(k, compile, RunConfig, cfg, batch, D, S, root, devices,
+                    plan)
 
 
 def io_volumes(cfg, n: int) -> torch.Tensor:
@@ -4599,13 +4748,13 @@ def io_volumes(cfg, n: int) -> torch.Tensor:
 
 
 def io_serve(k, compile, RunConfig, cfg, n: int, max_batch: int, S: int,
-             devices) -> dict:
-    """``n`` one-volume requests through ``serve()`` (one worker, each
-    group of ``max_batch`` submitted together and awaited, so that every
-    batch is one group): on the front end the predictions, the
-    telemetry and the launches; on a follower its launches."""
+             devices, plan="fixed") -> dict:
+    """``n`` one-volume requests through ``serve()`` under ``plan`` (one
+    worker, each group of ``max_batch`` submitted together and awaited,
+    so that every batch is one group): on the front end the predictions,
+    the telemetry and the launches; on a follower its launches."""
     sess = compile(RunConfig(model=cfg, mode="infer", global_batch=max_batch,
-                             spatial=S), devices=devices)
+                             spatial=S, plan=plan), devices=devices)
     torch.cuda.synchronize()
     zero_counts(k)
     h = sess.serve(max_batch=max_batch, max_wait_ms=5000.0, workers=1)
@@ -4630,18 +4779,20 @@ def io_serve(k, compile, RunConfig, cfg, n: int, max_batch: int, S: int,
     return out
 
 
-def procmesh_serve_io_job(cfg, n: int, max_batch: int, S: int) -> dict:
+def procmesh_serve_io_job(cfg, n: int, max_batch: int, S: int,
+                          plan="fixed") -> dict:
     from repro_torch.api import RunConfig, compile
 
     k = _child_kernels()
     return io_serve(k, compile, RunConfig, cfg, n, max_batch, S,
-                    ["cuda:0"] * S)
+                    ["cuda:0"] * S, plan)
 
 
-def io_supervise(cfg, root: str, data_dir: str, devices, fault: str
-                 ) -> dict:
+def io_supervise(cfg, root: str, data_dir: str, devices, fault: str,
+                 plan="fixed") -> dict:
     """A loader-fed ZeRO-1 run of ``cfg`` under the supervisor
-    (``PROCMESH_IO_SUPERVISE``), on every rank or in one process.
+    (``PROCMESH_IO_SUPERVISE``; with a pinned ``plan``,
+    ``PROCMESH_PLANS_SUPERVISE``), on every rank or in one process.
     ``fault``: "" none; "crash+read" an ``InjectedCrash`` at step 3 on
     every rank and a persistent ``loader.read`` error (every attempt of
     one read) on rank 1 alone; "lost" ``DeviceLost(available=2)`` at
@@ -4651,7 +4802,8 @@ def io_supervise(cfg, root: str, data_dir: str, devices, fault: str
     from repro_torch.api import RunConfig, supervisor
     from repro_torch.core import faults
 
-    D, S, steps, every = PROCMESH_IO_SUPERVISE
+    D, S, steps, every = (PROCMESH_IO_SUPERVISE if plan == "fixed"
+                          else PROCMESH_PLANS_SUPERVISE[:4])
     rank = tdist.get_rank() if tdist.is_initialized() else None
     specs = []
     if fault == "crash+read" and rank in (1, None):
@@ -4675,7 +4827,7 @@ def io_supervise(cfg, root: str, data_dir: str, devices, fault: str
 
     config = RunConfig(model=cfg, global_batch=4, data=D, spatial=S,
                        grad_comm="reduce_scatter", checkpoint_dir=root,
-                       data_dir=data_dir)
+                       data_dir=data_dir, plan=plan)
     supervisor._loader_batch_fn = batch_fn
     t0 = time.perf_counter()
     try:
@@ -4691,30 +4843,36 @@ def io_supervise(cfg, root: str, data_dir: str, devices, fault: str
     if r.session is not None:
         out["params"] = _crcs(r.session.params)
         out["mesh"] = r.session.mesh.shape
+        out["plan"] = r.session.plan.name
         r.session.close()
     return out
 
 
 def procmesh_supervise_io_job(cfg, root: str, data_dir: str, fault: str,
-                              devices) -> dict:
+                              devices, plan="fixed") -> dict:
     """One rank of ``io_supervise``, with its launches."""
     k = _child_kernels()
     zero_counts(k)
-    return dict(io_supervise(cfg, root, data_dir, devices, fault),
-                launches=counts(k))
+    out = dict(io_supervise(cfg, root, data_dir, devices, fault, plan),
+               launches=counts(k))
+    _child_release()
+    return out
 
 
 def io_harness_runs(pool, k, cf128, RunConfig, compile, card: str,
-                    out: dict) -> dict:
-    """Phase 10w's ``PROCMESH_IO`` harness run (b): rank 0 the front end,
-    rank 1 following, against the unsharded forward and the in-process
-    harness. Returns the launches summed over the ranks."""
-    n_req, max_batch, S = PROCMESH_IO_SERVE
-    key = f"{cf128.name}/S{S}/{n_req}x1/max_batch{max_batch}"
-    got = pool.run(procmesh_serve_io_job, cf128, n_req, max_batch, S,
+                    out: dict, spec=None, plan: str = "fixed") -> dict:
+    """Phase 10w's ``PROCMESH_IO`` harness run (b), or under ``plan``
+    (``PROCMESH_PLANS_HARNESS``, gated bitwise against the in-process
+    harness): rank 0 the front end, rank 1 following, against the
+    unsharded forward and the in-process harness. Returns the launches
+    summed over the ranks."""
+    n_req, max_batch, S = spec or PROCMESH_IO_SERVE
+    key = f"{cf128.name}/S{S}/{n_req}x1/max_batch{max_batch}" + (
+        f"/{plan}" if plan != "fixed" else "")
+    got = pool.run(procmesh_serve_io_job, cf128, n_req, max_batch, S, plan,
                    ranks=range(S))
     want = io_serve(k, compile, RunConfig, cf128, n_req, max_batch, S,
-                    ["cuda:0"] * S)
+                    ["cuda:0"] * S, plan)
     front = got[0]
     tele = front["telemetry"]
     check(not front["errors"] and tele["serve.requests"] == n_req
@@ -4733,22 +4891,30 @@ def io_harness_runs(pool, k, cf128, RunConfig, compile, card: str,
     one.close()
     check(err <= 1e-5, f"{key}: predictions against the unsharded forward "
           f"of each batch {err} > 1e-5")
+    same = bool(np.array_equal(front["preds"], want["preds"]))
+    if plan != "fixed":
+        check(same, f"{key}: rank 0's replies are not the in-process "
+              f"harness's bits")
     with compile(RunConfig(model=cf128, mode="infer", global_batch=max_batch,
-                           spatial=S), devices=["cuda:0"] * S) as sp:
+                           spatial=S, plan=plan),
+                 devices=["cuda:0"] * S) as sp:
         per_fwd = dict(NO_LAUNCHES, **k.cosmoflow.kernel_launches(
             cf128, sp.plan))
+        plan_name = sp.plan.name
     summed = {q: sum(r["launches"][q] for r in got) for q in KERNELS}
     expect = {q: v * (n_req // max_batch) for q, v in per_fwd.items()}
     check(summed == expect, f"{key}: launches summed over the ranks "
           f"{summed}, expected {expect}")
     out["serve"][key] = {
-        "served": tele["serve.requests"], "failed":
+        "plan": plan_name, "served": tele["serve.requests"], "failed":
         tele["serve.worker_failures"], "rel_err_vs_unsharded": err,
+        "bitwise_in_process": same,
         "p50_ms": tele["serve.latency_p50_ms"],
         "in_process_p50_ms": want["telemetry"]["serve.latency_p50_ms"],
         "launches_summed": summed}
-    log("procmesh", f"io harness {key}: {n_req}/{n_req} served, 0 failed, "
-        f"vs the unsharded forward {err:.3g} <= 1e-5; launches summed "
+    log("procmesh", f"io harness {key}: plan {plan_name}; {n_req}/{n_req} "
+        f"served, 0 failed, vs the unsharded forward {err:.3g} <= 1e-5, "
+        f"bitwise the in-process harness: {same}; launches summed "
         f"{json.dumps(summed)}")
     log("timings", f"procmesh io harness {key} ({card}): p50 latency "
         f"{tele['serve.latency_p50_ms']:.2f} ms over processes, "
@@ -4826,8 +4992,111 @@ def io_supervisor_runs(pool, k, cf128, root: str, stores: dict,
     return total
 
 
-def phase_procmesh_io(pool, k, cf128, ucfg64, RunConfig, compile,
-                      root: str, card: str) -> tuple:
+def plans_supervisor_run(pool, k, cf128, root: str, stores: dict,
+                         plan_lib, depth, card: str, out: dict) -> dict:
+    """Phase 10w's ``PROCMESH_PLANS_SUPERVISE`` run: a loader-fed ZeRO-1
+    data x spatial run under a pinned one-transition plan, rank 2 losing
+    its device at step 3 (``DeviceLost(available=2)``): the pinned plan
+    drops to ``"auto"``, ranks 0-1 re-plan to 1 x 2 bitwise the
+    in-process elastic run (events, losses, parameters, plan), ranks 2-3
+    released. Returns the children's launches."""
+    D, S, steps, _, kind = PROCMESH_PLANS_SUPERVISE
+    n = D * S
+    plan = spatial_plan(plan_lib, depth, cf128, S, kind, data=D)
+    key = f"{cf128.name}/b4/{D}x{S}/{plan.name}/zero1/{steps} steps"
+    want = io_supervise(cf128, os.path.join(root, "plans-sup-threads"),
+                        stores["cosmo"], ["cuda:0"] * n, "lost", plan)
+    got = pool.run(procmesh_supervise_io_job, cf128,
+                   os.path.join(root, "plans-sup-procs"), stores["cosmo"],
+                   "lost", ["cuda:0"] * n, plan, ranks=range(n))
+    kept, released = got[:2], got[2:]
+    check(want["final"] == [1, 2] and all(
+        r["final"] == [1, 2] and not r["released"]
+        and r["events"] == want["events"] and r["losses"] == want["losses"]
+        and r["params"] == want["params"] and r["plan"] == want["plan"]
+        for r in kept),
+          f"{key}: the re-plan over processes {[r['events'] for r in kept]} "
+          f"(plans {[r.get('plan') for r in kept]}, losses "
+          f"{[r['losses'] for r in kept]}) is not the in-process elastic "
+          f"run's bits: {want['events']}, {want.get('plan')}, "
+          f"{want['losses']}")
+    check(all(r["released"] and "params" not in r
+              and r["events"][-1].startswith("released") for r in released),
+          f"{key}: ranks 2-3 were not released: "
+          f"{[r['events'] for r in released]}")
+    out["supervise"]["plans_elastic"] = {
+        "pinned": plan.name, "replanned": want["plan"],
+        "losses": kept[0]["losses"], "events": kept[0]["events"],
+        "wall_s": [r["wall_s"] for r in got],
+        "in_process_wall_s": want["wall_s"]}
+    log("procmesh", f"plans supervisor {key}: DeviceLost(available=2) on "
+        f"rank 2; the pinned plan re-planned (auto) to {want['plan']} at "
+        f"1 x 2 on ranks 0-1, bitwise the in-process elastic run (events "
+        f"{json.dumps(want['events'])}); ranks 2-3 released")
+    log("timings", f"procmesh plans supervisor {key} ({card}): wall "
+        f"{[round(r['wall_s'], 1) for r in got]} s, in-process "
+        f"{want['wall_s']:.1f} s")
+    return {q: sum(r["launches"][q] for r in got) for q in KERNELS}
+
+
+def plans_serve_runs(pool, k, ucfg, RunConfig, compile, plan_lib, depth,
+                     card: str, out: dict) -> dict:
+    """Phase 10w's ``PROCMESH_PLANS_SERVE`` runs: the U-Net at 256^3
+    served over S processes under a one-transition plan, rank 0's
+    logits bitwise the in-process session's at the same plan, each
+    rank's launches summed against ``kernel_launches``. Returns them."""
+    total = dict(NO_LAUNCHES)
+    for tag, batch, S, kind in PROCMESH_PLANS_SERVE:
+        plan = spatial_plan(plan_lib, depth, ucfg, S, kind)
+        key = f"{tag}/{ucfg.name}/b{batch}/S{S}/{plan.name}/fp32"
+        # the card for the ranks' 256^3 forwards (~21 GiB a rank): every
+        # process's cached blocks and cuBLAS workspaces handed back first
+        release_cached(f"procmesh {key}")
+        pool.run(_child_release)
+        # one timed predict: over processes a 256^3 b2 forward takes
+        # seconds (every all_to_all's bytes through loopback gloo)
+        got = pool.run(procmesh_serve_job, ucfg, batch, S, 21, plan, 0,
+                       ranks=range(S))
+        w = ucfg.input_width
+        x = torch.randn((batch, w, w, w, ucfg.in_channels), device="cuda",
+                        generator=torch.Generator(
+                            device="cuda").manual_seed(21))
+        sess = compile(RunConfig(model=ucfg, mode="infer",
+                                 global_batch=batch, spatial=S, plan=plan),
+                       devices=["cuda:0"] * S)
+        want = sess.predict(x)
+        threads_ms = host_ms(lambda: sess.predict(x), 1)
+        per_fwd = dict(NO_LAUNCHES, **k.unet3d.kernel_launches(ucfg,
+                                                               sess.plan))
+        sess.close()
+        same = torch.equal(got[0]["pred"].cuda(), want)
+        summed = {q: sum(r["launches"][q] for r in got) for q in KERNELS}
+        check(same and tuple(want.shape) == (batch, w, w, w, ucfg.out_dim)
+              and bool(torch.isfinite(want).all()),
+              f"{key}: rank 0's logits are not the in-process session's "
+              f"bits (max abs diff "
+              f"{(got[0]['pred'].cuda() - want).abs().max().item()})")
+        check(summed == per_fwd, f"{key}: launches summed over the ranks "
+              f"{summed}, expected {per_fwd}")
+        total = {q: total[q] + summed[q] for q in KERNELS}
+        out["serve"][key] = {
+            "bitwise_in_process": same, "launches_summed": summed,
+            "ms": [r["ms"] for r in got], "in_process_ms": threads_ms,
+            "peak_bytes": [r["peak_bytes"] for r in got]}
+        log("procmesh", f"plans serve {key}: bitwise the in-process "
+            f"session; launches summed {json.dumps(summed)} = "
+            f"kernel_launches")
+        log("timings", f"procmesh plans serve {key} ({card}): ms of one predict "
+            f"over processes {[round(r['ms'], 2) for r in got]}, in-process "
+            f"{threads_ms:.2f}; peak a rank "
+            f"{[round(r['peak_bytes'] / 2 ** 30, 2) for r in got]} GiB")
+        del x, want, got
+        release_cached(f"the runs after {key}")
+    return total
+
+
+def phase_procmesh_io(pool, k, cf128, ucfg, ucfg64, RunConfig, compile,
+                      plan_lib, depth, root: str, card: str) -> tuple:
     """Phase 10w's ``PROCMESH_IO`` runs on ``pool`` (the module docstring
     has the gates). Returns (report, the launches the children's main
     paths made)."""
@@ -4855,22 +5124,29 @@ def phase_procmesh_io(pool, k, cf128, ucfg64, RunConfig, compile,
     log("procmesh", f"io: stores written in "
         f"{time.perf_counter() - t_phase:.1f} s")
 
-    # (a) the per-rank loader
-    for tag, model, D, S in PROCMESH_IO:
+    # (a) the per-rank loader (PROCMESH_PLANS_IO: under a planned layout)
+    for tag, model, D, S, *kind in PROCMESH_IO + PROCMESH_PLANS_IO:
         cfg, batch = ((cf128, 4) if model == "cosmo"
                       else (ucfg64, UNET_CHECK_BATCH))
-        key = f"{tag}/{cfg.name}/b{batch}/{D}x{S}"
+        kind = kind[0] if kind else "fixed"
+        key = f"{tag}/{cfg.name}/b{batch}/{D}x{S}" + (
+            f"/{kind}" if kind != "fixed" else "")
+        pinned = (spatial_plan(plan_lib, depth, cfg, S, kind, data=D)
+                  if kind != "fixed" else "fixed")
         n = D * S
         t_run = time.perf_counter()
         got = pool.run(procmesh_io_job, cfg, batch, D, S, stores[model],
-                       ["cuda:0"] * n, ranks=range(n))
+                       ["cuda:0"] * n, pinned, ranks=range(n))
         want = io_train(k, compile, RunConfig, cfg, batch, D, S,
-                        stores[model], ["cuda:0"] * n)
+                        stores[model], ["cuda:0"] * n, pinned)
         plan = want["plan"]
         w, c = cfg.input_width, cfg.in_channels
-        slab = (w // S) * w * w * c * 4 + (  # x, and int32 voxel labels
-            (w // S) * w * w * 4 if cfg.arch == "unet3d" else 0)
-        mine = PROCMESH_IO_SAMPLES // D * slab
+        # a rank reads 1/(D x S) of the volumes' bytes: its rows' depth
+        # slabs under a spatial entry stage, whole volumes of its own
+        # samples under a batch one (uniform_batch); x, and the U-Net's
+        # int32 voxel labels
+        volume = w ** 3 * c * 4 + (w ** 3 * 4 if cfg.arch == "unet3d" else 0)
+        mine = PROCMESH_IO_SAMPLES * volume // n
         for depth in (0, PROCMESH_IO_PREFETCH):
             w_row = want[0]  # the synchronous in-process run: the oracle
             for r in got:
@@ -4882,7 +5158,7 @@ def phase_procmesh_io(pool, k, cf128, ucfg64, RunConfig, compile,
                 check(row["pfs"] == {r["rank"]: mine},
                       f"{key} prefetch {depth}: rank {r['rank']} read "
                       f"{row['pfs']} bytes over the first epoch, expected "
-                      f"{mine} (1/S of a volume a sample of its rows)")
+                      f"{mine} (1/(D x S) of the volumes)")
                 check(row["losses"] == w_row["losses"]
                       and row["params"] == w_row["params"],
                       f"{key} prefetch {depth}: rank {r['rank']}'s losses "
@@ -4933,6 +5209,18 @@ def phase_procmesh_io(pool, k, cf128, ucfg64, RunConfig, compile,
         total = {q: total[q] + got[q] for q in KERNELS}
     if PROCMESH_IO_SUPERVISE:
         got = io_supervisor_runs(pool, k, cf128, root, stores, card, out)
+        total = {q: total[q] + got[q] for q in KERNELS}
+    if PROCMESH_PLANS_HARNESS:
+        got = io_harness_runs(pool, k, cf128, RunConfig, compile, card, out,
+                              PROCMESH_PLANS_HARNESS, "auto")
+        total = {q: total[q] + got[q] for q in KERNELS}
+    if PROCMESH_PLANS_SUPERVISE:
+        got = plans_supervisor_run(pool, k, cf128, root, stores, plan_lib,
+                                   depth, card, out)
+        total = {q: total[q] + got[q] for q in KERNELS}
+    if PROCMESH_PLANS_SERVE:
+        got = plans_serve_runs(pool, k, ucfg, RunConfig, compile, plan_lib,
+                               depth, card, out)
         total = {q: total[q] + got[q] for q in KERNELS}
     out["seconds"] = time.perf_counter() - t_phase
     log("procmesh", f"io: the PROCMESH_IO runs took {out['seconds']:.1f} s")

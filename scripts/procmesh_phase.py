@@ -2,8 +2,9 @@
 """``chip_smoke.py``'s phase 10w (the process mesh: one process a
 shard, collectives through ``torch.distributed`` over gloo, every rank
 on this card; ZeRO-1, remat and pipeline groups over it; the per-rank
-loader, the harness and the supervisor over it, ``PROCMESH_IO``) alone,
-after its card and build phases.
+loader, the harness and the supervisor over it, ``PROCMESH_IO``; the
+planner's layouts, ``plan="auto"`` and budgets over it,
+``PROCMESH_PLANS``) alone, after its card and build phases.
 
     python3 scripts/procmesh_phase.py [--only TAG ...] [--limit SECONDS]
 
@@ -39,9 +40,12 @@ from repro_torch.train import train_step  # noqa: E402
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", nargs="+", help="the PROCMESH_TRAIN, "
-                    "PROCMESH_COMPOSE and PROCMESH_IO runs of these tags "
-                    "only (the fixed U-Net and serving runs then skipped; "
-                    "io-s the PROCMESH_IO harness, io-sup its supervisor)")
+                    "PROCMESH_COMPOSE, PROCMESH_IO and PROCMESH_PLANS runs "
+                    "of these tags only (the fixed U-Net and serving runs "
+                    "then skipped; io-s the PROCMESH_IO harness, io-sup "
+                    "its supervisor; pl-io the planned loader, pl-us the "
+                    "U-Net's planned serving, pl-s the harness under "
+                    "plan='auto', pl-sup the pinned plan's re-plan)")
     ap.add_argument("--limit", type=float, default=cs.PROCMESH_LIMIT_S,
                     help="seconds a child may take to answer")
     args = ap.parse_args()
@@ -60,6 +64,16 @@ if __name__ == "__main__":
             cs.PROCMESH_IO_SERVE = None
         if "io-sup" not in args.only:
             cs.PROCMESH_IO_SUPERVISE = None
+        cs.PROCMESH_PLANS = tuple(r for r in cs.PROCMESH_PLANS
+                                  if r[0] in args.only)
+        cs.PROCMESH_PLANS_IO = tuple(r for r in cs.PROCMESH_PLANS_IO
+                                     if r[0] in args.only)
+        cs.PROCMESH_PLANS_SERVE = tuple(r for r in cs.PROCMESH_PLANS_SERVE
+                                        if r[0] in args.only)
+        if "pl-s" not in args.only:
+            cs.PROCMESH_PLANS_HARNESS = None
+        if "pl-sup" not in args.only:
+            cs.PROCMESH_PLANS_SUPERVISE = None
     t0 = time.perf_counter()
     card = cs.phase_card()
     cs.phase_build(_build)

@@ -7,8 +7,11 @@ card); ``placement(args, shards)`` turns it into ``compile``'s
 same flags build a process mesh, one process a shard: ``--device
 cuda:0`` puts every rank on that card (gloo), and without ``--device``
 each rank takes ``cuda:LOCAL_RANK`` (NCCL where those are cards of their
-own). ``--grad-comm reduce_scatter`` (ZeRO-1) and ``--pipeline P`` run
-there as in one process.
+own). ``--grad-comm reduce_scatter`` (ZeRO-1), ``--pipeline P``,
+``--plan`` and ``--memory-budget`` run there as in one process: under a
+budget the world is the device pool the planner chooses over, and the
+ranks its plan does not use are released (``compile`` returns them an
+``api.session.Released``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import dataclasses
 from typing import Any, Dict
 
 from repro_torch.api.config import RunConfig
+from repro_torch.launch import dist as dist_lib
 
 
 def add_device_arg(ap) -> None:
@@ -133,10 +137,11 @@ def placement(args, shards: int) -> Dict[str, Any]:
     """``compile``'s placement keywords for ``--device`` and a run of
     ``shards`` shards: the device for one shard, that device once a
     shard for more (every shard on it), or none (the card; ``cuda:0..n-1``
-    for n shards)."""
+    for n shards). Over processes (under ``torchrun``) the device is
+    every rank's, whatever the world's size."""
     if args.device is None:
         return {}
-    if shards == 1:
+    if shards == 1 or dist_lib.wanted():
         return {"device": args.device}
     return {"devices": [args.device] * shards}
 

@@ -28,7 +28,10 @@ run CosmoFlow (``y``: (N, out_dim) targets) and the 3D U-Net (``y``:
 Over processes (one process a shard, as torchrun starts them): when the
 process group is initialized, or torchrun's ``WORLD_SIZE`` > 1, both
 modes build a ``launch.mesh.ProcessMesh`` over the world
-(``launch/dist.py``), whose size must equal data x spatial. Each rank's
+(``launch/dist.py``), whose size must equal data x spatial, save under a
+memory budget (below). Every rank resolves the plan (fixed, pinned,
+``plan="auto"`` or budgeted, as in one process) and the ranks agree on
+it in one all-gather before any mesh is built. Each rank's
 device is ``cuda:LOCAL_RANK``, or ``devices[rank]`` when ``devices=``
 lists every rank's (``["cuda:0"] * 2`` for two ranks on one card,
 ``["cpu"] * n`` in the tests), or ``device=`` for every rank. Every rank
@@ -48,9 +51,13 @@ group's, gathered from each group's shard 0, as the in-process run
 does. ``InferenceSession.serve()`` gives rank 0 the harness that takes
 the requests and every other rank a follower that runs its shard of
 each batch (``serve/harness.py``); ``api.supervisor.run`` runs on every
-rank and agrees on each recovery. ``plan="auto"`` and budgets over
-processes raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+rank and agrees on each recovery. Under ``memory_budget_gib`` the
+world is the device pool the planner may raise the spatial degree over
+(as the devices given in one process): the plan's mesh takes the first
+``plan.device_count`` ranks, and ``compile`` returns every other rank a
+``Released`` session, which holds nothing and joins no collective of
+the mesh. The planner's batch-sharded layouts (the spatial group turned
+into batch shards by one ``all_to_all``) run over processes as in one.
 
 Entry points run on the card unless the caller says otherwise:
 ``device="cpu"`` (one shard, as the tests run), or ``devices=[...]`` with
@@ -243,31 +250,62 @@ def _place(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
         f"{shards} shards", "pass one device per shard")
 
 
+def _agree_on_plan(world: Tuple[int, ...], plan: "plan_lib.ParallelPlan",
+                   precision: str) -> None:
+    """Every rank of ``world`` resolved the plan on its own: one
+    all-gather of (plan name, precision, priced cost) over the world's
+    gloo group, and a ``RuntimeError`` where a rank's differs from rank
+    0's (the planner's floats are pure Python, so they should agree bit
+    for bit; a difference is an error, not a hang)."""
+    if len(world) == 1:
+        return
+    mine = (plan.name, precision, plan.cost)
+    rows = dist_lib.group(world, "gloo").gather_objects(mine)
+    for r, row in zip(world, rows):
+        if row != rows[0]:
+            raise RuntimeError(
+                f"rank {r} resolved plan {row} but rank {world[0]} "
+                f"resolved {rows[0]}: the ranks disagree on the plan")
+
+
 def _process_mesh(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
                   devices: Optional[Sequence[DeviceLike]], grad_comm: str
                   ) -> Tuple["plan_lib.ParallelPlan", str,
-                             Tuple[mesh_lib.Mesh, ...]]:
-    """(plan, precision, meshes) of a run over processes: this process's
-    rank of the world (joined here from torchrun's environment if it is
-    not yet), data x spatial (``data`` the total over a pipeline's
-    groups) = the world's size, the fixed plan or a pinned one, each rank
-    on ``devices[rank]``, ``device``, or ``cuda:LOCAL_RANK``. ``meshes``:
+                             Optional[Tuple[mesh_lib.Mesh, ...]],
+                             Tuple[int, ...]]:
+    """(plan, precision, meshes, the ranks that continue) of a run over
+    processes: this process's rank of the world (joined here from
+    torchrun's environment if it is not yet) resolves the plan (pinned,
+    fixed, ``"auto"`` or budgeted), and the ranks agree on it
+    (``_agree_on_plan``). Without a budget data x spatial (``data`` the
+    total over a pipeline's groups) = the world's size; under a budget
+    the world is the device pool the planner may raise the spatial
+    degree over (as the devices given in one process), and the plan's
+    mesh takes its first ``plan.device_count`` ranks. Each rank on
+    ``devices[rank]``, ``device``, or ``cuda:LOCAL_RANK``. ``meshes``:
     the ``ProcessMesh``, or a pipeline's one mesh a group (this
-    process's group a ``ProcessMesh``, ``make_pipeline_meshes``)."""
+    process's group a ``ProcessMesh``, ``make_pipeline_meshes``), built
+    over the continuing ranks alone; None on a released rank (one the
+    plan does not use), which joins no collective of the mesh."""
     dist_lib.init()
-    if config.plan == "auto" or config.memory_budget_gib is not None:
-        raise train_step_lib.not_over_processes(
-            "plan='auto' and memory_budget_gib", "auto")
     world = dist_lib.world()
+    budget = config.memory_budget_gib is not None
     shards = config.data * config.spatial
-    if shards != len(world):
+    if shards > len(world) or (shards != len(world) and not budget):
         raise RunConfigError(
             "spatial", f"data x spatial = {shards} shards over a world of "
             f"{len(world)} processes", "make data x spatial equal the "
-            "world size: one process a shard")
+            "world size: one process a shard (or set memory_budget_gib "
+            "to let the planner choose over the world)")
     config.validate(device_count=len(world))
     plan, precision = _resolve_plan(config, cfg, grad_comm, len(world))
+    _agree_on_plan(world, plan, precision)
     train_step_lib.check_process_plan(plan, grad_comm)
+    n = plan.device_count
+    if n > len(world) or (n != len(world) and not budget):
+        raise RunConfigError(
+            "plan", f"plan {plan.name!r} spans {n} shards over a world of "
+            f"{len(world)} processes", "pin a plan of one shard a process")
     if device is not None and devices is not None:
         raise ValueError("give device= or devices=, not both")
     local = None
@@ -276,37 +314,43 @@ def _process_mesh(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
             raise RunConfigError(
                 "spatial", f"{len(devices)} devices given for a world of "
                 f"{len(world)}", "pass one device per rank")
-        devices = [mesh_lib.resolve_device(d) for d in devices]
+        devices = [mesh_lib.resolve_device(d) for d in devices][:n]
     elif device is not None:
-        devices = [mesh_lib.resolve_device(device)] * len(world)
+        devices = [mesh_lib.resolve_device(device)] * n
     else:
         local = mesh_lib.resolve_device(f"cuda:{dist_lib.local_rank()}"
                                         if torch.cuda.is_available()
                                         else None)
-    if plan.n_groups > 1:
-        meshes = mesh_lib.make_pipeline_meshes(plan, devices, processes=True,
-                                               local_device=local)
-    else:
-        meshes = (mesh_lib.ProcessMesh(plan.mesh_axes, devices,
-                                       local_device=local),)
+    ranks = world[:n]
+    if torch.distributed.get_rank() not in ranks:
+        return plan, precision, None, ranks
+    with dist_lib.sub_world(ranks):
+        if plan.n_groups > 1:
+            meshes = mesh_lib.make_pipeline_meshes(
+                plan, devices, processes=True, local_device=local)
+        else:
+            meshes = (mesh_lib.ProcessMesh(plan.mesh_axes, devices,
+                                           local_device=local),)
     home = meshes[train_step_lib.local_groups(meshes)[0]].home
     if home.type == "cuda":
         torch.cuda.set_device(home)
-    return plan, precision, meshes
+    return plan, precision, meshes, ranks
 
 
 def _mesh_for(config: RunConfig, cfg: ConvNetConfig, device: DeviceLike,
               devices: Optional[Sequence[DeviceLike]], grad_comm: str
-              ) -> Tuple["plan_lib.ParallelPlan", str, mesh_lib.Mesh]:
-    """(plan, precision, the plan's mesh) of an unpipelined run: over
-    processes when the process group is wanted (``_process_mesh``), else
-    in this process over ``_place``'s devices."""
+              ) -> Tuple["plan_lib.ParallelPlan", str,
+                         Optional[mesh_lib.Mesh], Tuple[int, ...]]:
+    """(plan, precision, the plan's mesh, the ranks that continue) of an
+    unpipelined run: over processes when the process group is wanted
+    (``_process_mesh``; the mesh None on a released rank), else in this
+    process over ``_place``'s devices (the ranks then empty)."""
     if dist_lib.wanted():
-        plan, precision, (mesh,) = _process_mesh(config, cfg, device,
-                                                 devices, grad_comm)
-        return plan, precision, mesh
+        plan, precision, meshes, ranks = _process_mesh(
+            config, cfg, device, devices, grad_comm)
+        return plan, precision, meshes and meshes[0], ranks
     plan, precision, devs = _place(config, cfg, device, devices, grad_comm)
-    return plan, precision, mesh_lib.make_plan_mesh(plan, devs)
+    return plan, precision, mesh_lib.make_plan_mesh(plan, devs), ()
 
 
 def rank0_params(mesh, params: Dict[str, torch.Tensor]
@@ -368,8 +412,10 @@ def _compile_train(config: RunConfig, device: DeviceLike,
     grad_comm = "overlap" if config.grad_comm == "auto" else config.grad_comm
     optimizer = _build_optimizer(config)
     if dist_lib.wanted():
-        plan, precision, meshes = _process_mesh(config, cfg, device, devices,
-                                                grad_comm)
+        plan, precision, meshes, ranks = _process_mesh(
+            config, cfg, device, devices, grad_comm)
+        if meshes is None:
+            return Released(config, cfg, plan, precision, grad_comm, ranks)
         mesh = meshes[train_step_lib.local_groups(meshes)[0]]
         params = rank0_params(mesh.pipeline or mesh, for_config(
             cfg).init_params(cfg, torch.Generator().manual_seed(config.seed),
@@ -511,6 +557,7 @@ class Report:
     bubble_fraction: Optional[float] = None
     transport: Optional[str] = None
     process_rank: Optional[int] = None
+    released: bool = False
 
     def __str__(self) -> str:
         stages = "; ".join(
@@ -534,6 +581,9 @@ class Report:
         procs = ("" if self.transport is None else
                  f" (rank {self.process_rank} of a process mesh over "
                  f"{self.transport})")
+        if self.released:
+            procs = (f" (rank {self.process_rank} released: the plan's "
+                     f"ranks run it)")
         return (
             f"Session[{self.plan_name}] on {self.device}{procs}\n"
             f"  mesh {self.mesh_shape}  precision={self.precision}  "
@@ -549,6 +599,97 @@ class Report:
                if self.telemetry else ""))
 
 
+def _stages(plan: "plan_lib.ParallelPlan") -> tuple:
+    """``Report.stages`` of ``plan``."""
+    return tuple((s.start, s.stop, tuple(s.spatial_axes),
+                  tuple(s.batch_axes), s.remat) for s in plan.stages)
+
+
+def _plan_figures(config: RunConfig, cfg: ConvNetConfig,
+                  plan: "plan_lib.ParallelPlan", precision: str,
+                  grad_comm: str, group: Optional[int] = None) -> tuple:
+    """(predicted step seconds, modeled peak a shard of ``group``, the
+    budget in bytes or None) of a training run of ``plan``: the time
+    model's price on ``perf_model.H100`` at ``precision`` and the memory
+    model's peak."""
+    priced = (plan if plan.precision == precision
+              else dataclasses.replace(plan, precision=precision))
+    t = plan_lib.price_plan(cfg, perf_model.H100, priced,
+                            global_batch=config.global_batch,
+                            grad_comm=grad_comm)
+    peak = memory_lib.plan_peak_bytes(
+        cfg, plan, global_batch=config.global_batch, grad_comm=grad_comm,
+        precision=precision, group=group)
+    budget = (None if config.memory_budget_gib is None
+              else config.memory_budget_gib * 2 ** 30)
+    return t, peak, budget
+
+
+class Released(_Traced):
+    """What ``compile`` returns on a rank of a run over processes that the
+    plan does not use: under a memory budget the plan's mesh takes the
+    world's first ``plan.device_count`` ranks (``ranks``) and releases
+    the others. A released rank holds nothing on the card and joins no
+    collective of the mesh: ``step``, ``evaluate``, ``predict``,
+    ``serve``, ``make_loader``, ``profile``, ``report`` and ``save``
+    raise a ``RuntimeError`` naming the ranks that continue;
+    ``describe()`` reports the plan they run (its modeled peak a shard
+    and predicted step time), marked released."""
+
+    released = True
+
+    def __init__(self, config, cfg, plan, precision, grad_comm, ranks):
+        self.config: RunConfig = config
+        self.cfg: ConvNetConfig = cfg
+        self.plan: plan_lib.ParallelPlan = plan
+        self.precision: str = precision_lib.get(precision).name
+        self.grad_comm: str = grad_comm
+        self.ranks: Tuple[int, ...] = tuple(ranks)
+        self.process_rank: int = torch.distributed.get_rank()
+        self.mesh = None
+        self.params: Dict[str, torch.Tensor] = {}
+        self._init_trace(config)
+
+    def _refuse(self, *args, **kwargs):
+        raise RuntimeError(
+            f"rank {self.process_rank} was released: plan "
+            f"{self.plan.name!r} runs on ranks {list(self.ranks)}, and "
+            f"this rank holds none of it")
+
+    step = evaluate = predict = serve = make_loader = _refuse
+    profile = report = save = _refuse
+
+    def telemetry(self) -> Dict[str, float]:
+        return {}
+
+    def describe(self):
+        """A ``Report`` (training) or ``InferReport`` (serving) of the
+        plan the continuing ranks run, ``released`` set."""
+        if self.config.mode == "infer":
+            from repro_torch.serve.session import InferReport  # imports us
+
+            return InferReport(
+                plan_name=self.plan.name, mesh_shape=dict(self.plan.mesh_axes),
+                precision=self.precision,
+                param_count=self.cfg.param_count(),
+                modeled_peak=memory_lib.infer_peak_bytes(
+                    self.cfg, self.plan,
+                    global_batch=self.config.global_batch,
+                    precision=self.precision),
+                device="released", process_rank=self.process_rank,
+                released=True)
+        t, peak, budget = _plan_figures(self.config, self.cfg, self.plan,
+                                        self.precision, self.grad_comm)
+        return Report(
+            plan_name=self.plan.name, stages=_stages(self.plan),
+            mesh_shape=dict(self.plan.mesh_axes), precision=self.precision,
+            grad_comm=self.grad_comm, global_batch=self.config.global_batch,
+            param_count=self.cfg.param_count(), device="released",
+            modeled_peak=peak, predicted_step_s=t,
+            memory_budget_bytes=budget, process_rank=self.process_rank,
+            released=True)
+
+
 class Session(_Traced):
     """A training run over a data x spatial mesh on one device. The
     session holds one copy of the fp32 masters and the optimizer state
@@ -560,6 +701,8 @@ class Session(_Traced):
     None).
     Build with ``repro_torch.api.compile(RunConfig(mode="train"))`` or
     ``Session.restore(checkpoint_dir)``, not directly."""
+
+    released = False  # a rank the plan runs on (``Released``: one it does not)
 
     def __init__(self, config, cfg, mesh, plan, precision, grad_comm,
                  optimizer, params, opt_state, mask_source=None,
@@ -842,19 +985,10 @@ class Session(_Traced):
         budget, and the predicted step time: ``plan.price_plan`` on
         ``perf_model.H100``, which prices the plan's mesh with every
         shard on a card of its own (here they may share one)."""
-        priced = (self.plan if self.plan.precision == self.precision
-                  else dataclasses.replace(self.plan,
-                                           precision=self.precision))
-        t = plan_lib.price_plan(self.cfg, perf_model.H100, priced,
-                                global_batch=self.config.global_batch,
-                                grad_comm=self.grad_comm)
         world = self._pipeline_world
-        peak = memory_lib.plan_peak_bytes(
-            self.cfg, self.plan, global_batch=self.config.global_batch,
-            grad_comm=self.grad_comm, precision=self.precision,
+        t, peak, budget = _plan_figures(
+            self.config, self.cfg, self.plan, self.precision, self.grad_comm,
             group=None if world is None else world.group)
-        budget = (None if self.config.memory_budget_gib is None
-                  else self.config.memory_budget_gib * 2 ** 30)
         pipe: Dict[str, Any] = {}
         if self.plan.n_groups > 1:
             spec, d = self.plan.pipeline, self.plan.data_degree
@@ -866,10 +1000,7 @@ class Session(_Traced):
                 pipeline_schedule=spec.schedule,
                 bubble_fraction=spec.bubble_fraction)
         return Report(
-            plan_name=self.plan.name,
-            stages=tuple((s.start, s.stop, tuple(s.spatial_axes),
-                          tuple(s.batch_axes), s.remat)
-                         for s in self.plan.stages),
+            plan_name=self.plan.name, stages=_stages(self.plan),
             mesh_shape=self.mesh.shape, precision=self.precision,
             grad_comm=self.grad_comm,
             global_batch=self.config.global_batch,
@@ -1092,6 +1223,8 @@ class Session(_Traced):
             config = dataclasses.replace(config, data=new_data,
                                          spatial=new_spatial, plan="fixed")
         sess = _compile_train(config, device, devices, mask_source)
+        if sess.released:
+            return sess
         model = for_config(sess.cfg)
         zero1 = sess.grad_comm == "reduce_scatter"
         tree = checkpoint.restore(path, {
@@ -1142,4 +1275,4 @@ class Session(_Traced):
             self._metrics_sink.close()
 
 
-__all__ = ["Report", "Session", "compile"]
+__all__ = ["Released", "Report", "Session", "compile"]

@@ -46,7 +46,12 @@ after it the barrier; at a resume rank 0 picks the newest checkpoint
 that validates and broadcasts its step, so every rank restores the
 same one. An elastic re-degree to n shards keeps the first n ranks
 (``dist.sub_world``); the others close their session and return a
-report with ``released`` set and no session.
+report with ``released`` set and no session. Under a memory budget the
+first compile plans over the whole world and its plan may span fewer
+ranks: the released ones return such a report before the first step's
+agreement, and the run continues over the plan's ranks. A pinned plan
+re-degreed (``degrade_config``: ``"auto"``) is re-planned over the
+ranks that continue.
 """
 from __future__ import annotations
 
@@ -516,6 +521,21 @@ def run(config: RunConfig, steps: int, *,
                       else contextlib.nullcontext()):
                     sess = _start_session(cfg_now, root, report, verbose,
                                           place, agreement)
+                if sess.released:  # a budgeted plan spans fewer ranks
+                    sess.close()
+                    report.released = True
+                    _event(report, verbose,
+                           f"released: rank {agreement.rank} is not among "
+                           f"the plan's ranks {list(sess.ranks)}")
+                    return report
+                if ranks is not None:  # from now on, the plan's ranks
+                    mine = (sess.mesh.pipeline or sess.mesh).ranks
+                    if mine != ranks:
+                        ranks = mine
+                        if place.get("devices") is not None:
+                            place["devices"] = list(
+                                place["devices"])[:len(ranks)]
+                        agreement = _Agreement(ranks)
                 if loader_mode:
                     batch_fn = _loader_batch_fn(sess, cfg_now)
                 elif batch_fn is None:

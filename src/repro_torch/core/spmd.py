@@ -89,7 +89,10 @@ the bit: ``psum``, ``psum_grad``, ``psum_scatter`` and the adjoint of
 ``all_gather`` gather every member's tensor and add them here in rank
 order (``psum_grad`` the spatial peers first), never by a ring
 all-reduce, whose order differs. ``all_to_all`` is a gather and a
-slice. ``ppermute`` is a gather too, queued at ``ppermute_start``
+slice, in the in-process mesh's block order (the planner's spatial ->
+batch moves, ``core/reshard.py``: one node whose adjoint meets the
+peers' in each rank's one backward, beside the halo and statistics
+exchanges). ``ppermute`` is a gather too, queued at ``ppermute_start``
 (asynchronous) and completed at ``Received.wait``: every exchange goes
 through the group's queue of collectives, in the same order on every
 rank, with no point-to-point message beside them (on one H100 over

@@ -10,6 +10,12 @@ overrides them.
         --width 16 --steps 2 --num-train 4 --eval-every 2
     python -m repro_torch.examples.train_cosmoflow --data 2 --model 2 \\
         --device cuda:0 --steps 100     # four shards on one card
+    torchrun --nproc-per-node 4 -m repro_torch.examples.train_cosmoflow \\
+        --memory-budget 1.0 --device cuda:0   # the planner over 4 ranks
+
+Under ``torchrun`` each process is one shard (``--plan`` and
+``--memory-budget`` plan over the world; a rank the plan leaves out is
+released and exits).
 """
 import argparse
 import time
@@ -32,6 +38,9 @@ def main(argv=None):
     config = config_from_args(cosmoflow_cfg.run_preset(args.width), args)
     where = placement(args, config.data * config.spatial)
     with compile(config, **where) as session:
+        if session.released:  # over processes, a rank the plan leaves out
+            print(session.describe())
+            return
         print(f"model {session.cfg.name}: "
               f"{session.cfg.param_count() / 1e6:.1f}M params")
         print(session.describe())

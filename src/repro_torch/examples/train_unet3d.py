@@ -25,6 +25,9 @@ def main(argv=None):
     config = config_from_args(unet3d_cfg.run_preset(), args)
     where = placement(args, config.data * config.spatial)
     with compile(config, **where) as session:
+        if session.released:  # over processes, a rank the plan leaves out
+            print(session.describe())
+            return
         print(f"{session.cfg.name}: "
               f"{session.cfg.param_count() / 1e3:.0f}k params, "
               f"mesh {dict(session.mesh.shape)}")

@@ -307,10 +307,15 @@ class Pool:
                         os.kill(p.pid, signal.SIGUSR1)
                 time.sleep(2.0)
                 self.close()
+                # a peer that failed first is often why the others wait
+                failed = [(r, v) for r, (ok, v) in sorted(self._done.items())
+                          if r in want and not ok]
                 raise PoolError(
                     f"{what}: ranks {sorted(want - set(self._done))} did not "
                     f"answer within {self.timeout_s:.0f} s"
-                    + (f" (exited: {dead})" if dead else ""))
+                    + (f" (exited: {dead})" if dead else "")
+                    + (f"; rank {failed[0][0]} failed:\n{failed[0][1]}"
+                       if failed else ""))
             try:
                 rank, ok, value = self._outbox.get(timeout=min(left, 1.0))
             except queue_lib.Empty:

@@ -20,12 +20,14 @@ Two contracts worth stating explicitly:
 * **Batch-composition visibility** — the models normalize with BATCH
   statistics (``core/dist_norm.py``; there are no running stats), so a
   sample's output depends on what it was coalesced with, and on the
-  padding rows added to reach a multiple of the plan's data degree.
-  Outputs are bitwise-reproducible for a fixed batch composition —
-  the parity tests pin harness-vs-direct-forward equality on identical
-  batches — but not across compositions. At ``data degree == 1``
-  (the common serving shape: spatial sharding for latency) no padding
-  is ever added.
+  padding rows added to reach a multiple of the plan's batch shards
+  (``InferenceSession.batch_multiple``: the data degree, times the
+  spatial degree under a plan whose deep stages turn the spatial group
+  into batch shards). Outputs are bitwise-reproducible for a fixed
+  batch composition — the parity tests pin harness-vs-direct-forward
+  equality on identical batches — but not across compositions. With
+  one batch shard (the common serving shape: spatial sharding for
+  latency) no padding is ever added.
 
 Over a process mesh (``launch.mesh.ProcessMesh``, one process a shard)
 there is one front end: ``InferenceSession.serve()`` returns this
@@ -195,11 +197,11 @@ class ServingHarness:
             if self._world is None:
                 faults.fire("serve.forward")
             xs = np.stack([r.x for r in batch])
-            d = self.session.plan.data_degree
+            d = self.session.batch_multiple
             pad = (-n) % d
             if pad:
-                # repeat the last row up to the next data-degree
-                # multiple; padded rows are dropped from the reply (but
+                # repeat the last row up to the next multiple of the
+                # plan's batch shards; padded rows are dropped from the reply (but
                 # see the module docstring: batch-stat normalization
                 # makes them visible in the real rows' values)
                 xs = np.concatenate([xs, np.repeat(xs[-1:], pad, axis=0)])

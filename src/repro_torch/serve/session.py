@@ -14,7 +14,8 @@ predictions, the 3D U-Net (N, D, H, W, out_dim) per-voxel logits. With
 ``data=D`` each batch is also split into D slices (a batch then needs a
 multiple of D volumes; the harness pads to one), and a plan whose deep
 stages move the spatial group into the batch (``plan="auto"``, or a
-pinned plan) serves each sample's deep layers on one shard.
+pinned plan) serves each sample's deep layers on one shard (a batch
+then needs a multiple of D x S volumes: ``batch_multiple``).
 
 ``InferenceSession.restore(path)`` serves a checkpoint the reference
 trained: it reads the embedded run config, strips the training-only
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -75,11 +77,15 @@ class InferReport:
     devices: Tuple[str, ...] = ()
     transport: Optional[str] = None
     process_rank: Optional[int] = None
+    released: bool = False
 
     def __str__(self) -> str:
         procs = ("" if self.transport is None else
                  f" (rank {self.process_rank} of a process mesh over "
                  f"{self.transport})")
+        if self.released:
+            procs = (f" (rank {self.process_rank} released: the plan's "
+                     f"ranks serve it)")
         return (
             f"InferenceSession[{self.plan_name}] on {', '.join(self.devices)}"
             f"{procs}\n  mesh {self.mesh_shape}  precision={self.precision}\n"
@@ -95,6 +101,8 @@ def compile_infer(config: RunConfig, *, device: DeviceLike = None,
     or ``devices`` (one per shard; neither: the card(s)) with freshly
     initialized params."""
     sess = _compile_infer(config, device, devices)
+    if sess.released:
+        return sess
     gen = torch.Generator().manual_seed(config.seed)
     sess.params = sess._cast_once(session_lib.rank0_params(
         sess.mesh, for_config(sess.cfg).init_params(sess.cfg, gen,
@@ -113,8 +121,11 @@ def _compile_infer(config: RunConfig, device: DeviceLike,
     config.validate(device_count=None)
     cfg = config.resolve_model()
     # the planner prices the default reduction; serving reduces nothing
-    plan, precision, mesh = session_lib._mesh_for(config, cfg, device,
-                                                  devices, "overlap")
+    plan, precision, mesh, ranks = session_lib._mesh_for(
+        config, cfg, device, devices, "overlap")
+    if mesh is None:  # a rank the plan does not use
+        return session_lib.Released(config, cfg, plan, precision, "overlap",
+                                    ranks)
     return InferenceSession(config, cfg, mesh, plan, precision)
 
 
@@ -122,6 +133,8 @@ class InferenceSession(session_lib._Traced):
     """A forward-only serving run over a mesh of devices. Build with
     ``repro_torch.api.compile(RunConfig(mode="infer"))`` or
     ``InferenceSession.restore(checkpoint_dir)``, not directly."""
+
+    released = False  # a rank the plan serves on (``api.session.Released``)
 
     def __init__(self, config, cfg, mesh, plan, precision):
         self.config: RunConfig = config
@@ -161,15 +174,24 @@ class InferenceSession(session_lib._Traced):
                 params, self.mesh.local_devices))
         return self._replicas[1]
 
+    @property
+    def batch_multiple(self) -> int:
+        """What a batch must be a multiple of: the batch shards of the
+        plan's most batch-sharded stage (the data degree, times the
+        spatial degree where a stage turns the spatial group into batch
+        shards)."""
+        return max(math.prod(self.plan.degree(a) for a in s.batch_axes)
+                   for s in self.plan.stages)
+
     def _forward_for(self, batch: int) -> Callable:
         """The forward for a batch of ``batch`` volumes:
         ``fn(params, x) -> (batch, out_dim)`` predictions on the
         session's device."""
-        d = self.plan.data_degree
+        d = self.batch_multiple
         if batch < 1 or batch % d:
             raise ValueError(
-                f"batch size {batch} does not divide over the plan's "
-                f"data degree {d}; pass a positive multiple of {d}")
+                f"batch size {batch} does not divide over the plan's {d} "
+                f"batch shards; pass a positive multiple of {d}")
 
         def fn(params, x):
             with torch.inference_mode():
@@ -321,6 +343,8 @@ class InferenceSession(session_lib._Traced):
                        else precision),
             trace=config.trace if trace is None else trace)
         sess = _compile_infer(config, device, devices)
+        if sess.released:
+            return sess
         model = for_config(sess.cfg)
         tree = checkpoint.restore(path, {"params": {
             k: torch.empty(s, device="meta")

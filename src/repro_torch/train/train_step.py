@@ -383,22 +383,10 @@ def _check_mesh(cfg: ConvNetConfig, mesh, plan,
             f"cards of their own")
 
 
-# what the process mesh does not run yet, and the ROADMAP §1 item that
-# brings it
-PROCESS_ITEMS = {
-    "auto": "item 1.3 (plan=\"auto\" and memory budgets over processes)",
-}
 # ZeRO-1 and pipeline groups do not compose, in a process or over several
 ZERO1_PIPELINE = ("grad_comm='reduce_scatter' does not compose with pipeline "
                   "groups (ZeRO-1 shards the full tree over one mesh); use "
                   "'overlap' or 'monolithic'")
-
-
-def not_over_processes(what: str, feature: str) -> NotImplementedError:
-    """The error an unsupported composition over processes raises."""
-    return NotImplementedError(
-        f"{what} over processes comes with ROADMAP §1 "
-        f"{PROCESS_ITEMS[feature]}")
 
 
 def check_process_plan(plan: plan_lib.ParallelPlan,

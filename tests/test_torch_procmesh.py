@@ -22,10 +22,12 @@ process while the children work.
 * depth-split serving equals the in-process serving; ``evaluate``
   gathers the predictions on every rank;
 * a world whose size is not data x spatial raises; ``plan="auto"`` over
-  processes raises ``NotImplementedError`` naming the ROADMAP item
+  processes compiles the plan one process chooses and trains as it does
   (ZeRO-1, remat and pipeline groups over processes:
   ``tests/test_torch_procmesh_compose.py``; the loader, the harness and
-  the supervisor: ``tests/test_torch_procmesh_io.py``).
+  the supervisor: ``tests/test_torch_procmesh_io.py``; the planner's
+  layouts, budgets and released ranks:
+  ``tests/test_torch_procmesh_plans.py``).
 """
 import dataclasses
 import math
@@ -325,31 +327,38 @@ def test_spatial_serving_and_evaluate_match_in_process(pool, model):
         assert torch.equal(preds, want_eval)
 
 
-# ------------------------------------------------- what does not run ----
-def refusal_job(what):
-    """The error a composition the process mesh does not run raises, as
-    (type name, message)."""
+# ------------------------------------------------ the plan and world ----
+def refusal_job():
+    """The error a world that is not data x spatial raises, as (type
+    name, message)."""
     devs = ["cpu"] * len(dist_lib.world())
-    base = _config("cosmoflow-128", 1, 2, "overlap")
     try:
-        if what == "world_size":
-            compile(_config("cosmoflow-128", 1, 4, "overlap"), devices=devs)
-        else:
-            compile(dataclasses.replace(base, plan="auto"), devices=devs)
+        compile(_config("cosmoflow-128", 1, 4, "overlap"), devices=devs)
     except Exception as e:  # noqa: BLE001 — the refusal is the result
         return type(e).__name__, str(e)
     return None, None
 
 
-@pytest.mark.parametrize("what,item", [("auto", "1.3")])
-def test_unsupported_compositions_raise_naming_the_roadmap(pool, what, item):
-    for kind, msg in pool.run(refusal_job, what, ranks=(0, 1)):
-        assert kind == "NotImplementedError", msg
-        assert f"ROADMAP §1 item {item}" in msg, msg
+def auto_job(model):
+    """A 1 x 2 ``plan="auto"`` session (over the pool's ranks 0-1, or in
+    one process): its plan and 2 steps' losses."""
+    with compile(dataclasses.replace(_config(model, 1, 2, "overlap"),
+                                     plan="auto"),
+                 devices=["cpu"] * 2) as sess:
+        return sess.plan, [float(sess.step(*_batch(sess.cfg, t)))
+                           for t in range(2)]
+
+
+@pytest.mark.parametrize("model", ["cosmoflow-128", "unet3d-256"])
+def test_plan_auto_over_the_pool_compiles_the_in_process_choice(pool, model):
+    ranks = pool.submit(auto_job, model, ranks=(0, 1))
+    want = auto_job(model)
+    assert want[0].name.endswith(".batch")  # the planner batches deep layers
+    assert pool.result(ranks, f"auto {model}") == [want, want]
 
 
 def test_a_world_that_is_not_data_x_spatial_raises(pool):
-    for kind, msg in pool.run(refusal_job, "world_size", ranks=(0, 1)):
+    for kind, msg in pool.run(refusal_job, ranks=(0, 1)):
         assert kind == "RunConfigError" and "world" in msg, msg
 
 

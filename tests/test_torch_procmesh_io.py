@@ -130,14 +130,15 @@ def _copy(b):
 
 
 # ------------------------------------------------------------ loader ----
-def loader_job(model, D, S, root, prefetch, P=1):
+def loader_job(model, D, S, root, prefetch, P=1, plan="fixed"):
     """``STEPS`` steps fed by the session's loader (this process a shard,
     or every shard when no process group is up; ``P`` pipeline groups,
-    ``D`` the total): each step's batch as the loader gave it (a rank's
-    blocks over processes), the losses, the parameters, the counters."""
-    kw = {}
+    ``D`` the total; ``plan`` the config's): each step's batch as the
+    loader gave it (a rank's blocks over processes), the losses, the
+    parameters, the counters."""
+    kw = {"plan": plan}
     if P > 1:
-        kw = dict(pipeline=P, micro_batches=2, grad_clip=0.0)
+        kw.update(pipeline=P, micro_batches=2, grad_clip=0.0)
     with compile(_config(model, D, S, **kw),
                  devices=["cpu"] * (D * S)) as sess:
         loader = sess.make_loader(root, prefetch=prefetch)
@@ -153,7 +154,7 @@ def loader_job(model, D, S, root, prefetch, P=1):
                 out.update(rank_pfs=dict(loader.stats.rank_pfs_bytes),
                            gathered=loader.gather_stats())
         return dict(out, batches=batches, losses=losses, params={
-            k: v.clone() for k, v in sess.params.items()},
+            k: v.clone() for k, v in sess.params.items()}, plan=sess.plan,
             redistributed=loader.stats.cache_bytes_redistributed,
             kinds=[type(v).__name__ for v in batch],
             rank=getattr(sess.mesh, "rank", None))
@@ -475,8 +476,19 @@ def test_the_launcher_over_processes_reads_the_loader(pool):
         assert losses == want and len(losses) == 3
 
 
-def test_process_items_hold_only_plans_over_processes():
-    assert set(train_step.PROCESS_ITEMS) == {"auto"}
+def test_a_loader_fed_plan_auto_run_is_the_in_process_run(pool, stores):
+    """``plan="auto"`` over the pool compiles the in-process choice (its
+    deep layers batch-sharded) and its loader-fed steps are bitwise."""
+    root = stores["cosmo"]
+    ranks = pool.submit(loader_job, "cosmo", 1, 2, root, 0, 1, "auto",
+                        ranks=(0, 1))
+    want = loader_job("cosmo", 1, 2, root, 0, 1, "auto")
+    assert want["plan"].name.endswith(".batch")
+    for rank, out in enumerate(pool.result(ranks, "loader auto")):
+        assert out["plan"] == want["plan"], rank
+        assert out["losses"] == want["losses"], rank
+        assert all(torch.equal(v, want["params"][k])
+                   for k, v in out["params"].items()), rank
 
 
 # -------------------------------------------------- against the JAX ----
