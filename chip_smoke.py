@@ -304,9 +304,11 @@ m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
               reserved. No gate.
 11. ssd     — the SSD scan kernel against its plain (sequential) version
               at the shapes of ``tests/test_kernels.py``, a ragged L and
-              mamba2-370m's layer shape (B=4, L=4096, H=32, P=64, N=128,
-              chunk 256), fp32 (3e-4 rtol/atol) and bf16 (2e-2 of the
-              output scale); at the layer shape, x, B and C as views of one
+              the layer shapes of mamba2-370m (B=4, L=4096, H=32, P=64,
+              N=128, chunk 256) and zamba2-1.2b (H=64, N=64), fp32 (3e-4
+              rtol/atol; at the layer shapes 3e-4 of the output's scale)
+              and bf16 (2e-2 of the output scale); at mamba2-370m's layer
+              shape, x, B and C as views of one
               (B, L, H*P + 2N) buffer (as the Mamba2 block passes them) give
               the bits contiguous copies give, and a second call the same
               bits.
@@ -319,9 +321,30 @@ m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
               against that forward in fp64 (the kernel no more than 2x as
               far from it as the plain forward: see ``phase_score``).
 13. decode  — ``serve.lm.generate``, greedy, 4 prompts of 64 tokens, 16
-              new tokens, fp32; prefill's last logits held against the
-              kernel forward's last position; decode ms per token.
-14. timings — ssd_scan at the layer shape: kernel, plain version, plain
+              new tokens, fp32; prefill's last logits and 16 teacher-forced
+              decode steps held against the kernel forward (5e-4 rtol/atol);
+              decode ms per token.
+13b. lm_families — every LM family at its published width, seeded weights
+              drawn on the card, under ``torch.inference_mode``: zamba2-1.2b
+              at full depth (38 Mamba2 blocks, the shared attention block
+              applied 6 times) through phases 12-13's checks at 4 x 4096
+              fp32 and bf16 (38 ssd_scan launches per forward; useful
+              FLOP/s from ``launch.specs.model_flops``); then one lm_loss
+              each (``LM_FAMILIES``: ms, median of 3; tokens/s, useful
+              FLOP/s, peak; no kernel launched) of qwen1.5-0.5b, phi3-mini,
+              phi3-vision (1,024 image + 3,072 text tokens), gemma2-2b (1 x
+              8192, past its 4096 window), hubert-xlarge (4096 synthetic
+              frames) at full depth in fp32, and, cut in depth to what the
+              card holds, phi3.5-moe (4 of 32 layers, fp32), arctic-480b (1
+              of 35, bf16), llama3-405b (2 of 126, bf16); each one's
+              logits (and MoE aux loss) against the same forward in fp64
+              on the same weights (the MoE layers through ``plain_moe``
+              on the run's expert choices; gemma2-2b on its first 4,608
+              positions, llama3-405b on 1 layer: ``LM_FP64_CUT``), within
+              1e-3 (fp32) and 0.05 (bf16) of the logits' scale;
+              qwen1.5-0.5b's and gemma2-2b's prefill and 16 teacher-forced
+              decode steps against the forward (3e-4 rtol/atol).
+14. timings — ssd_scan at both layer shapes: kernel, plain version, plain
               chunked scan, bounds (of ``ssd_work`` on the tensor cores, of
               the arithmetic the kernel executes, on the CUDA cores), each
               of its CUDA kernels' time (median over 5 profiled calls);
@@ -329,7 +352,7 @@ m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
 
 Phases 4-6, 7-8, 10 (the training steps), 10b (the sharded training
 steps), 10c, 10e and 10f (the U-Net's), 10g, 10q, 10h, 10z, 10z-u, 10p,
-10s, 10w (each rank's counters, summed) and 12-13 are the main paths:
+10s, 10w (each rank's counters, summed), 12-13 and 13b are the main paths:
 the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
@@ -613,13 +636,44 @@ PIPE_UNET_BATCH, PIPE_UNET_M, PIPE_UNET_PREC = 2, 2, "fp32"
 # share of its max-abs)
 PIPE_M1_TOL = PIPE_ORACLE_TOL = 1e-5
 # (B, L, H, P, N, chunk): tests/test_kernels.py's four (B=2), L=40 with
-# chunk 16 (lowered to 10), and mamba2-370m's layer at 4 x 4096 tokens
+# chunk 16 (lowered to 10), and the layers of mamba2-370m and zamba2-1.2b
+# at 4 x 4096 tokens
 SSD_SHAPES = ((2, 32, 2, 8, 16, 8), (2, 64, 3, 8, 16, 16),
               (2, 64, 1, 16, 8, 64), (2, 48, 2, 4, 4, 12),
-              (2, 40, 2, 8, 16, 16), (4, 4096, 32, 64, 128, 256))
-SSD_MAIN = SSD_SHAPES[-1]
-# (batch, tokens, precision) of the scoring runs
+              (2, 40, 2, 8, 16, 16), (4, 4096, 32, 64, 128, 256),
+              (4, 4096, 64, 64, 64, 256))
+SSD_LAYERS = {"mamba2-370m": SSD_SHAPES[-2], "zamba2-1.2b": SSD_SHAPES[-1]}
+SSD_MAIN = SSD_LAYERS["mamba2-370m"]
+# (batch, tokens, precision) of the scoring runs: mamba2-370m (phase 12)
+# and zamba2-1.2b (phase 13b)
 SCORE = ((4, 4096, "fp32"), (4, 4096, "bf16"), (1, 32768, "fp32"))
+SCORE_HYBRID = ((4, 4096, "fp32"), (4, 4096, "bf16"))
+# phase 13b's transformers at their published widths, one fp32 (bf16
+# where the weights are cut) lm_loss each: (arch, batch, text tokens,
+# image tokens, precision, layers kept where the card cannot hold them
+# all). gemma2-2b at 8192 tokens so that its 4096 window bites; hubert
+# on synthetic frame embeddings; phi3-vision on 1,024 image tokens.
+LM_FAMILIES = (("qwen1.5-0.5b", 1, 4096, 0, "fp32", None),
+               ("phi3-mini", 1, 4096, 0, "fp32", None),
+               ("phi3-vision", 1, 3072, 1024, "fp32", None),
+               ("gemma2-2b", 1, 8192, 0, "fp32", None),
+               ("hubert-xlarge", 1, 4096, 0, "fp32", None),
+               ("phi3.5-moe", 1, 4096, 0, "fp32", 4),
+               ("arctic-480b", 1, 4096, 0, "bf16", 1),
+               ("llama3-405b", 1, 4096, 0, "bf16", 2))
+# prefill's last logits and LM_DECODE_STEPS teacher-forced decode steps
+# against the forward, 3e-4 rtol/atol (tests/test_models.py:57-90)
+LM_DECODE_CHECK = ("qwen1.5-0.5b", "gemma2-2b")
+LM_DECODE_STEPS = 16
+# each transformer's logits against the same forward in fp64 on the same
+# weights and inputs (``vs_fp64``), held to LM_FP64_TOL of the fp64
+# logits' scale. The run's own shape, except where the fp64 work does not
+# fit beside it: (layers, positions) — the run's first ``layers`` layers
+# (a forward of that depth in the run's precision beside it), or its
+# first ``positions`` positions (a causal model's logits there depend on
+# nothing after them; gemma2-2b's 4,608 still pass its 4,096 window).
+LM_FP64_CUT = {"gemma2-2b": (None, 4608), "llama3-405b": (1, None)}
+LM_FP64_TOL = {"fp32": 1e-3, "bf16": 0.05}
 
 
 def log(phase: str, msg: str) -> None:
@@ -1072,15 +1126,16 @@ def phase_ssd_kernel(ssd_ops, ssd_ref, mamba2) -> dict:
     """The SSD scan kernel against its plain (sequential) version.
     fp32 at the test shapes: 3e-4 rtol/atol elementwise, the reference's
     own kernel contract (``tests/test_kernels.py:84-87``). fp32 at the
-    layer shape: 3e-4 of the output's scale — y there reaches ~400, and
-    an element near zero keeps the fp32 rounding of its ~400-sized terms,
+    layer shapes (``SSD_LAYERS``): 3e-4 of the output's scale — y there
+    reaches ~300-400, and an element near zero keeps the fp32 rounding of
+    its ~400-sized terms,
     which no summation order removes (the plain chunked scan's own error
     against the sequential version is printed beside it). bf16: y within
     2e-2 of its scale, the reference's bf16 sweep tolerance (both round
     the same fp32 sums to bf16 once). The fp32 state follows the fp32
     rule of its shape."""
     g = torch.Generator(device="cuda").manual_seed(6)
-    rows, worst = [], 0.0
+    rows, worst = [], {}
     for prec, dt in DTYPES.items():
         for B, L, H, P, N, Q in SSD_SHAPES:
             args = ssd_inputs(g, B, L, H, P, N, dt)
@@ -1091,7 +1146,7 @@ def phase_ssd_kernel(ssd_ops, ssd_ref, mamba2) -> dict:
             tag = f"ssd_scan {(B, L, H, P, N, Q)} {prec}"
             check(y.dtype == dt and state.dtype == torch.float32,
                   f"{tag}: dtypes {y.dtype} {state.dtype}")
-            main = (B, L, H, P, N, Q) == SSD_MAIN
+            main = (B, L, H, P, N, Q) in SSD_LAYERS.values()
             scale = max(1.0, want_y.float().abs().max().item())
             s_scale = max(1.0, want_s.abs().max().item())
             row = {"shape": [B, L, H, P, N, Q], "dtype": prec,
@@ -1109,7 +1164,7 @@ def phase_ssd_kernel(ssd_ops, ssd_ref, mamba2) -> dict:
                 yc, ex = mamba2.ssd_chunked(*args, chunk=Q)
                 row.update(chunked_err_y=max_err(yc, want_y),
                            chunked_err_state=max_err(ex.final_state, want_s))
-                worst = max(err_y, err_s)
+                worst[(B, L, H, P, N, Q)] = max(err_y, err_s)
                 log("ssd", f"{tag}: kernel y err {err_y:.3g} (scale "
                     f"{scale:.4g}), state err {err_s:.3g} (scale "
                     f"{s_scale:.4g}); plain chunked scan y err "
@@ -1147,9 +1202,13 @@ def phase_ssd_kernel(ssd_ops, ssd_ref, mamba2) -> dict:
         check(all(in_place[prec].values()), f"ssd_scan {prec}: {in_place}")
         del x, d, A, Bm, Cm, xv, bv, cv, y1, s1, y2, s2, y3, s3
     log("ssd", f"ok: {len(rows)} comparisons; largest abs difference at "
-        f"the layer shape, fp32: {worst:.3g}")
-    return {"max_abs_err_main_fp32": worst, "cases": rows,
-            "in_place": in_place}
+        f"the layer shapes, fp32: " + ", ".join(
+            f"{name} {worst[shape]:.3g}" for name, shape in
+            SSD_LAYERS.items()))
+    return {"max_abs_err_main_fp32": worst[SSD_MAIN],
+            "max_abs_err_layers_fp32": {name: worst[shape] for name, shape
+                                        in SSD_LAYERS.items()},
+            "cases": rows, "in_place": in_place}
 
 
 @contextlib.contextmanager
@@ -1175,9 +1234,19 @@ def to_dtype(params, dt):
                 else v.to(dt)) for n, v in params.items()}
 
 
-def phase_score(k, cfg, params) -> tuple:
-    """``lm_loss`` at each (batch, tokens, precision) of SCORE: launches
-    per forward, time, tokens/s, peak memory, loss, and the forward's
+def useful_flops(k, cfg, tokens: int) -> float:
+    """The useful FLOPs of a forward over ``tokens`` tokens:
+    ``model_flops``'s prefill convention (2 x active parameters a token,
+    at ``INPUT_SHAPES["prefill_32k"]``) scaled to this run's tokens."""
+    shape = k.configs.INPUT_SHAPES["prefill_32k"]
+    return (k.specs.model_flops(cfg.name, cfg, shape.name) * tokens
+            / (shape.global_batch * shape.seq_len))
+
+
+def phase_score(k, cfg, params, runs=SCORE, phase="score") -> tuple:
+    """``lm_loss`` at each (batch, tokens, precision) of ``runs``: launches
+    per forward, time, tokens/s, useful FLOP/s (``useful_flops``), peak
+    memory, loss, and the forward's
     logits against two yardsticks on the same weights and tokens: the
     forward through the plain chunked scan, and that forward in fp64.
 
@@ -1192,7 +1261,7 @@ def phase_score(k, cfg, params) -> tuple:
     within 1e-5 of the scale, where both are at fp32's own resolution).
     Returns (rows, forwards that went through the kernel)."""
     rows, forwards = {}, 0
-    for batch, seqlen, prec in SCORE:
+    for batch, seqlen, prec in runs:
         tag = f"{cfg.name}/{prec}/{batch}x{seqlen}"
         p = params[prec]
         data = lm_batch(cfg, batch, seqlen, seed=7)
@@ -1237,7 +1306,7 @@ def phase_score(k, cfg, params) -> tuple:
                .item() / s64}
         del exact
         tol = 1e-3 if prec == "fp32" else 0.25
-        log("score", f"{tag}: kernel vs plain-scan forward "
+        log(phase, f"{tag}: kernel vs plain-scan forward "
             f"{row['rel_err_vs_plain']:.3g} <= {tol}; vs the fp64 forward: "
             f"kernel {row['kernel_rel_err_vs_fp64']:.3g} <= 2 x plain "
             f"{row['plain_rel_err_vs_fp64']:.3g} (of the logits' scale)")
@@ -1247,12 +1316,16 @@ def phase_score(k, cfg, params) -> tuple:
               <= max(2 * row["plain_rel_err_vs_fp64"], 1e-5),
               f"{tag}: the kernel forward is more than twice as far from "
               f"the fp64 forward as the plain-scan forward")
+        flops = useful_flops(k, cfg, batch * seqlen)
         rows[tag] = {"ms": ms, "tokens_per_s": batch * seqlen / ms * 1e3,
+                     "useful_flops": flops,
+                     "useful_flop_per_s": flops / ms * 1e3,
                      "peak_bytes": peak, "resident_bytes_before": resident,
                      "loss": loss.item(), "tol_vs_plain": tol,
                      "ssd_launches_per_forward": per_fwd["ssd_scan"], **row}
         tps = rows[tag]["tokens_per_s"]
-        log("score", f"{tag}: lm_loss {ms:.2f} ms ({tps:.0f} tokens/s), "
+        log(phase, f"{tag}: lm_loss {ms:.2f} ms ({tps:.0f} tokens/s, "
+            f"{rows[tag]['useful_flop_per_s'] / 1e12:.1f} useful TFLOP/s), "
             f"peak {peak / 2 ** 30:.2f} GiB ({resident / 2 ** 30:.2f} GiB "
             f"resident before), loss "
             f"{loss.item():.4f}, {per_fwd['ssd_scan']} ssd_scan launches per "
@@ -1261,9 +1334,10 @@ def phase_score(k, cfg, params) -> tuple:
     return rows, forwards
 
 
-def phase_decode(k, cfg, p) -> tuple:
+def phase_decode(k, cfg, p, phase="decode") -> tuple:
     """Greedy ``generate`` (4 prompts of 64 tokens, 16 new tokens);
-    prefill's last logits against the kernel forward's last position
+    prefill's last logits and 16 teacher-forced ``decode_step``s from an
+    empty cache against the kernel forward's last and first 16 positions
     (5e-4 rtol/atol, as ``tests/test_models.py:99-111`` holds the
     reference), decode time per token. Returns (row, forwards that went
     through the kernel)."""
@@ -1278,17 +1352,29 @@ def phase_decode(k, cfg, p) -> tuple:
           and int(toks.max()) < cfg.vocab_size, f"generated {toks.shape}")
     prefill, decode = k.lm.make_serve_fns(cfg)
     last, cache = prefill(p, prompts, 80)
-    full = k.ssm_lm.forward(p, prompts, cfg)[:, -1]
+    forward = k.ssm_lm.forward(p, prompts, cfg)
+    full = forward[:, -1]
     torch.cuda.synchronize()
     check(delta(counts(k), c0) == dict(NO_LAUNCHES, ssd_scan=cfg.num_layers),
-          "decode phase: launches")
+          f"{phase} phase: launches")
     err = (last - full).abs().max().item()
     check(within(last, full, 5e-4), f"prefill vs forward logits {err:.3g}")
     check(torch.equal(toks[:, 0], last.argmax(-1)),
           "generate's first token is not prefill's argmax")
+    c, teacher = k.ssm_lm.init_cache(cfg, 4, 16, p["embed"].dtype,
+                                     p["embed"].device), 0.0
+    for t in range(16):
+        lg, c = decode(p, c, prompts[:, t:t + 1])
+        teacher = max(teacher, (lg - forward[:, t]).abs().max().item())
+        check(within(lg, forward[:, t], 5e-4), f"teacher-forced decode "
+              f"step {t} vs forward: {teacher:.3g}")
+    check(counts(k) == dict(c0, ssd_scan=c0["ssd_scan"] + cfg.num_layers),
+          "teacher-forced decoding launched a kernel")
+    del forward, c
 
-    def run_decode():
-        logits, c = last, cache
+    def run_decode():  # from a copy: decode_step writes into its cache
+        logits, c = last, {n: v.clone() if torch.is_tensor(v) else v
+                           for n, v in cache.items()}
         for _ in range(16):
             logits, c = decode(p, c, logits.argmax(-1)[:, None])
         return logits
@@ -1296,13 +1382,292 @@ def phase_decode(k, cfg, p) -> tuple:
     row = {"prefill_ms": host_ms(lambda: prefill(p, prompts, 80), 1),
            "decode_ms_per_token": host_ms(run_decode, 2) / 16,
            "prefill_vs_forward_max_abs": err,
+           "teacher_forced_vs_forward_max_abs": teacher,
            "prefill_logits_scale": full.abs().max().item(),
            "tokens": toks.tolist()}
-    log("decode", f"{cfg.name} fp32 batch 4: 64-token prompts, 16 greedy "
-        f"tokens; prefill vs forward {err:.3g} (5e-4 rtol/atol); prefill "
+    log(phase, f"{cfg.name} fp32 batch 4: 64-token prompts, 16 greedy "
+        f"tokens; prefill vs forward {err:.3g}, 16 teacher-forced decode "
+        f"steps vs forward {teacher:.3g} (5e-4 rtol/atol); prefill "
         f"{row['prefill_ms']:.1f} ms, decode {row['decode_ms_per_token']:.2f}"
         f" ms per token")
     return row, 1
+
+
+def lm_inputs(k, cfg, batch: int, tokens: int, images: int, dt,
+              seed: int) -> dict:
+    """A seeded batch for ``transformer.lm_loss``: tokens and next-token
+    labels, or (hubert) synthetic frame embeddings and per-frame labels;
+    with ``images`` synthetic image embeddings before the text."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.embed_inputs:
+        t = torch.randint(0, cfg.vocab_size, (batch, tokens + 1),
+                          generator=g, device="cuda")
+        data = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    else:
+        data = {"tokens": k.frontends.synth_audio_embeds(
+                    g, batch, tokens, cfg.d_model, dt),
+                "labels": torch.randint(0, cfg.vocab_size, (batch, tokens),
+                                        generator=g, device="cuda")}
+    if images:
+        data["image_embeds"] = k.frontends.synth_vision_embeds(
+            g, batch, cfg.d_model, images, dt)
+    return data
+
+
+class Upcast:
+    """A stacked weight whose slices come out in ``dt`` as the forward
+    takes them (``params["layers"][name][li]``, ``params["embed"][ids]``,
+    the unembedding's ``.t()``): the fp64 yardstick holds one layer's
+    weights in fp64 at a time beside the run's."""
+
+    def __init__(self, w: torch.Tensor, dt: torch.dtype):
+        self.w, self.dt = w, dt
+
+    def __getitem__(self, i):
+        return self.w[i].to(self.dt)
+
+    def t(self) -> torch.Tensor:
+        return self.w.to(self.dt).t()
+
+
+def fp64_params(params) -> dict:
+    """A transformer's ``params`` for its fp64 yardstick: the layers'
+    weights and the embeddings upcast as the forward takes them, the
+    experts (``*_e``) as they are, for ``plain_moe`` to upcast one expert
+    at a time."""
+    return {"layers": {n: v if n.endswith("_e") else Upcast(v, torch.float64)
+                       for n, v in params["layers"].items()},
+            **{n: Upcast(params[n], torch.float64)
+               for n in ("embed", "unembed") if n in params},
+            "final_norm": params["final_norm"].double()}
+
+
+@contextlib.contextmanager
+def recording_routes(routes: list):
+    """Append each ``torch.topk``'s indices to ``routes``: in a
+    transformer's forward, the experts each MoE layer chose for each
+    token, in layer order."""
+    topk = torch.topk
+
+    def recorded(*args, **kwargs):
+        out = topk(*args, **kwargs)
+        routes.append(out.indices)
+        return out
+
+    with mock.patch.object(torch, "topk", recorded):
+        yield
+
+
+def plain_moe(routes: list):
+    """``moe_ffn`` for the fp64 yardstick, written apart from
+    ``models/moe.py``: a copy's place in its expert's queue is a running
+    count over (token, choice) order, not a sort; the experts run one at
+    a time, each one's weights upcast to x's dtype then; the gates and
+    the aux loss in x's dtype. It takes the run's expert choices
+    (``routes``, one (T, k) tensor a layer, in order): a token on which
+    two experts' probabilities nearly tie would otherwise go to either in
+    the two precisions, and change which copies are dropped."""
+    def moe_ffn(p, x, *, num_experts, top_k, capacity_factor=1.25):
+        B, S, D = x.shape
+        T = B * S
+        xt = x.reshape(T, D)
+        idx = routes.pop(0)
+        probs = torch.softmax(xt @ p["router"].to(x.dtype), dim=-1)
+        gates = probs.gather(1, idx)
+        gates = (gates / gates.sum(dim=-1, keepdim=True)).reshape(-1)
+        first = F.one_hot(idx[:, 0], num_experts).to(x.dtype)
+        aux = num_experts * (probs.mean(dim=0) * first.mean(dim=0)).sum()
+        C = max(math.ceil(capacity_factor * T * top_k / num_experts), 1)
+        flat = idx.reshape(-1)
+        queue = F.one_hot(flat, num_experts).cumsum(0).gather(
+            1, flat[:, None])[:, 0] - 1
+        out = torch.zeros_like(xt)
+        for e in range(num_experts):
+            rows = torch.nonzero((flat == e) & (queue < C))[:, 0]
+            tok = rows // top_k
+            xe = xt[tok]
+            w_gate, w_up, w_down = (p[n][e].to(x.dtype)
+                                    for n in ("w_gate", "w_up", "w_down"))
+            ye = (F.silu(xe @ w_gate) * (xe @ w_up)) @ w_down
+            out.index_add_(0, tok, ye * gates[rows, None])
+        return out.reshape(B, S, D), aux
+
+    return moe_ffn
+
+
+def vs_fp64(k, cfg, params, data, logits, aux, routes, prec: str) -> dict:
+    """The forward's logits (and MoE aux loss) against the same forward
+    in fp64 on the same weights (the run's, upcast: ``fp64_params``) and
+    inputs, the MoE layers through ``plain_moe`` on the run's expert
+    choices (``routes``), at the run's shape or LM_FP64_CUT's; the
+    largest difference over the fp64 logits' largest magnitude, held to
+    LM_FP64_TOL[prec] by the caller."""
+    layers, positions = LM_FP64_CUT.get(cfg.name.split("@")[0], (None, None))
+    tokens, images = data["tokens"], data.get("image_embeds")
+    if layers:  # the run's first layers, and a forward of that depth
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        params = dict(params, layers={n: v[:layers] for n, v in
+                                      params["layers"].items()})
+        routes = []
+        with recording_routes(routes):
+            logits, aux = k.transformer.forward(params, tokens, cfg,
+                                                extra_embeds=images)
+    if positions:  # a causal prefix (after any image prefix)
+        tokens = tokens[:, :positions - (0 if images is None
+                                          else images.shape[1])]
+        logits = logits[:, :positions]
+    with mock.patch.object(k.transformer.moe_lib, "moe_ffn",
+                           plain_moe(list(routes))):
+        exact, aux64 = k.transformer.forward(fp64_params(params), tokens,
+                                             cfg, extra_embeds=images)
+    lo, hi = torch.aminmax(exact)
+    scale = max(-lo.item(), hi.item())
+    err = exact.sub_(logits).abs_().max().item() / scale
+    return {"fp64_layers": cfg.num_layers, "fp64_positions": logits.shape[1],
+            "rel_err_vs_fp64": err, "fp64_logits_scale": scale,
+            "aux_vs_fp64": abs(aux.item() - aux64.item()),
+            "fp64_tol": LM_FP64_TOL[prec]}
+
+
+def decode_vs_forward(k, cfg, params, tokens, logits) -> dict:
+    """``prefill`` of all but the last LM_DECODE_STEPS tokens, then those
+    tokens teacher-forced through ``decode_step``, against the forward's
+    logits at the same positions (3e-4 rtol/atol, as
+    ``tests/test_models.py:57-90`` holds the reference); prefill ms and
+    decode ms a token (host clock, one pass)."""
+    S, n = tokens.shape[1], LM_DECODE_STEPS
+    prefill, decode = k.lm.make_serve_fns(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = prefill(params, tokens[:, :S - n], S)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    err_p = (last - logits[:, S - n - 1]).abs().max().item()
+    check(within(last, logits[:, S - n - 1], 3e-4),
+          f"{cfg.name}: prefill vs forward {err_p:.3g}")
+    err_d, lgs = 0.0, []
+    for t in range(S - n, S):
+        lg, cache = decode(params, cache, tokens[:, t:t + 1])
+        lgs.append(lg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for t, lg in zip(range(S - n, S), lgs):
+        err_d = max(err_d, (lg - logits[:, t]).abs().max().item())
+        check(within(lg, logits[:, t], 3e-4), f"{cfg.name}: decode step at "
+              f"{t} vs forward: {err_d:.3g}")
+    check(cache["pos"] == S, f"{cfg.name}: cache pos {cache['pos']}")
+    return {"prefill_tokens": S - n, "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_token": (t2 - t1) * 1e3 / n,
+            "prefill_vs_forward_max_abs": err_p,
+            "decode_vs_forward_max_abs": err_d,
+            "logits_scale": logits.abs().max().item()}
+
+
+def phase_transformers(k, get_config) -> dict:
+    """Each of LM_FAMILIES at its published width, weights drawn on the
+    card from a seeded CUDA generator: the forward's logits (shape,
+    finite), ``lm_loss`` (finite; ms, median of 3 after a warm-up),
+    tokens/s, useful FLOP/s, peak memory, no kernel launched; prefill and
+    decode against the forward for LM_DECODE_CHECK; the logits (and MoE
+    aux loss) against the fp64 forward (``vs_fp64``), every config's
+    gate checked after the last so that one run reports them all."""
+    rows, failed = {}, []
+    for i, (arch, batch, tokens, images, prec, layers) in enumerate(
+            LM_FAMILIES):
+        t_start = time.perf_counter()
+        cfg = get_config(arch)
+        if layers:  # the card cannot hold every layer's weights
+            cfg = dataclasses.replace(
+                cfg, name=f"{arch}@{layers}of{cfg.num_layers}layers",
+                num_layers=layers)
+        dt = DTYPES[prec]
+        params = k.transformer.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(20 + i),
+            device="cuda", dtype=dt)
+        data = lm_inputs(k, cfg, batch, tokens, images, dt, seed=30 + i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        c0 = counts(k)
+        routes = []
+        with recording_routes(routes):
+            logits, aux = k.transformer.forward(
+                params, data["tokens"], cfg,
+                extra_embeds=data.get("image_embeds"))
+        tag = f"{cfg.name}/{prec}/{batch}x{images + tokens}"
+        check(tuple(logits.shape) == (batch, images + tokens, cfg.vocab_size)
+              and logits.dtype == dt and bool(torch.isfinite(logits).all())
+              and bool(torch.isfinite(aux)), f"{tag}: logits")
+        loss = k.transformer.lm_loss(params, data, cfg)
+        check(loss.shape == () and bool(torch.isfinite(loss)),
+              f"{tag}: loss {loss}")
+        ms = host_ms(lambda: k.transformer.lm_loss(params, data, cfg), 3)
+        peak = torch.cuda.max_memory_allocated()
+        check(counts(k) == c0, f"{tag}: a transformer launched a kernel")
+        n_tok = batch * (images + tokens)
+        flops = useful_flops(k, cfg, n_tok)
+        row = {"layers": cfg.num_layers, "depth_cut": bool(layers),
+               "params": cfg.param_count(), "ms": ms,
+               "tokens_per_s": n_tok / ms * 1e3, "useful_flops": flops,
+               "useful_flop_per_s": flops / ms * 1e3, "peak_bytes": peak,
+               "resident_bytes_before": resident, "loss": loss.item(),
+               "aux": aux.item()}
+        if arch in LM_DECODE_CHECK:
+            row.update(decode_vs_forward(k, cfg, params, data["tokens"],
+                                         logits))
+        row.update(vs_fp64(k, cfg, params, data, logits, aux, routes, prec))
+        check(counts(k) == c0, f"{tag}: a transformer launched a kernel")
+        if (row["rel_err_vs_fp64"] > row["fp64_tol"] or row["aux_vs_fp64"]
+                > row["fp64_tol"] * max(1.0, abs(row["aux"]))):
+            failed.append(tag)
+        row["seconds"] = time.perf_counter() - t_start
+        rows[tag] = row
+        log("lm_families", f"{tag}{' (depth cut)' if layers else ''}: "
+            f"{cfg.param_count() / 1e9:.3f}B parameters, lm_loss {ms:.2f} ms "
+            f"({row['tokens_per_s']:.0f} tokens/s, "
+            f"{row['useful_flop_per_s'] / 1e12:.1f} useful TFLOP/s), peak "
+            f"{peak / 2 ** 30:.2f} GiB, loss {row['loss']:.4f}"
+            + ("" if arch not in LM_DECODE_CHECK else
+               f"; prefill {row['prefill_ms']:.1f} ms vs forward "
+               f"{row['prefill_vs_forward_max_abs']:.3g}, "
+               f"{LM_DECODE_STEPS} decode steps "
+               f"{row['decode_ms_per_token']:.2f} ms a token vs forward "
+               f"{row['decode_vs_forward_max_abs']:.3g} (3e-4 rtol/atol)")
+            + f"; vs the fp64 forward ({row['fp64_layers']} layers, "
+            f"{row['fp64_positions']} positions) {row['rel_err_vs_fp64']:.3g}"
+            f" of the logits' scale, aux {row['aux_vs_fp64']:.3g} (<= "
+            f"{row['fp64_tol']}); {row['seconds']:.1f} s")
+        del params, data, logits, aux, loss, routes
+        torch.cuda.empty_cache()
+    check(not failed, f"beyond LM_FP64_TOL of the fp64 forward: {failed}")
+    return rows
+
+
+def phase_lm_families(k, get_config) -> tuple:
+    """Phase 13b: zamba2-1.2b at full width and depth (``phase_score`` at
+    SCORE_HYBRID, ``phase_decode``), then the transformers
+    (``phase_transformers``), under ``torch.inference_mode``. Returns
+    (report, forwards that went through the SSD kernel)."""
+    zcfg = get_config("zamba2-1.2b")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        p32 = k.ssm_lm.init_params(
+            zcfg, torch.Generator(device="cuda").manual_seed(10),
+            device="cuda")
+        params = {"fp32": p32, "bf16": to_dtype(p32, torch.bfloat16)}
+        log("lm_families", f"{zcfg.name}: {zcfg.param_count() / 1e6:.1f}M "
+            f"parameters ({zcfg.num_layers} Mamba2 blocks, the shared "
+            f"attention block applied {zcfg.num_attn_applications} times) "
+            f"on the card in {time.perf_counter() - t0:.1f}s")
+        score, fwd_score = phase_score(k, zcfg, params, SCORE_HYBRID,
+                                       "lm_families")
+        decode_row, fwd_decode = phase_decode(k, zcfg, p32, "lm_families")
+        del params, p32
+        torch.cuda.empty_cache()
+        transformers = phase_transformers(k, get_config)
+    return ({"score": score, "decode": decode_row,
+             "transformers": transformers,
+             "seconds": time.perf_counter() - t0}, fwd_score + fwd_decode)
 
 
 def kernel_ms(fn, calls: int = 5) -> dict:
@@ -1327,16 +1692,17 @@ def kernel_ms(fn, calls: int = 5) -> dict:
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def ssd_rows(k) -> dict:
-    """ssd_scan at the layer shape: the kernel (``device_ms``: device time
-    per call, 20 calls queued, and the single call's time, host included,
-    as ``call_ms``), each of its CUDA kernels (``kernel_ms``), the plain
+def ssd_rows(k, shape=SSD_MAIN) -> dict:
+    """ssd_scan at a layer shape (``SSD_LAYERS``): the kernel
+    (``device_ms``: device time per call, 20 calls queued, and the single
+    call's time, host included, as ``call_ms``), each of its CUDA kernels
+    (``kernel_ms``), the plain
     sequential version and the plain chunked scan (median of 3), and the
     bounds: ``ssd_work`` with fp32 as 3xTF32 on the tensor cores
     (``bound_ms``), the arithmetic the kernel executes
     (``bound_executed_ms``, ``ssd_executed``), ``ssd_work`` on the CUDA
     cores (``bound_cuda_core_ms``)."""
-    B, L, H, P, N, Q = SSD_MAIN
+    B, L, H, P, N, Q = shape
     g = torch.Generator(device="cuda").manual_seed(9)
     rows = {}
     for prec, dt in DTYPES.items():
@@ -1347,7 +1713,7 @@ def ssd_rows(k) -> dict:
         peak = PEAK_TF32 if dt == torch.float32 else PEAK_FLOPS[dt]
         dev, call = device_ms(lambda: k.ssd_ops.ssd_scan(*args, chunk=Q), 10)
         rows[prec] = {
-            "shape": list(SSD_MAIN), "dtype": prec, "ms": dev, "call_ms": call,
+            "shape": list(shape), "dtype": prec, "ms": dev, "call_ms": call,
             "ms_by_kernel": kernel_ms(
                 lambda: k.ssd_ops.ssd_scan(*args, chunk=Q)),
             "plain_ms": median_ms(lambda: k.ssd_ref.ssd_scan(*args), 3),
@@ -5240,6 +5606,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch import configs
     from repro_torch.api import RunConfig, compile
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import memory, perf_model
@@ -5256,8 +5623,9 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
     from repro_torch.models import cosmoflow, for_config, mamba2, ssm_lm
-    from repro_torch.models import unet3d
+    from repro_torch.models import frontends, transformer, unet3d
     from repro_torch.serve import lm
     from repro_torch.train import train_step
 
@@ -5271,7 +5639,9 @@ def main() -> int:
                            ssd_ref=ssd_ref, mamba2=mamba2, ssm_lm=ssm_lm,
                            lm=lm, cosmoflow=cosmoflow, unet3d=unet3d,
                            for_config=for_config, train_step=train_step,
-                           spmd=spmd, memory=memory, mesh_lib=mesh_lib)
+                           spmd=spmd, memory=memory, mesh_lib=mesh_lib,
+                           transformer=transformer, frontends=frontends,
+                           configs=configs, specs=specs)
     report = {"card": phase_card()}
     report["build"] = phase_build(_build)
     clock("build")
@@ -5677,7 +6047,24 @@ def main() -> int:
     main_paths["mamba2"] = {"forwards": forwards_lm, "launches": got}
     clock("ssd, score, decode")
     launches = {n: launches[n] + got[n] for n in KERNELS}
+
+    # ------------------------- main path 13b: every LM family ----
+    release_cached("the LM families")
+    zcfg = get_config("zamba2-1.2b")
+    zero_counts(k)
+    lm_families, forwards_fam = phase_lm_families(k, get_config)
+    got = counts(k)
+    check(got == dict(NO_LAUNCHES, ssd_scan=zcfg.num_layers * forwards_fam),
+          f"LM families path launches {got}, expected {zcfg.num_layers} "
+          f"ssd_scan per zamba2 forward x {forwards_fam} forwards (the "
+          f"transformers launch none)")
+    log("main path", f"LM families: {forwards_fam} zamba2-1.2b forwards; "
+        f"launches {got}")
+    main_paths["lm_families"] = {"forwards": forwards_fam, "launches": got}
+    clock("lm_families")
+    launches = {n: launches[n] + got[n] for n in KERNELS}
     timing["ssd_scan"] = ssd_rows(k)
+    timing["ssd_scan_zamba2"] = ssd_rows(k, SSD_LAYERS["zamba2-1.2b"])
     lm_tokens = lm_batch(mcfg, 4, 4096, seed=7)["tokens"]
     for prec in ("fp32", "bf16"):
         tag = f"mamba2-370m/{prec}/4x4096"
@@ -5737,6 +6124,17 @@ def main() -> int:
             entry["bf16"] = {key: timing["ssd_scan"]["bf16"][key] for key in (
                 "ms", "call_ms", "bound_ms", "bound_by", "bound_executed_ms",
                 "chunked_plain_ms")}
+            # one call at zamba2-1.2b's layer shape; its path's launches
+            zrow = timing["ssd_scan_zamba2"]
+            entry["zamba2-1.2b"] = dict(
+                launches=main_paths["lm_families"]["launches"]["ssd_scan"],
+                max_abs_err=report["ssd_kernel"]["max_abs_err_layers_fp32"][
+                    "zamba2-1.2b"],
+                **{key: zrow["fp32"][key] for key in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "call_ms", "chunked_plain_ms")},
+                bf16={key: zrow["bf16"][key] for key in (
+                    "ms", "call_ms", "bound_ms", "bound_by")})
         elif name in ("pack", "unpack"):
             kind = "fixed" if name == "pack" else "deep"
             entry.update(
@@ -5786,7 +6184,8 @@ def main() -> int:
                              if r["dtype"] == "fp32")
                     for key in ("ms", "plain_ms", "bound_ms")}
         summary.append(entry)
-    report.update(score=score, decode=decode_row, train=train,
+    report.update(score=score, decode=decode_row, lm_families=lm_families,
+                  train=train,
                   train_spatial=train_spatial, unet=unet,
                   train_remat=train_remat, train_io=train_io,
                   train_zero1=train_zero1, memory_model=memory_model,

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""``chip_smoke.py``'s language-model work alone, after its card and
+build phases: phase 11 (the SSD scan kernel against its plain version,
+at both LM layer shapes among the others), phase 13b (every LM family at
+its published width: zamba2-1.2b scored, decoded and held against the
+plain scan and fp64; the transformers scored and held against their fp64
+forwards, qwen1.5-0.5b and gemma2-2b decoded against their forwards)
+with its launch count, and phase 14's ssd_scan timings at zamba2-1.2b's
+layer shape.
+
+    python3 scripts/lm_phase.py [--skip-ssd]
+    python3 scripts/lm_phase.py --decode-only [--src DIR]
+
+``--decode-only`` times decode alone instead: qwen1.5-0.5b's and
+gemma2-2b's decode step (batch 1, from a prefill of phase 13b's tokens
+less 16) on the host clock (median of 3 passes of DECODE_STEPS steps) and
+under ``torch.profiler`` (one pass: the card's busy time and what it
+spent it on), without building the kernels. ``--src DIR`` imports the
+port from DIR (another commit's ``src``, unpacked with ``git archive``)
+to time it beside this one.
+
+Writes the report to ``chiprun_out/lm_phase.json`` (``--out`` to name
+another). Needs a CUDA device.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARGS = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+ARGS.add_argument("--skip-ssd", action="store_true",
+                  help="phase 13b alone (no phase 11, no timings)")
+ARGS.add_argument("--decode-only", action="store_true",
+                  help="decode timings alone (no phase 11 or 13b)")
+ARGS.add_argument("--src", default=os.path.join(HERE, "src"),
+                  help="the port's source directory")
+ARGS.add_argument("--out", default=os.path.join(HERE, "chiprun_out",
+                                                "lm_phase.json"))
+args = ARGS.parse_args()
+sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.abspath(args.src))
+import chip_smoke as cs  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.bn_act import ops as bn_ops  # noqa: E402
+from repro_torch.kernels.conv3d import ops as conv_ops  # noqa: E402
+from repro_torch.kernels.halo_pack import ops as pack_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
+from repro_torch.launch import specs  # noqa: E402
+from repro_torch.models import frontends, mamba2, ssm_lm  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.serve import lm  # noqa: E402
+
+DECODE_STEPS = 4
+
+
+def decode_timing(k) -> dict:
+    """Each of chip_smoke.LM_DECODE_CHECK's decode step at phase 13b's
+    weights and tokens: host ms a step (median of 3 passes), and one
+    profiled pass (``chip_smoke.device_profile``) divided by its steps.
+    Every pass starts from the prefill's cache (a step that writes into
+    its cache rewrites the slots the pass reads)."""
+    rows = {}
+    for i, (arch, batch, tokens, images, prec, layers) in enumerate(
+            cs.LM_FAMILIES):
+        if arch not in cs.LM_DECODE_CHECK:
+            continue
+        cfg = configs.get_config(arch)
+        dt = cs.DTYPES[prec]
+        params = k.transformer.init_params(
+            cfg, cs.torch.Generator(device="cuda").manual_seed(20 + i),
+            device="cuda", dtype=dt)
+        toks = cs.lm_inputs(k, cfg, batch, tokens, images, dt,
+                            seed=30 + i)["tokens"]
+        S, n = toks.shape[1], cs.LM_DECODE_STEPS
+        prefill, decode = k.lm.make_serve_fns(cfg)
+        _, cache = prefill(params, toks[:, :S - n], S)
+
+        def steps():
+            c = cache
+            for t in range(S - n, S - n + DECODE_STEPS):
+                _, c = decode(params, c, toks[:, t:t + 1])
+
+        host = cs.host_ms(steps, 3) / DECODE_STEPS
+        prof = cs.device_profile(steps)
+        rows[arch] = {"cache_slots": S, "host_ms_per_step": host,
+                      "profiled_wall_ms_per_step":
+                          prof["wall_ms"] / DECODE_STEPS,
+                      "busy_ms_per_step": prof["busy_ms"] / DECODE_STEPS,
+                      "idle_share": prof["idle_share"],
+                      "by_kernel_ms": prof["by_kernel_ms"]}
+        cs.log("decode", f"{arch} batch {batch}, {S} cache slots: "
+               f"{host:.2f} ms a step (host clock), the card busy "
+               f"{rows[arch]['busy_ms_per_step']:.3f} ms a step, idle "
+               f"{prof['idle_share']:.3f} of the profiled pass")
+        del params, toks, cache
+        cs.torch.cuda.empty_cache()
+    return rows
+
+
+if __name__ == "__main__":
+    if not cs.torch.cuda.is_available():
+        sys.exit("lm_phase: no CUDA device available")
+    t0 = time.perf_counter()
+    out = {"card": cs.phase_card(), "src": os.path.abspath(args.src)}
+    if not args.decode_only:  # the transformers launch no kernel
+        cs.phase_build(_build)
+    k = argparse.Namespace(conv_ops=conv_ops, bn_ops=bn_ops,
+                           pack_ops=pack_ops, ssd_ops=ssd_ops,
+                           ssd_ref=ssd_ref, mamba2=mamba2, ssm_lm=ssm_lm,
+                           lm=lm, transformer=transformer,
+                           frontends=frontends, configs=configs,
+                           specs=specs)
+    if args.decode_only:
+        with cs.torch.inference_mode():
+            out["decode"] = decode_timing(k)
+    else:
+        if not args.skip_ssd:
+            out["ssd_kernel"] = cs.phase_ssd_kernel(ssd_ops, ssd_ref, mamba2)
+        zcfg = configs.get_config("zamba2-1.2b")
+        cs.zero_counts(k)
+        out["lm_families"], forwards = cs.phase_lm_families(
+            k, configs.get_config)
+        got = cs.counts(k)
+        cs.check(got == dict(cs.NO_LAUNCHES,
+                             ssd_scan=zcfg.num_layers * forwards),
+                 f"launches {got} for {forwards} zamba2 forwards")
+        out["launches"] = got
+        if not args.skip_ssd:
+            out["ssd_scan_zamba2"] = cs.ssd_rows(
+                k, cs.SSD_LAYERS["zamba2-1.2b"])
+        print("launches", json.dumps(got))
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    print(f"done in {time.perf_counter() - t0:.0f} s")

@@ -113,15 +113,15 @@ class RunConfig:
                 close = difflib.get_close_matches(str(self.model),
                                                   configs.ALL_ARCHS, n=3)
                 hint = (f"did you mean {', '.join(close)}?" if close
-                        else f"the port serves {', '.join(configs.ALL_ARCHS)}"
-                        "; the other LMs come with their slices")
+                        else f"the port serves {', '.join(configs.ALL_ARCHS)}")
                 raise RunConfigError("model", f"unknown model {self.model!r}",
                                      hint)
             if self.model in configs.LM_ARCHS:
                 raise RunConfigError(
                     "model", f"{self.model!r} is a language model",
-                    "score it with repro_torch.models.ssm_lm.forward / "
-                    "lm_loss and decode with repro_torch.serve.lm.generate")
+                    "score it with repro_torch.models.lm_module(cfg).forward"
+                    " / lm_loss (ssm_lm or transformer) and decode with "
+                    "repro_torch.serve.lm.generate")
             cfg = (configs.get_smoke_config(self.model) if self.smoke
                    else configs.get_config(self.model))
         if cfg.arch not in ("cosmoflow", "unet3d"):

@@ -1,19 +1,60 @@
 """Architecture registry of the port: ``get_config(name)`` /
 ``get_smoke_config(name)`` under the reference registry's names — the
-CosmoFlow variants, the 3D U-Net (``unet3d-256``) and ``mamba2-370m``.
-The other LM configs join with their slices."""
+CosmoFlow variants, the 3D U-Net (``unet3d-256``) and the ten assigned
+language models (``ASSIGNED``: the transformer, MoE, VLM and audio
+families, mamba2-370m and the zamba2 hybrid). Each LM module exports
+``CONFIG`` (the published spec) and ``SMOKE`` (a reduced variant of the
+same family for CPU tests), copied from the reference's."""
 from __future__ import annotations
 
 from typing import Union
 
-from repro_torch.configs import cosmoflow, mamba2_370m, unet3d
-from repro_torch.configs.base import ConvNetConfig, SSMConfig
+from repro_torch.configs import (
+    arctic_480b,
+    cosmoflow,
+    gemma2_2b,
+    hubert_xlarge,
+    llama3_405b,
+    mamba2_370m,
+    phi3_mini,
+    phi3_vision,
+    phi35_moe,
+    qwen15_0p5b,
+    unet3d,
+    zamba2_1p2b,
+)
+from repro_torch.configs.base import (
+    INPUT_SHAPES,
+    ConvNetConfig,
+    HybridConfig,
+    InputShape,
+    SSMConfig,
+    TransformerConfig,
+)
 
+ASSIGNED = [
+    "hubert-xlarge", "zamba2-1.2b", "phi3.5-moe", "gemma2-2b",
+    "arctic-480b", "phi3-mini", "phi3-vision", "llama3-405b",
+    "qwen1.5-0.5b", "mamba2-370m",
+]
 COSMOFLOW_ARCHS = ["cosmoflow-128", "cosmoflow-256", "cosmoflow-512"]
 UNET_ARCHS = ["unet3d-256"]
-LM_ARCHS = ["mamba2-370m"]
+LM_ARCHS = list(ASSIGNED)
 ALL_ARCHS = COSMOFLOW_ARCHS + UNET_ARCHS + LM_ARCHS
-_MODULES = {"mamba2-370m": mamba2_370m, "unet3d-256": unet3d}
+_MODULES = {
+    "hubert-xlarge": hubert_xlarge,
+    "zamba2-1.2b": zamba2_1p2b,
+    "phi3.5-moe": phi35_moe,
+    "gemma2-2b": gemma2_2b,
+    "arctic-480b": arctic_480b,
+    "phi3-mini": phi3_mini,
+    "phi3-vision": phi3_vision,
+    "llama3-405b": llama3_405b,
+    "qwen1.5-0.5b": qwen15_0p5b,
+    "mamba2-370m": mamba2_370m,
+    "unet3d-256": unet3d,
+}
+Config = Union[ConvNetConfig, SSMConfig, HybridConfig, TransformerConfig]
 
 
 def _check(name: str) -> None:
@@ -21,19 +62,21 @@ def _check(name: str) -> None:
         raise KeyError(f"unknown model {name!r}; choices: {ALL_ARCHS}")
 
 
-def get_config(name: str) -> Union[ConvNetConfig, SSMConfig]:
+def get_config(name: str) -> Config:
     _check(name)
     if name in _MODULES:
         return _MODULES[name].CONFIG
     return cosmoflow.config_for_width(int(name.split("-")[1]))
 
 
-def get_smoke_config(name: str) -> Union[ConvNetConfig, SSMConfig]:
+def get_smoke_config(name: str) -> Config:
     _check(name)
     if name in _MODULES:
         return _MODULES[name].SMOKE
     return cosmoflow.SMOKE
 
 
-__all__ = ["ALL_ARCHS", "COSMOFLOW_ARCHS", "ConvNetConfig", "LM_ARCHS",
-           "SSMConfig", "UNET_ARCHS", "get_config", "get_smoke_config"]
+__all__ = ["ALL_ARCHS", "ASSIGNED", "COSMOFLOW_ARCHS", "ConvNetConfig",
+           "HybridConfig", "INPUT_SHAPES", "InputShape", "LM_ARCHS",
+           "SSMConfig", "TransformerConfig", "UNET_ARCHS", "get_config",
+           "get_smoke_config"]

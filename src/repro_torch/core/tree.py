@@ -11,7 +11,10 @@ files.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, List, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
 
 
 def _is_namedtuple(node: Any) -> bool:
@@ -89,4 +92,37 @@ def structure(tree: Any) -> Any:
     return None if tree is None else "leaf"
 
 
-__all__ = ["tree_map", "key_paths", "leaves", "structure", "unflatten"]
+def from_numpy(tree: Mapping[str, Any], shapes: Mapping[str, Any],
+               owner: str, device: torch.device,
+               dtype=None) -> dict:
+    """A nested dict of arrays (a reference parameter tree as numpy) as
+    tensors on ``device`` (in ``dtype``, or each array's own), checked
+    against ``shapes`` (the same nesting, a shape at each leaf): raises
+    ``ValueError`` naming ``owner`` on a missing or unexpected name or
+    a wrong shape."""
+    def convert(sub, want, path):
+        if set(sub) != set(want):
+            raise ValueError(
+                f"{path or 'params'}: names differ from {owner}'s: "
+                f"missing {sorted(set(want) - set(sub))}, unexpected "
+                f"{sorted(set(sub) - set(want))}")
+        out = {}
+        for name, shape in want.items():
+            if isinstance(shape, dict):
+                out[name] = convert(sub[name], shape, f"{path}{name}.")
+                continue
+            v = sub[name]
+            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                np.array(v))  # a copy: reference arrays are read-only
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{path}{name}: shape {tuple(t.shape)}, "
+                                 f"expected {tuple(shape)} for {owner}")
+            out[name] = t.to(device=device, dtype=dtype or t.dtype
+                             ).contiguous()
+        return out
+
+    return convert(tree, shapes, "")
+
+
+__all__ = ["from_numpy", "tree_map", "key_paths", "leaves", "structure",
+           "unflatten"]

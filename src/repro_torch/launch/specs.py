@@ -1,13 +1,13 @@
-"""The analytic FLOPs of the conv nets (the reference's
-``launch/specs.py``: ``conv_net_flops_per_sample`` and ``model_flops``).
-The rest of that file builds XLA shape structs for dry runs, which have
-no counterpart here; the language models' FLOPs come with the LM
-slice."""
+"""The analytic "useful" FLOPs (the reference's ``launch/specs.py``:
+``conv_net_flops_per_sample`` and ``model_flops``): the paper's Table I
+for the conv nets, the 6ND / 2ND convention over ``INPUT_SHAPES`` for
+the language models. The rest of that file builds XLA shape structs for
+dry runs, which have no counterpart here."""
 from __future__ import annotations
 
 import math
 
-from repro_torch.configs.base import ConvNetConfig
+from repro_torch.configs.base import INPUT_SHAPES, ConvNetConfig
 
 # the paper's batch sizes for the conv nets (Figs. 4 and 7)
 CONV_GLOBAL_BATCH = {"cosmoflow": 64, "unet3d": 16}
@@ -49,14 +49,21 @@ def conv_net_flops_per_sample(cfg: ConvNetConfig,
 
 
 def model_flops(arch: str, cfg, shape_name: str = "train_4k") -> float:
-    """Useful FLOPs a global training step of a conv net at the paper's
-    batch (``CONV_GLOBAL_BATCH``). ``shape_name`` names a language
-    model's input shape in the reference; the conv nets ignore it."""
-    if not isinstance(cfg, ConvNetConfig):
-        raise NotImplementedError(
-            f"model_flops of {arch!r}: the language models' FLOPs come "
-            "with the LM-training slice of the port")
-    return conv_net_flops_per_sample(cfg) * CONV_GLOBAL_BATCH[cfg.arch]
+    """Useful FLOPs a global step: a conv net's training step at the
+    paper's batch (``CONV_GLOBAL_BATCH``; ``shape_name`` ignored); a
+    language model's at ``INPUT_SHAPES[shape_name]``, 6 x active
+    parameters x tokens to train, 2x to prefill, 2x a sequence's one
+    token to decode."""
+    ishape = INPUT_SHAPES[shape_name]
+    if isinstance(cfg, ConvNetConfig):
+        return conv_net_flops_per_sample(cfg) * CONV_GLOBAL_BATCH[cfg.arch]
+    n_active = cfg.active_param_count()
+    tokens = ishape.global_batch * ishape.seq_len
+    if ishape.kind == "train":
+        return 6.0 * n_active * tokens
+    if ishape.kind == "prefill":
+        return 2.0 * n_active * tokens
+    return 2.0 * n_active * ishape.global_batch  # decode: one token/seq
 
 
 __all__ = ["CONV_GLOBAL_BATCH", "conv_net_flops_per_sample", "model_flops"]

@@ -138,8 +138,9 @@ def main(argv=None):
     if not isinstance(cfg, configs.ConvNetConfig):
         raise NotImplementedError(
             f"--arch {args.arch}: training a language model comes with the "
-            "LM-training slice of the port (score and decode it with "
-            "repro_torch.models.ssm_lm and repro_torch.serve.lm)")
+            "LM-training slice of the port (score it with "
+            "repro_torch.models.lm_module(cfg) and decode it with "
+            "repro_torch.serve.lm)")
     return train_convnet(args)
 
 

@@ -1,9 +1,14 @@
 """LM decode path: prefill a batch of prompts, then greedy or sampled
-decoding, for SSM configs (the reference's ``repro.serve.lm``).
+decoding (the reference's ``repro.serve.lm``), for every language-model
+family on one device.
 
-An SSM prefills by replaying the prompt through ``decode_step`` (simple
-and exact, as the reference does), so serving runs no scan. Transformer
-and hybrid configs come with their slices and raise.
+Prefill is the model module's ``prefill``: an SSM or hybrid config
+replays the prompt through ``decode_step`` (simple and exact, as the
+reference does), so serving runs no scan; a transformer runs the prompt
+in one pass. ``decode_step`` writes into the cache in place. An
+encoder-only config (``supports_decode=False``, hubert) has no decode
+step and raises. A ``policy`` or ``mesh`` (the sequence-sharded cache)
+comes with the sequence-parallel slice and raises.
 """
 from __future__ import annotations
 
@@ -11,27 +16,24 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.models import ssm_lm
+from repro_torch.models import lm_module
 
 
 def make_serve_fns(cfg, policy=None, mesh=None):
     """(prefill_fn(params, tokens, max_len) -> (last logits, cache),
     decode_fn(params, cache, tokens) -> (logits, cache))."""
-    ssm_lm.check_supported(cfg, policy, mesh)
+    mod = lm_module(cfg)
+    mod.check_supported(cfg, policy, mesh)
+    if not cfg.supports_decode:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-only model has no decode step; score "
+            "it with repro_torch.models.transformer.forward")
 
     def prefill_fn(params, tokens, max_len):
-        embed = params["embed"]
-        tokens = torch.as_tensor(tokens, device=embed.device)
-        cache = ssm_lm.init_cache(cfg, tokens.shape[0], max_len,
-                                  embed.dtype, embed.device)
-        logits = None
-        for t in range(tokens.shape[1]):
-            logits, cache = ssm_lm.decode_step(params, cache,
-                                               tokens[:, t:t + 1], cfg)
-        return logits, cache
+        return mod.prefill(params, tokens, cfg, max_len=max_len)
 
     def decode_fn(params, cache, tokens):
-        return ssm_lm.decode_step(params, cache, tokens, cfg)
+        return mod.decode_step(params, cache, tokens, cfg)
 
     return prefill_fn, decode_fn
 
@@ -45,12 +47,12 @@ def generate(params: Any, prompts, cfg, num_steps: int, policy=None,
     if temperature > 0 and generator is None:
         raise ValueError("sampling (temperature > 0) draws from an "
                          "explicit torch.Generator: pass generator=")
+    prefill_fn, decode_fn = make_serve_fns(cfg, policy, mesh)
     prompts = torch.as_tensor(prompts, device=params["embed"].device)
     if prompts.dim() != 2 or prompts.shape[1] < 1:
         raise ValueError(f"prompts must be (B, S) with S >= 1; got "
                          f"{tuple(prompts.shape)}")
     B, S = prompts.shape
-    prefill_fn, decode_fn = make_serve_fns(cfg, policy, mesh)
     logits, cache = prefill_fn(params, prompts, S + num_steps)
     out = []
     for _ in range(num_steps):

@@ -168,9 +168,12 @@ def test_flops_match_reference(i):
         jspecs.model_flops(arch, jcfg, "train_4k")
 
 
-def test_lm_flops_raise_naming_the_lm_slice():
-    with pytest.raises(NotImplementedError, match="LM-training slice"):
-        specs.model_flops("mamba2-370m", configs.get_config("mamba2-370m"))
+@pytest.mark.parametrize("shape", list(configs.INPUT_SHAPES))
+@pytest.mark.parametrize("arch", configs.LM_ARCHS)
+def test_lm_flops_match_reference(arch, shape):
+    """The 6ND / 2ND convention over the input shapes, for every LM."""
+    assert specs.model_flops(arch, configs.get_config(arch), shape) == \
+        jspecs.model_flops(arch, jconfigs.get_config(arch), shape)
 
 
 # ------------------------------------------ launcher and examples ----

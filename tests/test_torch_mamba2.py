@@ -25,8 +25,7 @@ import pytest
 import torch
 
 from repro.configs import mamba2_370m as jmamba_cfg
-from repro.configs.base import HybridConfig, SSMConfig as JSSMConfig
-from repro.configs.base import TransformerConfig
+from repro.configs.base import SSMConfig as JSSMConfig
 from repro.core.sharding import ShardingPolicy
 from repro.models import mamba2 as jmamba2
 from repro.models import ssm_lm as jssm_lm
@@ -246,26 +245,15 @@ def test_init_params_follows_the_references_law():
 
 
 def test_later_slices_raise():
-    hybrid = HybridConfig(name="hybrid", family="hybrid", num_layers=5,
-                          d_model=64, ssm_state=16, vocab_size=97,
-                          num_heads=4, num_kv_heads=2, d_ff=128,
-                          attn_every=2, head_dim=16, chunk_size=8)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="hybrid slice"):
-        ssm_lm.init_params(hybrid, gen, device="cpu")
+    """Sharding (tensor, context and expert parallelism) comes with the
+    sequence-parallel slice; a language model is not a ``RunConfig``
+    model (it is scored and decoded through ``ssm_lm`` / ``serve.lm``)."""
     p, toks = _params("ssm3"), _tokens(THREE, (1, 8))
-    with pytest.raises(NotImplementedError, match="hybrid slice"):
-        ssm_lm.forward(p, toks, hybrid)
     policy = ShardingPolicy(mesh=None, plan="cp")
     with pytest.raises(NotImplementedError, match="sequence-parallel"):
         ssm_lm.forward(p, toks, THREE, policy)
     with pytest.raises(NotImplementedError, match="sequence-parallel"):
         lm.generate(p, toks, THREE, 2, mesh=object())
-    dense = TransformerConfig(name="dense", family="dense", num_layers=2,
-                              d_model=64, num_heads=4, num_kv_heads=2,
-                              d_ff=128, vocab_size=97)
-    with pytest.raises(NotImplementedError, match="transformer"):
-        lm.generate(p, toks, dense, 2)
     with pytest.raises(RunConfigError) as e:
         RunConfig(model="mamba2-370m", mode="infer").validate()
     assert e.value.field == "model" and "generate" in e.value.fix
