@@ -344,6 +344,33 @@ m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
               1e-3 (fp32) and 0.05 (bf16) of the logits' scale;
               qwen1.5-0.5b's and gemma2-2b's prefill and 16 teacher-forced
               decode steps against the forward (3e-4 rtol/atol).
+13c. lm_train — language-model training, fp32, seeded weights drawn on
+              the card, ``flags.REMAT`` on (each Mamba2 block and
+              transformer layer rematerialized; the SSD scan's backward
+              the plain chunked recompute, ``ops.SSDScan``), the
+              launcher's Adam (warmup_cosine(3e-3, 10), clip 1.0) on its
+              ``make_token_dataset`` batches (``LM_TRAIN``): mamba2-370m
+              4 x 4096 and zamba2-1.2b 1 x 4096 at full depth,
+              qwen1.5-0.5b 1 x 4096, phi3.5-moe cut to 1 of 32 layers
+              (the functional Adam holds 7 copies of the weights); a
+              warm-up and 3 timed ``make_lm_train_step`` steps: ms a step
+              (median), tokens/s, useful TFLOP/s (``model_flops``' train
+              convention), peak allocated and reserved, every loss;
+              ssd_scan launches a step exactly ``kernel_launches(cfg,
+              train=True)`` (96 and 76: forward and recompute; 0 for the
+              transformers). Step 1's loss and every gradient leaf
+              against the fp64 step on the same weights and batch
+              (``LM_TRAIN_FP64_CUT``: mamba2-370m's first row, zamba2's
+              and phi3.5-moe's first 2048 positions; the MoE layers
+              through ``plain_moe`` on the kernel step's expert
+              choices): the transformers within 1e-3 of each leaf's
+              scale, the SSM configs no farther than max(1e-3, 2x the
+              plain-scan step's distance), the loss 1e-4 relative;
+              remat against none at mamba2-370m 1 x 4096 (2e-5, and
+              whether bitwise). Then ``launch.train`` (3 steps of
+              mamba2-370m's SMOKE) and ``examples/serve_lm`` (3 training
+              steps, then greedy generation) on ``cuda:0``; after the
+              phase, the SSD backward's ms and peak at both layer shapes.
 14. timings — ssd_scan at both layer shapes: kernel, plain version, plain
               chunked scan, bounds (of ``ssd_work`` on the tensor cores, of
               the arithmetic the kernel executes, on the CUDA cores), each
@@ -352,7 +379,8 @@ m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
 
 Phases 4-6, 7-8, 10 (the training steps), 10b (the sharded training
 steps), 10c, 10e and 10f (the U-Net's), 10g, 10q, 10h, 10z, 10z-u, 10p,
-10s, 10w (each rank's counters, summed), 12-13 and 13b are the main paths:
+10s, 10w (each rank's counters, summed), 12-13, 13b and 13c are the main
+paths:
 the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
@@ -363,6 +391,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -674,6 +703,43 @@ LM_DECODE_STEPS = 16
 # nothing after them; gemma2-2b's 4,608 still pass its 4,096 window).
 LM_FP64_CUT = {"gemma2-2b": (None, 4608), "llama3-405b": (1, None)}
 LM_FP64_TOL = {"fp32": 1e-3, "bf16": 0.05}
+# phase 13c: training at each (arch, batch, tokens, layers kept where
+# the card cannot hold every layer beside Adam's state), fp32, under
+# flags.REMAT: a warm-up and LM_TRAIN_STEPS timed steps with the
+# launcher's Adam. mamba2-370m at the reference's train_4k sequence, its
+# global batch of 256 cut to 4 for one card. phi3.5-moe keeps 1 of its
+# 32 layers: the functional Adam update holds the old and new
+# parameters and moments and the gradients at once, 7 copies of the
+# weights (2 layers, 2.86 B parameters: 80 GB, out of memory on the card)
+LM_TRAIN = (("mamba2-370m", 4, 4096, None),
+            ("zamba2-1.2b", 1, 4096, None),
+            ("qwen1.5-0.5b", 1, 4096, None),
+            ("phi3.5-moe", 1, 4096, 1))
+LM_TRAIN_STEPS = 3
+# step 1 against the fp64 step on the same weights and batch, at the
+# run's shape except (batch rows, layers, positions) here: the run's
+# first rows, layers or positions, the kernel step taken again at that
+# cut beside it. mamba2's fp64 step at 4 x 4096 would hold ~4x the
+# memory and time; zamba2's shared attention is not rematerialized (as
+# in the reference), and its six applications' score blocks at 4096
+# positions took the card's 80 GB in fp64; phi3.5-moe's fp64 weights
+# and gradients (25.6 GB) beside the run's and its 4096-position
+# recompute in fp64 would leave little room.
+LM_TRAIN_FP64_CUT = {"mamba2-370m": (1, None, None),
+                     "zamba2-1.2b": (None, None, 2048),
+                     "phi3.5-moe": (None, None, 2048)}
+# per gradient leaf, max abs diff over the fp64 leaf's max-abs: the
+# transformers within 1e-3 (phase 13b's fp32 logits gate); the SSM
+# configs no farther from fp64 than max(1e-3, 2x the plain step, which
+# takes the plain chunked scan where the kernel ran), as in phase 12;
+# the loss within 1e-4 relative
+LM_TRAIN_TOL, LM_TRAIN_LOSS_TOL = 1e-3, 1e-4
+# remat against none: mamba2-370m at 1 x 4096, full depth, each leaf
+# within 2e-5 of its scale (the reference's
+# test_scan_unroll_and_remat_match_rolled tolerance)
+LM_REMAT_CHECK, LM_REMAT_TOL = ("mamba2-370m", 1, 4096), 2e-5
+# the drivers at SMOKE size on the card (phase 13c's end)
+LM_DRIVER_ARCH, LM_DRIVER_STEPS = "mamba2-370m", 3
 
 
 def log(phase: str, msg: str) -> None:
@@ -1466,12 +1532,21 @@ def plain_moe(routes: list):
     the aux loss in x's dtype. It takes the run's expert choices
     (``routes``, one (T, k) tensor a layer, in order): a token on which
     two experts' probabilities nearly tie would otherwise go to either in
-    the two precisions, and change which copies are dropped."""
+    the two precisions, and change which copies are dropped. A layer
+    called again (its recompute under remat, in the backward) takes the
+    choices it took the first time: a layer is known by its router's
+    first weights (not by their address: the fp64 yardstick's weights
+    are fresh copies, whose memory the next layer's may reuse)."""
+    taken = {}
+
     def moe_ffn(p, x, *, num_experts, top_k, capacity_factor=1.25):
         B, S, D = x.shape
         T = B * S
         xt = x.reshape(T, D)
-        idx = routes.pop(0)
+        layer = tuple(p["router"].reshape(-1)[:8].tolist())
+        if layer not in taken:
+            taken[layer] = routes.pop(0)
+        idx = taken[layer]
         probs = torch.softmax(xt @ p["router"].to(x.dtype), dim=-1)
         gates = probs.gather(1, idx)
         gates = (gates / gates.sum(dim=-1, keepdim=True)).reshape(-1)
@@ -1668,6 +1743,295 @@ def phase_lm_families(k, get_config) -> tuple:
     return ({"score": score, "decode": decode_row,
              "transformers": transformers,
              "seconds": time.perf_counter() - t0}, fwd_score + fwd_decode)
+
+
+def train_launches(k, cfg) -> int:
+    """ssd_scan launches of a training step: ``ssm_lm.kernel_launches``
+    for an SSM or hybrid config, none for a transformer (attention, the
+    MLPs and the MoE dispatch are plain PyTorch)."""
+    if k.models.lm_module(cfg) is k.ssm_lm:
+        return k.ssm_lm.kernel_launches(cfg, train=True)
+    return 0
+
+
+def lm_train_cut(cfg, params, data, rows=None, layers=None,
+                 positions=None):
+    """(cfg, params, batch) at the first ``rows`` rows and ``positions``
+    positions of the batch and the first ``layers`` layers (None: all),
+    the parameters sliced as views."""
+    if rows:
+        data = {n: v[:rows] for n, v in data.items()}
+    if positions:
+        data = {n: v[:, :positions] for n, v in data.items()}
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        stack = "layers" if "layers" in params else "blocks"
+        params = dict(params, **{stack: {n: v[:layers] for n, v in
+                                         params[stack].items()}})
+        if "block_norms" in params:
+            params["block_norms"] = params["block_norms"][:layers]
+    return cfg, params, data
+
+
+def leaf_errors(k, grads, want) -> dict:
+    """{leaf path: max abs diff / the fp64 leaf's max-abs}."""
+    out = {}
+    for (path, g), w in zip(k.tree.key_paths(grads), k.tree.leaves(want)):
+        scale = max(w.abs().max().item(), 1e-300)
+        out[path] = (g.double() - w).abs().max().item() / scale
+    return out
+
+
+def lm_step1(k, mod, cfg, params, data, ssm: bool, remat_row=None) -> dict:
+    """Step 1's loss and gradients (``lm_value_and_grad``, remat on)
+    against the same step in fp64 on the same weights (the run's, upcast)
+    and batch: the MoE layers through ``plain_moe`` on the kernel step's
+    expert choices (recorded in its forward); an SSM config also through
+    the plain chunked scan in fp32 (``plain_scan``). Per-leaf errors and
+    their worst; ``remat_row``: the kernel step without remat beside it
+    (per leaf, and whether bitwise). Returns the row, with the kernel
+    step's ssd_scan launches."""
+    vag = k.train_step.lm_value_and_grad
+    routes = []
+    c0 = counts(k)
+    with recording_routes(routes):
+        loss, grads = vag(mod.lm_loss, params, data, cfg)
+    torch.cuda.synchronize()
+    launched = counts(k)["ssd_scan"] - c0["ssd_scan"]
+    check(launched == train_launches(k, cfg),
+          f"{cfg.name}: step 1 launched {launched} ssd_scan, expected "
+          f"{train_launches(k, cfg)}")
+    routes = routes[:cfg.num_layers] if getattr(cfg, "num_experts", 0) \
+        else []
+    row = {"check_layers": cfg.num_layers,
+           "check_tokens": int(data["labels"].numel())}
+    if remat_row is not None:
+        with mock.patch.object(k.flags, "REMAT", False):
+            c1 = counts(k)["ssd_scan"]
+            loss0, grads0 = vag(mod.lm_loss, params, data, cfg)
+            launched += counts(k)["ssd_scan"] - c1
+        errs = leaf_errors(k, grads, k.tree.tree_map(torch.Tensor.double,
+                                                     grads0))
+        remat_row.update(
+            loss_remat=loss.item(), loss_no_remat=loss0.item(),
+            worst_leaf=max(errs.values()), tol=LM_REMAT_TOL,
+            bitwise=bool(torch.equal(loss, loss0)) and all(
+                torch.equal(a, b) for a, b in zip(
+                    k.tree.leaves(grads), k.tree.leaves(grads0))),
+            loss_rel=abs(loss.item() - loss0.item()) / abs(loss0.item()))
+        del grads0
+    if ssm:
+        c1 = counts(k)
+        with plain_scan(k):
+            plain_loss, plain = vag(mod.lm_loss, params, data, cfg)
+        check(counts(k) == c1, f"{cfg.name}: the plain step launched")
+    p64 = to_dtype(params, torch.float64)
+    with contextlib.ExitStack() as stack:
+        if ssm:
+            stack.enter_context(plain_scan(k))
+        else:
+            stack.enter_context(mock.patch.object(
+                k.transformer.moe_lib, "moe_ffn", plain_moe(list(routes))))
+        loss64, g64 = vag(mod.lm_loss, p64, data, cfg)
+    del p64
+    errs = leaf_errors(k, grads, g64)
+    row.update(loss=loss.item(), loss64=loss64.item(),
+               loss_rel_err=abs(loss.item() - loss64.item())
+               / abs(loss64.item()),
+               worst_leaf=max(errs, key=errs.get),
+               worst_rel_err=max(errs.values()), rel_err=errs)
+    if ssm:
+        perrs = leaf_errors(k, plain, g64)
+        row.update(plain_loss_rel_err=abs(plain_loss.item() - loss64.item())
+                   / abs(loss64.item()), plain_rel_err=perrs,
+                   worst_plain_rel_err=max(perrs.values()),
+                   failing=[n for n, e in errs.items()
+                            if e > max(LM_TRAIN_TOL, 2 * perrs[n])])
+        del plain
+    else:
+        row["failing"] = [n for n, e in errs.items() if e > LM_TRAIN_TOL]
+    if row["loss_rel_err"] > LM_TRAIN_LOSS_TOL:
+        row["failing"].append("loss")
+    del grads, g64
+    return row, launched
+
+
+def ssd_backward_rows(k) -> dict:
+    """The SSD scan's backward (the plain chunked recompute and its
+    ``autograd.grad``, no CUDA kernel) at mamba2-370m's and zamba2-1.2b's
+    layer shapes, fp32: ms (median of 3) beside the kernel's forward
+    call, and the backward's own peak memory."""
+    rows = {}
+    for arch, (B, L, H, P, N, Q) in SSD_LAYERS.items():
+        g = torch.Generator(device="cuda").manual_seed(12)
+        args = [a.requires_grad_() for a in ssd_inputs(g, B, L, H, P, N,
+                                                       torch.float32)]
+        y, _ = k.ssd_ops.ssd_scan(*args, chunk=Q)
+        gy = torch.randn(y.shape, generator=g, device="cuda")
+        gc.collect()  # no earlier phase's garbage freed in the window
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = median_ms(lambda: torch.autograd.grad(y, args, gy,
+                                                   retain_graph=True), 3)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        check(peak >= base, f"ssd_scan backward at {arch}'s layer: peak "
+              f"{peak} below the window's base {base}")
+        rows[arch] = {"shape": [B, L, H, P, N, Q], "backward_ms": ms,
+                      "backward_peak_bytes": peak - base}
+        log("lm_train", f"ssd_scan backward at {arch}'s layer {rows[arch]}")
+        del args, y, gy
+        gc.collect()
+    return rows
+
+
+def lm_train_steps(k, mod, cfg, params, batches, tokens: int) -> dict:
+    """A warm-up and LM_TRAIN_STEPS timed ``make_lm_train_step`` steps
+    with the launcher's Adam (host clock + synchronize each, median);
+    ssd_scan launches a step against ``kernel_launches(train=True)``;
+    tokens/s, useful FLOP/s (``model_flops``'s train convention, 6 x
+    active parameters a token), peak allocated and reserved."""
+    opt = k.Adam(lr=k.warmup_cosine(3e-3, 10, LM_TRAIN_STEPS + 1),
+                 grad_clip=1.0)
+    state = opt.init(params)
+    step = k.train_step.make_lm_train_step(mod.lm_loss, cfg, None, None, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches = [], [], []
+    for data in batches:
+        c0 = counts(k)["ssd_scan"]
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        launches.append(counts(k)["ssd_scan"] - c0)
+    want = train_launches(k, cfg)
+    check(all(n == want for n in launches), f"{cfg.name}: ssd_scan "
+          f"launches a step {launches}, expected {want}")
+    check(all(math.isfinite(v) for v in losses), f"{cfg.name}: {losses}")
+    ms = statistics.median(times[1:])
+    shape = k.configs.INPUT_SHAPES["train_4k"]
+    flops = (k.specs.model_flops(cfg.name, cfg, "train_4k") * tokens
+             / (shape.global_batch * shape.seq_len))
+    return {"ms": ms, "step_ms": times, "losses": losses,
+            "tokens_per_s": tokens / ms * 1e3, "useful_flops": flops,
+            "useful_flop_per_s": flops / ms * 1e3,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "ssd_launches_per_step": want}, sum(launches)
+
+
+def lm_train_drivers(k) -> tuple:
+    """``python -m repro_torch.launch.train --arch LM_DRIVER_ARCH --steps
+    3 --device cuda:0`` (``train_lm``, SMOKE) and ``examples/serve_lm``
+    (3 training steps, then greedy generation), without remat: finite
+    losses, the scan's launches. Returns (row, launches)."""
+    cfg = k.configs.get_smoke_config(LM_DRIVER_ARCH)
+    c0 = counts(k)["ssd_scan"]
+    args = k.launch_train.parse_args(
+        ["--arch", LM_DRIVER_ARCH, "--steps", str(LM_DRIVER_STEPS),
+         "--device", "cuda:0"])
+    _, losses = k.launch_train.train_lm(
+        args, cfg, say=lambda *a: log("lm_train", " ".join(map(str, a))))
+    check(len(losses) == LM_DRIVER_STEPS and all(
+        math.isfinite(v) for v in losses), f"launcher losses {losses}")
+    toks = k.serve_lm.main(["--arch", LM_DRIVER_ARCH, "--train-steps",
+                            str(LM_DRIVER_STEPS), "--batch", "2",
+                            "--gen-steps", "4", "--device", "cuda:0"])
+    check(tuple(toks.shape) == (2, 4) and toks.device.type == "cuda",
+          f"serve_lm generated {tuple(toks.shape)} on {toks.device}")
+    launched = counts(k)["ssd_scan"] - c0
+    want = 2 * LM_DRIVER_STEPS * k.ssm_lm.kernel_launches(cfg, train=True)
+    check(launched == want, f"drivers launched {launched} ssd_scan, "
+          f"expected {want}")
+    log("lm_train", f"drivers: launch.train {LM_DRIVER_ARCH} (SMOKE) "
+        f"losses {losses}; serve_lm trained {LM_DRIVER_STEPS} steps and "
+        f"generated {toks.tolist()}; {launched} ssd_scan launches")
+    return {"launcher_losses": losses, "serve_lm_tokens": toks.tolist(),
+            "launches": launched}, launched
+
+
+def phase_lm_train(k, get_config) -> tuple:
+    """Phase 13c: each of LM_TRAIN in fp32 under ``flags.REMAT``, weights
+    drawn on the card from a seeded CUDA generator, batches the
+    launcher's (``launch.train.lm_batches``): step 1 against fp64
+    (``lm_step1``, at LM_TRAIN_FP64_CUT's cut), mamba2-370m's remat
+    against none (LM_REMAT_CHECK), then the timed steps
+    (``lm_train_steps``); the drivers. Every config's gates are checked
+    after the last. Returns (report, its ssd_scan launches)."""
+    t_start = time.perf_counter()
+    rows, failed, launched = {}, [], 0
+    with mock.patch.object(k.flags, "REMAT", True):
+        for i, (arch, batch, tokens, layers) in enumerate(LM_TRAIN):
+            t0 = time.perf_counter()
+            cfg = get_config(arch)
+            if layers:
+                cfg = dataclasses.replace(
+                    cfg, name=f"{arch}@{layers}of{cfg.num_layers}layers",
+                    num_layers=layers)
+            mod = k.models.lm_module(cfg)
+            ssm = mod is k.ssm_lm
+            gen = torch.Generator(device="cuda").manual_seed(40 + i)
+            params = (mod.init_params(cfg, gen, device="cuda") if ssm else
+                      mod.init_params(cfg, gen, device="cuda",
+                                      dtype=torch.float32))
+            batches = list(k.launch_train.lm_batches(
+                cfg, batch, tokens, LM_TRAIN_STEPS + 1, "cuda"))
+            tag = f"{cfg.name}/fp32/{batch}x{tokens}"
+            cut = LM_TRAIN_FP64_CUT.get(arch, (None, None, None))
+            remat_row = ({} if (arch, cut[0] or batch, cut[2] or tokens)
+                         == LM_REMAT_CHECK and not cut[1] else None)
+            ccfg, cparams, cdata = lm_train_cut(cfg, params, batches[0],
+                                                *cut)
+            check1, n = lm_step1(k, mod, ccfg, cparams, cdata, ssm,
+                                 remat_row)
+            launched += n
+            del cparams, cdata
+            torch.cuda.empty_cache()
+            steps, n = lm_train_steps(k, mod, cfg, params, batches,
+                                      batch * tokens)
+            launched += n
+            row = {"layers": cfg.num_layers, "depth_cut": bool(layers),
+                   "params": cfg.param_count(), **steps, "step1": check1}
+            if remat_row is not None:
+                row["remat"] = remat_row
+                if remat_row["worst_leaf"] > LM_REMAT_TOL or \
+                        remat_row["loss_rel"] > LM_REMAT_TOL:
+                    failed.append(f"{tag}: remat")
+            if check1["failing"]:
+                failed.append(f"{tag}: {check1['failing']}")
+            row["seconds"] = time.perf_counter() - t0
+            rows[tag] = row
+            gate = ("max(1e-3, 2 x plain "
+                    f"{check1['worst_plain_rel_err']:.3g})" if ssm
+                    else f"{LM_TRAIN_TOL}")
+            log("lm_train", f"{tag}{' (depth cut)' if layers else ''}: "
+                f"{cfg.param_count() / 1e9:.3f}B parameters, "
+                f"{steps['ms']:.2f} ms a step ({steps['tokens_per_s']:.0f} "
+                f"tokens/s, {steps['useful_flop_per_s'] / 1e12:.1f} useful "
+                f"TFLOP/s), peak {steps['peak_bytes'] / 2 ** 30:.2f} GiB "
+                f"allocated, {steps['peak_reserved_bytes'] / 2 ** 30:.2f} "
+                f"reserved; losses {steps['losses']}; "
+                f"{steps['ssd_launches_per_step']} ssd_scan launches a "
+                f"step; step 1 vs fp64 ({check1['check_layers']} layers, "
+                f"{check1['check_tokens']} tokens): loss "
+                f"{check1['loss_rel_err']:.3g} (<= {LM_TRAIN_LOSS_TOL}), "
+                f"worst leaf {check1['worst_leaf']} "
+                f"{check1['worst_rel_err']:.3g} (<= {gate})"
+                + ("" if remat_row is None else
+                   f"; remat vs none worst leaf "
+                   f"{remat_row['worst_leaf']:.3g} (<= {LM_REMAT_TOL}), "
+                   f"bitwise {remat_row['bitwise']}")
+                + f"; {row['seconds']:.1f} s")
+            del params, batches, steps
+            torch.cuda.empty_cache()
+    drivers, n = lm_train_drivers(k)
+    launched += n
+    check(not failed, f"LM training gates failed: {failed}")
+    return ({"runs": rows, "drivers": drivers,
+             "seconds": time.perf_counter() - t_start}, launched)
 
 
 def kernel_ms(fn, calls: int = 5) -> dict:
@@ -5624,8 +5988,14 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import specs
+    from repro_torch import models
+    from repro_torch.core import flags
+    from repro_torch.core import tree
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import cosmoflow, for_config, mamba2, ssm_lm
     from repro_torch.models import frontends, transformer, unet3d
+    from repro_torch.optim.adam import Adam, warmup_cosine
     from repro_torch.serve import lm
     from repro_torch.train import train_step
 
@@ -5641,7 +6011,10 @@ def main() -> int:
                            for_config=for_config, train_step=train_step,
                            spmd=spmd, memory=memory, mesh_lib=mesh_lib,
                            transformer=transformer, frontends=frontends,
-                           configs=configs, specs=specs)
+                           configs=configs, specs=specs, models=models,
+                           flags=flags, tree=tree, Adam=Adam,
+                           warmup_cosine=warmup_cosine,
+                           launch_train=launch_train, serve_lm=serve_lm)
     report = {"card": phase_card()}
     report["build"] = phase_build(_build)
     clock("build")
@@ -6063,6 +6436,22 @@ def main() -> int:
     main_paths["lm_families"] = {"forwards": forwards_fam, "launches": got}
     clock("lm_families")
     launches = {n: launches[n] + got[n] for n in KERNELS}
+
+    # ------------------------- main path 13c: LM training ----
+    release_cached("LM training")
+    zero_counts(k)
+    lm_train, launched_train = phase_lm_train(k, get_config)
+    got = counts(k)
+    check(got == dict(NO_LAUNCHES, ssd_scan=launched_train),
+          f"LM training path launches {got}, expected {launched_train} "
+          f"ssd_scan (kernel_launches(train=True) a step and step-1 check, "
+          f"the transformers none)")
+    log("main path", f"LM training: launches {got} in "
+        f"{lm_train['seconds']:.0f} s")
+    main_paths["lm_train"] = {"launches": got}
+    clock("lm_train")
+    launches = {n: launches[n] + got[n] for n in KERNELS}
+    lm_train["ssd_backward"] = ssd_backward_rows(k)
     timing["ssd_scan"] = ssd_rows(k)
     timing["ssd_scan_zamba2"] = ssd_rows(k, SSD_LAYERS["zamba2-1.2b"])
     lm_tokens = lm_batch(mcfg, 4, 4096, seed=7)["tokens"]
@@ -6126,6 +6515,12 @@ def main() -> int:
                 "chunked_plain_ms")}
             # one call at zamba2-1.2b's layer shape; its path's launches
             zrow = timing["ssd_scan_zamba2"]
+            entry["training"] = dict(
+                launches=main_paths["lm_train"]["launches"]["ssd_scan"],
+                launches_per_step={
+                    tag: r["ssd_launches_per_step"]
+                    for tag, r in lm_train["runs"].items()},
+                backward=lm_train["ssd_backward"])
             entry["zamba2-1.2b"] = dict(
                 launches=main_paths["lm_families"]["launches"]["ssd_scan"],
                 max_abs_err=report["ssd_kernel"]["max_abs_err_layers_fp32"][
@@ -6185,7 +6580,7 @@ def main() -> int:
                     for key in ("ms", "plain_ms", "bound_ms")}
         summary.append(entry)
     report.update(score=score, decode=decode_row, lm_families=lm_families,
-                  train=train,
+                  lm_train=lm_train, train=train,
                   train_spatial=train_spatial, unet=unet,
                   train_remat=train_remat, train_io=train_io,
                   train_zero1=train_zero1, memory_model=memory_model,

@@ -37,6 +37,26 @@ MODES = ("train", "infer")
 _MIN_LOCAL_WIDTH = 4  # the over-decomposition rule (DESIGN.md §5)
 
 
+def max_feasible_spatial(width: int, data: int,
+                         device_count: int) -> int:
+    """Largest spatial degree serving a ``width``-voxel volume can use
+    under the §5 over-decomposition rule with ``data``-way batch
+    parallelism on ``device_count`` devices (1 if none fits): the
+    largest power of two that divides ``width``, leaves a local width of
+    at least ``_MIN_LOCAL_WIDTH`` and, times ``data``, fits the
+    devices."""
+    best = 1
+    s = 1
+    while True:
+        s *= 2
+        if width % s or width // s < _MIN_LOCAL_WIDTH:
+            break
+        if data * s > device_count:
+            break
+        best = s
+    return best
+
+
 class RunConfigError(ValueError):
     """A misconfigured ``RunConfig`` field: names the field, what is
     wrong with it, and a suggested fix."""

@@ -4,10 +4,13 @@ CosmoFlow variants, the 3D U-Net (``unet3d-256``) and the ten assigned
 language models (``ASSIGNED``: the transformer, MoE, VLM and audio
 families, mamba2-370m and the zamba2 hybrid). Each LM module exports
 ``CONFIG`` (the published spec) and ``SMOKE`` (a reduced variant of the
-same family for CPU tests), copied from the reference's."""
+same family for CPU tests), copied from the reference's.
+``applicable_shapes`` and ``skip_reason`` give the assignment's shape
+skips (which ``INPUT_SHAPES`` apply to which architecture, and why the
+others do not), as the reference's registry does."""
 from __future__ import annotations
 
-from typing import Union
+from typing import Tuple, Union
 
 from repro_torch.configs import (
     arctic_480b,
@@ -39,6 +42,7 @@ ASSIGNED = [
 ]
 COSMOFLOW_ARCHS = ["cosmoflow-128", "cosmoflow-256", "cosmoflow-512"]
 UNET_ARCHS = ["unet3d-256"]
+PAPER_ARCHS = COSMOFLOW_ARCHS + UNET_ARCHS
 LM_ARCHS = list(ASSIGNED)
 ALL_ARCHS = COSMOFLOW_ARCHS + UNET_ARCHS + LM_ARCHS
 _MODULES = {
@@ -76,7 +80,38 @@ def get_smoke_config(name: str) -> Config:
     return cosmoflow.SMOKE
 
 
+def applicable_shapes(arch: str) -> Tuple[str, ...]:
+    """Which of the four input shapes apply (assignment-mandated skips):
+    a conv net trains only; a language model trains and prefills, and
+    decodes where it has a decode step, and a sub-quadratic one also at
+    ``long_500k``."""
+    cfg = get_config(arch)
+    if isinstance(cfg, ConvNetConfig):
+        return ("train_4k",)  # conv nets: training only (paper scope)
+    shapes = ["train_4k", "prefill_32k"]
+    if getattr(cfg, "supports_decode", True):
+        shapes.append("decode_32k")
+        if getattr(cfg, "subquadratic", False):
+            shapes.append("long_500k")
+    return tuple(shapes)
+
+
+def skip_reason(arch: str, shape: str) -> str:
+    """Why ``shape`` does not apply to ``arch`` ("" where it applies)."""
+    cfg = get_config(arch)
+    if isinstance(cfg, ConvNetConfig):
+        return ("conv net (paper model): token shapes N/A; evaluated on its "
+                "own 3-D volumes")
+    if shape in ("decode_32k", "long_500k") and not cfg.supports_decode:
+        return "encoder-only: no decode step (DESIGN.md §7)"
+    if shape == "long_500k" and not cfg.subquadratic:
+        return ("pure full attention: long_500k requires sub-quadratic "
+                "attention (DESIGN.md §7)")
+    return ""
+
+
 __all__ = ["ALL_ARCHS", "ASSIGNED", "COSMOFLOW_ARCHS", "ConvNetConfig",
            "HybridConfig", "INPUT_SHAPES", "InputShape", "LM_ARCHS",
-           "SSMConfig", "TransformerConfig", "UNET_ARCHS", "get_config",
-           "get_smoke_config"]
+           "PAPER_ARCHS", "SSMConfig", "TransformerConfig", "UNET_ARCHS",
+           "applicable_shapes", "get_config", "get_smoke_config",
+           "skip_reason"]

@@ -11,7 +11,10 @@ reads so far).
   activations recomputed in the backward, ``core/spmd.checkpoint``).
   Off by default. The models read it only for a plan that marks no
   stage: a plan whose stages set ``remat`` wins outright
-  (``ParallelPlan.uses_remat``), as in the reference.
+  (``ParallelPlan.uses_remat``), as in the reference. The language
+  models read it through ``maybe_remat``, where the reference wraps a
+  layer body in ``jax.checkpoint``: each Mamba2 block, each transformer
+  layer (or local/global pair), not Zamba2's shared attention block.
 * ``PIPELINE_LINK_LATENCY_S``: an emulated one-way latency (seconds) of
   the link between pipeline groups, slept on a link thread before each
   cross-group hand-off (``train/train_step.py``), so that a measurement
@@ -19,8 +22,25 @@ reads so far).
 """
 from __future__ import annotations
 
+from typing import Callable
+
 OVERLAP_HALO = True
 REMAT = False
 PIPELINE_LINK_LATENCY_S = 0.0
 
-__all__ = ["OVERLAP_HALO", "PIPELINE_LINK_LATENCY_S", "REMAT"]
+
+def maybe_remat(fn: Callable) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint.checkpoint(...,
+    use_reentrant=False)`` when ``REMAT`` is set (read at this call),
+    else ``fn`` itself: its activations are dropped after the forward
+    and recomputed, kernels included, when the backward reaches it."""
+    if not REMAT:
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    def remat(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return remat
+
+
+__all__ = ["OVERLAP_HALO", "PIPELINE_LINK_LATENCY_S", "REMAT", "maybe_remat"]

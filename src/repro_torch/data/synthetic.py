@@ -1,6 +1,6 @@
 """Synthetic datasets (the port's own copy of the reference's
 ``data/synthetic.py``: numpy only, so that a seed gives the same bytes
-in both packages; the LM corpus comes with the LM slice).
+in both packages, the LM corpus ``make_token_dataset`` included).
 
 ``make_cosmology_dataset`` generates 3-D Gaussian-random-field "universes"
 whose POWER SPECTRUM is controlled by the regression targets — by
@@ -107,3 +107,26 @@ def make_segmentation_dataset(
         cubes.append(np.stack(chans, axis=-1))
         labels.append(lab)
     return cubes, labels
+
+
+def make_token_dataset(
+    num_tokens: int, vocab: int, seed: int = 0, order: int = 2,
+) -> np.ndarray:
+    """Synthetic LM corpus: a sparse Markov chain so that models can reach
+    non-trivial loss (< log V) within a few hundred steps. int32 tokens,
+    the reference's bytes for the same arguments (``order`` is unused,
+    as there)."""
+    rng = np.random.default_rng(seed)
+    # each (prev % 64) state prefers a small set of successors
+    n_states = 64
+    succ = rng.integers(0, vocab, size=(n_states, 8))
+    toks = np.empty(num_tokens, np.int32)
+    toks[0] = rng.integers(vocab)
+    r = rng.random(num_tokens)
+    choice = rng.integers(0, 8, size=num_tokens)
+    for t in range(1, num_tokens):
+        if r[t] < 0.8:
+            toks[t] = succ[toks[t - 1] % n_states, choice[t]]
+        else:
+            toks[t] = rng.integers(vocab)
+    return toks

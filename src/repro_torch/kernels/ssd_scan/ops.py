@@ -1,15 +1,27 @@
-"""``ssd_scan``: the SSD chunked-scan kernel's wrapper (forward only).
+"""``ssd_scan``: the SSD chunked-scan kernel's wrapper, an autograd
+``Function`` (``SSDScan``).
 
-On a CUDA tensor it checks what the kernel takes, allocates ``y``, the
-final state and the kernel's scratch (one fp32 (P, N) state per chunk
-and head, each chunk's summed decay exponent, and each chunk's fp32
-C Bᵀ), and launches ``csrc/ssd_scan.cu`` on the current stream (three
-CUDA launches), adding one to ``ssd_scan.launches``; anything the
-kernel does not take raises. x, Bm and Cm are read in place: views
-whose last dimension is contiguous (and x's heads packed at P), with Bm
-and Cm at one stride, as the Mamba2 block's split of its conv output
-gives them (``kernel_strides``). On a CPU tensor it runs the plain
-version in ``ref.py``.
+Forward. On a CUDA tensor it checks what the kernel takes, allocates
+``y``, the final state and the kernel's scratch (one fp32 (P, N) state
+per chunk and head, each chunk's summed decay exponent, and each
+chunk's fp32 C Bᵀ), and launches ``csrc/ssd_scan.cu`` on the current
+stream (three CUDA launches), adding one to ``ssd_scan.launches``;
+anything the kernel does not take raises. x, Bm and Cm are read in
+place: views whose last dimension is contiguous (and x's heads packed
+at P), with Bm and Cm at one stride, as the Mamba2 block's split of its
+conv output gives them (``kernel_strides``). On a CPU tensor it runs
+the plain version in ``ref.py``.
+
+Backward. The reference's Pallas kernel has no backward: the reference
+block calls the plain chunked scan and ``jax.grad`` differentiates that.
+So the backward takes the same gradient: it saves only the inputs (the
+views as they are), recomputes ``ref.ssd_chunked`` at the kernel's
+chunk (``chunk_len``) under ``torch.enable_grad`` and returns its
+``autograd.grad`` for x, dt, A, Bm and Cm against the incoming
+gradients of y and of the final state. One call's recompute is alive at
+a time (the Mamba2 blocks' backwards run one after another). It
+launches no kernel and counts nothing; on both devices it is the same
+code.
 """
 from __future__ import annotations
 
@@ -114,16 +126,54 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x: (B, L, H, P); dt: (B, L, H) post-softplus; A: (H,) negative;
     Bm/Cm: (B, L, N), one group shared by every head (for the kernel,
     views at the layouts ``kernel_strides`` takes). Returns y
-    (B, L, H, P) in x's dtype and the final state (B, H, P, N) in fp32.
-    The kernel works in chunks of ``chunk_len(L, chunk)`` steps; the
-    plain version is sequential."""
+    (B, L, H, P) in x's dtype and the final state (B, H, P, N) in fp32,
+    both differentiable (``SSDScan``). The kernel works in chunks of
+    ``chunk_len(L, chunk)`` steps; the plain version is sequential."""
     chunk = int(chunk)
     _check(x, dt, A, Bm, Cm, chunk)
-    if x.device.type == "cpu":
-        return ref.ssd_scan(x, dt, A, Bm, Cm)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd_scan runs on CPU or CUDA tensors, not "
                          f"{x.device}")
+    return SSDScan.apply(x, dt, A, Bm, Cm, chunk)
+
+
+class SSDScan(torch.autograd.Function):
+    """The kernel (or, on the CPU, the sequential plain version) forward;
+    the reference's chunked-scan gradient backward (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cpu":
+            return ref.ssd_scan(x, dt, A, Bm, Cm)
+        return _launch(x, dt, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        inputs = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        given = [(o, g) for o, g in ((0, gy), (1, gstate)) if g is not None]
+        if not given:
+            return (None,) * 6
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(inputs, need)]
+            y, extras = ref.ssd_chunked(
+                *leaves, chunk=chunk_len(inputs[0].shape[1], ctx.chunk))
+            outs = (y, extras.final_state)
+            got = iter(torch.autograd.grad(
+                [outs[i] for i, _ in given], [t for t in leaves
+                                              if t.requires_grad],
+                [g for _, g in given], allow_unused=True))
+        return tuple(next(got) if n else None for n in need) + (None,)
+
+
+def _launch(x, dt, A, Bm, Cm, chunk: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on CUDA tensors: checks, scratch, three launches on the
+    current stream, one count on ``ssd_scan``."""
     if x.dtype not in _ENTRY:
         raise TypeError(f"ssd_scan's kernel takes x among "
                         f"{sorted(str(d) for d in _ENTRY)}; got {x.dtype}")

@@ -9,6 +9,14 @@ step), in fp32 whatever the inputs' dtype:
 The CPU path of ``ops.ssd_scan`` runs it, and the card's kernel is held
 against it.
 
+``ssd_chunked`` is the reference's chunked scan
+(``repro.models.mamba2.ssd_chunked``) in plain PyTorch, with
+``init_state`` and the cumulative decays the context-parallel path
+needs: the yardstick the kernel path is held against, and, since the
+reference differentiates exactly this function, the graph whose
+gradient ``ops.ssd_scan``'s backward takes. It writes into no tensor
+that autograd saves. ``models/mamba2.py`` re-exports it.
+
 ``ssd_scan_tc``, for the tests only (nothing on the main path uses it),
 is the kernel's own chunked arithmetic with each tensor-core operand
 rounded as the kernel rounds it: 3xTF32 for fp32 inputs, the computed
@@ -16,7 +24,7 @@ operands split into three bf16 parts for bf16 inputs.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,6 +50,75 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             * Bf[:, t, None, None, :])
         ys[:, t] = torch.einsum("bhpn,bn->bhp", s, Cf[:, t])
     return ys.to(x.dtype), s
+
+
+class SSDExtras(NamedTuple):
+    final_state: torch.Tensor  # (B, H, P, N) fp32
+    cumdecay: torch.Tensor     # (B, L, H): sum of dA from shard start
+    #                            to t (<= 0)
+
+
+def ssd_chunked(
+    x: torch.Tensor,       # (B, L, H, P)
+    dt: torch.Tensor,      # (B, L, H) post-softplus
+    A: torch.Tensor,       # (H,) negative
+    Bm: torch.Tensor,      # (B, L, N)  (G=1 group)
+    Cm: torch.Tensor,      # (B, L, N)
+    *,
+    chunk: int = 256,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, SSDExtras]:
+    """Chunked SSD scan in plain PyTorch: fp32 math (fp64 for fp64
+    inputs, as a yardstick). Returns y (B, L, H, P) in x's dtype and the
+    extras. Differentiable: every step makes a new tensor."""
+    Bb, L, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, L)
+    if L % Q:
+        raise ValueError(f"seq {L} must divide chunk {Q}")
+    nc = L // Q
+    ct = torch.promote_types(x.dtype, torch.float32)
+
+    xc = x.to(ct).reshape(Bb, nc, Q, H, P)
+    dtc = dt.to(ct).reshape(Bb, nc, Q, H)
+    Bc = Bm.to(ct).reshape(Bb, nc, Q, N)
+    Cc = Cm.to(ct).reshape(Bb, nc, Q, N)
+    sig = torch.cumsum(dtc * A.to(ct), dim=2)  # (B, nc, Q, H)
+    sig_last = sig[:, :, -1, :]                 # (B, nc, H)
+
+    # --- intra-chunk: (C.B^T * exp(sig_q - sig_k) * dt_k)[k <= q] @ x ---
+    # mask BEFORE exp: upper-triangle diffs are positive and overflow
+    upper = ~torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))
+    w = sig[:, :, :, None, :] - sig[:, :, None, :, :]  # (B, nc, Q, Q, H)
+    w = torch.exp(w.masked_fill(upper[None, None, :, :, None],
+                                float("-inf")))
+    w = w * torch.einsum("bcqn,bckn->bcqk", Cc, Bc)[..., None]
+    w = w * dtc[:, :, None, :, :]
+    y = torch.einsum("bcqkh,bckhp->bcqhp", w, xc)
+    del w
+
+    # --- per-chunk end-state contributions ---
+    decay_states = torch.exp(sig_last[:, :, None, :] - sig) * dtc
+    states = torch.einsum("bckhp,bckn->bchpn",
+                          xc * decay_states[..., None], Bc)
+
+    # --- inter-chunk sequential recurrence (1-element halo over chunks) ---
+    chunk_decay = torch.exp(sig_last)  # (B, nc, H)
+    s = (torch.zeros((Bb, H, P, N), dtype=ct, device=x.device)
+         if init_state is None else init_state.to(ct))
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)  # the state *before* chunk c
+        s = chunk_decay[:, c, :, None, None] * s + states[:, c]
+    y = y + torch.einsum("bcqn,bchpn->bcqhp", Cc,
+                         torch.stack(s_in, dim=1)) * torch.exp(sig)[..., None]
+    y = y.reshape(Bb, L, H, P)
+
+    # cumulative decay from shard start (for context-parallel pass 2)
+    chunk_off = torch.cumsum(sig_last, dim=1) - sig_last  # (B, nc, H)
+    cumdecay = (sig + chunk_off[:, :, None, :]).reshape(Bb, L, H)
+    return y.to(x.dtype), SSDExtras(s, cumdecay)
 
 
 def split_bf16(a: torch.Tensor, parts: int = 3) -> torch.Tensor:

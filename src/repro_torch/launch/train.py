@@ -1,8 +1,9 @@
-"""The training launcher (the conv-net path of the reference's
-``launch/train.py``): ``--arch`` picks a registered architecture, its
-smoke variant unless ``--full-config``, and trains it through
+"""The training launcher (the reference's ``launch/train.py``):
+``--arch`` picks a registered architecture, its smoke variant unless
+``--full-config``, and trains it. A conv net trains through
 ``repro_torch.api.compile`` on synthetic volumes from the session's
-loader.
+loader; a language model through ``train_step.make_lm_train_step`` on
+the synthetic Markov corpus (``train_lm``).
 
     python -m repro_torch.launch.train --arch cosmoflow-128 --full-config \\
         --steps 3
@@ -28,14 +29,32 @@ same batches through its per-rank loader (rank 0 writes the synthetic
 store); rank 0 prints. A pipelined run trains without a gradient clip (the clip
 needs the norm across groups).
 
-A language model's ``--arch`` raises: LM training comes with the LM
-slice of the port.
+A language model trains unsharded on one device, as the reference's
+does without a mesh: Adam at ``warmup_cosine(3e-3, 10, steps)`` with a
+gradient clip of 1.0, ``--batch`` windows of ``--seq`` tokens a step
+drawn from ``make_token_dataset(100_000, vocab, seed=0)`` by the
+reference's numpy generator (hubert takes N(0, 0.1) frame embeddings
+in their place, drawn from a ``torch.Generator`` seeded with the step:
+the reference's shape and scale, not its bits), its parameters from
+``init_params`` with a generator seeded 0 unless given; ``--remat``
+rematerializes every layer (``core/flags.REMAT``).
+``--data``/``--model`` above 1 raise: sharded LM training comes with
+the sharded LM slice.
+
+    python -m repro_torch.launch.train --arch mamba2-370m --steps 20 \
+        --device cpu
+    python -m repro_torch.launch.train --arch qwen1.5-0.5b --full-config \
+        --steps 3 --seq 4096 --batch 1
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from typing import Any, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
 
 from repro_torch import configs
 
@@ -107,11 +126,99 @@ def _batches(session, batch: int):
     return from_loader
 
 
-def main(argv=None):
+def lm_batches(cfg, batch: int, seq: int, steps: int,
+               device) -> Iterator[dict]:
+    """The reference launcher's batches: ``batch`` windows of ``seq``
+    tokens and their next tokens a step, starts drawn by
+    ``np.random.default_rng(0)`` over ``make_token_dataset(100_000,
+    vocab, seed=0)``; an audio model's tokens replaced by frame
+    embeddings (module docstring)."""
+    from repro_torch.data.synthetic import make_token_dataset
+
+    toks = make_token_dataset(100_000, cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(0)
+    for i in range(steps):
+        starts = rng.integers(0, len(toks) - seq - 1, batch)
+        x = np.stack([toks[s:s + seq] for s in starts])
+        y = np.stack([toks[s + 1:s + seq + 1] for s in starts])
+        out = {"tokens": torch.from_numpy(x).to(device),
+               "labels": torch.from_numpy(y).to(device)}
+        if getattr(cfg, "family", "") == "audio":
+            frames = torch.randn((batch, seq, cfg.d_model),
+                                 generator=torch.Generator().manual_seed(i))
+            out["tokens"] = (frames * 0.1).to(device)
+        yield out
+
+
+# the conv-net options a language model's unsharded loop does not take,
+# at the values that leave them unused
+LM_UNSHARDED = {"pipeline": 1, "micro_batches": 4, "grad_comm": "auto"}
+
+
+def train_lm(args, cfg, params: Optional[Any] = None,
+             say=print) -> Tuple[Any, List[float]]:
+    """The reference launcher's LM loop on ``args.device``: ``args.steps``
+    steps of ``make_lm_train_step`` from ``params`` (seeded
+    ``init_params`` when None; e.g. the reference's, carried across by
+    ``params_from_numpy``). Returns (the trained parameters, every
+    step's loss)."""
+    from repro_torch.core import flags
+    from repro_torch.launch.mesh import resolve_device
+    from repro_torch.models import lm_module
+    from repro_torch.optim.adam import Adam, warmup_cosine
+    from repro_torch.train import checkpoint
+    from repro_torch.train.train_step import make_lm_train_step
+
+    if args.data * args.model > 1:
+        raise NotImplementedError(
+            f"--data {args.data} --model {args.model}: sharded LM training "
+            "comes with the sharded LM slice of the port; train "
+            f"{cfg.name} unsharded (--data 1 --model 1)")
+    set_away = [f"--{name.replace('_', '-')} {getattr(args, name)}"
+                for name, default in LM_UNSHARDED.items()
+                if getattr(args, name) != default]
+    if set_away:
+        raise NotImplementedError(
+            f"{' '.join(set_away)}: pipelined LM training and its gradient "
+            "lowerings come with the sharded LM slice of the port; train "
+            f"{cfg.name} without them")
+    device = resolve_device(args.device)
+    mod = lm_module(cfg)
+    say(f"{cfg.name}: {cfg.param_count() / 1e6:.2f}M params, mesh 1x1, "
+        f"{device}")
+    if params is None:
+        params = mod.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device=device)
+    opt = Adam(lr=warmup_cosine(3e-3, 10, args.steps), grad_clip=1.0)
+    state = opt.init(params)
+    step = make_lm_train_step(mod.lm_loss, cfg, None, None, opt)
+    losses: List[float] = []
+    remat_before = flags.REMAT
+    flags.REMAT = remat_before or args.remat
+    try:
+        t0 = time.time()
+        for i, batch in enumerate(lm_batches(cfg, args.batch, args.seq,
+                                             args.steps, device)):
+            params, state, loss = step(params, state, batch)
+            losses.append(float(loss))
+            if i % 5 == 0 or i == args.steps - 1:
+                tokps = (i + 1) * args.batch * args.seq / (time.time() - t0)
+                say(f"step {i:4d}  loss {losses[-1]:.3f}  {tokps:.0f} tok/s")
+    finally:
+        flags.REMAT = remat_before
+    if args.ckpt:
+        checkpoint.save(args.ckpt, params, step=args.steps)
+        say("checkpoint ->", args.ckpt)
+    return params, losses
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True, choices=configs.ALL_ARCHS)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64,
+                    help="tokens a sequence (language models)")
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1,
                     help="model-parallel degree (conv nets: spatial)")
@@ -125,22 +232,23 @@ def main(argv=None):
     ap.add_argument("--micro-batches", type=int, default=4, metavar="M",
                     help="micro-batches a step when --pipeline > 1")
     ap.add_argument("--remat", action="store_true",
-                    help="rematerialize every stage of the plan")
+                    help="rematerialize every stage of the plan (a "
+                         "language model: every layer, flags.REMAT)")
     ap.add_argument("--full-config", action="store_true",
                     help="use the full (non-smoke) config")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default=None,
                     help="'cpu', 'cuda:0', ... (default: the card)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
     cfg = (configs.get_config(args.arch) if args.full_config
            else configs.get_smoke_config(args.arch))
     if not isinstance(cfg, configs.ConvNetConfig):
-        raise NotImplementedError(
-            f"--arch {args.arch}: training a language model comes with the "
-            "LM-training slice of the port (score it with "
-            "repro_torch.models.lm_module(cfg) and decode it with "
-            "repro_torch.serve.lm)")
+        train_lm(args, cfg)
+        return None
     return train_convnet(args)
 
 

@@ -5,90 +5,29 @@ y_t = C_t . h_t + D x_t, with A < 0 so every decay factor is <= 1.
 
 ``block_forward`` runs the scan through the hand-written kernel
 (``kernels/ssd_scan``) where the reference block calls ``ssd_chunked``;
-``ssd_chunked`` is kept as a plain copy of the reference's chunked scan
-(with ``init_state`` and the cumulative decays the context-parallel
-path needs) and is the yardstick the kernel path is held against.
+``ssd_chunked`` is a plain copy of the reference's chunked scan (with
+``init_state`` and the cumulative decays the context-parallel path
+needs), kept in ``kernels/ssd_scan/ref.py`` and re-exported here: the
+yardstick the kernel path is held against, and the graph whose
+gradient the kernel wrapper's backward takes (the reference
+differentiates it). The block is differentiable end to end.
 Layouts are the reference's: ``in_proj`` (D, 2*d_inner + 2N + H),
 ``conv_w`` (K, C), activations (B, L, ...).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import SSDExtras, ssd_chunked
 from repro_torch.models.layers import dense_init, rmsnorm
 
 Params = Dict[str, torch.Tensor]
-
-
-class SSDExtras(NamedTuple):
-    final_state: torch.Tensor  # (B, H, P, N) fp32
-    cumdecay: torch.Tensor     # (B, L, H): sum of dA from shard start to t (<=0)
-
-
-def ssd_chunked(
-    x: torch.Tensor,       # (B, L, H, P)
-    dt: torch.Tensor,      # (B, L, H) post-softplus
-    A: torch.Tensor,       # (H,) negative
-    Bm: torch.Tensor,      # (B, L, N)  (G=1 group)
-    Cm: torch.Tensor,      # (B, L, N)
-    *,
-    chunk: int = 256,
-    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
-) -> Tuple[torch.Tensor, SSDExtras]:
-    """Chunked SSD scan in plain PyTorch: fp32 math (fp64 for fp64
-    inputs, as a yardstick). Returns y (B, L, H, P) in x's dtype and the
-    extras."""
-    Bb, L, H, P = x.shape
-    N = Bm.shape[-1]
-    Q = min(chunk, L)
-    if L % Q:
-        raise ValueError(f"seq {L} must divide chunk {Q}")
-    nc = L // Q
-    ct = torch.promote_types(x.dtype, torch.float32)
-
-    xc = x.to(ct).reshape(Bb, nc, Q, H, P)
-    dtc = dt.to(ct).reshape(Bb, nc, Q, H)
-    Bc = Bm.to(ct).reshape(Bb, nc, Q, N)
-    Cc = Cm.to(ct).reshape(Bb, nc, Q, N)
-    sig = torch.cumsum(dtc * A.to(ct), dim=2)  # (B, nc, Q, H)
-    sig_last = sig[:, :, -1, :]                 # (B, nc, H)
-
-    # --- intra-chunk: (C.B^T * exp(sig_q - sig_k) * dt_k)[k <= q] @ x ---
-    # mask BEFORE exp: upper-triangle diffs are positive and overflow
-    upper = ~torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                   device=x.device))
-    w = sig[:, :, :, None, :] - sig[:, :, None, :, :]  # (B, nc, Q, Q, H)
-    w.masked_fill_(upper[None, None, :, :, None], float("-inf")).exp_()
-    w.mul_(torch.einsum("bcqn,bckn->bcqk", Cc, Bc)[..., None])
-    w.mul_(dtc[:, :, None, :, :])
-    y = torch.einsum("bcqkh,bckhp->bcqhp", w, xc)
-    del w
-
-    # --- per-chunk end-state contributions ---
-    decay_states = torch.exp(sig_last[:, :, None, :] - sig) * dtc
-    states = torch.einsum("bckhp,bckn->bchpn",
-                          xc * decay_states[..., None], Bc)
-
-    # --- inter-chunk sequential recurrence (1-element halo over chunks) ---
-    chunk_decay = torch.exp(sig_last)  # (B, nc, H)
-    s = (torch.zeros((Bb, H, P, N), dtype=ct, device=x.device)
-         if init_state is None else init_state.to(ct))
-    s_in = []
-    for c in range(nc):
-        s_in.append(s)  # the state *before* chunk c
-        s = chunk_decay[:, c, :, None, None] * s + states[:, c]
-    y += torch.einsum("bcqn,bchpn->bcqhp", Cc,
-                      torch.stack(s_in, dim=1)) * torch.exp(sig)[..., None]
-    y = y.reshape(Bb, L, H, P)
-
-    # cumulative decay from shard start (for context-parallel pass 2)
-    chunk_off = torch.cumsum(sig_last, dim=1) - sig_last  # (B, nc, H)
-    cumdecay = (sig + chunk_off[:, :, None, :]).reshape(Bb, L, H)
-    return y.to(x.dtype), SSDExtras(s, cumdecay)
+__all__ = ["SSDExtras", "block_decode", "block_forward", "init_block_params",
+           "ssd_chunked", "ssd_decode_step"]
 
 
 def ssd_decode_step(
@@ -133,16 +72,32 @@ def init_block_params(generator: torch.Generator, d_model: int,
     }
 
 
+class _BiasRowMajor(torch.autograd.Function):
+    """``out.transpose(1, 2) + b`` written row-major in one pass (the
+    ``out=`` add autograd does not differentiate); its backward is the
+    add's: the incoming gradient, transposed back, and its row sums."""
+
+    @staticmethod
+    def forward(ctx, out: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return torch.add(out.transpose(1, 2), b,
+                         out=out.new_empty(out.shape[0], out.shape[2],
+                                           out.shape[1]))
+
+    @staticmethod
+    def backward(ctx, gy: torch.Tensor):
+        return gy.transpose(1, 2), gy.sum((0, 1))
+
+
 def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x: (B, L, C); w: (K, C). The result is
-    (B, L, C) in row-major order: the bias add writes it so (the scan
-    kernel reads its x, B and C columns in place)."""
+    (B, L, C) in row-major order: the bias add writes it so
+    (``_BiasRowMajor``; the scan kernel reads its x, B and C columns in
+    place)."""
     K, C = w.shape
     xp = F.pad(x.transpose(1, 2), (K - 1, 0))  # (B, C, K-1+L)
     out = F.conv1d(xp, w.t().unsqueeze(1), groups=C)  # (B, C, L)
-    return torch.add(out.transpose(1, 2), b,
-                     out=out.new_empty(out.shape[0], out.shape[2], C))
+    return _BiasRowMajor.apply(out, b)
 
 
 def _split_proj(zxbcdt: torch.Tensor, d_inner: int, N: int):

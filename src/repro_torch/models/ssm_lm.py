@@ -15,6 +15,10 @@ leading axis (``params["blocks"][name]`` is (num_layers, ...)), so a
 reference parameter tree carries over with no transpose
 (``params_from_numpy``). The layers run as a Python loop; each block's
 scan goes through the hand-written SSD kernel (``models/mamba2.py``).
+The forward is differentiable; under ``core/flags.REMAT`` each Mamba2
+block is rematerialized (``flags.maybe_remat``) where the reference
+wraps it in ``jax.checkpoint``, the shared attention block not
+(``kernel_launches`` counts the recompute's scans).
 
 Entry points run where the parameters are; ``init_params`` and
 ``params_from_numpy`` put them on the card unless given a device.
@@ -29,6 +33,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import HybridConfig, SSMConfig
+from repro_torch.core import flags
 from repro_torch.core import tree as tree_lib
 from repro_torch.launch.mesh import DeviceLike, resolve_device
 from repro_torch.models import mamba2
@@ -165,6 +170,14 @@ def _tokens(params: Params, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params["embed"].device).long()
 
 
+def kernel_launches(cfg: LMConfig, train: bool = False) -> int:
+    """ssd_scan launches of one forward (one a Mamba2 block), or of one
+    training step: the forward's, and again each block's under
+    ``flags.REMAT`` (its recompute; the scan's backward launches none)."""
+    check_supported(cfg)
+    return cfg.num_layers * (2 if train and flags.REMAT else 1)
+
+
 def _mamba_block(params: Params, i: int, h: torch.Tensor,
                  cfg: LMConfig) -> torch.Tensor:
     hn = rmsnorm(h, params["block_norms"][i])
@@ -202,8 +215,9 @@ def forward(params: Params, tokens, cfg: LMConfig, policy=None,
     h = params["embed"][tokens]
     hybrid = isinstance(cfg, HybridConfig)
     pos = torch.arange(tokens.shape[1], device=h.device)
+    block = flags.maybe_remat(_mamba_block)
     for i in range(cfg.num_layers):
-        h = _mamba_block(params, i, h, cfg)
+        h = block(params, i, h, cfg)
         if hybrid and (i + 1) % cfg.attn_every == 0:  # a group ends
             h = _shared_attn_block(params["shared_attn"], h, cfg, pos)
     h = rmsnorm(h, params["final_norm"])

@@ -17,11 +17,14 @@ loop. Variants:
 * VLM mode (phi-3-vision): precomputed patch embeddings prepended to
   the text embeddings (``extra_embeds``).
 
-The reference's behaviour is kept where it is odd: the attention
-sub-block normalizes only when ``cfg.norm == "rmsnorm"`` (the FFN and
-the final norm always use rmsnorm, and so does ``decode_step``); the
-embedding is scaled by sqrt(d_model) whenever ``logit_softcap`` is set;
-``lm_loss`` adds 0.01 x the MoE aux loss. Entry points run where the
+The forward is differentiable. Under ``core/flags.REMAT`` each layer
+(each local/global pair under ``alt_local_global``) is rematerialized
+(``flags.maybe_remat``) where the reference wraps its scan body in
+``jax.checkpoint``. The reference's behaviour is kept where it is odd:
+the attention sub-block normalizes only when ``cfg.norm == "rmsnorm"``
+(the FFN and the final norm always use rmsnorm, and so does
+``decode_step``); the embedding is scaled by sqrt(d_model) whenever
+``logit_softcap`` is set; ``lm_loss`` adds 0.01 x the MoE aux loss. Entry points run where the
 parameters are; ``init_params`` and ``params_from_numpy`` put them on
 the card unless given a device. Sharding (a ``policy`` or ``mesh``)
 comes with the sequence-parallel slice and raises here.
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.core import flags
 from repro_torch.core import tree as tree_lib
 from repro_torch.launch.mesh import DeviceLike, resolve_device
 from repro_torch.models import moe as moe_lib
@@ -234,19 +238,37 @@ def window_for_layer(cfg: TransformerConfig, li: int) -> int:
     return cfg.sliding_window
 
 
-def _stack(params: Params, h: torch.Tensor, cfg: TransformerConfig,
-           pos: torch.Tensor, keep_kv: bool = False):
-    """Every layer over the whole sequence: (h, aux, [(k, v)] if
-    ``keep_kv``)."""
-    aux = torch.zeros((), dtype=h.dtype, device=h.device)
-    kvs = []
-    for li in range(cfg.num_layers):
+def _layers(params: Params, lo: int, hi: int, h: torch.Tensor,
+            aux: torch.Tensor, cfg: TransformerConfig, pos: torch.Tensor,
+            kvs: Optional[list] = None):
+    """Layers ``lo`` to ``hi - 1``: (h, aux), each layer's (k, v)
+    appended to ``kvs`` when given."""
+    for li in range(lo, hi):
         lp = _layer(params, li)
         h, kv = _attn(lp, h, cfg, window=window_for_layer(cfg, li), pos=pos)
         h, a = _ffn(lp, h, cfg)
         aux = aux + a
-        if keep_kv:
+        if kvs is not None:
             kvs.append(kv)
+    return h, aux
+
+
+def _stack(params: Params, h: torch.Tensor, cfg: TransformerConfig,
+           pos: torch.Tensor, keep_kv: bool = False):
+    """Every layer over the whole sequence: (h, aux, [(k, v)] if
+    ``keep_kv``). Without ``keep_kv`` each layer (a local/global pair
+    under ``alt_local_global``, as the reference's scan over pairs) is
+    one ``flags.maybe_remat`` unit."""
+    aux = torch.zeros((), dtype=h.dtype, device=h.device)
+    kvs = []
+    if keep_kv:
+        h, aux = _layers(params, 0, cfg.num_layers, h, aux, cfg, pos, kvs)
+        return h, aux, kvs
+    unit = 2 if cfg.alt_local_global else 1
+    body = flags.maybe_remat(_layers)
+    for lo in range(0, cfg.num_layers, unit):
+        h, aux = body(params, lo, min(lo + unit, cfg.num_layers), h, aux,
+                      cfg, pos)
     return h, aux, kvs
 
 

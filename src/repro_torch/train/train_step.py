@@ -79,6 +79,7 @@ from repro_torch.core import grad_comm as grad_comm_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import precision as precision_lib
 from repro_torch.core import reshard, spmd
+from repro_torch.core import tree as tree_lib
 from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models import cosmoflow as cosmoflow_lib
 from repro_torch.models import for_config
@@ -1430,13 +1431,54 @@ def make_pipeline_train_step(cfg: ConvNetConfig, meshes, optimizer, *,
     return step
 
 
+# ------------------------------------------------------ sequence models ---
+def lm_value_and_grad(loss_fn: Callable, params: Any, batch: Any, cfg
+                      ) -> Tuple[torch.Tensor, Any]:
+    """``jax.value_and_grad(loss_fn)(params, batch, cfg)``: (the loss,
+    detached; the gradient tree, ``params``'s structure, zeros for a
+    leaf the loss does not use). Each leaf is differentiated through a
+    detached alias of it (no copy), so the caller's tensors record no
+    graph; one ``torch.autograd.grad`` over every leaf."""
+    alias = [t.detach().requires_grad_() for t in tree_lib.leaves(params)]
+    loss = loss_fn(tree_lib.unflatten(params, alias), batch, cfg)
+    grads = torch.autograd.grad(loss, alias, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), tree_lib.unflatten(params, grads)
+
+
+def make_lm_train_step(loss_fn: Callable, cfg, mesh, policy,
+                       optimizer) -> Callable:
+    """The reference's train step for the transformer, SSM and hybrid
+    models (``repro.train.train_step.make_lm_train_step``), unsharded:
+    ``step(params, opt_state, batch) -> (params, opt_state, loss)``, the
+    loss and gradients of ``loss_fn(params, batch, cfg)``
+    (``lm_value_and_grad``) and then ``optimizer.update``, which needs
+    no graph. The update is functional: the parameters and state passed
+    in stay as they were. ``mesh`` and ``policy`` must be None (the
+    reference's ``NO_POLICY``)."""
+    if mesh is not None or policy is not None:
+        raise NotImplementedError(
+            "a sharded LM train step (a policy or mesh: tensor, context "
+            "or expert parallelism) comes with the sharded LM slice of the "
+            "port; call make_lm_train_step with mesh=None, policy=None")
+
+    def step(params, opt_state, batch):
+        loss, grads = lm_value_and_grad(loss_fn, params, batch, cfg)
+        with torch.no_grad():
+            new_params, new_opt = optimizer.update(grads, opt_state, params)
+        return new_params, new_opt, loss
+
+    return step
+
+
 __all__ = ["Block", "RankBatch", "STAGES", "batch_slice", "block_index",
            "convnet_grad_plan",
            "data_degree", "data_shards", "flat_plan", "gather_blocks",
            "gather_rows", "make_convnet_forward_step",
            "make_convnet_opt_state", "make_convnet_train_step",
            "make_convnet_phase_probes", "make_convnet_eval_step",
-           "local_groups", "make_pipeline_opt_state",
+           "lm_value_and_grad", "local_groups", "make_lm_train_step",
+           "make_pipeline_opt_state",
            "make_pipeline_train_step", "micro_rows", "pipeline_group_names",
            "pipeline_group_params", "pipeline_loss_group", "replicate",
            "sample_ids",

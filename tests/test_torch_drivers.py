@@ -16,7 +16,9 @@ steps with ``--device cpu``.
   full and smoke, and the big variants;
 * ``python -m repro_torch.launch.train`` and
   ``python -m repro_torch.examples.<name>`` (their ``main``) run at
-  smoke size for 2 steps; an LM ``--arch`` raises naming the LM slice.
+  smoke size for 2 steps; an LM ``--arch`` with ``--data`` or
+  ``--model`` above 1 raises naming the sharded LM slice (its unsharded
+  training: ``tests/test_torch_lm_train.py``).
 """
 import argparse
 import dataclasses
@@ -193,8 +195,14 @@ def test_launcher_trains_two_steps(capsys):
 
 
 def test_launcher_rejects_an_lm_naming_the_lm_slice():
-    with pytest.raises(NotImplementedError, match="LM-training slice"):
-        launch_train.main(["--arch", "mamba2-370m", "--device", "cpu"])
+    """A language model trains unsharded (tests/test_torch_lm_train.py);
+    a data or model degree above 1, pipeline groups, micro-batches or a
+    gradient lowering raise naming the sharded LM slice."""
+    for argv in (["--data", "2"], ["--model", "2"], ["--pipeline", "2"],
+                 ["--micro-batches", "2"], ["--grad-comm", "overlap"]):
+        with pytest.raises(NotImplementedError, match="sharded LM slice"):
+            launch_train.main(["--arch", "mamba2-370m", "--device", "cpu",
+                               *argv])
 
 
 def test_quickstart_runs_two_steps(capsys):
