@@ -371,6 +371,56 @@ m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
               mamba2-370m's SMOKE) and ``examples/serve_lm`` (3 training
               steps, then greedy generation) on ``cuda:0``; after the
               phase, the SSD backward's ms and peak at both layer shapes.
+13d. lm_sharded — (run after phase 14's timings, phase 12's weights
+              freed) the sharded language models over an in-process mesh,
+              every shard on this card (``devices=["cuda:0"] * n``), fp32,
+              TF32 off, ``flags.REMAT`` on, weights drawn seeded on the
+              card, the launcher's batches (``LM_SHARDED``; each run's
+              plan is ``configs.plan_for`` of its arch at an input
+              shape): qwen1.5-0.5b 1 x 4096 under ``tp`` (train_4k) and
+              ``cp`` (decode_32k) at 1 x 2,
+              mamba2-370m 1 x 4096 under ``tp`` (gathered projections,
+              whole-sequence kernel scans) and ``cp`` (``cp_ssd`` on the
+              kernel, the conv's halo), zamba2-1.2b (12 of 38 layers)
+              and gemma2-2b (one local/global pair; its 4096 window
+              crosses the shard boundary: one hop) under ``cp``,
+              phi3.5-moe (1 layer) under ``ep`` (``moe_ffn_ep``'s two
+              ``all_to_all``s). Each: step 1's loss (2e-4 absolute) and
+              EVERY gradient leaf (1e-4 of its max-abs) against the
+              unsharded step on the same weights and batch, then the
+              parameters after ``make_lm_train_step``'s first step
+              against one Adam step of the unsharded gradients (rtol
+              3e-3, atol 3e-4; an element whose unsharded gradient lies
+              within the gradient gate of zero may move by up to 2 lr:
+              its sign rests on rounding). An SSM config's leaves may
+              lie up to 2 x the unsharded plain-scan step's own distance
+              from the kernel step (phase 12's rule); its dataflow is
+              held apart from the kernel's rounding by the sharded step
+              with the plain scan against the unsharded plain-scan step
+              in fp64 (the first ``LM_SHARDED_FP64_POSITIONS``
+              positions) at 2e-4 / 1e-4, and in fp32 under the kernel
+              step's rule.
+              phi3.5-moe's unsharded side computes ``moe_ffn_ep``'s
+              arithmetic (each shard's block of the sequence routed
+              alone) with its own top-k (``ep_moe``): a token whose
+              choices differ from the sharded run's must be a near tie
+              (``LM_SHARDED_TIE``) and takes the sharded choices; any
+              other fails. That step is the warm-up of
+              LM_SHARDED_STEPS timed steps: ms a step (median),
+              tokens/s, peak allocated and reserved, each collective a
+              step and shard (``counting_collectives``), 13c's unsharded
+              ms where it ran the same config; ssd_scan launches exactly
+              ``kernel_launches(train=True)`` a shard a step (192 for
+              mamba2-370m at 1 x 2 under either plan: a cp run that
+              launched none would have fallen back to the plain scan).
+              Serving (``LM_SHARDED_SERVE``): qwen1.5-0.5b under ``cp`` 1 x
+              2, a 4064-token prefill and 32 greedy steps over the
+              S-sharded cache (4096 slots, 2048 a shard), zamba2-1.2b a
+              64-token prompt and 32 steps: the tokens equal the
+              unsharded ones, the first step's logits within 1e-4 of
+              their scale. Then ``launch.train --arch qwen1.5-0.5b
+              --data 1 --model 2 --plan tp --steps 3 --device cuda:0``
+              (SMOKE). The phase prints its seconds.
 14. timings — ssd_scan at both layer shapes: kernel, plain version, plain
               chunked scan, bounds (of ``ssd_work`` on the tensor cores, of
               the arithmetic the kernel executes, on the CUDA cores), each
@@ -379,8 +429,8 @@ m.  memory_model — every measured peak of phases 5, 10, 10c, 10e, 10g
 
 Phases 4-6, 7-8, 10 (the training steps), 10b (the sharded training
 steps), 10c, 10e and 10f (the U-Net's), 10g, 10q, 10h, 10z, 10z-u, 10p,
-10s, 10w (each rank's counters, summed), 12-13, 13b and 13c are the main
-paths:
+10s, 10w (each rank's counters, summed), 12-13, 13b, 13c and 13d are
+the main paths:
 the launch counters are zeroed just before each and read just after. The next-to-last line is the
 ``{"kernels": [...]}`` summary and the last line the device record.
 Exits non-zero without a CUDA device or without the repository beside
@@ -740,6 +790,63 @@ LM_TRAIN_TOL, LM_TRAIN_LOSS_TOL = 1e-3, 1e-4
 LM_REMAT_CHECK, LM_REMAT_TOL = ("mamba2-370m", 1, 4096), 2e-5
 # the drivers at SMOKE size on the card (phase 13c's end)
 LM_DRIVER_ARCH, LM_DRIVER_STEPS = "mamba2-370m", 3
+# phase 13d: the sharded language models over an in-process mesh, every
+# shard on this card, fp32, under flags.REMAT: (tag, arch, input shape
+# whose plan it takes (configs.plan_for), data, model, batch, tokens,
+# layers kept where the card or the time budget cannot hold them all). zamba2-1.2b keeps 12 of its 38 layers (2 of its
+# 6 shared-attention applications: unsharded at full depth one step took
+# 66 GiB, and the check holds an unsharded and a sharded step);
+# gemma2-2b one local/global pair of its 26 layers (its 2.6 B fp32
+# parameters, gradients and the functional Adam's copies would take the
+# card); phi3.5-moe 1 of 32 layers, as in 13c.
+# phi3.5-moe runs first, from a clean cache: its functional Adam step
+# holds ~58 GiB, and after the other runs the cached segments left too
+# little contiguous room beside the rest of the script's tensors
+LM_SHARDED = (("p-ep", "phi3.5-moe", "train_4k", 1, 2, 1, 4096, 1),
+              ("q-tp", "qwen1.5-0.5b", "train_4k", 1, 2, 1, 4096, None),
+              ("q-cp", "qwen1.5-0.5b", "decode_32k", 1, 2, 1, 4096, None),
+              ("m-tp", "mamba2-370m", "train_4k", 1, 2, 1, 4096, None),
+              ("m-cp", "mamba2-370m", "prefill_32k", 1, 2, 1, 4096, None),
+              ("z-cp", "zamba2-1.2b", "prefill_32k", 1, 2, 1, 4096, 12),
+              ("g-cp", "gemma2-2b", "train_4k", 1, 2, 1, 4096, 2))
+LM_SHARDED_STEPS = 3
+# step 1 against the unsharded step on the same weights and batch (the
+# reference's tests/test_multidevice.py:210-219): loss absolute, each
+# gradient leaf over its max-abs; the parameters after one Adam step
+# rtol/atol, except where the unsharded gradient lies within the
+# gradient gate of zero (its sign, and so Adam's whole-lr step, rests on
+# rounding there), which may move by up to 2 lr
+LM_SHARDED_LOSS_TOL, LM_SHARDED_GRAD_TOL = 2e-4, 1e-4
+LM_SHARDED_RTOL, LM_SHARDED_ATOL = 3e-3, 3e-4
+# an SSM config's kernel step carries the scan's fp32 rounding through
+# every block: its leaves may lie as far from the unsharded kernel step
+# as twice the unsharded plain-scan step does (phase 12's rule). The
+# dataflow is held apart from that rounding by the sharded step with the
+# plain scan against the unsharded plain-scan step: in fp64 (the first
+# LM_SHARDED_FP64_POSITIONS positions, for time: each shard's block
+# still takes the halo and the state carry; the model's few fp32 casts
+# leave ~1e-7) at LM_SHARDED_LOSS_TOL and LM_SHARDED_GRAD_TOL, where a
+# fault in the plan's dataflow shows at its full size and rounding does
+# not; in fp32 under the kernel step's rule (mamba2-370m `cp`'s 48
+# blocks carry fp32 rounding to ~3e-4 of the embedding's scale there,
+# measured on an H100)
+# MoE: the unsharded side routes with its own top-k; a token whose
+# choices differ from the sharded run's must be a near tie (at each
+# differing place, the two experts' probabilities under the unsharded
+# router within LM_SHARDED_TIE; ~100x the rounding of the router's fp32
+# logits carried into the probabilities) and takes the sharded choices;
+# any other differing token fails the run
+LM_SHARDED_TIE = 1e-5
+LM_SHARDED_FP64_POSITIONS = 2048
+# serving over the S-sharded cache: (arch, input shape whose plan it
+# takes, data, model, prompt tokens, new tokens); the tokens equal the unsharded generate's, the
+# first step's logits within LM_SHARDED_SERVE_TOL of their scale
+LM_SHARDED_SERVE = (("qwen1.5-0.5b", "decode_32k", 1, 2, 4064, 32),
+                    ("zamba2-1.2b", "decode_32k", 1, 2, 64, 32))
+LM_SHARDED_SERVE_TOL = 1e-4
+# the launcher over the mesh at SMOKE size: (arch, plan, data, model,
+# steps)
+LM_SHARDED_DRIVER = ("qwen1.5-0.5b", "tp", 1, 2, 3)
 
 
 def log(phase: str, msg: str) -> None:
@@ -2032,6 +2139,467 @@ def phase_lm_train(k, get_config) -> tuple:
     check(not failed, f"LM training gates failed: {failed}")
     return ({"runs": rows, "drivers": drivers,
              "seconds": time.perf_counter() - t_start}, launched)
+
+
+COLLECTIVES = ("psum", "pmax", "all_gather", "ppermute_start",
+               "all_to_all", "psum_grad")
+
+
+@contextlib.contextmanager
+def counting_collectives(k, tally: dict):
+    """Count every collective an in-process shard group issues over more
+    than one shard (``spmd.Group``; ``ppermute`` as its
+    ``ppermute_start``), each shard's call once, into ``tally``."""
+    patches = []
+    for name in COLLECTIVES:
+        orig = getattr(k.spmd.Group, name)
+
+        def counted(self, *a, _name=name, _orig=orig, **kw):
+            if self.size > 1:
+                tally[_name] = tally.get(_name, 0) + 1
+            return _orig(self, *a, **kw)
+        patches.append(mock.patch.object(k.spmd.Group, name, counted))
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        yield tally
+
+
+@contextlib.contextmanager
+def recording_shard_routes(k, routes: dict):
+    """Append each ``torch.topk``'s indices, in a shard's thread, to
+    ``routes[the shard's model-axis index]``: the experts each MoE layer
+    chose for each of the shard's tokens, the forward's calls first, in
+    layer order."""
+    topk = torch.topk
+
+    def recorded(*args, **kwargs):
+        out = topk(*args, **kwargs)
+        routes.setdefault(k.spmd.axis("model").index, []).append(
+            out.indices)
+        return out
+
+    with mock.patch.object(torch, "topk", recorded):
+        yield
+
+
+def ep_moe(k, n: int, routes: dict, tally: dict):
+    """``moe_ffn_ep``'s arithmetic on one device, for the unsharded side
+    of an ``ep`` run: the tokens cut into the n model shards' blocks of
+    the sequence, each block routed, dropped (its own capacity) and
+    combined alone by ``moe_ffn``, the aux loss the blocks' mean. Each
+    block routes with its own ``torch.topk``; where a token's choices
+    differ from those shard j took in the sharded run (``routes``, as
+    ``recording_shard_routes`` keeps them), each differing place must be
+    a near tie (the two experts' probabilities here within
+    LM_SHARDED_TIE): such a token takes the sharded choices, so that a
+    flip of rounding does not change which copies drop; any other is
+    counted in ``tally["not_tie"]``, which fails the run. A layer called
+    again (its recompute) takes the choices of its first call; a layer
+    is known by its router's first values, as in ``plain_moe``."""
+    moe_ffn, topk, taken, order = k.transformer.moe_lib.moe_ffn, \
+        torch.topk, {}, {}
+    tally.update(tokens=0, differing=0, near_tie=0, not_tie=0,
+                 worst_tie_gap=0.0)
+
+    def routed(key, idx_s):
+        def route(probs, k_, dim=-1, **kwargs):
+            if key not in taken:  # off the graph: the recompute saves
+                pr = probs.detach()  # only what the forward did
+                own = topk(pr, k_, dim=dim, **kwargs).indices
+                gap = (pr.gather(-1, own) - pr.gather(-1, idx_s)).abs()
+                differ = (own != idx_s).any(-1)
+                tie = (gap <= LM_SHARDED_TIE).all(-1)
+                tally["tokens"] += int(own.shape[0])
+                tally["differing"] += int(differ.sum())
+                tally["near_tie"] += int((differ & tie).sum())
+                tally["not_tie"] += int((differ & ~tie).sum())
+                if bool((differ & tie).any()):
+                    tally["worst_tie_gap"] = max(tally["worst_tie_gap"],
+                                                 gap[differ & tie].max().item())
+                taken[key] = torch.where((differ & tie)[:, None], idx_s, own)
+            idx = taken[key]
+            return torch.return_types.topk((probs.gather(-1, idx), idx))
+        return route
+
+    def blocks(p, x, *, num_experts, top_k, capacity_factor=1.25,
+               expert_axis=None):
+        layer = order.setdefault(tuple(p["router"].reshape(-1)[:8].tolist()),
+                                 len(order))
+        outs, aux = [], None
+        for j, blk in enumerate(x.chunk(n, dim=1)):
+            with mock.patch.object(torch, "topk", routed(
+                    (layer, j), routes[j][layer].to(x.device))):
+                o, a = moe_ffn(p, blk, num_experts=num_experts,
+                               top_k=top_k, capacity_factor=capacity_factor)
+            outs.append(o)
+            aux = a if aux is None else aux + a
+        return torch.cat(outs, 1), aux / n
+
+    return blocks
+
+
+def sharded_grads(k, mod, shards, cut, cfg, policy, specs, mesh) -> tuple:
+    """The sharded step 1's loss and gradients (the global tree)."""
+    n = mesh.size
+    loss, grads = k.train_step.lm_sharded_value_and_grad(
+        mod.lm_loss, shards, [{nm: v[r] for nm, v in cut.items()}
+                              for r in range(n)], cfg, policy, specs)
+    return loss, k.sharding.join_shards(grads, specs, mesh)
+
+
+def plain_witness(k, mod, cfg, params, data, policy, specs, mesh,
+                  dtype, gates=None, unsharded=None) -> dict:
+    """The sharded step with the plain chunked scan against the unsharded
+    plain-scan step on the same weights (in ``dtype``) and batch
+    (``unsharded``: its (loss, gradients) where already taken): the
+    plan's dataflow apart from the kernel's rounding. Loss absolute
+    error, per leaf max abs diff over the unsharded leaf's max-abs, each
+    held to its gate in ``gates`` (LM_SHARDED_GRAD_TOL where None)."""
+    p = params if dtype == torch.float32 else to_dtype(params, dtype)
+    shards = k.sharding.shard_tree(p, specs, mesh)
+    cut = {nm: k.sharding.shard_rows(v, policy) for nm, v in data.items()}
+    c0 = counts(k)
+    with plain_scan(k):
+        loss_u, grads_u = unsharded or k.train_step.lm_value_and_grad(
+            mod.lm_loss, p, data, cfg)
+        loss_s, grads_s = sharded_grads(k, mod, shards, cut, cfg, policy,
+                                        specs, mesh)
+    check(counts(k) == c0, f"{cfg.name}: a plain-scan step launched")
+    del shards
+    errs = leaf_errors(k, grads_s, k.tree.tree_map(torch.Tensor.double,
+                                                   grads_u))
+    return {"dtype": str(dtype).replace("torch.", ""),
+            "tokens": int(data["labels"].numel()), "layers": cfg.num_layers,
+            "loss_abs_err": abs(loss_s.item() - loss_u.item()),
+            "worst_leaf": max(errs, key=errs.get),
+            "worst_rel_err": max(errs.values()), "rel_err": errs,
+            "gated": "1e-4" if gates is None else "the kernel step's",
+            "failing": [nm for nm, e in errs.items()
+                        if e > (gates or {}).get(nm, LM_SHARDED_GRAD_TOL)]
+            + (["loss"] if abs(loss_s.item() - loss_u.item())
+               > LM_SHARDED_LOSS_TOL else [])}
+
+
+def to_host(tree_lib, tree):
+    return tree_lib.tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def sharded_param_errors(k, got, want, grads, lr: float,
+                         gates) -> dict:
+    """The parameters after one Adam step against the unsharded step's
+    (host trees): per leaf the elements outside rtol/atol whose
+    unsharded gradient is not within the leaf's gradient gate (``gates``,
+    a share of its max-abs, in leaf order) of zero (``failing``), and
+    those that are (``sign_rounding``: each may move by up to 2 lr)."""
+    out = {"failing": 0, "sign_rounding": 0, "worst_over_2lr": 0.0}
+    for g_t, w_t, gr, gate in zip(k.tree.leaves(got), k.tree.leaves(want),
+                                  k.tree.leaves(grads), gates):
+        w_t, gr = w_t.to(g_t.device), gr.to(g_t.device)
+        diff = (g_t - w_t).abs()
+        off = diff > LM_SHARDED_ATOL + LM_SHARDED_RTOL * w_t.abs()
+        near0 = gr.abs() <= gate * max(gr.abs().max().item(), 1e-30)
+        out["failing"] += int((off & ~near0).sum())
+        out["failing"] += int((off & near0 & (diff > 2 * lr
+                                              + LM_SHARDED_ATOL)).sum())
+        out["sign_rounding"] += int((off & near0).sum())
+        if bool((off & near0).any()):
+            out["worst_over_2lr"] = max(out["worst_over_2lr"], (
+                diff[off & near0].max().item() / (2 * lr)))
+    return out
+
+
+def lm_sharded_run(k, i: int, row, get_config, unsharded_ms=None) -> tuple:
+    """One LM_SHARDED run: step 1 against the unsharded step (the
+    sharded ``lm_sharded_value_and_grad``'s loss and every gradient
+    leaf, then the parameters after ``make_lm_train_step``'s first step
+    against one Adam step of the unsharded gradients), then that step as
+    the warm-up and LM_SHARDED_STEPS timed steps with the launcher's
+    Adam: ms a step (median), tokens/s, peak allocated and reserved,
+    each collective a step (a shard's), the ssd_scan launches (checked:
+    ``kernel_launches(train=True)`` a shard a step). Returns (row,
+    ssd_scan launches)."""
+    tag, arch, shape, d, m, batch, tokens, layers = row
+    plan = k.configs.plan_for(arch, shape)
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(
+            cfg, name=f"{arch}@{layers}of{cfg.num_layers}layers",
+            num_layers=layers)
+    mod = k.models.lm_module(cfg)
+    ssm = mod is k.ssm_lm
+    moe = bool(getattr(cfg, "num_experts", 0))
+    gen = torch.Generator(device="cuda").manual_seed(60 + i)
+    params = (mod.init_params(cfg, gen, device="cuda") if ssm else
+              mod.init_params(cfg, gen, device="cuda", dtype=torch.float32))
+    batches = list(k.launch_train.lm_batches(
+        cfg, batch, tokens, LM_SHARDED_STEPS + 1, "cuda"))
+    n = d * m
+    mesh = k.mesh_lib.Mesh((("data", d), ("model", m)), ["cuda:0"] * n)
+    policy = k.sharding.ShardingPolicy(mesh, plan=plan)
+    specs = k.param_specs.infer_param_specs(mod.param_shapes(cfg), policy)
+    opt = k.Adam(lr=k.warmup_cosine(3e-3, 10, LM_SHARDED_STEPS + 1),
+                 grad_clip=1.0)
+    per_shard = k.ssm_lm.kernel_launches(cfg, train=True) if ssm else 0
+    c0 = counts(k)["ssd_scan"]
+    # the sharded step 1's gradients (each shard's expert choices
+    # recorded)
+    shards = k.sharding.shard_tree(params, specs, mesh)
+    cut = {nm: k.sharding.shard_rows(v, policy)
+           for nm, v in batches[0].items()}
+    routes, route_tally = {}, {}
+    with recording_shard_routes(k, routes):
+        loss_s, grads_s = sharded_grads(k, mod, shards, cut, cfg, policy,
+                                        specs, mesh)
+    # the unsharded step 1 on the same weights and batch (an ep run's
+    # MoE as moe_ffn_ep computes it, routed by its own top-k but for
+    # near ties)
+    check(not moe or (plan == "ep" and k.flags.EP_ALLTOALL and d == 1),
+          f"{tag}: a MoE run is held to moe_ffn_ep's arithmetic at data 1 "
+          f"only")
+    with (mock.patch.object(k.transformer.moe_lib, "moe_ffn",
+                            ep_moe(k, m, routes, route_tally)) if moe
+          else contextlib.nullcontext()):
+        loss_u, grads_u = k.train_step.lm_value_and_grad(
+            mod.lm_loss, params, batches[0], cfg)
+    grads_u = to_host(k.tree, grads_u)
+    errs = leaf_errors(k, grads_s, k.tree.tree_map(
+        lambda t: t.to("cuda").double(), grads_u))
+    del grads_s, routes
+    # an SSM config's kernel step carries the scan's fp32 rounding
+    # through every block: each leaf may lie as far from the unsharded
+    # kernel step as twice the unsharded plain-scan step does (phase
+    # 12/13c's rule), where that exceeds LM_SHARDED_GRAD_TOL; the
+    # dataflow itself is held at LM_SHARDED_GRAD_TOL by the fp64
+    # plain-scan witness (``plain_witness``)
+    gates, plain_errs, witness = dict.fromkeys(errs, LM_SHARDED_GRAD_TOL), \
+        None, {}
+    if ssm:
+        with plain_scan(k):
+            plain = k.train_step.lm_value_and_grad(
+                mod.lm_loss, params, batches[0], cfg)
+        plain_errs = leaf_errors(k, plain[1], k.tree.tree_map(
+            lambda t: t.to("cuda").double(), grads_u))
+        gates = {p: max(LM_SHARDED_GRAD_TOL, 2 * e)
+                 for p, e in plain_errs.items()}
+        witness["fp32"] = plain_witness(k, mod, cfg, params, batches[0],
+                                        policy, specs, mesh, torch.float32,
+                                        gates, plain)
+        del plain
+        torch.cuda.empty_cache()
+        ccfg, cparams, cdata = lm_train_cut(
+            cfg, params, batches[0], positions=LM_SHARDED_FP64_POSITIONS)
+        witness["fp64"] = plain_witness(k, mod, ccfg, cparams, cdata,
+                                        policy, specs, mesh, torch.float64)
+        del cparams, cdata
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        p_u, _ = opt.update(k.tree.tree_map(lambda t: t.cuda(), grads_u),
+                            opt.init(params), params)
+    p_u = to_host(k.tree, p_u)
+    del params
+    torch.cuda.empty_cache()
+    # step 1 of the train step (the warm-up), then the timed steps
+    step = k.train_step.make_lm_train_step(mod.lm_loss, cfg, mesh, policy,
+                                           opt)
+    states = [opt.init(p) for p in shards]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, tally = [], [], {}
+    for j, data in enumerate(batches):
+        with (counting_collectives(k, tally) if j == len(batches) - 1
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            shards, states, loss = step(shards, states, data)
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        if j == 0:
+            lr = opt.lr(torch.ones((), dtype=torch.int32)).item()
+            perr = sharded_param_errors(
+                k, k.sharding.join_shards(shards, specs, mesh), p_u,
+                grads_u, lr, [gates[p] for p, _ in k.tree.key_paths(
+                    grads_u)])
+    peak = torch.cuda.max_memory_allocated()
+    peak_res = torch.cuda.max_memory_reserved()
+    launched = counts(k)["ssd_scan"] - c0
+    want = per_shard * (1 + n * (1 + len(batches)))
+    check(launched == want, f"{tag}: {launched} ssd_scan launches, "
+          f"expected {want} (kernel_launches {per_shard} a shard a step)")
+    check(not ssm or per_shard > 0, f"{tag}: no ssd_scan launch")
+    check(all(math.isfinite(v) for v in losses), f"{tag}: {losses}")
+    ms = statistics.median(times[1:])
+    failing = [p for p, e in errs.items() if e > gates[p]]
+    loss_err = abs(loss_s.item() - loss_u.item())
+    if loss_err > LM_SHARDED_LOSS_TOL:
+        failing.append("loss")
+    if perr["failing"]:
+        failing.append(f"{perr['failing']} parameters after step 1")
+    for dt, w in witness.items():
+        failing += [f"plain-scan witness {dt}: {f}" for f in w["failing"]]
+    if route_tally.get("not_tie"):
+        failing.append(f"{route_tally['not_tie']} tokens routed apart "
+                       f"beyond a near tie")
+    out = {"arch": arch, "name": cfg.name, "plan": plan, "mesh": [d, m],
+           "layers": cfg.num_layers, "depth_cut": bool(layers),
+           "batch": batch, "tokens": tokens, "ms": ms, "step_ms": times,
+           "tokens_per_s": batch * tokens / ms * 1e3, "losses": losses,
+           "peak_bytes": peak, "peak_reserved_bytes": peak_res,
+           "collectives_per_step": {nm: c // n for nm, c in tally.items()},
+           "ssd_launches_per_step": n * per_shard,
+           "unsharded_ms_13c": unsharded_ms,
+           "loss": loss_s.item(), "loss_unsharded": loss_u.item(),
+           "loss_abs_err": loss_err, "worst_leaf": max(errs, key=errs.get),
+           "worst_rel_err": max(errs.values()), "rel_err": errs,
+           "plain_rel_err": plain_errs,
+           "worst_plain_rel_err": (None if plain_errs is None
+                                   else max(plain_errs.values())),
+           "plain_witness": witness, "routes": route_tally or None,
+           "params": perr, "failing": failing}
+    del shards, states, grads_u, p_u
+    torch.cuda.empty_cache()
+    return out, launched
+
+
+def lm_sharded_serve(k, i: int, row, get_config) -> dict:
+    """One LM_SHARDED_SERVE run: greedy ``generate`` over the mesh (the
+    prefill's keys and values moved into the S-sharded cache, each decode
+    step's sharded merge) against the unsharded one on the same weights
+    and prompt: the tokens equal, the first step's logits within
+    LM_SHARDED_SERVE_TOL of their scale; prefill and per-token ms."""
+    arch, shape, d, m, prompt_len, new = row
+    plan = k.configs.plan_for(arch, shape)
+    cfg = get_config(arch)
+    mod = k.models.lm_module(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(70 + i)
+    params = (mod.init_params(cfg, gen, device="cuda")
+              if mod is k.ssm_lm else
+              mod.init_params(cfg, gen, device="cuda", dtype=torch.float32))
+    prompts = lm_batch(cfg, 1, prompt_len, seed=71 + i)["tokens"]
+    mesh = k.mesh_lib.Mesh((("data", d), ("model", m)), ["cuda:0"] * (d * m))
+    policy = k.sharding.ShardingPolicy(mesh, plan=plan)
+    specs = k.param_specs.infer_param_specs(mod.param_shapes(cfg), policy)
+    out = {}
+    for name, pol in (("unsharded", None), ("sharded", policy)):
+        prefill, decode = k.lm.make_serve_fns(cfg, pol)
+        p = params if pol is None else k.sharding.shard_tree(params, specs,
+                                                            mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = prefill(p, prompts, prompt_len + new)
+            first = logits.float().cpu()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            toks = []
+            for _ in range(new):
+                tok = torch.argmax(logits, dim=-1)
+                toks.append(tok)
+                logits, cache = decode(p, cache, tok[:, None])
+            torch.cuda.synchronize()
+        out[name] = {"first": first, "tokens": torch.stack(toks, 1).cpu(),
+                     "prefill_ms": (t1 - t0) * 1e3,
+                     "decode_ms_per_token": (time.perf_counter() - t1)
+                     * 1e3 / new}
+        del p, cache, logits
+    scale = out["unsharded"]["first"].abs().max().item()
+    err = (out["sharded"]["first"] - out["unsharded"]["first"]).abs().max(
+        ).item() / scale
+    same = torch.equal(out["sharded"]["tokens"], out["unsharded"]["tokens"])
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": arch, "plan": plan, "mesh": [d, m],
+            "prompt": prompt_len, "new": new, "tokens_equal": same,
+            "first_logits_rel_err": err,
+            **{f"{name}_{key}": out[name][key] for name in out
+               for key in ("prefill_ms", "decode_ms_per_token")}}
+
+
+def phase_lm_sharded(k, get_config, unsharded=None) -> tuple:
+    """Phase 13d: each LM_SHARDED run (``lm_sharded_run``), then serving
+    over the S-sharded cache (LM_SHARDED_SERVE) and the launcher over the
+    mesh (LM_SHARDED_DRIVER), all under ``flags.REMAT``; every gate
+    checked after the last. ``unsharded``: 13c's report (its same
+    configs' ms). Returns (report, ssd_scan launches)."""
+    t_start = time.perf_counter()
+    rows, serve, failed, launched = {}, {}, [], 0
+    same = (unsharded or {}).get("runs", {})
+    with mock.patch.object(k.flags, "REMAT", True):
+        for i, row in enumerate(LM_SHARDED):
+            # each shard's stream keeps cuBLAS workspaces that pin cached
+            # segments: dropped before each run
+            release_cached(f"13d {row[0]}")
+            t0 = time.perf_counter()
+            cfg0 = get_config(row[1])
+            name = (cfg0.name if not row[7] else
+                    f"{row[1]}@{row[7]}of{cfg0.num_layers}layers")
+            out, n = lm_sharded_run(k, i, row, get_config, same.get(
+                f"{name}/fp32/{row[5]}x{row[6]}", {}).get("ms"))
+            launched += n
+            out["seconds"] = time.perf_counter() - t0
+            rows[row[0]] = out
+            if out["failing"]:
+                failed.append(f"{row[0]}: {out['failing']}")
+            log("lm_sharded", f"{row[0]} {out['name']} {out['plan']} "
+                f"({row[2]}'s plan) {row[3]}x{row[4]} {row[5]}x{row[6]}"
+                f"{' (depth cut)' if row[7] else ''}: {out['ms']:.2f} ms a "
+                f"step ({out['tokens_per_s']:.0f} tokens/s; unsharded in "
+                f"13c {out['unsharded_ms_13c']}), peak "
+                f"{out['peak_bytes'] / 2 ** 30:.2f} GiB allocated, "
+                f"{out['peak_reserved_bytes'] / 2 ** 30:.2f} reserved; "
+                f"collectives a step {out['collectives_per_step']}; "
+                f"{out['ssd_launches_per_step']} ssd_scan launches a step; "
+                f"step 1 against unsharded: loss {out['loss_abs_err']:.3g} "
+                f"(<= {LM_SHARDED_LOSS_TOL}), worst leaf "
+                f"{out['worst_leaf']} {out['worst_rel_err']:.3g} (<= "
+                f"{LM_SHARDED_GRAD_TOL}"
+                + ("" if out["worst_plain_rel_err"] is None else
+                   f", or 2 x the plain-scan step's own distance, worst "
+                   f"{out['worst_plain_rel_err']:.3g}")
+                + ")" + "".join(
+                    f"; plain-scan witness {dt} ({w['layers']} layers, "
+                    f"{w['tokens']} tokens): loss {w['loss_abs_err']:.3g}, "
+                    f"worst leaf {w['worst_leaf']} {w['worst_rel_err']:.3g} "
+                    f"(<= {w['gated']} gate)"
+                    for dt, w in out["plain_witness"].items())
+                + ("" if out["routes"] is None else
+                   f"; routes {out['routes']} (near tie <= "
+                   f"{LM_SHARDED_TIE})")
+                + f"; parameters {out['params']}; "
+                f"losses {out['losses']}; {out['seconds']:.1f} s")
+        for i, row in enumerate(LM_SHARDED_SERVE):
+            t0 = time.perf_counter()
+            out = lm_sharded_serve(k, i, row, get_config)
+            out["seconds"] = time.perf_counter() - t0
+            serve[f"{row[0]}/{out['plan']}/{row[2]}x{row[3]}"] = out
+            if not out["tokens_equal"] or \
+                    out["first_logits_rel_err"] > LM_SHARDED_SERVE_TOL:
+                failed.append(f"serve {row[0]}: {out}")
+            log("lm_sharded", f"serve {row[0]} {out['plan']} "
+                f"{row[2]}x{row[3]}: "
+                f"prefill {row[4]} + {row[5]} greedy tokens, equal to the "
+                f"unsharded {out['tokens_equal']}, first logits "
+                f"{out['first_logits_rel_err']:.3g} (<= "
+                f"{LM_SHARDED_SERVE_TOL}); prefill "
+                f"{out['sharded_prefill_ms']:.1f} ms (unsharded "
+                f"{out['unsharded_prefill_ms']:.1f}), decode "
+                f"{out['sharded_decode_ms_per_token']:.2f} ms a token "
+                f"(unsharded {out['unsharded_decode_ms_per_token']:.2f}); "
+                f"{out['seconds']:.1f} s")
+        arch, plan, d, m, steps = LM_SHARDED_DRIVER
+        args = k.launch_train.parse_args(
+            ["--arch", arch, "--data", str(d), "--model", str(m), "--plan",
+             plan, "--steps", str(steps), "--device", "cuda:0"])
+        _, losses = k.launch_train.train_lm(
+            args, k.configs.get_smoke_config(arch),
+            say=lambda *a: log("lm_sharded", " ".join(map(str, a))))
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+              f"the sharded launcher's losses {losses}")
+    check(not failed, f"sharded LM gates failed: {failed}")
+    seconds = time.perf_counter() - t_start
+    log("lm_sharded", f"phase 13d: {seconds:.1f} s")
+    return ({"runs": rows, "serve": serve, "driver_losses": losses,
+             "seconds": seconds}, launched)
 
 
 def kernel_ms(fn, calls: int = 5) -> dict:
@@ -5989,7 +6557,7 @@ def main() -> int:
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import specs
     from repro_torch import models
-    from repro_torch.core import flags
+    from repro_torch.core import flags, param_specs, sharding
     from repro_torch.core import tree
     from repro_torch.examples import serve_lm
     from repro_torch.launch import train as launch_train
@@ -6014,7 +6582,8 @@ def main() -> int:
                            configs=configs, specs=specs, models=models,
                            flags=flags, tree=tree, Adam=Adam,
                            warmup_cosine=warmup_cosine,
-                           launch_train=launch_train, serve_lm=serve_lm)
+                           launch_train=launch_train, serve_lm=serve_lm,
+                           sharding=sharding, param_specs=param_specs)
     report = {"card": phase_card()}
     report["build"] = phase_build(_build)
     clock("build")
@@ -6451,6 +7020,7 @@ def main() -> int:
     main_paths["lm_train"] = {"launches": got}
     clock("lm_train")
     launches = {n: launches[n] + got[n] for n in KERNELS}
+
     lm_train["ssd_backward"] = ssd_backward_rows(k)
     timing["ssd_scan"] = ssd_rows(k)
     timing["ssd_scan_zamba2"] = ssd_rows(k, SSD_LAYERS["zamba2-1.2b"])
@@ -6461,6 +7031,21 @@ def main() -> int:
             lambda: ssm_lm.forward(params[prec], lm_tokens, mcfg))
         log("profile", f"{tag} {json.dumps(profiles[tag])}")
     del params, p32, lm_tokens
+
+    # ------- main path 13d: the sharded LMs (after phase 14's timings,
+    # with phase 12's parameters freed; each run drops the cache first)
+    zero_counts(k)
+    lm_sharded, launched_sharded = phase_lm_sharded(k, get_config, lm_train)
+    got = counts(k)
+    check(got == dict(NO_LAUNCHES, ssd_scan=launched_sharded),
+          f"sharded LM path launches {got}, expected {launched_sharded} "
+          f"ssd_scan (kernel_launches(train=True) a shard a step and "
+          f"step-1 check, the transformers none)")
+    log("main path", f"sharded LMs: launches {got} in "
+        f"{lm_sharded['seconds']:.0f} s")
+    main_paths["lm_sharded"] = {"launches": got}
+    clock("lm_sharded")
+    launches = {n: launches[n] + got[n] for n in KERNELS}
 
     # the summary: one forward's worth of each kernel at its main path's
     # first config — cosmoflow-128 batch-4 fp32: conv3d and bn_act of the
@@ -6521,6 +7106,13 @@ def main() -> int:
                     tag: r["ssd_launches_per_step"]
                     for tag, r in lm_train["runs"].items()},
                 backward=lm_train["ssd_backward"])
+            # the sharded LMs (phase 13d): cp_ssd's local scans and tp's
+            # whole-sequence scans, every shard's
+            entry["sharded"] = dict(
+                launches=main_paths["lm_sharded"]["launches"]["ssd_scan"],
+                launches_per_step={
+                    tag: r["ssd_launches_per_step"]
+                    for tag, r in lm_sharded["runs"].items()})
             entry["zamba2-1.2b"] = dict(
                 launches=main_paths["lm_families"]["launches"]["ssd_scan"],
                 max_abs_err=report["ssd_kernel"]["max_abs_err_layers_fp32"][
@@ -6580,7 +7172,7 @@ def main() -> int:
                     for key in ("ms", "plain_ms", "bound_ms")}
         summary.append(entry)
     report.update(score=score, decode=decode_row, lm_families=lm_families,
-                  lm_train=lm_train, train=train,
+                  lm_train=lm_train, lm_sharded=lm_sharded, train=train,
                   train_spatial=train_spatial, unet=unet,
                   train_remat=train_remat, train_io=train_io,
                   train_zero1=train_zero1, memory_model=memory_model,

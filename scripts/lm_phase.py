@@ -12,12 +12,20 @@ layer shape.
     python3 scripts/lm_phase.py --decode-only [--src DIR]
     python3 scripts/lm_phase.py --train-only [--train-arch ARCH ...]
     python3 scripts/lm_phase.py --serve-only [--src DIR]
+    python3 scripts/lm_phase.py --sharded-only [--sharded-run TAG ...]
 
 ``--train-only`` runs phase 13c alone instead (after the build): LM
 training (``chip_smoke.LM_TRAIN``, or those of its archs given by
 ``--train-arch``; step 1 against fp64, remat against none, the timed
 steps, the drivers) with its launch count, then the SSD backward's time
 at both layer shapes.
+
+``--sharded-only`` runs phase 13d alone instead (after the build): the
+sharded language models over an in-process mesh on the card
+(``chip_smoke.LM_SHARDED``, or those of its runs given by
+``--sharded-run``; step 1 against the unsharded step, the timed steps,
+serving, the launcher) with its launch count, and prints the phase's
+seconds.
 
 ``--serve-only`` times the SSM models' scoring forward alone instead
 (after the build): ``lm_loss`` of mamba2-370m (phase 12's weights and
@@ -55,6 +63,11 @@ ARGS.add_argument("--train-only", action="store_true",
                        "backward's time")
 ARGS.add_argument("--serve-only", action="store_true",
                   help="the SSM models' lm_loss timings alone")
+ARGS.add_argument("--sharded-only", action="store_true",
+                  help="phase 13d alone (the sharded language models)")
+ARGS.add_argument("--sharded-run", action="append", default=None,
+                  help="with --sharded-only: only this tag of "
+                       "chip_smoke.LM_SHARDED (repeatable)")
 ARGS.add_argument("--train-arch", action="append", default=None,
                   help="with --train-only: train only this arch of "
                        "chip_smoke.LM_TRAIN (repeatable)")
@@ -68,6 +81,7 @@ sys.path.insert(0, os.path.abspath(args.src))
 import chip_smoke as cs  # noqa: E402
 from repro_torch import configs, models  # noqa: E402
 from repro_torch.core import flags, tree  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bn_act import ops as bn_ops  # noqa: E402
 from repro_torch.kernels.conv3d import ops as conv_ops  # noqa: E402
@@ -186,8 +200,22 @@ if __name__ == "__main__":
                            specs=specs, models=models, flags=flags,
                            tree=tree, Adam=Adam, warmup_cosine=warmup_cosine,
                            launch_train=launch_train, serve_lm=serve_lm,
-                           train_step=train_step)
-    if args.train_only:
+                           train_step=train_step, mesh_lib=mesh_lib)
+    if args.sharded_only:
+        from repro_torch.core import param_specs, sharding, spmd
+        k.sharding, k.param_specs, k.spmd = sharding, param_specs, spmd
+        if args.sharded_run:
+            cs.LM_SHARDED = tuple(r for r in cs.LM_SHARDED
+                                  if r[0] in args.sharded_run)
+        cs.zero_counts(k)
+        out["lm_sharded"], launched = cs.phase_lm_sharded(
+            k, configs.get_config)
+        got = cs.counts(k)
+        cs.check(got == dict(cs.NO_LAUNCHES, ssd_scan=launched),
+                 f"launches {got}, expected {launched} ssd_scan")
+        out["launches"] = got
+        print("launches", json.dumps(got))
+    elif args.train_only:
         if args.train_arch:
             cs.LM_TRAIN = tuple(r for r in cs.LM_TRAIN
                                 if r[0] in args.train_arch)

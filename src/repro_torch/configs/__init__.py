@@ -7,10 +7,12 @@ families, mamba2-370m and the zamba2 hybrid). Each LM module exports
 same family for CPU tests), copied from the reference's.
 ``applicable_shapes`` and ``skip_reason`` give the assignment's shape
 skips (which ``INPUT_SHAPES`` apply to which architecture, and why the
-others do not), as the reference's registry does."""
+others do not), as the reference's registry does; ``PLANS`` /
+``plan_for`` give each language model's parallelism plan per shape
+(``core/sharding.py``; the launcher's default ``--plan``)."""
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Dict, Tuple, Union
 
 from repro_torch.configs import (
     arctic_480b,
@@ -60,6 +62,30 @@ _MODULES = {
 }
 Config = Union[ConvNetConfig, SSMConfig, HybridConfig, TransformerConfig]
 
+# parallelism plan per (arch, shape); conv nets plan through core/plan.py
+_DEFAULT_PLAN = {"train_4k": "tp", "prefill_32k": "cp",
+                 "decode_32k": "cp", "long_500k": "cp"}
+PLANS: Dict[str, Dict[str, str]] = {
+    "hubert-xlarge": {"train_4k": "tp", "prefill_32k": "cp"},
+    "zamba2-1.2b": {"train_4k": "tp", "prefill_32k": "cp",
+                    "decode_32k": "cp", "long_500k": "cp"},
+    "phi3.5-moe": {"train_4k": "ep", "prefill_32k": "ep",
+                   "decode_32k": "ep"},
+    "gemma2-2b": dict(_DEFAULT_PLAN, train_4k="cp"),
+    "arctic-480b": {"train_4k": "ep", "prefill_32k": "ep",
+                    "decode_32k": "ep"},
+    "phi3-mini": {"train_4k": "tp", "prefill_32k": "tp",
+                  "decode_32k": "cp"},
+    "phi3-vision": {"train_4k": "tp", "prefill_32k": "tp",
+                    "decode_32k": "cp"},
+    "llama3-405b": {"train_4k": "tp", "prefill_32k": "tp",
+                    "decode_32k": "cp"},
+    "qwen1.5-0.5b": {"train_4k": "tp", "prefill_32k": "tp",
+                     "decode_32k": "cp"},
+    "mamba2-370m": {"train_4k": "tp", "prefill_32k": "cp",
+                    "decode_32k": "cp", "long_500k": "cp"},
+}
+
 
 def _check(name: str) -> None:
     if name not in ALL_ARCHS:
@@ -78,6 +104,11 @@ def get_smoke_config(name: str) -> Config:
     if name in _MODULES:
         return _MODULES[name].SMOKE
     return cosmoflow.SMOKE
+
+
+def plan_for(arch: str, shape: str) -> str:
+    """The plan ``arch`` takes at ``shape`` (``tp`` where none is set)."""
+    return PLANS.get(arch, {}).get(shape, "tp")
 
 
 def applicable_shapes(arch: str) -> Tuple[str, ...]:
@@ -111,7 +142,7 @@ def skip_reason(arch: str, shape: str) -> str:
 
 
 __all__ = ["ALL_ARCHS", "ASSIGNED", "COSMOFLOW_ARCHS", "ConvNetConfig",
-           "HybridConfig", "INPUT_SHAPES", "InputShape", "LM_ARCHS",
-           "PAPER_ARCHS", "SSMConfig", "TransformerConfig", "UNET_ARCHS",
-           "applicable_shapes", "get_config", "get_smoke_config",
-           "skip_reason"]
+           "HybridConfig", "INPUT_SHAPES", "InputShape",
+           "LM_ARCHS", "PAPER_ARCHS", "PLANS", "SSMConfig",
+           "TransformerConfig", "UNET_ARCHS", "applicable_shapes",
+           "get_config", "get_smoke_config", "plan_for", "skip_reason"]

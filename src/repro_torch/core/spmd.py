@@ -7,10 +7,11 @@ a worker thread of its own, with the shard's device current and, on a
 CUDA device, the shard's own stream current. Inside ``fn``,
 ``axis(names)`` is the shard's group along one mesh axis or several
 (the ranks that share every other coordinate, in rank order):
-``index``, ``size``, ``ppermute``, ``psum``, ``psum_scatter``,
-``all_gather``, ``all_to_all`` and ``psum_grad``, with the semantics of
-``lax.axis_index`` / ``lax.axis_size`` / ``lax.ppermute`` /
-``lax.psum`` / ``lax.psum_scatter(tiled=True)`` /
+``index``, ``size``, ``ppermute``, ``psum``, ``pmax``,
+``psum_scatter``, ``all_gather``, ``all_to_all`` and ``psum_grad``,
+with the semantics of ``lax.axis_index`` / ``lax.axis_size`` /
+``lax.ppermute`` / ``lax.psum`` / ``lax.pmax`` (forward only: no
+gradient) / ``lax.psum_scatter(tiled=True)`` /
 ``lax.all_gather(tiled=True)`` / ``lax.all_to_all(tiled=True)``:
 
 * ``ppermute`` gives each destination its source's tensor: the tensor
@@ -414,15 +415,15 @@ class _Recompute(torch.autograd.Function):
         ctx.plan = plan
         ctx.save_for_backward(*flat)
         outs, plan.outs = plan.outs, None  # the node does not hold them
-        return tuple(outs)
+        return tuple(o for out in outs for o in out)
 
     @staticmethod
     def backward(ctx, *grads):
         plan = ctx.plan
-        n = plan.n_args
+        n, k = plan.n_args, plan.n_outs
         ins = [t.detach().requires_grad_(need)
                for t, need in zip(ctx.saved_tensors, plan.needs)]
-        shards = [ins[r * n:(r + 1) * n] for r in range(len(grads))]
+        shards = [ins[r * n:(r + 1) * n] for r in range(len(grads) // k)]
 
         def again(event, *args):
             if event is not None:  # the forward's output is written
@@ -438,9 +439,15 @@ class _Recompute(torch.autograd.Function):
                 outs = [plan.fn(*shards[0])]
             else:
                 outs = run(plan.mesh, again, plan.events, *zip(*shards))
+        # every output that carries a gradient back (an output made of
+        # no input, as a layer's zero aux loss, carries none)
+        pairs = [(o, g) for o, g in zip(
+            (o for out in outs for o in _outputs(out)), grads)
+            if o.requires_grad and g is not None]
         wrt = [t for t in ins if t.requires_grad]
-        found = iter(torch.autograd.grad(outs, wrt, grads,
-                                         allow_unused=True))
+        found = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True))
         out = []
         for t in ins:
             g = next(found) if t.requires_grad else None
@@ -459,25 +466,34 @@ def _log_block(mesh, kind: str, tensors: Sequence[torch.Tensor]) -> None:
                          tuple(tuple(t.shape) for t in tensors)))
 
 
+def _outputs(out) -> Tuple[torch.Tensor, ...]:
+    """A block's result as a tuple of tensors."""
+    return tuple(out) if isinstance(out, tuple) else (out,)
+
+
 class _CheckpointPlan:
     """What ``_Recompute`` needs: the mesh (None: no run), the block, its
-    argument count per shard, which inputs need gradients, and the
-    forward's outputs and their events (one per shard)."""
+    argument and output counts per shard, which inputs need gradients,
+    and the forward's outputs (a tuple a shard) and their events (one
+    per shard)."""
 
     def __init__(self, mesh, fn, n_args, needs, outs, events):
         self.mesh, self.fn, self.n_args = mesh, fn, n_args
         self.needs, self.outs, self.events = tuple(needs), outs, events
+        self.n_outs = len(outs[0])
 
 
-def checkpoint(fn: Callable[..., torch.Tensor],
-               *args: torch.Tensor) -> torch.Tensor:
-    """``fn(*args)`` (tensors in, one tensor out) rematerialized: where
-    autograd records, ``fn`` runs with autograd off and only ``args``
-    are saved; the backward runs ``fn`` again, on every shard of the
-    current run together (the module docstring), before it takes the
-    gradients. The same value as ``fn(*args)`` and the same gradients.
-    Every shard of a run must reach it, as a collective. Elsewhere it is
-    ``fn(*args)``."""
+def checkpoint(fn: Callable[..., Any], *args: torch.Tensor) -> Any:
+    """``fn(*args)`` (tensors in; one tensor, or a tuple of tensors,
+    out) rematerialized: where autograd records, ``fn`` runs with
+    autograd off and only ``args`` are saved; the backward runs ``fn``
+    again, on every shard of the current run together (the module
+    docstring), before it takes the gradients. The same value as
+    ``fn(*args)`` and the same gradients. Every shard of a run must
+    reach it, as a collective; the recompute runs the ``fn`` of the
+    highest rank on every shard, so ``fn`` must hold nothing of its own
+    shard (a shard's position comes from ``axis(...).index`` inside it).
+    Elsewhere it is ``fn(*args)``."""
     if not _records(args):
         return fn(*args)
     if not all(isinstance(t, torch.Tensor) for t in args):
@@ -485,25 +501,33 @@ def checkpoint(fn: Callable[..., torch.Tensor],
     shard = getattr(_LOCAL, "shard", None)
     with torch.no_grad():
         out = fn(*args)
+    outs = _outputs(out)
     needs = [t.requires_grad for t in args]
+
+    def result(flat):
+        return tuple(flat) if isinstance(out, tuple) else flat[0]
+
     if (shard is None or shard.run.mesh.size == 1
             or isinstance(shard.run, _ProcRun)):
         mesh = None if shard is None else shard.run.mesh
         _log_block(mesh, "checkpoint", args)
-        plan = _CheckpointPlan(mesh, fn, len(args), needs, [out],
-                               [_mark(out)[1]])
-        return _Recompute.apply(plan, *args)[0]
+        plan = _CheckpointPlan(mesh, fn, len(args), needs, [outs],
+                               [_mark(outs[0])[1]])
+        return result(_Recompute.apply(plan, *args))
     mesh = shard.run.mesh
+    k = len(outs)
 
     def node(ranks, entries):
         plan = _CheckpointPlan(
             mesh, fn, len(args), [nd for e in entries for nd in e[1]],
             [e[2][0] for e in entries], [e[2][1] for e in entries])
-        return list(_Recompute.apply(plan, *(t for e in entries
-                                            for t in e[0])))
+        flat = _Recompute.apply(plan, *(t for e in entries for t in e[0]))
+        return [flat[m * k:(m + 1) * k] for m in range(len(entries))]
 
     group = Group(mesh.axis_names, shard.run, shard.rank)
-    return group._collective("checkpoint", (args, needs, _mark(out)), node)
+    mine = group._collective("checkpoint", (args, needs, (
+        outs, _mark(outs[0])[1])), node)
+    return result(mine)
 
 
 class Received:
@@ -641,6 +665,29 @@ class Group:
             return [tuple(row) if is_tuple else row[0] for row in rows]
 
         return self._collective("psum", tuple(_mark(p) for p in parts), add)
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of the group's ``t``, taken in rank
+        order (``lax.pmax``), on every shard alike. Forward only: the
+        result records no gradient (a log-sum-exp's shift, whose
+        gradient cancels)."""
+        if self.size == 1:
+            return t.detach()
+        mesh = self._run.mesh
+
+        def top(ranks, entries):
+            outs = []
+            with torch.no_grad():
+                for r in ranks:
+                    device = mesh.devices[r]
+                    with _on(mesh, r):
+                        acc = _read(entries[0], device)
+                        for e in entries[1:]:
+                            acc = torch.maximum(acc, _read(e, device))
+                    outs.append(acc)
+            return outs
+
+        return self._collective("pmax", _mark(t.detach()), top)
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The group's ``t`` concatenated along ``dim`` in axis order."""
@@ -1053,6 +1100,18 @@ class _ProcGroup(Group):
         else:
             out = tuple(_proc_sums(self, "psum", parts))
         return out if isinstance(t, tuple) else out[0]
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """Every member's ``t`` gathered and their maximum taken in rank
+        order, as ``psum`` adds; forward only."""
+        if self.size == 1:
+            return t.detach()
+        with torch.no_grad():
+            rows = self._gather("pmax", [t.detach()])
+            acc = rows[0][0]
+            for row in rows[1:]:
+                acc = torch.maximum(acc, row[0])
+        return acc
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         if self.size == 1:

@@ -83,8 +83,8 @@ def ssd_chunked(
     dtc = dt.to(ct).reshape(Bb, nc, Q, H)
     Bc = Bm.to(ct).reshape(Bb, nc, Q, N)
     Cc = Cm.to(ct).reshape(Bb, nc, Q, N)
-    sig = torch.cumsum(dtc * A.to(ct), dim=2)  # (B, nc, Q, H)
-    sig_last = sig[:, :, -1, :]                 # (B, nc, H)
+    sig = decay_sums(dt, A, Q, ct)  # (B, nc, Q, H)
+    sig_last = sig[:, :, -1, :]     # (B, nc, H)
 
     # --- intra-chunk: (C.B^T * exp(sig_q - sig_k) * dt_k)[k <= q] @ x ---
     # mask BEFORE exp: upper-triangle diffs are positive and overflow
@@ -115,10 +115,27 @@ def ssd_chunked(
                          torch.stack(s_in, dim=1)) * torch.exp(sig)[..., None]
     y = y.reshape(Bb, L, H, P)
 
-    # cumulative decay from shard start (for context-parallel pass 2)
+    return y.to(x.dtype), SSDExtras(s, cumdecay(sig))
+
+
+def decay_sums(dt: torch.Tensor, A: torch.Tensor, Q: int,
+               ct: torch.dtype) -> torch.Tensor:
+    """sig (B, L / Q, Q, H): dt A summed from each chunk's start to each
+    step, chunks of ``Q`` steps, in ``ct``."""
+    Bb, L, H = dt.shape
+    return torch.cumsum(dt.to(ct).reshape(Bb, L // Q, Q, H) * A.to(ct),
+                        dim=2)
+
+
+def cumdecay(sig: torch.Tensor) -> torch.Tensor:
+    """(B, L, H): dt A summed from the sequence's (a shard's) start to each
+    step, by the reference's chunked formula (each step's sum within its
+    chunk plus the chunks' totals before it), from ``decay_sums``'s sig:
+    the context-parallel scan's decays (``core/seq_parallel.cp_ssd``)."""
+    Bb, nc, Q, H = sig.shape
+    sig_last = sig[:, :, -1, :]
     chunk_off = torch.cumsum(sig_last, dim=1) - sig_last  # (B, nc, H)
-    cumdecay = (sig + chunk_off[:, :, None, :]).reshape(Bb, L, H)
-    return y.to(x.dtype), SSDExtras(s, cumdecay)
+    return (sig + chunk_off[:, :, None, :]).reshape(Bb, nc * Q, H)
 
 
 def split_bf16(a: torch.Tensor, parts: int = 3) -> torch.Tensor:

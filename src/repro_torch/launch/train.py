@@ -37,14 +37,26 @@ reference's numpy generator (hubert takes N(0, 0.1) frame embeddings
 in their place, drawn from a ``torch.Generator`` seeded with the step:
 the reference's shape and scale, not its bits), its parameters from
 ``init_params`` with a generator seeded 0 unless given; ``--remat``
-rematerializes every layer (``core/flags.REMAT``).
-``--data``/``--model`` above 1 raise: sharded LM training comes with
-the sharded LM slice.
+rematerializes every layer (``core/flags.REMAT``). ``--data D --model M``
+above 1 x 1 train it over an in-process ``Mesh((("data", D), ("model",
+M)))`` whose shards all sit on ``--device`` under
+``ShardingPolicy(mesh, plan=--plan)`` (``tp``, ``cp`` or ``ep``; by
+default the arch's training plan, ``configs.plan_for(arch,
+"train_4k")``; the reference's launcher sets no FSDP), as the
+reference's ``main`` does;
+the step is ``make_lm_train_step`` over the mesh, the parameters cut by
+``infer_param_specs`` and put back together at the end. A language model
+takes none of the conv nets' ``--pipeline``, ``--micro-batches`` and
+``--grad-comm`` (the reference's LM loop has no such options), and under
+``torchrun`` (a process a shard) it raises: the LM over the process mesh
+is a later slice.
 
     python -m repro_torch.launch.train --arch mamba2-370m --steps 20 \
         --device cpu
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --full-config \
         --steps 3 --seq 4096 --batch 1
+    python -m repro_torch.launch.train --arch qwen1.5-0.5b --data 1 \
+        --model 2 --plan tp --steps 3 --device cuda:0   # both on one card
 """
 from __future__ import annotations
 
@@ -150,9 +162,9 @@ def lm_batches(cfg, batch: int, seq: int, steps: int,
         yield out
 
 
-# the conv-net options a language model's unsharded loop does not take,
-# at the values that leave them unused
-LM_UNSHARDED = {"pipeline": 1, "micro_batches": 4, "grad_comm": "auto"}
+# the conv-net options the reference's LM loop does not take, at the
+# values that leave them unused
+CONV_NET_OPTIONS = {"pipeline": 1, "micro_batches": 4, "grad_comm": "auto"}
 
 
 def train_lm(args, cfg, params: Optional[Any] = None,
@@ -160,38 +172,56 @@ def train_lm(args, cfg, params: Optional[Any] = None,
     """The reference launcher's LM loop on ``args.device``: ``args.steps``
     steps of ``make_lm_train_step`` from ``params`` (seeded
     ``init_params`` when None; e.g. the reference's, carried across by
-    ``params_from_numpy``). Returns (the trained parameters, every
-    step's loss)."""
+    ``params_from_numpy``), unsharded or over ``--data`` x ``--model``
+    shards on the device under ``--plan``. Returns (the trained
+    parameters, global; every step's loss)."""
+    import os
+
+    from repro_torch.configs import plan_for
     from repro_torch.core import flags
-    from repro_torch.launch.mesh import resolve_device
+    from repro_torch.core import sharding
+    from repro_torch.core.param_specs import infer_param_specs
+    from repro_torch.launch.mesh import Mesh, resolve_device
     from repro_torch.models import lm_module
     from repro_torch.optim.adam import Adam, warmup_cosine
     from repro_torch.train import checkpoint
     from repro_torch.train.train_step import make_lm_train_step
 
-    if args.data * args.model > 1:
-        raise NotImplementedError(
-            f"--data {args.data} --model {args.model}: sharded LM training "
-            "comes with the sharded LM slice of the port; train "
-            f"{cfg.name} unsharded (--data 1 --model 1)")
     set_away = [f"--{name.replace('_', '-')} {getattr(args, name)}"
-                for name, default in LM_UNSHARDED.items()
+                for name, default in CONV_NET_OPTIONS.items()
                 if getattr(args, name) != default]
     if set_away:
         raise NotImplementedError(
-            f"{' '.join(set_away)}: pipelined LM training and its gradient "
-            "lowerings come with the sharded LM slice of the port; train "
-            f"{cfg.name} without them")
+            f"{' '.join(set_away)}: conv-net options; the reference's "
+            f"language-model loop takes none of them; train {cfg.name} "
+            "without them")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            f"{cfg.name} under torchrun (a process a shard): the LM over "
+            "the process mesh comes with the next slice of the port; run "
+            "one process with --data/--model shards on its device")
     device = resolve_device(args.device)
     mod = lm_module(cfg)
-    say(f"{cfg.name}: {cfg.param_count() / 1e6:.2f}M params, mesh 1x1, "
-        f"{device}")
+    shards = args.data * args.model
+    plan = args.plan or plan_for(args.arch, "train_4k")
+    mesh, policy = None, None
+    if shards > 1:
+        mesh = Mesh((("data", args.data), ("model", args.model)),
+                    [device] * shards)
+        policy = sharding.ShardingPolicy(mesh, plan=plan)
+    say(f"{cfg.name}: {cfg.param_count() / 1e6:.2f}M params, plan "
+        f"{plan}, mesh {args.data}x{args.model}, {device}")
     if params is None:
         params = mod.init_params(cfg, torch.Generator().manual_seed(0),
                                  device=device)
     opt = Adam(lr=warmup_cosine(3e-3, 10, args.steps), grad_clip=1.0)
-    state = opt.init(params)
-    step = make_lm_train_step(mod.lm_loss, cfg, None, None, opt)
+    step = make_lm_train_step(mod.lm_loss, cfg, mesh, policy, opt)
+    if mesh is not None:
+        specs = infer_param_specs(mod.param_shapes(cfg), policy)
+        params = sharding.shard_tree(params, specs, mesh)
+        state = [opt.init(p) for p in params]
+    else:
+        state = opt.init(params)
     losses: List[float] = []
     remat_before = flags.REMAT
     flags.REMAT = remat_before or args.remat
@@ -206,6 +236,8 @@ def train_lm(args, cfg, params: Optional[Any] = None,
                 say(f"step {i:4d}  loss {losses[-1]:.3f}  {tokps:.0f} tok/s")
     finally:
         flags.REMAT = remat_before
+    if mesh is not None:
+        params = sharding.join_shards(params, specs, mesh)
     if args.ckpt:
         checkpoint.save(args.ckpt, params, step=args.steps)
         say("checkpoint ->", args.ckpt)
@@ -222,6 +254,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1,
                     help="model-parallel degree (conv nets: spatial)")
+    ap.add_argument("--plan", default=None, choices=("tp", "cp", "ep"),
+                    help="a language model's sharding plan over --data x "
+                         "--model; default the arch's training plan "
+                         "(configs.plan_for(arch, 'train_4k')); conv nets "
+                         "plan through repro_torch.api")
     ap.add_argument("--grad-comm", default="auto",
                     choices=("auto", "monolithic", "overlap",
                              "reduce_scatter"),

@@ -12,6 +12,15 @@ memory is O(S_q * chunk), and the same function serves the forward,
 prefill and decode. Where the reference multiplies bf16 operands with
 fp32 accumulation (``preferred_element_type``), the port upcasts the
 operands to fp32 (exact) and multiplies there.
+
+Under a sharding policy (per-shard, inside ``spmd.run``; ``lay`` a
+``core/sharding.Layout``): ``vocab_embed`` looks tokens up in this
+shard's block of the vocabulary (the others' rows zero) and sums over
+the model axis; ``lm_cross_entropy`` is the vocabulary-parallel loss
+(each shard's logits over its block of the vocabulary, the log-sum-exp
+from a detached ``pmax`` and a ``psum`` of the exponentials, the target
+logit by a ``psum``), summed over the shards that split the positions:
+the global mean on every shard.
 """
 from __future__ import annotations
 
@@ -20,6 +29,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import spmd
 
 
 # ---------------------------------------------------------------- norms ---
@@ -168,6 +179,109 @@ def cache_write(cache: torch.Tensor, x: torch.Tensor,
     returns ``cache``."""
     cache[:, cur:cur + 1] = x.to(cache.dtype)
     return cache
+
+
+# ---------------------------------------------------- under a policy ---
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, vocab: int,
+                lay=None) -> torch.Tensor:
+    """``table[tokens]``; under ``lay`` with ``table`` this shard's block
+    of the ``vocab`` rows (cut over the model axis), each shard's rows
+    for the tokens it holds, zeros for the others, summed over the model
+    axis."""
+    if lay is None or table.shape[0] == vocab:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - lay.model.index * n
+    valid = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return lay.model.psum(torch.where(valid[..., None], rows, 0.0))
+
+
+def gather_vocab(logits: torch.Tensor, vocab: int, lay=None) -> torch.Tensor:
+    """Logits (..., V / n) of this shard's block of the vocabulary
+    all-gathered to (..., V) (as they are where not cut)."""
+    if lay is None or logits.shape[-1] == vocab:
+        return logits
+    return lay.model.all_gather(logits, logits.dim() - 1)
+
+
+def lm_cross_entropy(h: torch.Tensor, unembed: torch.Tensor, labels,
+                     *, vocab: int, cap: float = 0.0, masked: bool = True,
+                     drop: int = 0, lay=None) -> torch.Tensor:
+    """The mean next-token cross entropy of the final hidden states ``h``
+    (B, s, D) against ``labels`` (B, S) over the labels >= 0 (all of
+    them unless ``masked``), the logits ``softcap(h @ unembed.T, cap)``
+    in fp32 from the first ``drop`` positions on (a VLM's image prefix).
+    Unsharded it is the models' loss. Under ``lay`` (per shard): ``h``
+    is this shard's block of the positions under a plan that cuts the
+    sequence, and ``labels`` every position of the shard's batch rows;
+    ``unembed`` may be this shard's block of the vocabulary. A cut
+    vocabulary (or a prefix to drop) gathers the sequence first; the
+    loss is summed over the shards that split the positions (the data
+    axes, and the model axis where the positions stay cut): the global
+    mean, on every shard."""
+    dt = h.dtype
+    labels = torch.as_tensor(labels, device=h.device).long()
+    cut = lay is not None and unembed.shape[0] < vocab
+    split = lay is not None and lay.seq_split
+    if split and (cut or drop):
+        h, split = lay.model.all_gather(h, 1), False
+    logits = softcap(h @ unembed.t(), cap)
+    if drop:
+        logits = logits[:, drop:]
+    if split:
+        labels = lay.local_rows(labels)
+    lf = logits.float()
+    if cut:
+        n = unembed.shape[0]
+        m = lay.model.pmax(lf.amax(dim=-1))
+        lse = m + torch.log(lay.model.psum(
+            torch.exp(lf - m[..., None]).sum(dim=-1)))
+        local = labels - lay.model.index * n
+        valid = (local >= 0) & (local < n)
+        picked = lf.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+        true_logit = lay.model.psum(torch.where(valid, picked, 0.0))
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        true_logit = lf.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    if lay is None:
+        if not masked:
+            return (lse - true_logit).mean().to(dt)
+        mask = (labels >= 0).float()
+        return (((lse - true_logit) * mask).sum()
+                / torch.clamp(mask.sum(), min=1.0)).to(dt)
+    mask = ((labels >= 0) if masked else torch.ones_like(labels)).float()
+    axes = tuple(lay.policy.data_axes) + ((lay.axis,) if split else ())
+    total, count = spmd.axis(axes).psum((((lse - true_logit) * mask).sum(),
+                                         mask.sum()))
+    return (total / torch.clamp(count, min=1.0)).to(dt)
+
+
+def head_out(o: torch.Tensor, wo: torch.Tensor, num_heads: int,
+             lay=None) -> torch.Tensor:
+    """``o`` (B, S, h, hd) through ``wo`` (h, hd, D); summed over the
+    model axis where the heads are cut."""
+    out = merge_heads(o, wo)
+    if lay is not None and wo.shape[0] < num_heads:
+        out = lay.model.psum(out)
+    return out
+
+
+def own_heads(o: torch.Tensor, wo: torch.Tensor, lay=None) -> torch.Tensor:
+    """This shard's heads of every head's output (B, S, H, hd), where
+    ``wo`` holds its block of the heads."""
+    if lay is None or wo.shape[0] == o.shape[2]:
+        return o
+    return o.narrow(2, lay.model.index * wo.shape[0], wo.shape[0])
+
+
+def ffn_out(out: torch.Tensor, w_down: torch.Tensor, d_ff: int,
+            lay=None) -> torch.Tensor:
+    """An MLP's output, summed over the model axis where its d_ff is
+    cut."""
+    if lay is not None and w_down.shape[0] < d_ff:
+        out = lay.model.psum(out)
+    return out
 
 
 # ------------------------------------------------------------------ MLP ---

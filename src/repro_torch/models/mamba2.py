@@ -16,11 +16,13 @@ Layouts are the reference's: ``in_proj`` (D, 2*d_inner + 2N + H),
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import halo as halo_lib
+from repro_torch.core import seq_parallel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import SSDExtras, ssd_chunked
 from repro_torch.models.layers import dense_init, rmsnorm
@@ -114,14 +116,23 @@ def block_forward(
     head_dim: int,
     ssm_state: int,
     chunk: int = 256,
+    seq_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """Mamba2 block (pre-norm residual handled by caller); the scan runs
     through ``kernels/ssd_scan`` (the kernel on the card, its plain
-    version on the CPU)."""
+    version on the CPU). ``seq_axis`` (inside ``spmd.run``): ``h`` is
+    this shard's block of the sequence, cut over that mesh axis; the
+    causal conv takes its K - 1 rows before the block from the previous
+    shard (``core/halo.halo_exchange``, zeros on the first: the
+    unsharded conv's padding), whose outputs it drops again, and the scan
+    is ``seq_parallel.cp_ssd``."""
     d_inner = num_heads * head_dim
     N = ssm_state
     z, xBC, dt = _split_proj(h @ p["in_proj"], d_inner, N)
-    xBC = F.silu(_causal_conv1d(xBC, p["conv_w"], p["conv_b"]))
+    lo = p["conv_w"].shape[0] - 1 if seq_axis is not None else 0
+    if lo:
+        xBC = halo_lib.halo_exchange(xBC, seq_axis, dim=1, lo=lo, hi=0)
+    xBC = F.silu(_causal_conv1d(xBC, p["conv_w"], p["conv_b"])[:, lo:])
     x, Bm, Cm = torch.split(xBC, [d_inner, N, N], dim=-1)
     dt = F.softplus(dt + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
@@ -130,7 +141,10 @@ def block_forward(
     if L % q:
         raise ValueError(f"seq {L} must divide chunk {q}")
     xh = x.reshape(Bb, L, num_heads, head_dim)
-    y, _ = ssd_ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=q)  # views of xBC
+    if seq_axis is not None:
+        y = seq_parallel.cp_ssd(xh, dt, A, Bm, Cm, seq_axis, chunk=q)
+    else:
+        y, _ = ssd_ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=q)  # views of xBC
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(Bb, L, d_inner)
     y = rmsnorm(y * F.silu(z), p["norm_scale"])

@@ -22,8 +22,33 @@ wraps it in ``jax.checkpoint``, the shared attention block not
 
 Entry points run where the parameters are; ``init_params`` and
 ``params_from_numpy`` put them on the card unless given a device.
-Sequence- or tensor-parallel sharding (a ``policy`` or ``mesh``) comes
-with a later slice and raises here.
+
+Under a sharding policy over an in-process mesh (``core/sharding.py``)
+the entry points are per-shard functions, called inside ``spmd.run`` with
+each shard's blocks of the parameters
+(``core/param_specs.infer_param_specs``) and of the batch (its rows of
+the data axes, every position), as in ``models/transformer.py``:
+
+* ``tp``: a Mamba2 block cannot use its cut weights (``in_proj``'s
+  z | xBC | dt boundaries do not fall on the model axis's cut, and
+  ``out_proj`` follows the block's full-width RMSNorm), so both are
+  all-gathered before use (the adjoint a reduce-scatter) and every
+  shard scans the whole sequence through the kernel; the hybrid's
+  shared attention and MLP run their heads and d_ff columns locally
+  with a ``psum`` after ``wo`` and ``w_down``; the embedding and the
+  loss are vocabulary-parallel.
+* ``cp``/``ep``: each shard runs its block of the sequence: the causal
+  conv takes a (conv_width - 1)-row halo from the previous shard
+  (``core/halo.halo_exchange``, the paper's halo in 1-D) and the scan is
+  ``seq_parallel.cp_ssd`` (the kernel on the shard's block, then the
+  cross-shard state carry); the shared attention goes through
+  ``seq_parallel.cp_attention``.
+* Decode keeps the conv and SSM states whole on every shard and, with
+  more than one model shard, the hybrid's KV caches cut on their
+  sequence (``max_len / n`` slots); ``prefill`` replays the prompt
+  through the sharded ``decode_step``.
+* ``lm_loss`` returns the global mean on every shard; a
+  ``ProcessMesh`` raises (a later slice).
 """
 from __future__ import annotations
 
@@ -33,14 +58,17 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import HybridConfig, SSMConfig
-from repro_torch.core import flags
+from repro_torch.core import flags, seq_parallel
 from repro_torch.core import tree as tree_lib
+from repro_torch.core.param_specs import infer_param_specs
+from repro_torch.core.sharding import Layout, check_policy
 from repro_torch.launch.mesh import DeviceLike, resolve_device
 from repro_torch.models import mamba2
-from repro_torch.models.layers import (cache_write, chunked_attention,
-                                       decode_attention, dense_init,
-                                       gated_mlp, merge_heads, project_heads,
-                                       rmsnorm, rope)
+from repro_torch.models.layers import (dense_init, ffn_out, gated_mlp,
+                                       gather_vocab, head_out,
+                                       lm_cross_entropy, own_heads,
+                                       project_heads, rmsnorm, rope,
+                                       vocab_embed)
 
 Params = Dict[str, Any]
 LMConfig = Union[SSMConfig, HybridConfig]
@@ -48,26 +76,23 @@ BLOCK_PARAMS = ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D",
                 "norm_scale", "out_proj")
 
 
-def check_policy(policy=None, mesh=None) -> None:
-    """Raise for a sharding policy or mesh, naming the slice that brings
-    them."""
-    if policy is not None or mesh is not None:
-        raise NotImplementedError(
-            "sharding policies and meshes (tensor and context parallelism, "
-            "seq_parallel.cp_ssd / cp_attention, expert parallelism) come "
-            "with the sequence-parallel slice of the port; call without "
-            "policy and mesh")
-
-
-def check_supported(cfg, policy=None, mesh=None) -> None:
-    """Raise for what this module does not run, naming where it runs."""
+def check_supported(cfg, policy=None, mesh=None) -> bool:
+    """Raise for what this module does not run, naming where it runs;
+    whether the call is sharded (``sharding.check_policy``)."""
     if not isinstance(cfg, (SSMConfig, HybridConfig)):
         raise NotImplementedError(
             f"{getattr(cfg, 'name', cfg)!r}: ssm_lm runs SSMConfig and "
             "HybridConfig language models; a TransformerConfig runs "
             "through repro_torch.models.transformer "
             "(repro_torch.models.lm_module)")
-    check_policy(policy, mesh)
+    return check_policy(policy, mesh)
+
+
+def layout(cfg: "LMConfig", policy=None, mesh=None) -> Optional[Layout]:
+    """This shard's ``Layout`` under ``policy`` (None unsharded)."""
+    if not check_supported(cfg, policy, mesh):
+        return None
+    return Layout(policy, infer_param_specs(param_shapes(cfg), policy))
 
 
 def _head_width(cfg: HybridConfig) -> int:
@@ -158,12 +183,26 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: LMConfig,
                                resolve_device(device), dtype)
 
 
-def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
+def _layer(params: Params, i: int, lay=None) -> Dict[str, torch.Tensor]:
+    if lay is not None:
+        return lay.layer(params["blocks"], lay.specs["blocks"], i)
     return {k: v[i] for k, v in params["blocks"].items()}
 
 
-def _unembed(params: Params) -> torch.Tensor:
-    return params.get("unembed", params["embed"])
+def _top(params: Params, name: str, lay=None) -> torch.Tensor:
+    if lay is None:
+        return params[name]
+    return lay.leaf(name, params[name], lay.specs[name])
+
+
+def _unembed(params: Params, lay=None) -> torch.Tensor:
+    return _top(params, "unembed" if "unembed" in params else "embed", lay)
+
+
+def _embed(params: Params, tokens: torch.Tensor, cfg: "LMConfig",
+           lay=None) -> torch.Tensor:
+    return vocab_embed(_top(params, "embed", lay), tokens, cfg.vocab_size,
+                       lay)
 
 
 def _tokens(params: Params, tokens) -> torch.Tensor:
@@ -173,23 +212,35 @@ def _tokens(params: Params, tokens) -> torch.Tensor:
 def kernel_launches(cfg: LMConfig, train: bool = False) -> int:
     """ssd_scan launches of one forward (one a Mamba2 block), or of one
     training step: the forward's, and again each block's under
-    ``flags.REMAT`` (its recompute; the scan's backward launches none)."""
+    ``flags.REMAT`` (its recompute; the scan's backward launches none).
+    Under a policy, each shard's (every shard scans: its whole sequence
+    under ``tp``, its block under ``cp``/``ep``)."""
     check_supported(cfg)
     return cfg.num_layers * (2 if train and flags.REMAT else 1)
 
 
-def _mamba_block(params: Params, i: int, h: torch.Tensor,
-                 cfg: LMConfig) -> torch.Tensor:
-    hn = rmsnorm(h, params["block_norms"][i])
-    return h + mamba2.block_forward(
-        _layer(params, i), hn, num_heads=cfg.num_ssm_heads,
-        head_dim=cfg.head_dim, ssm_state=cfg.ssm_state,
-        chunk=cfg.chunk_size)
+def _block_fn(cfg: LMConfig, names, lay=None):
+    """One Mamba2 block as a function of tensors, ``(h, norm, *leaves)
+    -> h`` (``names`` order): a ``flags.maybe_remat`` unit, holding
+    nothing of its shard."""
+    def block(h, norm, *leaves):
+        bp = dict(zip(names, leaves))
+        if lay is not None:  # a layer's leaves: the specs past the stack
+            bp = {n: lay.leaf(n, t, lay.specs["blocks"][n][1:])
+                  for n, t in bp.items()}
+        return h + mamba2.block_forward(
+            bp, rmsnorm(h, norm), num_heads=cfg.num_ssm_heads,
+            head_dim=cfg.head_dim, ssm_state=cfg.ssm_state,
+            chunk=cfg.chunk_size,
+            seq_axis=lay.axis if lay is not None and lay.seq_split else None)
+    return block
 
 
-def _shared_mlp(sp: Params, h: torch.Tensor) -> torch.Tensor:
+def _shared_mlp(sp: Params, h: torch.Tensor, cfg: HybridConfig,
+                lay=None) -> torch.Tensor:
     hn = rmsnorm(h, sp["ln2"])
-    return h + gated_mlp(hn, sp["w_gate"], sp["w_up"], sp["w_down"])
+    return h + ffn_out(gated_mlp(hn, sp["w_gate"], sp["w_up"],
+                                 sp["w_down"]), sp["w_down"], cfg.d_ff, lay)
 
 
 def _shared_qkv(sp: Params, h: torch.Tensor, pos, cfg: HybridConfig):
@@ -200,40 +251,62 @@ def _shared_qkv(sp: Params, h: torch.Tensor, pos, cfg: HybridConfig):
 
 
 def _shared_attn_block(sp: Params, h: torch.Tensor, cfg: HybridConfig,
-                       pos: torch.Tensor) -> torch.Tensor:
+                       pos: torch.Tensor, lay=None) -> torch.Tensor:
     q, k, v = _shared_qkv(sp, h, pos, cfg)
-    o = chunked_attention(q, k, v, q_pos=pos, kv_pos=pos, causal=True)
-    return _shared_mlp(sp, h + merge_heads(o, sp["wo"]))
+    o = seq_parallel.attention(q, k, v, num_heads=cfg.num_heads,
+                               num_kv_heads=cfg.num_kv_heads, pos=pos,
+                               lay=lay)
+    return _shared_mlp(sp, h + head_out(o, sp["wo"], cfg.num_heads, lay),
+                       cfg, lay)
+
+
+def _hidden(params: Params, tokens, cfg: LMConfig, lay=None
+            ) -> torch.Tensor:
+    """The last block's hidden states: of every position, or of this
+    shard's block of them under a plan that cuts the sequence (the whole
+    sequence embedded, then cut)."""
+    tokens = _tokens(params, tokens)
+    h = _embed(params, tokens, cfg, lay)
+    if lay is not None:
+        h = lay.local_rows(h)
+    hybrid = isinstance(cfg, HybridConfig)
+    pos = (torch.arange(h.shape[1], device=h.device) if lay is None
+           else lay.positions(h.shape[1], h.device))
+    names = sorted(params["blocks"])
+    block = flags.maybe_remat(_block_fn(cfg, names, lay))
+    shared = (None if not hybrid else params["shared_attn"] if lay is None
+              else lay.layer(params["shared_attn"], lay.specs["shared_attn"]))
+    for i in range(cfg.num_layers):
+        h = block(h, params["block_norms"][i],
+                  *(params["blocks"][n][i] for n in names))
+        if hybrid and (i + 1) % cfg.attn_every == 0:  # a group ends
+            h = _shared_attn_block(shared, h, cfg, pos, lay)
+    return h
 
 
 def forward(params: Params, tokens, cfg: LMConfig, policy=None,
             mesh=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, vocab) in the parameters' dtype,
-    on the parameters' device."""
-    check_supported(cfg, policy, mesh)
-    tokens = _tokens(params, tokens)
-    h = params["embed"][tokens]
-    hybrid = isinstance(cfg, HybridConfig)
-    pos = torch.arange(tokens.shape[1], device=h.device)
-    block = flags.maybe_remat(_mamba_block)
-    for i in range(cfg.num_layers):
-        h = block(params, i, h, cfg)
-        if hybrid and (i + 1) % cfg.attn_every == 0:  # a group ends
-            h = _shared_attn_block(params["shared_attn"], h, cfg, pos)
-    h = rmsnorm(h, params["final_norm"])
-    return h @ _unembed(params).t()
+    on the parameters' device. Under a policy (per shard): this shard's
+    rows, and its block of the positions under a plan that cuts them,
+    every vocabulary entry."""
+    lay = layout(cfg, policy, mesh)
+    h = rmsnorm(_hidden(params, tokens, cfg, lay), params["final_norm"])
+    return gather_vocab(h @ _unembed(params, lay).t(), cfg.vocab_size, lay)
 
 
 def lm_loss(params: Params, batch: Mapping[str, Any], cfg: LMConfig,
             policy=None, mesh=None) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (fp32 log-sum-exp), in the logits' dtype."""
-    logits = forward(params, batch["tokens"], cfg, policy, mesh)
-    labels = _tokens(params, batch["labels"])
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    true_logit = lf.gather(-1, labels[..., None])[..., 0]
-    return (lse - true_logit).mean().to(logits.dtype)
+    ``batch["labels"]`` (fp32 log-sum-exp), in the logits' dtype. Under
+    a policy (per shard, on the shard's rows of the batch): the global
+    mean on every shard."""
+    lay = layout(cfg, policy, mesh)
+    h = rmsnorm(_hidden(params, batch["tokens"], cfg, lay),
+                params["final_norm"])
+    return lm_cross_entropy(h, _unembed(params, lay),
+                            _tokens(params, batch["labels"]),
+                            vocab=cfg.vocab_size, masked=False, lay=lay)
 
 
 # --------------------------------------------------------------- decode ---
@@ -270,32 +343,39 @@ def decode_step(params: Params, cache: Mapping[str, Any], tokens,
     The new conv and SSM states, and the hybrid's keys and values (one
     slot of its application's cache), are written into the cache's
     tensors in place, so the cache passed in is consumed: use the one
-    returned."""
-    check_supported(cfg, policy, mesh)
-    h = params["embed"][_tokens(params, tokens)[:, 0]]  # (B, D)
+    returned. Under a policy (per shard): the shard's rows, its slots of
+    the KV caches."""
+    lay = layout(cfg, policy, mesh)
+    h = _embed(params, _tokens(params, tokens)[:, 0], cfg, lay)  # (B, D)
     cur = cache["pos"]
     hybrid = isinstance(cfg, HybridConfig)
+    sp = (None if not hybrid else params["shared_attn"] if lay is None
+          else lay.layer(params["shared_attn"], lay.specs["shared_attn"]))
     g = 0  # the next shared attention application
     for i in range(cfg.num_layers):
         hn = rmsnorm(h, params["block_norms"][i])
         out, conv_c, ssm_c = mamba2.block_decode(
-            _layer(params, i), hn, cache["conv"][i], cache["ssm"][i],
+            _layer(params, i, lay), hn, cache["conv"][i], cache["ssm"][i],
             num_heads=cfg.num_ssm_heads, head_dim=cfg.head_dim,
             ssm_state=cfg.ssm_state)
         h = h + out
         cache["conv"][i].copy_(conv_c)
         cache["ssm"][i].copy_(ssm_c)
         if hybrid and (i + 1) % cfg.attn_every == 0:  # a group ends
-            sp = params["shared_attn"]
             hs = h[:, None, :]
             pos1 = torch.full((1,), cur, device=h.device)
             q, k, v = _shared_qkv(sp, hs, pos1, cfg)
-            o = decode_attention(q, cache_write(cache["k"][g], k, cur),
-                                 cache_write(cache["v"][g], v, cur), cur)
-            h = _shared_mlp(sp, hs + merge_heads(o, sp["wo"]))[:, 0]
+            o = seq_parallel.decode_attend(
+                q, k, v, cache["k"][g], cache["v"][g], cur,
+                num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                lay=lay)
+            o = own_heads(o, sp["wo"], lay)
+            h = _shared_mlp(sp, hs + head_out(o, sp["wo"], cfg.num_heads,
+                                               lay), cfg, lay)[:, 0]
             g += 1
     h = rmsnorm(h, params["final_norm"])
-    return h @ _unembed(params).t(), dict(cache, pos=cur + 1)
+    logits = gather_vocab(h @ _unembed(params, lay).t(), cfg.vocab_size, lay)
+    return logits, dict(cache, pos=cur + 1)
 
 
 def prefill(params: Params, tokens, cfg: LMConfig, policy=None, mesh=None,
@@ -304,13 +384,19 @@ def prefill(params: Params, tokens, cfg: LMConfig, policy=None, mesh=None,
     """The prompt (B, S) replayed through ``decode_step`` (simple and
     exact, as the reference's serving does): (the last position's logits
     (B, vocab), the cache at ``pos`` S, its KV caches ``max_len`` long (S
-    when None))."""
-    check_supported(cfg, policy, mesh)
+    when None)). Under a policy (per shard): the shard's rows, its
+    ``max_len / n`` slots of the KV caches where decode cuts them."""
+    lay = layout(cfg, policy, mesh)
     tokens = _tokens(params, tokens)
+    max_len = max_len or tokens.shape[1]
+    seq_parallel.check_slots(max_len, lay)
+    slots = (max_len // lay.model.size if seq_parallel.sharded_cache(lay)
+             else max_len)
     embed = params["embed"]
-    cache = init_cache(cfg, tokens.shape[0], max_len or tokens.shape[1],
-                       embed.dtype, embed.device)
+    cache = init_cache(cfg, tokens.shape[0], slots, embed.dtype,
+                       embed.device)
     logits = None
     for t in range(tokens.shape[1]):
-        logits, cache = decode_step(params, cache, tokens[:, t:t + 1], cfg)
+        logits, cache = decode_step(params, cache, tokens[:, t:t + 1], cfg,
+                                    policy, mesh)
     return logits, cache

@@ -26,8 +26,42 @@ the attention sub-block normalizes only when ``cfg.norm == "rmsnorm"``
 ``decode_step``); the embedding is scaled by sqrt(d_model) whenever
 ``logit_softcap`` is set; ``lm_loss`` adds 0.01 x the MoE aux loss. Entry points run where the
 parameters are; ``init_params`` and ``params_from_numpy`` put them on
-the card unless given a device. Sharding (a ``policy`` or ``mesh``)
-comes with the sequence-parallel slice and raises here.
+the card unless given a device.
+
+Under a sharding policy over an in-process mesh (``core/sharding.py``)
+the entry points are per-shard functions, called inside ``spmd.run``
+with each shard's blocks of the parameters
+(``core/param_specs.infer_param_specs``) and of the batch (its rows of
+the data axes, every position); they write out the dataflow the
+reference leaves to GSPMD:
+
+* ``tp``: the query/key/value heads a shard holds attend locally (its
+  query heads against every key/value head, ``tp_attention``, where the
+  key/value heads are not cut), and one ``psum`` over the model axis
+  follows ``wo``; the MLP's d_ff columns are local and one ``psum``
+  follows ``w_down``; the embedding looks up this shard's block of the
+  vocabulary and sums (``layers.vocab_embed``); the loss is
+  vocabulary-parallel (``layers.lm_cross_entropy``).
+* ``cp``/``ep``: each shard runs its block of the sequence (RoPE and
+  positions offset by the block's start); attention through
+  ``seq_parallel.cp_attention``; weights whole.
+* MoE: under ``ep`` with ``flags.EP_ALLTOALL`` and the experts cut,
+  ``moe.moe_ffn_ep``; else ``moe.moe_ffn_gathered`` (the global
+  tokens' routing and drops, the reference's ``moe_ffn``).
+* Weights a block cannot use cut (``sharding.LOCAL_DIMS``) are
+  all-gathered before use, each adjoint a reduce-scatter: q/k/v and
+  their biases cut on ``hd`` (H not dividing), ``wo`` on ``hd``, and
+  every dimension FSDP cuts over the data axes.
+* Decode with more than one model shard keeps the KV cache cut on its
+  sequence (``max_len / n`` slots a shard) under every plan: the
+  token's heads gathered, the owner writes its slot
+  (``cache_update_sharded``), ``decode_attention_sharded_kv`` merges;
+  ``prefill`` moves its keys and values into that layout.
+* ``lm_loss`` returns the global mean on every shard.
+
+Under ``flags.REMAT`` each layer (pair) is rematerialized through
+``flags.maybe_remat``, which inside a run goes through
+``spmd.checkpoint``. A ``ProcessMesh`` raises (a later slice).
 """
 from __future__ import annotations
 
@@ -38,27 +72,37 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import TransformerConfig
-from repro_torch.core import flags
+from repro_torch.core import flags, seq_parallel
 from repro_torch.core import tree as tree_lib
+from repro_torch.core.param_specs import infer_param_specs
+from repro_torch.core.sharding import Layout, check_policy
 from repro_torch.launch.mesh import DeviceLike, resolve_device
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (cache_write, chunked_attention,
-                                       decode_attention, gated_mlp,
-                                       merge_heads, plain_mlp, project_heads,
-                                       rmsnorm, rope, softcap)
-from repro_torch.models.ssm_lm import check_policy
+from repro_torch.models.layers import (ffn_out, gather_vocab, gated_mlp,
+                                       head_out, lm_cross_entropy, own_heads,
+                                       plain_mlp, project_heads, rmsnorm,
+                                       rope, softcap, vocab_embed)
 
 Params = Dict[str, Any]
 
 
-def check_supported(cfg, policy=None, mesh=None) -> None:
-    """Raise for what this module does not run, naming where it runs."""
+def check_supported(cfg, policy=None, mesh=None) -> bool:
+    """Raise for what this module does not run, naming where it runs;
+    whether the call is sharded (``sharding.check_policy``)."""
     if not isinstance(cfg, TransformerConfig):
         raise NotImplementedError(
             f"{getattr(cfg, 'name', cfg)!r}: transformer runs "
             "TransformerConfig models; SSMConfig and HybridConfig run "
             "through repro_torch.models.ssm_lm")
-    check_policy(policy, mesh)
+    return check_policy(policy, mesh)
+
+
+def layout(cfg: TransformerConfig, policy=None, mesh=None
+           ) -> Optional[Layout]:
+    """This shard's ``Layout`` under ``policy`` (None unsharded)."""
+    if not check_supported(cfg, policy, mesh):
+        return None
+    return Layout(policy, infer_param_specs(param_shapes(cfg), policy))
 
 
 # ----------------------------------------------------------------- init ---
@@ -174,17 +218,25 @@ def _device(params: Params) -> torch.device:
     return params["final_norm"].device
 
 
-def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
+def _layer(params: Params, i: int, lay=None) -> Dict[str, torch.Tensor]:
+    if lay is not None:
+        return lay.layer(params["layers"], lay.specs["layers"], i)
     return {k: v[i] for k, v in params["layers"].items()}
 
 
-def _unembed(params: Params) -> torch.Tensor:
-    return params["unembed"] if "unembed" in params else params["embed"]
+def _top(params: Params, name: str, lay=None) -> torch.Tensor:
+    if lay is None:
+        return params[name]
+    return lay.leaf(name, params[name], lay.specs[name])
 
 
-def _embed(params: Params, tokens: torch.Tensor,
-           cfg: TransformerConfig) -> torch.Tensor:
-    h = params["embed"][tokens]
+def _unembed(params: Params, lay=None) -> torch.Tensor:
+    return _top(params, "unembed" if "unembed" in params else "embed", lay)
+
+
+def _embed(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+           lay=None) -> torch.Tensor:
+    h = vocab_embed(_top(params, "embed", lay), tokens, cfg.vocab_size, lay)
     if cfg.logit_softcap:  # gemma-style embed scaling
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                              device=h.device)
@@ -200,30 +252,44 @@ def _qkv(lp, hn, cfg: TransformerConfig, pos):
     return rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta), v
 
 
-def _attn(lp, h, cfg: TransformerConfig, *, window: int, pos):
-    """One attention sub-block over the whole sequence: (h, (k, v))."""
+def _attn(lp, h, cfg: TransformerConfig, *, window: int, pos, lay=None):
+    """One attention sub-block over the whole sequence (this shard's
+    block of it under a plan that cuts it): (h, (k, v))."""
     hn = rmsnorm(h, lp["ln1"]) if cfg.norm == "rmsnorm" else h
     q, k, v = _qkv(lp, hn, cfg, pos)
-    o = chunked_attention(q, k, v, q_pos=pos, kv_pos=pos, causal=cfg.causal,
-                          window=window, attn_softcap=cfg.attn_softcap)
-    return h + merge_heads(o, lp["wo"]), (k, v)
+    o = seq_parallel.attention(
+        q, k, v, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        pos=pos, causal=cfg.causal, window=window,
+        attn_softcap=cfg.attn_softcap, lay=lay)
+    return h + head_out(o, lp["wo"], cfg.num_heads, lay), (k, v)
 
 
-def _ffn(lp, h, cfg: TransformerConfig):
+def _ffn(lp, h, cfg: TransformerConfig, lay=None, decode: bool = False):
     hn = rmsnorm(h, lp["ln2"])
     aux = torch.zeros((), dtype=h.dtype, device=h.device)
     if cfg.num_experts:
         p = {"router": lp["router"], "w_gate": lp["w_gate_e"],
              "w_up": lp["w_up_e"], "w_down": lp["w_down_e"]}
-        out, aux = moe_lib.moe_ffn(p, hn, num_experts=cfg.num_experts,
-                                   top_k=cfg.top_k)
+        kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k)
+        if lay is None:
+            out, aux = moe_lib.moe_ffn(p, hn, **kw)
+        elif (not decode and flags.EP_ALLTOALL and lay.policy.plan == "ep"
+              and lay.seq_split and p["w_gate"].shape[0] < cfg.num_experts):
+            out, aux = moe_lib.moe_ffn_ep(p, hn, policy=lay.policy, **kw)
+        else:
+            out, aux = moe_lib.moe_ffn_gathered(
+                p, hn, policy=lay.policy,
+                seq_split=lay.seq_split and not decode, **kw)
         if cfg.moe_dense_residual:
-            out = out + gated_mlp(hn, lp["w_gate_r"], lp["w_up_r"],
-                                  lp["w_down_r"])
+            out = out + ffn_out(
+                gated_mlp(hn, lp["w_gate_r"], lp["w_up_r"], lp["w_down_r"]),
+                lp["w_down_r"], cfg.dense_residual_d_ff or cfg.d_ff, lay)
     elif cfg.gated_mlp:
-        out = gated_mlp(hn, lp["w_gate"], lp["w_up"], lp["w_down"])
+        out = ffn_out(gated_mlp(hn, lp["w_gate"], lp["w_up"], lp["w_down"]),
+                      lp["w_down"], cfg.d_ff, lay)
     else:
-        out = plain_mlp(hn, lp["w_up"], lp["w_down"])
+        out = ffn_out(plain_mlp(hn, lp["w_up"], lp["w_down"]), lp["w_down"],
+                      cfg.d_ff, lay)
     return h + out, aux
 
 
@@ -238,44 +304,83 @@ def window_for_layer(cfg: TransformerConfig, li: int) -> int:
     return cfg.sliding_window
 
 
-def _layers(params: Params, lo: int, hi: int, h: torch.Tensor,
-            aux: torch.Tensor, cfg: TransformerConfig, pos: torch.Tensor,
-            kvs: Optional[list] = None):
-    """Layers ``lo`` to ``hi - 1``: (h, aux), each layer's (k, v)
-    appended to ``kvs`` when given."""
-    for li in range(lo, hi):
-        lp = _layer(params, li)
-        h, kv = _attn(lp, h, cfg, window=window_for_layer(cfg, li), pos=pos)
-        h, a = _ffn(lp, h, cfg)
-        aux = aux + a
-        if kvs is not None:
-            kvs.append(kv)
-    return h, aux
+def _positions(h: torch.Tensor, lay=None) -> torch.Tensor:
+    if lay is None:
+        return torch.arange(h.shape[1], device=h.device)
+    return lay.positions(h.shape[1], h.device)
+
+
+def _unit(cfg: TransformerConfig, names, lo: int, hi: int, lay=None):
+    """Layers ``lo`` to ``hi - 1`` as one function of tensors, ``(h, aux,
+    *stacks) -> (h, aux)`` (each stack the layers' slice of one leaf,
+    ``names`` order): a ``flags.maybe_remat`` unit. It holds nothing of
+    its shard (positions from the shard's index), as a rematerialized
+    block under ``spmd.checkpoint`` must."""
+    def unit(h, aux, *stacks):
+        pos = _positions(h, lay)
+        stack = dict(zip(names, stacks))
+        for j, li in enumerate(range(lo, hi)):
+            lp = ({n: t[j] for n, t in stack.items()} if lay is None else
+                  lay.layer(stack, lay.specs["layers"], j))
+            h, _ = _attn(lp, h, cfg, window=window_for_layer(cfg, li),
+                         pos=pos, lay=lay)
+            h, a = _ffn(lp, h, cfg, lay)
+            aux = aux + a
+        return h, aux
+    return unit
 
 
 def _stack(params: Params, h: torch.Tensor, cfg: TransformerConfig,
-           pos: torch.Tensor, keep_kv: bool = False):
-    """Every layer over the whole sequence: (h, aux, [(k, v)] if
-    ``keep_kv``). Without ``keep_kv`` each layer (a local/global pair
-    under ``alt_local_global``, as the reference's scan over pairs) is
-    one ``flags.maybe_remat`` unit."""
+           keep_kv: bool = False, lay=None):
+    """Every layer over the whole sequence (this shard's block of it
+    under a plan that cuts it): (h, aux, [(k, v)] if ``keep_kv``).
+    Without ``keep_kv`` each layer (a local/global pair under
+    ``alt_local_global``, as the reference's scan over pairs) is one
+    ``flags.maybe_remat`` unit."""
     aux = torch.zeros((), dtype=h.dtype, device=h.device)
     kvs = []
     if keep_kv:
-        h, aux = _layers(params, 0, cfg.num_layers, h, aux, cfg, pos, kvs)
+        pos = _positions(h, lay)
+        for li in range(cfg.num_layers):
+            lp = _layer(params, li, lay)
+            h, kv = _attn(lp, h, cfg, window=window_for_layer(cfg, li),
+                          pos=pos, lay=lay)
+            h, _ = _ffn(lp, h, cfg, lay)
+            kvs.append(kv)
         return h, aux, kvs
-    unit = 2 if cfg.alt_local_global else 1
-    body = flags.maybe_remat(_layers)
-    for lo in range(0, cfg.num_layers, unit):
-        h, aux = body(params, lo, min(lo + unit, cfg.num_layers), h, aux,
-                      cfg, pos)
+    step = 2 if cfg.alt_local_global else 1
+    names = sorted(params["layers"])
+    for lo in range(0, cfg.num_layers, step):
+        hi = min(lo + step, cfg.num_layers)
+        body = flags.maybe_remat(_unit(cfg, names, lo, hi, lay))
+        h, aux = body(h, aux, *(params["layers"][n][lo:hi] for n in names))
     return h, aux, kvs
 
 
-def _logits(params: Params, h: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+def _logits(params: Params, h: torch.Tensor, cfg: TransformerConfig,
+            lay=None) -> torch.Tensor:
     h = rmsnorm(h, params["final_norm"])
-    return softcap(h @ _unembed(params).t(), cfg.logit_softcap)
+    return softcap(h @ _unembed(params, lay).t(), cfg.logit_softcap)
+
+
+def _hidden(params: Params, inputs, cfg: TransformerConfig, lay=None,
+            extra_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the last layer's hidden states, the MoE aux loss): of every
+    position, or of this shard's block of them under a plan that cuts
+    the sequence (the whole sequence embedded, then cut)."""
+    dev, dt = _device(params), _dtype(params)
+    inputs = torch.as_tensor(inputs, device=dev)
+    if cfg.embed_inputs and not inputs.is_floating_point():
+        h = _embed(params, inputs.long(), cfg, lay)
+    else:
+        h = inputs.to(dt)
+    if extra_embeds is not None:
+        h = torch.cat([torch.as_tensor(extra_embeds, device=dev).to(h.dtype),
+                       h], dim=1)
+    if lay is not None:
+        h = lay.local_rows(h)
+    h, aux, _ = _stack(params, h, cfg, lay=lay)
+    return h, aux
 
 
 # ------------------------------------------------------------- forward ----
@@ -286,38 +391,31 @@ def forward(params: Params, inputs, cfg: TransformerConfig, policy=None,
     (B, S, D) when ``cfg.embed_inputs`` is False; ``extra_embeds`` (B,
     S_img, D) is prepended (the VLM's image prefix). Returns (logits
     (B, S_img + S, vocab), the MoE aux loss), in the parameters' dtype
-    and on their device."""
-    check_supported(cfg, policy, mesh)
-    dev, dt = _device(params), _dtype(params)
-    inputs = torch.as_tensor(inputs, device=dev)
-    if cfg.embed_inputs and not inputs.is_floating_point():
-        h = _embed(params, inputs.long(), cfg)
-    else:
-        h = inputs.to(dt)
-    if extra_embeds is not None:
-        h = torch.cat([torch.as_tensor(extra_embeds, device=dev).to(h.dtype),
-                       h], dim=1)
-    pos = torch.arange(h.shape[1], device=dev)
-    h, aux, _ = _stack(params, h, cfg, pos)
-    return _logits(params, h, cfg), aux
+    and on their device. Under a policy (per shard): this shard's rows,
+    and its block of the positions under a plan that cuts them, every
+    vocabulary entry."""
+    lay = layout(cfg, policy, mesh)
+    h, aux = _hidden(params, inputs, cfg, lay, extra_embeds)
+    return gather_vocab(_logits(params, h, cfg, lay), cfg.vocab_size,
+                        lay), aux
 
 
 def lm_loss(params: Params, batch: Mapping[str, Any], cfg: TransformerConfig,
             policy=None, mesh=None) -> torch.Tensor:
     """Next-token (decoder) or per-frame (encoder) cross entropy over the
     labels >= 0 (fp32 log-sum-exp; the image prefix has no labels), plus
-    0.01 x the MoE aux loss, in the logits' dtype."""
-    logits, aux = forward(params, batch["tokens"], cfg, policy, mesh,
-                          extra_embeds=batch.get("image_embeds"))
-    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-    if logits.shape[1] != labels.shape[1]:  # VLM: image prefix
-        logits = logits[:, logits.shape[1] - labels.shape[1]:]
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    true_logit = lf.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    ce = ((lse - true_logit) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return ce.to(logits.dtype) + 0.01 * aux
+    0.01 x the MoE aux loss, in the logits' dtype. Under a policy (per
+    shard, on the shard's rows of the batch): the global mean on every
+    shard."""
+    lay = layout(cfg, policy, mesh)
+    extra = batch.get("image_embeds")
+    h, aux = _hidden(params, batch["tokens"], cfg, lay, extra)
+    h = rmsnorm(h, params["final_norm"])
+    ce = lm_cross_entropy(
+        h, _unembed(params, lay), batch["labels"], vocab=cfg.vocab_size,
+        cap=cfg.logit_softcap, drop=0 if extra is None else extra.shape[1],
+        lay=lay)
+    return ce + 0.01 * aux
 
 
 # --------------------------------------------------------------- decode ---
@@ -325,7 +423,8 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32,
                device: DeviceLike = None) -> Dict[str, Any]:
     """Zero ``k``/``v`` caches (num_layers, batch, max_len, num_kv_heads,
-    head_dim) and ``pos`` 0."""
+    head_dim) and ``pos`` 0 (under a policy: a shard's batch rows and
+    its ``max_len / n`` slots)."""
     check_supported(cfg)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
@@ -341,21 +440,25 @@ def decode_step(params: Params, cache: Mapping[str, Any], tokens,
     cache at ``pos + 1``). The token's keys and values are written into
     the cache's ``k``/``v`` in place (one slot a layer, as XLA updates the
     reference's buffer), so the cache passed in is consumed: use the one
-    returned. Layer li attends within ``window_for_layer(cfg, li)``."""
-    check_supported(cfg, policy, mesh)
+    returned. Layer li attends within ``window_for_layer(cfg, li)``.
+    Under a policy (per shard): the shard's rows, its cache's slots."""
+    lay = layout(cfg, policy, mesh)
     tokens = torch.as_tensor(tokens, device=_device(params)).long()
-    h = _embed(params, tokens, cfg)
+    h = _embed(params, tokens, cfg, lay)
     cur = cache["pos"]
     pos = torch.full((1,), cur, device=h.device)
     for li in range(cfg.num_layers):
-        lp = _layer(params, li)
+        lp = _layer(params, li, lay)
         q, k, v = _qkv(lp, rmsnorm(h, lp["ln1"]), cfg, pos)
-        o = decode_attention(q, cache_write(cache["k"][li], k, cur),
-                             cache_write(cache["v"][li], v, cur), cur,
-                             window=window_for_layer(cfg, li),
-                             attn_softcap=cfg.attn_softcap)
-        h, _ = _ffn(lp, h + merge_heads(o, lp["wo"]), cfg)
-    logits = _logits(params, h, cfg)
+        o = seq_parallel.decode_attend(
+            q, k, v, cache["k"][li], cache["v"][li], cur,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            window=window_for_layer(cfg, li), attn_softcap=cfg.attn_softcap,
+            lay=lay)
+        o = own_heads(o, lp["wo"], lay)
+        h, _ = _ffn(lp, h + head_out(o, lp["wo"], cfg.num_heads, lay), cfg,
+                    lay, decode=True)
+    logits = gather_vocab(_logits(params, h, cfg, lay), cfg.vocab_size, lay)
     return logits[:, 0], dict(cache, pos=cur + 1)
 
 
@@ -364,17 +467,26 @@ def prefill(params: Params, tokens, cfg: TransformerConfig, policy=None,
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The whole prompt (B, S), building the KV cache: (the last
     position's logits (B, vocab), the cache padded with zeros to
-    ``max_len`` (S when None), ``pos`` S)."""
-    check_supported(cfg, policy, mesh)
+    ``max_len`` (S when None), ``pos`` S). Under a policy (per shard):
+    the shard's rows; its cache the shard's ``max_len / n`` slots where
+    decode cuts it (``to_cache_slots``)."""
+    lay = layout(cfg, policy, mesh)
     tokens = torch.as_tensor(tokens, device=_device(params)).long()
     B, S = tokens.shape
     max_len = max_len or S
-    h = _embed(params, tokens, cfg)
-    h, _, kvs = _stack(params, h, cfg, torch.arange(S, device=h.device),
-                       keep_kv=True)
-    pad = (0, 0, 0, 0, 0, max(max_len - S, 0))
-    ks = torch.stack([F.pad(k, pad) for k, _ in kvs])
-    vs = torch.stack([F.pad(v, pad) for _, v in kvs])
+    seq_parallel.check_slots(max_len, lay)
+    h = _embed(params, tokens, cfg, lay)
+    if lay is not None:
+        h = lay.local_rows(h)
+    h, _, kvs = _stack(params, h, cfg, keep_kv=True, lay=lay)
+    H = cfg.num_kv_heads
+    slots = seq_parallel.to_cache_slots
+    ks = torch.stack([slots(k, H, max_len, lay) for k, _ in kvs])
+    vs = torch.stack([slots(v, H, max_len, lay) for _, v in kvs])
     del kvs
-    logits = _logits(params, h[:, -1], cfg)
+    last = h[:, -1]
+    if lay is not None and lay.seq_split:  # the last shard's last row
+        last = lay.model.all_gather(h[:, -1:], 1)[:, -1]
+    logits = gather_vocab(_logits(params, last, cfg, lay), cfg.vocab_size,
+                          lay)
     return logits, {"k": ks, "v": vs, "pos": S}

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -61,17 +61,21 @@ class Adam:
 
     def update(self, grads: Any, state: AdamState, params: Any, *,
                norm_axes: Tuple[str, ...] = (),
-               grad_scale: Optional[torch.Tensor] = None
+               grad_scale: Optional[torch.Tensor] = None,
+               leaf_axes: Optional[Sequence[Tuple[str, ...]]] = None
                ) -> Tuple[Any, AdamState]:
         """``grad_scale``: the loss scale the gradients carry (fp16
         training); they are unscaled in fp32 BEFORE the clip norm, so a
         scaled tree is not clipped against an unscaled threshold.
         ``norm_axes``: mesh axes the gradient tree is sharded over; the
-        clip norm is summed across them."""
+        clip norm is summed across them. ``leaf_axes`` (in the tree's
+        leaf order): the axes that cut each leaf, where leaves are cut
+        differently (``global_norm``)."""
         step = state.step + 1
         grads = _unscale(grads, grad_scale)
         if self.grad_clip > 0:
-            gnorm = global_norm(grads, psum_axes=norm_axes)
+            gnorm = global_norm(grads, psum_axes=norm_axes,
+                                leaf_axes=leaf_axes)
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-12), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
         b1, b2 = self.b1, self.b2
@@ -103,9 +107,10 @@ class SGD:
 
     def update(self, grads: Any, state: AdamState, params: Any, *,
                norm_axes: Tuple[str, ...] = (),
-               grad_scale: Optional[torch.Tensor] = None
+               grad_scale: Optional[torch.Tensor] = None,
+               leaf_axes: Optional[Sequence[Tuple[str, ...]]] = None
                ) -> Tuple[Any, AdamState]:
-        del norm_axes  # SGD has no norm-dependent term
+        del norm_axes, leaf_axes  # SGD has no norm-dependent term
         step = state.step + 1
         grads = _unscale(grads, grad_scale)
         m = tree_map(lambda m, g: self.momentum * m + g.float(),
@@ -116,12 +121,31 @@ class SGD:
         return new_params, AdamState(step, m, None)
 
 
-def global_norm(tree: Any, psum_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+def global_norm(tree: Any, psum_axes: Tuple[str, ...] = (),
+                leaf_axes: Optional[Sequence[Tuple[str, ...]]] = None
+                ) -> torch.Tensor:
     """The l2 norm of every leaf together, in fp32, the squares summed
-    leaf by leaf in tree order."""
-    sq = sum(torch.sum(torch.square(leaf.float())) for leaf in leaves(tree))
-    for ax in psum_axes:
-        sq = spmd.axis(ax).psum(sq)
+    leaf by leaf in tree order; with ``psum_axes`` (every leaf a shard's
+    block, cut over those axes) summed over them. ``leaf_axes``: each
+    leaf's own axes (a shard's block of a tree cut by specs,
+    ``core/sharding.py``): each leaf's squares are summed over the axes
+    that cut it only, so a leaf whole on every shard counts once, not
+    once a shard; the leaves that share axes are summed first, then
+    each such sum over its axes (one ``psum`` each)."""
+    if leaf_axes is None:
+        sq = sum(torch.sum(torch.square(leaf.float()))
+                 for leaf in leaves(tree))
+        for ax in psum_axes:
+            sq = spmd.axis(ax).psum(sq)
+        return torch.sqrt(sq)
+    sums: dict = {}
+    for leaf, axes in zip(leaves(tree), leaf_axes):
+        part = torch.sum(torch.square(leaf.float()))
+        sums[axes] = part if axes not in sums else sums[axes] + part
+    sq = None
+    for axes, part in sums.items():
+        part = spmd.axis(axes).psum(part) if axes else part
+        sq = part if sq is None else sq + part
     return torch.sqrt(sq)
 
 

@@ -1446,27 +1446,122 @@ def lm_value_and_grad(loss_fn: Callable, params: Any, batch: Any, cfg
     return loss.detach(), tree_lib.unflatten(params, grads)
 
 
+def mark_shard_params(params: Any, specs: Any) -> Any:
+    """Inside ``spmd.run``: a shard's parameter tree with each leaf passed
+    through ``psum_grad`` over the mesh axes its spec does not name (its
+    gradient is then the sum over the shards that hold the same block;
+    the axes it names come back summed through ``all_gather``'s adjoint
+    where a model gathers the leaf, and need no sum where it uses its
+    block), the leaves that share those axes in one node."""
+    from repro_torch.core import sharding
+
+    mesh = spmd.current_mesh()
+    leaves = tree_lib.leaves(params)
+    groups: Dict[Tuple[str, ...], List[int]] = {}
+    for i, spec in enumerate(sharding.flat_specs(params, specs)):
+        named = sharding.named_axes(spec)
+        axes = tuple(a for a in mesh.axis_names if a not in named)
+        groups.setdefault(axes, []).append(i)
+    out = list(leaves)
+    for axes, idx in groups.items():
+        if axes:
+            for i, t in zip(idx, spmd.axis(axes).psum_grad(
+                    [leaves[i] for i in idx])):
+                out[i] = t
+    return tree_lib.unflatten(params, out)
+
+
+def lm_sharded_value_and_grad(loss_fn: Callable, params: Sequence[Any],
+                              batches: Sequence[Any], cfg, policy,
+                              specs: Any) -> Tuple[torch.Tensor, List[Any]]:
+    """``lm_value_and_grad`` over ``policy``'s mesh: each shard's loss
+    (``loss_fn(params[r], batches[r], cfg, policy, mesh)``, the global
+    mean on every shard) in its thread, its leaves marked by
+    ``mark_shard_params``, then ONE ``torch.autograd.grad`` over every
+    shard's loss, each weighted 1 / (number of shards): every shard's
+    loss is the same value, so without the weight every gradient would
+    be that many times too large. Returns (shard 0's loss, detached; the
+    shards' gradient trees, rank order)."""
+    mesh = policy.mesh
+    alias = [[t.detach().requires_grad_() for t in tree_lib.leaves(p)]
+             for p in params]
+
+    def shard(p, leaves, batch):
+        marked = mark_shard_params(tree_lib.unflatten(p, leaves), specs)
+        return loss_fn(marked, batch, cfg, policy, mesh)
+
+    losses = spmd.run(mesh, shard, params, alias, batches)
+    flat = [t for a in alias for t in a]
+    grads = iter(torch.autograd.grad(
+        losses, flat, [torch.full_like(l, 1.0 / mesh.size) for l in losses],
+        allow_unused=True, materialize_grads=True))
+    return losses[0].detach(), [
+        tree_lib.unflatten(p, [next(grads) for _ in a])
+        for p, a in zip(params, alias)]
+
+
 def make_lm_train_step(loss_fn: Callable, cfg, mesh, policy,
                        optimizer) -> Callable:
     """The reference's train step for the transformer, SSM and hybrid
-    models (``repro.train.train_step.make_lm_train_step``), unsharded:
-    ``step(params, opt_state, batch) -> (params, opt_state, loss)``, the
-    loss and gradients of ``loss_fn(params, batch, cfg)``
-    (``lm_value_and_grad``) and then ``optimizer.update``, which needs
-    no graph. The update is functional: the parameters and state passed
-    in stay as they were. ``mesh`` and ``policy`` must be None (the
-    reference's ``NO_POLICY``)."""
-    if mesh is not None or policy is not None:
-        raise NotImplementedError(
-            "a sharded LM train step (a policy or mesh: tensor, context "
-            "or expert parallelism) comes with the sharded LM slice of the "
-            "port; call make_lm_train_step with mesh=None, policy=None")
+    models (``repro.train.train_step.make_lm_train_step``):
+    ``step(params, opt_state, batch) -> (params, opt_state, loss)``.
+
+    Unsharded (``mesh`` None and no policy over a mesh): the loss and
+    gradients of ``loss_fn(params, batch, cfg)`` (``lm_value_and_grad``)
+    and then ``optimizer.update``, which needs no graph. The update is
+    functional: the parameters and state passed in stay as they were.
+
+    Over ``policy``'s in-process mesh: ``params`` and ``opt_state`` are
+    per-shard trees in rank order (``core/sharding.shard_tree`` by
+    ``infer_param_specs`` of the model's shapes, the layout the models'
+    dataflow reads: the reference's ``param_specs`` default, which the
+    port always takes); ``batch`` is global, each shard taking its rows
+    cut over the data axes and every position (the reference's
+    ``batch_specs`` default; a plan that cuts the sequence cuts it in
+    the model). The gradients
+    (``lm_sharded_value_and_grad``) and then, in each shard's thread,
+    ``optimizer.update`` with each leaf's axes (``leaf_axes``), so the
+    clip norm sums each leaf's squares over the axes that cut it
+    only. A ``ProcessMesh`` raises (a later slice)."""
+    from repro_torch.core import sharding
+    from repro_torch.core.param_specs import infer_param_specs
+    from repro_torch.models import lm_module
+
+    if not sharding.sharded_policy(policy, mesh):
+        if mesh is not None:
+            raise ValueError(
+                "a sharded LM train step needs a ShardingPolicy over the "
+                "mesh (policy.mesh); call with mesh=None for the unsharded "
+                "step")
+
+        def step(params, opt_state, batch):
+            loss, grads = lm_value_and_grad(loss_fn, params, batch, cfg)
+            with torch.no_grad():
+                new_params, new_opt = optimizer.update(grads, opt_state,
+                                                       params)
+            return new_params, new_opt, loss
+
+        return step
+
+    mesh = policy.mesh
+    shapes = lm_module(cfg).param_shapes(cfg)
+    specs = infer_param_specs(shapes, policy)
+    leaf_axes = [sharding.named_axes(s)
+                 for s in sharding.flat_specs(shapes, specs)]
+
+    def update(grads, state, params):
+        with torch.no_grad():
+            return optimizer.update(grads, state, params,
+                                    leaf_axes=leaf_axes)
 
     def step(params, opt_state, batch):
-        loss, grads = lm_value_and_grad(loss_fn, params, batch, cfg)
-        with torch.no_grad():
-            new_params, new_opt = optimizer.update(grads, opt_state, params)
-        return new_params, new_opt, loss
+        cut = {n: sharding.shard_rows(v, policy) for n, v in batch.items()}
+        batches = [{n: v[r] for n, v in cut.items()}
+                   for r in range(mesh.size)]
+        loss, grads = lm_sharded_value_and_grad(
+            loss_fn, params, batches, cfg, policy, specs)
+        outs = spmd.run(mesh, update, grads, opt_state, params)
+        return [p for p, _ in outs], [s for _, s in outs], loss
 
     return step
 
@@ -1477,7 +1572,8 @@ __all__ = ["Block", "RankBatch", "STAGES", "batch_slice", "block_index",
            "gather_rows", "make_convnet_forward_step",
            "make_convnet_opt_state", "make_convnet_train_step",
            "make_convnet_phase_probes", "make_convnet_eval_step",
-           "lm_value_and_grad", "local_groups", "make_lm_train_step",
+           "lm_sharded_value_and_grad", "lm_value_and_grad", "local_groups",
+           "make_lm_train_step", "mark_shard_params",
            "make_pipeline_opt_state",
            "make_pipeline_train_step", "micro_rows", "pipeline_group_names",
            "pipeline_group_params", "pipeline_loss_group", "replicate",

@@ -194,15 +194,31 @@ def test_launcher_trains_two_steps(capsys):
     assert len(_losses(out)) == 2
 
 
-def test_launcher_rejects_an_lm_naming_the_lm_slice():
-    """A language model trains unsharded (tests/test_torch_lm_train.py);
-    a data or model degree above 1, pipeline groups, micro-batches or a
-    gradient lowering raise naming the sharded LM slice."""
-    for argv in (["--data", "2"], ["--model", "2"], ["--pipeline", "2"],
-                 ["--micro-batches", "2"], ["--grad-comm", "overlap"]):
-        with pytest.raises(NotImplementedError, match="sharded LM slice"):
+def test_launcher_rejects_an_lm_naming_the_lm_slice(capsys, monkeypatch):
+    """A language model trains unsharded (tests/test_torch_lm_train.py)
+    or over ``--data`` x ``--model`` shards of one device under
+    ``--plan`` (tests/test_torch_lm_sharded.py; by default the arch's
+    training plan, ``configs.plan_for``); the conv nets' pipeline
+    groups, micro-batches and gradient lowerings raise (the reference's
+    LM loop takes none of them), and so does a process a shard
+    (``torchrun``: the next slice)."""
+    for argv in (["--pipeline", "2"], ["--micro-batches", "2"],
+                 ["--grad-comm", "overlap"]):
+        with pytest.raises(NotImplementedError, match="conv-net options"):
             launch_train.main(["--arch", "mamba2-370m", "--device", "cpu",
                                *argv])
+    launch_train.main(["--arch", "mamba2-370m", "--device", "cpu",
+                       "--data", "2", "--model", "2", "--plan", "cp",
+                       "--steps", "1", "--seq", "16"])
+    assert "plan cp, mesh 2x2" in capsys.readouterr().out
+    # no --plan: the arch's training plan (configs.plan_for)
+    launch_train.main(["--arch", "gemma2-2b", "--device", "cpu", "--model",
+                       "2", "--steps", "1", "--seq", "16"])
+    assert "plan cp, mesh 1x2" in capsys.readouterr().out
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        launch_train.main(["--arch", "mamba2-370m", "--device", "cpu",
+                           "--model", "2"])
 
 
 def test_quickstart_runs_two_steps(capsys):

@@ -45,6 +45,8 @@ from repro.models import transformer as jtransformer
 from repro.serve import lm as jlm
 from repro_torch import configs
 from repro_torch.configs.base import HybridConfig, TransformerConfig
+from repro_torch.core.sharding import ShardingPolicy
+from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models import frontends, layers, lm_module, moe
 from repro_torch.models import ssm_lm, transformer
 from repro_torch.serve import lm
@@ -487,16 +489,29 @@ def test_decode_matches_forward_in_the_port(cid):
 
 
 def test_encoders_do_not_decode_and_sharding_raises():
+    """An encoder has no decode step. A mesh with no policy, or a policy
+    with no mesh, is the reference's ``NO_POLICY``: the unsharded forward
+    and ``generate``, bit for bit. A process mesh raises naming the next
+    slice (the LM over the process mesh)."""
     cfg = CFGS["smoke-hubert-xlarge"]
     p = _params("smoke-hubert-xlarge")
     with pytest.raises(NotImplementedError, match="encoder-only"):
         lm.make_serve_fns(cfg)
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        transformer.forward(p, _inputs(cfg)[0], cfg, mesh=object())
+    x = _inputs(cfg)[0]
+    want, _ = transformer.forward(p, x, cfg)
+    assert torch.equal(transformer.forward(p, x, cfg, mesh=object())[0],
+                       want)
     dense = CFGS["dense"]
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        lm.generate(_params("dense"), _inputs(dense)[0], dense, 2,
-                    policy=object())
+    toks = _inputs(dense)[0]
+    assert torch.equal(
+        lm.generate(_params("dense"), toks, dense, 2, policy=object()),
+        lm.generate(_params("dense"), toks, dense, 2))
+    procs = object.__new__(ProcessMesh)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        transformer.forward(p, x, cfg, mesh=procs)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        lm.generate(_params("dense"), toks, dense, 2,
+                    policy=ShardingPolicy(mesh=procs))
     with pytest.raises(NotImplementedError, match="transformer"):
         ssm_lm.forward(p, _inputs(cfg)[0], cfg)
 

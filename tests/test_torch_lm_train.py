@@ -54,12 +54,16 @@ from repro_torch import configs
 from repro_torch.configs.base import (HybridConfig, SSMConfig,
                                       TransformerConfig)
 from repro_torch.core import flags
+from repro_torch.core import seq_parallel
 from repro_torch.core import tree as tree_lib
+from repro_torch.core.param_specs import infer_param_specs
+from repro_torch.core.sharding import ShardingPolicy, shard_tree
 from repro_torch.data.synthetic import make_token_dataset
 from repro_torch.examples import serve_lm
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import Mesh, ProcessMesh
 from repro_torch.models import lm_module, mamba2, ssm_lm, transformer
 from repro_torch.optim.adam import Adam, warmup_cosine
 from repro_torch.train.train_step import (lm_value_and_grad,
@@ -395,7 +399,7 @@ def test_remat_gives_the_same_loss_and_gradients(cid, monkeypatch):
     cfg = CFGS[cid]
     params, batch = _params(cid), _tbatch(_inputs(cfg))
     mod, name = ((ssd_ref, "ssd_scan") if not isinstance(
-        cfg, TransformerConfig) else (transformer, "chunked_attention"))
+        cfg, TransformerConfig) else (seq_parallel, "chunked_attention"))
     runs = {}
     for remat in (False, True):
         monkeypatch.setattr(flags, "REMAT", remat)
@@ -464,13 +468,34 @@ def test_train_step_matches_the_references_make_lm_train_step(cid):
 
 
 def test_train_step_raises_for_a_mesh_or_policy():
+    """A policy whose mesh is None is no policy: the unsharded step. A
+    mesh without a policy over it raises, a process mesh raises naming
+    the next slice, and over an in-process mesh the sharded step runs
+    (per-shard trees in, per-shard trees out;
+    tests/test_torch_lm_sharded.py holds it to the reference)."""
     cfg = CFGS["dense"]
     opt = Adam(lr=warmup_cosine(*LR, STEPS))
-    for mesh, policy in ((object(), None), (None, object())):
-        with pytest.raises(NotImplementedError, match="sharded LM slice"):
-            make_lm_train_step(transformer.lm_loss, cfg, mesh, policy, opt)
-    step = make_lm_train_step(transformer.lm_loss, cfg, None, None, opt)
-    assert callable(step)
+    batch = _tbatch(_inputs(cfg))
+    params = _params("dense")
+    unsharded = make_lm_train_step(transformer.lm_loss, cfg, None, None, opt)
+    step = make_lm_train_step(transformer.lm_loss, cfg, None,
+                              ShardingPolicy(mesh=None), opt)
+    assert torch.equal(step(params, opt.init(params), batch)[2],
+                       unsharded(params, opt.init(params), batch)[2])
+    mesh = Mesh((("data", 1), ("model", 2)), ["cpu"] * 2)
+    with pytest.raises(ValueError, match="ShardingPolicy"):
+        make_lm_train_step(transformer.lm_loss, cfg, mesh, None, opt)
+    procs = object.__new__(ProcessMesh)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        make_lm_train_step(transformer.lm_loss, cfg, procs,
+                           ShardingPolicy(mesh=procs), opt)
+    policy = ShardingPolicy(mesh=mesh, plan="tp")
+    step = make_lm_train_step(transformer.lm_loss, cfg, mesh, policy, opt)
+    specs = infer_param_specs(transformer.param_shapes(cfg), policy)
+    shards = shard_tree(params, specs, mesh)
+    new, states, loss = step(shards, [opt.init(p) for p in shards], batch)
+    assert len(new) == len(states) == 2 and bool(torch.isfinite(loss))
+    assert int(states[1].step) == 1
 
 
 def test_token_dataset_is_the_references_bitwise():

@@ -33,6 +33,8 @@ from repro.serve import lm as jlm
 from repro_torch.api import RunConfig, RunConfigError
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import SSMConfig
+from repro_torch.core.sharding import ShardingPolicy as PortPolicy
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import mamba2, ssm_lm
 from repro_torch.serve import lm
 
@@ -245,15 +247,28 @@ def test_init_params_follows_the_references_law():
 
 
 def test_later_slices_raise():
-    """Sharding (tensor, context and expert parallelism) comes with the
-    sequence-parallel slice; a language model is not a ``RunConfig``
-    model (it is scored and decoded through ``ssm_lm`` / ``serve.lm``)."""
+    """A policy whose mesh is None (the reference's ``NO_POLICY``) is no
+    policy: the forward and ``generate`` are the unsharded ones, bit for
+    bit. A process mesh (one process a shard) raises naming the next
+    slice, and a policy over a mesh outside ``spmd.run`` raises (the
+    entry points are per-shard functions there). A language model is not
+    a ``RunConfig`` model (it is scored and decoded through ``ssm_lm`` /
+    ``serve.lm``)."""
     p, toks = _params("ssm3"), _tokens(THREE, (1, 8))
-    policy = ShardingPolicy(mesh=None, plan="cp")
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        ssm_lm.forward(p, toks, THREE, policy)
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        lm.generate(p, toks, THREE, 2, mesh=object())
+    want = ssm_lm.forward(p, toks, THREE)
+    for policy in (ShardingPolicy(mesh=None, plan="cp"),
+                   PortPolicy(mesh=None, plan="cp")):
+        assert torch.equal(ssm_lm.forward(p, toks, THREE, policy), want)
+        assert torch.equal(lm.generate(p, toks, THREE, 2, policy=policy),
+                           lm.generate(p, toks, THREE, 2))
+    procs = object.__new__(mesh_lib.ProcessMesh)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        ssm_lm.forward(p, toks, THREE, PortPolicy(mesh=procs))
+    with pytest.raises(NotImplementedError, match="next slice"):
+        lm.generate(p, toks, THREE, 2, mesh=procs)
+    mesh = mesh_lib.Mesh((("data", 1), ("model", 2)), ["cpu"] * 2)
+    with pytest.raises(RuntimeError, match="spmd.run"):
+        ssm_lm.forward(p, toks, THREE, PortPolicy(mesh=mesh, plan="cp"))
     with pytest.raises(RunConfigError) as e:
         RunConfig(model="mamba2-370m", mode="infer").validate()
     assert e.value.field == "model" and "generate" in e.value.fix

@@ -46,7 +46,7 @@ from repro_torch.launch import mesh as mesh_lib
 WORLD = 4
 MESHES = {"1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2)}
 COLLECTIVES = ("ppermute", "ppermute_start", "psum", "all_gather",
-               "all_to_all", "psum_scatter", "psum_grad")
+               "all_to_all", "psum_scatter", "psum_grad", "pmax")
 GB = 4
 
 
@@ -106,6 +106,8 @@ def _collective(name, x, ct):
     elif name == "psum_scatter":
         with torch.no_grad():
             return g.psum_scatter(x, 0), None
+    elif name == "pmax":  # forward only: no gradient
+        return g.pmax(x), None
     else:
         out = spmd.axis(("data", "model")).psum_grad((x,))[0] * 3
     if name == "all_gather":
@@ -154,10 +156,12 @@ def _in_process_collectives(axes):
             if _n == "psum_scatter":
                 with torch.no_grad():
                     return g.psum_scatter(x, 0)
+            if _n == "pmax":
+                return g.pmax(x)
             return spmd.axis(("data", "model")).psum_grad((x,))[0] * 3
 
         outs = spmd.run(mesh, body, leaves, cts)
-        if name == "psum_scatter":
+        if name in ("psum_scatter", "pmax"):
             out[name] = [(o, None) for o in outs]
             continue
         size = mesh.degree("model")
